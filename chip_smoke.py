@@ -6,18 +6,36 @@
 Phases, each fatal on failure:
   1. the card's name and power limit; build every kernel under
      isopoints_torch/csrc/ (one nvcc per source, in parallel);
-  2. each kernel against its plain PyTorch twin at full width (SIREN 3x256,
-     seeded): fused MLP value and value+grad on 262,144 points, the sampler
-     on 16,384 rays (100 linspace steps + 8 secant steps, and 100 random
-     steps without secant); max error against the stated tolerance, kernel
-     and twin times (median of 7 after warm-up, CUDA events) and the bound;
-  3. the main path: isopoints_torch/configs/mvr_warmup_siren.yml through
-     isopoints_torch.factories, 5 warm-up train_steps on cuda with every
-     launch counter set to 0 just before and read just after; then the
-     same step's loss computed with the fused kernels and with the plain
-     field on identical draws must agree;
-  4. one JSON line {"kernels": [...]} (each kernel at the shapes the main
-     path gives it), then the device line {"ok": true, "device": {...}}.
+  2. each kernel against its plain PyTorch version at full width (seeded):
+     the fused SIREN MLP (3x256) value and value+grad on 262,144 points and
+     the sampler on 16,384 rays; the kNN on sphere clouds (P=8000 k=6,
+     P=3000 k=8, P=6000 k=16, self-excluded); the splat candidate
+     selection and fine stage on an 8000-point sphere cloud in 2 views at
+     256 px (T=16, M=256, K=5, strip 2048). Max error against the stated
+     tolerance, kernel and plain times (median of 7 after warm-up, CUDA
+     events) and the bound;
+  3. the warm-up path: isopoints_torch/configs/mvr_warmup_siren.yml, 3
+     warm-up train_steps, every launch counter set to 0 just before and
+     read just after; the same step's loss with the fused kernels and with
+     the plain field on identical draws must agree;
+  4. the projected path: isopoints_torch/configs/mvr_projected_siren.yml
+     through the factories, 2 warm-up steps, the resample at it=2 and 6
+     more projected steps, counters set to 0 just before and read just
+     after (all five kernels must have launched); the projected step's
+     median time, the resample step's time and each kernel's launches per
+     projected step; one projected step's losses with the kernels and with
+     the plain versions on identical draws must agree (rtol 1e-2, iso-point
+     counts within 0.5% of the capacity);
+  5. the kNN, selection and fine kernels against their plain versions on
+     the projected run's own clouds, at the shapes the path gives them:
+     the 3000-point iso-point buffer of the projected steps and the
+     6000-point buffer of the resample, with their Newton normals and
+     splat spacing, in the step's views and the back camera's (the same
+     exact checks as phase 2); the kNN there at k=6 and 8 (3000 points),
+     k=6 and 16 (6000) and k=8 on the resample's 8000-point seed;
+  6. one JSON line {"kernels": [...]} (each kernel timed at the shape the
+     main path gives it most often), then the device line
+     {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -35,7 +53,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12    # H100 SXM device memory, bytes/s
-N_STEPS_SMOKE = 5
+N_WARMUP_SMOKE = 3
+N_PROJECTED = 6
+NO_LIBRARY = ("no single PyTorch call computes this function")
 
 
 def fail(msg: str) -> None:
@@ -70,22 +90,46 @@ def bound_ms(flops: float, n_bytes: float):
                                        else "bytes")
 
 
+def row(name, source, replaces, launches, err, ms, plain_ms, b):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "library_note": NO_LIBRARY}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, ROOT)
     from isopoints_torch.config import load_config
-    from isopoints_torch.core.camera import cameras_from_matrices
+    from isopoints_torch.core.camera import (PerspectiveCamera,
+                                             cameras_from_matrices,
+                                             look_at_view_transform)
     from isopoints_torch.factories import (create_dataset, create_model,
                                            create_trainer)
-    from isopoints_torch.models.fields import SirenField
-    from isopoints_torch.ops import _build, fused_mlp, fused_sampler
+    from isopoints_torch.models.combined import back_camera
+    from isopoints_torch.models.fields import SirenField, sdf_and_grad
+    from isopoints_torch.ops import _build, fused_mlp, fused_sampler, knn
+    from isopoints_torch.rendering import select, splat
+    from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
+                                                      compute_splat_params,
+                                                      splat_spacing)
     from isopoints_torch.training.trainer import compute_loss
     from isopoints_torch.utils import linspace01
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    kernels = (fused_mlp.KERNEL, fused_sampler.KERNEL, knn.KERNEL,
+               select.KERNEL, splat.KERNEL)
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
 
     # ---- 1. card and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -96,7 +140,7 @@ def main() -> None:
     libs = _build.build_all()
     print(f"kernel build: {time.time() - t0:.1f} s for {sorted(libs)}")
 
-    # ---- 2. kernels against their twins at full width
+    # ---- 2. kernels against their plain versions at full width
     hidden, n_hidden = 256, 3
     gen = torch.Generator(device=dev).manual_seed(0)
     field = SirenField(hidden_size=hidden, n_layers=n_hidden, generator=gen,
@@ -124,9 +168,9 @@ def main() -> None:
         run_p = ((lambda: fused_mlp.siren_sdf_and_grad_plain(pack, x))
                  if with_grad else (lambda: plain(x)))
         ms, plain_ms = time_ms(run), time_ms(run_p)
-        b_ms, b_by = bound_ms(mlp_flops(n, hidden, n_hidden) * (4 if with_grad else 1),
-                              n * (12 + (16 if with_grad else 4)) + w_bytes)
-        return max(err_v, err_g), ms, plain_ms, b_ms, b_by
+        b = bound_ms(mlp_flops(n, hidden, n_hidden) * (4 if with_grad else 1),
+                     n * (12 + (16 if with_grad else 4)) + w_bytes)
+        return max(err_v, err_g), ms, plain_ms, b
 
     def check_sampler(n_rays, steps, n_secant):
         g = torch.Generator(device=dev).manual_seed(n_rays + n_secant)
@@ -150,126 +194,348 @@ def main() -> None:
         ms = time_ms(lambda: sdf.fused_ray_sampler(*args, n_secant=n_secant))
         plain_ms = time_ms(lambda: fused_sampler.sweep_plain(plain, *args, n_secant))
         n_evals = n_rays * (steps.shape[0] + n_secant)
-        b_ms, b_by = bound_ms(mlp_flops(n_evals, hidden, n_hidden),
-                              n_rays * 48 + steps.numel() * 4 + w_bytes)
-        return max(err_f, err_z), frac, ms, plain_ms, b_ms, b_by
+        b = bound_ms(mlp_flops(n_evals, hidden, n_hidden),
+                     n_rays * 48 + steps.numel() * 4 + w_bytes)
+        return max(err_f, err_z), frac, ms, plain_ms, b
+
+    def sphere_cloud(n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        v = torch.randn(1, n, 3, generator=g, device=dev)
+        v = v / v.norm(dim=-1, keepdim=True)
+        return 0.5 * v, v, torch.rand(1, n, generator=g, device=dev) < 0.97
+
+    def check_knn(pts, mask, k, timed):
+        p = pts.shape[1]
+        a = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True)
+        b = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True,
+                           method="dense")
+        err = float((a.dists - b.dists)[a.mask].abs().max())
+        near_ties = int((a.idx != b.idx).sum())
+        tie_gap = (float((a.dists - b.dists)[a.idx != b.idx].abs().max())
+                   if near_ties else 0.0)
+        if not torch.equal(a.mask, b.mask) or err > 1e-6 or tie_gap > 1e-6:
+            fail(f"knn P={p} k={k}: masks equal {torch.equal(a.mask, b.mask)}, "
+                 f"dist err {err} (tol 1e-6), {near_ties} index differences "
+                 f"with gap {tie_gap} (tol 1e-6)")
+        if not timed:
+            return err, near_ties, None, None, (None, None)
+        ms = time_ms(lambda: knn.knn_points(pts, pts, mask, mask, k=k,
+                                            exclude_self=True))
+        plain_ms = time_ms(lambda: knn.knn_points(pts, pts, mask, mask, k=k,
+                                                  exclude_self=True,
+                                                  method="dense"), reps=3)
+        nv = float(mask.sum())
+        # query IS points (read once: xyz + mask), k (f32, i32) pairs out
+        b = bound_ms(9.0 * nv * nv, p * 13 + p * k * 8)
+        return err, near_ties, ms, plain_ms, b
+
+    def raster_inputs(pts, normals, mask, cam, st, spacing=None):
+        """The selection's and the fine stage's inputs as the rasterizer
+        forms them (rendering/rasterizer.py _rasterize_forward)."""
+        b = cam.batch_size
+        sp = compute_splat_params(pts.expand(b, -1, -1),
+                                  normals.expand(b, -1, -1),
+                                  mask.expand(b, -1), cam, st, spacing=spacing)
+        px, py, z = (sp.pts_ndc[..., i] for i in range(3))
+        rx, ry = sp.radii[..., 0], sp.radii[..., 1]
+        m_tile = min(st.max_points_per_tile, pts.shape[1])
+        sel = (px, py, z, rx, ry, sp.mask & (z >= 0), st.image_size,
+               st.tile_size, st.max_points_per_strip, m_tile)
+        table = torch.stack([px, py, z, sp.ellipse[..., 0], sp.ellipse[..., 1],
+                             sp.ellipse[..., 2], rx, ry, sp.cutoff], -1)
+        return sel, table
+
+    def sphere_raster_inputs(n_points=8000, S=256):
+        pts, normals, mask = sphere_cloud(n_points, seed=3)
+        R, T = look_at_view_transform(2.0, [10.0, -30.0], [20.0, 150.0],
+                                      device=dev)
+        cam = PerspectiveCamera.create(R=R, T=T, focal_length=2.0, device=dev)
+        return raster_inputs(pts, normals, mask, cam,
+                             RasterizationSettings(image_size=S, use_pallas=True))
+
+    def check_raster(sel, table, label, K=5, depth_merge=0.05, timed=False):
+        """Selection and fine stage against their plain versions: candidate
+        sets, overflow and every fragment map identical. With `timed`, the
+        kernel and plain times and the bounds at these shapes."""
+        S, T, m_tile = sel[6], sel[7], sel[9]
+        ci, ok, ovf = select.select_candidates(*sel)
+        ci_p, ok_p, ovf_p = select.select_candidates_plain(*sel)
+        sets = lambda c, o: [set(a[m].tolist()) for a, m in
+                             zip(c.reshape(-1, c.shape[-1]).cpu(),
+                                 o.reshape(-1, o.shape[-1]).cpu())]
+        if sets(ci, ok) != sets(ci_p, ok_p) or not torch.equal(ovf, ovf_p):
+            fail(f"splat_select ({label}): candidate sets or overflow differ "
+                 f"from the plain version")
+        b, p = table.shape[:2]
+        attrs = torch.gather(table, 1, ci.reshape(b, -1, 1).expand(-1, -1, 9)
+                             ).reshape(ci.shape + (9,))
+        fine_args = (attrs, ok, ci, S, T, K, depth_merge)
+        fk = splat.rasterize_fine(*fine_args)
+        fp = splat.rasterize_fine_plain(*fine_args)
+        for name in ("idx", "zbuf", "occ", "used", "slots"):
+            if not torch.equal(getattr(fk, name), getattr(fp, name)):
+                fail(f"splat_fine ({label}): {name} differs from the plain version")
+        q_err = float((fk.qvalue - fp.qvalue).abs().max())
+        if q_err > 1e-6:
+            fail(f"splat_fine ({label}): qvalue err {q_err} > 1e-6")
+        vis_k = torch.zeros(b, p + 1, dtype=torch.bool, device=dev).scatter(
+            1, torch.where(fk.used, ci, p).reshape(b, -1), True)
+        vis_p = torch.zeros(b, p + 1, dtype=torch.bool, device=dev).scatter(
+            1, torch.where(fp.used, ci, p).reshape(b, -1), True)
+        if not torch.equal(vis_k, vis_p):
+            fail(f"splat_fine ({label}): visibility differs from the plain version")
+        print(f"splat_select + splat_fine, {label}: P={p} x {b} views S={S} "
+              f"M={m_tile}: candidate sets equal, overflow {ovf.tolist()}; "
+              f"idx/zbuf/occ/used/slots/visibility identical, qvalue err "
+              f"{q_err:.3g}; {int(vis_k.sum())} visible splats")
+        if not timed:
+            return None
+        sel_ms = time_ms(lambda: select.select_candidates(*sel))
+        sel_pms = time_ms(lambda: select.select_candidates_plain(*sel), reps=3)
+        n_t = ci.shape[1]
+        # px, py, z, rx, ry (f32) + valid in; cidx (i32) + cok out
+        sel_b = bound_ms(0.0, b * p * 21 + b * n_t * m_tile * 5)
+        fine_ms = time_ms(lambda: splat.rasterize_fine(*fine_args))
+        fine_pms = time_ms(lambda: splat.rasterize_fine_plain(*fine_args), reps=3)
+        # ~12 FLOP per (pixel, valid candidate of its tile); 9 attributes
+        # (f32) + ok + gid (i32) in, idx/zbuf/qvalue/slots per fragment,
+        # occ per pixel and used per candidate out
+        n_ok = float(ok.sum())
+        fine_b = bound_ms(12.0 * T * T * n_ok,
+                          b * n_t * m_tile * 41 + b * S * S * (K * 16 + 4)
+                          + b * n_t * m_tile)
+        print(f"  splat_select kernel {sel_ms:.3f} ms  plain {sel_pms:.3f} ms  "
+              f"bound {sel_b[0]:.4f} ms ({sel_b[1]}); splat_fine kernel "
+              f"{fine_ms:.3f} ms  plain {fine_pms:.3f} ms  bound "
+              f"{fine_b[0]:.4f} ms ({fine_b[1]})")
+        return ((0.0, sel_ms, sel_pms, sel_b), (q_err, fine_ms, fine_pms, fine_b))
+
+    def knn_case(pts, mask, k, label, timed=False):
+        err, ties, ms, pms, (bms, by) = check_knn(pts, mask, k, timed)
+        times = (f"  kernel {ms:.3f} ms  plain {pms:.3f} ms  bound {bms:.4f} ms "
+                 f"({by})" if timed else "")
+        print(f"knn {label} P={pts.shape[1]} k={k}: dist err {err:.3g}, {ties} "
+              f"index differences (near-ties){times}")
+        return err, ms, pms, (bms, by)
 
     print("tolerances: MLP value |err| <= 2e-5, grad |err| <= 1e-4·max(1,|g|); "
           "sampler picks equal on >= 99.9% of rays, f_pick |err| <= 1e-5, "
-          "z_secant |err| <= 1e-4 on crossing rays")
+          "z_secant |err| <= 1e-4 on crossing rays; kNN masks equal, dists "
+          "|err| <= 1e-6, index differences only at gaps <= 1e-6; splat "
+          "candidate sets and overflow equal; idx/zbuf/occ/used/slots/"
+          "visibility identical, qvalue |err| <= 1e-6")
     for n, grad in ((262_144, False), (262_144, True)):
-        err, ms, pms, bms, by = check_mlp(n, 2e-5, 1e-4, grad)
+        err, ms, pms, (bms, by) = check_mlp(n, 2e-5, 1e-4, grad)
         print(f"fused_mlp {'value+grad' if grad else 'value'} n={n}: max_abs_err "
-              f"{err:.3g}  kernel {ms:.3f} ms  twin {pms:.3f} ms  bound {bms:.3f} ms ({by})")
+              f"{err:.3g}  kernel {ms:.3f} ms  plain {pms:.3f} ms  bound {bms:.3f} ms ({by})")
     for steps, ns, what in ((linspace01(100, dev), 8, "linspace+secant8"),
                             (torch.rand(100, generator=gen, device=dev), 0,
                              "random, no secant")):
-        err, frac, ms, pms, bms, by = check_sampler(16_384, steps, ns)
+        err, frac, ms, pms, (bms, by) = check_sampler(16_384, steps, ns)
         print(f"fused_sampler {what} rays=16384: max_abs_err {err:.3g}  picks "
-              f"differing {frac:.2e}  kernel {ms:.3f} ms  twin {pms:.3f} ms  "
+              f"differing {frac:.2e}  kernel {ms:.3f} ms  plain {pms:.3f} ms  "
               f"bound {bms:.3f} ms ({by})")
+    for p, k in ((8000, 6), (3000, 8), (6000, 16)):
+        pts, _, mask = sphere_cloud(p, seed=p + k)
+        knn_case(pts, mask, k, "sphere cloud")
+    check_raster(*sphere_raster_inputs(), "8000-point sphere cloud")
 
-    # ---- 3. the main path: warm-up training steps through the factories
-    cfg = load_config(os.path.join(ROOT, "isopoints_torch", "configs",
-                                   "mvr_warmup_siren.yml"))
-    data = create_dataset(cfg, device=dev)
-    images = torch.as_tensor(data["img.rgb"], device=dev)
-    masks = torch.as_tensor(data["img.mask"], device=dev)
-    mask_frac = float(masks.mean())
-    if not 0.02 < mask_frac < 0.9:
-        fail(f"synthetic sphere masks cover {mask_frac:.3f} of the pixels")
-    model = create_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
-    trainer = create_trainer(model, cfg, seed=0, device=dev)
-    state = trainer.init_state()
-    views = [(2 * it % 24, (2 * it + 7) % 24) for it in range(N_STEPS_SMOKE)]
+    # ---- 3. the warm-up path: warm-up training steps through the factories
+    def run_steps(cfg_name, n_steps):
+        cfg = load_config(os.path.join(ROOT, "isopoints_torch", "configs",
+                                       cfg_name))
+        data = create_dataset(cfg, device=dev)
+        images = torch.as_tensor(data["img.rgb"], device=dev)
+        masks = torch.as_tensor(data["img.mask"], device=dev)
+        mask_frac = float(masks.mean())
+        if not 0.02 < mask_frac < 0.9:
+            fail(f"synthetic sphere masks cover {mask_frac:.3f} of the pixels")
+        model = create_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        trainer = create_trainer(model, cfg, seed=0, device=dev)
+        state = trainer.init_state()
+        n_views = images.shape[0]
+        # each resample's seed and result, for the checks at its shapes
+        resampled = []
+        resample = trainer.resample_iso_points
 
-    def batch(idx):
-        i = torch.as_tensor(idx, device=dev)
-        cam = cameras_from_matrices(data["camera_mat"][list(idx)],
-                                    data["focal_length"],
-                                    data["principal_point"], dev)
-        return images[i], masks[i], cam
+        def recording_resample(n_points, **kw):
+            out = resample(n_points, **kw)
+            resampled.append((kw["init_points"], kw["init_mask"]) + tuple(out))
+            return out
+        trainer.resample_iso_points = recording_resample
 
-    kernels = (fused_mlp.KERNEL, fused_sampler.KERNEL)
-    for k in kernels:
-        k.launches = 0
-    step_ms, losses = [], []
-    for idx in views:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, metrics = trainer.train_step(state, *batch(idx))
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t))
-        losses.append(metrics)
-    launches = {k.name: k.launches for k in kernels}
-    for i, m in enumerate(losses):
-        print(f"step {i}: " + " ".join(f"{k}={v:.6g}" for k, v in m.items())
-              + f" ({step_ms[i]:.1f} ms)")
-    print(f"median warm-up step: {statistics.median(step_ms):.2f} ms "
+        def batch(it):
+            idx = [(2 * it) % n_views, (2 * it + 7) % n_views]
+            cam = cameras_from_matrices(data["camera_mat"][idx],
+                                        data["focal_length"],
+                                        data["principal_point"], dev)
+            i = torch.as_tensor(idx, device=dev)
+            return images[i], masks[i], cam
+
+        reset()
+        step_ms, metrics, per_step = [], [], []
+        for it in range(n_steps):
+            before = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = trainer.train_step(state, *batch(it))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            metrics.append(m)
+            per_step.append({k: v - before[k] for k, v in counts().items()})
+        launches = counts()
+        for i, m in enumerate(metrics):
+            print(f"{cfg_name} step {i}: " + " ".join(
+                f"{k}={v:.6g}" for k, v in m.items()) + f" ({step_ms[i]:.1f} ms)")
+        loss_keys = ("loss", "loss_rgb", "loss_freespace", "loss_occupied",
+                     "loss_eikonal")
+        for m in metrics:
+            if not all(torch.isfinite(torch.tensor(m[k])) for k in loss_keys):
+                fail(f"non-finite loss terms {m}")
+        if not trainer.check_state():
+            fail(f"non-finite parameters after the {cfg_name} steps")
+        return (cfg, trainer, state, batch, step_ms, metrics, per_step,
+                launches, loss_keys, resampled)
+
+    def kernels_vs_plain(cfg, trainer, state, batch, it, loss_keys, project):
+        """One step's loss with the kernels and with every plain version
+        (fused MLP off, plain rasterizer stages, dense kNN) on the same
+        draws and the same iso-point buffer."""
+        model = trainer.model
+        img, mask, cam = batch(it)
+        n_pts = state.points.shape[1] if project else None
+        draws = trainer.draw(trainer.scheduler.at(it)["n_rays"],
+                             tuple(img.shape[1:3]), 2, n_points=n_pts)
+        hp = {k: float(v) for k, v in trainer.scheduler.at(it).items()
+              if k in ("lambda_rgb", "lambda_freespace", "lambda_occupied",
+                       "sdf_alpha")}
+        hp["lambda_eikonal"] = trainer.cfg.lambda_eikonal
+        plain_model = create_model(cfg, device=dev)
+        plain_model.load_state_dict(model.state_dict())
+        plain_model.cfg = dataclasses.replace(model.cfg, use_fused_mlp=False)
+        plain_model.raster_settings = dataclasses.replace(
+            model.raster_settings, use_pallas=False)
+        res = {}
+        knn_cuda = knn.knn_points_cuda
+        for name, m in (("kernels", model), ("plain", plain_model)):
+            if name == "plain":   # the plain run swaps the kNN kernel out too
+                knn.knn_points_cuda = knn.knn_points_dense
+            try:
+                with torch.no_grad():
+                    _, met, _, _ = compute_loss(
+                        m, state.points, state.points_mask, draws.pixels, img,
+                        mask, cam, draws.eikonal, draws.u_minsdf, hp,
+                        project=project, proj_draws=draws.projected)
+            finally:
+                knn.knn_points_cuda = knn_cuda
+            res[name] = {k: float(v) for k, v in met.items()}
+        print(f"reference check ({'projected' if project else 'warm-up'} step), "
+              f"kernels vs plain versions on one step's draws: {res}")
+        cap = (model.ccfg.max_iso_per_batch if project
+               else 2 * trainer.scheduler.at(it)["n_rays"])
+        if abs(res["kernels"]["n_iso"] - res["plain"]["n_iso"]) > 0.005 * cap:
+            fail("iso-point counts of the kernel and plain paths differ by > 0.5%")
+        for k in loss_keys:
+            a, b = res["kernels"][k], res["plain"][k]
+            if abs(a - b) > 1e-2 * abs(b) + 1e-6:
+                fail(f"{k}: kernel path {a} vs plain path {b} (rtol 1e-2)")
+
+    (cfg, trainer, state, batch, step_ms, _, _, warm_launches,
+     loss_keys, _) = run_steps("mvr_warmup_siren.yml", N_WARMUP_SMOKE)
+    print(f"warm-up path: median step {statistics.median(step_ms):.2f} ms "
           f"(2 views x {cfg.training.n_rays} rays); launches in "
-          f"{N_STEPS_SMOKE} steps: {launches}")
-    loss_keys = ("loss", "loss_rgb", "loss_freespace", "loss_occupied",
-                 "loss_eikonal")
-    for m in losses:
-        if not all(torch.isfinite(torch.tensor(m[k])) for k in loss_keys):
-            fail(f"non-finite loss terms {m}")
-    if not trainer.check_state():
-        fail("non-finite parameters after the warm-up steps")
+          f"{N_WARMUP_SMOKE} steps: {warm_launches}")
+    for name in ("fused_mlp", "fused_sampler"):
+        if warm_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the warm-up path")
+    kernels_vs_plain(cfg, trainer, state, batch, N_WARMUP_SMOKE, loss_keys,
+                     project=False)
+
+    # ---- 4. the projected path: warm-up, resample, projected steps
+    (cfg, trainer, state, batch, step_ms, metrics, per_step, launches,
+     loss_keys, resampled) = run_steps("mvr_projected_siren.yml",
+                            2 + N_PROJECTED)
+    warm = trainer.cfg.warm_up_iters
+    proj_ms = step_ms[warm + 1:]
+    proj_launches = per_step[warm + 1:]
+    print(f"projected path: {warm} warm-up steps, resample step (it={warm}) "
+          f"{step_ms[warm]:.1f} ms, median projected step "
+          f"{statistics.median(proj_ms):.2f} ms over {len(proj_ms)} steps; "
+          f"launches in the run: {launches}")
+    print(f"launches per projected step: {proj_launches[-1]}; in the resample "
+          f"step: {per_step[warm]}")
     for name, n in launches.items():
         if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on the projected path")
+    for name in ("knn", "splat_select", "splat_fine"):
+        if any(p[name] <= 0 for p in proj_launches):
+            fail(f"kernel {name} missing from a projected step")
+    n_iso = [m["n_iso"] for m in metrics[warm:]]
+    if min(n_iso) <= 0 or state.points.shape[1] != cfg.model.combined_kwargs.max_iso_per_batch:
+        fail(f"projected steps found no iso-points: n_iso {n_iso}")
+    kernels_vs_plain(cfg, trainer, state, batch, warm + N_PROJECTED,
+                     loss_keys, project=True)
 
-    # the same loss with the kernels and with the plain field, same draws
-    img, mask, cam = batch(views[0])
-    draws = trainer.draw(cfg.training.n_rays, tuple(img.shape[1:3]), 2)
-    hp = {k: float(v) for k, v in trainer.scheduler.at(0).items()
-          if k in ("lambda_rgb", "lambda_freespace", "lambda_occupied",
-                   "sdf_alpha")}
-    hp["lambda_eikonal"] = trainer.cfg.lambda_eikonal
-    plain_model = create_model(cfg, device=dev)
-    plain_model.load_state_dict(model.state_dict())
-    plain_model.cfg = dataclasses.replace(model.cfg, use_fused_mlp=False)
-    res = {}
-    for name, m in (("kernels", model), ("plain", plain_model)):
+    # ---- 5. kNN, selection and fine stage on the projected run's own clouds
+    model = trainer.model
+    st = model.raster_settings
+    f_trace = model.trace_sdf_fn()
+    seed_pts, seed_mask, res_pts, res_mask = resampled[-1]
+    _, _, cam = batch(warm + N_PROJECTED)
+    for label, pts, mask in (("projected-step buffer", state.points,
+                              state.points_mask),
+                             ("resample buffer", res_pts, res_mask)):
         with torch.no_grad():
-            _, met, _, _ = compute_loss(m, None, None, draws.pixels, img, mask,
-                                        cam, draws.eikonal, draws.u_minsdf, hp,
-                                        project=False)
-        res[name] = {k: float(v) for k, v in met.items()}
-    print(f"reference check, kernels vs plain field on one step's draws: {res}")
-    n_rays_total = 2 * cfg.training.n_rays
-    if abs(res["kernels"]["n_iso"] - res["plain"]["n_iso"]) > 0.005 * n_rays_total:
-        fail("iso-point counts of the kernel and plain paths differ by > 0.5%")
-    for k in loss_keys:
-        a, b = res["kernels"][k], res["plain"][k]
-        if abs(a - b) > 1e-2 * abs(b) + 1e-6:
-            fail(f"{k}: kernel path {a} vs plain path {b} (rtol 1e-2)")
+            normals = sdf_and_grad(f_trace, pts)[1]
+            spacing = splat_spacing(pts, mask, st)
+        for view, c in (("step views", cam), ("back camera", back_camera(cam))):
+            timed = label == "projected-step buffer" and view == "step views"
+            out = check_raster(*raster_inputs(pts, normals, mask, c, st, spacing),
+                               f"{label}, {view}", K=st.points_per_pixel,
+                               depth_merge=st.depth_merging_threshold,
+                               timed=timed)
+            if timed:
+                sel_row, fine_row = out
+    k_err, k_ms, k_pms, k_b = knn_case(state.points, state.points_mask, 8,
+                                       "projected-step buffer", timed=True)
+    knn_case(state.points, state.points_mask, st.knn_k - 1,
+             "projected-step buffer")
+    knn_case(res_pts, res_mask, 16, "resample buffer")
+    knn_case(res_pts, res_mask, st.knn_k - 1, "resample buffer")
+    knn_case(seed_pts, seed_mask, model.proj_cfg.knn_k,
+             "resample seed (before its projection)")
 
-    # ---- 4. the kernels at the shapes the main path gives them
-    # (the seeded full-width field of phase 2, at the main path's shapes:
-    # the sphere trace evaluates both fronts of every ray in one call)
-    n_trace = 2 * n_rays_total
-    mlp_err, mlp_ms, mlp_pms, mlp_b, mlp_by = check_mlp(n_trace, 2e-5, 1e-4, False)
-    s_err, _, s_ms, s_pms, s_b, s_by = check_sampler(
-        n_rays_total, linspace01(trainer.model.raytrace_cfg.n_steps, dev),
+    # ---- 6. the kernels line
+    n_trace = 4 * cfg.training.n_rays
+    mlp_err, mlp_ms, mlp_pms, mlp_b = check_mlp(n_trace, 2e-5, 1e-4, False)
+    s_err, _, s_ms, s_pms, s_b = check_sampler(
+        2 * cfg.training.n_rays, linspace01(trainer.model.raytrace_cfg.n_steps, dev),
         trainer.model.raytrace_cfg.n_secant_steps)
     rows = [
-        {"name": "fused_mlp", "route": "cuda",
-         "source": "isopoints_torch/csrc/fused_mlp.cu",
-         "replaces": "isopoints_tpu/ops/pallas_mlp.py:250",
-         "launches": launches["fused_mlp"], "max_abs_err": mlp_err,
-         "ms": mlp_ms, "plain_ms": mlp_pms, "bound_ms": mlp_b,
-         "bound_by": mlp_by, "library_ms": None},
-        {"name": "fused_sampler", "route": "cuda",
-         "source": "isopoints_torch/csrc/fused_sampler.cu",
-         "replaces": "isopoints_tpu/ops/pallas_sampler.py:52",
-         "launches": launches["fused_sampler"], "max_abs_err": s_err,
-         "ms": s_ms, "plain_ms": s_pms, "bound_ms": s_b, "bound_by": s_by,
-         "library_ms": None},
+        row("fused_mlp", "isopoints_torch/csrc/fused_mlp.cu",
+            "isopoints_tpu/ops/pallas_mlp.py:250", launches["fused_mlp"],
+            mlp_err, mlp_ms, mlp_pms, mlp_b),
+        row("fused_sampler", "isopoints_torch/csrc/fused_sampler.cu",
+            "isopoints_tpu/ops/pallas_sampler.py:52", launches["fused_sampler"],
+            s_err, s_ms, s_pms, s_b),
+        row("knn", "isopoints_torch/csrc/knn.cu",
+            "isopoints_tpu/ops/pallas_knn.py:83", launches["knn"],
+            k_err, k_ms, k_pms, k_b),
+        row("splat_select", "isopoints_torch/csrc/splat_select.cu",
+            "isopoints_tpu/rendering/pallas_select.py:73",
+            launches["splat_select"], *sel_row),
+        row("splat_fine", "isopoints_torch/csrc/splat_fine.cu",
+            "isopoints_tpu/rendering/pallas_splat.py:42",
+            launches["splat_fine"], *fine_row),
     ]
-    print(f"main-path shapes: fused_mlp {n_trace} points; fused_sampler "
-          f"{n_rays_total} rays x {trainer.model.raytrace_cfg.n_steps} steps")
+    print(f"timed shapes: fused_mlp {n_trace} points (value; the warm-up "
+          f"trace); fused_sampler {2 * cfg.training.n_rays} rays x "
+          f"{trainer.model.raytrace_cfg.n_steps} steps (the warm-up trace); "
+          f"knn P={state.points.shape[1]} k=8 and splat_select / splat_fine "
+          f"{state.points.shape[1]} splats x {cam.batch_size} views at "
+          f"{st.image_size} px, on the projected run's iso-point buffer (the "
+          f"midpoint upsampling and the frontal raster of every projected step)")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace siren {
 
 constexpr int kThreads = 256;
@@ -170,8 +172,3 @@ __device__ void tile(const Net& net, const float* xs, float* act, float* wbuf,
 }
 
 }  // namespace siren
-
-// Message for a CUDA error code returned by a launcher (for the wrapper).
-extern "C" const char* cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -1,6 +1,7 @@
 """Config-driven factories (port of isopoints_tpu/factories.py, for what
-the warm-up slice's config names: a SIREN decoder, the combined or
-implicit model with the Phong texture, the synthetic datasets)."""
+the ported configs name: a SIREN decoder, the combined or implicit model
+with the Phong texture and the splat raster settings, the synthetic
+datasets)."""
 
 from typing import Optional
 
@@ -10,6 +11,7 @@ from isopoints_torch.config import AttrDict
 from isopoints_torch.models.combined import CombinedConfig, CombinedModel
 from isopoints_torch.models.fields import SirenField
 from isopoints_torch.models.implicit import ImplicitConfig, ImplicitModel
+from isopoints_torch.rendering.rasterizer import RasterizationSettings
 from isopoints_torch.training.scheduler import TrainerScheduler
 from isopoints_torch.training.trainer import MVRTrainer, TrainerConfig
 
@@ -24,6 +26,11 @@ def create_decoder(cfg: AttrDict, generator: Optional[torch.Generator] = None,
                       generator=generator, device=device)
 
 
+def create_raster_settings(cfg: AttrDict) -> RasterizationSettings:
+    return RasterizationSettings(
+        **dict(cfg.get("renderer", {}).get("raster_params", {})))
+
+
 def create_model(cfg: AttrDict, generator: Optional[torch.Generator] = None,
                  device="cuda"):
     """Model of `model.type` ('combined' | 'implicit'), parameters drawn
@@ -35,7 +42,8 @@ def create_model(cfg: AttrDict, generator: Optional[torch.Generator] = None,
         return ImplicitModel(decoder, icfg)
     if mtype == "combined":
         ccfg = CombinedConfig(**dict(cfg.model.get("combined_kwargs", {})))
-        return CombinedModel(decoder, icfg, ccfg)
+        return CombinedModel(decoder, icfg, ccfg,
+                             raster_settings=create_raster_settings(cfg))
     raise NotImplementedError(f"model type {mtype!r} is not ported yet")
 
 

@@ -18,7 +18,8 @@ from torch import nn
 
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.models.fields import sdf_and_grad
-from isopoints_torch.models.levelset import directional_sample_network
+from isopoints_torch.models.levelset import (ProjectionConfig,
+                                             directional_sample_network)
 from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
 from isopoints_torch.ops.fused_mlp import make_fused_siren_sdf
 from isopoints_torch.ops.images import sample_image_at_ndc
@@ -78,6 +79,8 @@ class ImplicitModel(nn.Module):
                 k: tuple(v) if isinstance(v, list) else v
                 for k, v in dict(cfg.raytrace).items()})
         self.raytrace_cfg = rt
+        self.proj_cfg = ProjectionConfig(proj_max_iters=cfg.proj_max_iters,
+                                         proj_tolerance=cfg.proj_tolerance)
 
     def sdf_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
         return self.decoder.sdf

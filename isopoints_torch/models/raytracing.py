@@ -31,6 +31,36 @@ _SLICE2 = ("is not ported yet: ROADMAP 'Slices of the port' 2, the "
            "production trace schedule")
 
 
+def intersection_with_unit_cube(ray0: torch.Tensor, ray_dir: torch.Tensor,
+                                side_length: float = 1.0,
+                                padding: float = 0.1, eps: float = 1e-6
+                                ) -> Tuple[torch.Tensor, ...]:
+    """Entry/exit points of rays with the padded cube (raytracing.py:42-79).
+    ray0 broadcasts against ray_dir (..., 3). Returns (entry, exit, hit);
+    misses get zeros and hit False."""
+    ray0 = torch.broadcast_to(ray0, ray_dir.shape)
+    half = side_length / 2.0 + padding / 2.0
+    # six axis-aligned planes at ±half: t = (±half − o_i) / d_i
+    o2 = torch.cat([ray0, ray0], dim=-1)
+    d2 = torch.cat([ray_dir, ray_dir], dim=-1)
+    plane = torch.cat([torch.full_like(ray0, half),
+                       torch.full_like(ray0, -half)], dim=-1)
+    t = (plane - o2) / eps_denom(d2, 1e-12)                        # (..., 6)
+    p = fma(t[..., None], ray_dir[..., None, :], ray0[..., None, :])
+    on_cube = torch.all((p <= half + eps) & (p >= -(half + eps)), dim=-1)
+    hit = torch.sum(on_cube.long(), dim=-1) == 2
+    big = 1e10
+    t_valid = torch.where(on_cube, t, big)
+    t0 = torch.amin(t_valid, dim=-1)
+    t1 = torch.amin(torch.where(t_valid <= t0[..., None], big, t_valid), dim=-1)
+    t0 = torch.where(hit, t0, 0.0)
+    t1 = torch.where(hit, t1, 0.0)
+    zero = torch.zeros_like(ray0)
+    entry = torch.where(hit[..., None], fma(t0[..., None], ray_dir, ray0), zero)
+    exit_ = torch.where(hit[..., None], fma(t1[..., None], ray_dir, ray0), zero)
+    return entry, exit_, hit
+
+
 def intersection_with_unit_sphere(cam_pos: torch.Tensor, rays: torch.Tensor,
                                   radius: float = 1.0
                                   ) -> Tuple[torch.Tensor, ...]:

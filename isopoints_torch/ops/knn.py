@@ -1,0 +1,177 @@
+"""Exact masked k-nearest neighbours: a hand-written CUDA kernel and its
+plain version (port of isopoints_tpu/ops/neighbors.py `knn_points` and
+`knn_gather`).
+
+The kernel (csrc/knn.cu) replaces `_knn_kernel` of
+isopoints_tpu/ops/pallas_knn.py (:83, wrapper `knn_points_pallas` :286):
+one thread per query streams the points through shared memory and keeps a
+sorted insertion list of its k <= 16 best. Bound on an H100: the f32
+CUDA-core rate over the N·P distance evaluations.
+
+`knn_points(..., method="auto")` launches the kernel for CUDA tensors
+(k <= 16, the TPU kernel's limit; larger k on CUDA raises) and runs the
+plain version `knn_points_dense` for CPU tensors. `method="dense"` asks
+for the plain version on any device. The plain version is the JAX
+package's dense path (neighbors.py:90-149): |q|² + |p|² − 2·q·p clamped at
+0, masked points pushed out by 1e10, then k masked-min sweeps whose
+first-occurrence argmin breaks ties by the lower index. The squared norms
+and the dot product are formed as fused multiply-add chains over x, y, z
+(`dot3`), which is how XLA rounds them on the CPU; the kernel does the same
+with __fmaf_rn, so the distances agree bit for bit.
+"""
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from isopoints_torch.ops import _build
+from isopoints_torch.utils import fma
+
+KERNEL = _build.LaunchCount("knn")
+MAX_K = 16
+_BIG = 1e10
+_BLOCK = 1024
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("knn")
+    lib.knn_forward.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.knn_forward.restype = _I
+    return lib
+
+
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b over the last axis (size 3) as fma(a_z, b_z, fma(a_y, b_y,
+    a_x·b_x)); a and b broadcast."""
+    return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+class KNNResult(NamedTuple):
+    dists: torch.Tensor  # (B, N, K) squared distances, ascending; 1e10 if invalid
+    idx: torch.Tensor    # (B, N, K) int64 indices into points; -1 if invalid
+    mask: torch.Tensor   # (B, N, K) validity
+
+
+def _finish(dists: torch.Tensor, idx: torch.Tensor, query_mask: torch.Tensor,
+            k: int) -> KNNResult:
+    """Validity, -1 / 1e10 fill and padding to k columns (neighbors.py:141-149)."""
+    valid = (dists < _BIG * 0.5) & query_mask[..., None]
+    if dists.shape[-1] < k:
+        padw = k - dists.shape[-1]
+        dists = torch.nn.functional.pad(dists, (0, padw), value=_BIG)
+        idx = torch.nn.functional.pad(idx, (0, padw), value=-1)
+        valid = torch.nn.functional.pad(valid, (0, padw), value=False)
+    idx = torch.where(valid, idx, -1)
+    dists = torch.where(valid, dists, torch.full_like(dists, _BIG))
+    return KNNResult(dists=dists, idx=idx, mask=valid)
+
+
+def knn_points_dense(query: torch.Tensor, points: torch.Tensor,
+                     query_mask: torch.Tensor, points_mask: torch.Tensor,
+                     k: int, exclude_self: bool = False) -> KNNResult:
+    """Plain version: blocked dense distances + k masked-min sweeps."""
+    b, n, _ = query.shape
+    p = points.shape[1]
+    points = torch.where(points_mask[..., None], points, 0.0)
+    query = torch.where(query_mask[..., None], query, 0.0)
+    kk = min(k, p)
+    pts_sq = dot3(points, points)
+    invalid = torch.where(points_mask, 0.0, _BIG)
+    d_out, i_out = [], []
+    cols = torch.arange(p, device=points.device)
+    for lo in range(0, n, _BLOCK):
+        qb = query[:, lo:lo + _BLOCK]
+        d = ((dot3(qb, qb)[..., None] + pts_sq[:, None, :])
+             - 2.0 * dot3(qb[:, :, None, :], points[:, None, :, :]))
+        d = torch.clamp(d, min=0.0) + invalid[:, None, :]
+        if exclude_self:
+            qi = torch.arange(lo, lo + qb.shape[1], device=points.device)
+            d = torch.where(qi[:, None] == cols[None, :], _BIG, d)
+        vals, idxs = [], []
+        for _ in range(kk):
+            i = torch.argmin(d, dim=-1)
+            vals.append(torch.gather(d, -1, i[..., None])[..., 0])
+            idxs.append(i)
+            d = d.scatter(-1, i[..., None], float("inf"))
+        d_out.append(torch.stack(vals, -1))
+        i_out.append(torch.stack(idxs, -1))
+    if n == 0:
+        empty = query.new_zeros((b, 0, kk))
+        return _finish(empty, empty.long(), query_mask, k)
+    return _finish(torch.cat(d_out, 1), torch.cat(i_out, 1), query_mask, k)
+
+
+def knn_points_cuda(query: torch.Tensor, points: torch.Tensor,
+                    query_mask: torch.Tensor, points_mask: torch.Tensor,
+                    k: int, exclude_self: bool = False) -> KNNResult:
+    """Launch the CUDA kernel (contiguous float32 CUDA tensors, k <= 16)."""
+    if k > MAX_K:
+        raise ValueError(f"the CUDA kNN kernel takes k <= {MAX_K} (the TPU "
+                         f"kernel's limit), got k={k}")
+    for t in (query, points, query_mask, points_mask):
+        if not t.is_cuda or t.device != query.device:
+            raise ValueError("knn_points_cuda takes CUDA tensors on one device")
+    if query.dtype != torch.float32 or points.dtype != torch.float32:
+        raise TypeError("knn_points_cuda takes float32 positions")
+    b, n, _ = query.shape
+    p = points.shape[1]
+    if exclude_self and n != p:
+        raise ValueError("exclude_self needs query IS points (n == p)")
+    q = query.contiguous()
+    pts = points.contiguous()
+    qm = query_mask.to(torch.uint8).contiguous()
+    pm = points_mask.to(torch.uint8).contiguous()
+    dists = torch.empty((b, n, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((b, n, k), dtype=torch.int32, device=q.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    KERNEL.launches += 1
+    err = lib.knn_forward(q.data_ptr(), qm.data_ptr(), pts.data_ptr(),
+                          pm.data_ptr(), b, n, p, k, int(exclude_self),
+                          dists.data_ptr(), idx.data_ptr(), stream)
+    _build.check_launch(lib, err, "knn")
+    return _finish(dists, idx.long(), query_mask, k)
+
+
+def knn_points(query: torch.Tensor, points: torch.Tensor,
+               query_mask: Optional[torch.Tensor] = None,
+               points_mask: Optional[torch.Tensor] = None, k: int = 8,
+               exclude_self: bool = False, method: str = "auto") -> KNNResult:
+    """Masked kNN (neighbors.py:46-149). query (B, N, 3), points (B, P, 3),
+    masks (B, N) / (B, P) bool. `exclude_self` drops index i for query i
+    (query IS points). `method`: 'auto' (kernel on CUDA, plain on CPU) or
+    'dense' (the plain version anywhere)."""
+    b, n, _ = query.shape
+    p = points.shape[1]
+    if points_mask is None:
+        points_mask = torch.ones((b, p), dtype=torch.bool, device=points.device)
+    if query_mask is None:
+        query_mask = torch.ones((b, n), dtype=torch.bool, device=query.device)
+    if method == "dense":
+        return knn_points_dense(query, points, query_mask, points_mask, k,
+                                exclude_self)
+    if method != "auto":
+        raise ValueError(f"unknown kNN method {method!r}")
+    if query.is_cuda:
+        return knn_points_cuda(query, points, query_mask, points_mask, k,
+                               exclude_self)
+    if query.device.type != "cpu":
+        raise ValueError(f"knn_points runs on CUDA or CPU, not {query.device}")
+    return knn_points_dense(query, points, query_mask, points_mask, k,
+                            exclude_self)
+
+
+def knn_gather(x: torch.Tensor, idx: torch.Tensor, fill: float = 0.0
+               ) -> torch.Tensor:
+    """x (B, P, C), idx (B, N, K) with -1 for invalid -> (B, N, K, C),
+    `fill` where idx < 0 (neighbors.py:324-334)."""
+    b, n, k = idx.shape
+    safe = torch.clamp(idx, min=0).reshape(b, n * k, 1).expand(-1, -1, x.shape[-1])
+    out = torch.gather(x, 1, safe).reshape(b, n, k, x.shape[-1])
+    return torch.where((idx < 0)[..., None], torch.full_like(out, fill), out)

@@ -1,0 +1,235 @@
+"""EWA surface-splatting rasterizer, forward only (port of
+isopoints_tpu/rendering/rasterizer.py:56-280 and 287-580).
+
+Per-point EWA splat setup (`compute_splat_params`, isotropic and global
+Vrk) and the tiled forward rasterization: per tile, the front-most
+candidate splats (coarse stage, rendering/select.py), then per pixel the
+K nearest by depth with the depth-merging cut (fine stage,
+rendering/splat.py). With `use_pallas` the two stages run as the CUDA
+kernels on CUDA tensors (`use_pallas_selection=False` keeps the plain
+selection), as the JAX switches run the Pallas kernels; without it the
+plain versions of both stages run, the counterpart of the JAX XLA path.
+
+Only the forward is ported: the combined model reads
+`Fragments.visibility` of throwaway visibility rasters and never
+differentiates them. The DSS backward (occupancy and zbuf gradients) is
+ROADMAP slice 4; a call that needs a gradient raises. The anisotropic
+Vrk path raises too (ROADMAP Queue 1 item 8).
+"""
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from isopoints_torch.core.camera import PerspectiveCamera
+from isopoints_torch.ops.knn import knn_points
+from isopoints_torch.rendering.select import (select_candidates,
+                                              select_candidates_plain)
+from isopoints_torch.rendering.splat import (N_ATTRS, rasterize_fine,
+                                             rasterize_fine_plain)
+from isopoints_torch.utils import eps_denom, eps_sqrt
+
+
+@dataclass(frozen=True)
+class RasterizationSettings:
+    """The JAX RasterizationSettings' fields the forward reads
+    (rasterizer.py:56-96), plus `radii_backward_scaler`, which
+    configs/default.yaml sets for the backward (slice 4)."""
+    image_size: int = 256
+    points_per_pixel: int = 5
+    cutoff_threshold: float = 1.0
+    depth_merging_threshold: float = 0.05
+    Vrk_invariant: bool = False
+    Vrk_isotropic: bool = True
+    radii_backward_scaler: float = 10.0
+    antialiasing_sigma: float = 1.0
+    backface_culling: bool = True
+    tile_size: int = 16
+    max_points_per_tile: int = 256
+    max_points_per_strip: int = 2048
+    knn_k: int = 7
+    use_pallas: bool = False
+    use_pallas_selection: Optional[bool] = None
+
+
+class Fragments(NamedTuple):
+    idx: torch.Tensor          # (B, S, S, K) int64, -1 empty
+    zbuf: torch.Tensor         # (B, S, S, K) view depth, -1 empty
+    qvalue: torch.Tensor       # (B, S, S, K) conic value, -1 empty
+    occupancy: torch.Tensor    # (B, S, S) 0/1
+    visibility: torch.Tensor   # (B, P) points that produced fragments
+    tile_overflow: torch.Tensor  # (B,) candidates dropped by the capacities
+
+
+class SplatParams(NamedTuple):
+    pts_ndc: torch.Tensor   # (B, P, 3) [x_ndc, y_ndc, view depth]
+    ellipse: torch.Tensor   # (B, P, 3) conic (a, b, c)
+    radii: torch.Tensor     # (B, P, 2) axis-aligned NDC radii
+    cutoff: torch.Tensor    # (B, P)
+    scaler: torch.Tensor    # (B, P) EWA normalisation
+    mask: torch.Tensor      # (B, P) renderable after depth/backface filters
+
+
+# the view-depth range of the JAX camera (camera.py:41-42), which no caller
+# of the JAX package changes
+ZNEAR, ZFAR = 0.1, 100.0
+
+_SLICE4 = ("the splat rasterizer's backward is not ported yet (ROADMAP "
+           "'Slices of the port' 4)")
+
+
+def _tangent_basis(normals: torch.Tensor) -> torch.Tensor:
+    """Deterministic orthonormal (u0, u1) ⊥ n, stacked (..., 2, 3)
+    (rasterizer.py:125-139)."""
+    n = normals / torch.clamp(torch.linalg.norm(normals, dim=-1, keepdim=True),
+                              min=1e-12)
+    ez = torch.tensor([0.0, 0.0, 1.0], device=n.device).expand(n.shape)
+    ex = torch.tensor([1.0, 0.0, 0.0], device=n.device).expand(n.shape)
+    a = torch.where(torch.abs(n[..., 2:3]) < 0.9, ez, ex)
+    u0 = torch.linalg.cross(n, a)
+    u0 = u0 / torch.clamp(torch.linalg.norm(u0, dim=-1, keepdim=True), min=1e-12)
+    u1 = torch.linalg.cross(n, u0)
+    return torch.stack([u0, u1], dim=-2)
+
+
+@torch.no_grad()
+def splat_spacing(points: torch.Tensor, mask: torch.Tensor,
+                  settings: RasterizationSettings) -> torch.Tensor:
+    """Per-point splat spacing h_k = ½·max squared distance to the
+    knn_k − 1 nearest others (rasterizer.py:142-161); 5e-4 for clouds with
+    fewer than knn_k points."""
+    s = settings
+    res = knn_points(points, points, mask, mask, k=max(s.knn_k - 1, 1),
+                     exclude_self=True)
+    sq = torch.where(res.mask, res.dists, 0.0)
+    h_k = 0.5 * torch.amax(sq, dim=-1)
+    enough = torch.sum(mask.long(), dim=-1, keepdim=True) >= s.knn_k
+    return torch.where(enough, h_k, 5e-4)
+
+
+def compute_splat_params(points: torch.Tensor, normals: torch.Tensor,
+                         mask: torch.Tensor, camera: PerspectiveCamera,
+                         settings: RasterizationSettings,
+                         spacing: Optional[torch.Tensor] = None) -> SplatParams:
+    """Per-point EWA parameters and the depth/backface filters
+    (rasterizer.py:164-280), isotropic or global (`Vrk_invariant`) Vrk.
+    `spacing`: a precomputed `splat_spacing` (B, P) or (1, P), else it is
+    computed here. Everything but `pts_ndc` is detached, as in the JAX
+    package."""
+    s = settings
+    if not (s.Vrk_isotropic or s.Vrk_invariant):
+        raise NotImplementedError("the anisotropic Vrk path is not ported yet "
+                                  "(ROADMAP Queue 1 item 8)")
+    b, p, _ = points.shape
+    view = camera.world_to_view(points)
+    z = view[..., 2]
+    rmask = mask & (z >= ZNEAR) & (z <= ZFAR)
+    if s.backface_culling:
+        normals_view = torch.einsum("bpi,bij->bpj", normals, camera.R)
+        rmask = rmask & (normals_view[..., 2] < 0)
+    pts_ndc = camera.project_ndc(points)
+
+    with torch.no_grad():
+        if spacing is None:
+            spacing = splat_spacing(points.detach(), mask, s)
+        h_k = torch.broadcast_to(spacing.detach(), (b, p))
+        if s.Vrk_invariant:
+            denom = torch.clamp(torch.sum(rmask.long(), dim=-1, keepdim=True), min=1)
+            h_k = torch.sum(torch.where(rmask, h_k, 0.0), dim=-1, keepdim=True) / denom
+            h_k = torch.clamp(h_k, 5e-5, 1e-3) * torch.ones_like(z)
+        else:
+            h_k = torch.clamp(h_k, 5e-5, 0.01)
+        Sk = _tangent_basis(normals.detach())                       # (B, P, 2, 3)
+        Vrk = h_k[..., None, None] * torch.einsum("bpki,bpkj->bpij", Sk, Sk)
+
+        # projection Jacobian Mk = d ndc_xy / d p_world (rasterizer.py:232-248)
+        view_d = view.detach()
+        zd = eps_denom(view_d[..., 2], 1e-10)
+        fl = camera.focal_length[:, None, :]
+        j00 = fl[..., 0] / zd
+        j11 = fl[..., 1] / zd
+        j20 = -fl[..., 0] * view_d[..., 0] / (zd * zd)
+        j21 = -fl[..., 1] * view_d[..., 1] / (zd * zd)
+        zero = torch.zeros_like(j00)
+        Jv = torch.stack([torch.stack([j00, zero], -1),
+                          torch.stack([zero, j11], -1),
+                          torch.stack([j20, j21], -1)], dim=-2)      # (B, P, 3, 2)
+        Mk = torch.einsum("bij,bpjk->bpik", camera.R, Jv)
+
+        # screen variance GV = Mkᵀ Vrk Mk + σ_aa·I·px² (rasterizer.py:250-262)
+        Vk = torch.einsum("bpij,bpik,bpkl->bpjl", Mk, Vrk, Mk)
+        pixel_size = 2.0 / s.image_size
+        GV = Vk + s.antialiasing_sigma * (pixel_size ** 2) * torch.eye(
+            2, device=points.device)
+        detMk = torch.linalg.det(torch.einsum("bpki,bpij->bpkj", Sk, Mk))
+        detGV = GV[..., 0, 0] * GV[..., 1, 1] - GV[..., 0, 1] * GV[..., 1, 0]
+        inv_det = 1.0 / eps_denom(detGV, 1e-12)
+        ellipse = torch.stack([GV[..., 1, 1] * inv_det,
+                               -GV[..., 0, 1] * inv_det - GV[..., 1, 0] * inv_det,
+                               GV[..., 0, 0] * inv_det], dim=-1)
+
+        # axis-aligned radii (rasterizer.py:264-274)
+        a, bb, c = ellipse[..., 0], ellipse[..., 1], ellipse[..., 2]
+        cut = torch.full_like(a, s.cutoff_threshold)
+        denom = eps_denom(4.0 * a * c - bb * bb, 1e-12)
+        ry = torch.sqrt(eps_sqrt(4.0 * a * cut / denom))
+        rx = torch.sqrt(eps_sqrt(4.0 * c * cut / denom))
+        radii = torch.stack([rx, ry], dim=-1)
+        scaler = torch.abs(detMk) / eps_denom(
+            torch.sqrt(eps_sqrt(detGV * 4.0 * math.pi * math.pi)),
+            1e-12)
+    return SplatParams(pts_ndc=pts_ndc, ellipse=ellipse, radii=radii,
+                       cutoff=cut, scaler=scaler, mask=rmask)
+
+
+def _untile(x: torch.Tensor, S: int, T: int) -> torch.Tensor:
+    """(B, nt², T², C) tiled -> (B, S, S, C) image layout."""
+    b, c, nt = x.shape[0], x.shape[-1], S // T
+    return (x.reshape(b, nt, nt, T, T, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, S, S, c))
+
+
+@torch.no_grad()
+def _rasterize_forward(pts_ndc, ellipse, radii, cutoff, mask,
+                       settings: RasterizationSettings) -> Fragments:
+    s = settings
+    S, T, K = s.image_size, s.tile_size, s.points_per_pixel
+    if S % T != 0:
+        raise ValueError("image_size must be a multiple of tile_size")
+    b, p, _ = pts_ndc.shape
+    M = min(s.max_points_per_tile, p)
+    px, py, z = pts_ndc[..., 0], pts_ndc[..., 1], pts_ndc[..., 2]
+    rx, ry = radii[..., 0], radii[..., 1]
+    valid = mask & (z >= 0)  # behind-camera skip (rasterize_points.cu:88-89)
+    args = (px, py, z, rx, ry, valid, S, T, s.max_points_per_strip, M)
+    kernels = s.use_pallas
+    if kernels and s.use_pallas_selection in (None, True):
+        cand_idx, cand_ok, overflow = select_candidates(*args)
+    else:
+        cand_idx, cand_ok, overflow = select_candidates_plain(*args)
+    # the nine per-splat attributes of every candidate in one gather
+    table = torch.stack([px, py, z, ellipse[..., 0], ellipse[..., 1],
+                         ellipse[..., 2], rx, ry, cutoff], dim=-1)   # (B, P, 9)
+    attrs = torch.gather(table, 1, cand_idx.reshape(b, -1, 1).expand(-1, -1, N_ATTRS))
+    attrs = attrs.reshape(cand_idx.shape + (N_ATTRS,))
+    fine = rasterize_fine if kernels else rasterize_fine_plain
+    res = fine(attrs, cand_ok, cand_idx, S, T, K, s.depth_merging_threshold)
+    # visibility at candidate level: the candidates some pixel picked
+    flat = torch.where(res.used, cand_idx, p).reshape(b, -1)
+    vis = torch.zeros((b, p + 1), dtype=torch.bool, device=pts_ndc.device)
+    vis = vis.scatter(1, flat, True)[:, :p]
+    return Fragments(idx=_untile(res.idx, S, T), zbuf=_untile(res.zbuf, S, T),
+                     qvalue=_untile(res.qvalue, S, T),
+                     occupancy=_untile(res.occ[..., None], S, T)[..., 0],
+                     visibility=vis, tile_overflow=overflow)
+
+
+def rasterize_splats(pts_ndc, ellipse, radii, cutoff, mask,
+                     settings: RasterizationSettings) -> Fragments:
+    """Splat rasterization forward for B clouds (rasterizer.py:573-593).
+    The maps are constants: a gradient through them is not ported."""
+    if torch.is_grad_enabled() and pts_ndc.requires_grad:
+        raise NotImplementedError(_SLICE4)
+    return _rasterize_forward(pts_ndc, ellipse, radii, cutoff, mask, settings)

@@ -1,0 +1,170 @@
+"""Splat rasterization, fine stage: a hand-written CUDA kernel and its
+plain version.
+
+The kernel (csrc/splat_fine.cu) replaces `_fine_kernel` of
+isopoints_tpu/rendering/pallas_splat.py (:42, wrapper
+`rasterize_fine_pallas` :126): one block per T×T tile, one thread per
+pixel, the tile's candidates in shared memory and a K-entry insertion
+list per pixel. Bound on an H100: the f32 rate over the S²·M
+(pixel, candidate) scores.
+
+The plain version is the fine half of the XLA path's `_rasterize_one`
+(isopoints_tpu/rendering/rasterizer.py:364-399) on the tiled candidate
+table: score every (pixel, candidate) pair, then K masked-min sweeps.
+Both break depth ties by the smaller global point index (the JAX package
+gets the same order from its candidate lists, whose equal depths come in
+index order), and both form q = a·dx² + b·dx·dy + c·dy² with the fused
+multiply-adds XLA puts there.
+
+`rasterize_fine` launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors. Outputs, per cloud and tile (all tiled):
+idx (global ids) / zbuf / qvalue / slots (local candidate slots, for the
+zbuf backward of a later slice) (B, n_tiles, T², K), occupancy
+(B, n_tiles, T²) and per-candidate `used` flags (B, n_tiles, M).
+"""
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from isopoints_torch.ops import _build
+from isopoints_torch.rendering.select import pixel_ndc
+from isopoints_torch.utils import fma
+
+KERNEL = _build.LaunchCount("splat_fine")
+N_ATTRS = 9          # px, py, z, ea, eb, ec, rx, ry, cutoff
+MAX_K = 8
+_BIG = 1e10
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("splat_fine")
+    lib.rasterize_fine.argtypes = [_P] * 3 + [_I] * 7 + [_F] * 2 + [_P] * 7
+    lib.rasterize_fine.restype = _I
+    return lib
+
+
+class FineResult(NamedTuple):
+    idx: torch.Tensor     # (B, n_tiles, T², K) int64 global ids, -1 empty
+    zbuf: torch.Tensor    # (B, n_tiles, T², K) view depth, -1 empty
+    qvalue: torch.Tensor  # (B, n_tiles, T², K) conic value, -1 empty
+    occ: torch.Tensor     # (B, n_tiles, T²) 0/1
+    used: torch.Tensor    # (B, n_tiles, M) candidate picked by some pixel
+    slots: torch.Tensor   # (B, n_tiles, T², K) int64 local slots, -1 empty
+
+
+def _tile_pixels(tiles: torch.Tensor, S: int, T: int):
+    """Pixel-center NDC (x, y) of every pixel of the given tiles:
+    (len(tiles), T²) each, pixels in row-major order inside a tile."""
+    nt = S // T
+    lin = torch.arange(T * T, device=tiles.device)
+    rows = (tiles // nt)[:, None] * T + lin[None] // T
+    cols = (tiles % nt)[:, None] * T + lin[None] % T
+    return pixel_ndc(cols, S), pixel_ndc(rows, S)
+
+
+def rasterize_fine_plain(attrs: torch.Tensor, ok: torch.Tensor,
+                         gid: torch.Tensor, S: int, T: int, K: int,
+                         depth_merging_threshold: float) -> FineResult:
+    """Plain version, one tile row at a time. attrs (B, n_tiles, M, 9),
+    ok (B, n_tiles, M) bool, gid (B, n_tiles, M) global ids."""
+    b, n_tiles, m, _ = attrs.shape
+    nt = S // T
+    outs = []
+    for lo in range(0, n_tiles, nt):
+        a = attrs[:, lo:lo + nt]
+        xf, yf = _tile_pixels(torch.arange(lo, min(lo + nt, n_tiles),
+                                           device=attrs.device), S, T)
+        c = lambda j: a[..., j][:, :, None, :]                  # (B, t, 1, M)
+        dx = xf[None, :, :, None] - c(0)                         # (B, t, T², M)
+        dy = yf[None, :, :, None] - c(1)
+        q = fma(c(5) * dy, dy, fma(c(3) * dx, dx, c(4) * dx * dy))
+        inside = ((torch.abs(dx) <= c(6)) & (torch.abs(dy) <= c(7))
+                  & (q <= c(8)) & ok[:, lo:lo + nt, None, :])
+        g = torch.broadcast_to(gid[:, lo:lo + nt, None, :], q.shape)
+        zwork = torch.where(inside, c(2), _BIG)
+        occ = torch.any(inside, dim=-1).float()
+        ids, zs, qs, sl = [], [], [], []
+        z0 = None
+        for _ in range(K):
+            zmin = torch.amin(zwork, dim=-1, keepdim=True)
+            # among equal depths the smaller global id; slots hold distinct ids
+            gmin = torch.amin(torch.where(zwork == zmin, g, torch.iinfo(g.dtype).max),
+                              dim=-1, keepdim=True)
+            slot = torch.argmax(((zwork == zmin) & (g == gmin)).to(torch.uint8),
+                                dim=-1, keepdim=True)
+            zmin = zmin[..., 0]
+            z0 = zmin if z0 is None else z0
+            keep = (zmin < _BIG * 0.5) & ((zmin - z0) <= depth_merging_threshold)
+            ids.append(torch.where(keep, torch.gather(g, -1, slot)[..., 0], -1))
+            zs.append(torch.where(keep, zmin, -1.0))
+            qs.append(torch.where(keep, torch.gather(q, -1, slot)[..., 0], -1.0))
+            sl.append(torch.where(keep, slot[..., 0], -1))
+            zwork = zwork.scatter(-1, slot, float("inf"))
+        outs.append((torch.stack(ids, -1), torch.stack(zs, -1),
+                     torch.stack(qs, -1), occ, torch.stack(sl, -1)))
+    idx, zbuf, qv, occ, slots = (torch.cat(t, 1) for t in zip(*outs))
+    used = torch.zeros((b, n_tiles, m + 1), dtype=torch.bool, device=attrs.device)
+    used = used.scatter(-1, torch.where(slots >= 0, slots, m).reshape(b, n_tiles, -1),
+                        True)[..., :m]
+    return FineResult(idx, zbuf, qv, occ, used, slots)
+
+
+def rasterize_fine_cuda(attrs: torch.Tensor, ok: torch.Tensor,
+                        gid: torch.Tensor, S: int, T: int, K: int,
+                        depth_merging_threshold: float) -> FineResult:
+    """Launch the CUDA kernel; same arguments and results as the plain
+    version."""
+    b, n_tiles, m, n_att = attrs.shape
+    for t in (attrs, ok, gid):
+        if not t.is_cuda or t.device != attrs.device:
+            raise ValueError("rasterize_fine_cuda takes CUDA tensors on one device")
+    if attrs.dtype != torch.float32 or n_att != N_ATTRS:
+        raise TypeError(f"attrs must be float32 (B, n_tiles, M, {N_ATTRS})")
+    if ok.shape != (b, n_tiles, m) or gid.shape != ok.shape:
+        raise ValueError("ok and gid must be (B, n_tiles, M)")
+    if not 1 <= K <= MAX_K or T * T > 1024:
+        raise ValueError(f"the CUDA fine stage takes K <= {MAX_K} and T*T <= 1024")
+    dev = attrs.device
+    a = attrs.contiguous()
+    o = ok.to(torch.uint8).contiguous()
+    g = gid.to(torch.int32).contiguous()
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    idx = torch.empty((b, n_tiles, T * T, K), **i32)
+    slots = torch.empty((b, n_tiles, T * T, K), **i32)
+    zbuf = torch.empty((b, n_tiles, T * T, K), **f32)
+    qv = torch.empty((b, n_tiles, T * T, K), **f32)
+    occ = torch.empty((b, n_tiles, T * T), **f32)
+    used = torch.empty((b, n_tiles, m), dtype=torch.uint8, device=dev)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    KERNEL.launches += 1
+    err = lib.rasterize_fine(a.data_ptr(), o.data_ptr(), g.data_ptr(), b,
+                             n_tiles, m, S, T, S // T, K, 1.0 / S,
+                             float(depth_merging_threshold), idx.data_ptr(),
+                             zbuf.data_ptr(), qv.data_ptr(), slots.data_ptr(),
+                             occ.data_ptr(), used.data_ptr(), stream)
+    _build.check_launch(lib, err, "splat_fine")
+    return FineResult(idx.long(), zbuf, qv, occ, used.bool(), slots.long())
+
+
+def rasterize_fine(attrs: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,
+                   S: int, T: int, K: int,
+                   depth_merging_threshold: float) -> FineResult:
+    """Fine stage over all tiles of B clouds: the kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if attrs.is_cuda:
+        return rasterize_fine_cuda(attrs, ok, gid, S, T, K,
+                                   depth_merging_threshold)
+    if attrs.device.type != "cpu":
+        raise ValueError(f"rasterize_fine runs on CUDA or CPU, not {attrs.device}")
+    return rasterize_fine_plain(attrs, ok, gid, S, T, K,
+                                depth_merging_threshold)

@@ -1,17 +1,18 @@
-"""Multiview-reconstruction training, warm-up phase (port of the warm-up
-subset of train_mvr.py).
+"""Multiview-reconstruction training (port of the training loop of
+train_mvr.py).
 
-    python -m isopoints_torch.train_mvr isopoints_torch/configs/mvr_warmup_siren.yml \
+    python -m isopoints_torch.train_mvr isopoints_torch/configs/mvr_projected_siren.yml \
         [--max-iters N] [--seed S] [--out-dir DIR] [--device cuda|cpu] \
         [--profile-at IT]
 
-Builds the dataset, model and trainer from the config, runs N warm-up
-steps on views drawn as a pure function of (seed, it), and appends one
-JSON object per step to OUT_DIR/metrics.jsonl. The projected phase is not
-ported yet, so N may not exceed the config's `warm_up_iters`.
-`--profile-at IT` traces iterations IT..IT+4 with torch.profiler into
-OUT_DIR/profile/ (chrome trace + an op table sorted by device time), as
-train_mvr.py's `--profile-at` does with the JAX profiler.
+Builds the dataset, model and trainer from the config, runs N steps on
+views drawn as a pure function of (seed, it) — warm-up steps before the
+config's `warm_up_iters`, projected steps with iso-point resampling from
+then on (the trainer logs each resample's start and yield) — and appends
+one JSON object per step to OUT_DIR/metrics.jsonl. `--profile-at IT`
+traces iterations IT..IT+4 with torch.profiler into OUT_DIR/profile/
+(chrome trace + an op table sorted by device time), as train_mvr.py's
+`--profile-at` does with the JAX profiler.
 """
 
 import argparse
@@ -59,10 +60,6 @@ def main(argv=None) -> None:
         cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
         device=device)
     trainer = create_trainer(model, cfg, seed=args.seed, device=device)
-    if args.max_iters > trainer.cfg.warm_up_iters:
-        raise SystemExit(f"--max-iters {args.max_iters} exceeds warm_up_iters="
-                         f"{trainer.cfg.warm_up_iters}: the projected phase is "
-                         "not ported yet")
     state = trainer.init_state()
 
     batch_views = 2
@@ -117,7 +114,7 @@ def _stop_profiler(prof, device: torch.device, out: str) -> None:
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
     with open(os.path.join(out, "ops.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=40))
+                                          row_limit=100))
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3

@@ -1,21 +1,29 @@
-"""MVR training step, warm-up phase (port of
-isopoints_tpu/training/trainer.py:79-174, 177-318).
+"""MVR training step (port of isopoints_tpu/training/trainer.py:79-174,
+177-318, 416-460).
 
 `compute_loss` assembles the photoconsistency L1, the freespace /
 occupancy BCE and the eikonal loss exactly as the JAX version does with
-one device (n_dev = 1). `MVRTrainer.train_step` replaces the jitted
-shard_map step of isopoints_tpu/parallel/sharding.py:85-127 on a single
-device: draw pixels, eikonal points and min-SDF step fractions, forward,
-backward, then clip by global norm and Adam(b1=0.9, b2=0.99, eps=1e-8)
-written out with optax's formulas (optax's clip divides by the norm
-without the +1e-6 of `torch.nn.utils.clip_grad_norm_`). The update is
-applied in place to the model's parameters.
+one device (n_dev = 1, so its local and global normalisers coincide).
+`MVRTrainer.train_step` replaces the jitted shard_map step of
+isopoints_tpu/parallel/sharding.py:85-127 on a single device: draw pixels,
+eikonal points and the phase's other random numbers, forward, backward,
+then clip by global norm and Adam(b1=0.9, b2=0.99, eps=1e-8) written out
+with optax's formulas (optax's clip divides by the norm without the +1e-6
+of `torch.nn.utils.clip_grad_norm_`). The update is applied in place to
+the model's parameters.
+
+From `warm_up_iters` on, the step is projected: at `warm_up_iters` and
+every `resample_every` iterations the persistent iso-points are resampled
+from the current cloud (`resample_iso_points`), and the splat spacing of
+the buffer is cached in `TrainState.spacing` until the buffer's shape
+changes (trainer.py:248-314).
 
 The step takes an optional `draws` (StepDraws); without it the step draws
 from its own generator chain. Tests pass the JAX step's draws to compare
 the two packages on the same random numbers.
 """
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -23,8 +31,10 @@ import torch
 
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.logger import get_logger
-from isopoints_torch.models.combined import CombinedModel
+from isopoints_torch.models.combined import CombinedModel, ProjectedDraws
+from isopoints_torch.models.levelset import sample_uniform_iso_points
 from isopoints_torch.ops.images import sample_random_pixels
+from isopoints_torch.rendering.rasterizer import splat_spacing
 from isopoints_torch.rng import GeneratorChain
 from isopoints_torch.training.losses import (
     eikonal_loss,
@@ -37,24 +47,32 @@ from isopoints_torch.utils import check_weights
 
 @dataclass(frozen=True)
 class TrainerConfig:
-    """Loss weights and the warm-up knobs of trainer.py:43-64 (the
-    resampling and saliency knobs act only in the projected phase)."""
+    """Loss weights and cadences of trainer.py:43-64. Saliency-weighted
+    resampling (`saliency_sampling`) is not ported: it raises at the
+    first resample (ROADMAP Queue 1 item 8)."""
     lambda_rgb: float = 1.0
     lambda_freespace: float = 1.0
     lambda_occupied: float = 1.0
     lambda_eikonal: float = 0.01
     n_eikonal_points: int = 1024
     warm_up_iters: int = 500
+    resample_every: int = 500
     n_rays: int = 1024
     grad_clip: float = 1.0
     learning_rate: float = 1e-4
+    saliency_sampling: bool = False
 
 
 class StepDraws(NamedTuple):
-    """The random numbers of one warm-up step."""
+    """The random numbers of one step: the warm-up fields always, the
+    projected forward's from `warm_up_iters` on, and the resample's
+    subsample ranks (shaped like the seed cloud's mask) on a resample
+    step whose seed is wider than the target."""
     pixels: torch.Tensor     # (B, n_rays, 2) NDC pixel samples
     eikonal: torch.Tensor    # (1, n_eikonal_points, 3) uniform in [-1, 1)
     u_minsdf: torch.Tensor   # (n_steps,) min-SDF step fractions in [0, 1)
+    projected: Optional[ProjectedDraws] = None
+    resample_u: Optional[torch.Tensor] = None
 
 
 class AdamState(NamedTuple):
@@ -68,22 +86,28 @@ class TrainState(NamedTuple):
     points: Optional[torch.Tensor]        # (1, P, 3) persistent iso-points
     points_mask: Optional[torch.Tensor]   # (1, P)
     it: int
+    # cached splat_spacing of `points`, kept while its shape matches
+    spacing: Optional[torch.Tensor] = None
 
 
 def compute_loss(model: CombinedModel, points, points_mask,
                  ndc_pixels: torch.Tensor, img: torch.Tensor,
                  mask_img: torch.Tensor, camera: PerspectiveCamera,
                  eikonal_points: torch.Tensor, u_minsdf: torch.Tensor,
-                 hp: Dict[str, float], project: bool, training: bool = True
+                 hp: Dict[str, float], project: bool, training: bool = True,
+                 proj_draws: Optional[ProjectedDraws] = None,
+                 spacing: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                             Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Loss assembly (trainer.py:79-174 with n_dev = 1).
+    """Loss assembly (trainer.py:79-174 with n_dev = 1: the freespace
+    set's ray rows and iso-point rows share the normaliser 1/n_px).
     Returns (total, metrics, new_points, new_points_mask)."""
     b, n_ray = ndc_pixels.shape[:2]
     out, new_pts, new_mask = model(ndc_pixels, img, mask_img, camera,
                                    u_minsdf, points=points,
                                    points_mask=points_mask, project=project,
-                                   training=training)
+                                   training=training, draws=proj_draws,
+                                   spacing=spacing)
     n_px = float(b * n_ray)
 
     rgb_diff = torch.sum(torch.abs(out.iso_rgb - out.iso_rgb_gt), dim=-1)
@@ -134,7 +158,7 @@ def clip_and_adam(params: Dict[str, torch.Tensor],
 
 
 class MVRTrainer:
-    """Single-device warm-up trainer (reference Trainer)."""
+    """Single-device trainer (reference Trainer)."""
 
     def __init__(self, model: CombinedModel,
                  cfg: TrainerConfig = TrainerConfig(),
@@ -163,7 +187,9 @@ class MVRTrainer:
                           points=points, points_mask=mask, it=0)
 
     def draw(self, n_rays: int, image_size: Tuple[int, int],
-             batch_size: int) -> StepDraws:
+             batch_size: int, n_points: Optional[int] = None) -> StepDraws:
+        """One step's random numbers; with `n_points` (the iso-point
+        buffer's width) also the projected forward's."""
         g = self.generators.next()
         dev = self.device
         pixels = sample_random_pixels(g, n_rays, image_size, batch_size,
@@ -172,31 +198,62 @@ class MVRTrainer:
                          device=dev) * 2.0 - 1.0
         u = torch.rand((self.model.raytrace_cfg.n_steps,), generator=g,
                        device=dev)
-        return StepDraws(pixels, eik, u)
+        proj = None
+        if n_points is not None:
+            m = self.model.ccfg.max_iso_per_batch
+            proj = ProjectedDraws(
+                sel_scores=torch.rand((1, n_points), generator=g, device=dev),
+                iso_offset=torch.rand((1, m, 3), generator=g, device=dev),
+                ray_uniform=torch.rand((batch_size, n_rays), generator=g,
+                                       device=dev))
+        return StepDraws(pixels, eik, u, proj)
 
     def train_step(self, state: TrainState, img: torch.Tensor,
                    mask_img: torch.Tensor, camera: PerspectiveCamera,
                    draws: Optional[StepDraws] = None
                    ) -> Tuple[TrainState, Dict[str, float]]:
-        """One warm-up optimisation step (trainer.py:241-318)."""
+        """One optimisation step (trainer.py:241-318): warm-up before
+        `warm_up_iters`, projected from then on."""
         it = state.it
         hp_host = self.scheduler.at(it)
-        if it >= self.cfg.warm_up_iters:
-            raise NotImplementedError(
-                f"it={it} is past warm_up_iters={self.cfg.warm_up_iters}: the "
-                "projected phase is not ported yet (ROADMAP 'Slices of the "
-                "port' 3)")
+        project = it >= self.cfg.warm_up_iters
+        points, points_mask = state.points, state.points_mask
+        spacing = state.spacing
+        if project and (it == self.cfg.warm_up_iters
+                        or it % self.cfg.resample_every == 0):
+            n_target = hp_host["n_points_dss"]
+            self.log.info("stage: resample start it=%d n=%d iters=%d", it,
+                          n_target, hp_host["proj_max_iters"])
+            points, points_mask = self.resample_iso_points(
+                n_target, proj_max_iters=hp_host["proj_max_iters"],
+                proj_tolerance=hp_host["proj_tolerance"],
+                init_points=state.points, init_mask=state.points_mask,
+                subsample_u=None if draws is None else draws.resample_u)
+            n_ok = int(torch.sum(points_mask))
+            if n_ok < n_target // 4:
+                # a collapsed resample starves the step of iso-points
+                self.log.warning("resample yield LOW at it=%d: %d/%d valid",
+                                 it, n_ok, n_target)
+            self.log.info("stage: resample done it=%d (%d valid)", it, n_ok)
+            spacing = None  # buffer replaced wholesale
+        if spacing is not None and spacing.shape != points.shape[:2]:
+            spacing = None  # capacity changed (e.g. first projected step)
+        if project and spacing is None:
+            spacing = splat_spacing(points, points_mask,
+                                    self.model.raster_settings)
+
         hp = {k: float(hp_host[k]) for k in
               ("lambda_rgb", "lambda_freespace", "lambda_occupied",
                "sdf_alpha")}
         hp["lambda_eikonal"] = float(self.cfg.lambda_eikonal)
         if draws is None:
             draws = self.draw(hp_host["n_rays"], tuple(img.shape[1:3]),
-                              img.shape[0])
+                              img.shape[0],
+                              n_points=points.shape[1] if project else None)
         total, metrics, new_pts, new_mask = compute_loss(
-            self.model, state.points, state.points_mask, draws.pixels, img,
+            self.model, points, points_mask, draws.pixels, img,
             mask_img, camera, draws.eikonal, draws.u_minsdf, hp,
-            project=False)
+            project=project, proj_draws=draws.projected, spacing=spacing)
         params = self.params()
         grads = dict(zip(params, torch.autograd.grad(total,
                                                      list(params.values()))))
@@ -205,8 +262,40 @@ class MVRTrainer:
         names: List[str] = list(metrics)
         values = torch.stack([metrics[k].detach().float() for k in names])
         host = dict(zip(names, values.tolist()))   # one device->host copy
+        # the cached spacing stays only while it matches the new buffer
+        keep = spacing is not None and spacing.shape == new_pts.shape[:2]
         return (TrainState(opt_state=opt_state, points=new_pts,
-                           points_mask=new_mask, it=it + 1), host)
+                           points_mask=new_mask, it=it + 1,
+                           spacing=spacing if keep else None), host)
+
+    def resample_iso_points(self, n_points: int,
+                            proj_max_iters: Optional[int] = None,
+                            proj_tolerance: Optional[float] = None,
+                            init_points: Optional[torch.Tensor] = None,
+                            init_mask: Optional[torch.Tensor] = None,
+                            subsample_u: Optional[torch.Tensor] = None):
+        """A fresh uniform iso-point set seeded from the current cloud
+        (trainer.py:416-460); the scheduler's projection iterations and
+        tolerance override the model's. Returns (points, mask)."""
+        if self.cfg.saliency_sampling:
+            raise NotImplementedError(
+                "saliency-weighted resampling is not ported yet (ROADMAP "
+                "Queue 1 item 8)")
+        g = self.generators.next()
+        if (subsample_u is None and init_points is not None
+                and init_points.shape[1] > n_points):
+            subsample_u = torch.rand(init_points.shape[:2], generator=g,
+                                     device=self.device)
+        pcfg = dataclasses.replace(
+            self.model.proj_cfg,
+            proj_max_iters=proj_max_iters or self.model.proj_cfg.proj_max_iters,
+            proj_tolerance=proj_tolerance or self.model.proj_cfg.proj_tolerance)
+        res = sample_uniform_iso_points(
+            self.model.trace_sdf_fn(), n_points, init_points, init_mask,
+            subsample_u=subsample_u,
+            bounding_sphere_radius=self.model.cfg.object_bounding_sphere,
+            cfg=pcfg)
+        return res.points, res.mask
 
     def check_state(self) -> bool:
         return check_weights(self.model)

@@ -1,5 +1,5 @@
 """Tensor utilities (port of isopoints_tpu/utils/__init__.py, the parts
-the warm-up step needs)."""
+the ported steps need)."""
 
 import torch
 from torch import nn
@@ -14,12 +14,33 @@ def eps_denom(x: torch.Tensor, eps: float = 1e-17) -> torch.Tensor:
     return sign * torch.maximum(x.abs(), torch.full_like(x, eps))
 
 
+def eps_sqrt(x: torch.Tensor, eps: float = 1e-17) -> torch.Tensor:
+    """|x| clamped to >= eps, for a sqrt the caller takes
+    (utils/__init__.py:30)."""
+    return torch.clamp(torch.abs(x), min=eps)
+
+
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a·b + c rounded once, as a fused multiply-add (XLA fuses the
     ray-point and depth formulas of the JAX package into FMAs; the CUDA
     kernels use __fmaf_rn). A float32 product is exact in float64."""
     dtype = torch.promote_types(torch.promote_types(a.dtype, b.dtype), c.dtype)
     return torch.addcmul(c.double(), a.double(), b.double()).to(dtype)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, as XLA's (vsqrtss) and CUDA's
+    sqrtf. torch.sqrt on CPU float32 is off by an ulp for ~0.6% of
+    inputs; a float32 root taken in float64 rounds once."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def top_k(x: torch.Tensor, k: int):
+    """`lax.top_k` along the last axis: the k largest, descending, equal
+    values in index order (torch.topk does not promise that order).
+    Returns (values, indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def linspace01(n: int, device=None) -> torch.Tensor:

@@ -6,6 +6,14 @@ machine without it:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels_cuda.py
 
+The kNN, splat-selection and fine-stage kernels are held against their
+plain versions on the same inputs: kNN distances within 1e-6 and index
+sets equal except at near-ties (both form the distance with the same
+fused multiply-adds, so they agree exactly in practice); candidate SETS and
+overflow counts equal (the kernel lists a tile's candidates in index
+order, the plain version by depth); fragment maps, occupancy, used flags
+and visibility identical, conic values within 1e-6.
+
 Tolerances: MLP values atol 2e-5 and input gradients atol 1e-4 + rtol 1e-4
 (float32 FMA in the kernel against cuBLAS float32 in the twin; ω = 30
 sine layers amplify the round-off of the gradient). Sampler: the picked
@@ -19,7 +27,10 @@ import torch
 
 from isopoints_torch.models.fields import SirenField
 from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
-from isopoints_torch.ops import fused_mlp, fused_sampler
+from isopoints_torch.ops import fused_mlp, fused_sampler, knn
+from isopoints_torch.rendering import select, splat
+from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
+                                                  rasterize_splats)
 from isopoints_torch.utils import linspace01
 
 pytestmark = pytest.mark.cuda
@@ -118,3 +129,108 @@ def test_ray_trace_fused_matches_plain(dev):
     assert float(agree.float().mean()) >= 0.998
     close = (r_k.dists - r_p.dists).abs() < 1e-4
     assert float(close.float().mean()) >= 0.99
+
+
+def _sphere_cloud(dev, n, seed=0, frac=0.95):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(1, n, 3, generator=g, device=dev)
+    v = v / v.norm(dim=-1, keepdim=True)
+    mask = torch.rand(1, n, generator=g, device=dev) < frac
+    return 0.5 * v, v, mask
+
+
+@pytest.mark.parametrize("p,k", [(8000, 6), (3000, 8), (6000, 16)])
+def test_knn_kernel_matches_plain(dev, p, k):
+    pts, _, mask = _sphere_cloud(dev, p, seed=k)
+    before = knn.KERNEL.launches
+    a = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True)
+    torch.cuda.synchronize()
+    assert knn.KERNEL.launches == before + 1
+    b = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True,
+                       method="dense")
+    assert torch.equal(a.mask, b.mask)
+    torch.testing.assert_close(a.dists, b.dists, atol=1e-6, rtol=0)
+    diff = a.idx != b.idx
+    assert not diff.any() or float((a.dists - b.dists)[diff].abs().max()) < 1e-6
+
+
+def test_knn_kernel_masks_and_queries(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.rand(2, 700, 3, generator=g, device=dev) - 0.5
+    pts = torch.rand(2, 3000, 3, generator=g, device=dev) - 0.5
+    qm = torch.rand(2, 700, generator=g, device=dev) < 0.9
+    pm = torch.rand(2, 3000, generator=g, device=dev) < 0.9
+    a = knn.knn_points(q, pts, qm, pm, k=8)
+    b = knn.knn_points(q, pts, qm, pm, k=8, method="dense")
+    assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
+    torch.testing.assert_close(a.dists, b.dists, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="k <= 16"):
+        knn.knn_points(q, pts, k=17)
+
+
+def _splats(dev, P, seed, z_ties=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(1, P, generator=g, device=dev)
+    z = u(0.5, 3.0)
+    if z_ties:
+        z = torch.round(z * 8.0) / 8.0
+    valid = torch.rand(1, P, generator=g, device=dev) > 0.1
+    return u(-1.1, 1.1), u(-1.1, 1.1), z, u(0.005, 0.1), u(0.005, 0.1), valid
+
+
+def _sets(ci, ok):
+    return [set(c[o].tolist()) for c, o in zip(ci.cpu(), ok.cpu())]
+
+
+@pytest.mark.parametrize("P,S,R,M,z_ties", [(8000, 256, 2048, 256, False),
+                                            (8000, 256, 512, 64, True),
+                                            (640, 64, 2048, 128, True)])
+def test_select_kernel_matches_plain(dev, P, S, R, M, z_ties):
+    args = _splats(dev, P, seed=P + M, z_ties=z_ties)
+    before = select.KERNEL.launches
+    ci, ok, ovf = select.select_candidates(*args, S, 16, R, M)
+    torch.cuda.synchronize()
+    assert select.KERNEL.launches == before + 1
+    ci_p, ok_p, ovf_p = select.select_candidates_plain(*args, S, 16, R, M)
+    assert torch.equal(ovf, ovf_p)
+    assert _sets(ci[0], ok[0]) == _sets(ci_p[0], ok_p[0])
+
+
+def test_fine_kernel_and_rasterizer_match_plain(dev):
+    pts, normals, mask = _sphere_cloud(dev, 8000, seed=3)
+    from isopoints_torch.core.camera import (PerspectiveCamera,
+                                             look_at_view_transform)
+    from isopoints_torch.rendering.rasterizer import compute_splat_params
+    R, T = look_at_view_transform(2.0, [10.0, -30.0], [20.0, 150.0], device=dev)
+    cam = PerspectiveCamera.create(R=R, T=T, focal_length=2.0, device=dev)
+    kern = RasterizationSettings(image_size=256, use_pallas=True)
+    plain = RasterizationSettings(image_size=256, use_pallas=False)
+    sp = compute_splat_params(pts.expand(2, -1, -1), normals.expand(2, -1, -1),
+                              mask.expand(2, -1), cam, kern)
+    args = (sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff, sp.mask)
+    before = (select.KERNEL.launches, splat.KERNEL.launches)
+    a = rasterize_splats(*args, kern)
+    torch.cuda.synchronize()
+    assert (select.KERNEL.launches, splat.KERNEL.launches) == (before[0] + 1,
+                                                               before[1] + 1)
+    b = rasterize_splats(*args, plain)
+    for name in ("idx", "occupancy", "visibility", "tile_overflow"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    torch.testing.assert_close(a.zbuf, b.zbuf, atol=0, rtol=0)
+    torch.testing.assert_close(a.qvalue, b.qvalue, atol=1e-6, rtol=0)
+    assert int(a.visibility.sum()) > 2000
+    # the fine kernel alone on the plain selection's candidate table
+    px, py, z = (sp.pts_ndc[..., i] for i in range(3))
+    valid = sp.mask & (z >= 0)
+    ci, ok, _ = select.select_candidates_plain(
+        px, py, z, sp.radii[..., 0], sp.radii[..., 1], valid, 256, 16, 2048, 256)
+    table = torch.stack([px, py, z, sp.ellipse[..., 0], sp.ellipse[..., 1],
+                         sp.ellipse[..., 2], sp.radii[..., 0], sp.radii[..., 1],
+                         sp.cutoff], -1)
+    attrs = torch.gather(table, 1, ci.reshape(2, -1, 1).expand(-1, -1, 9)).reshape(
+        ci.shape + (9,))
+    fk = splat.rasterize_fine(attrs, ok, ci, 256, 16, 5, 0.05)
+    fp = splat.rasterize_fine_plain(attrs, ok, ci, 256, 16, 5, 0.05)
+    for name in ("idx", "zbuf", "occ", "used", "slots"):
+        assert torch.equal(getattr(fk, name), getattr(fp, name)), name
+    torch.testing.assert_close(fk.qvalue, fp.qvalue, atol=1e-6, rtol=0)

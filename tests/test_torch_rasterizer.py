@@ -1,0 +1,234 @@
+"""Port parity: the splat rasterizer's forward against the JAX package, on
+the CPU.
+
+The port's coarse and fine stages on CPU tensors are their plain versions
+(the CUDA kernels are held against them on the card in
+tests/test_torch_kernels_cuda.py). The JAX side runs its XLA path and its
+Pallas path (`use_pallas`, interpret mode on the CPU). Inputs are made with
+numpy from a seed, or derived from such inputs by the JAX package, and
+handed to both as numpy arrays.
+
+The JAX functions run under `jax.jit`, as in the JAX training step: XLA
+then divides by a constant as a product with its reciprocal
+((S − 2i − 1)/S for the pixel centers), and the port forms them that way.
+
+Tolerances. Candidate selection: each tile's candidate SET and the overflow
+count equal (the kernel and the Pallas path list candidates in another
+order than the XLA path). Fragment maps from identical splat parameters:
+`idx`, `occupancy`, `visibility` and `tile_overflow` equal; `zbuf` and
+`qvalue` within 1e-6 (equal in practice: both packages form q with the
+same fused multiply-adds). Splat parameters from identical points,
+normals and cameras: masks equal, positions within 1e-6, conics and radii
+within rtol 1e-3 (the 3×3 products run in another summation order and the
+conic divides by det(GV), whose cancellation lifts their ~1e-6 to ~1e-4
+on a few splats), spacings within 1e-7 of squared distances.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from isopoints_tpu.core.camera import PerspectiveCamera as JCam
+from isopoints_tpu.core.camera import look_at_view_transform as j_look_at
+from isopoints_tpu.rendering.pallas_select import select_candidates_pallas
+from isopoints_tpu.rendering.rasterizer import (
+    RasterizationSettings as JSettings,
+    _pixel_ndc as j_pixel_ndc,
+    _tile_candidates as j_tile_candidates,
+    compute_splat_params as j_splat_params,
+    rasterize_splats as j_rasterize,
+    splat_spacing as j_splat_spacing,
+)
+from isopoints_torch.core.camera import PerspectiveCamera
+from isopoints_torch.rendering import select, splat
+from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
+                                                  compute_splat_params,
+                                                  rasterize_splats,
+                                                  splat_spacing)
+from isopoints_torch.rendering.select import pixel_ndc, select_candidates_plain
+from isopoints_torch.rendering.splat import rasterize_fine_plain
+
+
+def _random_splats(rng, P, z_ties=False):
+    px = rng.uniform(-1.1, 1.1, P).astype(np.float32)
+    py = rng.uniform(-1.1, 1.1, P).astype(np.float32)
+    z = rng.uniform(0.5, 3.0, P).astype(np.float32)
+    if z_ties:
+        z = (np.round(z * 8.0) / 8.0).astype(np.float32)
+    rx = rng.uniform(0.01, 0.25, P).astype(np.float32)
+    ry = rng.uniform(0.01, 0.25, P).astype(np.float32)
+    valid = rng.uniform(size=P) > 0.1
+    return px, py, z, rx, ry, valid
+
+
+@functools.partial(jax.jit, static_argnums=(6, 7, 8, 9))
+def _jax_xla_selection(px, py, z, rx, ry, valid, S, T, R, M):
+    nt = S // T
+    xs = j_pixel_ndc(jnp.arange(S), S)
+    cx = 0.5 * (xs[::T] + xs[T - 1::T])
+    rows = []
+    for ti in range(nt):
+        ys = j_pixel_ndc(ti * T + jnp.arange(T), S)
+        rows.append(j_tile_candidates(px, py, z, rx, ry, valid,
+                                      0.5 * (ys[0] + ys[-1]), cx,
+                                      float(T - 1) / S, M, strip_cap=R))
+    return (jnp.concatenate([r[0] for r in rows]),
+            jnp.concatenate([r[1] for r in rows]), sum(r[2] for r in rows))
+
+
+def _sets(ci, ok):
+    return [set(c[o].tolist()) for c, o in zip(ci, ok)]
+
+
+def test_pixel_ndc_matches_jax():
+    for S in (48, 64, 256):
+        np.testing.assert_array_equal(
+            pixel_ndc(torch.arange(S), S).numpy(),
+            np.asarray(jax.jit(j_pixel_ndc, static_argnums=1)(jnp.arange(S), S)))
+
+
+@pytest.mark.parametrize("seed,z_ties,S,R", [(0, False, 64, 256),
+                                             (1, True, 64, 256),
+                                             (2, False, 48, 2048)])
+def test_selection_sets_match_jax(seed, z_ties, S, R):
+    rng = np.random.RandomState(seed)
+    T, P, M = 16, 640, 48
+    arrays = _random_splats(rng, P, z_ties)
+    px, py, z, rx, ry, valid = (jnp.asarray(a) for a in arrays)
+    valid = valid & (z >= 0)
+    ci_x, ok_x, ovf_x = (np.asarray(a) for a in _jax_xla_selection(
+        px, py, z, rx, ry, valid, S, T, R, M))
+    ci_p, ok_p, ovf_p = select_candidates_pallas(
+        px, py, z, rx, ry, valid, S=S, T=T, nt=S // T, R=R, M=M,
+        interpret=True)
+    t = [torch.from_numpy(a)[None] for a in arrays]
+    ci_t, ok_t, ovf_t = select.select_candidates(*t, S, T, R, M)
+    assert ci_t.shape == (1, (S // T) ** 2, M)
+    assert int(ovf_t[0]) == int(ovf_x) == int(ovf_p) > 0
+    assert _sets(ci_t[0].numpy(), ok_t[0].numpy()) == _sets(ci_x, ok_x)
+    assert _sets(ci_t[0].numpy(), ok_t[0].numpy()) == _sets(
+        np.asarray(ci_p), np.asarray(ok_p))
+    # the plain version keeps the XLA path's depth order too
+    np.testing.assert_array_equal(np.where(ok_t[0].numpy(), ci_t[0].numpy(), -1),
+                                  np.where(ok_x, ci_x, -1))
+    assert select.KERNEL.launches == 0
+
+
+def _sphere_scene(n_points, S, seed=0, n_views=2):
+    """JAX splat parameters of a radius-0.5 sphere cloud seen from n_views
+    cameras at distance 2 (numpy outputs), plus the inputs that made them."""
+    rng = np.random.RandomState(seed)
+    v = rng.randn(1, n_points, 3).astype(np.float32)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    pts = np.repeat(0.5 * v, n_views, axis=0).astype(np.float32)
+    normals = np.repeat(v, n_views, axis=0).astype(np.float32)
+    mask = np.repeat(rng.uniform(size=(1, n_points)) > 0.05, n_views, axis=0)
+    R, T = j_look_at(2.0, np.array([10.0, -25.0])[:n_views],
+                     np.array([30.0, 200.0])[:n_views])
+    R, T = np.asarray(R), np.asarray(T)
+    return pts, normals, mask, R, T
+
+
+def _cameras(R, T):
+    return (JCam.create(R=R, T=T, focal_length=2.0),
+            PerspectiveCamera.create(R=R, T=T, focal_length=2.0))
+
+
+@pytest.mark.parametrize("S,P,M,R", [(48, 512, 128, 2048),
+                                     (64, 900, 64, 256)])
+def test_splat_params_and_spacing_match_jax(S, P, M, R):
+    pts, normals, mask, Rm, Tm = _sphere_scene(P, S)
+    jcam, tcam = _cameras(Rm, Tm)
+    js = JSettings(image_size=S, max_points_per_tile=M, max_points_per_strip=R)
+    ts = RasterizationSettings(image_size=S, max_points_per_tile=M,
+                               max_points_per_strip=R)
+    j_sp = j_splat_spacing(jnp.asarray(pts), jnp.asarray(mask), js)
+    t_sp = splat_spacing(torch.from_numpy(pts), torch.from_numpy(mask), ts)
+    np.testing.assert_allclose(t_sp.numpy(), np.asarray(j_sp), atol=1e-7, rtol=0)
+    j = jax.jit(j_splat_params, static_argnums=4)(
+        *(jnp.asarray(a) for a in (pts, normals, mask)), jcam, js)
+    t = compute_splat_params(*(torch.from_numpy(a) for a in (pts, normals, mask)),
+                             tcam, ts)
+    np.testing.assert_array_equal(t.mask.numpy(), np.asarray(j.mask))
+    assert 0.3 < t.mask.numpy().mean() < 0.7        # backface culling at work
+    np.testing.assert_allclose(t.pts_ndc.numpy(), np.asarray(j.pts_ndc), atol=1e-6)
+    for name in ("ellipse", "radii", "cutoff", "scaler"):
+        np.testing.assert_allclose(getattr(t, name).numpy(),
+                                   np.asarray(getattr(j, name)), rtol=1e-3,
+                                   err_msg=name)
+    # a cached spacing gives the same parameters
+    t2 = compute_splat_params(*(torch.from_numpy(a) for a in (pts, normals, mask)),
+                              tcam, ts, spacing=t_sp[:1])
+    np.testing.assert_array_equal(t2.ellipse.numpy(), t.ellipse.numpy())
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("S,P,M,R", [(48, 512, 128, 2048),
+                                     (64, 900, 64, 256)])
+def test_fragments_match_jax(use_pallas, S, P, M, R):
+    """The port's rasterizer (plain stages on the CPU, with or without
+    `use_pallas`) against JAX's XLA path and its Pallas path, on identical
+    splat parameters."""
+    pts, normals, mask, Rm, Tm = _sphere_scene(P, S, seed=P)
+    jcam, _ = _cameras(Rm, Tm)
+    js = JSettings(image_size=S, max_points_per_tile=M, max_points_per_strip=R,
+                   use_pallas=use_pallas)
+    sp = jax.jit(j_splat_params, static_argnums=4)(
+        *(jnp.asarray(a) for a in (pts, normals, mask)), jcam, js)
+    args = (sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff, sp.mask)
+    jf = jax.jit(j_rasterize, static_argnums=5)(*args, js)
+    ts = RasterizationSettings(image_size=S, max_points_per_tile=M,
+                               max_points_per_strip=R, use_pallas=use_pallas)
+    tf = rasterize_splats(*(torch.from_numpy(np.asarray(a)) for a in args), ts)
+    np.testing.assert_array_equal(tf.idx.numpy(), np.asarray(jf.idx))
+    np.testing.assert_array_equal(tf.occupancy.numpy(), np.asarray(jf.occupancy))
+    np.testing.assert_allclose(tf.zbuf.numpy(), np.asarray(jf.zbuf), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tf.qvalue.numpy(), np.asarray(jf.qvalue), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_array_equal(tf.visibility.numpy(), np.asarray(jf.visibility))
+    np.testing.assert_array_equal(tf.tile_overflow.numpy(),
+                                  np.asarray(jf.tile_overflow))
+    assert tf.visibility.numpy().sum() > 0.2 * P
+    assert splat.KERNEL.launches == 0
+
+
+def test_fine_stage_ignores_candidate_order():
+    """Depth ties break by global index, so shuffling each tile's candidate
+    list permutes `used` and `slots` and changes nothing else."""
+    rng = np.random.RandomState(7)
+    S, T, M = 32, 16, 48
+    arrays = _random_splats(rng, 300, z_ties=True)
+    t = [torch.from_numpy(a)[None] for a in arrays]
+    ci, ok = select_candidates_plain(*t, S, T, 0, M)[:2]
+    px, py, z, rx, ry, _ = t
+    ell = torch.from_numpy(rng.uniform(5.0, 40.0, (1, 300, 3)).astype(np.float32))
+    ell[..., 1] = 0.0
+    table = torch.stack([px, py, z, ell[..., 0], ell[..., 1], ell[..., 2], rx,
+                         ry, torch.ones_like(px)], -1)
+    attrs = table[0][ci]
+    perm = torch.from_numpy(np.stack([rng.permutation(M) for _ in range(ci.shape[1])]))[None]
+    shuf = lambda x: torch.gather(x, 2, perm if x.dim() == 3 else
+                                  perm[..., None].expand(-1, -1, -1, x.shape[-1]))
+    a = rasterize_fine_plain(attrs, ok, ci, S, T, 5, 0.05)
+    b = rasterize_fine_plain(shuf(attrs), shuf(ok), shuf(ci), S, T, 5, 0.05)
+    assert int((a.idx >= 0).sum()) > 100
+    for name in ("idx", "zbuf", "qvalue", "occ"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert torch.equal(shuf(a.used), b.used)
+
+
+def test_rasterizer_refuses_what_is_not_ported():
+    ts = RasterizationSettings(image_size=16)
+    pts = torch.zeros(1, 4, 3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="Slices of the port' 4"):
+        rasterize_splats(pts, torch.ones(1, 4, 3), torch.ones(1, 4, 2),
+                         torch.ones(1, 4), torch.ones(1, 4, dtype=torch.bool), ts)
+    aniso = RasterizationSettings(Vrk_isotropic=False)
+    cam = PerspectiveCamera.create(T=[0.0, 0.0, 2.0])
+    with pytest.raises(NotImplementedError, match="anisotropic"):
+        compute_splat_params(torch.zeros(1, 4, 3), torch.ones(1, 4, 3),
+                             torch.ones(1, 4, dtype=torch.bool), cam, aniso)

@@ -9,6 +9,10 @@ hands them to the port. The port runs the slice's config (fused MLP and
 in-kernel sampler, which on the CPU are their plain twins); the JAX side
 runs the plain field, which its own tests hold equal to its kernels.
 
+The projected step (from `warm_up_iters` on) is held the same way, on an
+iso-point buffer Newton-projected by the JAX package and the projected
+forward's draws rebuilt from the JAX key (models/combined.py:116, 278).
+
 Tolerances: loss terms rtol 1e-4 (float32 sums over a few hundred rays in
 two summation orders); pre-clip gradients, divided by their global norm,
 rtol 1e-3, atol 1e-6 (they pass through the double backward of the
@@ -32,7 +36,7 @@ from isopoints_tpu.training.trainer import compute_loss as j_compute_loss
 from isopoints_torch.convert import params_from_jax
 from isopoints_torch.core.camera import cameras_from_matrices
 from isopoints_torch.data.synthetic import make_synthetic_mvr, sphere_sdf
-from isopoints_torch.models.combined import CombinedModel
+from isopoints_torch.models.combined import CombinedModel, ProjectedDraws
 from isopoints_torch.models.fields import SirenField
 from isopoints_torch.models.implicit import ImplicitConfig
 from isopoints_torch.ops import fused_mlp, fused_sampler
@@ -185,3 +189,86 @@ def test_three_warmup_steps_stay_finite(world):
     assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
     # the CPU path takes the plain twins: no kernel launched
     assert fused_mlp.KERNEL.launches == fused_sampler.KERNEL.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The projected step: the same comparison from `warm_up_iters` on
+# ---------------------------------------------------------------------------
+
+def jax_projected_draws(k_loss, n_points, m, batch=2):
+    """The projected step's draws from compute_loss's key, split as
+    isopoints_tpu does (trainer.py:99-103,144; combined.py:116,278)."""
+    k1, k2, k3 = jax.random.split(k_loss, 3)
+    ray_u = jax.random.uniform(k3, (batch, N_RAYS))
+    eik = jax.random.uniform(k2, (1, N_EIK, 3), minval=-1.0, maxval=1.0)
+    k_sel, k_off = jax.random.split(jax.random.split(k1)[0])
+    scores = jax.random.uniform(k_sel, (1, n_points))
+    offset = jax.random.uniform(k_off, (1, m, 3))
+    t = lambda a: torch.from_numpy(np.array(a))
+    return t(eik), ProjectedDraws(t(scores), t(offset), t(ray_u))
+
+
+@pytest.fixture(scope="module")
+def projected_pair():
+    from test_torch_combined import (CCFG, iso_buffer, projected_models,
+                                     views)
+    jmodel, params, tmodel = projected_models(seed=2)
+    img, mask, jcam, tcam = views(idx=(0, 2))
+    pts, pmask = iso_buffer(jmodel, params, seed=4)
+    key = jax.random.key(21)
+    k_pix, k_loss = jax.random.split(key)
+    pixels = j_pixels(k_pix, N_RAYS, img.shape[1:3], batch_size=2)
+
+    def loss_fn(p):
+        total, (metrics, new_pts, new_mask, _) = j_compute_loss(
+            jmodel, p, jnp.asarray(pts), jnp.asarray(pmask), pixels,
+            jnp.asarray(img), jnp.asarray(mask), jcam, k_loss,
+            {k: jnp.float32(v) for k, v in HP.items()}, project=True,
+            n_eikonal_points=N_EIK)
+        return total, (metrics, new_pts, new_mask)
+    (_, (j_metrics, j_pts, j_mask)), j_grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(params)
+    eik, draws = jax_projected_draws(k_loss, pts.shape[1],
+                                     CCFG["max_iso_per_batch"])
+    total, t_metrics, t_pts, t_mask = compute_loss(
+        tmodel, torch.from_numpy(pts), torch.from_numpy(pmask),
+        torch.from_numpy(np.array(pixels)), torch.from_numpy(img),
+        torch.from_numpy(mask), tcam, eik, None, HP, project=True,
+        proj_draws=draws)
+    names = [n for n, _ in tmodel.named_parameters()]
+    t_grads = dict(zip(names, torch.autograd.grad(total,
+                                                  list(tmodel.parameters()))))
+    return (j_metrics, j_grads, np.asarray(j_mask), t_metrics, t_grads,
+            t_mask.numpy())
+
+
+def test_projected_loss_terms_match(projected_pair):
+    """The warm-up step's rtol 1e-4 holds here: at this size the visible
+    iso-point sets come out equal. Counts may differ by 1% of the capacity
+    (a Newton convergence within round-off of the tolerance)."""
+    j_metrics, _, j_mask, t_metrics, _, t_mask = projected_pair
+    m = j_mask.size
+    assert float(j_metrics["n_iso"]) > 0
+    assert abs(float(t_metrics["n_iso"]) - float(j_metrics["n_iso"])) <= 0.01 * m
+    assert abs(int(t_mask.sum()) - int(j_mask.sum())) <= 0.01 * m
+    for k in LOSS_KEYS:
+        np.testing.assert_allclose(float(t_metrics[k].detach()),
+                                   float(j_metrics[k]), rtol=1e-4, err_msg=k)
+    assert float(t_metrics["loss_freespace"].detach()) > 0
+    assert float(t_metrics["loss_occupied"].detach()) > 0
+
+
+def test_projected_preclip_grads_match(projected_pair):
+    """The warm-up step's rule: rtol 1e-3, atol 1e-6 in units of the
+    gradient's global norm."""
+    _, j_grads, _, _, t_grads, _ = projected_pair
+    leaves = jax.tree.leaves(j_grads)
+    norm = float(np.sqrt(sum(np.sum(np.asarray(a, np.float64) ** 2)
+                             for a in leaves)))
+    assert norm > 0
+    for i, lp in enumerate(j_grads["decoder"]["layers"]):
+        for leaf, name in (("w", "weight"), ("b", "bias")):
+            np.testing.assert_allclose(
+                t_grads[f"decoder.layers.{i}.{name}"].numpy() / norm,
+                np.asarray(lp[leaf]) / norm, rtol=1e-3, atol=1e-6,
+                err_msg=f"layer {i} {leaf}")
