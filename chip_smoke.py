@@ -33,7 +33,26 @@ Phases, each fatal on failure:
      splat spacing, in the step's views and the back camera's (the same
      exact checks as phase 2); the kNN there at k=6 and 8 (3000 points),
      k=6 and 16 (6000) and k=8 on the resample's 8000-point seed;
-  6. one JSON line {"kernels": [...]} (each kernel timed at the shape the
+  6. the trace path (isopoints_torch.bench): the 4x256 IGR bench field
+     fitted to the r=0.6 sphere, 262,144 rays traced under the production
+     schedule three ways: with the fused MLP and the in-kernel sampler,
+     again with the in-kernel march (`trace_in_kernel`), and with every
+     plain version. Counters set to 0 before each trace and read after it
+     (fused_igr, fused_sampler and trace_march must launch); hit masks and
+     depths compared (march route equal to the loop route; plain route
+     within the stated tolerance); the converged-ray invariant (every hit
+     the trace finished without the sampler has f_fine <= thr at its point,
+     exactly on the kernel routes); both overflow counters 0; median trace
+     ms and rays/s; Newton projection rate and converged fraction of 65,536
+     points (f32, bf16, hybrid);
+  7. the IGR kernels against their plain versions at full width on that
+     field: fused_igr value and value+grad on 262,144 points in f32 and
+     bf16, the coarse IGR sampler on the trace's own 24,576-ray sampler
+     buffer (100 steps + 8 secant, margin 2e-3), the march on the trace's
+     own first compacted stage (ceil(0.65 x 262,144) rays, 3 iterations);
+     max error against the stated tolerance, kernel and plain times and the
+     bound;
+  8. one JSON line {"kernels": [...]} (each kernel timed at the shape the
      main path gives it most often), then the device line
      {"ok": true, "device": {...}}.
 
@@ -52,6 +71,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 F32_PEAK = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12    # H100 SXM dense bf16 tensor cores, FLOP/s
 HBM_RATE = 3.35e12    # H100 SXM device memory, bytes/s
 N_WARMUP_SMOKE = 3
 N_PROJECTED = 6
@@ -84,8 +104,8 @@ def mlp_flops(n_points: int, hidden: int, n_hidden: int) -> float:
     return 2.0 * n_points * (3 * hidden + n_hidden * hidden * hidden + hidden)
 
 
-def bound_ms(flops: float, n_bytes: float):
-    t_ops, t_bytes = flops / F32_PEAK, n_bytes / HBM_RATE
+def bound_ms(flops: float, n_bytes: float, peak: float = F32_PEAK):
+    t_ops, t_bytes = flops / peak, n_bytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -101,6 +121,7 @@ def row(name, source, replaces, launches, err, ms, plain_ms, b):
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    t_start = time.time()
     sys.path.insert(0, ROOT)
     from isopoints_torch.config import load_config
     from isopoints_torch.core.camera import (PerspectiveCamera,
@@ -110,7 +131,10 @@ def main() -> None:
                                            create_trainer)
     from isopoints_torch.models.combined import back_camera
     from isopoints_torch.models.fields import SirenField, sdf_and_grad
-    from isopoints_torch.ops import _build, fused_mlp, fused_sampler, knn
+    from isopoints_torch import bench
+    from isopoints_torch.models.raytracing import march_plain
+    from isopoints_torch.ops import (_build, fused_mlp, fused_sampler,
+                                     fused_trace, knn)
     from isopoints_torch.rendering import select, splat
     from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                       compute_splat_params,
@@ -122,7 +146,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = (fused_mlp.KERNEL, fused_sampler.KERNEL, knn.KERNEL,
-               select.KERNEL, splat.KERNEL)
+               select.KERNEL, splat.KERNEL, fused_mlp.IGR_KERNEL,
+               fused_trace.KERNEL)
 
     def reset():
         for k in kernels:
@@ -137,8 +162,11 @@ def main() -> None:
                          text=True, timeout=60, check=True).stdout.strip()
     print(smi.splitlines()[0])
     t0 = time.time()
-    libs = _build.build_all()
-    print(f"kernel build: {time.time() - t0:.1f} s for {sorted(libs)}")
+    build_s = {}
+    libs = _build.build_all(build_s)
+    print(f"kernel build: {time.time() - t0:.1f} s for {sorted(libs)} ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build_s.items()))
+          + ")")
 
     # ---- 2. kernels against their plain versions at full width
     hidden, n_hidden = 256, 3
@@ -465,8 +493,9 @@ def main() -> None:
           f"launches in the run: {launches}")
     print(f"launches per projected step: {proj_launches[-1]}; in the resample "
           f"step: {per_step[warm]}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("fused_mlp", "fused_sampler", "knn", "splat_select",
+                 "splat_fine"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the projected path")
     for name in ("knn", "splat_select", "splat_fine"):
         if any(p[name] <= 0 for p in proj_launches):
@@ -506,7 +535,230 @@ def main() -> None:
     knn_case(seed_pts, seed_mask, model.proj_cfg.knn_k,
              "resample seed (before its projection)")
 
-    # ---- 6. the kernels line
+    # ---- 6. the trace path: the production schedule on the IGR bench field
+    t_fit = time.time()
+    field, fit_mse = bench.fit_sphere_field(dev)
+    print(f"trace path: 4x256 IGR field fitted to the r={bench.RADIUS} sphere "
+          f"in {time.time() - t_fit:.1f} s ({bench.FIT_STEPS} Adam steps), "
+          f"mse {fit_mse:.3e}")
+    fine, coarse = bench.trace_fns(field)
+    plain_fine, plain_coarse = bench.trace_fns(field, plain=True)
+    rays = bench.make_rays(bench.N_RAYS, dev)
+    cfg_k = bench.bench_config()
+    cfg_m = bench.bench_config(trace_in_kernel=True)
+    thr = cfg_k.sdf_threshold
+    # the trace's own sampler buffer and first compacted stage, recorded
+    # for the full-width kernel checks of phase 7
+    captured = {}
+    sampler_call, stepper_call = fine.fused_ray_sampler, fine.fused_trace_stepper
+
+    def recording_sampler(*args, **kw):
+        captured.setdefault("sampler", (args, kw))
+        return sampler_call(*args, **kw)
+
+    # ray_trace reads the sampler's capability before it asks for a coarse
+    # sweep
+    recording_sampler.packing_stride = sampler_call.packing_stride
+
+    def recording_stepper(*args):
+        captured.setdefault("stepper", args)
+        return stepper_call(*args)
+
+    def traced(fn_fine, fn_coarse, cfg, label, must_launch):
+        reset()
+        res = bench.trace(fn_fine, fn_coarse, rays, cfg)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"trace ({label}): launches {got}; hits "
+              f"{int(res.network_object_mask.sum())}, sampler rays "
+              f"{int(res.sampler_mask.sum())}, overflow trace "
+              f"{int(res.trace_overflow)} sampler {int(res.sampler_overflow)}")
+        for name in must_launch:
+            if got[name] <= 0:
+                fail(f"kernel {name} was not launched on the trace path ({label})")
+        for name in set(got) - set(must_launch):
+            if got[name] != 0:
+                fail(f"kernel {name} launched on the trace path ({label})")
+        return res, got
+
+    fine.fused_ray_sampler = recording_sampler
+    fine.fused_trace_stepper = recording_stepper
+    res_k, trace_launches = traced(fine, coarse, cfg_k, "fused MLP + sampler",
+                                   ("fused_igr", "fused_sampler"))
+    res_m, march_launches = traced(fine, coarse, cfg_m, "+ in-kernel march",
+                                   ("fused_igr", "fused_sampler", "trace_march"))
+    fine.fused_ray_sampler, fine.fused_trace_stepper = sampler_call, stepper_call
+    res_p, _ = traced(plain_fine, plain_coarse, cfg_k, "every plain version", ())
+    print("trace tolerances: the march route equals the loop route (hit masks "
+          "equal, depths within 1e-6); the plain route's hit and sampler masks "
+          "equal on >= 99.5% of rays and depths within 1e-4 on >= 99% of the "
+          "rays with equal masks; overflow 0; every hit finished without the "
+          "sampler has f_fine <= thr, exactly on the kernel routes (re-evaluated "
+          "by the fused kernel) and within 1e-6 on the plain route (cuBLAS "
+          "rounds a point's sum by its batch)")
+    for res, label in ((res_k, "kernels"), (res_m, "march"), (res_p, "plain")):
+        if int(res.trace_overflow) or int(res.sampler_overflow):
+            fail(f"trace ({label}): overflow trace {int(res.trace_overflow)} "
+                 f"sampler {int(res.sampler_overflow)}")
+        conv = res.network_object_mask & ~res.sampler_mask
+        f_conv = (fine if label != "plain" else plain_fine)(res.points[conv])
+        slack = 0.0 if label != "plain" else 1e-6
+        worst = float(f_conv.max()) if f_conv.numel() else float("-inf")
+        n_bad = int((f_conv > thr + slack).sum())
+        print(f"converged-ray invariant ({label}): {int(conv.sum())} rays, max "
+              f"f_fine {worst:.6g} (thr {thr:g}), {n_bad} above")
+        if n_bad or not torch.isfinite(res.dists).all():
+            fail(f"trace ({label}): {n_bad} converged rays with f_fine > thr")
+    d_m = float((res_k.dists - res_m.dists).abs().max())
+    if not torch.equal(res_k.network_object_mask, res_m.network_object_mask) \
+            or d_m > 1e-6:
+        fail(f"march route differs from the loop route: masks equal "
+             f"{torch.equal(res_k.network_object_mask, res_m.network_object_mask)}, "
+             f"depth diff {d_m}")
+    same = ((res_k.network_object_mask == res_p.network_object_mask)
+            & (res_k.sampler_mask == res_p.sampler_mask))
+    hit_agree = float((res_k.network_object_mask == res_p.network_object_mask)
+                      .float().mean())
+    smp_agree = float((res_k.sampler_mask == res_p.sampler_mask).float().mean())
+    d_close = float(((res_k.dists - res_p.dists).abs() <= 1e-4)[same]
+                    .float().mean())
+    print(f"kernel vs plain trace: hit masks agree on {hit_agree:.6f}, sampler "
+          f"masks on {smp_agree:.6f}, depths within 1e-4 on {d_close:.6f} of "
+          f"equal-mask rays (max diff {float((res_k.dists - res_p.dists).abs()[same].max()):.3g}); "
+          f"march vs loop max depth diff {d_m:.3g}")
+    if hit_agree < 0.995 or smp_agree < 0.995 or d_close < 0.99:
+        fail("kernel and plain traces disagree beyond the stated tolerance")
+    trace_ms, _ = bench.time_trace(fine, coarse, rays, cfg_k, 5)
+    march_ms, _ = bench.time_trace(fine, coarse, rays, cfg_m, 5)
+    plain_trace_ms, _ = bench.time_trace(plain_fine, plain_coarse, rays, cfg_k, 3)
+    print(f"trace path: median trace {trace_ms:.3f} ms ({bench.N_RAYS / trace_ms * 1e3:.0f} "
+          f"rays/s) with the fused MLP + sampler; {march_ms:.3f} ms "
+          f"({bench.N_RAYS / march_ms * 1e3:.0f} rays/s) with the march; "
+          f"{plain_trace_ms:.3f} ms with every plain version "
+          f"({bench.N_RAYS} rays, median of 5/5/3)")
+    pts, pmask = bench.projection_points(bench.N_POINTS, dev)
+    for label, fn, kw in (("f32", fine, {}), ("bf16", coarse, {}),
+                          ("hybrid", fine, dict(max_iters=4, fn_coarse=coarse,
+                                                coarse_iters=8))):
+        rate, frac, p_ms = bench.time_projection(fn, pts, pmask, **kw)
+        print(f"iso_point_projections_per_s[{label}]: {rate:.0f} (converged "
+              f"{100 * frac:.2f}% of {bench.N_POINTS}, tol 5e-5, {p_ms:.3f} ms)")
+        if label != "bf16" and frac < 0.9:
+            fail(f"{label} Newton projection converged only {frac:.3f}")
+
+    # ---- 7. the IGR kernels against their plain versions at full width
+    ipack = fine.pack
+    igr_flops = 2.0 * sum(w.shape[0] * w.shape[1] for w in ipack.ws)
+    igr_w_bytes = 4 * sum(w.numel() + b.numel() for w, b in zip(ipack.ws, ipack.bs))
+
+    def check_igr(n, bf16, with_grad):
+        fn = coarse if bf16 else fine
+        x = torch.rand((n, 3), generator=gen, device=dev) * 2.4 - 1.2
+        if with_grad:
+            out = fn.sdf_and_grad(x)
+            ref = fused_mlp.igr_sdf_and_grad_plain(ipack, x, bf16)
+            run_k = lambda: fn.sdf_and_grad(x)
+            run_p = lambda: fused_mlp.igr_sdf_and_grad_plain(ipack, x, bf16)
+        else:
+            out, ref = (fn(x),), (fused_mlp.igr_sdf_plain(ipack, x, bf16),)
+            run_k = lambda: fn(x)
+            run_p = lambda: fused_mlp.igr_sdf_plain(ipack, x, bf16)
+        errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+        if not all(torch.isfinite(a).all() for a in out):
+            fail("fused_igr: non-finite output")
+        if bf16:
+            # the mode's own error on these points: plain bf16 against f32
+            own = ((fused_mlp.igr_sdf_and_grad_plain(ipack, x) if with_grad
+                    else (fused_mlp.igr_sdf_plain(ipack, x),)))
+            own_err = [float((a - b).abs().max()) for a, b in zip(ref, own)]
+            near = min(float(((a - b).abs() <= 1e-5).float().mean())
+                       for a, b in zip(out, ref))
+            if any(e > o for e, o in zip(errs, own_err)) or near < 0.99:
+                fail(f"fused_igr bf16: max err {errs} (tol: the mode's own "
+                     f"error against f32, {own_err}), {near:.5f} within 1e-5 "
+                     f"(tol 0.99)")
+        elif errs[0] > 2e-5 or (with_grad and errs[1] > 1e-4 * max(
+                1.0, float(ref[1].abs().max()))):
+            fail(f"fused_igr f32: errs {errs} (value tol 2e-5, grad 1e-4)")
+        ms, plain_ms = time_ms(run_k), time_ms(run_p)
+        b = bound_ms(igr_flops * n * (4 if with_grad else 1),
+                     n * (12 + (16 if with_grad else 4)) + igr_w_bytes,
+                     BF16_PEAK if bf16 else F32_PEAK)
+        print(f"fused_igr {'bf16' if bf16 else 'f32'} "
+              f"{'value+grad' if with_grad else 'value'} n={n}: max_abs_err "
+              f"{max(errs):.3g}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"bound {b[0]:.4f} ms ({b[1]}{', bf16 tensor-core peak' if bf16 else ''})")
+        return max(errs), ms, plain_ms, b
+
+    print("IGR tolerances: f32 value |err| <= 2e-5, grad |err| <= "
+          "1e-4·max(1,|g|); bf16 |err| <= the mode's own max error against f32 "
+          "on the same points, with >= 99% within 1e-5 (the same operands, "
+          "rounded to bf16 where another summation order lands on the other "
+          "side of a rounding boundary); coarse sampler picks equal "
+          "on >= 99%, f_pick |err| <= 1e-5, z_secant within 1e-4 on >= 99.9% of "
+          "crossing rays; march masks equal on >= 99.9%, depths within 1e-5 on "
+          ">= 99.9%")
+    for bf16 in (False, True):
+        for grad in (False, True):
+            check_igr(bench.N_RAYS, bf16, grad)
+    # the most frequent launch of the trace: both fronts of every ray, bf16
+    igr_err, igr_ms, igr_pms, igr_b = check_igr(2 * bench.N_RAYS, True, False)
+
+    s_args, s_kw = captured["sampler"]
+    n_srays = s_args[1].reshape(-1, 3).shape[0]
+    out = fine.fused_ray_sampler(*s_args, **s_kw)
+    ref = fused_sampler.sweep_plain(
+        plain_fine, *s_args[:5], s_kw["n_secant"], s_kw["margin"],
+        sdf_fn_coarse=plain_coarse if s_kw["coarse_sweep"] else None)
+    same = (out[0] == ref[0]) & (out[2] == ref[2])
+    s_frac = float(same.float().mean())
+    s_ferr = float((out[1] - ref[1])[same].abs().max())
+    hit = same & (ref[1] < 0)
+    z_near = float(((out[3] - ref[3]).abs() <= 1e-4)[hit].float().mean())
+    s_zerr = float((out[3] - ref[3])[hit].abs().max())
+    print(f"fused_sampler (IGR, coarse sweep) on the trace's {n_srays}-ray "
+          f"buffer x {s_args[4].shape[0]} steps + {s_kw['n_secant']} secant, "
+          f"margin {s_kw['margin']}: picks equal on {s_frac:.5f}, f_pick err "
+          f"{s_ferr:.3g}, z_secant within 1e-4 on {z_near:.5f} (max {s_zerr:.3g})")
+    if s_frac < 0.99 or s_ferr > 1e-5 or z_near < 0.999:
+        fail("fused_sampler (IGR coarse) disagrees with its plain version")
+    cs_ms = time_ms(lambda: fine.fused_ray_sampler(*s_args, **s_kw))
+    cs_pms = time_ms(lambda: fused_sampler.sweep_plain(
+        plain_fine, *s_args[:5], s_kw["n_secant"], s_kw["margin"],
+        sdf_fn_coarse=plain_coarse))
+    n_sweep = s_args[4].shape[0]
+    # the sweep's evals are bf16 and the 2 + n_secant fine ones f32
+    cs_b = (1e3 * max(igr_flops * n_srays * n_sweep / BF16_PEAK
+                      + igr_flops * n_srays * (2 + s_kw["n_secant"]) / F32_PEAK,
+                      (n_srays * 48 + 4 * n_sweep + 2 * igr_w_bytes) / HBM_RATE),
+            "operations")
+    print(f"  kernel {cs_ms:.3f} ms  plain {cs_pms:.3f} ms  bound {cs_b[0]:.4f} ms")
+
+    m_args = captured["stepper"]
+    cam_m, dirs_m, st_m, n_it = m_args[0], m_args[1], m_args[2], m_args[3]
+    n_mrays = st_m[0].numel()
+    m_out = fine.fused_trace_stepper(*m_args)
+    m_ref = march_plain(plain_fine, cam_m.reshape(-1, 3), dirs_m.reshape(-1, 3),
+                        [s.reshape(-1) for s in st_m], *m_args[3:])
+    m_eq = min(float((a.reshape(-1) == b).float().mean())
+               for a, b in zip(m_out[4:8], m_ref[4:8]))
+    m_close = min(float(((a.reshape(-1) - b).abs() <= 1e-5).float().mean())
+                  for a, b in zip(m_out[:2], m_ref[:2]))
+    m_err = max(float((a.reshape(-1) - b).abs().max()) for a, b in zip(m_out[:2], m_ref[:2]))
+    print(f"trace_march on the trace's first compacted stage: {n_mrays} rays x "
+          f"{n_it} iterations: masks/bk equal on {m_eq:.6f}, depths within 1e-5 "
+          f"on {m_close:.6f} (max diff {m_err:.3g})")
+    if m_eq < 0.999 or m_close < 0.999:
+        fail("trace_march disagrees with its plain version")
+    mk_ms = time_ms(lambda: fine.fused_trace_stepper(*m_args))
+    mk_pms = time_ms(lambda: march_plain(
+        plain_fine, cam_m.reshape(-1, 3), dirs_m.reshape(-1, 3),
+        [s.reshape(-1) for s in st_m], *m_args[3:]))
+    mk_b = bound_ms(igr_flops * 2 * n_it * n_mrays,
+                    n_mrays * (24 + 2 * 34) + igr_w_bytes)
+    print(f"  kernel {mk_ms:.3f} ms  plain {mk_pms:.3f} ms  bound {mk_b[0]:.4f} ms ({mk_b[1]})")
+
+    # ---- 8. the kernels line
     n_trace = 4 * cfg.training.n_rays
     mlp_err, mlp_ms, mlp_pms, mlp_b = check_mlp(n_trace, 2e-5, 1e-4, False)
     s_err, _, s_ms, s_pms, s_b = check_sampler(
@@ -528,6 +780,17 @@ def main() -> None:
         row("splat_fine", "isopoints_torch/csrc/splat_fine.cu",
             "isopoints_tpu/rendering/pallas_splat.py:42",
             launches["splat_fine"], *fine_row),
+        row("fused_igr", "isopoints_torch/csrc/fused_igr.cu",
+            "isopoints_tpu/ops/pallas_mlp.py:417", trace_launches["fused_igr"],
+            igr_err, igr_ms, igr_pms, igr_b),
+        row("fused_sampler (IGR, coarse sweep)",
+            "isopoints_torch/csrc/fused_sampler.cu",
+            "isopoints_tpu/ops/pallas_sampler.py:52",
+            trace_launches["fused_sampler"], max(s_ferr, s_zerr), cs_ms, cs_pms,
+            cs_b),
+        row("trace_march", "isopoints_torch/csrc/fused_trace.cu",
+            "isopoints_tpu/ops/pallas_trace.py:43", march_launches["trace_march"],
+            m_err, mk_ms, mk_pms, mk_b),
     ]
     print(f"timed shapes: fused_mlp {n_trace} points (value; the warm-up "
           f"trace); fused_sampler {2 * cfg.training.n_rays} rays x "
@@ -535,7 +798,16 @@ def main() -> None:
           f"knn P={state.points.shape[1]} k=8 and splat_select / splat_fine "
           f"{state.points.shape[1]} splats x {cam.batch_size} views at "
           f"{st.image_size} px, on the projected run's iso-point buffer (the "
-          f"midpoint upsampling and the frontal raster of every projected step)")
+          f"midpoint upsampling and the frontal raster of every projected step); "
+          f"fused_igr bf16 value on {2 * bench.N_RAYS} points (both fronts of "
+          f"the coarse phase, its most frequent launch); the IGR sampler on the "
+          f"trace's {n_srays}-ray buffer; trace_march on its first compacted "
+          f"stage ({n_mrays} rays x {n_it} iterations). Launches: the SIREN "
+          f"kernels' in the projected path's run, fused_igr's and "
+          f"fused_sampler (IGR)'s in one bench trace, trace_march's in one trace "
+          f"with the march")
+    print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
+          f"the kernels line, the build included")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Config-driven factories (port of isopoints_tpu/factories.py, for what
-the ported configs name: a SIREN decoder, the combined or implicit model
-with the Phong texture and the splat raster settings, the synthetic
-datasets)."""
+the ported configs name: a SIREN or IGR (`decoder_type: sdf`) decoder, the
+combined or implicit model with the Phong texture and the splat raster
+settings, the synthetic datasets)."""
 
 from typing import Optional
 
@@ -9,7 +9,7 @@ import torch
 
 from isopoints_torch.config import AttrDict
 from isopoints_torch.models.combined import CombinedConfig, CombinedModel
-from isopoints_torch.models.fields import SirenField
+from isopoints_torch.models.fields import SDFField, SirenField
 from isopoints_torch.models.implicit import ImplicitConfig, ImplicitModel
 from isopoints_torch.rendering.rasterizer import RasterizationSettings
 from isopoints_torch.training.scheduler import TrainerScheduler
@@ -17,13 +17,16 @@ from isopoints_torch.training.trainer import MVRTrainer, TrainerConfig
 
 
 def create_decoder(cfg: AttrDict, generator: Optional[torch.Generator] = None,
-                   device="cuda") -> SirenField:
+                   device="cuda"):
+    """The decoder of `model.decoder_type` ('siren' | 'sdf') with
+    `model.decoder_kwargs` (factories.py:24-35)."""
     dtype = cfg.model.get("decoder_type", "siren")
-    if dtype != "siren":
+    classes = {"siren": SirenField, "sdf": SDFField}
+    if dtype not in classes:
         raise NotImplementedError(f"decoder_type {dtype!r} is not ported yet "
                                   "(ROADMAP Queue 1 item 3)")
-    return SirenField(**dict(cfg.model.get("decoder_kwargs", {})),
-                      generator=generator, device=device)
+    return classes[dtype](**dict(cfg.model.get("decoder_kwargs", {})),
+                          generator=generator, device=device)
 
 
 def create_raster_settings(cfg: AttrDict) -> RasterizationSettings:

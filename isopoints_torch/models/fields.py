@@ -2,17 +2,21 @@
 
 `SirenField` is an `nn.Module` whose layers are `nn.Linear`s, so weights
 sit in the same (out, in) layout as the JAX pytree's `w` (fields.py:95-116)
-and convert one to one (`isopoints_torch.convert`). `sdf_and_grad` returns
-the SDF and its input gradient, dispatching to a fused `.sdf_and_grad`
-when the callable carries one (ops/fused_mlp.py), like the reference.
+and convert one to one (`isopoints_torch.convert`). `SDFField` is the IGR
+softplus field (fields.py:190-262) with weight-normalised layers that keep
+the JAX parametrisation `{v, g, b}`, and `positional_embedder` its NeRF
+input encoding (fields.py:64-88). `sdf_and_grad` returns the SDF and its
+input gradient, dispatching to a fused `.sdf_and_grad` when the callable
+carries one (ops/fused_mlp.py), like the reference.
 
-`SDFField` (IGR), `RenderingNetwork` and the occupancy field are not
-ported yet (ROADMAP Queue 1 item 3).
+`RenderingNetwork` and the occupancy field are not ported yet (ROADMAP
+Queue 1 item 3).
 """
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -56,6 +60,138 @@ class SirenField(nn.Module):
         for lin in self.layers[1:-1]:
             h = torch.sin(self.hidden_omega_0 * lin(h))
         return self.layers[-1](h)[..., 0]
+
+    def sdf(self, x: torch.Tensor) -> torch.Tensor:
+        return self(x)
+
+
+def positional_embedder(multires: int, input_dims: int = 3,
+                        include_input: bool = True, log_sampling: bool = True
+                        ) -> Tuple[Callable[[torch.Tensor], torch.Tensor], int]:
+    """(embed_fn, out_dim): [x, sin(f₀x), cos(f₀x), sin(f₁x), ...] at
+    `multires` octaves (fields.py:64-88); the identity for multires <= 0."""
+    if multires <= 0:
+        return (lambda x: x), input_dims
+    if log_sampling:
+        freqs = 2.0 ** np.linspace(0.0, multires - 1, multires)
+    else:
+        freqs = np.linspace(1.0, 2.0 ** (multires - 1), multires)
+    freqs = torch.tensor(freqs, dtype=torch.float32)
+    out_dim = (input_dims if include_input else 0) + input_dims * 2 * multires
+
+    def embed(x: torch.Tensor) -> torch.Tensor:
+        xf = x[..., None, :] * freqs.to(x.device)[:, None]          # (..., F, D)
+        enc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)   # (..., F, 2, D)
+        enc = enc.reshape(*x.shape[:-1], -1)
+        return torch.cat([x, enc], dim=-1) if include_input else enc
+
+    return embed, out_dim
+
+
+def softplus_beta(z: torch.Tensor, beta: float = 100.0) -> torch.Tensor:
+    """softplus(β·z)/β as JAX writes it: logaddexp(βz, 0) = max(βz, 0) +
+    log1p(exp(−|βz|)). `F.softplus` turns linear above its threshold of
+    20 and so computes another function."""
+    bz = beta * z
+    return (torch.clamp(bz, min=0.0) + torch.log1p(torch.exp(-bz.abs()))) / beta
+
+
+class WeightNormLinear(nn.Module):
+    """y = x·wᵀ + b with w = v·(g / max(‖v‖_row, 1e-12)) formed on every
+    call (fields.py:97-99); `v` (out, in), `g` (out, 1), `b` (out,)."""
+
+    def __init__(self, w: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.v = nn.Parameter(w)
+        self.g = nn.Parameter(torch.linalg.norm(w, dim=1, keepdim=True))
+        self.b = nn.Parameter(b)
+
+    @property
+    def weight(self) -> torch.Tensor:
+        norm = torch.clamp(torch.linalg.norm(self.v, dim=1, keepdim=True),
+                           min=1e-12)
+        return self.v * (self.g / norm)
+
+    @property
+    def bias(self) -> torch.Tensor:
+        return self.b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return nn.functional.linear(x, self.weight, self.b)
+
+
+def _plain_linear(w: torch.Tensor, b: torch.Tensor) -> nn.Linear:
+    lin = nn.utils.skip_init(nn.Linear, w.shape[1], w.shape[0],
+                             device=w.device)
+    with torch.no_grad():
+        lin.weight.copy_(w)
+        lin.bias.copy_(b)
+    return lin
+
+
+class SDFField(nn.Module):
+    """IGR / DeepSDF SDF MLP (reference common.py:220-311): `n_layers`
+    softplus(β=100) layers of `hidden_size`, the input concatenated back at
+    the layers of `skip_in` and scaled by 1/√2, a linear head and an
+    optional final tanh. Geometric init (fields.py:215-239): head
+    N(√π/√fan_in, 1e-4) with bias −`bias`, hidden N(0, 2/out), the
+    positional-encoding columns zeroed at the input and skip layers.
+    Weight-normalised layers (`weight_norm`) are `WeightNormLinear`s with
+    the JAX leaves `v, g, b`; otherwise `nn.Linear`s. SDF head only: the
+    JAX field's other `out_dims` are not ported."""
+
+    def __init__(self, dim: int = 3, hidden_size: int = 512,
+                 n_layers: int = 8, bias: float = 0.6,
+                 weight_norm: bool = True, skip_in: Sequence[int] = (4,),
+                 num_frequencies: int = 6, final_tanh: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.raw_dim = dim
+        self.embed, in_dim = positional_embedder(num_frequencies, dim)
+        self.num_frequencies = num_frequencies
+        self.hidden_size = hidden_size
+        self.dims = [in_dim] + [hidden_size] * n_layers + [1]
+        self.skip_in = tuple(skip_in)
+        self.final_tanh = final_tanh
+        self.weight_norm = weight_norm
+        nl = len(self.dims) - 1
+        d0 = self.dims[0]
+        f32 = dict(dtype=torch.float32, device=device or "cpu")
+        layers = []
+        for l in range(nl):
+            in_d, out_d = self.dims[l], self.dims[l + 1]
+            if l + 1 in self.skip_in:
+                out_d -= d0
+            if l == nl - 1:
+                w = (math.sqrt(math.pi) / math.sqrt(in_d) + 1e-4 * torch.randn(
+                    (out_d, in_d), generator=generator, **f32))
+                b = torch.full((out_d,), -bias, **f32)
+            else:
+                w = torch.randn((out_d, in_d), generator=generator, **f32) * (
+                    math.sqrt(2.0) / math.sqrt(out_d))
+                b = torch.zeros(out_d, **f32)
+                if num_frequencies > 0 and l == 0:
+                    w[:, dim:] = 0.0
+                elif num_frequencies > 0 and l in self.skip_in:
+                    w[:, -(d0 - dim):] = 0.0
+            layers.append(WeightNormLinear(w, b) if weight_norm
+                          else _plain_linear(w, b))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., 3) -> sdf (...)."""
+        inp = self.embed(x)
+        h = inp
+        nl = len(self.layers)
+        for l, lin in enumerate(self.layers):
+            if l in self.skip_in:
+                h = torch.cat([h, inp], dim=-1) * (1.0 / math.sqrt(2.0))
+            h = lin(h)
+            if l < nl - 1:
+                h = softplus_beta(h)
+        if self.final_tanh:
+            h = torch.tanh(h)
+        return h[..., 0]
 
     def sdf(self, x: torch.Tensor) -> torch.Tensor:
         return self(x)

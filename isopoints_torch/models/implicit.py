@@ -3,10 +3,12 @@ isopoints_tpu/models/implicit.py:66-325, the IDR training forward).
 
 The decoder is an `nn.Module`; the model's methods take tensors and an
 explicit camera. Tracing is no-grad by design: `trace_sdf_fn` returns the
-fused CUDA MLP on detached weights (with `use_fused_mlp`), and the ray
-trace runs under `torch.no_grad()`. Loss-path evaluations use the plain
-decoder, so θ-gradients reach the parameters only through the sample
-network, the normals, the texture and the SDF losses.
+fused CUDA MLP on detached weights (with `use_fused_mlp`, for a SIREN or an
+IGR decoder), `trace_sdf_fn_coarse` its bf16 variant for the coarse phase
+of the trace precision schedule, and the ray trace runs under
+`torch.no_grad()`. Loss-path evaluations use the plain decoder, so
+θ-gradients reach the parameters only through the sample network, the
+normals, the texture and the SDF losses.
 """
 
 import dataclasses
@@ -21,7 +23,7 @@ from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.models.levelset import (ProjectionConfig,
                                              directional_sample_network)
 from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
-from isopoints_torch.ops.fused_mlp import make_fused_siren_sdf
+from isopoints_torch.ops.fused_mlp import make_fused_sdf_fn
 from isopoints_torch.ops.images import sample_image_at_ndc
 from isopoints_torch.rendering.lighting import DirectionalLights
 from isopoints_torch.rendering.texture import lighting_texture
@@ -86,12 +88,24 @@ class ImplicitModel(nn.Module):
         return self.decoder.sdf
 
     def trace_sdf_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
-        """SDF callable for the no-grad tracing: the fused CUDA MLP on
-        detached weights when `use_fused_mlp` (it carries `.sdf_and_grad`
-        and `.fused_ray_sampler`), else the plain decoder."""
+        """SDF callable for the no-grad tracing (implicit.py:136-154): the
+        fused CUDA MLP on detached weights when `use_fused_mlp` and the
+        decoder has one (it carries `.sdf_and_grad`, `.fused_ray_sampler`
+        and `.fused_trace_stepper`), else the plain decoder."""
         if self.cfg.use_fused_mlp:
-            return make_fused_siren_sdf(self.decoder)
+            fused = make_fused_sdf_fn(self.decoder)
+            if fused is not None:
+                return fused
         return self.sdf_fn()
+
+    def trace_sdf_fn_coarse(self) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+        """The bf16 fused MLP for the coarse phase of the trace precision
+        schedule, or None when `use_fused_mlp` is off or the effective
+        `coarse_trace_iters` is 0 (implicit.py:156-167)."""
+        if not (self.cfg.use_fused_mlp
+                and self.raytrace_cfg.coarse_trace_iters > 0):
+            return None
+        return make_fused_sdf_fn(self.decoder, precision="bf16")
 
     def normals_from_grad(self, x: torch.Tensor) -> torch.Tensor:
         """Raw SDF gradients, differentiable in θ and x."""
@@ -116,7 +130,8 @@ class ImplicitModel(nn.Module):
         _, dirs = camera.ndc_to_rays(ndc_pixels)
         with torch.no_grad():
             res = ray_trace(f, cam_pos, dirs, mask_gt, u, self.raytrace_cfg,
-                            training=training)
+                            training=training,
+                            sdf_fn_coarse=self.trace_sdf_fn_coarse())
         iso_points = res.points
         if training:
             iso_points = directional_sample_network(self.sdf_fn(), res.points,

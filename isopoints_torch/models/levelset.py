@@ -9,10 +9,10 @@ with masks as in the JAX package. The Newton loop's early exit is one
 `any(active)` host synchronisation per iteration, the counterpart of the
 JAX `lax.while_loop` condition.
 
-Not ported yet (ROADMAP Queue 1 item 8): the coarse precision schedule
-and the mesh-sharded projection, saliency insertion, edge-aware
-upsampling, and the unseeded (WLOP) bootstrap of
-`sample_uniform_iso_points`; those branches raise.
+`project_points_newton` carries the hybrid coarse/fine precision schedule.
+Not ported yet (ROADMAP Queue 1 item 8): the mesh-sharded projection,
+saliency insertion, edge-aware upsampling, and the unseeded (WLOP)
+bootstrap of `sample_uniform_iso_points`; those branches raise.
 
 Frozen surface points are re-attached to the parameters θ with
 `p0 − (f − sg f)·...`: the value is the frozen point, the θ-gradient is
@@ -79,10 +79,20 @@ def _newton_loop(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
 
 def project_points_newton(sdf_fn: SDFFn, points: torch.Tensor,
                           mask: torch.Tensor, max_iters: int = 10,
-                          tolerance: float = 5e-5, step_clip: float = 0.1
+                          tolerance: float = 5e-5, step_clip: float = 0.1,
+                          sdf_fn_coarse: Optional[SDFFn] = None,
+                          coarse_iters: int = 0,
+                          coarse_tolerance: float = 1e-3
                           ) -> ProjectionResult:
     """Project points onto the zero level set (levelset.py:92-134, without
-    the coarse schedule and the mesh)."""
+    the mesh). Hybrid schedule: with `sdf_fn_coarse` and `coarse_iters`
+    > 0, up to `coarse_iters` Newton steps run on the coarse fn to
+    max(coarse_tolerance, tolerance), then the fine loop runs from there;
+    the result's mask always comes from fine values."""
+    if coarse_iters > 0 and sdf_fn_coarse is not None:
+        points, _, _ = _newton_loop(sdf_fn_coarse, points, mask, coarse_iters,
+                                    max(coarse_tolerance, tolerance),
+                                    step_clip)
     pts, sdf, grad = _newton_loop(sdf_fn, points, mask, max_iters, tolerance,
                                   step_clip)
     valid = (torch.abs(sdf) <= tolerance) & mask

@@ -5,20 +5,29 @@ package: bounding-sphere interval -> bidirectional sphere tracing with
 the line-search backstep -> dense sampler + secant for unconverged rays
 -> (training) random-stratified min-SDF points for mask-loss pixels.
 
-With a fused SDF callable (ops/fused_mlp.py) the sphere trace evaluates
-the fused MLP kernel and, with `sampler_in_kernel`, the dense sampler and
-the min-SDF sweep run in the fused sampler kernel (ops/fused_sampler.py).
+The production trace schedule (raytracing.py:337-797, 800-888, 1011-1037)
+is ported: a coarse (bf16) phase with optional stall-on-cross and a fine
+boundary re-validation; a chain of compaction stages into static
+ceil(fraction·N) buffers, each at its own precision, coarse stages
+re-validated fine, unwound in reverse; the fused backstep; end-front
+gating; the dense sampler on a compacted buffer (`sampler_fraction < 1`)
+with its overflow; the coarse sampler sweep with its hysteresis margin and
+fine bracket. With a fused SDF callable (ops/fused_mlp.py) every
+evaluation is the fused MLP kernel, `sampler_in_kernel` runs the sampler
+in its kernel (ops/fused_sampler.py) and `trace_in_kernel` the fine
+fused-backstep stages in the march kernel (ops/fused_trace.py). Only
+`sampler_presweep` (a measured dead end, ROADMAP Queue 1) raises. The
+plain sweep and the secant (`_secant_scan` in the JAX module) live in
+ops/fused_sampler.py beside the kernel they are the plain version of.
 
-`RayTracingConfig` keeps every field of the JAX config. The production
-trace schedule (coarse bf16 phase, compaction, fused backstep, coarse or
-presweep sampler, in-kernel march, end-front gating, sampler_fraction < 1)
-is not ported yet: those values raise NotImplementedError. The plain
-sweep and the secant (`_secant_scan` in the JAX module) live in
-ops/fused_sampler.py beside the kernel they are the twin of.
+Each `while_loop` of the JAX module is a Python loop whose exit test
+(`any(un_s | un_e)`) is one host synchronisation per iteration; the march
+kernel's fixed count needs none.
 """
 
+import math
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -26,9 +35,7 @@ from isopoints_torch.ops.fused_sampler import sweep_plain
 from isopoints_torch.utils import eps_denom, fma, linspace01
 
 SDFFn = Callable[[torch.Tensor], torch.Tensor]  # (..., 3) -> (...)
-
-_SLICE2 = ("is not ported yet: ROADMAP 'Slices of the port' 2, the "
-           "production trace schedule")
+State = Tuple[torch.Tensor, ...]  # acc_s, acc_e, sdf_s, sdf_e, un_s, un_e, bk_s, bk_e, cur_s, cur_e
 
 
 def intersection_with_unit_cube(ray0: torch.Tensor, ray_dir: torch.Tensor,
@@ -91,7 +98,8 @@ def intersection_with_unit_sphere(cam_pos: torch.Tensor, rays: torch.Tensor,
 @dataclass(frozen=True)
 class RayTracingConfig:
     """Every knob of the JAX RayTracingConfig (raytracing.py:182-333);
-    see there for their semantics."""
+    see there for their semantics. `sampler_presweep` (a measured dead
+    end) is the one value not ported: it raises."""
     object_bounding_sphere: float = 1.0
     sdf_threshold: float = 5e-5
     line_search_step: float = 0.5
@@ -117,22 +125,10 @@ class RayTracingConfig:
     trace_gate_end_front: bool = False
 
     def __post_init__(self):
-        stages = self.trace_compact_after
-        stages = (stages,) if isinstance(stages, int) else tuple(stages)
-        unported = {
-            "coarse_trace_iters > 0": self.coarse_trace_iters > 0,
-            "trace_compact_after": any(0 < a < self.sphere_tracing_iters
-                                       for a in stages),
-            "fused_backstep": self.fused_backstep,
-            "sampler_coarse": self.sampler_coarse,
-            "sampler_presweep": 2 <= self.sampler_presweep < self.n_steps,
-            "trace_in_kernel": self.trace_in_kernel,
-            "sampler_fraction < 1": self.sampler_fraction < 1.0,
-            "trace_gate_end_front": self.trace_gate_end_front,
-        }
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"RayTracingConfig {name} {_SLICE2}")
+        if 2 <= self.sampler_presweep < self.n_steps:
+            raise NotImplementedError(
+                "RayTracingConfig sampler_presweep is not ported (a measured "
+                "dead end: ROADMAP Queue 1 item 4 and 'Slices of the port')")
 
 
 class RayTraceResult(NamedTuple):
@@ -141,78 +137,360 @@ class RayTraceResult(NamedTuple):
     network_object_mask: torch.Tensor  # (B, N) ray hits the implicit surface
     mask_intersect: torch.Tensor       # (B, N) ray intersects bounding sphere
     sampler_mask: torch.Tensor         # (B, N) handled by the dense sampler
-    trace_overflow: torch.Tensor       # scalar int32 compaction overflow (0)
-    sampler_overflow: torch.Tensor     # scalar int32 sampler overflow (0)
+    trace_overflow: torch.Tensor       # scalar int32 compaction overflow
+    sampler_overflow: torch.Tensor     # scalar int32 sampler overflow
+
+
+# ---------------------------------------------------------------------------
+# Compaction helpers (raytracing.py:337-406)
+# ---------------------------------------------------------------------------
+
+def _compact_mask(mask: torch.Tensor, cap: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, N) bool -> (sel (B, cap) int64 indices, sel_ok (B, cap) bool):
+    the first `cap` True positions per row, in index order; unused slots
+    hold index 0. Overflow drops the highest-index actives."""
+    b, n = mask.shape
+    ranks = torch.cumsum(mask.to(torch.int32), dim=1) - 1
+    put = torch.where(mask & (ranks < cap), ranks, cap).long()
+    iota = torch.arange(n, device=mask.device).expand(b, n)
+    sel = torch.zeros((b, cap + 1), dtype=torch.long, device=mask.device)
+    sel = sel.scatter(1, put, iota)[:, :cap]
+    n_active = torch.sum(mask.to(torch.int32), dim=1, keepdim=True)
+    sel_ok = torch.arange(cap, device=mask.device)[None, :] < n_active
+    # slot `cap` collected the dropped writes; the real slots it never saw
+    # keep index 0, as the JAX scatter into zeros leaves them
+    return sel, sel_ok
+
+
+def _compact_gather(sel: torch.Tensor, cols: Sequence[torch.Tensor]
+                    ) -> List[torch.Tensor]:
+    """One wide same-index row gather: (B, N) / (B, N, k) arrays -> (B, cap)
+    / (B, cap, k), dtypes kept (bools and small ints travel as float32,
+    which is exact)."""
+    parts, meta = [], []
+    for a in cols:
+        x = a[..., None] if a.dim() == 2 else a
+        parts.append(x.to(torch.float32))
+        meta.append((a.dim() == 2, a.dtype, x.shape[-1]))
+    table = torch.cat(parts, dim=-1)                              # (B, N, C)
+    g = torch.gather(table, 1, sel[..., None].expand(-1, -1, table.shape[-1]))
+    outs, off = [], 0
+    for was2d, dt, k in meta:
+        v = g[..., off:off + k]
+        off += k
+        outs.append((v[..., 0] if was2d else v).to(dt))
+    return outs
+
+
+def _masked_scatter_wide(dsts: Sequence[torch.Tensor], sel: torch.Tensor,
+                         srcs: Sequence[torch.Tensor], sel_ok: torch.Tensor
+                         ) -> List[torch.Tensor]:
+    """One wide masked scatter: dst[b, sel[b, j]] = src[b, j] where
+    sel_ok[b, j]; (B, N) dsts, (B, cap) srcs, dtypes kept."""
+    b, n = dsts[0].shape
+    table = torch.stack([d.to(torch.float32) for d in dsts], dim=-1)
+    src = torch.stack([s.to(torch.float32) for s in srcs], dim=-1)
+    src = torch.where(sel_ok[..., None], src, 0.0)
+    idx = torch.where(sel_ok, sel, n)
+    out = torch.cat([table, table.new_zeros((b, 1, table.shape[-1]))], dim=1)
+    out = out.scatter(1, idx[..., None].expand(-1, -1, table.shape[-1]), src)
+    return [out[:, :n, j].to(d.dtype) for j, d in enumerate(dsts)]
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional sphere tracing (raytracing.py:469-797)
+# ---------------------------------------------------------------------------
+
+def _eval_pair_fn(fn: SDFFn, cam: torch.Tensor, dirs: torch.Tensor):
+    def eval_pair(ts, te):
+        # both fronts in one batched eval (one kernel launch)
+        both = fn(torch.cat([fma(ts[..., None], dirs, cam),
+                             fma(te[..., None], dirs, cam)], dim=-2))
+        n = ts.shape[-1]
+        return both[..., :n], both[..., n:]
+    return eval_pair
+
+
+def _body(st: State, eval_pair, thr: float, cfg: RayTracingConfig) -> State:
+    """Reference semantics: advance + in-iteration line-search backstep
+    (raytracing.py:516-553). The fused-backstep extras pass through."""
+    acc_s, acc_e, sdf_s, sdf_e, un_s, un_e = st[:6]
+    cur_s = torch.where(un_s & (sdf_s > thr), sdf_s, 0.0)
+    cur_e = torch.where(un_e & (sdf_e > thr), sdf_e, 0.0)
+    acc_s = acc_s + cur_s
+    acc_e = acc_e - cur_e
+    new_s, new_e = eval_pair(acc_s, acc_e)
+    for i in range(cfg.line_step_iters):
+        scale = (1.0 - cfg.line_search_step) / (2.0 ** i)
+        bs = un_s & (new_s < 0)
+        be = un_e & (new_e < 0)
+        acc_s = torch.where(bs, fma(torch.full_like(cur_s, -scale), cur_s,
+                                    acc_s), acc_s)
+        acc_e = torch.where(be, fma(torch.full_like(cur_e, scale), cur_e,
+                                    acc_e), acc_e)
+        ev_s, ev_e = eval_pair(acc_s, acc_e)
+        new_s = torch.where(bs, ev_s, new_s)
+        new_e = torch.where(be, ev_e, new_e)
+    not_crossed = acc_s < acc_e
+    un_s = un_s & (new_s > thr) & not_crossed
+    un_e = un_e & (new_e > thr) & not_crossed
+    if cfg.trace_gate_end_front:
+        un_e = un_e & un_s
+    return (acc_s, acc_e, new_s, new_e, un_s, un_e) + tuple(st[6:])
+
+
+def body_fused(st: State, eval_pair, thr: float, line_search_step: float,
+               line_step_iters: int, gate_end_front: bool) -> State:
+    """One eval per iteration: a crossing takes its backstep as the next
+    iteration's move, the i-th consecutive one scaled (1 − ls)/2^(i−1)
+    (raytracing.py:555-591; RayTracingConfig.fused_backstep)."""
+    acc_s, acc_e, sdf_s, sdf_e, un_s, un_e, bk_s, bk_e, cur_s, cur_e = st
+    fwd_s = torch.where(un_s & (bk_s == 0) & (sdf_s > thr), sdf_s, 0.0)
+    fwd_e = torch.where(un_e & (bk_e == 0) & (sdf_e > thr), sdf_e, 0.0)
+    scl = 1.0 - line_search_step
+    scale_s = scl * torch.exp2(-(bk_s - 1).to(torch.float32))
+    scale_e = scl * torch.exp2(-(bk_e - 1).to(torch.float32))
+    move_s = torch.where(bk_s > 0, -scale_s * cur_s, fwd_s)
+    move_e = torch.where(bk_e > 0, -scale_e * cur_e, fwd_e)
+    acc_s = acc_s + move_s
+    acc_e = acc_e - move_e
+    new_s, new_e = eval_pair(acc_s, acc_e)
+    may_s = un_s & (new_s < 0) & (bk_s < line_step_iters)
+    may_e = un_e & (new_e < 0) & (bk_e < line_step_iters)
+    cur_s = torch.where(may_s & (bk_s == 0), fwd_s, cur_s)
+    cur_e = torch.where(may_e & (bk_e == 0), fwd_e, cur_e)
+    bk_s = torch.where(may_s, bk_s + 1, 0).to(torch.int32)
+    bk_e = torch.where(may_e, bk_e + 1, 0).to(torch.int32)
+    not_crossed = acc_s < acc_e
+    un_s = un_s & ((bk_s > 0) | ((new_s > thr) & not_crossed))
+    un_e = un_e & ((bk_e > 0) | ((new_e > thr) & not_crossed))
+    if gate_end_front:
+        # keep-alive: drain a pending end-front backstep before freezing
+        un_e = un_e & (un_s | (bk_e > 0))
+    return (acc_s, acc_e, new_s, new_e, un_s, un_e, bk_s, bk_e, cur_s, cur_e)
+
+
+def _body_stall(st: State, eval_pair, thr: float, cfg: RayTracingConfig
+                ) -> State:
+    """One eval per coarse iteration: a crossing front reverts to its last
+    outside position and stalls until the fine re-validation resurrects it
+    (raytracing.py:593-617; RayTracingConfig.coarse_stall_on_cross)."""
+    acc_s, acc_e, sdf_s, sdf_e, un_s, un_e = st[:6]
+    fwd_s = torch.where(un_s & (sdf_s > thr), sdf_s, 0.0)
+    fwd_e = torch.where(un_e & (sdf_e > thr), sdf_e, 0.0)
+    acc_s = acc_s + fwd_s
+    acc_e = acc_e - fwd_e
+    new_s, new_e = eval_pair(acc_s, acc_e)
+    crossed_s = un_s & (new_s < 0)
+    crossed_e = un_e & (new_e < 0)
+    acc_s = torch.where(crossed_s, acc_s - fwd_s, acc_s)
+    acc_e = torch.where(crossed_e, acc_e + fwd_e, acc_e)
+    new_s = torch.where(crossed_s, sdf_s, new_s)
+    new_e = torch.where(crossed_e, sdf_e, new_e)
+    not_crossed = acc_s < acc_e
+    un_s = un_s & ~crossed_s & (new_s > thr) & not_crossed
+    un_e = un_e & ~crossed_e & (new_e > thr) & not_crossed
+    if cfg.trace_gate_end_front:
+        un_e = un_e & un_s
+    return (acc_s, acc_e, new_s, new_e, un_s, un_e) + tuple(st[6:])
+
+
+def _run_loop(st: State, eval_pair, start_it: int, max_iters: int,
+              thr: float, cfg: RayTracingConfig, is_coarse: bool) -> State:
+    """The while loop of raytracing.py:619-627: iterate the stage's body
+    from `start_it` while it < max_iters and any front is unfinished."""
+    it = start_it
+    while it < max_iters and bool(torch.any(st[4] | st[5])):
+        if is_coarse and cfg.coarse_stall_on_cross:
+            st = _body_stall(st, eval_pair, thr, cfg)
+        elif cfg.fused_backstep and not is_coarse:
+            st = body_fused(st, eval_pair, thr, cfg.line_search_step,
+                            cfg.line_step_iters, cfg.trace_gate_end_front)
+        else:
+            st = _body(st, eval_pair, thr, cfg)
+        it += 1
+    return st
+
+
+def march_plain(sdf_fn: SDFFn, cam: torch.Tensor, dirs: torch.Tensor,
+                state10: Sequence[torch.Tensor], n_iters: int, thr: float,
+                line_search_step: float, line_step_iters: int,
+                gate_end_front: bool) -> State:
+    """The plain version of the march kernel (ops/fused_trace.py):
+    `body_fused` run a fixed `n_iters` times on `sdf_fn`."""
+    st = tuple(state10)
+    eval_pair = _eval_pair_fn(sdf_fn, cam, dirs)
+    for _ in range(n_iters):
+        st = body_fused(st, eval_pair, thr, line_search_step,
+                        line_step_iters, gate_end_front)
+    return st
+
+
+def _stages(cfg: RayTracingConfig) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
+    """Compaction stages: int -> one stage, tuple -> chain; stages at or
+    after the last iteration are dropped (raytracing.py:631-644)."""
+    raw_stages = cfg.trace_compact_after
+    raw_fracs = cfg.trace_compact_fraction
+    if isinstance(raw_stages, int):
+        raw_stages = (raw_stages,) if raw_stages > 0 else ()
+    if isinstance(raw_fracs, (int, float)):
+        raw_fracs = (float(raw_fracs),) * len(raw_stages)
+    keep = [(a, f) for a, f in zip(raw_stages, raw_fracs)
+            if 0 < a < cfg.sphere_tracing_iters]
+    stages = tuple(a for a, _ in keep)
+    if list(stages) != sorted(set(stages)):
+        raise ValueError(f"trace_compact_after stages must be strictly "
+                         f"increasing, got {stages}")
+    return stages, tuple(f for _, f in keep)
 
 
 def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
                                 mask_intersect, t_near, t_far,
-                                cfg: RayTracingConfig):
-    """March the start (+) and end (−) fronts until both stall or cross,
-    with the in-iteration line-search backstep on a crossing
-    (the reference `body` of raytracing.py:469-553).
-    Returns (acc_s, acc_e, unfinished_start, overflow=0)."""
+                                cfg: RayTracingConfig,
+                                sdf_fn_coarse: Optional[SDFFn] = None):
+    """March the start (+) and end (−) fronts until both stall or cross
+    (raytracing.py:469-797): the optional coarse phase and its fine
+    boundary re-validation, the full-width phase, then the compaction
+    stages and their unwind. Returns (acc_s, acc_e, unfinished_start,
+    overflow)."""
     thr = cfg.sdf_threshold
+    stages, fracs = _stages(cfg)
+    full_end = stages[0] if stages else cfg.sphere_tracing_iters
+    coarse_end = (min(cfg.coarse_trace_iters, full_end)
+                  if sdf_fn_coarse is not None else 0)
+    if (sdf_fn_coarse is not None and stages
+            and cfg.coarse_trace_iters > stages[0]
+            and cfg.coarse_trace_iters not in stages + (cfg.sphere_tracing_iters,)):
+        raise ValueError(
+            "coarse_trace_iters must align with a compaction-stage boundary "
+            "when compaction starts inside the coarse phase")
+    eval_pair = _eval_pair_fn(sdf_fn, cam_loc, ray_dirs)
+    zi = torch.zeros(t_near.shape, dtype=torch.int32, device=t_near.device)
+    zf = torch.zeros_like(t_near)
 
-    def eval_pair(ts, te):
-        # both fronts in one batched eval (one kernel launch)
-        both = sdf_fn(torch.cat([fma(ts[..., None], ray_dirs, cam_loc),
-                                 fma(te[..., None], ray_dirs, cam_loc)],
-                                dim=-2))
-        n = ts.shape[-1]
-        return both[..., :n], both[..., n:]
-
-    zero = torch.zeros_like(t_near)
-    sdf_s, sdf_e = eval_pair(t_near, t_far)
-    sdf_s = torch.where(mask_intersect, sdf_s, zero)
-    sdf_e = torch.where(mask_intersect, sdf_e, zero)
-    un_s = mask_intersect & (sdf_s > thr)
-    un_e = mask_intersect & (sdf_e > thr)
-    acc_s, acc_e = t_near, t_far
-    for _ in range(cfg.sphere_tracing_iters):
-        if not bool((un_s | un_e).any()):
-            break
-        cur_s = torch.where(un_s & (sdf_s > thr), sdf_s, zero)
-        cur_e = torch.where(un_e & (sdf_e > thr), sdf_e, zero)
-        acc_s = acc_s + cur_s
-        acc_e = acc_e - cur_e
-        new_s, new_e = eval_pair(acc_s, acc_e)
-        for i in range(cfg.line_step_iters):
-            scale = (1.0 - cfg.line_search_step) / (2.0 ** i)
-            bs = un_s & (new_s < 0)
-            be = un_e & (new_e < 0)
-            acc_s = torch.where(bs, fma(torch.full_like(cur_s, -scale), cur_s,
-                                        acc_s), acc_s)
-            acc_e = torch.where(be, fma(torch.full_like(cur_e, scale), cur_e,
-                                        acc_e), acc_e)
-            ev_s, ev_e = eval_pair(acc_s, acc_e)
-            new_s = torch.where(bs, ev_s, new_s)
-            new_e = torch.where(be, ev_e, new_e)
+    if coarse_end > 0:
+        # ---- coarse phase, then a fine re-validation of every front
+        eval_pair_c = _eval_pair_fn(sdf_fn_coarse, cam_loc, ray_dirs)
+        c_s0, c_e0 = eval_pair_c(t_near, t_far)
+        c_s0 = torch.where(mask_intersect, c_s0, 0.0)
+        c_e0 = torch.where(mask_intersect, c_e0, 0.0)
+        st = (t_near, t_far, c_s0, c_e0, mask_intersect & (c_s0 > thr),
+              mask_intersect & (c_e0 > thr), zi, zi, zf, zf)
+        st = _run_loop(st, eval_pair_c, 0, coarse_end, thr, cfg,
+                       is_coarse=sdf_fn_coarse is not sdf_fn)
+        acc_s, acc_e = st[0], st[1]
+        bk_s, bk_e = st[6], st[7]
+        sdf_s, sdf_e = eval_pair(acc_s, acc_e)
+        sdf_s = torch.where(mask_intersect, sdf_s, 0.0)
+        sdf_e = torch.where(mask_intersect, sdf_e, 0.0)
         not_crossed = acc_s < acc_e
-        un_s = un_s & (new_s > thr) & not_crossed
-        un_e = un_e & (new_e > thr) & not_crossed
-        sdf_s, sdf_e = new_s, new_e
-    overflow = torch.zeros((), dtype=torch.int32, device=t_near.device)
-    return acc_s, acc_e, un_s, overflow
+        un_s = mask_intersect & (((sdf_s > thr) & not_crossed) | (bk_s > 0))
+        un_e = mask_intersect & (((sdf_e > thr) & not_crossed) | (bk_e > 0))
+        if cfg.trace_gate_end_front:
+            un_e = un_e & (un_s | (bk_e > 0))
+        st = (acc_s, acc_e, sdf_s, sdf_e, un_s, un_e) + tuple(st[6:])
+    else:
+        sdf_s, sdf_e = eval_pair(t_near, t_far)
+        sdf_s = torch.where(mask_intersect, sdf_s, 0.0)
+        sdf_e = torch.where(mask_intersect, sdf_e, 0.0)
+        un_s = mask_intersect & (sdf_s > thr)
+        un_e = mask_intersect & (sdf_e > thr)
+        if cfg.trace_gate_end_front:
+            un_e = un_e & un_s
+        st = (t_near, t_far, sdf_s, sdf_e, un_s, un_e, zi, zi, zf, zf)
 
+    st = _run_loop(st, eval_pair, coarse_end, full_end, thr, cfg,
+                   is_coarse=False)
+    overflow = torch.zeros((), dtype=torch.int32, device=t_near.device)
+    if not stages:
+        return st[0], st[1], st[4], overflow
+
+    # ---- compacted straggler stages; buffers nest, scatters unwind in
+    # reverse at the end
+    n0 = st[4].shape[1]
+    p2_coarse = cfg.trace_compact_coarse and sdf_fn_coarse is not None
+    boundaries = list(stages[1:]) + [cfg.sphere_tracing_iters]
+    cam_g, dirs_g = cam_loc, ray_dirs
+    frames = []          # (sel, sel_ok, pre-stage acc_s, acc_e, un_s)
+    stepper = getattr(sdf_fn, "fused_trace_stepper", None)
+    for a, nxt, frac in zip(stages, boundaries, fracs):
+        n_cur = st[4].shape[1]
+        cap = min(max(int(math.ceil(n0 * frac)), 1), n_cur)
+        active = st[4] | st[5]
+        sel, sel_ok = _compact_mask(active, cap)
+        n_active = torch.sum(active.to(torch.int32), dim=1)
+        overflow = overflow + torch.sum(torch.clamp(n_active - cap, min=0)
+                                        ).to(torch.int32)
+        frames.append((sel, sel_ok, st[0], st[1], st[4]))
+        gathered = _compact_gather(sel, list(st) + [cam_g, dirs_g])
+        cam_g, dirs_g = gathered[10], gathered[11]
+        un_s_in = gathered[4] & sel_ok
+        un_e_in = gathered[5] & sel_ok
+        state_in = tuple(gathered[:4]) + (un_s_in, un_e_in) + tuple(gathered[6:10])
+        # per-stage precision: a stage ending at or before the coarse phase's
+        # end runs coarse, and is re-validated fine below
+        stage_coarse = p2_coarse or (
+            sdf_fn_coarse is not None and nxt <= cfg.coarse_trace_iters)
+        if (cfg.trace_in_kernel and cfg.fused_backstep and not stage_coarse
+                and stepper is not None):
+            st = stepper(cam_g, dirs_g, state_in, nxt - a, thr,
+                         cfg.line_search_step, cfg.line_step_iters,
+                         cfg.trace_gate_end_front)
+        else:
+            fn = sdf_fn_coarse if stage_coarse else sdf_fn
+            st = _run_loop(state_in, _eval_pair_fn(fn, cam_g, dirs_g), a, nxt,
+                           thr, cfg, is_coarse=fn is not sdf_fn)
+        if stage_coarse:
+            # fine re-validation before the next compaction selects on them
+            f_s, f_e = _eval_pair_fn(sdf_fn, cam_g, dirs_g)(st[0], st[1])
+            ncx = st[0] < st[1]
+            r_un_s = un_s_in & (((f_s > thr) & ncx) | (st[6] > 0))
+            r_un_e = un_e_in & (((f_e > thr) & ncx) | (st[7] > 0))
+            if cfg.trace_gate_end_front:
+                r_un_e = r_un_e & (r_un_s | (st[7] > 0))
+            st = (st[0], st[1], f_s, f_e, r_un_s, r_un_e) + tuple(st[6:])
+
+    # unwind: each stage's result back into its parent buffer; overflow
+    # beyond capacity keeps its pre-stage state (unfinished -> sampler)
+    c_acc_s, c_acc_e, c_un_s = st[0], st[1], st[4]
+    for sel, sel_ok, p_acc_s, p_acc_e, p_un_s in reversed(frames):
+        c_acc_s, c_acc_e, c_un_s = _masked_scatter_wide(
+            (p_acc_s, p_acc_e, p_un_s), sel, (c_acc_s, c_acc_e, c_un_s), sel_ok)
+    return c_acc_s, c_acc_e, c_un_s, overflow
+
+
+# ---------------------------------------------------------------------------
+# Dense sampler and min-SDF points (raytracing.py:800-971)
+# ---------------------------------------------------------------------------
 
 def _dense_ray_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
                        t_hi, sampler_mask, cfg: RayTracingConfig,
-                       training: bool):
+                       training: bool, sdf_fn_coarse: Optional[SDFFn] = None):
     """Uniform n_steps sweep + first-sign-change pick + secant
-    (raytracing.py:800-888, fine sweep). In the fused kernel when
-    `sampler_in_kernel` and `sdf_fn` carries `.fused_ray_sampler`, else
-    the plain sweep. Returns (points, t, object_mask, overflow=0)."""
+    (raytracing.py:800-888). With `sampler_coarse` the sweep runs on the
+    coarse fn with the hysteresis margin and the bracket is re-validated
+    fine. In the fused kernel when `sampler_in_kernel` and `sdf_fn`
+    carries `.fused_ray_sampler` (for a coarse sweep only where its
+    `packing_stride` is 3, the JAX rule of :829-836), else the plain sweep.
+    Returns (points, t, object_mask, overflow=0)."""
     steps = linspace01(cfg.n_steps, device=ray_dirs.device)
+    use_coarse = cfg.sampler_coarse and sdf_fn_coarse is not None
+    margin = cfg.sampler_coarse_margin if use_coarse else 0.0
     fused = getattr(sdf_fn, "fused_ray_sampler", None)
+    if (fused is not None and use_coarse
+            and getattr(fused, "packing_stride", None) != 3):
+        fused = None
     if cfg.sampler_in_kernel and fused is not None:
         t_pick, f_pick, t_min, z_secant = fused(
             cam_loc, ray_dirs, t_lo, t_hi, steps,
-            n_secant=cfg.n_secant_steps, margin=0.0, coarse_sweep=False)
+            n_secant=cfg.n_secant_steps, margin=margin,
+            coarse_sweep=use_coarse)
     else:
         t_pick, f_pick, t_min, z_secant = sweep_plain(
             sdf_fn, cam_loc, ray_dirs, t_lo, t_hi, steps,
-            cfg.n_secant_steps, 0.0, cfg.sampler_chunk_rays)
+            cfg.n_secant_steps, margin, cfg.sampler_chunk_rays,
+            sdf_fn_coarse=sdf_fn_coarse if use_coarse else None)
     net_surface = f_pick < 0
     secant_ok = net_surface & (object_mask if training
                                else torch.ones_like(net_surface))
@@ -242,8 +520,9 @@ def _minimal_sdf_points(sdf_fn: SDFFn, u: torch.Tensor, cam_loc, ray_dirs,
 def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
               object_mask: torch.Tensor, u: Optional[torch.Tensor] = None,
               cfg: RayTracingConfig = RayTracingConfig(),
-              training: bool = True) -> RayTraceResult:
-    """Full IDR ray tracing (raytracing.py:974-1067, sampler_fraction >= 1).
+              training: bool = True,
+              sdf_fn_coarse: Optional[SDFFn] = None) -> RayTraceResult:
+    """Full IDR ray tracing (raytracing.py:974-1067).
 
     Args:
       cam_loc: (B, 1, 3) or (B, N, 3) camera centers.
@@ -251,6 +530,8 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
       object_mask: (B, N) GT silhouette at each ray's pixel.
       u: (n_steps,) min-SDF step fractions in [0, 1); required when
         `training` (the JAX version draws them from its key).
+      sdf_fn_coarse: the coarse (bf16) fn of the precision schedule, or
+        None to trace fine only.
     Call under `torch.no_grad()`: nothing here is differentiated.
     """
     cam_loc = torch.broadcast_to(cam_loc, ray_dirs.shape)
@@ -261,17 +542,39 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
     t_far = torch.sum((far - cam_loc) * ray_dirs, dim=-1)
 
     acc_s, acc_e, unfinished, trace_overflow = _bidirectional_sphere_trace(
-        sdf_fn, cam_loc, ray_dirs, mask_intersect, t_near, t_far, cfg)
+        sdf_fn, cam_loc, ray_dirs, mask_intersect, t_near, t_far, cfg,
+        sdf_fn_coarse=sdf_fn_coarse)
 
     zero = torch.zeros_like(acc_s)
     dists = torch.where(mask_intersect, acc_s, zero)
     network_object_mask = (acc_s < acc_e) & mask_intersect
     sampler_mask = unfinished
-    _, s_t, s_obj, sampler_overflow = _dense_ray_sampler(
-        sdf_fn, cam_loc, ray_dirs, object_mask, acc_s, acc_e, sampler_mask,
-        cfg, training)
-    dists = torch.where(sampler_mask, s_t, dists)
-    network_object_mask = torch.where(sampler_mask, s_obj, network_object_mask)
+    if cfg.sampler_fraction >= 1.0:
+        _, s_t, s_obj, sampler_overflow = _dense_ray_sampler(
+            sdf_fn, cam_loc, ray_dirs, object_mask, acc_s, acc_e,
+            sampler_mask, cfg, training, sdf_fn_coarse)
+        dists = torch.where(sampler_mask, s_t, dists)
+        network_object_mask = torch.where(sampler_mask, s_obj,
+                                          network_object_mask)
+    else:
+        # compact the unconverged rays into a static buffer, sample only
+        # those, scatter back; rays beyond capacity count as non-surface
+        b, n = sampler_mask.shape
+        cap = max(int(math.ceil(n * cfg.sampler_fraction)), 1)
+        sel, sel_ok = _compact_mask(sampler_mask, cap)
+        cam_g, dirs_g, om_g, accs_g, acce_g = _compact_gather(
+            sel, [cam_loc, ray_dirs, object_mask, acc_s, acc_e])
+        _, s_t, s_obj, ps_ovf = _dense_ray_sampler(
+            sdf_fn, cam_g, dirs_g, om_g, accs_g, acce_g, sel_ok, cfg,
+            training, sdf_fn_coarse)
+        dists, network_object_mask = _masked_scatter_wide(
+            (dists, network_object_mask), sel, (s_t, s_obj), sel_ok)
+        covered = torch.zeros((b, n + 1), dtype=torch.bool,
+                              device=sel.device).scatter(
+            1, torch.where(sel_ok, sel, n), True)[:, :n]
+        overflow = sampler_mask & ~covered
+        network_object_mask = torch.where(overflow, False, network_object_mask)
+        sampler_overflow = torch.sum(overflow.to(torch.int32)) + ps_ovf
     points = fma(dists[..., None], ray_dirs, cam_loc)
 
     if training:
@@ -299,4 +602,4 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
                           mask_intersect=mask_intersect,
                           sampler_mask=sampler_mask,
                           trace_overflow=trace_overflow,
-                          sampler_overflow=sampler_overflow)
+                          sampler_overflow=sampler_overflow.to(torch.int32))

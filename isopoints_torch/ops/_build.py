@@ -15,7 +15,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+import time
+from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -58,8 +59,11 @@ def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    # nvcc's output goes to a file, so a long -Xptxas -v log cannot fill a
+    # pipe while build_all polls
+    log = open(tmp + ".log", "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
     return out, (proc, tmp)
 
 
@@ -67,7 +71,10 @@ def _finish(name: str, out: str, job) -> None:
     if job is None:
         return
     proc, tmp = job
-    log, _ = proc.communicate()
+    proc.wait()
+    with open(tmp + ".log") as f:
+        log = f.read()
+    os.remove(tmp + ".log")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit "
                            f"{proc.returncode}):\n{log}")
@@ -76,13 +83,22 @@ def _finish(name: str, out: str, job) -> None:
     os.replace(tmp, out)
 
 
-def build_all() -> Dict[str, str]:
+def build_all(seconds: Optional[Dict[str, float]] = None) -> Dict[str, str]:
     """Build every kernel source in parallel (one nvcc each); returns
-    {name: library path}."""
+    {name: library path}. `seconds`, when given, receives each build's
+    wall time from the common start."""
     with _LOCK:
+        t0 = time.time()
         jobs = {n: _start(n) for n in sources()}
-        for n, (out, job) in jobs.items():
-            _finish(n, out, job)
+        pending = dict(jobs)
+        while pending:
+            for n, (out, job) in list(pending.items()):
+                if job is None or job[0].poll() is not None:
+                    _finish(n, out, job)
+                    if seconds is not None:
+                        seconds[n] = time.time() - t0
+                    del pending[n]
+            time.sleep(0.05)
         return {n: out for n, (out, _) in jobs.items()}
 
 

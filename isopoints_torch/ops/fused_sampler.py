@@ -1,19 +1,29 @@
-"""Fused dense ray sampler: a hand-written CUDA kernel and its plain twin.
+"""Fused dense ray sampler: a hand-written CUDA kernel and its plain version.
 
 Replaces `make_sampler` / `_sweep_kernel` of
-isopoints_tpu/ops/pallas_sampler.py (:52, :129) on its fine-sweep path.
-The kernel (csrc/fused_sampler.cu) evaluates the n_steps proposals of 16
-rays per block as MLP tiles, picks the first sign change (strict first
-minimum of sign(f + margin)·countdown), the bracket and the f-argmin, and
-runs the fixed secant, all without writing a (rays × n_steps) array to
-device memory. Bound on an H100: the f32 CUDA-core rate over
-(n_steps + n_secant) SIREN evals per ray.
+isopoints_tpu/ops/pallas_sampler.py (:52, :129). The kernel
+(csrc/fused_sampler.cu, a template over the field's tile) evaluates the
+n_steps proposals of 16 rays per block as MLP tiles, picks the first sign
+change (strict first minimum of sign(f + margin)·countdown), the bracket
+and the f-argmin, and runs the fixed secant, all without writing a
+(rays × n_steps) array to device memory. Bound on an H100: the f32
+CUDA-core rate over (n_steps + n_secant [+ 2]) MLP evals per ray.
 
-`FusedSampler` is what `FusedSirenSDF.fused_ray_sampler` holds:
+`FusedSampler` is what a fused callable's `.fused_ray_sampler` holds:
 
     sampler(cam_loc (..., 3), ray_dirs (..., 3), t_lo (...), t_hi (...),
             steps (S,), n_secant=8, margin=0.0, coarse_sweep=False)
       -> (t_pick, f_pick, t_min, z_secant), each shaped like t_lo
+
+With `coarse_sweep` (pallas_sampler.py:97-104) the sweep runs on the bf16
+IGR net of the same pack, with the hysteresis `margin`; the bracket ends
+are evaluated again at the callable's precision and the secant runs there
+too. `packing_stride` carries the capability `models/raytracing` checks
+before it asks for a coarse sweep, with the JAX meaning
+(raytracing.py:829-836): 3 where the coarse sweep equals a sweep with the
+bf16 callable of the same weights (the f32 packs), 2 where the callable is
+itself bf16 and coarse equals fine. The SIREN instance of the coarse sweep
+raises NotImplementedError: it comes with the next slice.
 
 A CUDA input launches the kernel or raises; a CPU input runs
 `sweep_plain`, the plain branch of `_dense_ray_sampler`
@@ -23,19 +33,20 @@ also uses for fields without a fused sampler.
 
 import ctypes
 import functools
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from isopoints_torch.ops import _build
 from isopoints_torch.utils import eps_denom, fma
 
-
 KERNEL = _build.LaunchCount("fused_sampler")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
+_KIND = {"siren": 0, "igr": 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +55,10 @@ def _lib() -> ctypes.CDLL:
     lib.sampler_sweep.argtypes = ([_P] * 5 + [_I, _I, _I, _F] + [_P] * 6
                                   + [_I, _I, _F, _F] + [_P] * 5)
     lib.sampler_sweep.restype = _I
-    lib.sampler_max_steps.argtypes = [_I]
+    lib.sampler_sweep_igr.argtypes = ([_P] * 5 + [_I, _I, _I, _F, _I, _P, _P]
+                                      + [_I, _I, _U, _I, _I, _I] + [_P] * 5)
+    lib.sampler_sweep_igr.restype = _I
+    lib.sampler_max_steps.argtypes = [_I, _I]
     lib.sampler_max_steps.restype = _I
     return lib
 
@@ -69,21 +83,25 @@ def secant_scan(sdf_fn: Callable, f_low, f_high, z_low, z_high, origins,
 
 def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
                 t_lo: torch.Tensor, t_hi: torch.Tensor, steps: torch.Tensor,
-                n_secant: int = 8, margin: float = 0.0, chunk_rays: int = 0
+                n_secant: int = 8, margin: float = 0.0, chunk_rays: int = 0,
+                sdf_fn_coarse: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, ...]:
     """Plain dense sampler: (t_pick, f_pick, t_min, z_secant).
 
     cam, dirs (..., 3); t_lo, t_hi (...); steps (S,). `chunk_rays` > 0
     evaluates the proposals that many rays at a time (same values, bounded
-    memory; RayTracingConfig.sampler_chunk_rays)."""
+    memory; RayTracingConfig.sampler_chunk_rays). With `sdf_fn_coarse` the
+    sweep runs on it and the bracket ends [z_low, t_pick] are evaluated
+    again with `sdf_fn` (raytracing.py:872-878); f_pick is then fine."""
+    fn_dense = sdf_fn if sdf_fn_coarse is None else sdf_fn_coarse
     ts = fma(steps, (t_hi - t_lo)[..., None], t_lo[..., None])    # (..., S)
     pts = fma(ts[..., None], dirs[..., None, :], cam[..., None, :])
     if chunk_rays > 0:
         flat = pts.reshape(-1, steps.shape[0], 3)
-        sdf_val = torch.cat([sdf_fn(c) for c in flat.split(chunk_rays)]
+        sdf_val = torch.cat([fn_dense(c) for c in flat.split(chunk_rays)]
                             ).reshape(ts.shape)
     else:
-        sdf_val = sdf_fn(pts)
+        sdf_val = fn_dense(pts)
     n = steps.shape[0]
     countdown = torch.arange(n, 0, -1, dtype=sdf_val.dtype, device=sdf_val.device)
     idx = torch.argmin(torch.sign(sdf_val + margin) * countdown, dim=-1)
@@ -95,16 +113,28 @@ def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
     t_min = pick(ts, torch.argmin(sdf_val, dim=-1))
     idx_lo = torch.clamp(idx - 1, min=0)
     z_low, f_low = pick(ts, idx_lo), pick(sdf_val, idx_lo)
+    if sdf_fn_coarse is not None:
+        t2 = torch.stack([z_low, t_pick], dim=-1)
+        f2 = sdf_fn(fma(t2[..., None], dirs[..., None, :], cam[..., None, :]))
+        f_low, f_pick = f2[..., 0], f2[..., 1]
     z_secant = secant_scan(sdf_fn, f_low, f_pick, z_low, t_pick, cam, dirs,
                            n_secant)
     return t_pick, f_pick, t_min, z_secant
 
 
+def max_steps(pack) -> int:
+    """The kernel's largest n_steps at this pack's field and width."""
+    return _lib().sampler_max_steps(_KIND[pack.kind], pack.hidden)
+
+
 def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
                t_hi: torch.Tensor, steps: torch.Tensor, n_secant: int,
-               margin: float) -> Tuple[torch.Tensor, ...]:
+               margin: float, coarse_sweep: bool = False,
+               fine_bf16: bool = False) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel: cam, dirs (R, 3), t_lo, t_hi (R,), steps
-    (S,), all contiguous float32 on the weights' CUDA device."""
+    (S,), all contiguous float32 on the weights' CUDA device. The IGR
+    sweep runs at bf16 with `coarse_sweep` (then the bracket is
+    re-validated) and else at the fine precision (`fine_bf16`)."""
     r = dirs.shape[0]
     for name, t, shape in (("cam", cam, (r, 3)), ("dirs", dirs, (r, 3)),
                            ("t_lo", t_lo, (r,)), ("t_hi", t_hi, (r,)),
@@ -118,40 +148,56 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
     if n_secant < 0:
         raise ValueError("n_secant must be >= 0")
     lib = _lib()
-    _, wargs = pack.kernel_args()
     n_steps = steps.shape[0]
-    max_steps = lib.sampler_max_steps(pack.hidden)
-    if not 1 <= n_steps <= max_steps:
-        raise ValueError(f"the sampler kernel takes 1..{max_steps} steps at "
+    limit = max_steps(pack)
+    if not 1 <= n_steps <= limit:
+        raise ValueError(f"the sampler kernel takes 1..{limit} steps at "
                          f"hidden {pack.hidden}, got {n_steps}")
     outs = [torch.empty(r, dtype=torch.float32, device=dirs.device)
             for _ in range(4)]
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
-    KERNEL.launches += 1
-    err = lib.sampler_sweep(cam.data_ptr(), dirs.data_ptr(), t_lo.data_ptr(),
-                            t_hi.data_ptr(), steps.data_ptr(), r, n_steps,
-                            int(n_secant), float(margin), *wargs,
-                            *(o.data_ptr() for o in outs), stream)
+    rays = (cam.data_ptr(), dirs.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
+            steps.data_ptr(), r, n_steps, int(n_secant), float(margin))
+    out_ptrs = tuple(o.data_ptr() for o in outs)
+    if pack.kind == "siren":
+        _, wargs = pack.kernel_args()
+        KERNEL.launches += 1
+        err = lib.sampler_sweep(*rays, *wargs, *out_ptrs, stream)
+    else:
+        sweep_bf16 = bool(coarse_sweep or fine_bf16)
+        sw = (_P * 6)(*pack.net(sweep_bf16)[1])
+        fw = (_P * 6)(*pack.net(bool(fine_bf16))[1])
+        KERNEL.launches += 1
+        err = lib.sampler_sweep_igr(*rays, int(bool(coarse_sweep)), sw, fw,
+                                    *pack.arch_args(), int(sweep_bf16),
+                                    int(bool(fine_bf16)), *out_ptrs, stream)
     _build.check_launch(lib, err, "fused_sampler")
     return tuple(outs)
 
 
 class FusedSampler:
-    """In-kernel dense sampler over a SirenPack (see module docstring).
-    `sdf_plain` is the pack's plain value function, used on CPU."""
+    """In-kernel dense sampler over a SirenPack or an IgrPack (see the
+    module docstring). `sdf_plain` is the callable's plain value function,
+    `sdf_plain_coarse` the plain bf16 one (IGR only), used on CPU."""
 
-    def __init__(self, pack, sdf_plain: Callable):
+    def __init__(self, pack, sdf_plain: Callable,
+                 sdf_plain_coarse: Optional[Callable] = None,
+                 fine_bf16: bool = False):
         self.pack = pack
         self.sdf_plain = sdf_plain
+        self.sdf_plain_coarse = sdf_plain_coarse
+        self.fine_bf16 = fine_bf16
+        self.packing_stride = 2 if fine_bf16 else 3
 
     @torch.no_grad()
     def __call__(self, cam_loc, ray_dirs, t_lo, t_hi, steps,
                  n_secant: int = 8, margin: float = 0.0,
                  coarse_sweep: bool = False):
-        if coarse_sweep:
+        if coarse_sweep and self.pack.kind == "siren":
             raise NotImplementedError(
-                "coarse_sweep (bf16 sweep + bracket re-validation) is not "
-                "ported yet: ROADMAP slice 2, the production trace schedule")
+                "the SIREN coarse sweep (bf16 sweep + bracket re-validation) "
+                "is not ported yet: it comes with the next slice (ROADMAP "
+                "'Slices of the port': the SIREN bf16 coarse mode)")
         shp = t_lo.shape
         cam = torch.broadcast_to(cam_loc, ray_dirs.shape).reshape(-1, 3)
         drs = ray_dirs.reshape(-1, 3)
@@ -159,10 +205,13 @@ class FusedSampler:
         if drs.is_cuda:
             outs = sweep_cuda(self.pack, cam.contiguous(), drs.contiguous(),
                               tlo.contiguous(), thi.contiguous(),
-                              steps.contiguous(), n_secant, margin)
+                              steps.contiguous(), n_secant, margin,
+                              coarse_sweep, self.fine_bf16)
         elif drs.device.type == "cpu":
             outs = sweep_plain(self.sdf_plain, cam, drs, tlo, thi, steps,
-                               n_secant, margin)
+                               n_secant, margin,
+                               sdf_fn_coarse=(self.sdf_plain_coarse
+                                              if coarse_sweep else None))
         else:
             raise ValueError(f"the sampler runs on CUDA or CPU, not {drs.device}")
         return tuple(o.reshape(shp) for o in outs)

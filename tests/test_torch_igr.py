@@ -1,0 +1,228 @@
+"""Port parity: the IGR field (`SDFField`), its fused MLP's plain versions
+and the kernel's packed layout, against the JAX package on the CPU.
+
+The JAX parameters go through `params_from_jax(keep_weight_norm=True)`,
+so the port's field holds the same `v, g, b` leaves.
+
+Tolerances:
+- `SDFField` values atol 1e-6, parameter gradients atol 1e-5 (float32
+  sums in two orders; the softplus β = 100 amplifies the round-off of the
+  gradient by up to 100).
+- f32 plain version against the JAX kernel's `highest` mode: values atol
+  1e-6, input gradients atol 1e-5.
+- bf16 plain version against the JAX kernel's `bf16` mode: both round every
+  operand to bf16 and sum exact products in float32, in different orders,
+  so an activation whose float32 value lies within round-off of a bf16
+  rounding boundary rounds one bf16 ulp (2^-8 relative) apart. 99% of the
+  values and gradients agree within 1e-5; every one within 1e-3, the
+  mode's own error against f32.
+- the kernel's padded layout, evaluated by a PyTorch model of the kernel's
+  arithmetic, against the plain version: atol 1e-6 (f32) and exact
+  operands in bf16, atol 1e-5.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from isopoints_tpu.misc.checkpoints import CheckpointIO
+from isopoints_tpu.models import fields as jf
+from isopoints_tpu.ops.pallas_mlp import make_fused_igr_sdf as jax_fused_igr
+from isopoints_torch.convert import load_jax_npz, params_from_jax
+from isopoints_torch.models import fields as tf
+from isopoints_torch.ops import fused_mlp
+
+
+def _pair(hidden=64, n_layers=4, num_frequencies=0, seed=0, **kw):
+    jfield = jf.SDFField(hidden_size=hidden, n_layers=n_layers,
+                         num_frequencies=num_frequencies, **kw)
+    params = jfield.init(jax.random.key(seed))
+    tfield = tf.SDFField(hidden_size=hidden, n_layers=n_layers,
+                         num_frequencies=num_frequencies, device="cpu", **kw)
+    sd = params_from_jax({"decoder": jax.tree.map(np.asarray, params)},
+                         keep_weight_norm=True)
+    tfield.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
+    return jfield, params, tfield
+
+
+def _points(shape, seed=1, scale=1.0):
+    return (np.random.RandomState(seed).uniform(-1, 1, shape) * scale
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("num_frequencies", [0, 6])
+def test_sdffield_matches_jax(num_frequencies):
+    """Values and the θ-gradient (through v, g, b) of a loss on them."""
+    jfield, params, tfield = _pair(num_frequencies=num_frequencies)
+    x = _points((333, 3))
+    jx = jnp.asarray(x)
+
+    def jloss(p):
+        return jnp.mean(jfield.sdf(p, jx) ** 2)
+
+    ref = np.asarray(jfield.sdf(params, jx))
+    g_ref = jax.grad(jloss)(params)
+    out = tfield.sdf(torch.from_numpy(x))
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-6)
+    torch.mean(out ** 2).backward()
+    for i, lin in enumerate(tfield.layers):
+        for leaf in ("v", "g", "b"):
+            np.testing.assert_allclose(
+                getattr(lin, leaf).grad.numpy(),
+                np.asarray(g_ref["layers"][i][leaf]), atol=1e-5,
+                err_msg=f"layer {i} {leaf}")
+
+
+def test_sdffield_widths_and_init():
+    """The bench field's widths 3→256→256→256→253→[253+3]→1, and the
+    geometric init's pos-enc columns zeroed."""
+    f = tf.SDFField(hidden_size=256, n_layers=4, num_frequencies=0,
+                    device="cpu")
+    assert [tuple(l.v.shape) for l in f.layers] == [
+        (256, 3), (256, 256), (256, 256), (253, 256), (1, 256)]
+    g = tf.SDFField(hidden_size=64, n_layers=5, num_frequencies=6,
+                    generator=torch.Generator().manual_seed(0), device="cpu")
+    assert g.layers[0].v.shape == (64, 39)
+    assert g.layers[3].v.shape == (25, 64)
+    assert torch.all(g.layers[0].v[:, 3:] == 0)
+    assert torch.all(g.layers[4].v[:, -36:] == 0)
+    plain = tf.SDFField(hidden_size=32, n_layers=2, weight_norm=False,
+                        skip_in=(), device="cpu")
+    assert isinstance(plain.layers[0], torch.nn.Linear)
+
+
+def test_convert_keeps_weight_norm():
+    jfield, params, _ = _pair(hidden=32, n_layers=2)
+    tree = {"decoder": jax.tree.map(np.asarray, params)}
+    kept = params_from_jax(tree, keep_weight_norm=True)
+    folded = params_from_jax(tree)
+    assert sorted(kept) == sorted(f"decoder.layers.{i}.{k}" for i in range(3)
+                                  for k in ("v", "g", "b"))
+    assert sorted(folded) == sorted(f"decoder.layers.{i}.{k}" for i in range(3)
+                                    for k in ("weight", "bias"))
+
+
+def test_load_jax_checkpoint_keeps_weight_norm(tmp_path):
+    jfield, params, _ = _pair(hidden=32, n_layers=2)
+    CheckpointIO(str(tmp_path), model={"decoder": params}).save("model.npz", it=1)
+    sd = load_jax_npz(str(tmp_path / "model.npz"), keep_weight_norm=True)
+    ref = params_from_jax({"decoder": jax.tree.map(np.asarray, params)},
+                          keep_weight_norm=True)
+    assert sorted(sd) == sorted(ref)
+    for k in sd:
+        assert torch.equal(sd[k], ref[k])
+
+
+@pytest.fixture(scope="module")
+def igr64():
+    """The bench field's shape at hidden 64: 4 layers, skip width 61."""
+    jfield, params, tfield = _pair(hidden=64, n_layers=4)
+    assert tfield.layers[3].v.shape[0] == 61
+    return jfield, params, tfield
+
+
+def test_plain_f32_matches_jax_highest(igr64):
+    jfield, params, tfield = igr64
+    j_sdf, j_grad = jax_fused_igr(jfield, params, interpret=True,
+                                  precision="highest")
+    sdf = fused_mlp.make_fused_igr_sdf(tfield)
+    x = _points((611, 3), seed=2)
+    np.testing.assert_allclose(sdf(torch.from_numpy(x)).numpy(),
+                               np.asarray(j_sdf(jnp.asarray(x))), atol=1e-6)
+    v, g = sdf.sdf_and_grad(torch.from_numpy(x))
+    v_ref, g_ref = j_grad(jnp.asarray(x))
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), atol=1e-6)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_ref), atol=1e-5)
+
+
+def test_plain_bf16_matches_jax_bf16(igr64):
+    jfield, params, tfield = igr64
+    j_sdf, j_grad = jax_fused_igr(jfield, params, interpret=True,
+                                  precision="bf16")
+    sdf = fused_mlp.make_fused_igr_sdf(tfield, "bf16")
+    x = _points((611, 3), seed=3)
+    v_ref, g_ref = (np.asarray(a) for a in j_grad(jnp.asarray(x)))
+    v = sdf(torch.from_numpy(x)).numpy()
+    v2, g = (a.numpy() for a in sdf.sdf_and_grad(torch.from_numpy(x)))
+    np.testing.assert_allclose(v, np.asarray(j_sdf(jnp.asarray(x))), atol=1e-3)
+    np.testing.assert_allclose(v2, v_ref, atol=1e-3)
+    np.testing.assert_allclose(g, g_ref, atol=1e-3)
+    assert np.mean(np.abs(v - v_ref) <= 1e-5) >= 0.99
+    assert np.mean(np.abs(g - g_ref) <= 1e-5) >= 0.99
+    # and the mode really is coarse: ~1e-3 away from the f32 values
+    fine = fused_mlp.make_fused_igr_sdf(tfield)(torch.from_numpy(x)).numpy()
+    assert 1e-4 < np.abs(v - fine).max() < 1e-2
+
+
+def test_plain_grad_matches_autograd(igr64):
+    """The forward-mode tangent plain version equals autograd of the
+    field."""
+    _, _, tfield = igr64
+    sdf = fused_mlp.make_fused_igr_sdf(tfield)
+    x = torch.from_numpy(_points((2, 33, 3), seed=4))
+    v, g = sdf.sdf_and_grad(x)
+    assert v.shape == (2, 33) and g.shape == (2, 33, 3)
+    v_ref, g_ref = tf.sdf_and_grad(tfield.sdf, x)
+    np.testing.assert_allclose(v.numpy(), v_ref.detach().numpy(), atol=1e-6)
+    np.testing.assert_allclose(g.numpy(), g_ref.detach().numpy(), atol=1e-5)
+
+
+def _kernel_model(pack, x, bf16):
+    """The kernel's arithmetic on its padded layout (csrc/igr.cuh), in
+    PyTorch: first layer from (H, 3), hidden layers from W^T (in, out),
+    the skip written into the last three columns and the row scaled by
+    1/√2, operands rounded to bf16 where they are stored."""
+    (w0, b0, wh_t, bh, wout, bout), _ = pack.net(bf16)
+    hidden, n_hidden, skip, final_tanh = pack.arch_args()
+    rnd = fused_mlp._round_bf16 if bf16 else (lambda a: a)
+    c = torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32)
+
+    def store(a, layer):
+        if skip >> layer & 1:
+            a = torch.cat([a[:, :hidden - 3], x], dim=-1) * c
+        return rnd(a)
+
+    h = store(tf.softplus_beta(rnd(x) @ w0.t() + b0), 1)
+    for l in range(n_hidden):
+        h = store(tf.softplus_beta(h @ wh_t[l] + bh[l]), l + 2)
+    out = h @ wout + bout
+    return torch.tanh(out) if final_tanh else out
+
+
+@pytest.mark.parametrize("skip", [(4,), (2,)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_layout_matches_plain(skip, bf16):
+    _, _, tfield = _pair(hidden=64, n_layers=4, skip_in=skip)
+    pack = fused_mlp.IgrPack(tfield)
+    w0, b0, wh_t, bh, wout, bout = pack.net(bf16)[0]
+    assert (w0.shape, wh_t.shape, bh.shape, wout.shape) == (
+        (64, 3), (3, 64, 64), (3, 64), (64,))
+    x = torch.from_numpy(_points((300, 3), seed=5))
+    ref = fused_mlp.igr_sdf_plain(pack, x, bf16)
+    np.testing.assert_allclose(_kernel_model(pack, x, bf16).numpy(),
+                               ref.numpy(), atol=1e-5 if bf16 else 1e-6)
+
+
+def test_dispatch_and_cpu_route():
+    jfield, params, tfield = _pair(hidden=32, n_layers=2)
+    assert isinstance(fused_mlp.make_fused_sdf_fn(tfield),
+                      fused_mlp.FusedIgrSDF)
+    posenc = tf.SDFField(hidden_size=32, n_layers=2, num_frequencies=4,
+                         device="cpu")
+    assert fused_mlp.make_fused_sdf_fn(posenc) is None
+    siren = tf.SirenField(hidden_size=32, n_layers=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        fused_mlp.make_fused_sdf_fn(siren, precision="bf16")
+    sdf = fused_mlp.make_fused_sdf_fn(tfield, precision="bf16")
+    assert sdf.fused_ray_sampler.packing_stride == 2
+    assert fused_mlp.make_fused_sdf_fn(tfield).fused_ray_sampler.packing_stride == 3
+    x = torch.from_numpy(_points((40, 3))).requires_grad_(True)
+    assert not sdf(x).requires_grad
+    sdf.sdf_and_grad(x)
+    assert fused_mlp.IGR_KERNEL.launches == 0
+    with pytest.raises(TypeError):
+        sdf(x.detach().double())

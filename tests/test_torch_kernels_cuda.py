@@ -20,14 +20,32 @@ sine layers amplify the round-off of the gradient). Sampler: the picked
 depths must be equal on all but 0.1% of rays (a pick flips only where two
 proposal values tie within round-off), and on equal picks f_pick agrees to
 1e-5 and the secant depth to 1e-4 on rays with a sign change.
+
+IGR (fused_igr, the IGR sampler, the march): f32 values atol 2e-5 and
+gradients atol 1e-4 + rtol 1e-4 as for SIREN. bf16: kernel and plain
+version round the same operands, so they differ only where a float32 sum
+in another order lands on the other side of a bf16 rounding boundary: 99%
+of values and gradients within 1e-5, all within the mode's own error (the
+plain bf16 version's largest difference from f32 on the same points). The
+IGR sampler: picks equal on 99.9% (fine) and 99% (coarse: a bf16 value
+within round-off of −margin flips the pick) of the rays;
+f_pick within 1e-5 on equal picks; the secant within 1e-4 on 99.9% of the
+crossing rays and 1e-3 on all (it divides by value differences). The
+march kernel against its plain version (`body_fused` over cuBLAS): masks
+equal on 99.9% of rays, depths within 1e-5 on 99.9%; against the loop over
+the fused IGR kernel, which evaluates every point with the same per-row
+arithmetic: equal.
 """
+
+import dataclasses
 
 import pytest
 import torch
 
-from isopoints_torch.models.fields import SirenField
-from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
-from isopoints_torch.ops import fused_mlp, fused_sampler, knn
+from isopoints_torch.models.fields import SDFField, SirenField
+from isopoints_torch.models.raytracing import (RayTracingConfig, march_plain,
+                                               ray_trace)
+from isopoints_torch.ops import fused_mlp, fused_sampler, fused_trace, knn
 from isopoints_torch.rendering import select, splat
 from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                   rasterize_splats)
@@ -234,3 +252,141 @@ def test_fine_kernel_and_rasterizer_match_plain(dev):
     for name in ("idx", "zbuf", "occ", "used", "slots"):
         assert torch.equal(getattr(fk, name), getattr(fp, name)), name
     torch.testing.assert_close(fk.qvalue, fp.qvalue, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# IGR: the fused MLP, the IGR sampler (fine and coarse) and the march
+# ---------------------------------------------------------------------------
+
+def _igr(dev, hidden=256, n_layers=4, seed=0, **kw):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    field = SDFField(hidden_size=hidden, n_layers=n_layers, num_frequencies=0,
+                     generator=g, device=dev, **kw)
+    return field, fused_mlp.make_fused_igr_sdf(field)
+
+
+def _close_frac(a, b, atol):
+    return float(((a - b).abs() <= atol).float().mean())
+
+
+@pytest.mark.parametrize("hidden,n_layers,skip,n", [(256, 4, (4,), 5000),
+                                                    (64, 4, (2,), 1000),
+                                                    (96, 1, (), 77)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_igr_matches_plain(dev, hidden, n_layers, skip, n, bf16):
+    field, _ = _igr(dev, hidden, n_layers, skip_in=skip)
+    sdf = fused_mlp.make_fused_igr_sdf(field, "bf16" if bf16 else "f32")
+    x = torch.rand(n, 3, device=dev) * 2 - 1
+    before = fused_mlp.IGR_KERNEL.launches
+    v = sdf(x)
+    v2, g = sdf.sdf_and_grad(x)
+    torch.cuda.synchronize()
+    assert fused_mlp.IGR_KERNEL.launches == before + 2
+    v_ref, g_ref = fused_mlp.igr_sdf_and_grad_plain(sdf.pack, x, bf16)
+    torch.testing.assert_close(v, v2, atol=0, rtol=0)
+    if not bf16:
+        torch.testing.assert_close(v, v_ref, atol=2e-5, rtol=0)
+        torch.testing.assert_close(g, g_ref, atol=1e-4, rtol=1e-4)
+        with torch.no_grad():
+            torch.testing.assert_close(v, field.sdf(x), atol=2e-5, rtol=0)
+    else:
+        # the mode's own error: the plain bf16 version against f32
+        own = fused_mlp.igr_sdf_and_grad_plain(sdf.pack, x)
+        for a, b, c in ((v, v_ref, own[0]), (g, g_ref, own[1])):
+            assert float((a - b).abs().max()) <= float((b - c).abs().max())
+            assert _close_frac(a, b, 1e-5) >= 0.99
+
+
+def _igr_rays(dev, n, seed=1):
+    cam, d, t_lo, t_hi = _rays(dev, n, seed)
+    return cam, d, t_lo * 0.6, t_hi * 0.9
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+def test_fused_sampler_igr_matches_plain(dev, coarse):
+    field, sdf = _igr(dev)
+    cam, d, t_lo, t_hi = _igr_rays(dev, 4096)
+    steps = linspace01(100, device=dev)
+    margin = 2e-3 if coarse else 0.0
+    before = fused_sampler.KERNEL.launches
+    out = sdf.fused_ray_sampler(cam, d, t_lo, t_hi, steps, n_secant=8,
+                                margin=margin, coarse_sweep=coarse)
+    torch.cuda.synchronize()
+    assert fused_sampler.KERNEL.launches == before + 1
+    plain = lambda p: fused_mlp.igr_sdf_plain(sdf.pack, p)
+    plain_c = lambda p: fused_mlp.igr_sdf_plain(sdf.pack, p, True)
+    ref = fused_sampler.sweep_plain(plain, cam, d, t_lo, t_hi, steps, 8, margin,
+                                    sdf_fn_coarse=plain_c if coarse else None)
+    same = (out[0] == ref[0]) & (out[2] == ref[2])
+    assert float(same.float().mean()) >= (0.99 if coarse else 0.999)
+    torch.testing.assert_close(out[1][same], ref[1][same], atol=1e-5, rtol=0)
+    hit = same & (ref[1] < 0)
+    assert int(hit.sum()) > 100
+    assert _close_frac(out[3][hit], ref[3][hit], 1e-4) >= 0.999
+    assert float((out[3][hit] - ref[3][hit]).abs().max()) <= 1e-3
+
+
+def _march_state(dev, sdf, n):
+    """A compacted stage's state: a few plain fused-backstep iterations
+    from the sphere entry of the bench's rays."""
+    cam, d, _, _ = _rays(dev, n, seed=4)
+    t0 = torch.full((n,), 1.0, device=dev)
+    t1 = torch.full((n,), 3.0, device=dev)
+    zi = torch.zeros(n, dtype=torch.int32, device=dev)
+    on = torch.ones(n, dtype=torch.bool, device=dev)
+    st = (t0, t1, sdf(cam + t0[:, None] * d), sdf(cam + t1[:, None] * d),
+          on, on, zi, zi, torch.zeros_like(t0), torch.zeros_like(t0))
+    return cam, d, march_plain(sdf, cam, d, st, 2, 5e-5, 0.5, 1, True)
+
+
+def test_trace_march_matches_plain(dev):
+    _, sdf = _igr(dev)
+    cam, d, st = _march_state(dev, sdf, 8192)
+    before = fused_trace.KERNEL.launches
+    out = sdf.fused_trace_stepper(cam, d, st, 3, 5e-5, 0.5, 1, True)
+    torch.cuda.synchronize()
+    assert fused_trace.KERNEL.launches == before + 1
+    ref = march_plain(lambda p: fused_mlp.igr_sdf_plain(sdf.pack, p), cam, d,
+                      st, 3, 5e-5, 0.5, 1, True)
+    for i in (4, 5, 6, 7):
+        assert float((out[i] == ref[i]).float().mean()) >= 0.999
+    for i in (0, 1):
+        assert _close_frac(out[i], ref[i], 1e-5) >= 0.999
+    # the march equals the same iterations over the fused IGR kernel exactly
+    loop = march_plain(sdf, cam, d, st, 3, 5e-5, 0.5, 1, True)
+    for a, b in zip(out, loop):
+        assert torch.equal(a, b)
+
+
+def test_ray_trace_igr_schedule_kernels(dev):
+    """The bench schedule on the kernels: trace_in_kernel equals the loop
+    over the fused kernel; both agree with every plain version."""
+    field, sdf = _igr(dev)
+    coarse = fused_mlp.make_fused_igr_sdf(field, "bf16")
+    cam, d, _, _ = _rays(dev, 4096)
+    cam, d = cam.reshape(1, -1, 3), d.reshape(1, -1, 3)
+    gt = torch.ones(d.shape[:2], dtype=torch.bool, device=dev)
+    cfg = RayTracingConfig(
+        sphere_tracing_iters=21, sampler_fraction=0.5,
+        trace_compact_after=(6, 9, 13, 17),
+        trace_compact_fraction=(0.65, 0.42, 0.21, 0.14), coarse_trace_iters=6,
+        sampler_coarse=True, sampler_coarse_margin=2e-3,
+        coarse_stall_on_cross=True, fused_backstep=True,
+        trace_gate_end_front=True, sampler_in_kernel=True)
+    with torch.no_grad():
+        a = ray_trace(sdf, cam, d, gt, None, cfg, training=False,
+                      sdf_fn_coarse=coarse)
+        before = fused_trace.KERNEL.launches
+        b = ray_trace(sdf, cam, d, gt, None,
+                      dataclasses.replace(cfg, trace_in_kernel=True),
+                      training=False, sdf_fn_coarse=coarse)
+        assert fused_trace.KERNEL.launches > before
+        p = ray_trace(lambda x: fused_mlp.igr_sdf_plain(sdf.pack, x), cam, d,
+                      gt, None, cfg, training=False,
+                      sdf_fn_coarse=lambda x: fused_mlp.igr_sdf_plain(
+                          sdf.pack, x, True))
+    assert torch.equal(a.network_object_mask, b.network_object_mask)
+    assert torch.equal(a.dists, b.dists)
+    agree = a.network_object_mask == p.network_object_mask
+    assert float(agree.float().mean()) >= 0.99
+    assert _close_frac(a.dists, p.dists, 1e-4) >= 0.98
