@@ -23,7 +23,9 @@ Phases, each fatal on failure:
      more projected steps, counters set to 0 just before and read just
      after (all five kernels must have launched); the projected step's
      median time, the resample step's time and each kernel's launches per
-     projected step; one projected step's losses with the kernels and with
+     projected step (the two visibility rasters: 2 selection and 2 fine
+     launches, and no splat_zbuf_bwd or occ_bwd launch, since the rasters
+     build no graph); one projected step's losses with the kernels and with
      the plain versions on identical draws must agree (rtol 1e-2, iso-point
      counts within 0.5% of the capacity);
   5. the kNN, selection and fine kernels against their plain versions on
@@ -52,7 +54,31 @@ Phases, each fatal on failure:
      own first compacted stage (ceil(0.65 x 262,144) rays, 3 iterations);
      max error against the stated tolerance, kernel and plain times and the
      bound;
-  8. one JSON line {"kernels": [...]} (each kernel timed at the shape the
+  8. the splat path at bench.py's size (isopoints_torch.bench): 24,576
+     splats on the r=0.7 sphere at 512 px (strip 1280); the kNN against its
+     plain version on that cloud (k = knn_k - 1, timed); forward and
+     backward of Σ occupancy + Σ_{zbuf>0} zbuf with every kernel, counters
+     set to 0 before and read after (splat_select, splat_fine,
+     splat_zbuf_bwd and occ_bwd once each), then with every plain version
+     (the spacing from the plain kNN; no launch at all) on the same inputs:
+     fragment maps equal, xy gradients within 1e-5·max(1, |g|) + 16 ulp of
+     max|g| per element, z within 1e-5 relative, overflow 0; both backward
+     kernels on the frame's inputs (rebuilt from its forward and checked to
+     give its gradient) run twice (bit-identical), against their plain
+     versions, timed as the path calls them (median of 7, CUDA events;
+     the kernels alone from a profiled frame) with their bounds and, for the
+     zbuf reduction, one `scatter_add_`; the frame time (median of 5 runs of
+     3 frames), splats/s and the kNN spacing's time;
+  9. the DSS point model: isopoints_torch/configs/dss_point.yml through
+     the factories, 5000 points on the r=0.5 sphere (seeded), two views at
+     256 px; the kNN against its plain version on the (2, 5000) cloud of its
+     spacing; forward with a mask image and backward of
+     Σ(alpha − target)² + Σ|rgb − target_rgb| against a render of a shifted
+     sphere; gradients of points, normal angles and colours finite and
+     non-zero, log_size none; the same step with every plain version (no
+     launch; loss rtol 1e-5, gradients within phase 8's per-element bound);
+     the kNN and both backward kernels launched; the step's time;
+  10. one JSON line {"kernels": [...]} (each kernel timed at the shape the
      main path gives it most often), then the device line
      {"ok": true, "device": {...}}.
 
@@ -99,6 +125,25 @@ def time_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+GRAD_TOL = "|err| <= 1e-5·max(1, |g|) + 16 ulp of max|g| per element"
+
+
+def grad_check(a: torch.Tensor, ref: torch.Tensor):
+    """(summary, passed): each element within 1e-5·max(1, |ref|) plus 16
+    float32 ulp of max|ref| (the same terms summed in another order, some
+    by atomics whose order changes from run to run), with the worst share
+    of that bound, max|ref| and the median of the non-zero |ref|."""
+    mag = ref.abs()
+    big = mag.max().float()
+    ulp = torch.nextafter(big, big.new_tensor(float("inf"))) - big
+    worst = float(((a - ref).abs() / (1e-5 * mag.clamp(min=1.0) + 16 * ulp)).max())
+    nz = mag[mag > 0]
+    med = float(nz.median()) if nz.numel() else 0.0
+    return (f"max err {float((a - ref).abs().max()):.3g}, worst {worst:.3g} of "
+            f"the bound (max |g| {float(big):.6g}, median non-zero |g| "
+            f"{med:.6g})", worst <= 1.0)
+
+
 def mlp_flops(n_points: int, hidden: int, n_hidden: int) -> float:
     """Multiply-adds of one SIREN value eval, 2 FLOP each."""
     return 2.0 * n_points * (3 * hidden + n_hidden * hidden * hidden + hidden)
@@ -110,12 +155,13 @@ def bound_ms(flops: float, n_bytes: float, peak: float = F32_PEAK):
                                        else "bytes")
 
 
-def row(name, source, replaces, launches, err, ms, plain_ms, b):
+def row(name, source, replaces, launches, err, ms, plain_ms, b,
+        library_ms=None, library_note=NO_LIBRARY):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
-            "library_note": NO_LIBRARY}
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms,
+            "library_note": library_note}
 
 
 def main() -> None:
@@ -135,10 +181,11 @@ def main() -> None:
     from isopoints_torch.models.raytracing import march_plain
     from isopoints_torch.ops import (_build, fused_mlp, fused_sampler,
                                      fused_trace, knn)
-    from isopoints_torch.rendering import select, splat
+    from isopoints_torch.rendering import occ_bwd, select, splat
     from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
+                                                      _rasterize_forward,
                                                       compute_splat_params,
-                                                      splat_spacing)
+                                                      splat_spacing, to_tiles)
     from isopoints_torch.training.trainer import compute_loss
     from isopoints_torch.utils import linspace01
 
@@ -147,7 +194,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     kernels = (fused_mlp.KERNEL, fused_sampler.KERNEL, knn.KERNEL,
                select.KERNEL, splat.KERNEL, fused_mlp.IGR_KERNEL,
-               fused_trace.KERNEL)
+               fused_trace.KERNEL, splat.ZBUF_KERNEL, occ_bwd.KERNEL)
 
     def reset():
         for k in kernels:
@@ -500,6 +547,11 @@ def main() -> None:
     for name in ("knn", "splat_select", "splat_fine"):
         if any(p[name] <= 0 for p in proj_launches):
             fail(f"kernel {name} missing from a projected step")
+    for p in proj_launches:
+        if (p["splat_select"], p["splat_fine"], p["splat_zbuf_bwd"],
+                p["occ_bwd"]) != (2, 2, 0, 0):
+            fail(f"a projected step's rasters launched {p}: expected 2 selection "
+                 f"and 2 fine launches and no backward (graph-free rasters)")
     n_iso = [m["n_iso"] for m in metrics[warm:]]
     if min(n_iso) <= 0 or state.points.shape[1] != cfg.model.combined_kwargs.max_iso_per_batch:
         fail(f"projected steps found no iso-points: n_iso {n_iso}")
@@ -758,7 +810,223 @@ def main() -> None:
                     n_mrays * (24 + 2 * 34) + igr_w_bytes)
     print(f"  kernel {mk_ms:.3f} ms  plain {mk_pms:.3f} ms  bound {mk_b[0]:.4f} ms ({mk_b[1]})")
 
-    # ---- 8. the kernels line
+    # ---- 8. the splat path at bench.py's size
+    scene = bench.splat_scene(bench.N_SPLATS, bench.SPLAT_IMAGE_SIZE, dev)
+    sst = scene.settings
+    S, T, K = sst.image_size, sst.tile_size, sst.points_per_pixel
+    plain_st = dataclasses.replace(sst, use_pallas=False, use_pallas_backward=False)
+    # the kNN at the frame's shape, and the plain route's spacing from the
+    # plain kNN (splat_spacing follows use_pallas)
+    knn_case(scene.points, scene.mask, sst.knn_k - 1, "splat frame cloud",
+             timed=True)
+    plain_scene = scene._replace(spacing=splat_spacing(scene.points, scene.mask,
+                                                       plain_st))
+    sp_err = float((plain_scene.spacing - scene.spacing).abs().max())
+    if sp_err > 1e-6:
+        fail(f"splat spacing: kernel and plain kNN differ by {sp_err} (tol 1e-6)")
+    reset()
+    loss_k, grad_k, gndc_k, fr_k = bench.splat_step(scene)
+    torch.cuda.synchronize()
+    splat_launches = counts()
+    print(f"splat path ({bench.N_SPLATS} splats @ {S} px, strip "
+          f"{sst.max_points_per_strip}): launches in one forward+backward frame "
+          f"{splat_launches}")
+    for name, n in splat_launches.items():
+        want = 1 if name in ("splat_select", "splat_fine", "splat_zbuf_bwd",
+                             "occ_bwd") else 0
+        if n != want:
+            fail(f"splat frame: {name} launched {n} times (expected {want})")
+    reset()
+    loss_p, grad_p, gndc_p, fr_p = bench.splat_step(plain_scene, plain_st)
+    torch.cuda.synchronize()
+    if any(counts().values()):
+        fail(f"the plain splat frame launched kernels: {counts()}")
+    for name in ("idx", "zbuf", "occupancy", "visibility", "tile_overflow"):
+        if not torch.equal(getattr(fr_k, name), getattr(fr_p, name)):
+            fail(f"splat frame: {name} differs between the kernels and the plain "
+                 f"versions")
+    q_err = float((fr_k.qvalue - fr_p.qvalue).detach().abs().max())
+    splat_ovf = int(fr_k.tile_overflow.sum())
+    # the rasterizer's gradient (d loss / d pts_ndc) and the points' one
+    xy = grad_check(gndc_k[..., :2], gndc_p[..., :2])
+    gz_k, gz_p = gndc_k[..., 2], gndc_p[..., 2]
+    z_rel = float(((gz_k - gz_p).abs() / gz_p.abs().clamp(min=1e-30))[gz_p != 0].max())
+    z_zero = torch.equal(gz_k == 0, gz_p == 0)
+    wg = grad_check(grad_k, grad_p)
+    print(f"splat tolerances: fragment maps equal (qvalue |err| <= 1e-6), spacing "
+          f"within 1e-6; of d loss / d pts_ndc, xy {GRAD_TOL} (the occupancy sums "
+          f"in another order) and z within 1e-5 relative (index_add_'s order); "
+          f"d loss / d points {GRAD_TOL}; overflow 0")
+    print(f"splat frame, kernels vs plain versions: loss {float(loss_k):.9g} vs "
+          f"{float(loss_p):.9g}; maps equal, qvalue err {q_err:.3g}, spacing err "
+          f"{sp_err:.3g}; d/d pts_ndc: xy {xy[0]}, z max rel err {z_rel:.3g}; "
+          f"d/d points {wg[0]}; {int(fr_k.visibility.sum())} visible splats; "
+          f"overflow {splat_ovf}")
+    if (q_err > 1e-6 or not xy[1] or z_rel > 1e-5 or not z_zero or not wg[1]
+            or splat_ovf or not torch.isfinite(grad_k).all()):
+        fail("splat frame: kernels and plain versions disagree beyond the "
+             "stated tolerance, or capacities overflowed")
+
+    # the two backward kernels' inputs, rebuilt from the frame as the
+    # backward forms them: the fine stage's slots (int32) and candidates, the
+    # loss's cotangents (1 where zbuf > 0; 1 on the occupancy) and the
+    # visible, renderable points of the cloud
+    with torch.no_grad():
+        sp = compute_splat_params(scene.points, scene.normals, scene.mask,
+                                  scene.camera, sst, spacing=scene.spacing)
+        fr_b, slots_b, cand_b = _rasterize_forward(sp.pts_ndc, sp.ellipse,
+                                                   sp.radii, sp.cutoff, sp.mask, sst)
+    if not torch.equal(fr_b.idx, fr_k.idx):
+        fail("splat frame: the rebuilt forward differs from the frame's")
+    zb_m = cand_b.shape[-1]
+    zb_args = (slots_b.reshape(-1, T * T, K), to_tiles((fr_b.zbuf > 0).float(), T),
+               zb_m)
+    zk = splat.zbuf_backward_tile_cuda(*zb_args)
+    if not torch.equal(zk, splat.zbuf_backward_tile_cuda(*zb_args)):
+        fail("splat_zbuf_bwd: two runs on the same inputs differ")
+    # the rebuilt inputs are the frame's: scattered to the points, the sums
+    # are the frame's z gradient (within index_add_'s order)
+    gz_re = torch.zeros(bench.N_SPLATS, device=dev).index_add_(
+        0, cand_b.reshape(-1), zk.reshape(-1))
+    if not torch.allclose(gz_re, gz_k[0], rtol=1e-5, atol=0):
+        fail("splat_zbuf_bwd: the rebuilt inputs do not give the frame's z gradient")
+    zb_err = float((zk - splat.zbuf_backward_tile_plain(*zb_args)).abs().max())
+    zb_slots, zb_gz = zb_args[0], zb_args[1]
+    lib_idx = torch.where(zb_slots >= 0, zb_slots, zb_m).long().reshape(
+        zb_slots.shape[0], -1)
+    lib_src = zb_gz.reshape(zb_slots.shape[0], -1)
+    lib_zb = lambda: torch.zeros((zb_slots.shape[0], zb_m + 1), device=dev
+                                 ).scatter_add_(1, lib_idx, lib_src)
+    lib_err = float((lib_zb()[:, :zb_m] - zk).abs().max())
+    if zb_err > 1e-5 or lib_err > 1e-5:
+        fail(f"splat_zbuf_bwd: err {zb_err} against the plain version, {lib_err} "
+             f"against scatter_add_ (tol 1e-5)")
+
+    occ_args = (sp.pts_ndc[0], sp.radii[0], (fr_b.visibility & sp.mask)[0],
+                torch.ones((S, S), device=dev), sst)
+    ok_ = occ_bwd.occ_backward_one_cuda(*occ_args)
+    if not torch.equal(ok_, occ_bwd.occ_backward_one_cuda(*occ_args)):
+        fail("occ_bwd: two runs on the same inputs differ")
+    if not torch.equal(ok_, gndc_k[0, :, :2]):
+        fail("occ_bwd: the rebuilt inputs do not give the frame's xy gradient")
+    occ_ref = occ_bwd.occ_backward_one_plain(*occ_args)
+    oc = grad_check(ok_, occ_ref)
+    occ_err = float((ok_ - occ_ref).abs().max())
+    if not oc[1]:
+        fail(f"occ_bwd: {oc[0]}")
+
+    # both rows timed as the path calls them, wrapper included; the kernels
+    # alone from the profiler's trace of one frame
+    zb_ms = time_ms(lambda: splat.zbuf_backward_tile_cuda(*zb_args))
+    zb_pms = time_ms(lambda: splat.zbuf_backward_tile_plain(*zb_args))
+    zb_lib_ms = time_ms(lib_zb)
+    occ_ms = time_ms(lambda: occ_bwd.occ_backward_one_cuda(*occ_args))
+    occ_pms = time_ms(lambda: occ_bwd.occ_backward_one_plain(*occ_args))
+    prof = bench.profile_call(lambda: bench.splat_step(scene), dev,
+                              "splat frame with the kernels")
+    alone = lambda tag: sum(ms for key, ms, _ in prof["kernels"] if tag in key)
+    alone_txt = lambda ms: f"{ms:.4f} ms" if ms > 0 else "not measured"
+    n_frag = zb_slots.numel()
+    # slot (i32) and cotangent (f32) read per fragment, a sum written per slot
+    zb_b = bound_ms(0.0, 8.0 * n_frag + 4.0 * zb_slots.shape[0] * zb_m)
+    print(f"splat_zbuf_bwd on the frame's {zb_slots.shape[0]} tiles x "
+          f"{zb_slots.shape[1]} px x {zb_slots.shape[2]} (M={zb_m}): repeat "
+          f"bit-identical, err {zb_err:.3g}  wrapper {zb_ms:.3f} ms (kernel alone "
+          f"{alone_txt(alone('zbuf_bwd_kernel'))})  plain {zb_pms:.3f} ms  "
+          f"scatter_add_ {zb_lib_ms:.3f} ms  bound {zb_b[0]:.4f} ms ({zb_b[1]})")
+    o_pts, o_radii, o_vis, o_grad, o_st = occ_args
+    renderable, _, o_w = occ_bwd.backward_window(o_pts, o_radii, o_vis, o_st)
+    n_rend = int(renderable.sum())
+    # ~15 FLOP per (renderable point, patch pixel) (csrc/occ_bwd.cu); points,
+    # radii, flags and the cotangent image in, (P, 2) out
+    occ_b = bound_ms(15.0 * n_rend * o_w * o_w,
+                     o_pts.shape[0] * (12 + 8 + 1 + 8) + 4.0 * o_grad.numel())
+    print(f"occ_bwd on the frame's {o_pts.shape[0]} points ({n_rend} renderable) "
+          f"at {S} px, W={o_w}: repeat bit-identical, {oc[0]}  wrapper "
+          f"{occ_ms:.3f} ms (kernel alone {alone_txt(alone('occ_bwd_kernel'))})  "
+          f"plain {occ_pms:.3f} ms  bound {occ_b[0]:.4f} ms ({occ_b[1]})")
+    frame_ms = bench.time_frames(lambda: bench.splat_step(scene), dev, reps=5)
+    plain_frame_ms = bench.time_frames(
+        lambda: bench.splat_step(plain_scene, plain_st), dev, reps=3)
+    spacing_ms = bench.time_frames(lambda: splat_spacing(
+        scene.points, scene.mask, sst), dev, reps=5)
+    print(f"splat_fwd_bwd_points_per_s: {bench.N_SPLATS / frame_ms * 1e3:.0f} "
+          f"({frame_ms:.3f} ms/frame with the kernels, median of 5 runs of "
+          f"{bench.SPLAT_REP} frames; {plain_frame_ms:.3f} ms with every plain "
+          f"version; +{spacing_ms:.3f} ms kNN spacing per point-set refresh)")
+
+    # ---- 9. the DSS point model through the factories
+    pcfg = load_config(os.path.join(ROOT, "isopoints_torch", "configs",
+                                    "dss_point.yml"))
+    pgen = torch.Generator(device=dev).manual_seed(5)
+    pmodel = create_model(pcfg, generator=pgen, device=dev)
+    n_pm = pmodel.cfg.n_points_per_cloud
+    dirs = torch.randn((1, n_pm, 3), generator=pgen, device=dev)
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    pmodel.init(points=0.5 * dirs, normals=dirs)
+    target = create_model(pcfg, device=dev)
+    target.init(points=0.5 * dirs + torch.tensor([0.06, -0.04, 0.0], device=dev),
+                normals=dirs, colors=torch.tensor([0.8, 0.4, 0.2], device=dev
+                                                  ).expand(1, n_pm, 3))
+    R2, T2 = look_at_view_transform(2.0, [10.0, -20.0], [0.0, 120.0], device=dev)
+    pcam = PerspectiveCamera.create(R=R2, T=T2, focal_length=2.0, device=dev)
+    with torch.no_grad():
+        tgt = target(pcam).rgba
+    mask_img = tgt[..., 3:]
+    # the kNN of the model's splat spacing, at the shape its forward gives
+    # it: the cloud in every view
+    nv = pcam.batch_size
+    knn_case(pmodel.points.detach().expand(nv, -1, -1),
+             torch.ones((nv, n_pm), dtype=torch.bool, device=dev),
+             pmodel.raster_settings.knn_k - 1, "point model cloud")
+
+    def point_step(m):
+        m.zero_grad(set_to_none=True)
+        out = m(pcam, mask_img=mask_img)
+        loss = (torch.sum((out.rgba[..., 3] - tgt[..., 3]) ** 2)
+                + torch.sum(torch.abs(out.rgba[..., :3] - tgt[..., :3])))
+        loss.backward()
+        return loss.detach(), {k: p.grad for k, p in m.named_parameters()}, out
+
+    reset()
+    pl_k, pg_k, pout = point_step(pmodel)
+    torch.cuda.synchronize()
+    point_launches = counts()
+    plain_pm = create_model(pcfg, device=dev)
+    plain_pm.load_state_dict(pmodel.state_dict())
+    plain_pm.raster_settings = dataclasses.replace(
+        pmodel.raster_settings, use_pallas=False, use_pallas_backward=False)
+    reset()
+    pl_p, pg_p, _ = point_step(plain_pm)
+    torch.cuda.synchronize()
+    if any(counts().values()):
+        fail(f"the plain point model step launched kernels: {counts()}")
+    print(f"point model (dss_point.yml, {n_pm} points, {nv} views at "
+          f"{pmodel.raster_settings.image_size} px): loss kernels "
+          f"{float(pl_k):.9g} plain {float(pl_p):.9g}; launches {point_launches}; "
+          f"in-mask {float(pout.inmask.float().mean()):.4f}, visible "
+          f"{int(pout.visibility.sum())}")
+    for name in ("knn", "splat_select", "splat_fine", "splat_zbuf_bwd", "occ_bwd"):
+        if point_launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the point model's step")
+    if abs(float(pl_k) - float(pl_p)) > 1e-5 * abs(float(pl_p)):
+        fail("point model: kernel and plain losses differ beyond rtol 1e-5")
+    for k in ("points", "normals_azim", "normals_elev", "colors"):
+        a, b = pg_k[k], pg_p[k]
+        if a is None or not torch.isfinite(a).all() or not bool((a != 0).any()):
+            fail(f"point model: gradient of {k} is missing, non-finite or zero")
+        gc = grad_check(a, b)
+        print(f"  grad {k}, kernels vs plain: {gc[0]}")
+        if not gc[1]:
+            fail(f"point model: {k} gradient beyond {GRAD_TOL}")
+    if any(g["log_size"] is not None and bool((g["log_size"] != 0).any())
+           for g in (pg_k, pg_p)):
+        fail("point model: log_size got a non-zero gradient")
+    point_ms = bench.time_frames(lambda: point_step(pmodel), dev, reps=5)
+    print(f"point model step (forward + backward): {point_ms:.3f} ms (median of "
+          f"5 runs of {bench.SPLAT_REP})")
+
+    # ---- 10. the kernels line
     n_trace = 4 * cfg.training.n_rays
     mlp_err, mlp_ms, mlp_pms, mlp_b = check_mlp(n_trace, 2e-5, 1e-4, False)
     s_err, _, s_ms, s_pms, s_b = check_sampler(
@@ -791,6 +1059,16 @@ def main() -> None:
         row("trace_march", "isopoints_torch/csrc/fused_trace.cu",
             "isopoints_tpu/ops/pallas_trace.py:43", march_launches["trace_march"],
             m_err, mk_ms, mk_pms, mk_b),
+        row("splat_zbuf_bwd", "isopoints_torch/csrc/splat_zbuf_bwd.cu",
+            "isopoints_tpu/rendering/pallas_splat.py:186",
+            splat_launches["splat_zbuf_bwd"], zb_err, zb_ms, zb_pms, zb_b,
+            library_ms=zb_lib_ms, library_note="torch.Tensor.scatter_add_ over "
+            "(n_tiles, M + 1), timed here only"),
+        row("occ_bwd", "isopoints_torch/csrc/occ_bwd.cu",
+            "isopoints_tpu/rendering/pallas_occ_bwd.py:41",
+            splat_launches["occ_bwd"], occ_err, occ_ms, occ_pms, occ_b,
+            library_note="no single PyTorch call computes this windowed, "
+            "gated sum per point"),
     ]
     print(f"timed shapes: fused_mlp {n_trace} points (value; the warm-up "
           f"trace); fused_sampler {2 * cfg.training.n_rays} rays x "
@@ -802,10 +1080,12 @@ def main() -> None:
           f"fused_igr bf16 value on {2 * bench.N_RAYS} points (both fronts of "
           f"the coarse phase, its most frequent launch); the IGR sampler on the "
           f"trace's {n_srays}-ray buffer; trace_march on its first compacted "
-          f"stage ({n_mrays} rays x {n_it} iterations). Launches: the SIREN "
+          f"stage ({n_mrays} rays x {n_it} iterations); splat_zbuf_bwd and "
+          f"occ_bwd on the splat frame's own inputs ({bench.N_SPLATS} splats at "
+          f"{bench.SPLAT_IMAGE_SIZE} px). Launches: the SIREN "
           f"kernels' in the projected path's run, fused_igr's and "
           f"fused_sampler (IGR)'s in one bench trace, trace_march's in one trace "
-          f"with the march")
+          f"with the march, the splat backward's in one splat frame")
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,5 @@
-"""Trace and projection benchmark of the port (the trace and projection
-sections of the JAX package's bench.py, with its constants).
+"""Trace, projection and splat benchmark of the port (the three sections
+of the JAX package's bench.py, with its constants).
 
     python -m isopoints_torch.bench [--device cpu] [--n-rays N]
         [--n-points P] [--fit-points F] [--profile]
@@ -17,14 +17,23 @@ margin. It prints the per-trace time, rays/s and the two overflow counters
 and converged fraction of 65,536 points at 5e-5 in f32, bf16 and the
 bf16→f32 hybrid (`max_iters=4, coarse_iters=8, coarse_tolerance=1e-3`;
 bench.py:241-279), and one JSON line with these numbers. `--profile`
-traces once more under torch.profiler and prints the device's busy share
-of that trace and its kernels by device time. The fused
+runs one more trace and one more splat frame under torch.profiler and
+prints the device's busy share of each and its kernels by device time. The fused
 callables launch the CUDA kernels on the card; with `--device cpu` they
 run their plain versions (use small `--n-rays`, `--n-points` and
 `--fit-points` there).
 
-The splat forward+backward section of bench.py (:281-377) is not ported:
-it comes with the DSS backward slice (ROADMAP "Slices of the port").
+The splat section (bench.py:281-377): 24,576 splats on the r = 0.7 sphere
+(normals = directions, from a seeded generator), a camera at distance 2.5
+with focal length 2, 512 px, `use_pallas` and a strip capacity of 1280;
+the kNN splat spacing hoisted out of the frame. A frame is forward and
+backward of Σ occupancy + Σ_{zbuf>0} zbuf with respect to the points
+(compute_splat_params → rasterize_splats → autograd). It prints the frame
+time (median of 3 runs of `SPLAT_REP` frames, host clock with the card
+synchronised), splats/s, the spacing's time per point-set refresh and the
+candidates the capacities dropped (asserted 0, as bench.py:368-375 does).
+With `--device cpu` it takes bench.py's own off-TPU size, 2048 splats at
+64 px.
 """
 
 import argparse
@@ -32,15 +41,21 @@ import json
 import statistics
 import sys
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from isopoints_torch.core.camera import (PerspectiveCamera,
+                                         look_at_view_transform)
 from isopoints_torch.models.fields import SDFField
 from isopoints_torch.models.levelset import project_points_newton
 from isopoints_torch.models.raytracing import (RayTraceResult,
                                                RayTracingConfig, ray_trace)
 from isopoints_torch.ops.fused_mlp import PlainIgrSDF, make_fused_igr_sdf
+from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
+                                                  compute_splat_params,
+                                                  rasterize_splats,
+                                                  splat_spacing)
 
 N_RAYS = 262_144
 N_POINTS = 65_536
@@ -56,6 +71,14 @@ BENCH_SCHEDULE = dict(sphere_tracing_iters=21, sampler_chunk_rays=8192,
                       sampler_coarse_margin=2e-3, coarse_stall_on_cross=True,
                       fused_backstep=True, trace_gate_end_front=True,
                       sampler_in_kernel=True)
+
+
+# bench.py:293-311
+N_SPLATS = 24_576
+SPLAT_IMAGE_SIZE = 512
+SPLAT_CPU = (2048, 64)          # bench.py's size off the TPU
+SPLAT_STRIP = 1280
+SPLAT_REP = 3
 
 
 def bench_config(**overrides) -> RayTracingConfig:
@@ -164,33 +187,116 @@ def time_projection(fn, pts, mask, tolerance: float = 5e-5,
     return pts.shape[1] / dt, frac, 1e3 * dt
 
 
-def profile_trace(fine, coarse, rays, cfg, log=print, top: int = 12) -> Dict:
-    """One trace under torch.profiler: the device's busy share of the
-    trace's wall time and the kernels by device time."""
+def profile_call(fn, device, label: str, log=print, top: int = 12) -> Dict:
+    """One call of `fn` under torch.profiler, after a warm-up call: the
+    device's busy share of its wall time and the kernels by device time
+    (the `top` ones logged, all returned)."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = rays[1].device
-    if dev.type != "cuda":
-        raise ValueError("profile_trace measures the card: it needs CUDA rays")
-    trace(fine, coarse, rays, cfg)
-    sync(dev)
+    if device.type != "cuda":
+        raise ValueError("profiling measures the card: it needs CUDA tensors")
+    fn()
+    sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        trace(fine, coarse, rays, cfg)
-        sync(dev)
+        fn()
+        sync(device)
         wall_ms = 1e3 * (time.perf_counter() - t)
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     rows = sorted((e for e in prof.key_averages() if dev_us(e) > 0),
                   key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
-    log(f"profile: trace wall {wall_ms:.3f} ms (under the profiler), device "
+    log(f"profile: {label} wall {wall_ms:.3f} ms (under the profiler), device "
         f"busy {busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}%")
     for e in rows[:top]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / 1e3 / busy_ms:5.1f}% "
             f"x{e.count:<5d} {e.key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "kernels": [(e.key, dev_us(e) / 1e3, e.count) for e in rows[:top]]}
+            "kernels": [(e.key, dev_us(e) / 1e3, e.count) for e in rows]}
+
+
+class SplatScene(NamedTuple):
+    points: torch.Tensor    # (1, N, 3) on the r = 0.7 sphere
+    normals: torch.Tensor   # (1, N, 3) the directions
+    mask: torch.Tensor      # (1, N)
+    camera: PerspectiveCamera
+    settings: RasterizationSettings
+    spacing: torch.Tensor   # (1, N) the hoisted kNN spacing
+
+
+def splat_scene(n: int, image_size: int, device, seed: int = 11,
+                **settings) -> SplatScene:
+    """bench.py's splat workload: n splats on the r = 0.7 sphere, the
+    camera at (0, 0, 2.5)'s look-at, focal 2, `use_pallas`, strip capacity
+    1280 (`settings` override RasterizationSettings fields)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = torch.randn((1, n, 3), generator=g, device=device)
+    normals = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    mask = torch.ones((1, n), dtype=torch.bool, device=device)
+    R, T = look_at_view_transform([2.5], [0.0], [0.0], device=device)
+    cam = PerspectiveCamera.create(R=R, T=T, focal_length=2.0, device=device)
+    st = RasterizationSettings(**{**dict(image_size=image_size, use_pallas=True,
+                                         max_points_per_strip=SPLAT_STRIP),
+                                  **settings})
+    pts = 0.7 * normals
+    return SplatScene(pts, normals, mask, cam, st, splat_spacing(pts, mask, st))
+
+
+def splat_step(scene: SplatScene, settings: Optional[RasterizationSettings] = None):
+    """One frame: (loss, d loss / d points, d loss / d pts_ndc, fragments)
+    of Σ occupancy + Σ_{zbuf>0} zbuf (bench.py:325-331)."""
+    st = settings or scene.settings
+    pts = scene.points.detach().requires_grad_(True)
+    sp = compute_splat_params(pts, scene.normals, scene.mask, scene.camera, st,
+                              spacing=scene.spacing)
+    frags = rasterize_splats(sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff,
+                             sp.mask, st)
+    loss = (torch.sum(frags.occupancy)
+            + torch.sum(torch.where(frags.zbuf > 0, frags.zbuf, 0.0)))
+    grad, grad_ndc = torch.autograd.grad(loss, (pts, sp.pts_ndc))
+    return loss.detach(), grad, grad_ndc, frags
+
+
+def time_frames(fn, device, reps: int = 3) -> float:
+    """Median over `reps` runs of the time of `SPLAT_REP` calls of `fn`,
+    per call, in ms (host clock, the card synchronised), after one warm-up
+    call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync(device)
+        t = time.perf_counter()
+        for _ in range(SPLAT_REP):
+            fn()
+        sync(device)
+        times.append(1e3 * (time.perf_counter() - t) / SPLAT_REP)
+    return statistics.median(times)
+
+
+def run_splat(device="cuda", n: int = N_SPLATS, image_size: int = SPLAT_IMAGE_SIZE,
+              reps: int = 3, log=print, profile: bool = False) -> Dict:
+    """The splat section; returns its numbers. With `profile` (on the card)
+    one more frame runs under torch.profiler."""
+    dev = torch.device(device)
+    scene = splat_scene(n, image_size, dev)
+    frame_ms = time_frames(lambda: splat_step(scene), dev, reps)
+    spacing_ms = time_frames(lambda: splat_spacing(scene.points, scene.mask,
+                                                   scene.settings), dev, reps)
+    _, grad, _, frags = splat_step(scene)
+    ovf = int(frags.tile_overflow.sum())
+    st = scene.settings
+    log(f"splat_fwd_bwd_points_per_s: {n / frame_ms * 1e3:.0f} ({n} splats @ "
+        f"{image_size}px, {frame_ms:.3f} ms/frame; +{spacing_ms:.3f} ms kNN "
+        f"spacing per point-set refresh, hoisted)")
+    log(f"splat_tile_overflow: {ovf} dropped candidates (strip cap "
+        f"{st.max_points_per_strip}, tile cap {st.max_points_per_tile})")
+    prof = (profile_call(lambda: splat_step(scene), dev, "splat frame", log)
+            if profile else None)
+    return {"splat_fwd_bwd_points_per_s": n / frame_ms * 1e3,
+            "frame_ms": frame_ms, "spacing_ms": spacing_ms, "n_splats": n,
+            "image_size": image_size, "splat_tile_overflow": ovf,
+            "grad_finite": bool(torch.isfinite(grad).all()), "profile": prof}
 
 
 def run(device="cuda", n_rays: int = N_RAYS, n_points: int = N_POINTS,
@@ -214,7 +320,8 @@ def run(device="cuda", n_rays: int = N_RAYS, n_points: int = N_POINTS,
         f"{int(res.sampler_mask.sum())}")
     log(f"compaction_overflow: trace={ovf_trace} sampler={ovf_sampler} of "
         f"{n_rays} rays")
-    prof = profile_trace(fine, coarse, rays, cfg, log) if profile else None
+    prof = (profile_call(lambda: trace(fine, coarse, rays, cfg), dev, "trace", log)
+            if profile else None)
     pts, mask = projection_points(n_points, dev)
     proj = {}
     for label, fn, kw in (("f32", fine, {}), ("bf16", coarse, {}),
@@ -238,7 +345,8 @@ def main(argv=None) -> None:
     ap.add_argument("--n-points", type=int, default=N_POINTS)
     ap.add_argument("--fit-points", type=int, default=FIT_POINTS)
     ap.add_argument("--profile", action="store_true",
-                    help="profile one trace (device busy share, kernels)")
+                    help="profile one trace and one splat frame (device busy "
+                         "share, kernels)")
     a = ap.parse_args(argv)
     if a.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,6 +359,13 @@ def main(argv=None) -> None:
                          f"{out['overflow_trace']} sampler "
                          f"{out['overflow_sampler']}")
     dev = torch.device(a.device)
+    n, size = SPLAT_CPU if dev.type == "cpu" else (N_SPLATS, SPLAT_IMAGE_SIZE)
+    splat = run_splat(a.device, n, size, log=lambda m: print(m, file=sys.stderr),
+                      profile=a.profile)
+    # the capacities must be lossless on this workload (bench.py:368-375)
+    if splat["splat_tile_overflow"]:
+        raise SystemExit(f"splat capacities overflowed: "
+                         f"{splat['splat_tile_overflow']} dropped candidates")
     print(json.dumps({
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else dev.type),
@@ -258,7 +373,11 @@ def main(argv=None) -> None:
         "unit": "rays/s", "trace_ms": out["trace_ms"],
         "n_rays": out["n_rays"], "overflow_trace": out["overflow_trace"],
         "overflow_sampler": out["overflow_sampler"],
-        "projections": out["projections"]}))
+        "projections": out["projections"],
+        "splat_fwd_bwd_points_per_s": splat["splat_fwd_bwd_points_per_s"],
+        "splat_frame_ms": splat["frame_ms"], "splat_spacing_ms": splat["spacing_ms"],
+        "n_splats": splat["n_splats"], "splat_image_size": splat["image_size"],
+        "splat_tile_overflow": splat["splat_tile_overflow"]}))
 
 
 if __name__ == "__main__":

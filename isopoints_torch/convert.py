@@ -11,6 +11,8 @@ the parameters of the port's `SDFField` (`WeightNormLinear`), so that an
 optimiser sees the same parametrisation as the JAX one. `load_jax_npz`
 reads the same tree from a JAX `model.npz` checkpoint
 (isopoints_tpu/misc/checkpoints.py: keys `model:['decoder']['layers'][0]['w']`).
+`point_params_from_jax` maps the point model's pytree
+(isopoints_tpu/models/point.py:68-74) to the `PointModel` state_dict.
 """
 
 import re
@@ -42,6 +44,15 @@ def params_from_jax(tree: Dict, keep_weight_norm: bool = False
         for i, lp in enumerate(sub["layers"]):
             out.update(_linear(f"{module}.layers.{i}", lp, keep_weight_norm))
     return out
+
+
+POINT_PARAMS = ("points", "normals_azim", "normals_elev", "colors", "log_size")
+
+
+def point_params_from_jax(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX `PointModel` params (numpy leaves) -> state_dict of the
+    port's `PointModel`: the same five names and shapes, as float32."""
+    return {k: torch.tensor(np.asarray(params[k], np.float32)) for k in POINT_PARAMS}
 
 
 _KEY = re.compile(r"^model:\['(\w+)'\]\['layers'\]\[(\d+)\]\['(\w+)'\]$")

@@ -1,7 +1,7 @@
 """Config-driven factories (port of isopoints_tpu/factories.py, for what
 the ported configs name: a SIREN or IGR (`decoder_type: sdf`) decoder, the
-combined or implicit model with the Phong texture and the splat raster
-settings, the synthetic datasets)."""
+combined or implicit model with the Phong texture, the DSS point model, the
+splat raster settings, the synthetic datasets)."""
 
 from typing import Optional
 
@@ -11,6 +11,7 @@ from isopoints_torch.config import AttrDict
 from isopoints_torch.models.combined import CombinedConfig, CombinedModel
 from isopoints_torch.models.fields import SDFField, SirenField
 from isopoints_torch.models.implicit import ImplicitConfig, ImplicitModel
+from isopoints_torch.models.point import PointModel, PointModelConfig
 from isopoints_torch.rendering.rasterizer import RasterizationSettings
 from isopoints_torch.training.scheduler import TrainerScheduler
 from isopoints_torch.training.trainer import MVRTrainer, TrainerConfig
@@ -36,9 +37,14 @@ def create_raster_settings(cfg: AttrDict) -> RasterizationSettings:
 
 def create_model(cfg: AttrDict, generator: Optional[torch.Generator] = None,
                  device="cuda"):
-    """Model of `model.type` ('combined' | 'implicit'), parameters drawn
-    from `generator` on `device`."""
+    """Model of `model.type` ('combined' | 'implicit' | 'point'),
+    parameters drawn from `generator` on `device`."""
     mtype = cfg.model.get("type", "combined")
+    if mtype == "point":
+        # no implicit decoder or texture (factories.py:57-60)
+        pcfg = PointModelConfig(**dict(cfg.model.get("point_kwargs", {})))
+        return PointModel(pcfg, create_raster_settings(cfg), generator=generator,
+                          device=device)
     decoder = create_decoder(cfg, generator, device)
     icfg = ImplicitConfig(**dict(cfg.model.get("implicit_kwargs", {})))
     if mtype == "implicit":

@@ -1,0 +1,169 @@
+"""DSS occupancy backward (the rasterizer's xy gradient): a hand-written
+CUDA kernel and its plain version.
+
+For every renderable point of one cloud, the sum over the pixels of a W×W
+patch around it of (pixel − point)/dist²·grad_occ, over the pixels with
+grad_occ ≠ 0 within the per-cloud search radius, leaving out pixels with
+grad_occ > 0 outside the point's own splat bbox (the reference's
+production backward, rasterize_points_backward.cu:99-178).
+
+The kernel (csrc/occ_bwd.cu) replaces `occ_backward_pallas_one`
+(isopoints_tpu/rendering/pallas_occ_bwd.py:41, pallas_call :145): one warp
+per point over the same W×W patch, a fixed shuffle tree per point, no
+atomics. Bound on an H100: operations (~15 FLOP per point and patch pixel).
+
+The plain version is the XLA formulation `_occ_backward_one`
+(isopoints_tpu/rendering/rasterizer.py:481-570): (W, W) patches gathered
+for chunks of 2048 points. W = min(backward_patch_pixels, S). The search
+radius is the median of the renderable points' radii (both axes) times
+`radii_backward_scaler`, clamped to (W/2 − 2) pixels when W < S so the
+patch covers it. `jnp.nanmedian` averages the two middle values of an even
+count where `torch.nanmedian` returns the lower one, so `nanmedian_mid`
+computes the average on the device.
+
+`occ_backward_one` launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors.
+"""
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from isopoints_torch.ops import _build
+from isopoints_torch.rendering.select import pixel_ndc
+from isopoints_torch.utils import eps_denom
+
+KERNEL = _build.LaunchCount("occ_bwd")
+CHUNK = 2048          # points per patch gather of the plain version
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("occ_bwd")
+    lib.occ_backward.argtypes = [_P] * 5 + [_I] * 3 + [_F, _P, _P]
+    lib.occ_backward.restype = _I
+    return lib
+
+
+def nanmedian_mid(x: torch.Tensor) -> torch.Tensor:
+    """Median of the non-NaN entries of a 1-D tensor, the mean of the two
+    middle ones for an even count (numpy's and `jnp.nanmedian`'s
+    midpoint rule: (lo + hi)·0.5); NaN when all are NaN. Device ops only."""
+    s = torch.sort(x).values                    # NaN sorts last
+    n = torch.sum(~torch.isnan(x))
+    lo = torch.clamp((n - 1) // 2, min=0).reshape(1)
+    hi = (n // 2).reshape(1)
+    return ((s.index_select(0, lo) + s.index_select(0, hi)) * 0.5)[0]
+
+
+def backward_window(pts: torch.Tensor, radii: torch.Tensor,
+                    visible: torch.Tensor, settings
+                    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """(renderable (P,) bool, search_r² () float32 on the device, W) of one
+    cloud (rasterizer.py:511-523)."""
+    S = settings.image_size
+    W = min(settings.backward_patch_pixels, S)
+    px, py, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    renderable = (visible & (z >= 0) & (torch.abs(px) <= 1.0)
+                  & (torch.abs(py) <= 1.0))
+    r_flat = torch.where(renderable[:, None], radii, float("nan")).reshape(-1)
+    search_r = torch.nan_to_num(nanmedian_mid(r_flat), nan=1e-3) * \
+        settings.radii_backward_scaler
+    if W < S:
+        # the patch must cover the window; when it is the image, any
+        # radius is covered
+        search_r = torch.clamp(search_r, max=(W / 2.0 - 2.0) * 2.0 / S)
+    return renderable, search_r * search_r, W
+
+
+def _patch_origin(ndc: torch.Tensor, S: int, W: int) -> torch.Tensor:
+    """First patch row/column: the point's pixel (S(1 − ndc) − 1)/2 rounded
+    half to even, minus W/2, clipped to [0, S − W] (rasterizer.py:529-532;
+    non-finite coordinates of points that are not renderable map to 0)."""
+    f = torch.nan_to_num((S * (1.0 - ndc) - 1.0) * 0.5)
+    f = torch.clamp(f, -2.0 * S, 2.0 * S)
+    return torch.clamp(torch.round(f).long() - W // 2, 0, S - W)
+
+
+def occ_backward_one_plain(pts: torch.Tensor, radii: torch.Tensor,
+                           visible: torch.Tensor, grad_occ: torch.Tensor,
+                           settings) -> torch.Tensor:
+    """Plain version for one cloud: pts (P, 3) [x_ndc, y_ndc, depth], radii
+    (P, 2), visible (P,) bool, grad_occ (S, S) -> (P, 2) xy gradient."""
+    S = settings.image_size
+    renderable, search_r2, W = backward_window(pts, radii, visible, settings)
+    px, py = pts[:, 0], pts[:, 1]
+    c0, r0 = _patch_origin(px, S, W), _patch_origin(py, S, W)
+    w_idx = torch.arange(W, device=pts.device)
+    out = []
+    for lo in range(0, pts.shape[0], CHUNK):
+        sl = slice(lo, lo + CHUNK)
+        rows = r0[sl, None] + w_idx                             # (n, W)
+        cols = c0[sl, None] + w_idx
+        patch = grad_occ[rows[:, :, None], cols[:, None, :]]     # (n, W, W)
+        dx = (pixel_ndc(cols, S) - px[sl, None])[:, None, :]     # (n, 1, W)
+        dy = (pixel_ndc(rows, S) - py[sl, None])[:, :, None]     # (n, W, 1)
+        dx, dy = torch.broadcast_tensors(dx, dy)
+        dist2 = dx * dx + dy * dy
+        outside = ((torch.abs(dx) > radii[sl, 0, None, None])
+                   | (torch.abs(dy) > radii[sl, 1, None, None]))
+        use = ((dist2 <= search_r2) & (patch != 0.0)
+               & renderable[sl, None, None] & ~((patch > 0.0) & outside))
+        denom = eps_denom(dist2, 1e-10)
+        gx = torch.where(use, dx / denom * patch, 0.0).sum(dim=(1, 2))
+        gy = torch.where(use, dy / denom * patch, 0.0).sum(dim=(1, 2))
+        out.append(torch.stack([gx, gy], dim=-1))
+    if not out:
+        return pts.new_zeros((0, 2))
+    return torch.cat(out).to(pts.dtype)
+
+
+def occ_backward_one_cuda(pts: torch.Tensor, radii: torch.Tensor,
+                          visible: torch.Tensor, grad_occ: torch.Tensor,
+                          settings) -> torch.Tensor:
+    """Launch the CUDA kernel; same arguments and result as the plain
+    version."""
+    S = settings.image_size
+    for t in (pts, radii, visible, grad_occ):
+        if not t.is_cuda or t.device != pts.device:
+            raise ValueError("occ_backward_one_cuda takes CUDA tensors on one device")
+    if pts.dtype != torch.float32 or radii.dtype != torch.float32 \
+            or grad_occ.dtype != torch.float32:
+        raise TypeError("occ_backward_one_cuda takes float32 points, radii and "
+                        "cotangents")
+    p = pts.shape[0]
+    if pts.shape != (p, 3) or radii.shape != (p, 2) or visible.shape != (p,) \
+            or grad_occ.shape != (S, S):
+        raise ValueError("occ_backward_one_cuda takes pts (P, 3), radii (P, 2), "
+                         "visible (P,) and grad_occ (S, S)")
+    renderable, search_r2, W = backward_window(pts, radii, visible, settings)
+    ok = renderable.to(torch.uint8).contiguous()
+    sr2 = search_r2.to(torch.float32).reshape(1).contiguous()
+    pc, rc, gc = pts.contiguous(), radii.contiguous(), grad_occ.contiguous()
+    out = torch.empty((p, 2), dtype=torch.float32, device=pts.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
+    KERNEL.launches += 1
+    err = lib.occ_backward(pc.data_ptr(), rc.data_ptr(), ok.data_ptr(),
+                           gc.data_ptr(), sr2.data_ptr(), p, S, W, 1.0 / S,
+                           out.data_ptr(), stream)
+    _build.check_launch(lib, err, "occ_bwd")
+    return out
+
+
+def occ_backward_one(pts: torch.Tensor, radii: torch.Tensor,
+                     visible: torch.Tensor, grad_occ: torch.Tensor,
+                     settings) -> torch.Tensor:
+    """Occupancy xy gradient of one cloud: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if pts.is_cuda:
+        return occ_backward_one_cuda(pts, radii, visible, grad_occ, settings)
+    if pts.device.type != "cpu":
+        raise ValueError(f"occ_backward_one runs on CUDA or CPU, not {pts.device}")
+    return occ_backward_one_plain(pts, radii, visible, grad_occ, settings)

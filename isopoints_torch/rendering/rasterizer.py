@@ -1,5 +1,5 @@
-"""EWA surface-splatting rasterizer, forward only (port of
-isopoints_tpu/rendering/rasterizer.py:56-280 and 287-580).
+"""Differentiable EWA surface-splatting rasterizer (port of
+isopoints_tpu/rendering/rasterizer.py).
 
 Per-point EWA splat setup (`compute_splat_params`, isotropic and global
 Vrk) and the tiled forward rasterization: per tile, the front-most
@@ -10,11 +10,15 @@ kernels on CUDA tensors (`use_pallas_selection=False` keeps the plain
 selection), as the JAX switches run the Pallas kernels; without it the
 plain versions of both stages run, the counterpart of the JAX XLA path.
 
-Only the forward is ported: the combined model reads
-`Fragments.visibility` of throwaway visibility rasters and never
-differentiates them. The DSS backward (occupancy and zbuf gradients) is
-ROADMAP slice 4; a call that needs a gradient raises. The anisotropic
-Vrk path raises too (ROADMAP Queue 1 item 8).
+`rasterize_splats` is a `torch.autograd.Function` when a gradient is
+needed (the JAX package's custom VJP, :582-692): gradients reach only
+`pts_ndc`. Its z part is the zbuf cotangent summed per tile into the fine
+stage's candidate slots (rendering/splat.py, the kernel with `use_pallas`)
+and scattered once to the points; its xy part is the DSS occupancy
+backward (rendering/occ_bwd.py; `use_pallas_backward`). Without a
+gradient it runs the forward alone and keeps nothing for a backward: the
+combined model's visibility rasters stay graph-free. The anisotropic Vrk
+path raises (ROADMAP Queue 1 item 8).
 """
 
 import math
@@ -25,18 +29,24 @@ import torch
 
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.ops.knn import knn_points
+from isopoints_torch.rendering.occ_bwd import (occ_backward_one,
+                                               occ_backward_one_plain)
 from isopoints_torch.rendering.select import (select_candidates,
                                               select_candidates_plain)
 from isopoints_torch.rendering.splat import (N_ATTRS, rasterize_fine,
-                                             rasterize_fine_plain)
+                                             rasterize_fine_plain,
+                                             zbuf_backward_tile,
+                                             zbuf_backward_tile_plain)
 from isopoints_torch.utils import eps_denom, eps_sqrt
 
 
 @dataclass(frozen=True)
 class RasterizationSettings:
-    """The JAX RasterizationSettings' fields the forward reads
-    (rasterizer.py:56-96), plus `radii_backward_scaler`, which
-    configs/default.yaml sets for the backward (slice 4)."""
+    """The JAX RasterizationSettings (rasterizer.py:56-96).
+    `use_pallas_backward`: None runs the occupancy backward's kernel on
+    CUDA tensors and its plain version on CPU ones; False the plain version
+    on either. The zbuf backward's tile route and the kNN of the splat
+    spacing follow `use_pallas`."""
     image_size: int = 256
     points_per_pixel: int = 5
     cutoff_threshold: float = 1.0
@@ -44,14 +54,17 @@ class RasterizationSettings:
     Vrk_invariant: bool = False
     Vrk_isotropic: bool = True
     radii_backward_scaler: float = 10.0
+    backward_patch_pixels: int = 64
     antialiasing_sigma: float = 1.0
     backface_culling: bool = True
+    clip_pts_grad: float = -1.0
     tile_size: int = 16
     max_points_per_tile: int = 256
     max_points_per_strip: int = 2048
     knn_k: int = 7
     use_pallas: bool = False
     use_pallas_selection: Optional[bool] = None
+    use_pallas_backward: Optional[bool] = None
 
 
 class Fragments(NamedTuple):
@@ -76,9 +89,6 @@ class SplatParams(NamedTuple):
 # of the JAX package changes
 ZNEAR, ZFAR = 0.1, 100.0
 
-_SLICE4 = ("the splat rasterizer's backward is not ported yet (ROADMAP "
-           "'Slices of the port' 4)")
-
 
 def _tangent_basis(normals: torch.Tensor) -> torch.Tensor:
     """Deterministic orthonormal (u0, u1) ⊥ n, stacked (..., 2, 3)
@@ -99,10 +109,11 @@ def splat_spacing(points: torch.Tensor, mask: torch.Tensor,
                   settings: RasterizationSettings) -> torch.Tensor:
     """Per-point splat spacing h_k = ½·max squared distance to the
     knn_k − 1 nearest others (rasterizer.py:142-161); 5e-4 for clouds with
-    fewer than knn_k points."""
+    fewer than knn_k points. The kNN is the kernel's on CUDA tensors with
+    `use_pallas`, else its plain version."""
     s = settings
     res = knn_points(points, points, mask, mask, k=max(s.knn_k - 1, 1),
-                     exclude_self=True)
+                     exclude_self=True, method="auto" if s.use_pallas else "dense")
     sq = torch.where(res.mask, res.dists, 0.0)
     h_k = 0.5 * torch.amax(sq, dim=-1)
     enough = torch.sum(mask.long(), dim=-1, keepdim=True) >= s.knn_k
@@ -112,12 +123,14 @@ def splat_spacing(points: torch.Tensor, mask: torch.Tensor,
 def compute_splat_params(points: torch.Tensor, normals: torch.Tensor,
                          mask: torch.Tensor, camera: PerspectiveCamera,
                          settings: RasterizationSettings,
+                         cutoff_scale: Optional[torch.Tensor] = None,
                          spacing: Optional[torch.Tensor] = None) -> SplatParams:
     """Per-point EWA parameters and the depth/backface filters
     (rasterizer.py:164-280), isotropic or global (`Vrk_invariant`) Vrk.
-    `spacing`: a precomputed `splat_spacing` (B, P) or (1, P), else it is
-    computed here. Everything but `pts_ndc` is detached, as in the JAX
-    package."""
+    `cutoff_scale`: a global splat-size scale on the cutoff, entering
+    detached (:267-270). `spacing`: a precomputed `splat_spacing` (B, P) or
+    (1, P), else it is computed here. Everything but `pts_ndc` is detached,
+    as in the JAX package."""
     s = settings
     if not (s.Vrk_isotropic or s.Vrk_invariant):
         raise NotImplementedError("the anisotropic Vrk path is not ported yet "
@@ -173,6 +186,8 @@ def compute_splat_params(points: torch.Tensor, normals: torch.Tensor,
         # axis-aligned radii (rasterizer.py:264-274)
         a, bb, c = ellipse[..., 0], ellipse[..., 1], ellipse[..., 2]
         cut = torch.full_like(a, s.cutoff_threshold)
+        if cutoff_scale is not None:
+            cut = cut * cutoff_scale.detach()
         denom = eps_denom(4.0 * a * c - bb * bb, 1e-12)
         ry = torch.sqrt(eps_sqrt(4.0 * a * cut / denom))
         rx = torch.sqrt(eps_sqrt(4.0 * c * cut / denom))
@@ -191,9 +206,20 @@ def _untile(x: torch.Tensor, S: int, T: int) -> torch.Tensor:
             .reshape(b, S, S, c))
 
 
+def to_tiles(x: torch.Tensor, T: int) -> torch.Tensor:
+    """(B, S, S, C) image layout -> (B·nt², T², C) tiles, the layout the
+    zbuf backward reads (the inverse of `_untile`)."""
+    b, S, c = x.shape[0], x.shape[1], x.shape[-1]
+    nt = S // T
+    return (x.reshape(b, nt, T, nt, T, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b * nt * nt, T * T, c))
+
+
 @torch.no_grad()
 def _rasterize_forward(pts_ndc, ellipse, radii, cutoff, mask,
-                       settings: RasterizationSettings) -> Fragments:
+                       settings: RasterizationSettings):
+    """(Fragments, slots (B, n_tiles, T², K), cand_idx (B, n_tiles, M)):
+    the maps and what the backward reads of the fine stage."""
     s = settings
     S, T, K = s.image_size, s.tile_size, s.points_per_pixel
     if S % T != 0:
@@ -220,16 +246,83 @@ def _rasterize_forward(pts_ndc, ellipse, radii, cutoff, mask,
     flat = torch.where(res.used, cand_idx, p).reshape(b, -1)
     vis = torch.zeros((b, p + 1), dtype=torch.bool, device=pts_ndc.device)
     vis = vis.scatter(1, flat, True)[:, :p]
-    return Fragments(idx=_untile(res.idx, S, T), zbuf=_untile(res.zbuf, S, T),
-                     qvalue=_untile(res.qvalue, S, T),
-                     occupancy=_untile(res.occ[..., None], S, T)[..., 0],
-                     visibility=vis, tile_overflow=overflow)
+    frags = Fragments(idx=_untile(res.idx, S, T), zbuf=_untile(res.zbuf, S, T),
+                      qvalue=_untile(res.qvalue, S, T),
+                      occupancy=_untile(res.occ[..., None], S, T)[..., 0],
+                      visibility=vis, tile_overflow=overflow)
+    return frags, res.slots, cand_idx
+
+
+def _rasterize_backward(pts_ndc, radii, mask, visibility, slots, cand_idx,
+                        g_zbuf, g_occ, settings: RasterizationSettings
+                        ) -> torch.Tensor:
+    """The gradient of `pts_ndc` (rasterizer.py:607-683): z from the zbuf
+    cotangent, per tile into candidate slots, then one (n_tiles·M) → P
+    scatter over the candidates' point ids (`index_add_`, which sums in
+    another order on the card than on the CPU); xy from the occupancy
+    backward of each cloud on its visible, renderable points."""
+    s = settings
+    T, K = s.tile_size, s.points_per_pixel
+    b, p, _ = pts_ndc.shape
+    M = cand_idx.shape[-1]
+    zbuf_bwd = zbuf_backward_tile if s.use_pallas else zbuf_backward_tile_plain
+    gz_cand = zbuf_bwd(slots.reshape(-1, T * T, K), to_tiles(g_zbuf, T), M)
+    offs = torch.arange(b, device=cand_idx.device)[:, None, None] * p
+    gz = torch.zeros(b * p, dtype=torch.float32, device=pts_ndc.device)
+    gz = gz.index_add_(0, (cand_idx + offs).reshape(-1),
+                       gz_cand.reshape(-1)).reshape(b, p)
+    occ_bwd = (occ_backward_one_plain if s.use_pallas_backward is False
+               else occ_backward_one)
+    vis = visibility & mask
+    gxy = torch.stack([occ_bwd(pts_ndc[i], radii[i], vis[i], g_occ[i], s)
+                       for i in range(b)])
+    grad = torch.cat([gxy, gz[..., None]], dim=-1).to(pts_ndc.dtype)
+    if s.clip_pts_grad > 0:
+        n = torch.linalg.norm(grad, dim=-1, keepdim=True)
+        grad = grad / torch.clamp(n, min=1e-12) * torch.clamp(n, max=s.clip_pts_grad)
+    return grad
+
+
+class _RasterizeSplats(torch.autograd.Function):
+    """Forward maps, backward to `pts_ndc` only (rasterizer.py:582-692):
+    ellipse, radii and cutoff get zeros, the mask none; the idx,
+    visibility and overflow outputs are not differentiable and the qvalue
+    cotangent is dropped (colour gradients reach the features through the
+    compositor's weights instead)."""
+
+    @staticmethod
+    def forward(ctx, pts_ndc, ellipse, radii, cutoff, mask, settings):
+        frags, slots, cand_idx = _rasterize_forward(pts_ndc, ellipse, radii,
+                                                    cutoff, mask, settings)
+        ctx.settings = settings
+        ctx.shapes = (ellipse.shape, cutoff.shape)
+        ctx.save_for_backward(pts_ndc, radii, mask, frags.visibility, slots,
+                              cand_idx)
+        ctx.mark_non_differentiable(frags.idx, frags.visibility,
+                                    frags.tile_overflow)
+        return tuple(frags)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, _g_idx, g_zbuf, _g_qvalue, g_occ, _g_vis, _g_ovf):
+        pts_ndc, radii, mask, vis, slots, cand_idx = ctx.saved_tensors
+        grad = _rasterize_backward(pts_ndc, radii, mask, vis, slots, cand_idx,
+                                   g_zbuf, g_occ, ctx.settings)
+        need = ctx.needs_input_grad
+        zeros = lambda i, shape: (torch.zeros(shape, dtype=pts_ndc.dtype,
+                                              device=pts_ndc.device)
+                                  if need[i] else None)
+        return (grad if need[0] else None, zeros(1, ctx.shapes[0]),
+                zeros(2, radii.shape), zeros(3, ctx.shapes[1]), None, None)
 
 
 def rasterize_splats(pts_ndc, ellipse, radii, cutoff, mask,
                      settings: RasterizationSettings) -> Fragments:
-    """Splat rasterization forward for B clouds (rasterizer.py:573-593).
-    The maps are constants: a gradient through them is not ported."""
-    if torch.is_grad_enabled() and pts_ndc.requires_grad:
-        raise NotImplementedError(_SLICE4)
-    return _rasterize_forward(pts_ndc, ellipse, radii, cutoff, mask, settings)
+    """Splat rasterization of B clouds (rasterizer.py:582-593),
+    differentiable in `pts_ndc` (see `_RasterizeSplats`)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (pts_ndc, ellipse, radii, cutoff)):
+        return Fragments(*_RasterizeSplats.apply(pts_ndc, ellipse, radii,
+                                                 cutoff, mask, settings))
+    return _rasterize_forward(pts_ndc, ellipse, radii, cutoff, mask,
+                              settings)[0]

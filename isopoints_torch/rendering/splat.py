@@ -1,5 +1,5 @@
-"""Splat rasterization, fine stage: a hand-written CUDA kernel and its
-plain version.
+"""Splat rasterization, fine stage and the tile half of the zbuf backward:
+hand-written CUDA kernels and their plain versions.
 
 The kernel (csrc/splat_fine.cu) replaces `_fine_kernel` of
 isopoints_tpu/rendering/pallas_splat.py (:42, wrapper
@@ -18,9 +18,17 @@ multiply-adds XLA puts there.
 
 `rasterize_fine` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors. Outputs, per cloud and tile (all tiled):
-idx (global ids) / zbuf / qvalue / slots (local candidate slots, for the
-zbuf backward of a later slice) (B, n_tiles, T², K), occupancy
-(B, n_tiles, T²) and per-candidate `used` flags (B, n_tiles, M).
+idx (global ids) / zbuf / qvalue / slots (local candidate slots, which the
+zbuf backward reads) (B, n_tiles, T², K), occupancy (B, n_tiles, T²) and
+per-candidate `used` flags (B, n_tiles, M).
+
+The zbuf backward's kernel (csrc/splat_zbuf_bwd.cu) replaces
+`_zbuf_bwd_kernel` of the same file (:186, wrapper
+`zbuf_backward_tile_pallas` :208): per tile, the zbuf cotangent of every
+fragment summed into its local candidate slot. One block per tile, one
+thread per slot, no atomics. Bound on an H100: bytes (8 per fragment read,
+4 per slot written). `zbuf_backward_tile` launches it for CUDA tensors and
+runs the plain version (a one-hot sum, chunked by tiles) for CPU tensors.
 """
 
 import ctypes
@@ -34,6 +42,7 @@ from isopoints_torch.rendering.select import pixel_ndc
 from isopoints_torch.utils import fma
 
 KERNEL = _build.LaunchCount("splat_fine")
+ZBUF_KERNEL = _build.LaunchCount("splat_zbuf_bwd")
 N_ATTRS = 9          # px, py, z, ea, eb, ec, rx, ry, cutoff
 MAX_K = 8
 _BIG = 1e10
@@ -51,13 +60,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _zbuf_lib() -> ctypes.CDLL:
+    lib = _build.load("splat_zbuf_bwd")
+    lib.zbuf_backward_tile.argtypes = [_P] * 2 + [_I] * 3 + [_P] * 2
+    lib.zbuf_backward_tile.restype = _I
+    return lib
+
+
 class FineResult(NamedTuple):
     idx: torch.Tensor     # (B, n_tiles, T², K) int64 global ids, -1 empty
     zbuf: torch.Tensor    # (B, n_tiles, T², K) view depth, -1 empty
     qvalue: torch.Tensor  # (B, n_tiles, T², K) conic value, -1 empty
     occ: torch.Tensor     # (B, n_tiles, T²) 0/1
     used: torch.Tensor    # (B, n_tiles, M) candidate picked by some pixel
-    slots: torch.Tensor   # (B, n_tiles, T², K) int64 local slots, -1 empty
+    slots: torch.Tensor   # (B, n_tiles, T², K) int32 local slots, -1 empty
 
 
 def _tile_pixels(tiles: torch.Tensor, S: int, T: int):
@@ -114,7 +131,7 @@ def rasterize_fine_plain(attrs: torch.Tensor, ok: torch.Tensor,
     used = torch.zeros((b, n_tiles, m + 1), dtype=torch.bool, device=attrs.device)
     used = used.scatter(-1, torch.where(slots >= 0, slots, m).reshape(b, n_tiles, -1),
                         True)[..., :m]
-    return FineResult(idx, zbuf, qv, occ, used, slots)
+    return FineResult(idx, zbuf, qv, occ, used, slots.to(torch.int32))
 
 
 def rasterize_fine_cuda(attrs: torch.Tensor, ok: torch.Tensor,
@@ -153,7 +170,7 @@ def rasterize_fine_cuda(attrs: torch.Tensor, ok: torch.Tensor,
                              zbuf.data_ptr(), qv.data_ptr(), slots.data_ptr(),
                              occ.data_ptr(), used.data_ptr(), stream)
     _build.check_launch(lib, err, "splat_fine")
-    return FineResult(idx.long(), zbuf, qv, occ, used.bool(), slots.long())
+    return FineResult(idx.long(), zbuf, qv, occ, used.bool(), slots)
 
 
 def rasterize_fine(attrs: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,
@@ -168,3 +185,54 @@ def rasterize_fine(attrs: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,
         raise ValueError(f"rasterize_fine runs on CUDA or CPU, not {attrs.device}")
     return rasterize_fine_plain(attrs, ok, gid, S, T, K,
                                 depth_merging_threshold)
+
+
+def zbuf_backward_tile_plain(slots: torch.Tensor, gz: torch.Tensor,
+                             M: int) -> torch.Tensor:
+    """Plain version: slots (n_tiles, T², K) int32 local candidate slots (−1
+    empty), gz (n_tiles, T², K) zbuf cotangents -> (n_tiles, M) sums
+    out[t, m] = Σ_{slots[t] == m} gz[t], as one-hot sums over chunks of
+    tiles (≤ 2²⁴ one-hot entries each)."""
+    n = slots.shape[0]
+    sl = slots.reshape(n, -1)
+    g = gz.reshape(n, -1)
+    ids = torch.arange(M, device=slots.device)
+    chunk = max(1, (1 << 24) // max(1, sl.shape[1] * M))
+    out = [torch.where(sl[lo:lo + chunk, :, None] == ids, g[lo:lo + chunk, :, None],
+                       0.0).sum(dim=1)
+           for lo in range(0, n, chunk)]
+    return torch.cat(out) if out else g.new_zeros((0, M))
+
+
+def zbuf_backward_tile_cuda(slots: torch.Tensor, gz: torch.Tensor,
+                            M: int) -> torch.Tensor:
+    """Launch the CUDA kernel; same arguments and result as the plain
+    version."""
+    if not (slots.is_cuda and gz.is_cuda and slots.device == gz.device):
+        raise ValueError("zbuf_backward_tile_cuda takes CUDA tensors on one device")
+    if gz.dtype != torch.float32 or slots.dtype != torch.int32:
+        raise TypeError("slots must be int32 (as the fine stage emits them) and "
+                        "gz float32")
+    if slots.shape != gz.shape or slots.dim() != 3 or M < 1:
+        raise ValueError("slots and gz must be (n_tiles, T², K), M >= 1")
+    n, tt, k = slots.shape
+    sl, g = slots.contiguous(), gz.contiguous()
+    out = torch.empty((n, M), dtype=torch.float32, device=gz.device)
+    lib = _zbuf_lib()
+    stream = torch.cuda.current_stream(gz.device).cuda_stream
+    ZBUF_KERNEL.launches += 1
+    err = lib.zbuf_backward_tile(sl.data_ptr(), g.data_ptr(), n, tt * k, M,
+                                 out.data_ptr(), stream)
+    _build.check_launch(lib, err, "splat_zbuf_bwd")
+    return out
+
+
+def zbuf_backward_tile(slots: torch.Tensor, gz: torch.Tensor,
+                       M: int) -> torch.Tensor:
+    """Per-tile zbuf cotangent sums per candidate slot: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if gz.is_cuda:
+        return zbuf_backward_tile_cuda(slots, gz, M)
+    if gz.device.type != "cpu":
+        raise ValueError(f"zbuf_backward_tile runs on CUDA or CPU, not {gz.device}")
+    return zbuf_backward_tile_plain(slots, gz, M)

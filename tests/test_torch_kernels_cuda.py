@@ -21,6 +21,14 @@ depths must be equal on all but 0.1% of rays (a pick flips only where two
 proposal values tie within round-off), and on equal picks f_pick agrees to
 1e-5 and the secant depth to 1e-4 on rays with a sign change.
 
+Splat backward: the zbuf tile kernel against its one-hot plain version
+within 1e-5 (the same terms in another order), bit for bit on a repeat;
+the occupancy kernel within 1e-5·max(1, max|g|) (the same pixel set and
+per-pixel arithmetic, summed in another order), bit for bit on a repeat;
+gradients through `rasterize_splats` with every kernel against every plain
+version: xy as the occupancy kernel, z within 1e-5 relative (`index_add_`
+sums in another order on the card).
+
 IGR (fused_igr, the IGR sampler, the march): f32 values atol 2e-5 and
 gradients atol 1e-4 + rtol 1e-4 as for SIREN. bf16: kernel and plain
 version round the same operands, so they differ only where a float32 sum
@@ -46,7 +54,7 @@ from isopoints_torch.models.fields import SDFField, SirenField
 from isopoints_torch.models.raytracing import (RayTracingConfig, march_plain,
                                                ray_trace)
 from isopoints_torch.ops import fused_mlp, fused_sampler, fused_trace, knn
-from isopoints_torch.rendering import select, splat
+from isopoints_torch.rendering import occ_bwd, select, splat
 from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                   rasterize_splats)
 from isopoints_torch.utils import linspace01
@@ -252,6 +260,94 @@ def test_fine_kernel_and_rasterizer_match_plain(dev):
     for name in ("idx", "zbuf", "occ", "used", "slots"):
         assert torch.equal(getattr(fk, name), getattr(fp, name)), name
     torch.testing.assert_close(fk.qvalue, fp.qvalue, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Splat backward: the zbuf tile reduction and the occupancy backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_tiles,T,K,M", [(64, 16, 5, 256), (37, 8, 3, 300),
+                                           (5, 16, 8, 1500)])
+def test_zbuf_bwd_kernel_matches_plain(dev, n_tiles, T, K, M):
+    g = torch.Generator(device=dev).manual_seed(n_tiles)
+    slots = torch.randint(-1, M, (n_tiles, T * T, K), generator=g, device=dev,
+                          dtype=torch.int32)
+    slots[0] = -1                                    # an empty tile
+    gz = torch.randn(n_tiles, T * T, K, generator=g, device=dev)
+    before = splat.ZBUF_KERNEL.launches
+    a = splat.zbuf_backward_tile(slots, gz, M)
+    b = splat.zbuf_backward_tile(slots, gz, M)
+    torch.cuda.synchronize()
+    assert splat.ZBUF_KERNEL.launches == before + 2
+    assert torch.equal(a, b)
+    assert torch.equal(a[0], torch.zeros_like(a[0]))
+    torch.testing.assert_close(a, splat.zbuf_backward_tile_plain(slots, gz, M),
+                               atol=1e-5, rtol=0)
+
+
+def _occ_case(dev, n, S, seed, edge=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(n, 3, generator=g, device=dev)
+    v = 0.7 * v / v.norm(dim=-1, keepdim=True)
+    if edge:
+        v[: n // 3, 0] = 0.98
+    pts = torch.stack([v[:, 0], v[:, 1], 2.5 + v[:, 2]], -1)
+    radii = torch.randn(n, 2, generator=g, device=dev).abs() * 0.02 + 0.01
+    vis = torch.rand(n, generator=g, device=dev) < 0.85
+    grad = torch.randn(S, S, generator=g, device=dev) * (
+        torch.rand(S, S, generator=g, device=dev) < 0.3)
+    return pts, radii, vis, grad
+
+
+@pytest.mark.parametrize("n,S,edge", [(600, 128, False), (600, 128, True),
+                                      (200, 64, False), (24576, 512, False)])
+def test_occ_bwd_kernel_matches_plain(dev, n, S, edge):
+    case = _occ_case(dev, n, S, seed=n + S, edge=edge)
+    st = RasterizationSettings(image_size=S)
+    before = occ_bwd.KERNEL.launches
+    a = occ_bwd.occ_backward_one(*case, st)
+    b = occ_bwd.occ_backward_one(*case, st)
+    torch.cuda.synchronize()
+    assert occ_bwd.KERNEL.launches == before + 2
+    assert torch.equal(a, b)
+    ref = occ_bwd.occ_backward_one_plain(*case, st)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(a, ref, rtol=0,
+                               atol=1e-5 * max(1.0, float(ref.abs().max())))
+    none = occ_bwd.occ_backward_one(case[0], case[1], torch.zeros_like(case[2]),
+                                    case[3], st)
+    assert torch.equal(none, torch.zeros_like(none))
+
+
+def test_rasterize_backward_kernels_match_plain(dev):
+    pts, normals, mask = _sphere_cloud(dev, 8000, seed=3)
+    from isopoints_torch.core.camera import (PerspectiveCamera,
+                                             look_at_view_transform)
+    from isopoints_torch.rendering.rasterizer import compute_splat_params
+    R, T = look_at_view_transform(2.0, [10.0, -30.0], [20.0, 150.0], device=dev)
+    cam = PerspectiveCamera.create(R=R, T=T, focal_length=2.0, device=dev)
+    kern = RasterizationSettings(image_size=256, use_pallas=True)
+    plain = RasterizationSettings(image_size=256, use_pallas=False,
+                                  use_pallas_backward=False)
+    sp = compute_splat_params(pts.expand(2, -1, -1), normals.expand(2, -1, -1),
+                              mask.expand(2, -1), cam, kern)
+    grads = []
+    for st in (kern, plain):
+        p = sp.pts_ndc.detach().clone().requires_grad_(True)
+        before = (splat.ZBUF_KERNEL.launches, occ_bwd.KERNEL.launches)
+        fr = rasterize_splats(p, sp.ellipse, sp.radii, sp.cutoff, sp.mask, st)
+        loss = fr.occupancy.sum() + torch.where(fr.zbuf > 0, fr.zbuf, 0.0).sum()
+        (g,) = torch.autograd.grad(loss, p)
+        torch.cuda.synchronize()
+        launched = (splat.ZBUF_KERNEL.launches - before[0],
+                    occ_bwd.KERNEL.launches - before[1])
+        assert launched == ((1, 2) if st is kern else (0, 0))
+        grads.append(g)
+    a, b = grads
+    assert float(b[..., :2].abs().max()) > 0 and float(b[..., 2].abs().max()) > 0
+    torch.testing.assert_close(a[..., :2], b[..., :2], rtol=0,
+                               atol=1e-5 * max(1.0, float(b[..., :2].abs().max())))
+    torch.testing.assert_close(a[..., 2], b[..., 2], rtol=1e-5, atol=0)
 
 
 # ---------------------------------------------------------------------------

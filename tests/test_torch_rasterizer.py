@@ -222,11 +222,6 @@ def test_fine_stage_ignores_candidate_order():
 
 
 def test_rasterizer_refuses_what_is_not_ported():
-    ts = RasterizationSettings(image_size=16)
-    pts = torch.zeros(1, 4, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Slices of the port' 4"):
-        rasterize_splats(pts, torch.ones(1, 4, 3), torch.ones(1, 4, 2),
-                         torch.ones(1, 4), torch.ones(1, 4, dtype=torch.bool), ts)
     aniso = RasterizationSettings(Vrk_isotropic=False)
     cam = PerspectiveCamera.create(T=[0.0, 0.0, 2.0])
     with pytest.raises(NotImplementedError, match="anisotropic"):
