@@ -1,77 +1,142 @@
-// Fused IGR SDF-MLP: value, or value + input gradient, for N points, in
-// f32 or in the bf16 mode.
+// Fused IGR SDF-MLP: value, or value + input gradient, for N points, in the
+// f32 mode (3xTF32) or the bf16 mode, on the tensor cores.
 //
 // Replaces `_igr_kernel` (isopoints_tpu/ops/pallas_mlp.py:417, reached by
-// `make_fused_igr_sdf` :489, pallas_call :535). The per-tile MLP lives in
-// igr.cuh; see there for the layout, the skip and the precision choices.
+// `make_fused_igr_sdf` :489, pallas_call :535) in both of its modes. The
+// per-tile MLP is igr_mma.cuh's; see there for the layout, the skip and the
+// precision of each mode.
 //
-// Bound on an H100: operations. One value eval of the 4x256 bench field is
-// 2(3*256 + 3*256*256 + 256) ~ 0.40 MFLOP against 16 bytes of point and
-// value; with the gradient the three tangent rows make it ~4x. The f32 mode
-// is bound by the f32 CUDA-core peak (67 TFLOP/s). The bf16 mode does the
-// same FMAs on rounded operands, so it runs at that rate too, while its
-// bound is the dense bf16 tensor-core peak (~990 TFLOP/s): tensor cores are
-// left for a later change.
+// Bound on an H100. One value eval of the 4x256 bench field is 2(3*256 +
+// 3*256*256 + 256) ~ 0.40 MFLOP against 16 bytes of point and value (with
+// the gradient the three tangent rows make the products ~4x), so operations
+// bound it: in bf16 the products over the dense bf16 tensor-core peak
+// (989 TFLOP/s), in f32 three tf32 passes over the tf32 peak (495 TFLOP/s).
+// Past the products, every activation needs a softplus on the CUDA cores
+// (accurate expf, log1pf and an IEEE division, and on value rows of the
+// gradient mode the sigmoid's expf and division): 524,288 points x 4 layers
+// x 256 is ~0.5 G of them, a floor of roughly 0.5-1.5 ms that is larger
+// than the bf16 tensor-core bound (0.21 ms at that size).
+//
+// Design. 128 rows per block share each streamed weight chunk, so a
+// 524,288-point launch reads the weights 4096 times from L2 instead of
+// 8192 at 64 rows; 16 warps per block, each with a 32-row x H/4 tile, so
+// that four warps per scheduler hide the epilogue's latency;
+// `mma.sync` (m16n8k16 bf16, m16n8k8 tf32) from `ldmatrix` fragments,
+// K-major operands in padded shared memory; the weights pre-rounded (bf16)
+// or pre-split (tf32 hi/lo) once on the host; the first layer, the head
+// and the whole epilogue in f32 on the CUDA cores. `mma.sync`, not
+// `wgmma`: the epilogue, not the products, bounds the kernel (see above),
+// and `mma.sync` keeps the accumulators in the lanes that own a point's
+// four rows. The dynamic shared-memory limit is raised once per template
+// instance, not per launch.
 //
 // Plain C interface for ctypes; launches on the caller's stream and returns
 // cudaGetLastError() after the launch.
 
-#include "igr.cuh"
+#include "igr_mma.cuh"
 
 namespace {
 
-using igr::kChunk;
-using igr::kRows;
-using igr::kThreads;
-using igr::Net;
+using igr_mma::kRows;
+using igr_mma::kThreads;
+using igr_mma::Net;
 
-template <int NJ, int C>
-__global__ void __launch_bounds__(kThreads)
+template <class Mode, int NJ, int C>
+__global__ void __launch_bounds__(kThreads, 1)
     igr_points_kernel(Net net, const float* __restrict__ x, int n, float* __restrict__ val,
                       float* __restrict__ grad) {
   constexpr int H = NJ * 32;
-  constexpr int P = kRows / C;  // points per tile
-  extern __shared__ float smem[];
-  float* act = smem;
-  float* wbuf = act + kRows * H;
-  float* xs = wbuf + kChunk * H;
-  float* vs = xs + P * 3;
-  float* gs = vs + P;
+  constexpr int P = kRows / C;  // points per block
+  constexpr int NT = H / 32;    // n8 tiles of a warp's column quarter
+  constexpr int kChunks = H * Mode::kEsz / igr_mma::kChunkBytes;  // per layer
+  constexpr int kParts = Mode::kSplit ? 2 : 1;
+  constexpr int kStage = igr_mma::stage_bytes<Mode>(H);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* act = smem;
+  unsigned char* wbuf = act + kRows * igr_mma::pitch_a<Mode>(H);
+  float* xs = reinterpret_cast<float*>(wbuf + 2 * kStage);
+
+  // chunk s of the flat (layer, k-chunk) sequence into stage s & 1
+  const int total = net.n_hidden * kChunks;
+  const unsigned char* wsrc[2] = {static_cast<const unsigned char*>(net.wh),
+                                  static_cast<const unsigned char*>(net.wh_lo)};
+  auto issue = [&](int s) {
+    const int l = s / kChunks, c = s - l * kChunks;
+    unsigned char* dst = wbuf + (s & 1) * kStage;
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      const unsigned char* src =
+          wsrc[part] + (size_t)l * H * H * Mode::kEsz + c * igr_mma::kChunkBytes;
+      for (int e = threadIdx.x; e < H * 4; e += kThreads) {
+        const int r = e >> 2, q = e & 3;
+        igr_mma::cp_async16(dst + part * H * igr_mma::kPitchW + r * igr_mma::kPitchW + q * 16,
+                            src + (size_t)r * H * Mode::kEsz + q * 16);
+      }
+    }
+    igr_mma::cp_async_commit();
+  };
+  if (total > 0) issue(0);  // in flight during the first layer
 
   const int p0 = blockIdx.x * P;
   for (int e = threadIdx.x; e < P * 3; e += kThreads)
     xs[e] = (p0 + e / 3 < n) ? x[(size_t)p0 * 3 + e] : 0.f;
   __syncthreads();
+  igr_mma::layer0<Mode, H, C>(net, xs, act);
 
-  igr::tile<NJ, C>(net, xs, act, wbuf, vs, gs);
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  for (int e = threadIdx.x; e < P; e += kThreads)
-    if (p0 + e < n) val[p0 + e] = vs[e];
-  if constexpr (C == 4) {
-    for (int e = threadIdx.x; e < P * 3; e += kThreads)
-      if (p0 + e / 3 < n) grad[(size_t)p0 * 3 + e] = gs[e];
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) {
+      issue(s + 1);
+      igr_mma::cp_async_wait<1>();
+    } else {
+      igr_mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk s and the layer's operand visible to every warp
+    const int l = s / kChunks, c = s - l * kChunks;
+    igr_mma::mma_chunk<Mode, H, NT>(acc, act, wbuf + (s & 1) * kStage, c);
+    if (c == kChunks - 1) {
+      __syncthreads();  // every warp done reading the operand
+      igr_mma::epilogue<Mode, H, C, NT>(acc, net, l, xs, act);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    }
+    __syncthreads();  // stage s & 1 free for chunk s + 2; the epilogue's stores visible
   }
+  if (total == 0) __syncthreads();
+  igr_mma::head<Mode, H, C>(net, act, p0, n, val, grad);
 }
 
-template <int NJ, int C>
+template <class Mode, int NJ, int C>
 int launch(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t stream) {
   constexpr int H = NJ * 32;
   constexpr int P = kRows / C;
-  const size_t smem = sizeof(float) * (igr::tile_smem_floats(H) + P * 3 + P + P * 3);
-  cudaError_t err = cudaFuncSetAttribute(igr_points_kernel<NJ, C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  constexpr int smem = igr_mma::smem_bytes<Mode, C>(H);
+  static_assert(smem <= 232448, "the tile exceeds a block's shared memory");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      igr_points_kernel<Mode, NJ, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
   const int blocks = (n + P - 1) / P;
-  igr_points_kernel<NJ, C><<<blocks, kThreads, smem, stream>>>(net, x, n, val, grad);
+  igr_points_kernel<Mode, NJ, C><<<blocks, kThreads, smem, stream>>>(net, x, n, val, grad);
   return (int)cudaGetLastError();
 }
 
-template <int C>
+template <class Mode, int C>
 int dispatch(const Net& net, int hidden, const float* x, int n, float* val, float* grad,
              cudaStream_t stream) {
   switch (hidden / 32) {
 #define CASE(NJ) \
-  case NJ: return launch<NJ, C>(net, x, n, val, grad, stream);
+  case NJ: return launch<Mode, NJ, C>(net, x, n, val, grad, stream);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
@@ -80,18 +145,25 @@ int dispatch(const Net& net, int hidden, const float* x, int n, float* val, floa
 
 }  // namespace
 
-// x (n, 3) -> val (n,) [, grad (n, 3) when grad != nullptr]. The weights
-// are the f32 or the bf16-rounded pack, as `bf16` says; hidden must be a
-// multiple of 32 in [32, 256] (the wrapper checks it).
+// x (n, 3) -> val (n,) [, grad (n, 3) when grad != nullptr]. w0, b0, bh,
+// wout, bout: float32 (in the bf16 mode w0 and wout bf16-rounded); wh: the
+// hidden layers (L, H, H) in (out, in) layout, bf16 in the bf16 mode and
+// the tf32 hi part (float32) in the f32 mode, with wh_lo the tf32 lo part
+// (f32 mode only). hidden must be a multiple of 32 in [32, 256] (the wrapper
+// checks it).
 extern "C" int igr_forward(const float* x, int n, const float* w0, const float* b0,
-                           const float* wh_t, const float* bh, const float* wout,
+                           const void* wh, const void* wh_lo, const float* bh, const float* wout,
                            const float* bout, int hidden, int n_hidden, unsigned skip,
                            int final_tanh, int bf16, float* val, float* grad, void* stream) {
-  if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 || (skip & 1u))
+  if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 || (skip & 1u) ||
+      (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const Net net{w0, b0, wh_t, bh, wout, bout, n_hidden, skip, final_tanh, bf16};
+  const Net net{w0, b0, wh, wh_lo, bh, wout, bout, n_hidden, skip, final_tanh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return grad == nullptr ? dispatch<1>(net, hidden, x, n, val, grad, s)
-                         : dispatch<4>(net, hidden, x, n, val, grad, s);
+  if (bf16)
+    return grad == nullptr ? dispatch<igr_mma::Bf16Mode, 1>(net, hidden, x, n, val, grad, s)
+                           : dispatch<igr_mma::Bf16Mode, 4>(net, hidden, x, n, val, grad, s);
+  return grad == nullptr ? dispatch<igr_mma::Tf32x3Mode, 1>(net, hidden, x, n, val, grad, s)
+                         : dispatch<igr_mma::Tf32x3Mode, 4>(net, hidden, x, n, val, grad, s);
 }

@@ -1,6 +1,7 @@
-// IGR SDF-MLP forward on one 64-row tile, shared by the fused IGR kernel
-// (fused_igr.cu), the fused ray sampler (fused_sampler.cu) and the in-kernel
-// march (fused_trace.cu).
+// IGR SDF-MLP forward on one 64-row tile of the CUDA cores, shared by the
+// fused ray sampler (fused_sampler.cu) and the in-kernel march
+// (fused_trace.cu); the fused IGR kernel (fused_igr.cu) runs the tensor-core
+// tile of igr_mma.cuh, which takes its softplus and bf16 rounding from here.
 //
 // Replaces the layer stack of `_igr_kernel` / `_make_igr_forward` in
 // isopoints_tpu/ops/pallas_mlp.py (:153, :417): L+2 linear layers, softplus

@@ -1,0 +1,383 @@
+// IGR SDF-MLP forward on Hopper's tensor cores, one 128-row tile per block:
+// the tile of the fused IGR kernel (fused_igr.cu).
+//
+// Replaces the layer stack of `_igr_kernel` (isopoints_tpu/ops/pallas_mlp.py
+// :417): L+2 linear layers, softplus with beta = 100 after every layer but
+// the head, the input concatenated back and the row scaled by 1/sqrt(2)
+// before the layers of the skip mask, an optional final tanh. With C = 4 a
+// point has four rows, its value row and its three forward-mode tangent rows
+// J <- (J W^T) * sigmoid(beta z); the tangent rows are extra rows of the
+// product's M dimension.
+//
+// Layout. 16 warps: warp w owns rows 32 (w / 4) .. +32 and the column
+// quarter w % 4 of every hidden product, as two m16 x (H/4) warp tiles of
+// `mma.sync` (64 accumulators per thread at H = 256, so that 16 warps fit
+// an SM's registers and hide the epilogue's latency). With C = 4 a warp's
+// 32 rows hold 8 points as [values,
+// x tangents, y tangents, z tangents] (8 rows each), so a lane's
+// accumulators of row g, g+8, g+16, g+24 are one point's value and tangent
+// rows and the epilogue needs no exchange between lanes. The activations
+// stay in shared memory as the next layer's A operand (bf16 or f32 rows,
+// padded by 16 bytes so that `ldmatrix` is free of bank conflicts). Each
+// hidden layer's W (out, in), K-major as the MMA's B operand wants it,
+// streams through shared memory in 64-byte k-chunks by `cp.async`,
+// double-buffered, the next chunk (also the next layer's first) in flight
+// while the current one is multiplied. Both modes step K by 32 bytes (k16
+// bf16, k8 tf32), so the `ldmatrix` addressing is the same.
+//
+// Precision.
+//   bf16 (`Bf16Mode`): the JAX 'bf16' mode. Weights rounded to bf16 on the
+//     host, activations and tangents rounded (to nearest even) where they
+//     are stored as the next layer's operand, one m16n8k16 pass, f32
+//     accumulation. A bf16 x bf16 product is exact in f32, so only the
+//     summation order differs from the plain version.
+//   f32 (`Tf32x3Mode`): 3xTF32. Every operand x is split into hi =
+//     cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi); the weights once on
+//     the host (two packs), the activations and tangents when their
+//     fragments are loaded. The product is lo*hi + hi*lo + hi*hi in three
+//     m16n8k8 passes into one f32 accumulator (lo*lo, ~2^-22 relative, is
+//     dropped). Tangents are carried in f32 as values are.
+// Accumulation. The tensor cores do not round their f32 sums to nearest,
+// and with the whole K in one accumulator their error grew with the sum:
+// on an H100 the bf16 mode then flipped a bf16 rounding of the next
+// operand, and so moved the output by more than 1e-5, on 2-5% of the
+// points against the plain version. So each 64-byte k-chunk (k32 bf16,
+// k16 tf32) is summed into a zeroed tile and added to the f32 accumulator
+// with an IEEE add on the CUDA cores: 1.1-1.6% of bf16 outputs then differ
+// from the plain version by more than 1e-5 (a zeroed tile per k16 step
+// did no better), about as many as two correct float32 sums in different
+// orders differ by (the bf16 mode's tolerance is stated against exact
+// sums, see chip_smoke.py), and the f32 mode's error is that of a float32
+// sum in another order.
+// The first layer (K = 3) and the head (N = 1) run on the CUDA cores with
+// igr.cuh's arithmetic, and so do biases and the whole epilogue: softplus
+// as logaddexp(beta z, 0) / beta with the accurate expf/log1pf (never
+// -use_fast_math), the skip as igr.cuh packs it (the layer before a skip
+// has H - 3 outputs padded to H; its last three columns are overwritten by
+// the point, or e_k on tangent rows, and the row scaled by 1/sqrt(2)).
+//
+// Bound on an H100: the tensor cores do 2*128*H*H FLOP per block and layer
+// (3x that in f32 mode, at half the bf16 rate), while the epilogue computes
+// one softplus (expf, log1pf, a division; on value rows also the sigmoid's
+// expf and division) per activation on the CUDA cores. At H = 256 the
+// epilogue is the larger part; see fused_igr.cu.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "igr.cuh"
+
+namespace igr_mma {
+
+constexpr int kThreads = 512;    // 16 warps: 4 row groups x 4 column quarters
+constexpr int kRows = 128;       // MMA rows per block
+constexpr int kChunkBytes = 64;  // bytes of K per weight row and stage
+constexpr int kPitchW = kChunkBytes + 16;
+
+struct Net {
+  const float* w0;    // (H, 3) first layer, (out, in); rows past its width zero
+  const float* b0;    // (H,)
+  const void* wh;     // (L, H, H) hidden layers (out, in), zero-padded: bf16
+                      // values (bf16 mode) or the tf32 hi part (f32 mode)
+  const void* wh_lo;  // (L, H, H) the tf32 lo part (f32 mode; unused in bf16)
+  const float* bh;    // (L, H)
+  const float* wout;  // (H,) head of out_dim 1
+  const float* bout;  // (1,)
+  int n_hidden;       // L
+  unsigned skip;      // bit l set: layer l (1 <= l <= L + 1) takes [h, x] / sqrt(2)
+  int final_tanh;
+};
+
+struct Bf16Mode {
+  static constexpr int kEsz = 2;
+  static constexpr bool kSplit = false;
+};
+
+struct Tf32x3Mode {
+  static constexpr int kEsz = 4;
+  static constexpr bool kSplit = true;
+};
+
+// bytes of one activation row in shared memory (16 bytes of padding)
+template <class Mode>
+__host__ __device__ constexpr int pitch_a(int hidden) {
+  return hidden * Mode::kEsz + 16;
+}
+
+// bytes of one weight stage (hi, and lo in f32 mode)
+template <class Mode>
+__host__ __device__ constexpr int stage_bytes(int hidden) {
+  return (Mode::kSplit ? 2 : 1) * hidden * kPitchW;
+}
+
+// dynamic shared memory of one block: activations, two weight stages, points
+template <class Mode, int C>
+__host__ __device__ constexpr int smem_bytes(int hidden) {
+  return kRows * pitch_a<Mode>(hidden) + 2 * stage_bytes<Mode>(hidden) + (kRows / C) * 3 * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// round to the nearest tf32, ties away from zero (the low 13 bits cleared)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// row of component `comp` (0 value, 1..3 tangents) of block-local point p
+template <int C>
+__device__ __forceinline__ int row_of(int p, int comp) {
+  return C == 1 ? p : (p >> 3) * 32 + comp * 8 + (p & 7);
+}
+
+template <class Mode>
+__device__ __forceinline__ void put(unsigned char* row, int c, float v) {
+  if constexpr (Mode::kSplit)
+    reinterpret_cast<float*>(row)[c] = v;
+  else
+    reinterpret_cast<__nv_bfloat16*>(row)[c] = __float2bfloat16_rn(v);
+}
+
+template <class Mode>
+__device__ __forceinline__ float get(const unsigned char* row, int c) {
+  if constexpr (Mode::kSplit)
+    return reinterpret_cast<const float*>(row)[c];
+  else
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[c]);
+}
+
+// Stores column c of point p's activation (value a, tangents d * t[q]) as
+// the next layer's operand, doing that layer's skip when `skip` is set
+// (igr.cuh `store`).
+template <class Mode, int H, int C>
+__device__ __forceinline__ void store_col(unsigned char* act, int p, int c, float a, float d,
+                                          const float (&t)[3], const float* x, bool skip) {
+  constexpr int kPitch = pitch_a<Mode>(H);
+  const int k = c - (H - 3);
+  const bool xcol = skip && k >= 0;
+  float v = xcol ? x[k] : a;
+  if (skip) v = __fmul_rn(v, igr::kInvSqrt2);
+  put<Mode>(act + row_of<C>(p, 0) * kPitch, c, v);
+  if constexpr (C == 4) {
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      float tv = xcol ? (k == q ? 1.f : 0.f) : __fmul_rn(d, t[q]);
+      if (skip) tv = __fmul_rn(tv, igr::kInvSqrt2);
+      put<Mode>(act + row_of<C>(p, q + 1) * kPitch, c, tv);
+    }
+  }
+}
+
+// First layer (3 inputs) on the CUDA cores, straight from the points xs
+// (kRows / C, 3), into the activation tile.
+template <class Mode, int H, int C>
+__device__ void layer0(const Net& net, const float* xs, unsigned char* act) {
+  constexpr int P = kRows / C;
+  constexpr bool kBf16 = !Mode::kSplit;
+  const bool skip = (net.skip >> 1) & 1u;
+  for (int e = threadIdx.x; e < P * H; e += kThreads) {
+    const int p = e / H, c = e - p * H;
+    const float* x = xs + p * 3;
+    const float x0 = igr::operand(x[0], kBf16), x1 = igr::operand(x[1], kBf16),
+                x2 = igr::operand(x[2], kBf16);
+    const float* w = net.w0 + c * 3;
+    const float w0 = __ldg(w), w1 = __ldg(w + 1), w2 = __ldg(w + 2);
+    const float z = __fadd_rn(fmaf(x2, w2, fmaf(x1, w1, __fmul_rn(x0, w0))), __ldg(net.b0 + c));
+    float a, d;
+    igr::softplus(z, a, d);
+    const float t[3] = {w0, w1, w2};
+    store_col<Mode, H, C>(act, p, c, a, d, t, x, skip);
+  }
+}
+
+// One 64-byte k-chunk of a hidden product: acc[mt][nt] (the warp's two m16
+// tiles x NT n8 tiles) += act[:, chunk] @ W[:, chunk]^T. The tensor cores
+// sum the chunk into a zeroed tile, which is then added to acc with an
+// IEEE add (see "Accumulation" above).
+template <class Mode, int H, int NT>
+__device__ __forceinline__ void mma_chunk(float (&acc)[2][NT][4], const unsigned char* act,
+                                          const unsigned char* wb, int chunk) {
+  constexpr int kPitch = pitch_a<Mode>(H);
+  constexpr int KS = kChunkBytes / 32;  // k-steps per chunk
+  static_assert(KS == 2, "one ldmatrix.x4 of B covers the chunk's two k-steps");
+  constexpr int kParts = Mode::kSplit ? 2 : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3;
+  // ldmatrix x4: lanes 8i..8i+7 address the rows of matrix i, and k lo / hi
+  // below are the two 16-byte halves of a 32-byte k-step. A: matrices
+  // (rows 0-7, k lo), (rows 8-15, k lo), (rows 0-7, k hi), (rows 8-15, k hi)
+  // of one k-step; B: (n 0-7, k lo), (n 0-7, k hi) of k-step 0, then of
+  // k-step 1, so regs 0-1 are k-step 0's b0, b1 and regs 2-3 k-step 1's
+  const uint32_t a_addr = smem_u32(act) +
+                          (wr * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * kPitch +
+                          chunk * kChunkBytes + (lane >> 4) * 16;
+  const uint32_t b_addr =
+      smem_u32(wb) + (wc * (H / 4) + (lane & 7)) * kPitchW + (lane >> 3) * 16;
+  // A fragments of the chunk: [ks][mt]; in f32 mode split into hi (a) and lo
+  uint32_t a[KS][2][4], lo[Mode::kSplit ? KS : 1][2][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    ldsm_x4(a_addr + ks * 32, a[ks][0]);
+    ldsm_x4(a_addr + 16 * kPitch + ks * 32, a[ks][1]);
+    if constexpr (Mode::kSplit) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = __uint_as_float(a[ks][mt][i]);
+          const uint32_t hi = tf32_rna(v);
+          lo[ks][mt][i] = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+          a[ks][mt][i] = hi;
+        }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    uint32_t b[kParts][4];  // [hi, lo]: b0, b1 of k-step 0, then of k-step 1
+#pragma unroll
+    for (int part = 0; part < kParts; ++part)
+      ldsm_x4(b_addr + (part * H + nt * 8) * kPitchW, b[part]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        if constexpr (Mode::kSplit) {  // small terms first
+          mma_tf32(t, lo[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
+          mma_tf32(t, a[ks][mt], b[1][2 * ks], b[1][2 * ks + 1]);
+          mma_tf32(t, a[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
+        } else {
+          mma_bf16(t, a[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
+        }
+      }
+      float(&d)[4] = acc[mt][nt];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);
+    }
+  }
+}
+
+// Bias, softplus and the operand store of hidden layer l from the warp's
+// accumulators (c0, c1: row g, columns 2t, 2t+1 of an n8 tile; c2, c3: row
+// g + 8).
+template <class Mode, int H, int C, int NT>
+__device__ __forceinline__ void epilogue(const float (&acc)[2][NT][4], const Net& net, int l,
+                                         const float* xs, unsigned char* act) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const bool skip = (net.skip >> (l + 2)) & 1u;
+  const float* b = net.bh + (size_t)l * H;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = wc * (H / 4) + nt * 8 + 2 * t + e;
+      const float bc = __ldg(b + c);
+      if constexpr (C == 1) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // rows g, g + 8 of m-tile 0, then of m-tile 1
+          const int p = wr * 32 + r * 8 + g;
+          float a, d;
+          igr::softplus(__fadd_rn(acc[r >> 1][nt][(r & 1) * 2 + e], bc), a, d);
+          const float none[3] = {0.f, 0.f, 0.f};
+          store_col<Mode, H, 1>(act, p, c, a, d, none, xs + p * 3, skip);
+        }
+      } else {
+        const int p = wr * 8 + g;
+        float a, d;
+        igr::softplus(__fadd_rn(acc[0][nt][e], bc), a, d);
+        const float tq[3] = {acc[0][nt][2 + e], acc[1][nt][e], acc[1][nt][2 + e]};
+        store_col<Mode, H, 4>(act, p, c, a, d, tq, xs + p * 3, skip);
+      }
+    }
+  }
+}
+
+// Head (out_dim 1): one warp-shuffle dot product per row, then tanh; the
+// block's points p0 .. p0 + kRows / C written to val (and grad).
+template <class Mode, int H, int C>
+__device__ void head(const Net& net, const unsigned char* act, int p0, int n, float* val,
+                     float* grad) {
+  constexpr int NJ = H / 32;
+  constexpr int kPitch = pitch_a<Mode>(H);
+  constexpr int kPerWarp = kRows / C / (kThreads / 32);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float wo[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) wo[j] = __ldg(net.wout + lane + 32 * j);
+  const float bo = __ldg(net.bout);
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int p = warp * kPerWarp + i;
+    float s[C];
+#pragma unroll
+    for (int comp = 0; comp < C; ++comp) {
+      const unsigned char* row = act + row_of<C>(p, comp) * kPitch;
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) v = fmaf(get<Mode>(row, lane + 32 * j), wo[j], v);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+      s[comp] = v;
+    }
+    if (lane == 0 && p0 + p < n) {
+      float h = __fadd_rn(s[0], bo);
+      float d = 1.f;
+      if (net.final_tanh) {
+        const float th = tanhf(h);
+        d = __fsub_rn(1.f, __fmul_rn(th, th));
+        h = th;
+      }
+      val[p0 + p] = h;
+      if constexpr (C == 4) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          grad[(size_t)(p0 + p) * 3 + q] = net.final_tanh ? __fmul_rn(d, s[1 + q]) : s[1 + q];
+      }
+    }
+  }
+}
+
+}  // namespace igr_mma

@@ -13,12 +13,19 @@ with the next slice (ROADMAP "Slices of the port").
 IGR. Replaces `make_fused_igr_sdf` / `_igr_kernel` (pallas_mlp.py:417,
 :489) for an `SDFField` without positional encoding: softplus(β=100)
 layers, the input concatenated back and scaled by 1/√2 at `skip_in`,
-optional final tanh (csrc/fused_igr.cu + csrc/igr.cuh). Two precisions:
-`"f32"`, the fine path (JAX's `f32x3`/`highest`, here plain f32), and
-`"bf16"`, the coarse path: JAX's `bf16` mode, every matmul operand (value
-and tangent rows) rounded to bf16, the products exact in f32 and
-accumulated in f32, biases f32. The weight-norm fold w = g·v/max(‖v‖, ε)
-happens once, when the callable is made (pallas_mlp.py:507-516).
+optional final tanh. The kernel (csrc/fused_igr.cu + csrc/igr_mma.cuh)
+runs the hidden products on the tensor cores (`mma.sync`, 128 rows per
+block, the tangent rows of `with_grad` as extra rows) and the first
+layer, the head and the softplus epilogue on the CUDA cores in f32. Two
+precisions: `"f32"`, the fine path (JAX's `f32x3`/`highest`), as 3xTF32:
+each operand split into tf32 hi and lo parts, hi·hi + hi·lo + lo·hi
+accumulated in f32, the weights split once on the host
+(`IgrPack.mma_net`, `tf32_split`); and `"bf16"`, the coarse path: JAX's
+`bf16` mode, every matmul operand (value and tangent rows) rounded to
+bf16, the products exact in f32 and accumulated in f32, biases f32. The
+plain versions compute both in float32 PyTorch ops (bf16 rounding the
+operands). The weight-norm fold w = g·v/max(‖v‖, ε) happens once, when
+the callable is made (pallas_mlp.py:507-516).
 
 `make_fused_sdf_fn(field, precision)` dispatches as the JAX
 `make_fused_sdf_fn` does (pallas_mlp.py:383-410) and returns a callable
@@ -75,7 +82,7 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _igr_lib() -> ctypes.CDLL:
     lib = _build.load("fused_igr")
-    lib.igr_forward.argtypes = [_P, _I] + [_P] * 6 + [_I, _I, _U, _I, _I,
+    lib.igr_forward.argtypes = [_P, _I] + [_P] * 7 + [_I, _I, _U, _I, _I,
                                                       _P, _P, _P]
     lib.igr_forward.restype = _I
     return lib
@@ -198,10 +205,27 @@ def _round_bf16(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.bfloat16).to(torch.float32)
 
 
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """Round float32 to the nearest tf32 (10 mantissa bits), ties away from
+    zero, as `cvt.rna.tf32.f32` does: add half an ulp to the magnitude's
+    bits and clear the low 13."""
+    bits = a.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(a) and lo = tf32(a − hi): the operand split of
+    the kernel's 3xTF32 products."""
+    hi = tf32_round(a)
+    return hi, tf32_round(a - hi)
+
+
 class IgrPack:
     """Detached IGR weights of an `SDFField` without positional encoding,
     weight norm folded: the (out, in) layers for the plain versions (f32
-    and bf16-rounded), and on first CUDA use the kernel's padded layout."""
+    and bf16-rounded), and on first CUDA use the kernels' padded layouts:
+    `net` for the CUDA-core tile of the sampler and the march (igr.cuh),
+    `mma_net` for the tensor-core tile of the fused IGR kernel."""
     kind = "igr"
 
     def __init__(self, field: SDFField):
@@ -218,6 +242,7 @@ class IgrPack:
         self.final_tanh = bool(field.final_tanh)
         self.device = self.ws[0].device
         self._nets = {}
+        self._mma_nets = {}
 
     def weights(self, bf16: bool) -> Tuple[Tuple[torch.Tensor, ...], ...]:
         return (self.ws_bf16 if bf16 else self.ws), self.bs
@@ -230,74 +255,111 @@ class IgrPack:
         return (self.hidden, self.n_layers - 2, self.skip_mask(),
                 int(self.final_tanh))
 
+    def _padded(self, bf16: bool):
+        """w0 (H, 3), b0 (H,), wh (L, H, H) as (out, in), bh (L, H), wout
+        (H,), bout (1,): each layer zero-padded to H outputs."""
+        h, nl = self.hidden, self.n_layers
+        _check_hidden(h, "IGR")
+        if nl < 2 or 0 in self.skip_in or self.ws[0].shape[1] != 3:
+            raise ValueError("the CUDA IGR kernel needs >= 2 layers on raw "
+                             "xyz and no skip at the first layer")
+        ws, bs = self.weights(bf16)
+        for w, b in zip(ws, bs):
+            if w.dtype != torch.float32 or b.dtype != torch.float32:
+                raise TypeError("the CUDA IGR kernel takes float32 weights")
+        for l in range(1, nl):
+            if ws[l].shape[1] != h:
+                raise ValueError(f"layer {l} takes {ws[l].shape[1]} inputs, "
+                                 f"the kernel needs {h}")
+
+        def pad(w, b):
+            out = w.shape[0]
+            return F.pad(w, (0, 0, 0, h - out)), F.pad(b, (0, h - out))
+
+        w0, b0 = pad(ws[0], bs[0])
+        mid = [pad(w, b) for w, b in zip(ws[1:-1], bs[1:-1])]
+        f32 = dict(dtype=torch.float32, device=self.device)
+        wh = (torch.stack([w for w, _ in mid]) if mid
+              else torch.zeros((0, h, h), **f32))
+        bh = (torch.stack([b for _, b in mid]) if mid
+              else torch.zeros((0, h), **f32))
+        return w0, b0, wh, bh, ws[-1].reshape(-1), bs[-1]
+
     def net(self, bf16: bool) -> Tuple[List[torch.Tensor], List[int]]:
-        """(tensors kept alive, pointers) of the kernel layout: w0 (H, 3),
-        b0 (H,), wh_t (L, H, H) as (in, out), bh (L, H), wout (H,), bout
-        (1,), each layer zero-padded to H outputs."""
+        """(tensors kept alive, pointers) of the CUDA-core tile's layout
+        (igr.cuh): w0 (H, 3), b0 (H,), wh_t (L, H, H) as (in, out), bh
+        (L, H), wout (H,), bout (1,), each layer zero-padded to H outputs."""
         if bf16 not in self._nets:
-            h, nl = self.hidden, self.n_layers
-            _check_hidden(h, "IGR")
-            if nl < 2 or 0 in self.skip_in or self.ws[0].shape[1] != 3:
-                raise ValueError("the CUDA IGR kernel needs >= 2 layers on raw "
-                                 "xyz and no skip at the first layer")
-            ws, bs = self.weights(bf16)
-            for w, b in zip(ws, bs):
-                if w.dtype != torch.float32 or b.dtype != torch.float32:
-                    raise TypeError("the CUDA IGR kernel takes float32 weights")
-            for l in range(1, nl):
-                if ws[l].shape[1] != h:
-                    raise ValueError(f"layer {l} takes {ws[l].shape[1]} inputs, "
-                                     f"the kernel needs {h}")
-
-            def pad(w, b):
-                out = w.shape[0]
-                wp = F.pad(w, (0, 0, 0, h - out))
-                return wp, F.pad(b, (0, h - out))
-
-            w0, b0 = pad(ws[0], bs[0])
-            mid = [pad(w, b) for w, b in zip(ws[1:-1], bs[1:-1])]
-            f32 = dict(dtype=torch.float32, device=self.device)
-            wh_t = (torch.stack([w.t() for w, _ in mid]) if mid
-                    else torch.zeros((0, h, h), **f32))
-            bh = (torch.stack([b for _, b in mid]) if mid
-                  else torch.zeros((0, h), **f32))
+            w0, b0, wh, bh, wout, bout = self._padded(bf16)
             tensors = [t.contiguous() for t in
-                       (w0, b0, wh_t, bh, ws[-1].reshape(-1), bs[-1])]
+                       (w0, b0, wh.transpose(1, 2), bh, wout, bout)]
             self._nets[bf16] = (tensors, [t.data_ptr() for t in tensors])
         return self._nets[bf16]
 
+    def mma_net(self, bf16: bool
+                ) -> Tuple[List[torch.Tensor], List[Optional[int]]]:
+        """(tensors kept alive, pointers) of the tensor-core tile's layout
+        (igr_mma.cuh): w0, b0, wh, wh_lo, bh, wout, bout. The hidden layers
+        stay (L, H, H) as (out, in), the K-major B operand: in bf16 as
+        `torch.bfloat16` (the values are bf16 already), in f32 as the tf32
+        split `tf32_split`, hi in wh and lo in wh_lo (None in bf16)."""
+        if bf16 not in self._mma_nets:
+            w0, b0, wh, bh, wout, bout = self._padded(bf16)
+            if bf16:
+                his = (wh.to(torch.bfloat16), None)
+            else:
+                his = tf32_split(wh)
+            tensors = [None if t is None else t.contiguous() for t in
+                       (w0, b0, *his, bh, wout, bout)]
+            self._mma_nets[bf16] = (tensors, [None if t is None else t.data_ptr()
+                                              for t in tensors])
+        return self._mma_nets[bf16]
 
-def _igr_layers(pack: IgrPack, bf16: bool):
+
+def _linear_exact(a: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """F.linear with each sum formed in float64 and rounded once to
+    float32."""
+    return F.linear(a.double(), w.double(),
+                    None if b is None else b.double()).float()
+
+
+def _igr_layers(pack: IgrPack, bf16: bool, exact_sums: bool):
     ws, bs = pack.weights(bf16)
     rnd = _round_bf16 if bf16 else (lambda a: a)
-    return ws, bs, rnd, 1.0 / math.sqrt(2.0)
+    lin = _linear_exact if exact_sums else F.linear
+    return ws, bs, rnd, lin, 1.0 / math.sqrt(2.0)
 
 
-def igr_sdf_plain(pack: IgrPack, x: torch.Tensor, bf16: bool = False
-                  ) -> torch.Tensor:
+def igr_sdf_plain(pack: IgrPack, x: torch.Tensor, bf16: bool = False,
+                  exact_sums: bool = False) -> torch.Tensor:
     """Plain version of the value kernel, x (N, 3) -> (N,): the JAX
     `_igr_kernel` value path, with every matmul operand rounded to bf16
-    when `bf16`."""
-    ws, bs, rnd, inv_sqrt2 = _igr_layers(pack, bf16)
+    when `bf16`. `exact_sums` forms each product's sum in float64 and
+    rounds it once (the float32 epilogue unchanged): the reference the
+    tensor-core kernel's bf16 mode is held to, since its sums are neither
+    exact nor float32 sums in this version's order."""
+    ws, bs, rnd, lin, inv_sqrt2 = _igr_layers(pack, bf16, exact_sums)
     h = x
     nl = len(ws)
     for l, (w, b) in enumerate(zip(ws, bs)):
         if l in pack.skip_in:
             h = torch.cat([h, x], dim=-1) * inv_sqrt2
-        z = F.linear(rnd(h), w, b)
+        z = lin(rnd(h), w, b)
         h = softplus_beta(z) if l < nl - 1 else z
     if pack.final_tanh:
         h = torch.tanh(h)
     return h[..., 0]
 
 
-def igr_sdf_and_grad_plain(pack: IgrPack, x: torch.Tensor, bf16: bool = False
+def igr_sdf_and_grad_plain(pack: IgrPack, x: torch.Tensor, bf16: bool = False,
+                           exact_sums: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the value+grad kernel: forward-mode tangents
     J ← (J Wᵀ)·σ(βz), the skip appending e_k and scaling by 1/√2, the tanh
-    head scaling by 1 − tanh², tangent operands rounded like the values.
-    x (N, 3) -> ((N,), (N, 3))."""
-    ws, bs, rnd, inv_sqrt2 = _igr_layers(pack, bf16)
+    head scaling by 1 − tanh², tangent operands rounded like the values
+    (`exact_sums` as in `igr_sdf_plain`). x (N, 3) -> ((N,), (N, 3))."""
+    ws, bs, rnd, lin, inv_sqrt2 = _igr_layers(pack, bf16, exact_sums)
     eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[0], 3, 3)
     h, jac = x, eye                                   # jac (N, 3 tangents, width)
     nl = len(ws)
@@ -305,8 +367,8 @@ def igr_sdf_and_grad_plain(pack: IgrPack, x: torch.Tensor, bf16: bool = False
         if l in pack.skip_in:
             h = torch.cat([h, x], dim=-1) * inv_sqrt2
             jac = torch.cat([jac, eye], dim=-1) * inv_sqrt2
-        z = F.linear(rnd(h), w, b)
-        jz = rnd(jac) @ w.t()
+        z = lin(rnd(h), w, b)
+        jz = lin(rnd(jac), w)
         if l < nl - 1:
             h = softplus_beta(z)
             jac = torch.sigmoid(100.0 * z)[:, None, :] * jz
@@ -327,7 +389,7 @@ def igr_forward_cuda(pack: IgrPack, x: torch.Tensor, with_grad: bool,
     if not x.is_cuda or not x.is_contiguous():
         raise ValueError("igr_forward_cuda takes a contiguous CUDA tensor")
     lib = _igr_lib()
-    _, ptrs = pack.net(bf16)
+    _, ptrs = pack.mma_net(bf16)
     val, grad = _outputs(x, with_grad)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     IGR_KERNEL.launches += 1

@@ -13,8 +13,9 @@ plain versions of both stages run, the counterpart of the JAX XLA path.
 `rasterize_splats` is a `torch.autograd.Function` when a gradient is
 needed (the JAX package's custom VJP, :582-692): gradients reach only
 `pts_ndc`. Its z part is the zbuf cotangent summed per tile into the fine
-stage's candidate slots (rendering/splat.py, the kernel with `use_pallas`)
-and scattered once to the points; its xy part is the DSS occupancy
+stage's candidate slots and added to the candidates' points
+(rendering/splat.py `zbuf_backward_points`, one kernel with `use_pallas`);
+its xy part is the DSS occupancy
 backward (rendering/occ_bwd.py; `use_pallas_backward`). Without a
 gradient it runs the forward alone and keeps nothing for a backward: the
 combined model's visibility rasters stay graph-free. The anisotropic Vrk
@@ -35,8 +36,8 @@ from isopoints_torch.rendering.select import (select_candidates,
                                               select_candidates_plain)
 from isopoints_torch.rendering.splat import (N_ATTRS, rasterize_fine,
                                              rasterize_fine_plain,
-                                             zbuf_backward_tile,
-                                             zbuf_backward_tile_plain)
+                                             zbuf_backward_points,
+                                             zbuf_backward_points_plain)
 from isopoints_torch.utils import eps_denom, eps_sqrt
 
 
@@ -206,15 +207,6 @@ def _untile(x: torch.Tensor, S: int, T: int) -> torch.Tensor:
             .reshape(b, S, S, c))
 
 
-def to_tiles(x: torch.Tensor, T: int) -> torch.Tensor:
-    """(B, S, S, C) image layout -> (B·nt², T², C) tiles, the layout the
-    zbuf backward reads (the inverse of `_untile`)."""
-    b, S, c = x.shape[0], x.shape[1], x.shape[-1]
-    nt = S // T
-    return (x.reshape(b, nt, T, nt, T, c).permute(0, 1, 3, 2, 4, 5)
-            .reshape(b * nt * nt, T * T, c))
-
-
 @torch.no_grad()
 def _rasterize_forward(pts_ndc, ellipse, radii, cutoff, mask,
                        settings: RasterizationSettings):
@@ -257,20 +249,17 @@ def _rasterize_backward(pts_ndc, radii, mask, visibility, slots, cand_idx,
                         g_zbuf, g_occ, settings: RasterizationSettings
                         ) -> torch.Tensor:
     """The gradient of `pts_ndc` (rasterizer.py:607-683): z from the zbuf
-    cotangent, per tile into candidate slots, then one (n_tiles·M) → P
-    scatter over the candidates' point ids (`index_add_`, which sums in
-    another order on the card than on the CPU); xy from the occupancy
-    backward of each cloud on its visible, renderable points."""
+    cotangent (B, S, S, K), summed per tile into the candidate slots and
+    added to the candidates' points (`splat.zbuf_backward_points`: with
+    `use_pallas` one kernel on CUDA tensors, which reads the cotangent in
+    image layout and adds each hit slot's sum with an atomic, so the sums
+    to the points run in another order than on the CPU; else the plain
+    tile sums and `index_add_`); xy from the occupancy backward of each
+    cloud on its visible, renderable points."""
     s = settings
-    T, K = s.tile_size, s.points_per_pixel
     b, p, _ = pts_ndc.shape
-    M = cand_idx.shape[-1]
-    zbuf_bwd = zbuf_backward_tile if s.use_pallas else zbuf_backward_tile_plain
-    gz_cand = zbuf_bwd(slots.reshape(-1, T * T, K), to_tiles(g_zbuf, T), M)
-    offs = torch.arange(b, device=cand_idx.device)[:, None, None] * p
-    gz = torch.zeros(b * p, dtype=torch.float32, device=pts_ndc.device)
-    gz = gz.index_add_(0, (cand_idx + offs).reshape(-1),
-                       gz_cand.reshape(-1)).reshape(b, p)
+    zbuf_bwd = zbuf_backward_points if s.use_pallas else zbuf_backward_points_plain
+    gz = zbuf_bwd(slots, g_zbuf, cand_idx, p)
     occ_bwd = (occ_backward_one_plain if s.use_pallas_backward is False
                else occ_backward_one)
     vis = visibility & mask

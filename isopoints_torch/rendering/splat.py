@@ -24,15 +24,22 @@ per-candidate `used` flags (B, n_tiles, M).
 
 The zbuf backward's kernel (csrc/splat_zbuf_bwd.cu) replaces
 `_zbuf_bwd_kernel` of the same file (:186, wrapper
-`zbuf_backward_tile_pallas` :208): per tile, the zbuf cotangent of every
-fragment summed into its local candidate slot. One block per tile, one
-thread per slot, no atomics. Bound on an H100: bytes (8 per fragment read,
-4 per slot written). `zbuf_backward_tile` launches it for CUDA tensors and
-runs the plain version (a one-hot sum, chunked by tiles) for CPU tensors.
+`zbuf_backward_tile_pallas` :208) and the scatter to the points that
+follows it in the JAX backward (isopoints_tpu/rendering/rasterizer.py
+:633-643): per tile, the zbuf cotangent of every fragment summed into its
+local candidate slot, read from the image-layout cotangent, and each hit
+slot's sum added to its candidate's point. One block per tile; the slots
+are grouped per warp with `__match_any_sync`, so the work is linear in
+the fragments and the tile sums repeat bit for bit; one `atomicAdd` per
+hit slot, none for the empty ones. Bound on an H100: bytes (8 per fragment
+read, 8 per hit slot, 4 per point written). `zbuf_backward_points`
+launches it for CUDA tensors and runs the plain version (the one-hot tile
+sums, chunked by tiles, then `index_add_`) for CPU tensors.
 """
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -63,8 +70,8 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _zbuf_lib() -> ctypes.CDLL:
     lib = _build.load("splat_zbuf_bwd")
-    lib.zbuf_backward_tile.argtypes = [_P] * 2 + [_I] * 3 + [_P] * 2
-    lib.zbuf_backward_tile.restype = _I
+    lib.zbuf_backward_points.argtypes = [_P] * 3 + [_I] * 6 + [_P] * 3
+    lib.zbuf_backward_points.restype = _I
     return lib
 
 
@@ -187,12 +194,21 @@ def rasterize_fine(attrs: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,
                                 depth_merging_threshold)
 
 
+def to_tiles(x: torch.Tensor, T: int) -> torch.Tensor:
+    """(B, S, S, C) image layout -> (B·nt², T², C) tiles, pixels row-major
+    inside a tile (the layout of the fine stage's maps)."""
+    b, S, c = x.shape[0], x.shape[1], x.shape[-1]
+    nt = S // T
+    return (x.reshape(b, nt, T, nt, T, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b * nt * nt, T * T, c))
+
+
 def zbuf_backward_tile_plain(slots: torch.Tensor, gz: torch.Tensor,
                              M: int) -> torch.Tensor:
-    """Plain version: slots (n_tiles, T², K) int32 local candidate slots (−1
-    empty), gz (n_tiles, T², K) zbuf cotangents -> (n_tiles, M) sums
-    out[t, m] = Σ_{slots[t] == m} gz[t], as one-hot sums over chunks of
-    tiles (≤ 2²⁴ one-hot entries each)."""
+    """The tile half of the plain version: slots (n_tiles, T², K) int32
+    local candidate slots (−1 empty), gz (n_tiles, T², K) zbuf cotangents
+    -> (n_tiles, M) sums out[t, m] = Σ_{slots[t] == m} gz[t], as one-hot
+    sums over chunks of tiles (≤ 2²⁴ one-hot entries each)."""
     n = slots.shape[0]
     sl = slots.reshape(n, -1)
     g = gz.reshape(n, -1)
@@ -204,35 +220,67 @@ def zbuf_backward_tile_plain(slots: torch.Tensor, gz: torch.Tensor,
     return torch.cat(out) if out else g.new_zeros((0, M))
 
 
-def zbuf_backward_tile_cuda(slots: torch.Tensor, gz: torch.Tensor,
-                            M: int) -> torch.Tensor:
+def zbuf_backward_points_plain(slots: torch.Tensor, g_zbuf: torch.Tensor,
+                               cand_idx: torch.Tensor, P: int) -> torch.Tensor:
+    """Plain version: slots (B, n_tiles, T², K) int32, g_zbuf (B, S, S, K)
+    zbuf cotangents in image layout, cand_idx (B, n_tiles, M) point ids ->
+    (B, P) z gradient: the per-tile slot sums, then one (B·n_tiles·M) → B·P
+    `index_add_` over the candidates' point ids."""
+    b, n_tiles, tt, k = slots.shape
+    T = math.isqrt(tt)
+    M = cand_idx.shape[-1]
+    sums = zbuf_backward_tile_plain(slots.reshape(-1, tt, k),
+                                    to_tiles(g_zbuf, T), M)
+    offs = torch.arange(b, device=cand_idx.device)[:, None, None] * P
+    gz = torch.zeros(b * P, dtype=torch.float32, device=g_zbuf.device)
+    return gz.index_add_(0, (cand_idx + offs).reshape(-1),
+                         sums.reshape(-1)).reshape(b, P)
+
+
+def zbuf_backward_points_cuda(slots: torch.Tensor, g_zbuf: torch.Tensor,
+                              cand_idx: torch.Tensor, P: int,
+                              tile_sums: bool = False):
     """Launch the CUDA kernel; same arguments and result as the plain
-    version."""
-    if not (slots.is_cuda and gz.is_cuda and slots.device == gz.device):
-        raise ValueError("zbuf_backward_tile_cuda takes CUDA tensors on one device")
-    if gz.dtype != torch.float32 or slots.dtype != torch.int32:
-        raise TypeError("slots must be int32 (as the fine stage emits them) and "
-                        "gz float32")
-    if slots.shape != gz.shape or slots.dim() != 3 or M < 1:
-        raise ValueError("slots and gz must be (n_tiles, T², K), M >= 1")
-    n, tt, k = slots.shape
-    sl, g = slots.contiguous(), gz.contiguous()
-    out = torch.empty((n, M), dtype=torch.float32, device=gz.device)
+    version. With `tile_sums`, returns (gz, the (B·n_tiles, M) tile sums)."""
+    for t in (slots, g_zbuf, cand_idx):
+        if not t.is_cuda or t.device != g_zbuf.device:
+            raise ValueError("zbuf_backward_points_cuda takes CUDA tensors on "
+                             "one device")
+    if (g_zbuf.dtype != torch.float32 or slots.dtype != torch.int32
+            or cand_idx.dtype != torch.int64):
+        raise TypeError("slots must be int32 (as the fine stage emits them), "
+                        "g_zbuf float32 and cand_idx int64")
+    b, n_tiles, tt, k = slots.shape
+    T = math.isqrt(tt)
+    S = g_zbuf.shape[1]
+    M = cand_idx.shape[-1]
+    if (T * T != tt or S % T != 0 or n_tiles != (S // T) ** 2 or P < 1
+            or g_zbuf.shape != (b, S, S, k) or cand_idx.shape[:2] != (b, n_tiles)):
+        raise ValueError("slots (B, (S/T)², T², K), g_zbuf (B, S, S, K) and "
+                         "cand_idx (B, (S/T)², M) must agree, P >= 1")
+    dev = g_zbuf.device
+    gz = torch.zeros((b, P), dtype=torch.float32, device=dev)
+    sums = (torch.empty((b * n_tiles, M), dtype=torch.float32, device=dev)
+            if tile_sums else None)
+    sl, g, ci = slots.contiguous(), g_zbuf.contiguous(), cand_idx.contiguous()
     lib = _zbuf_lib()
-    stream = torch.cuda.current_stream(gz.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     ZBUF_KERNEL.launches += 1
-    err = lib.zbuf_backward_tile(sl.data_ptr(), g.data_ptr(), n, tt * k, M,
-                                 out.data_ptr(), stream)
+    err = lib.zbuf_backward_points(sl.data_ptr(), g.data_ptr(), ci.data_ptr(),
+                                   b, S, T, k, M, P, gz.data_ptr(),
+                                   sums.data_ptr() if tile_sums else None,
+                                   stream)
     _build.check_launch(lib, err, "splat_zbuf_bwd")
-    return out
+    return (gz, sums) if tile_sums else gz
 
 
-def zbuf_backward_tile(slots: torch.Tensor, gz: torch.Tensor,
-                       M: int) -> torch.Tensor:
-    """Per-tile zbuf cotangent sums per candidate slot: the kernel for CUDA
+def zbuf_backward_points(slots: torch.Tensor, g_zbuf: torch.Tensor,
+                         cand_idx: torch.Tensor, P: int) -> torch.Tensor:
+    """The (B, P) z gradient from the zbuf cotangent: the kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    if gz.is_cuda:
-        return zbuf_backward_tile_cuda(slots, gz, M)
-    if gz.device.type != "cpu":
-        raise ValueError(f"zbuf_backward_tile runs on CUDA or CPU, not {gz.device}")
-    return zbuf_backward_tile_plain(slots, gz, M)
+    if g_zbuf.is_cuda:
+        return zbuf_backward_points_cuda(slots, g_zbuf, cand_idx, P)
+    if g_zbuf.device.type != "cpu":
+        raise ValueError(f"zbuf_backward_points runs on CUDA or CPU, not "
+                         f"{g_zbuf.device}")
+    return zbuf_backward_points_plain(slots, g_zbuf, cand_idx, P)

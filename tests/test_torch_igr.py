@@ -19,6 +19,13 @@ Tolerances:
 - the kernel's padded layout, evaluated by a PyTorch model of the kernel's
   arithmetic, against the plain version: atol 1e-6 (f32) and exact
   operands in bf16, atol 1e-5.
+- the fused IGR kernel's 3xTF32 f32 mode, emulated here (tf32 by a bit
+  mask, round to nearest with ties away; hi·hi + hi·lo + lo·hi in float32)
+  on its tensor-core pack, on a fitted 4×256 field with a skip: within a
+  tenth of the kernel's own f32 tolerances against the plain version,
+  values 2e-6 and input gradients 1e-5·max(1, |g|). This holds the
+  precision argument of the design: the split loses ~2^-22 relative per
+  product, far inside what the kernel is allowed.
 """
 
 import math
@@ -226,3 +233,98 @@ def test_dispatch_and_cpu_route():
     assert fused_mlp.IGR_KERNEL.launches == 0
     with pytest.raises(TypeError):
         sdf(x.detach().double())
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """Round float32 to tf32 with ties away from zero: add half an ulp of
+    the 10-bit mantissa to the bits and clear the low 13."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(a: torch.Tensor):
+    hi = _tf32(a.numpy())
+    return torch.from_numpy(hi), torch.from_numpy(_tf32(a.numpy() - hi))
+
+
+def _mm3(a: torch.Tensor, w_hi: torch.Tensor, w_lo: torch.Tensor) -> torch.Tensor:
+    """a (N, K) @ W (out, K)^T as the kernel's f32 mode forms it."""
+    a_hi, a_lo = _split(a)
+    return a_lo @ w_hi.t() + a_hi @ w_lo.t() + a_hi @ w_hi.t()
+
+
+def _tf32x3_model(pack, x):
+    """The f32 mode of the fused IGR kernel (csrc/igr_mma.cuh) on its
+    tensor-core pack: first layer and head in float32, hidden products of
+    values and tangent rows in 3xTF32, the skip as the kernel writes it."""
+    (w0, b0, wh, wh_lo, bh, wout, bout), _ = pack.mma_net(False)
+    hidden, n_hidden, skip, final_tanh = pack.arch_args()
+    c = torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32)
+    eye = torch.eye(3).expand(x.shape[0], 3, 3)
+
+    def store(h, jac, layer):
+        if skip >> layer & 1:
+            h = torch.cat([h[:, :hidden - 3], x], -1) * c
+            jac = torch.cat([jac[..., :hidden - 3], eye], -1) * c
+        return h, jac
+
+    def act(z, jz):
+        return tf.softplus_beta(z), torch.sigmoid(100.0 * z)[:, None, :] * jz
+
+    h, jac = store(*act(x @ w0.t() + b0, w0.t().expand(x.shape[0], 3, hidden)), 1)
+    for l in range(n_hidden):
+        z = _mm3(h, wh[l], wh_lo[l]) + bh[l]
+        jz = _mm3(jac.reshape(-1, hidden), wh[l], wh_lo[l]).reshape(jac.shape)
+        h, jac = store(*act(z, jz), l + 2)
+    out, g = h @ wout + bout, jac @ wout
+    if final_tanh:
+        t = torch.tanh(out)
+        out, g = t, (1.0 - t * t)[:, None] * g
+    return out, g
+
+
+@pytest.fixture(scope="module")
+def fitted256():
+    """The bench field (4×256, skip at the head) fitted to the r = 0.6
+    sphere at a CPU-sized batch, and 4096 points in [−1.2, 1.2]³."""
+    from isopoints_torch import bench
+    field, mse = bench.fit_sphere_field("cpu", n_steps=300, n_points=1024)
+    assert mse < 1e-2 and field.skip_in == (4,)
+    x = torch.from_numpy(_points((4096, 3), seed=9, scale=1.2))
+    return fused_mlp.IgrPack(field), x
+
+
+def test_tf32x3_emulation_holds_a_tenth_of_the_f32_tolerance(fitted256):
+    pack, x = fitted256
+    v, g = _tf32x3_model(pack, x)
+    v_ref = fused_mlp.igr_sdf_plain(pack, x)
+    v_ref2, g_ref = fused_mlp.igr_sdf_and_grad_plain(pack, x)
+    np.testing.assert_allclose(v.numpy(), v_ref.numpy(), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(v.numpy(), v_ref2.numpy(), atol=2e-6, rtol=0)
+    scale = max(1.0, float(g_ref.abs().max()))
+    np.testing.assert_allclose(g.numpy(), g_ref.numpy(), atol=1e-5 * scale, rtol=0)
+    # and the split is doing the work: one tf32 pass is far outside
+    (w0, b0, wh, wh_lo, bh, wout, bout), _ = pack.mma_net(False)
+    one = _split(x @ w0.t())[0]
+    assert float((one - x @ w0.t()).abs().max()) > 1e-5
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_mma_pack_layout(fitted256, bf16):
+    """The tensor-core pack: hidden layers (L, H, H) as (out, in), padded;
+    bf16 values in the bf16 mode, the tf32 hi/lo split in f32."""
+    pack, _ = fitted256
+    (w0, b0, wh, wh_lo, bh, wout, bout), ptrs = pack.mma_net(bf16)
+    ws = pack.ws_bf16 if bf16 else pack.ws
+    assert wh.shape == (3, 256, 256) and bh.shape == (3, 256)
+    full = torch.stack([ws[1], ws[2], torch.nn.functional.pad(ws[3], (0, 0, 0, 3))])
+    if bf16:
+        assert wh.dtype == torch.bfloat16 and wh_lo is None and ptrs[3] is None
+        assert torch.equal(wh.float(), full)
+    else:
+        hi, lo = _split(full)
+        assert torch.equal(wh, hi) and torch.equal(wh_lo, lo)
+        assert float(((wh + wh_lo) - full).abs().max()) <= 2.0 ** -22 * float(full.abs().max())
+    assert torch.equal(w0[:, :3], ws[0]) and torch.equal(wout, ws[-1].reshape(-1))
+    # the CUDA-core tile's pack is the same weights, transposed
+    assert torch.equal(pack.net(bf16)[0][2], full.transpose(1, 2))

@@ -21,28 +21,36 @@ depths must be equal on all but 0.1% of rays (a pick flips only where two
 proposal values tie within round-off), and on equal picks f_pick agrees to
 1e-5 and the secant depth to 1e-4 on rays with a sign change.
 
-Splat backward: the zbuf tile kernel against its one-hot plain version
-within 1e-5 (the same terms in another order), bit for bit on a repeat;
-the occupancy kernel within 1e-5·max(1, max|g|) (the same pixel set and
+Splat backward: the zbuf points kernel's tile sums against the one-hot
+plain version within 1e-5 (the same terms in another order) and bit for
+bit on a repeat; its point gradient within rtol 1e-5 of the plain version
+and of its own tile sums scattered by `index_add_` (atomics add in another
+order); padded slots (candidate 0, hit by no fragment) add nothing. The
+occupancy kernel within 1e-5·max(1, max|g|) (the same pixel set and
 per-pixel arithmetic, summed in another order), bit for bit on a repeat;
 gradients through `rasterize_splats` with every kernel against every plain
-version: xy as the occupancy kernel, z within 1e-5 relative (`index_add_`
-sums in another order on the card).
+version: xy as the occupancy kernel, z within 1e-5 relative.
 
-IGR (fused_igr, the IGR sampler, the march): f32 values atol 2e-5 and
-gradients atol 1e-4 + rtol 1e-4 as for SIREN. bf16: kernel and plain
-version round the same operands, so they differ only where a float32 sum
-in another order lands on the other side of a bf16 rounding boundary: 99%
-of values and gradients within 1e-5, all within the mode's own error (the
-plain bf16 version's largest difference from f32 on the same points). The
-IGR sampler: picks equal on 99.9% (fine) and 99% (coarse: a bf16 value
-within round-off of −margin flips the pick) of the rays;
-f_pick within 1e-5 on equal picks; the secant within 1e-4 on 99.9% of the
-crossing rays and 1e-3 on all (it divides by value differences). The
-march kernel against its plain version (`body_fused` over cuBLAS): masks
-equal on 99.9% of rays, depths within 1e-5 on 99.9%; against the loop over
-the fused IGR kernel, which evaluates every point with the same per-row
-arithmetic: equal.
+IGR (fused_igr on the tensor cores, the IGR sampler and the march on the
+CUDA-core tile): f32 (3xTF32 in fused_igr) values atol 2e-5 and gradients
+atol 1e-4 + rtol 1e-4 as for SIREN. bf16: kernel and plain version round
+the same operands, so they differ only where a sum formed another way
+lands on the other side of a bf16 rounding boundary: all within the
+mode's own error (the plain bf16 version's largest difference from f32 on
+the same points). Since fused_igr's tensor-core sums are not float32 sums
+in the plain version's order, both are held to the mode with exactly
+formed sums (`exact_sums`): the kernel within 1e-5 of it on 99% of values
+and gradients, or on as many as the plain version. The IGR
+sampler: picks equal on 99.9% (fine) and 99% (coarse: a bf16 value within
+round-off of −margin flips the pick) of the rays; f_pick within 1e-5 on
+equal picks; the secant within 1e-4 on 99.9% of the crossing rays and
+1e-3 on all (it divides by value differences). The march kernel against
+its plain version (`body_fused` over cuBLAS) and against the loop over the
+fused IGR kernel (3xTF32 against the march's f32 FMA, so no longer the
+same arithmetic): masks equal on 99.9% of rays, depths within 1e-5 on
+99.9% after 3 iterations; over the whole bench schedule (21 iterations)
+the march route is held to the loop route as the loop route is to the
+plain versions, depths within 1e-4 on 98% of rays.
 """
 
 import dataclasses
@@ -266,23 +274,58 @@ def test_fine_kernel_and_rasterizer_match_plain(dev):
 # Splat backward: the zbuf tile reduction and the occupancy backward
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n_tiles,T,K,M", [(64, 16, 5, 256), (37, 8, 3, 300),
-                                           (5, 16, 8, 1500)])
-def test_zbuf_bwd_kernel_matches_plain(dev, n_tiles, T, K, M):
-    g = torch.Generator(device=dev).manual_seed(n_tiles)
-    slots = torch.randint(-1, M, (n_tiles, T * T, K), generator=g, device=dev,
-                          dtype=torch.int32)
-    slots[0] = -1                                    # an empty tile
-    gz = torch.randn(n_tiles, T * T, K, generator=g, device=dev)
+@pytest.mark.parametrize("nt,T,K,M,P", [(8, 16, 5, 256, 3000),
+                                         (6, 8, 3, 100, 500),
+                                         (4, 16, 8, 1000, 5000)])
+def test_zbuf_points_kernel_matches_plain(dev, nt, T, K, M, P):
+    g = torch.Generator(device=dev).manual_seed(nt * M)
+    b, S = 2, nt * T
+    slots = torch.randint(-1, M, (b, nt * nt, T * T, K), generator=g,
+                          device=dev, dtype=torch.int32)
+    slots[0, 0] = -1                                 # an empty tile
+    gz = torch.randn(b, S, S, K, generator=g, device=dev)
+    cand = torch.randint(0, P, (b, nt * nt, M), generator=g, device=dev)
     before = splat.ZBUF_KERNEL.launches
-    a = splat.zbuf_backward_tile(slots, gz, M)
-    b = splat.zbuf_backward_tile(slots, gz, M)
+    pa, ta = splat.zbuf_backward_points_cuda(slots, gz, cand, P, tile_sums=True)
+    pb, tb = splat.zbuf_backward_points_cuda(slots, gz, cand, P, tile_sums=True)
+    pc = splat.zbuf_backward_points(slots, gz, cand, P)
     torch.cuda.synchronize()
-    assert splat.ZBUF_KERNEL.launches == before + 2
-    assert torch.equal(a, b)
-    assert torch.equal(a[0], torch.zeros_like(a[0]))
-    torch.testing.assert_close(a, splat.zbuf_backward_tile_plain(slots, gz, M),
-                               atol=1e-5, rtol=0)
+    assert splat.ZBUF_KERNEL.launches == before + 3
+    assert torch.equal(ta, tb)
+    assert torch.equal(ta[0], torch.zeros_like(ta[0]))
+    tiles = splat.to_tiles(gz, T)
+    torch.testing.assert_close(
+        ta, splat.zbuf_backward_tile_plain(slots.reshape(-1, T * T, K), tiles, M),
+        atol=1e-5, rtol=0)
+    offs = torch.arange(b, device=dev)[:, None, None] * P
+    scattered = torch.zeros(b * P, device=dev).index_add_(
+        0, (cand + offs).reshape(-1), ta.reshape(-1)).reshape(b, P)
+    ref = splat.zbuf_backward_points_plain(slots, gz, cand, P)
+    for got in (pa, pb, pc):
+        torch.testing.assert_close(got, scattered, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_zbuf_points_kernel_padded_slots(dev):
+    """Slots the selection pads with candidate 0 and no fragment hits add
+    nothing: point 0's gradient is the sum of its own fragments."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, nt, T, K, M, P = 2, 32, 16, 5, 256, 24576
+    cand = torch.zeros((b, nt * nt, M), dtype=torch.int64, device=dev)
+    cand[..., :8] = torch.randint(1, P, (b, nt * nt, 8), generator=g, device=dev)
+    cand[:, ::2, 0] = 0                               # point 0 for real
+    slots = torch.randint(-1, 8, (b, nt * nt, T * T, K), generator=g,
+                          device=dev, dtype=torch.int32)
+    gz = torch.randn(b, nt * T, nt * T, K, generator=g, device=dev)
+    got = splat.zbuf_backward_points(slots, gz, cand, P)
+    pid = torch.where(slots >= 0, torch.gather(
+        cand, 2, slots.clamp(min=0).reshape(b, nt * nt, -1).long()
+    ).reshape(slots.shape), P)
+    tiles = splat.to_tiles(gz, T).reshape(slots.shape)
+    want = torch.zeros((b, P + 1), dtype=torch.float64, device=dev).scatter_add_(
+        1, pid.reshape(b, -1), tiles.reshape(b, -1).double())[:, :P]
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+    assert float(want[:, 0].abs().min()) > 1.0
 
 
 def _occ_case(dev, n, S, seed, edge=False):
@@ -366,7 +409,12 @@ def _close_frac(a, b, atol):
 
 
 @pytest.mark.parametrize("hidden,n_layers,skip,n", [(256, 4, (4,), 5000),
+                                                    (256, 4, (2,), 131),
+                                                    (128, 4, (2,), 1000),
+                                                    (128, 3, (3,), 129),
                                                     (64, 4, (2,), 1000),
+                                                    (32, 3, (3,), 77),
+                                                    (32, 2, (), 33),
                                                     (96, 1, (), 77)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_fused_igr_matches_plain(dev, hidden, n_layers, skip, n, bf16):
@@ -388,9 +436,17 @@ def test_fused_igr_matches_plain(dev, hidden, n_layers, skip, n, bf16):
     else:
         # the mode's own error: the plain bf16 version against f32
         own = fused_mlp.igr_sdf_and_grad_plain(sdf.pack, x)
-        for a, b, c in ((v, v_ref, own[0]), (g, g_ref, own[1])):
+        for a, b, c in zip((v, g), (v_ref, g_ref), own):
             assert float((a - b).abs().max()) <= float((b - c).abs().max())
-            assert _close_frac(a, b, 1e-5) >= 0.99
+        # the exactly summed bf16 mode, to which the kernel is at least as
+        # close as the plain version or within 1e-5 on 99%: a share, so on
+        # 8192 seeded points (one of n = 131 points moves it by 0.8%)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        xs = torch.rand(8192, 3, generator=gen, device=dev) * 2 - 1
+        plain = fused_mlp.igr_sdf_and_grad_plain(sdf.pack, xs, True)
+        exact = fused_mlp.igr_sdf_and_grad_plain(sdf.pack, xs, True, True)
+        for a, b, e in zip(sdf.sdf_and_grad(xs), plain, exact):
+            assert _close_frac(a, e, 1e-5) >= min(0.99, _close_frac(b, e, 1e-5))
 
 
 def _igr_rays(dev, n, seed=1):
@@ -448,15 +504,20 @@ def test_trace_march_matches_plain(dev):
         assert float((out[i] == ref[i]).float().mean()) >= 0.999
     for i in (0, 1):
         assert _close_frac(out[i], ref[i], 1e-5) >= 0.999
-    # the march equals the same iterations over the fused IGR kernel exactly
+    # the same iterations over the fused IGR kernel (3xTF32 against the
+    # march's f32 FMA): the march's own tolerance
     loop = march_plain(sdf, cam, d, st, 3, 5e-5, 0.5, 1, True)
-    for a, b in zip(out, loop):
-        assert torch.equal(a, b)
+    for i in (4, 5, 6, 7):
+        assert float((out[i] == loop[i]).float().mean()) >= 0.999
+    for i in (0, 1):
+        assert _close_frac(out[i], loop[i], 1e-5) >= 0.999
 
 
 def test_ray_trace_igr_schedule_kernels(dev):
-    """The bench schedule on the kernels: trace_in_kernel equals the loop
-    over the fused kernel; both agree with every plain version."""
+    """The bench schedule on the kernels: trace_in_kernel (igr.cuh's f32
+    FMA) agrees with the loop over the fused kernel (3xTF32) as the loop
+    agrees with every plain version: two f32 arithmetics over 21
+    iterations."""
     field, sdf = _igr(dev)
     coarse = fused_mlp.make_fused_igr_sdf(field, "bf16")
     cam, d, _, _ = _rays(dev, 4096)
@@ -481,8 +542,9 @@ def test_ray_trace_igr_schedule_kernels(dev):
                       gt, None, cfg, training=False,
                       sdf_fn_coarse=lambda x: fused_mlp.igr_sdf_plain(
                           sdf.pack, x, True))
-    assert torch.equal(a.network_object_mask, b.network_object_mask)
-    assert torch.equal(a.dists, b.dists)
+    assert float((a.network_object_mask == b.network_object_mask).float()
+                 .mean()) >= 0.999
+    assert _close_frac(a.dists, b.dists, 1e-4) >= 0.98
     agree = a.network_object_mask == p.network_object_mask
     assert float(agree.float().mean()) >= 0.99
     assert _close_frac(a.dists, p.dists, 1e-4) >= 0.98

@@ -3,16 +3,19 @@ the CPU.
 
 The port's backward on CPU tensors runs the plain versions of its two
 kernels (the CUDA kernels are held against them on the card in
-tests/test_torch_kernels_cuda.py): the tile-level zbuf reduction
-(`zbuf_backward_tile_plain`, JAX `_zbuf_bwd_kernel`) and the occupancy
-backward (`occ_backward_one_plain`, JAX `_occ_backward_one` and
-`occ_backward_pallas_one`). The JAX side runs its XLA path and its Pallas
-path (`use_pallas`, interpret mode on the CPU) under `jax.jit`. Inputs are
-made with numpy from a seed, or derived from such inputs by the JAX
-package, and handed to both as numpy arrays.
+tests/test_torch_kernels_cuda.py): the zbuf backward to the points
+(`zbuf_backward_points_plain`: the tile sums of JAX `_zbuf_bwd_kernel`,
+`zbuf_backward_tile_plain`, then the scatter of JAX's tiled backward
+route) and the occupancy backward (`occ_backward_one_plain`, JAX
+`_occ_backward_one` and `occ_backward_pallas_one`). The JAX side runs its
+XLA path and its Pallas path (`use_pallas`, interpret mode on the CPU)
+under `jax.jit`. Inputs are made with numpy from a seed, or derived from
+such inputs by the JAX package, and handed to both as numpy arrays.
 
 Tolerances. zbuf tile sums: within 1e-6 (the same terms, summed in another
-order). Occupancy xy gradient: |Δ| ≤ 1e-6·max|g| (the same pixel set and
+order); the points' z gradient against JAX's tiled route within 1e-5 +
+1e-6 relative (a point's sum runs over the slots of several tiles, in
+another order). Occupancy xy gradient: |Δ| ≤ 1e-6·max|g| (the same pixel set and
 the same per-pixel arithmetic, summed in another order). Gradients through
 `rasterize_splats` under random cotangents: xy |Δ| ≤ 5e-5·max(1, max|g|)
 (a point's sum runs over up to S² terms of both signs, each up to 1/dist,
@@ -34,8 +37,10 @@ from isopoints_tpu.core.camera import look_at_view_transform as j_look_at
 from isopoints_tpu.rendering.pallas_occ_bwd import occ_backward_pallas_one
 from isopoints_tpu.rendering.pallas_splat import zbuf_backward_tile_pallas
 from isopoints_tpu.rendering.rasterizer import (
+    Fragments as JFragments,
     RasterizationSettings as JSettings,
     _occ_backward_one as j_occ_backward_one,
+    _rasterize_bwd as j_rasterize_bwd,
     compute_splat_params as j_splat_params,
     rasterize_splats as j_rasterize,
     visible_point_mask as j_visible_point_mask,
@@ -43,7 +48,9 @@ from isopoints_tpu.rendering.rasterizer import (
 from isopoints_torch.rendering import occ_bwd, select, splat
 from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                   rasterize_splats)
-from isopoints_torch.rendering.splat import zbuf_backward_tile_plain
+from isopoints_torch.rendering.splat import (to_tiles,
+                                             zbuf_backward_points_plain,
+                                             zbuf_backward_tile_plain)
 
 
 @pytest.mark.parametrize("seed,n_tiles,T,K,M", [(0, 16, 8, 5, 48),
@@ -60,11 +67,104 @@ def test_zbuf_tile_plain_matches_jax(seed, n_tiles, T, K, M):
     assert t.shape == (n_tiles, M)
     np.testing.assert_allclose(t, j, atol=1e-6, rtol=0)
     np.testing.assert_array_equal(t[0], 0.0)
-    # the dispatcher takes the plain version for CPU tensors
+    # the dispatcher of the points entry takes the plain version for CPU
+    # tensors: these tile sums, read back from the image layout, scattered
+    # to the candidates' points
+    P = 3 * M
+    cand = rng.randint(0, P, (1, n_tiles, M))
+    img = _untile_np(gz, T, int(np.sqrt(n_tiles)))
     before = splat.ZBUF_KERNEL.launches
-    np.testing.assert_array_equal(splat.zbuf_backward_tile(
-        torch.from_numpy(slots), torch.from_numpy(gz), M).numpy(), t)
+    got = splat.zbuf_backward_points(torch.from_numpy(slots)[None],
+                                     torch.from_numpy(img),
+                                     torch.from_numpy(cand), P).numpy()
     assert splat.ZBUF_KERNEL.launches == before
+    want = torch.zeros(P).index_add_(0, torch.from_numpy(cand[0].reshape(-1)),
+                                     torch.from_numpy(t).reshape(-1)).numpy()
+    np.testing.assert_array_equal(got[0], want)
+
+
+def _untile_np(tiles, T, nt):
+    """(nt², T², K) tiles -> (1, nt·T, nt·T, K) image layout."""
+    k = tiles.shape[-1]
+    img = tiles.reshape(nt, nt, T, T, k).transpose(0, 2, 1, 3, 4)
+    return np.ascontiguousarray(img.reshape(1, nt * T, nt * T, k))
+
+
+def _zbuf_case(rng, b, nt, T, K, M, P):
+    """Random slots (B, nt², T², K) with empty fragments, image-layout
+    cotangents (B, S, S, K) and candidate ids (B, nt², M) in [0, P)."""
+    slots = rng.randint(-1, M, (b, nt * nt, T * T, K)).astype(np.int32)
+    g = rng.randn(b, nt * T, nt * T, K).astype(np.float32)
+    cand = rng.randint(0, P, (b, nt * nt, M)).astype(np.int64)
+    return slots, g, cand
+
+
+@pytest.mark.parametrize("seed,nt,T,K,M,P", [(0, 4, 8, 5, 48, 150),
+                                             (1, 3, 4, 3, 7, 20)])
+def test_zbuf_points_plain_matches_jax_tiled_route(seed, nt, T, K, M, P):
+    """`zbuf_backward_points_plain` against the z gradient of JAX's tiled
+    backward route (`_rasterize_bwd`, rasterizer.py:613-643: the Pallas
+    tile reduction in interpret mode, then the per-cloud scatter), on
+    B = 2 clouds with a zero occupancy cotangent."""
+    rng = np.random.RandomState(seed)
+    b, S = 2, nt * T
+    slots, g, cand = _zbuf_case(rng, b, nt, T, K, M, P)
+    js = JSettings(image_size=S, tile_size=T, points_per_pixel=K,
+                   max_points_per_tile=M, use_pallas=True,
+                   use_pallas_backward=False)
+    pts = rng.uniform(-1, 1, (b, P, 3)).astype(np.float32)
+    radii = rng.uniform(0.01, 0.05, (b, P, 2)).astype(np.float32)
+    mask = np.ones((b, P), bool)
+    res = (jnp.asarray(pts), jnp.asarray(radii), jnp.asarray(mask), None,
+           jnp.asarray(mask), (jnp.asarray(slots), jnp.asarray(cand)))
+    cot = JFragments(idx=None, zbuf=jnp.asarray(g), qvalue=None,
+                     occupancy=jnp.zeros((b, S, S), jnp.float32),
+                     visibility=None, tile_overflow=None)
+    j = np.asarray(j_rasterize_bwd(js, res, cot)[0])
+    np.testing.assert_array_equal(j[..., :2], 0.0)
+    t = zbuf_backward_points_plain(torch.from_numpy(slots), torch.from_numpy(g),
+                                   torch.from_numpy(cand), P).numpy()
+    assert t.shape == (b, P) and np.abs(t).max() > 1.0
+    np.testing.assert_allclose(t, j[..., 2], atol=1e-5, rtol=1e-6)
+    # the image layout is read as the tiles the fine stage wrote
+    tiles = to_tiles(torch.from_numpy(g), T).numpy()
+    np.testing.assert_array_equal(tiles.reshape(b, nt * nt, T * T, K)[1, nt + 1],
+                                  g[1, T:2 * T, T:2 * T].reshape(T * T, K))
+
+
+def test_zbuf_points_padded_slots_leave_point_zero_its_sum():
+    """The selection pads a tile's unfilled candidate slots with point 0;
+    no fragment hits them, so point 0's gradient is its own fragments' sum
+    and every point's is the per-fragment sum over its fragments."""
+    rng = np.random.RandomState(7)
+    b, nt, T, K, M, P = 2, 3, 8, 5, 32, 40
+    slots = np.full((b, nt * nt, T * T, K), -1, np.int32)
+    cand = np.zeros((b, nt * nt, M), np.int64)          # padding: point 0
+    for i in range(b):
+        for t in range(nt * nt):
+            n_ok = rng.randint(4, 12)
+            ids = rng.choice(np.arange(1, P), n_ok, replace=False)
+            if t % 2 == 0:
+                ids[0] = 0                               # point 0 for real
+            cand[i, t, :n_ok] = ids
+            used = rng.uniform(size=(T * T, K)) < 0.7
+            slots[i, t][used] = rng.randint(0, n_ok, int(used.sum()))
+    g = rng.randn(b, nt * T, nt * T, K).astype(np.float32)
+    got = splat.zbuf_backward_points(torch.from_numpy(slots), torch.from_numpy(g),
+                                     torch.from_numpy(cand), P).numpy()
+    tiles = to_tiles(torch.from_numpy(g), T).numpy().reshape(slots.shape)
+    for i in range(b):
+        pid = np.where(slots[i] >= 0,
+                       np.take_along_axis(cand[i][:, None, :],
+                                          np.maximum(slots[i], 0).reshape(
+                                              nt * nt, 1, -1), -1
+                                          ).reshape(slots[i].shape), -1)
+        hit = pid >= 0
+        want = np.bincount(pid[hit], weights=tiles[i][hit].astype(np.float64),
+                           minlength=P)
+        assert (pid == 0).sum() > 0 and (cand[i] == 0).sum() > 50
+        np.testing.assert_allclose(got[i], want, atol=1e-5, rtol=1e-6)
+    assert splat.ZBUF_KERNEL.launches == 0
 
 
 def _occ_case(n=600, S=128, seed=0, edge_cluster=False, visible_frac=0.85):
