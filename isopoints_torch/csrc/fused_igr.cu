@@ -2,9 +2,9 @@
 // f32 mode (3xTF32) or the bf16 mode, on the tensor cores.
 //
 // Replaces `_igr_kernel` (isopoints_tpu/ops/pallas_mlp.py:417, reached by
-// `make_fused_igr_sdf` :489, pallas_call :535) in both of its modes. The
-// per-tile MLP is igr_mma.cuh's; see there for the layout, the skip and the
-// precision of each mode.
+// `make_fused_igr_sdf` :489, pallas_call :535) in both of its modes. A block
+// loads its points and runs igr_mma.cuh's `tile()` on them; see there for
+// the layout, the skip and the precision of each mode.
 //
 // Bound on an H100. One value eval of the 4x256 bench field is 2(3*256 +
 // 3*256*256 + 256) ~ 0.40 MFLOP against 16 bytes of point and value (with
@@ -47,74 +47,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                       float* __restrict__ grad) {
   constexpr int H = NJ * 32;
   constexpr int P = kRows / C;  // points per block
-  constexpr int NT = H / 32;    // n8 tiles of a warp's column quarter
-  constexpr int kChunks = H * Mode::kEsz / igr_mma::kChunkBytes;  // per layer
-  constexpr int kParts = Mode::kSplit ? 2 : 1;
-  constexpr int kStage = igr_mma::stage_bytes<Mode>(H);
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* act = smem;
   unsigned char* wbuf = act + kRows * igr_mma::pitch_a<Mode>(H);
-  float* xs = reinterpret_cast<float*>(wbuf + 2 * kStage);
-
-  // chunk s of the flat (layer, k-chunk) sequence into stage s & 1
-  const int total = net.n_hidden * kChunks;
-  const unsigned char* wsrc[2] = {static_cast<const unsigned char*>(net.wh),
-                                  static_cast<const unsigned char*>(net.wh_lo)};
-  auto issue = [&](int s) {
-    const int l = s / kChunks, c = s - l * kChunks;
-    unsigned char* dst = wbuf + (s & 1) * kStage;
-#pragma unroll
-    for (int part = 0; part < kParts; ++part) {
-      const unsigned char* src =
-          wsrc[part] + (size_t)l * H * H * Mode::kEsz + c * igr_mma::kChunkBytes;
-      for (int e = threadIdx.x; e < H * 4; e += kThreads) {
-        const int r = e >> 2, q = e & 3;
-        igr_mma::cp_async16(dst + part * H * igr_mma::kPitchW + r * igr_mma::kPitchW + q * 16,
-                            src + (size_t)r * H * Mode::kEsz + q * 16);
-      }
-    }
-    igr_mma::cp_async_commit();
-  };
-  if (total > 0) issue(0);  // in flight during the first layer
-
+  float* xs = reinterpret_cast<float*>(wbuf + 2 * igr_mma::stage_bytes<Mode>(H));
   const int p0 = blockIdx.x * P;
   for (int e = threadIdx.x; e < P * 3; e += kThreads)
     xs[e] = (p0 + e / 3 < n) ? x[(size_t)p0 * 3 + e] : 0.f;
-  __syncthreads();
-  igr_mma::layer0<Mode, H, C>(net, xs, act);
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-
-  for (int s = 0; s < total; ++s) {
-    if (s + 1 < total) {
-      issue(s + 1);
-      igr_mma::cp_async_wait<1>();
-    } else {
-      igr_mma::cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk s and the layer's operand visible to every warp
-    const int l = s / kChunks, c = s - l * kChunks;
-    igr_mma::mma_chunk<Mode, H, NT>(acc, act, wbuf + (s & 1) * kStage, c);
-    if (c == kChunks - 1) {
-      __syncthreads();  // every warp done reading the operand
-      igr_mma::epilogue<Mode, H, C, NT>(acc, net, l, xs, act);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-    }
-    __syncthreads();  // stage s & 1 free for chunk s + 2; the epilogue's stores visible
-  }
-  if (total == 0) __syncthreads();
-  igr_mma::head<Mode, H, C>(net, act, p0, n, val, grad);
+  igr_mma::tile<Mode, H, C>(net, xs, act, wbuf, p0, n, val, grad);
 }
 
 template <class Mode, int NJ, int C>

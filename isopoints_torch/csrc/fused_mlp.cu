@@ -6,8 +6,11 @@
 //
 // Bound on an H100: the work is operations, not bytes. One value eval of a
 // 3x256 SIREN is 2(3*256 + 3*256^2 + 256) ~ 0.40 MFLOP against 16 bytes of
-// point and value, so the f32 CUDA-core peak (67 TFLOP/s) bounds it; with
-// the gradient the three tangent rows make it ~4x the operations. The design
+// point and value, so the products bound it: the least time f32 products
+// take on the card is three tf32 tensor-core passes over the tf32 peak
+// (495 TFLOP/s); this kernel runs them as f32 FMA on the CUDA cores (67
+// TFLOP/s), a gap left to a later redesign. With the gradient the three
+// tangent rows make it ~4x the operations. The design
 // keeps every activation in shared memory and reads each weight chunk once
 // per 64-row tile, so device memory traffic is the points, the outputs and
 // the (L2-resident) weights.

@@ -1,5 +1,5 @@
 // In-kernel sphere-trace march: a fixed number of fused-backstep iterations
-// of both ray fronts against the IGR MLP, the per-ray state in registers.
+// of both ray fronts against the IGR MLP, on the tensor-core tile.
 //
 // Replaces `_march_kernel` (isopoints_tpu/ops/pallas_trace.py:43, reached by
 // `make_trace_stepper` :103, pallas_call :150) for the IGR field. Per
@@ -14,32 +14,42 @@
 // A finished ray (un = 0 implies bk = 0) takes zero moves, so a fixed count
 // equals the while loop, and no host synchronisation is needed.
 //
-// Design. A block takes 32 rays. Threads 0..31 keep their ray's 10 state
-// scalars in registers for all iterations; every iteration they write the
-// two front points (cam + acc * dir, one __fmaf_rn per coordinate, as the
-// PyTorch loop forms them with utils.fma) as rows r and 32 + r of one 64-row
-// tile, the whole block evaluates the tile (igr.cuh), and the 32
-// threads update the state. Each update is a separate IEEE operation
-// (__fadd_rn/__fmul_rn) so that no contraction into an FMA changes it: the
-// march equals the PyTorch loop over the fused IGR kernel bit for bit, since
-// both evaluate a point with the same per-row arithmetic.
+// Design. A block takes 64 rays, 512 threads. Every iteration threads
+// 0..63 write their ray's two front points (cam + acc * dir, one __fmaf_rn
+// per coordinate, as the PyTorch loop forms them with utils.fma) as rows r
+// and 64 + r of one 128-row tile, the whole block evaluates the tile on the
+// tensor cores (igr_mma::tile, the fused IGR kernel's per-row arithmetic),
+// and threads 0..63 update the state. Each update is a separate IEEE
+// operation (__fadd_rn/__fmul_rn) so that no contraction into an FMA changes
+// it: the march equals the PyTorch loop over the fused IGR kernel bit for
+// bit. A ray's ten state scalars, its front moves and its geometry live in
+// shared memory between the updates: the tile takes the 128 registers a
+// thread has at 512 threads, and a value held across it would spill.
 //
 // Bound on an H100: operations, 2 * n_iters IGR evals per ray (~0.40 MFLOP
-// each at 4x256) against the f32 CUDA-core peak; the bytes moved are 24 of
-// rays plus 2 * 34 of state per ray.
+// each at 4x256), in the f32 mode three tf32 passes over the tf32 peak; the
+// bytes moved are 24 of rays plus 2 * 34 of state per ray. What the design
+// does about it: both fronts of 64 rays fill one 128-row tile, so every
+// streamed weight chunk serves 128 evals; the tile's f32 mode is bound by
+// its products (three m16n8k8 passes; see fused_igr.cu).
 
 #include <stdint.h>
 
-#include "igr.cuh"
+#include "igr_mma.cuh"
 
 namespace {
 
-using igr::kChunk;
-using igr::kRows;
-using igr::kThreads;
-using igr::Net;
+using igr_mma::Bf16Mode;
+using igr_mma::kRows;
+using igr_mma::kThreads;
+using igr_mma::Net;
+using igr_mma::Tf32x3Mode;
 
-constexpr int kRaysPerBlock = kRows / 2;
+constexpr int kRays = kRows / 2;  // rays per block: both fronts in one tile
+// per ray in shared memory, [field][kRays]
+constexpr int kRayFloats = 14;  // cam xyz, dir xyz, acc_s, acc_e, sdf_s, sdf_e, cur_s,
+                                // cur_e, fwd_s, fwd_e
+constexpr int kRayInts = 4;     // un_s, un_e, bk_s, bk_e
 
 struct State {
   float* acc_s;
@@ -54,44 +64,63 @@ struct State {
   float* cur_e;
 };
 
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-    march_kernel(Net net, const float* __restrict__ cam, const float* __restrict__ dir, State st,
-                 int n, int n_iters, float thr, float ls, int line_step_iters, int gate_end) {
-  constexpr int H = NJ * 32;
-  extern __shared__ float smem[];
-  float* act = smem;
-  float* wbuf = act + kRows * H;
-  float* xs = wbuf + kChunk * H;  // (kRows, 3)
-  float* vs = xs + kRows * 3;     // (kRows,)
+template <class Mode, int H>
+constexpr int smem_bytes() {
+  return kRows * igr_mma::pitch_a<Mode>(H) + 2 * igr_mma::stage_bytes<Mode>(H) +
+         4 * (kRows * 3 + kRows + kRays * (kRayFloats + kRayInts));
+}
+
+template <class Mode, int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    march_kernel(Net net, const float* __restrict__ cam, const float* __restrict__ dir,
+                 State st, int n, int n_iters, float thr, float ls, int line_step_iters,
+                 int gate_end) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* act = smem;
+  unsigned char* wbuf = act + kRows * igr_mma::pitch_a<Mode>(H);
+  float* xs = reinterpret_cast<float*>(wbuf + 2 * igr_mma::stage_bytes<Mode>(H));
+  float* vs = xs + kRows * 3;  // (kRows,)
+  float* F = vs + kRows;       // (kRayFloats, kRays)
+  int* I = reinterpret_cast<int*>(F + kRayFloats * kRays);  // (kRayInts, kRays)
 
   const int r = threadIdx.x;
-  const int g = blockIdx.x * kRaysPerBlock + r;
-  const bool mine = r < kRaysPerBlock && g < n;
-  float c[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f};
-  float acc_s = 0.f, acc_e = 0.f, sdf_s = 0.f, sdf_e = 0.f, cur_s = 0.f, cur_e = 0.f;
-  bool un_s = false, un_e = false;
-  int bk_s = 0, bk_e = 0;
-  if (mine) {
+  const int g = blockIdx.x * kRays + r;
+  const bool mine = r < kRays && g < n;
+  // thread r < kRays: its ray's slots (the other threads never touch theirs)
+  const int q = min(r, kRays - 1);
+  float* const c = F + q;              // c[k * kRays], k < 3
+  float* const d = F + 3 * kRays + q;  // d[k * kRays]
+  float& acc_s = F[6 * kRays + q];
+  float& acc_e = F[7 * kRays + q];
+  float& sdf_s = F[8 * kRays + q];
+  float& sdf_e = F[9 * kRays + q];
+  float& cur_s = F[10 * kRays + q];
+  float& cur_e = F[11 * kRays + q];
+  float& fwd_s = F[12 * kRays + q];
+  float& fwd_e = F[13 * kRays + q];
+  int& un_s = I[q];
+  int& un_e = I[kRays + q];
+  int& bk_s = I[2 * kRays + q];
+  int& bk_e = I[3 * kRays + q];
+  if (r < kRays) {  // a ray past n sits at the origin, finished
     for (int k = 0; k < 3; ++k) {
-      c[k] = cam[(size_t)g * 3 + k];
-      d[k] = dir[(size_t)g * 3 + k];
+      c[k * kRays] = mine ? cam[(size_t)g * 3 + k] : 0.f;
+      d[k * kRays] = mine ? dir[(size_t)g * 3 + k] : 0.f;
     }
-    acc_s = st.acc_s[g];
-    acc_e = st.acc_e[g];
-    sdf_s = st.sdf_s[g];
-    sdf_e = st.sdf_e[g];
-    un_s = st.un_s[g] != 0;
-    un_e = st.un_e[g] != 0;
-    bk_s = st.bk_s[g];
-    bk_e = st.bk_e[g];
-    cur_s = st.cur_s[g];
-    cur_e = st.cur_e[g];
+    acc_s = mine ? st.acc_s[g] : 0.f;
+    acc_e = mine ? st.acc_e[g] : 0.f;
+    sdf_s = mine ? st.sdf_s[g] : 0.f;
+    sdf_e = mine ? st.sdf_e[g] : 0.f;
+    un_s = mine ? st.un_s[g] != 0 : 0;
+    un_e = mine ? st.un_e[g] != 0 : 0;
+    bk_s = mine ? st.bk_s[g] : 0;
+    bk_e = mine ? st.bk_e[g] : 0;
+    cur_s = mine ? st.cur_s[g] : 0.f;
+    cur_e = mine ? st.cur_e[g] : 0.f;
   }
 
   for (int it = 0; it < n_iters; ++it) {
-    float fwd_s = 0.f, fwd_e = 0.f;
-    if (r < kRaysPerBlock) {
+    if (r < kRays) {
       fwd_s = (un_s && bk_s == 0 && sdf_s > thr) ? sdf_s : 0.f;
       fwd_e = (un_e && bk_e == 0 && sdf_e > thr) ? sdf_e : 0.f;
       const float scale_s = ldexpf(ls, 1 - bk_s);  // ls * 2^-(bk - 1), exact
@@ -101,14 +130,15 @@ __global__ void __launch_bounds__(kThreads)
       acc_s = __fadd_rn(acc_s, move_s);
       acc_e = __fsub_rn(acc_e, move_e);
       for (int k = 0; k < 3; ++k) {
-        xs[r * 3 + k] = __fmaf_rn(acc_s, d[k], c[k]);
-        xs[(kRaysPerBlock + r) * 3 + k] = __fmaf_rn(acc_e, d[k], c[k]);
+        xs[r * 3 + k] = __fmaf_rn(acc_s, d[k * kRays], c[k * kRays]);
+        xs[(kRays + r) * 3 + k] = __fmaf_rn(acc_e, d[k * kRays], c[k * kRays]);
       }
     }
-    __syncthreads();
-    igr::tile<NJ, 1>(net, xs, act, wbuf, vs, nullptr);
-    if (r < kRaysPerBlock) {
-      const float new_s = vs[r], new_e = vs[kRaysPerBlock + r];
+    // starts with a barrier (the points visible) and ends with one (vs
+    // visible, xs free for the next iteration's points)
+    igr_mma::tile<Mode, H, 1>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+    if (r < kRays) {
+      const float new_s = vs[r], new_e = vs[kRays + r];
       const bool may_s = un_s && new_s < 0.f && bk_s < line_step_iters;
       const bool may_e = un_e && new_e < 0.f && bk_e < line_step_iters;
       if (may_s && bk_s == 0) cur_s = fwd_s;
@@ -122,10 +152,6 @@ __global__ void __launch_bounds__(kThreads)
       sdf_s = new_s;
       sdf_e = new_e;
     }
-    // the next iteration's writes to xs wait for this one's reads of vs:
-    // tile() ends with a barrier after its last read of xs, and vs is only
-    // written by the next tile() after the barrier below
-    __syncthreads();
   }
 
   if (mine) {
@@ -142,47 +168,61 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int NJ>
+template <class Mode, int H>
 int launch(const Net& net, const float* cam, const float* dir, const State& st, int n,
            int n_iters, float thr, float ls, int line_step_iters, int gate_end,
            cudaStream_t stream) {
-  constexpr int H = NJ * 32;
-  const size_t smem = sizeof(float) * (igr::tile_smem_floats(H) + kRows * 3 + kRows);
-  cudaError_t err = cudaFuncSetAttribute(march_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + kRaysPerBlock - 1) / kRaysPerBlock;
-  march_kernel<NJ><<<blocks, kThreads, smem, stream>>>(net, cam, dir, st, n, n_iters, thr, ls,
-                                                       line_step_iters, gate_end);
+  constexpr int smem = smem_bytes<Mode, H>();
+  static_assert(smem <= 232448, "the march exceeds a block's shared memory");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      march_kernel<Mode, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int blocks = (n + kRays - 1) / kRays;
+  march_kernel<Mode, H><<<blocks, kThreads, smem, stream>>>(net, cam, dir, st, n, n_iters, thr,
+                                                           ls, line_step_iters, gate_end);
   return (int)cudaGetLastError();
+}
+
+template <class Mode>
+int dispatch(int hidden, const Net& net, const float* cam, const float* dir, const State& st,
+             int n, int n_iters, float thr, float ls, int line_step_iters, int gate_end,
+             cudaStream_t s) {
+  switch (hidden / 32) {
+#define CASE(NJ)                                                                           \
+  case NJ:                                                                                 \
+    return launch<Mode, NJ * 32>(net, cam, dir, st, n, n_iters, thr, ls, line_step_iters, \
+                                 gate_end, s);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // cam, dir (n, 3); the ten state arrays (n,) are updated in place: acc_s,
 // acc_e, sdf_s, sdf_e, cur_s, cur_e float32, un_s, un_e uint8 (0/1), bk_s,
-// bk_e int32. `ls` is 1 - line_search_step. The net is the IGR pack of the
-// callable's precision (`bf16`).
+// bk_e int32. `ls` is 1 - line_search_step. The net is igr_mma::Net's seven
+// pointers (w0, b0, wh, wh_lo, bh, wout, bout) of the callable's mode
+// (`bf16`, or f32 as 3xTF32 with wh_lo the tf32 lo part).
 extern "C" int trace_march_igr(const float* cam, const float* dir, float* acc_s, float* acc_e,
                                float* sdf_s, float* sdf_e, uint8_t* un_s, uint8_t* un_e,
                                int32_t* bk_s, int32_t* bk_e, float* cur_s, float* cur_e, int n,
                                int n_iters, float thr, float ls, int line_step_iters,
-                               int gate_end, const float* w0, const float* b0,
-                               const float* wh_t, const float* bh, const float* wout,
+                               int gate_end, const float* w0, const float* b0, const void* wh,
+                               const void* wh_lo, const float* bh, const float* wout,
                                const float* bout, int hidden, int n_hidden, unsigned skip,
                                int final_tanh, int bf16, void* stream) {
   if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 ||
-      n_iters < 0 || (skip & 1u))
+      n_iters < 0 || (skip & 1u) ||
+      (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0 || n_iters == 0) return 0;
-  const Net net{w0, b0, wh_t, bh, wout, bout, n_hidden, skip, final_tanh, bf16};
+  const Net net{w0, b0, wh, wh_lo, bh, wout, bout, n_hidden, skip, final_tanh};
   const State st{acc_s, acc_e, sdf_s, sdf_e, un_s, un_e, bk_s, bk_e, cur_s, cur_e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hidden / 32) {
-#define CASE(NJ) \
-  case NJ: return launch<NJ>(net, cam, dir, st, n, n_iters, thr, ls, line_step_iters, gate_end, s);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-#undef CASE
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bf16 ? dispatch<Bf16Mode>(hidden, net, cam, dir, st, n, n_iters, thr, ls,
+                                   line_step_iters, gate_end, s)
+              : dispatch<Tf32x3Mode>(hidden, net, cam, dir, st, n, n_iters, thr, ls,
+                                     line_step_iters, gate_end, s);
 }

@@ -1,5 +1,9 @@
-// IGR SDF-MLP forward on Hopper's tensor cores, one 128-row tile per block:
-// the tile of the fused IGR kernel (fused_igr.cu).
+// IGR SDF-MLP forward on Hopper's tensor cores, one 128-row tile per call:
+// the tile of the fused IGR kernel (fused_igr.cu), the IGR ray sampler
+// (fused_sampler.cu) and the in-kernel march (fused_trace.cu). Every one of
+// them evaluates a point through `tile()`, and an `mma.sync` row's sum
+// depends only on that row and the weights, not on which rows share the
+// tile, so the three give a point the same value bit for bit.
 //
 // Replaces the layer stack of `_igr_kernel` (isopoints_tpu/ops/pallas_mlp.py
 // :417): L+2 linear layers, softplus with beta = 100 after every layer but
@@ -49,12 +53,14 @@
 // orders differ by (the bf16 mode's tolerance is stated against exact
 // sums, see chip_smoke.py), and the f32 mode's error is that of a float32
 // sum in another order.
-// The first layer (K = 3) and the head (N = 1) run on the CUDA cores with
-// igr.cuh's arithmetic, and so do biases and the whole epilogue: softplus
-// as logaddexp(beta z, 0) / beta with the accurate expf/log1pf (never
-// -use_fast_math), the skip as igr.cuh packs it (the layer before a skip
-// has H - 3 outputs padded to H; its last three columns are overwritten by
-// the point, or e_k on tangent rows, and the row scaled by 1/sqrt(2)).
+// The first layer (K = 3) and the head (N = 1) run on the CUDA cores in
+// f32, and so do biases and the whole epilogue: softplus (igr.cuh) as
+// logaddexp(beta z, 0) / beta with the accurate expf/log1pf (never
+// -use_fast_math), and the skip without a concatenation (the layer before a
+// skip has H - 3 outputs, packed as H with three zero rows of W and zero
+// biases; its last three columns are overwritten by the point, or e_k on
+// tangent rows, and the row scaled by 1/sqrt(2), which is the JAX kernel's
+// concat([h, x]) * (1/sqrt 2) with the same f32 roundings).
 //
 // Bound on an H100: the tensor cores do 2*128*H*H FLOP per block and layer
 // (3x that in f32 mode, at half the bf16 rate), while the epilogue computes
@@ -189,8 +195,7 @@ __device__ __forceinline__ float get(const unsigned char* row, int c) {
 }
 
 // Stores column c of point p's activation (value a, tangents d * t[q]) as
-// the next layer's operand, doing that layer's skip when `skip` is set
-// (igr.cuh `store`).
+// the next layer's operand, doing that layer's skip when `skip` is set.
 template <class Mode, int H, int C>
 __device__ __forceinline__ void store_col(unsigned char* act, int p, int c, float a, float d,
                                           const float (&t)[3], const float* x, bool skip) {
@@ -378,6 +383,81 @@ __device__ void head(const Net& net, const unsigned char* act, int p0, int n, fl
       }
     }
   }
+}
+
+// The whole MLP on one tile: the block-local points xs (kRows / C, 3, shared
+// memory) -> val[p0 + p] (and grad[p0 + p], C == 4) for every p with
+// p0 + p < n; val and grad may be shared or device memory. act holds the
+// kRows activation rows (pitch_a<Mode>(H) bytes each) and wbuf the two
+// weight stages (stage_bytes<Mode>(H) each). The hidden layers' weights
+// stream through wbuf in 64-byte k-chunks by `cp.async`, the next chunk (also
+// the next layer's first) in flight while the current one is multiplied.
+// Every thread of the block calls it. It starts with a barrier, so the
+// caller's writes of xs need none, and ends with one, so the caller may read
+// val and overwrite xs right after it.
+template <class Mode, int H, int C>
+__device__ void tile(const Net& net, const float* xs, unsigned char* act, unsigned char* wbuf,
+                     int p0, int n, float* val, float* grad) {
+  constexpr int NT = H / 32;  // n8 tiles of a warp's column quarter
+  constexpr int kChunks = H * Mode::kEsz / kChunkBytes;  // per layer
+  constexpr int kParts = Mode::kSplit ? 2 : 1;
+  constexpr int kStage = stage_bytes<Mode>(H);
+
+  // chunk s of the flat (layer, k-chunk) sequence into stage s & 1
+  const int total = net.n_hidden * kChunks;
+  const unsigned char* wsrc[2] = {static_cast<const unsigned char*>(net.wh),
+                                  static_cast<const unsigned char*>(net.wh_lo)};
+  auto issue = [&](int s) {
+    const int l = s / kChunks, c = s - l * kChunks;
+    unsigned char* dst = wbuf + (s & 1) * kStage;
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      const unsigned char* src = wsrc[part] + (size_t)l * H * H * Mode::kEsz + c * kChunkBytes;
+      for (int e = threadIdx.x; e < H * 4; e += kThreads) {
+        const int r = e >> 2, q = e & 3;
+        cp_async16(dst + part * H * kPitchW + r * kPitchW + q * 16,
+                   src + (size_t)r * H * Mode::kEsz + q * 16);
+      }
+    }
+    cp_async_commit();
+  };
+  if (total > 0) issue(0);  // in flight during the first layer
+  __syncthreads();          // the points visible, the last tile's reads of act done
+  layer0<Mode, H, C>(net, xs, act);
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  for (int s = 0; s < total; ++s) {
+    if (s + 1 < total) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk s and the layer's operand visible to every warp
+    const int l = s / kChunks, c = s - l * kChunks;
+    mma_chunk<Mode, H, NT>(acc, act, wbuf + (s & 1) * kStage, c);
+    if (c == kChunks - 1) {
+      __syncthreads();  // every warp done reading the operand
+      epilogue<Mode, H, C, NT>(acc, net, l, xs, act);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    }
+    __syncthreads();  // stage s & 1 free for chunk s + 2; the epilogue's stores visible
+  }
+  if (total == 0) __syncthreads();
+  head<Mode, H, C>(net, act, p0, n, val, grad);
+  __syncthreads();  // val written; xs and act free for the next tile
 }
 
 }  // namespace igr_mma

@@ -3,16 +3,16 @@
     python -m isopoints_torch.igr_ablation
 
 Builds two variants of csrc/fused_igr.cu beside the kernel itself, each
-missing one part of the work: `no_epilogue` (every softplus replaced by a
-max, so the accurate expf/log1pf and divisions are gone) and `no_mma` (the
-tensor-core products left out, so the layers are the epilogue over the
-biases). Times all three with CUDA events (median of 7) at 524,288 points,
-bench.py's coarse launch, on the fitted 4x256 bench field, in both modes,
-value and value+grad, and prints each one's error against the plain
-version and the share of outputs within 1e-5 of the plain version and of
-the mode with exactly formed sums (`exact_sums`). The variants' outputs are
-wrong by design; only the full kernel's error means anything. Needs nvcc
-and a CUDA device; builds under build/igr_ablation/.
+missing one part of the work of igr_mma.cuh's tile: `no_epilogue` (every
+softplus replaced by a max, so the accurate expf/log1pf and divisions are
+gone) and `no_mma` (the tensor-core products left out, so the layers are
+the epilogue over the biases). Times all three with CUDA events (median of
+7) at 524,288 points, bench.py's coarse launch, on the fitted 4x256 bench
+field, in both modes, value and value+grad, and prints each one's error
+against the plain version and the share of outputs within 1e-5 of the
+plain version and of the mode with exactly formed sums (`exact_sums`). The
+variants' outputs are wrong by design; only the full kernel's error means
+anything. Needs nvcc and a CUDA device; builds under build/igr_ablation/.
 """
 
 import ctypes
@@ -31,29 +31,27 @@ OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "igr_ablation")
 N_POINTS = 524288
 _CHEAP = ("__device__ __forceinline__ void cheap_softplus(float z, float& a, "
           "float& d) { a = fmaxf(z, 0.f); d = 1.f; }\n")
-_MMA_CALL = ("igr_mma::mma_chunk<Mode, H, NT>(acc, act, wbuf + (s & 1) * "
-             "kStage, c);")
+_MMA_CALL = "mma_chunk<Mode, H, NT>(acc, act, wbuf + (s & 1) * kStage, c);"
 
 
 def _build_variant(name: str):
     d = os.path.join(OUT, name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC, d)
-    hdr, src = (os.path.join(d, f) for f in ("igr_mma.cuh", "fused_igr.cu"))
-    h, k = open(hdr).read(), open(src).read()
+    hdr = os.path.join(d, "igr_mma.cuh")
+    h = open(hdr).read()
     if name == "no_epilogue":
         h = h.replace("namespace igr_mma {", "namespace igr_mma {\n" + _CHEAP, 1)
         h = h.replace("igr::softplus(", "cheap_softplus(")
     elif name == "no_mma":
-        if _MMA_CALL not in k:
-            raise RuntimeError("fused_igr.cu no longer calls mma_chunk as expected")
-        k = k.replace(_MMA_CALL, "")
+        if _MMA_CALL not in h:
+            raise RuntimeError("igr_mma.cuh no longer calls mma_chunk as expected")
+        h = h.replace(_MMA_CALL, "")
     with open(hdr, "w") as f:
         f.write(h)
-    with open(src, "w") as f:
-        f.write(k)
     so = os.path.join(d, "fused_igr.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+           os.path.join(d, "fused_igr.cu")]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 

@@ -5,9 +5,10 @@ isopoints_tpu/ops/pallas_mlp.py (:250, :309). The kernel
 (csrc/fused_mlp.cu + csrc/siren.cuh) evaluates the whole SIREN stack per
 64-row tile with the activations in shared memory, in plain f32 FMA, and
 with `with_grad` also the input gradient as three forward-mode tangent
-rows per point. Its bound on an H100 is the f32 CUDA-core rate:
-2(3H + L·H² + H) FLOP per value eval (~0.40 MFLOP at 3×256), about 4x
-that with the gradient. Only the f32 mode is ported; the bf16 mode comes
+rows per point. Its bound on an H100: 2(3H + L·H² + H) FLOP per value
+eval (~0.40 MFLOP at 3×256), about 4x that with the gradient, as three
+tf32 passes over the tf32 tensor-core peak, the least time f32 products
+take on the card. Only the f32 mode is ported; the bf16 mode comes
 with the next slice (ROADMAP "Slices of the port").
 
 IGR. Replaces `make_fused_igr_sdf` / `_igr_kernel` (pallas_mlp.py:417,
@@ -223,9 +224,8 @@ def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 class IgrPack:
     """Detached IGR weights of an `SDFField` without positional encoding,
     weight norm folded: the (out, in) layers for the plain versions (f32
-    and bf16-rounded), and on first CUDA use the kernels' padded layouts:
-    `net` for the CUDA-core tile of the sampler and the march (igr.cuh),
-    `mma_net` for the tensor-core tile of the fused IGR kernel."""
+    and bf16-rounded), and on first CUDA use the kernels' padded layout
+    `mma_net`, the tensor-core tile's, which every IGR kernel reads."""
     kind = "igr"
 
     def __init__(self, field: SDFField):
@@ -241,7 +241,6 @@ class IgrPack:
         self.skip_in = tuple(field.skip_in)
         self.final_tanh = bool(field.final_tanh)
         self.device = self.ws[0].device
-        self._nets = {}
         self._mma_nets = {}
 
     def weights(self, bf16: bool) -> Tuple[Tuple[torch.Tensor, ...], ...]:
@@ -255,62 +254,44 @@ class IgrPack:
         return (self.hidden, self.n_layers - 2, self.skip_mask(),
                 int(self.final_tanh))
 
-    def _padded(self, bf16: bool):
-        """w0 (H, 3), b0 (H,), wh (L, H, H) as (out, in), bh (L, H), wout
-        (H,), bout (1,): each layer zero-padded to H outputs."""
-        h, nl = self.hidden, self.n_layers
-        _check_hidden(h, "IGR")
-        if nl < 2 or 0 in self.skip_in or self.ws[0].shape[1] != 3:
-            raise ValueError("the CUDA IGR kernel needs >= 2 layers on raw "
-                             "xyz and no skip at the first layer")
-        ws, bs = self.weights(bf16)
-        for w, b in zip(ws, bs):
-            if w.dtype != torch.float32 or b.dtype != torch.float32:
-                raise TypeError("the CUDA IGR kernel takes float32 weights")
-        for l in range(1, nl):
-            if ws[l].shape[1] != h:
-                raise ValueError(f"layer {l} takes {ws[l].shape[1]} inputs, "
-                                 f"the kernel needs {h}")
-
-        def pad(w, b):
-            out = w.shape[0]
-            return F.pad(w, (0, 0, 0, h - out)), F.pad(b, (0, h - out))
-
-        w0, b0 = pad(ws[0], bs[0])
-        mid = [pad(w, b) for w, b in zip(ws[1:-1], bs[1:-1])]
-        f32 = dict(dtype=torch.float32, device=self.device)
-        wh = (torch.stack([w for w, _ in mid]) if mid
-              else torch.zeros((0, h, h), **f32))
-        bh = (torch.stack([b for _, b in mid]) if mid
-              else torch.zeros((0, h), **f32))
-        return w0, b0, wh, bh, ws[-1].reshape(-1), bs[-1]
-
-    def net(self, bf16: bool) -> Tuple[List[torch.Tensor], List[int]]:
-        """(tensors kept alive, pointers) of the CUDA-core tile's layout
-        (igr.cuh): w0 (H, 3), b0 (H,), wh_t (L, H, H) as (in, out), bh
-        (L, H), wout (H,), bout (1,), each layer zero-padded to H outputs."""
-        if bf16 not in self._nets:
-            w0, b0, wh, bh, wout, bout = self._padded(bf16)
-            tensors = [t.contiguous() for t in
-                       (w0, b0, wh.transpose(1, 2), bh, wout, bout)]
-            self._nets[bf16] = (tensors, [t.data_ptr() for t in tensors])
-        return self._nets[bf16]
-
     def mma_net(self, bf16: bool
                 ) -> Tuple[List[torch.Tensor], List[Optional[int]]]:
         """(tensors kept alive, pointers) of the tensor-core tile's layout
-        (igr_mma.cuh): w0, b0, wh, wh_lo, bh, wout, bout. The hidden layers
+        (igr_mma.cuh), which the fused IGR kernel, the IGR sampler and the
+        march read: w0 (H, 3), b0 (H,), wh, wh_lo, bh (L, H), wout (H,),
+        bout (1,), each layer zero-padded to H outputs. The hidden layers
         stay (L, H, H) as (out, in), the K-major B operand: in bf16 as
         `torch.bfloat16` (the values are bf16 already), in f32 as the tf32
         split `tf32_split`, hi in wh and lo in wh_lo (None in bf16)."""
         if bf16 not in self._mma_nets:
-            w0, b0, wh, bh, wout, bout = self._padded(bf16)
-            if bf16:
-                his = (wh.to(torch.bfloat16), None)
-            else:
-                his = tf32_split(wh)
+            h, nl = self.hidden, self.n_layers
+            _check_hidden(h, "IGR")
+            if nl < 2 or 0 in self.skip_in or self.ws[0].shape[1] != 3:
+                raise ValueError("the CUDA IGR kernel needs >= 2 layers on raw "
+                                 "xyz and no skip at the first layer")
+            ws, bs = self.weights(bf16)
+            for w, b in zip(ws, bs):
+                if w.dtype != torch.float32 or b.dtype != torch.float32:
+                    raise TypeError("the CUDA IGR kernel takes float32 weights")
+            for l in range(1, nl):
+                if ws[l].shape[1] != h:
+                    raise ValueError(f"layer {l} takes {ws[l].shape[1]} inputs, "
+                                     f"the kernel needs {h}")
+
+            def pad(w, b):
+                out = w.shape[0]
+                return F.pad(w, (0, 0, 0, h - out)), F.pad(b, (0, h - out))
+
+            w0, b0 = pad(ws[0], bs[0])
+            mid = [pad(w, b) for w, b in zip(ws[1:-1], bs[1:-1])]
+            f32 = dict(dtype=torch.float32, device=self.device)
+            wh = (torch.stack([w for w, _ in mid]) if mid
+                  else torch.zeros((0, h, h), **f32))
+            bh = (torch.stack([b for _, b in mid]) if mid
+                  else torch.zeros((0, h), **f32))
+            his = (wh.to(torch.bfloat16), None) if bf16 else tf32_split(wh)
             tensors = [None if t is None else t.contiguous() for t in
-                       (w0, b0, *his, bh, wout, bout)]
+                       (w0, b0, *his, bh, ws[-1].reshape(-1), bs[-1])]
             self._mma_nets[bf16] = (tensors, [None if t is None else t.data_ptr()
                                               for t in tensors])
         return self._mma_nets[bf16]

@@ -2,12 +2,17 @@
 
 Replaces `make_sampler` / `_sweep_kernel` of
 isopoints_tpu/ops/pallas_sampler.py (:52, :129). The kernel
-(csrc/fused_sampler.cu, a template over the field's tile) evaluates the
-n_steps proposals of 16 rays per block as MLP tiles, picks the first sign
-change (strict first minimum of sign(f + margin)·countdown), the bracket
-and the f-argmin, and runs the fixed secant, all without writing a
-(rays × n_steps) array to device memory. Bound on an H100: the f32
-CUDA-core rate over (n_steps + n_secant [+ 2]) MLP evals per ray.
+(csrc/fused_sampler.cu) evaluates the n_steps proposals of a block's rays
+as MLP tiles, picks the first sign change (the first minimum of
+sign(f + margin)·countdown), the bracket and the f-argmin, and runs the
+fixed secant, all without writing a (rays × n_steps) array to device
+memory. SIREN: 16 rays a block on the 64-row CUDA-core tile, the
+proposals buffered in shared memory (so n_steps is bounded, `max_steps`).
+IGR: 64 rays a block on the fused IGR kernel's 128-row tensor-core tile,
+the pick folded tile by tile (any n_steps), so a point's value is the
+fused IGR callable's bit for bit. Bound on an H100: the products of
+(n_steps + n_secant [+ 2]) MLP evals per ray, bf16 ones over the bf16
+peak and f32 ones as three tf32 passes over the tf32 peak.
 
 `FusedSampler` is what a fused callable's `.fused_ray_sampler` holds:
 
@@ -33,6 +38,7 @@ also uses for fields without a fused sampler.
 
 import ctypes
 import functools
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -46,7 +52,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-_KIND = {"siren": 0, "igr": 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,7 +63,7 @@ def _lib() -> ctypes.CDLL:
     lib.sampler_sweep_igr.argtypes = ([_P] * 5 + [_I, _I, _I, _F, _I, _P, _P]
                                       + [_I, _I, _U, _I, _I, _I] + [_P] * 5)
     lib.sampler_sweep_igr.restype = _I
-    lib.sampler_max_steps.argtypes = [_I, _I]
+    lib.sampler_max_steps.argtypes = [_I]
     lib.sampler_max_steps.restype = _I
     return lib
 
@@ -92,7 +97,9 @@ def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
     evaluates the proposals that many rays at a time (same values, bounded
     memory; RayTracingConfig.sampler_chunk_rays). With `sdf_fn_coarse` the
     sweep runs on it and the bracket ends [z_low, t_pick] are evaluated
-    again with `sdf_fn` (raytracing.py:872-878); f_pick is then fine."""
+    again with `sdf_fn` (raytracing.py:872-878); f_pick is then fine. A
+    NaN value is skipped by both argmins, as the Pallas kernel skips it
+    (the XLA branch's argmin would stop at it)."""
     fn_dense = sdf_fn if sdf_fn_coarse is None else sdf_fn_coarse
     ts = fma(steps, (t_hi - t_lo)[..., None], t_lo[..., None])    # (..., S)
     pts = fma(ts[..., None], dirs[..., None, :], cam[..., None, :])
@@ -104,15 +111,24 @@ def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
         sdf_val = fn_dense(pts)
     n = steps.shape[0]
     countdown = torch.arange(n, 0, -1, dtype=sdf_val.dtype, device=sdf_val.device)
-    idx = torch.argmin(torch.sign(sdf_val + margin) * countdown, dim=-1)
+    v = sdf_val + margin
+    # The Pallas kernel's carry (pallas_sampler.py:76-92): a step replaces
+    # the pick where its cost is strictly below the best so far (from +inf)
+    # and the f-argmin where f is strictly below the least so far, so a NaN
+    # step never wins either, and a ray with no such step keeps the zeros
+    # the carry starts from.
+    cost = torch.where(torch.isnan(v), math.inf, torch.sign(v) * countdown)
+    f_key = torch.where(torch.isnan(sdf_val), math.inf, sdf_val)
+    idx, i_min = torch.argmin(cost, dim=-1), torch.argmin(f_key, dim=-1)
 
-    def pick(a, i):
-        return torch.gather(a, -1, i[..., None])[..., 0]
+    def pick(a, i, valid):
+        return torch.where(valid, torch.gather(a, -1, i[..., None])[..., 0], 0.0)
 
-    t_pick, f_pick = pick(ts, idx), pick(sdf_val, idx)
-    t_min = pick(ts, torch.argmin(sdf_val, dim=-1))
+    picked = (cost < math.inf).any(-1)
+    t_pick, f_pick = pick(ts, idx, picked), pick(sdf_val, idx, picked)
+    t_min = pick(ts, i_min, (f_key < math.inf).any(-1))
     idx_lo = torch.clamp(idx - 1, min=0)
-    z_low, f_low = pick(ts, idx_lo), pick(sdf_val, idx_lo)
+    z_low, f_low = pick(ts, idx_lo, picked), pick(sdf_val, idx_lo, picked)
     if sdf_fn_coarse is not None:
         t2 = torch.stack([z_low, t_pick], dim=-1)
         f2 = sdf_fn(fma(t2[..., None], dirs[..., None, :], cam[..., None, :]))
@@ -122,9 +138,11 @@ def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
     return t_pick, f_pick, t_min, z_secant
 
 
-def max_steps(pack) -> int:
-    """The kernel's largest n_steps at this pack's field and width."""
-    return _lib().sampler_max_steps(_KIND[pack.kind], pack.hidden)
+def max_steps(pack) -> Optional[int]:
+    """The kernel's largest n_steps at this pack's field and width: the
+    SIREN kernel's proposal buffers bound it; the IGR kernel has no limit
+    (None)."""
+    return _lib().sampler_max_steps(pack.hidden) if pack.kind == "siren" else None
 
 
 def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
@@ -150,9 +168,9 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
     lib = _lib()
     n_steps = steps.shape[0]
     limit = max_steps(pack)
-    if not 1 <= n_steps <= limit:
-        raise ValueError(f"the sampler kernel takes 1..{limit} steps at "
-                         f"hidden {pack.hidden}, got {n_steps}")
+    if n_steps < 1 or (limit is not None and n_steps > limit):
+        raise ValueError(f"the sampler kernel takes 1..{limit or 'any'} steps "
+                         f"at hidden {pack.hidden}, got {n_steps}")
     outs = [torch.empty(r, dtype=torch.float32, device=dirs.device)
             for _ in range(4)]
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
@@ -165,8 +183,8 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
         err = lib.sampler_sweep(*rays, *wargs, *out_ptrs, stream)
     else:
         sweep_bf16 = bool(coarse_sweep or fine_bf16)
-        sw = (_P * 6)(*pack.net(sweep_bf16)[1])
-        fw = (_P * 6)(*pack.net(bool(fine_bf16))[1])
+        sw = (_P * 7)(*pack.mma_net(sweep_bf16)[1])
+        fw = (_P * 7)(*pack.mma_net(bool(fine_bf16))[1])
         KERNEL.launches += 1
         err = lib.sampler_sweep_igr(*rays, int(bool(coarse_sweep)), sw, fw,
                                     *pack.arch_args(), int(sweep_bf16),

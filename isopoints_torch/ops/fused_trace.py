@@ -4,10 +4,11 @@ version.
 Replaces `make_trace_stepper` / `_march_kernel` of
 isopoints_tpu/ops/pallas_trace.py (:43, :103) for the IGR field. The
 kernel (csrc/fused_trace.cu) marches a fixed count of fused-backstep
-iterations (`body_fused`, models/raytracing.py) per ray with its ten state
-scalars in registers, both fronts of 32 rays evaluated as one 64-row IGR
-tile per iteration. A fixed count equals the while loop, because a
-finished ray takes zero moves, and it needs no host synchronisation.
+iterations (`body_fused`, models/raytracing.py) per ray, both fronts of 64
+rays evaluated as one 128-row tile of the fused IGR kernel's tensor-core
+MLP per iteration, so it equals the loop over the fused callable bit for
+bit. A fixed count equals the while loop, because a finished ray takes
+zero moves, and it needs no host synchronisation.
 
 `TraceStepper` is what a fused callable's `.fused_trace_stepper` holds:
 
@@ -45,7 +46,7 @@ _DTYPES = (torch.float32,) * 4 + (torch.bool,) * 2 + (torch.int32,) * 2 \
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_trace")
     lib.trace_march_igr.argtypes = ([_P] * 12 + [_I, _I, _F, _F, _I, _I]
-                                    + [_P] * 6 + [_I, _I, _U, _I, _I, _P])
+                                    + [_P] * 7 + [_I, _I, _U, _I, _I, _P])
     lib.trace_march_igr.restype = _I
     return lib
 
@@ -72,7 +73,7 @@ def march_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, state10,
     if n_iters < 0 or line_step_iters < 0:
         raise ValueError("n_iters and line_step_iters must be >= 0")
     lib = _lib()
-    _, ptrs = pack.net(bool(bf16))
+    _, ptrs = pack.mma_net(bool(bf16))
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
     KERNEL.launches += 1
     err = lib.trace_march_igr(cam.data_ptr(), dirs.data_ptr(),

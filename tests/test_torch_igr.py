@@ -16,9 +16,10 @@ Tolerances:
   rounding boundary rounds one bf16 ulp (2^-8 relative) apart. 99% of the
   values and gradients agree within 1e-5; every one within 1e-3, the
   mode's own error against f32.
-- the kernel's padded layout, evaluated by a PyTorch model of the kernel's
-  arithmetic, against the plain version: atol 1e-6 (f32) and exact
-  operands in bf16, atol 1e-5.
+- the kernels' padded layout (`mma_net`), evaluated by a PyTorch model of
+  its arithmetic in float32 (the tf32 hi + lo parts summed back in f32),
+  against the plain version: atol 1e-6 (f32) and exact operands in bf16,
+  atol 1e-5.
 - the fused IGR kernel's 3xTF32 f32 mode, emulated here (tf32 by a bit
   mask, round to nearest with ties away; hi·hi + hi·lo + lo·hi in float32)
   on its tensor-core pack, on a fitted 4×256 field with a skip: within a
@@ -179,11 +180,13 @@ def test_plain_grad_matches_autograd(igr64):
 
 
 def _kernel_model(pack, x, bf16):
-    """The kernel's arithmetic on its padded layout (csrc/igr.cuh), in
-    PyTorch: first layer from (H, 3), hidden layers from W^T (in, out),
-    the skip written into the last three columns and the row scaled by
-    1/√2, operands rounded to bf16 where they are stored."""
-    (w0, b0, wh_t, bh, wout, bout), _ = pack.net(bf16)
+    """The kernels' padded layout (csrc/igr_mma.cuh) in float32 PyTorch:
+    first layer from (H, 3), hidden layers from W (out, in), in f32 the
+    tf32 hi + lo parts summed back in f32, in bf16 the bf16 pack; the skip
+    written into the last three columns and the row scaled by 1/√2,
+    operands rounded to bf16 where they are stored."""
+    (w0, b0, wh, wh_lo, bh, wout, bout), _ = pack.mma_net(bf16)
+    wh = wh.float() if bf16 else wh + wh_lo
     hidden, n_hidden, skip, final_tanh = pack.arch_args()
     rnd = fused_mlp._round_bf16 if bf16 else (lambda a: a)
     c = torch.tensor(1.0 / math.sqrt(2.0), dtype=torch.float32)
@@ -195,7 +198,7 @@ def _kernel_model(pack, x, bf16):
 
     h = store(tf.softplus_beta(rnd(x) @ w0.t() + b0), 1)
     for l in range(n_hidden):
-        h = store(tf.softplus_beta(h @ wh_t[l] + bh[l]), l + 2)
+        h = store(tf.softplus_beta(h @ wh[l].t() + bh[l]), l + 2)
     out = h @ wout + bout
     return torch.tanh(out) if final_tanh else out
 
@@ -205,9 +208,11 @@ def _kernel_model(pack, x, bf16):
 def test_kernel_layout_matches_plain(skip, bf16):
     _, _, tfield = _pair(hidden=64, n_layers=4, skip_in=skip)
     pack = fused_mlp.IgrPack(tfield)
-    w0, b0, wh_t, bh, wout, bout = pack.net(bf16)[0]
-    assert (w0.shape, wh_t.shape, bh.shape, wout.shape) == (
+    w0, b0, wh, wh_lo, bh, wout, bout = pack.mma_net(bf16)[0]
+    assert (w0.shape, wh.shape, bh.shape, wout.shape) == (
         (64, 3), (3, 64, 64), (3, 64), (64,))
+    assert wh.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    assert (wh_lo is None) == bf16
     x = torch.from_numpy(_points((300, 3), seed=5))
     ref = fused_mlp.igr_sdf_plain(pack, x, bf16)
     np.testing.assert_allclose(_kernel_model(pack, x, bf16).numpy(),
@@ -326,5 +331,7 @@ def test_mma_pack_layout(fitted256, bf16):
         assert torch.equal(wh, hi) and torch.equal(wh_lo, lo)
         assert float(((wh + wh_lo) - full).abs().max()) <= 2.0 ** -22 * float(full.abs().max())
     assert torch.equal(w0[:, :3], ws[0]) and torch.equal(wout, ws[-1].reshape(-1))
-    # the CUDA-core tile's pack is the same weights, transposed
-    assert torch.equal(pack.net(bf16)[0][2], full.transpose(1, 2))
+    # the pointers are the kept tensors', one pack per mode
+    tensors = pack.mma_net(bf16)[0]
+    assert ptrs == [None if t is None else t.data_ptr() for t in tensors]
+    assert pack.mma_net(bf16)[1] is ptrs

@@ -31,8 +31,8 @@ per-pixel arithmetic, summed in another order), bit for bit on a repeat;
 gradients through `rasterize_splats` with every kernel against every plain
 version: xy as the occupancy kernel, z within 1e-5 relative.
 
-IGR (fused_igr on the tensor cores, the IGR sampler and the march on the
-CUDA-core tile): f32 (3xTF32 in fused_igr) values atol 2e-5 and gradients
+IGR (fused_igr, the IGR sampler and the march, all three on igr_mma.cuh's
+tensor-core tile): f32 (3xTF32) values atol 2e-5 and gradients
 atol 1e-4 + rtol 1e-4 as for SIREN. bf16: kernel and plain version round
 the same operands, so they differ only where a sum formed another way
 lands on the other side of a bf16 rounding boundary: all within the
@@ -41,16 +41,16 @@ the same points). Since fused_igr's tensor-core sums are not float32 sums
 in the plain version's order, both are held to the mode with exactly
 formed sums (`exact_sums`): the kernel within 1e-5 of it on 99% of values
 and gradients, or on as many as the plain version. The IGR
-sampler: picks equal on 99.9% (fine) and 99% (coarse: a bf16 value within
-round-off of −margin flips the pick) of the rays; f_pick within 1e-5 on
-equal picks; the secant within 1e-4 on 99.9% of the crossing rays and
-1e-3 on all (it divides by value differences). The march kernel against
-its plain version (`body_fused` over cuBLAS) and against the loop over the
-fused IGR kernel (3xTF32 against the march's f32 FMA, so no longer the
-same arithmetic): masks equal on 99.9% of rays, depths within 1e-5 on
-99.9% after 3 iterations; over the whole bench schedule (21 iterations)
-the march route is held to the loop route as the loop route is to the
-plain versions, depths within 1e-4 on 98% of rays.
+sampler against the plain version: picks equal on 99.9% (fine) and 99%
+(coarse: a bf16 value within round-off of −margin flips the pick) of the
+rays; f_pick within 1e-5 on equal picks; the secant within 1e-4 on 99.9%
+of the crossing rays and 1e-3 on all (it divides by value differences).
+The march kernel against its plain version (`body_fused` over cuBLAS):
+masks equal on 99.9% of rays, depths within 1e-5 on 99.9% after 3
+iterations. Against the same functions over the fused IGR callables
+(every point on the same tile, with the same per-row arithmetic), the
+sampler and the march are exact: all outputs bit for bit, and the whole
+bench schedule with the march equals the loop route.
 """
 
 import dataclasses
@@ -478,6 +478,31 @@ def test_fused_sampler_igr_matches_plain(dev, coarse):
     assert float((out[3][hit] - ref[3][hit]).abs().max()) <= 1e-3
 
 
+@pytest.mark.parametrize("hidden,n_layers,skip,n,n_steps", [
+    (256, 4, (4,), 4096, 100),    # the bench field at the trace's shape
+    (256, 4, (4,), 4099, 37),     # a ragged last block and tile
+    (96, 3, (2,), 777, 1000),     # past the old proposal-buffer limit
+    (32, 2, (), 65, 5)])
+@pytest.mark.parametrize("coarse", [False, True])
+def test_fused_sampler_igr_equals_sweep_plain_over_fused(dev, hidden, n_layers,
+                                                         skip, n, n_steps,
+                                                         coarse):
+    """The IGR sampler evaluates every point on fused_igr's tile: all four
+    outputs equal `sweep_plain` over the fused callables bit for bit."""
+    field, sdf = _igr(dev, hidden, n_layers, skip_in=skip)
+    fn_c = fused_mlp.make_fused_igr_sdf(field, "bf16") if coarse else None
+    cam, d, t_lo, t_hi = _igr_rays(dev, n)
+    steps = linspace01(n_steps, device=dev)
+    margin = 2e-3 if coarse else 0.0
+    out = sdf.fused_ray_sampler(cam, d, t_lo, t_hi, steps, n_secant=8,
+                                margin=margin, coarse_sweep=coarse)
+    ref = fused_sampler.sweep_plain(sdf, cam, d, t_lo, t_hi, steps, 8, margin,
+                                    sdf_fn_coarse=fn_c)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert int((ref[1] < 0).sum()) > 0
+
+
 def _march_state(dev, sdf, n):
     """A compacted stage's state: a few plain fused-backstep iterations
     from the sphere entry of the bench's rays."""
@@ -504,20 +529,18 @@ def test_trace_march_matches_plain(dev):
         assert float((out[i] == ref[i]).float().mean()) >= 0.999
     for i in (0, 1):
         assert _close_frac(out[i], ref[i], 1e-5) >= 0.999
-    # the same iterations over the fused IGR kernel (3xTF32 against the
-    # march's f32 FMA): the march's own tolerance
+    # the same iterations over the fused IGR kernel: the same tile, so
+    # every state array bit for bit
     loop = march_plain(sdf, cam, d, st, 3, 5e-5, 0.5, 1, True)
-    for i in (4, 5, 6, 7):
-        assert float((out[i] == loop[i]).float().mean()) >= 0.999
-    for i in (0, 1):
-        assert _close_frac(out[i], loop[i], 1e-5) >= 0.999
+    for a, b in zip(out, loop):
+        assert torch.equal(a, b)
 
 
 def test_ray_trace_igr_schedule_kernels(dev):
-    """The bench schedule on the kernels: trace_in_kernel (igr.cuh's f32
-    FMA) agrees with the loop over the fused kernel (3xTF32) as the loop
-    agrees with every plain version: two f32 arithmetics over 21
-    iterations."""
+    """The bench schedule on the kernels: trace_in_kernel equals the loop
+    over the fused kernel (both on the tensor-core tile), and the loop
+    agrees with every plain version (two f32 arithmetics over 21
+    iterations)."""
     field, sdf = _igr(dev)
     coarse = fused_mlp.make_fused_igr_sdf(field, "bf16")
     cam, d, _, _ = _rays(dev, 4096)
@@ -542,9 +565,9 @@ def test_ray_trace_igr_schedule_kernels(dev):
                       gt, None, cfg, training=False,
                       sdf_fn_coarse=lambda x: fused_mlp.igr_sdf_plain(
                           sdf.pack, x, True))
-    assert float((a.network_object_mask == b.network_object_mask).float()
-                 .mean()) >= 0.999
-    assert _close_frac(a.dists, b.dists, 1e-4) >= 0.98
+    assert torch.equal(a.network_object_mask, b.network_object_mask)
+    assert torch.equal(a.sampler_mask, b.sampler_mask)
+    assert torch.equal(a.dists, b.dists)
     agree = a.network_object_mask == p.network_object_mask
     assert float(agree.float().mean()) >= 0.99
     assert _close_frac(a.dists, p.dists, 1e-4) >= 0.98
