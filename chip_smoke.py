@@ -7,12 +7,16 @@ Phases, each fatal on failure:
   1. the card's name and power limit; build every kernel under
      isopoints_torch/csrc/ (one nvcc per source, in parallel); count the
      tensor-core instructions (HMMA, HGMMA) in the SASS of the libraries of
-     the three IGR kernels, fused_igr, fused_sampler and fused_trace
-     (`cuobjdump --dump-sass`; none in any is a failure);
+     the kernels on mlp_mma.cuh's tile, fused_mlp, fused_igr, fused_sampler
+     and fused_trace (`cuobjdump --dump-sass`; none in any is a failure);
   2. each kernel against its plain PyTorch version at full width (seeded):
      the fused SIREN MLP (3x256) value and value+grad on 262,144 points and
      the sampler on 16,384 rays; the kNN on sphere clouds (P=8000 k=6,
-     P=3000 k=8, P=6000 k=16, self-excluded); the splat candidate
+     P=3000 k=8, P=6000 k=16, self-excluded) and on adversarial clouds
+     (`knn_clouds`: exact duplicates, an integer lattice, masked points and
+     queries, two clusters far apart, at ~3000 and at 20,480 points, past
+     knn.SORT_MIN; k = 1, 8, 16, with and without self-exclusion),
+     distances and indices equal bit for bit; the splat candidate
      selection and fine stage on an 8000-point sphere cloud in 2 views at
      256 px (T=16, M=256, K=5, strip 2048). Max error against the stated
      tolerance, kernel and plain times (median of 7 after warm-up, CUDA
@@ -25,10 +29,11 @@ Phases, each fatal on failure:
      through the factories, 2 warm-up steps, the resample at it=2 and 6
      more projected steps, counters set to 0 just before and read just
      after (all five kernels must have launched); the projected step's
-     median time, the resample step's time and each kernel's launches per
-     projected step (the two visibility rasters: 2 selection and 2 fine
-     launches, and no splat_zbuf_bwd or occ_bwd launch, since the rasters
-     build no graph); one projected step's losses with the kernels and with
+     median time, the resample step's time, fused_mlp's launches by shape
+     and each kernel's launches per projected step (the two visibility
+     rasters: 2 selection and 2 fine launches, and no splat_zbuf_bwd or
+     occ_bwd launch, since the rasters build no graph); one projected
+     step's losses with the kernels and with
      the plain versions on identical draws must agree (rtol 1e-2, iso-point
      counts within 0.5% of the capacity);
   5. the kNN, selection and fine kernels against their plain versions on
@@ -69,7 +74,11 @@ Phases, each fatal on failure:
      to march_plain over the fused f32 callable bit for bit and against the
      plain version; max error against the stated tolerance, kernel and
      plain times and the bound (f32 MLP work as three tf32 passes over the
-     tf32 peak in every row);
+     tf32 peak in every row); the f32 tile's values against exactly summed
+     ones (`exact_sums`) beside cuBLAS's float32 values (TF32 off) on the
+     same points: the sampler's fine evaluations on both trace buffers and
+     the f32 mode's most frequent trace launch, RMS and max |err| and the
+     share within 1e-6, the tile's RMS at most F32_EXACT_RATIO x cuBLAS's;
   8. the splat path at bench.py's size (isopoints_torch.bench): 24,576
      splats on the r=0.7 sphere at 512 px (strip 1280); the kNN against its
      plain version on that cloud (k = knn_k - 1, timed); forward and
@@ -98,8 +107,9 @@ Phases, each fatal on failure:
      non-zero, log_size none; the same step with every plain version (no
      launch; loss rtol 1e-5, gradients within phase 8's per-element bound);
      the kNN and both backward kernels launched; the step's time;
-  10. one JSON line {"kernels": [...]} (each kernel timed at the shape the
-     main path gives it most often), then the device line
+  10. fused_mlp timed at every shape the projected run gave it; one JSON
+     line {"kernels": [...]} (each kernel timed at the shape the main path
+     gives it most often), then the device line
      {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -125,6 +135,10 @@ HBM_RATE = 3.35e12    # H100 SXM device memory, bytes/s
 # the f32 IGR value tolerance against the plain version (phase 7), which
 # also bounds the IGR sampler's z_secant as IGR_F32_TOL / slope
 IGR_F32_TOL = 2e-5
+# the f32 tile's RMS error against exactly summed values, over cuBLAS's
+# (TF32 off) on the same points (phase 7): two float32 sums of the same
+# terms in other orders differ by about this much
+F32_EXACT_RATIO = 1.2
 N_WARMUP_SMOKE = 3
 N_PROJECTED = 6
 NO_LIBRARY = ("no single PyTorch call computes this function")
@@ -192,6 +206,50 @@ def row(name, source, replaces, launches, err, ms, plain_ms, b,
             "library_note": library_note}
 
 
+def knn_clouds(device):
+    """Adversarial kNN inputs, B = 2, from numpy seeds, as (label, query,
+    points, query mask, points mask, query is points): exact duplicates,
+    an integer lattice (many exactly equal distances), masked points and
+    queries, two clusters far apart (the small one has fewer points than
+    k), each of about 3000 points; and a lattice and masked points and
+    queries of 20,480 points, past knn.SORT_MIN (the Morton order and the
+    pruning)."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    m = lambda a: torch.from_numpy(np.asarray(a, bool)).to(device)
+    ones = lambda b, n: m(np.ones((b, n), bool))
+    base = rng.uniform(-1, 1, (2, 1000, 3))
+    dup = np.concatenate([base] * 3, 1)[:, rng.permutation(3000)]
+    axes = np.meshgrid(np.arange(16), np.arange(16), np.arange(12), indexing="ij")
+    g = np.stack(axes, -1).reshape(-1, 3) / 8.0   # exact in float32
+    grid = np.stack([g, g[rng.permutation(len(g))]])
+    grid_mask = rng.uniform(size=grid.shape[:2]) < 0.75
+    pts = rng.uniform(-1, 1, (2, 3000, 3))
+    pmask = rng.uniform(size=(2, 3000)) < 0.7
+    qry = rng.uniform(-1.2, 1.2, (2, 1500, 3))
+    qmask = rng.uniform(size=(2, 1500)) < 0.7
+    far = np.concatenate([rng.uniform(-0.5, 0.5, (2, 2990, 3)),
+                          rng.uniform(-0.5, 0.5, (2, 10, 3)) + [100.0, 0.0, 0.0]], 1)
+    axes = np.meshgrid(np.arange(32), np.arange(32), np.arange(20), indexing="ij")
+    g = np.stack(axes, -1).reshape(-1, 3) / 16.0
+    big = np.stack([g, g[rng.permutation(len(g))]])
+    big_mask = rng.uniform(size=big.shape[:2]) < 0.8
+    big_q = rng.uniform(-0.2, 2.2, (2, 4096, 3))
+    big_qmask = rng.uniform(size=(2, 4096)) < 0.8
+    return [
+        ("exact duplicates", t(dup), t(dup), ones(2, 3000), ones(2, 3000), True),
+        ("integer lattice", t(grid), t(grid), m(grid_mask), m(grid_mask), True),
+        ("masked points and queries", t(qry), t(pts), m(qmask), m(pmask), False),
+        ("masked cloud", t(pts), t(pts), m(pmask), m(pmask), True),
+        ("two clusters far apart", t(far), t(far), ones(2, 3000), ones(2, 3000), True),
+        ("integer lattice, 20,480 points", t(big), t(big), m(big_mask),
+         m(big_mask), True),
+        ("masked points and queries, 20,480 points", t(big_q), t(big),
+         m(big_qmask), m(big_mask), False),
+    ]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -244,8 +302,9 @@ def main() -> None:
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(build_s.items()))
           + ")")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    # every IGR kernel evaluates on igr_mma.cuh's tensor-core tile
-    for lib in ("fused_igr", "fused_sampler", "fused_trace"):
+    # the fused MLP and every IGR kernel evaluate on mlp_mma.cuh's
+    # tensor-core tile
+    for lib in ("fused_mlp", "fused_igr", "fused_sampler", "fused_trace"):
         sass = subprocess.run([cuobjdump, "--dump-sass", libs[lib]],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout.splitlines()
@@ -320,30 +379,40 @@ def main() -> None:
         v = v / v.norm(dim=-1, keepdim=True)
         return 0.5 * v, v, torch.rand(1, n, generator=g, device=dev) < 0.97
 
+    def knn_equal(q, pts, qm, pm, k, exclude_self, label):
+        """The kernel's distances, indices and mask equal the plain
+        version's bit for bit; returns the number of valid entries."""
+        a = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=exclude_self)
+        b = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=exclude_self,
+                           method="dense")
+        for name in ("dists", "idx", "mask"):
+            if not torch.equal(getattr(a, name), getattr(b, name)):
+                bad = int((getattr(a, name) != getattr(b, name)).sum())
+                fail(f"knn {label} k={k} exclude_self={exclude_self}: {name} "
+                     f"differs from the plain version in {bad} entries")
+        return int(a.mask.sum())
+
     def check_knn(pts, mask, k, timed):
         p = pts.shape[1]
-        a = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True)
-        b = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True,
-                           method="dense")
-        err = float((a.dists - b.dists)[a.mask].abs().max())
-        near_ties = int((a.idx != b.idx).sum())
-        tie_gap = (float((a.dists - b.dists)[a.idx != b.idx].abs().max())
-                   if near_ties else 0.0)
-        if not torch.equal(a.mask, b.mask) or err > 1e-6 or tie_gap > 1e-6:
-            fail(f"knn P={p} k={k}: masks equal {torch.equal(a.mask, b.mask)}, "
-                 f"dist err {err} (tol 1e-6), {near_ties} index differences "
-                 f"with gap {tie_gap} (tol 1e-6)")
+        knn_equal(pts, pts, mask, mask, k, True, f"P={p}")
         if not timed:
-            return err, near_ties, None, None, (None, None)
+            return None, None, (None, None), None
         ms = time_ms(lambda: knn.knn_points(pts, pts, mask, mask, k=k,
                                             exclude_self=True))
         plain_ms = time_ms(lambda: knn.knn_points(pts, pts, mask, mask, k=k,
                                                   exclude_self=True,
                                                   method="dense"), reps=3)
+        # the kernel alone, from a profiled call
+        prof = bench.profile_call(lambda: knn.knn_points(
+            pts, pts, mask, mask, k=k, exclude_self=True), dev, "knn",
+            log=lambda m: None)
+        # the kNN's own kernels (from knn.SORT_MIN points: the Morton codes,
+        # the boxes and the search; not the sort between them)
+        alone = sum(t for key, t, _ in prof["kernels"] if "knn" in key)
         nv = float(mask.sum())
-        # query IS points (read once: xyz + mask), k (f32, i32) pairs out
-        b = bound_ms(9.0 * nv * nv, p * 13 + p * k * 8)
-        return err, near_ties, ms, plain_ms, b
+        # query IS points (read once: xyz + mask), k (f32, i64) pairs out
+        b = bound_ms(9.0 * nv * nv, p * 13 + p * k * 12)
+        return ms, plain_ms, b, alone
 
     def raster_inputs(pts, normals, mask, cam, st, spacing=None):
         """The selection's and the fine stage's inputs as the rasterizer
@@ -427,17 +496,17 @@ def main() -> None:
         return ((0.0, sel_ms, sel_pms, sel_b), (q_err, fine_ms, fine_pms, fine_b))
 
     def knn_case(pts, mask, k, label, timed=False):
-        err, ties, ms, pms, (bms, by) = check_knn(pts, mask, k, timed)
-        times = (f"  kernel {ms:.3f} ms  plain {pms:.3f} ms  bound {bms:.4f} ms "
-                 f"({by})" if timed else "")
-        print(f"knn {label} P={pts.shape[1]} k={k}: dist err {err:.3g}, {ties} "
-              f"index differences (near-ties){times}")
-        return err, ms, pms, (bms, by)
+        ms, pms, (bms, by), alone = check_knn(pts, mask, k, timed)
+        times = (f"  kernel {ms:.4f} ms (its kernels alone {alone:.4f} ms)  plain "
+                 f"{pms:.3f} ms  bound {bms:.4f} ms ({by})" if timed else "")
+        print(f"knn {label} P={pts.shape[1]} k={k}: distances and indices "
+              f"equal to the plain version's{times}")
+        return 0.0, ms, pms, (bms, by)   # error 0: equal bit for bit
 
     print("tolerances: MLP value |err| <= 2e-5, grad |err| <= 1e-4·max(1,|g|); "
           "sampler picks equal on >= 99.9% of rays, f_pick |err| <= 1e-5, "
-          "z_secant |err| <= 1e-4 on crossing rays; kNN masks equal, dists "
-          "|err| <= 1e-6, index differences only at gaps <= 1e-6; splat "
+          "z_secant |err| <= 1e-4 on crossing rays; kNN distances, indices "
+          "and masks equal (torch.equal); splat "
           "candidate sets and overflow equal; idx/zbuf/occ/used/slots/"
           "visibility identical, qvalue |err| <= 1e-6")
     for n, grad in ((262_144, False), (262_144, True)):
@@ -454,6 +523,14 @@ def main() -> None:
     for p, k in ((8000, 6), (3000, 8), (6000, 16)):
         pts, _, mask = sphere_cloud(p, seed=p + k)
         knn_case(pts, mask, k, "sphere cloud")
+    for label, q, pts, qm, pm, is_self in knn_clouds(dev):
+        n_valid = [knn_equal(q, pts, qm, pm, k, ex, label)
+                   for k in (1, 8, 16) for ex in ((False, True) if is_self else (False,))]
+        print(f"knn {label} (B={pts.shape[0]}, {q.shape[1]} queries, "
+              f"{pts.shape[1]} points) at k=1, 8, 16"
+              f"{', with and without exclude_self' if is_self else ''}: "
+              f"distances and indices equal to the plain version's "
+              f"({n_valid} valid entries)")
     check_raster(*sphere_raster_inputs(), "8000-point sphere cloud")
 
     # ---- 3. the warm-up path: warm-up training steps through the factories
@@ -569,9 +646,21 @@ def main() -> None:
                      project=False)
 
     # ---- 4. the projected path: warm-up, resample, projected steps
-    (cfg, trainer, state, batch, step_ms, metrics, per_step, launches,
-     loss_keys, resampled) = run_steps("mvr_projected_siren.yml",
-                            2 + N_PROJECTED)
+    # fused_mlp's launches in the run by (rows, points)
+    mlp_split = collections.Counter()
+    siren_cuda = fused_mlp.siren_forward_cuda
+
+    def recording_siren(pack, x, with_grad):
+        mlp_split[("value+grad" if with_grad else "value", x.shape[0])] += 1
+        return siren_cuda(pack, x, with_grad)
+
+    fused_mlp.siren_forward_cuda = recording_siren
+    try:
+        (cfg, trainer, state, batch, step_ms, metrics, per_step, launches,
+         loss_keys, resampled) = run_steps("mvr_projected_siren.yml",
+                                           2 + N_PROJECTED)
+    finally:
+        fused_mlp.siren_forward_cuda = siren_cuda
     warm = trainer.cfg.warm_up_iters
     proj_ms = step_ms[warm + 1:]
     proj_launches = per_step[warm + 1:]
@@ -581,6 +670,11 @@ def main() -> None:
           f"launches in the run: {launches}")
     print(f"launches per projected step: {proj_launches[-1]}; in the resample "
           f"step: {per_step[warm]}")
+    print(f"fused_mlp launches in the run: {launches['fused_mlp']} = " + ", ".join(
+        f"{c} x {what} n={n}" for (what, n), c in mlp_split.most_common()))
+    if sum(mlp_split.values()) != launches["fused_mlp"]:
+        fail(f"fused_mlp's launches by shape {dict(mlp_split)} do not add up "
+             f"to its counter")
     for name in ("fused_mlp", "fused_sampler", "knn", "splat_select",
                  "splat_fine"):
         if launches[name] <= 0:
@@ -1019,6 +1113,46 @@ def main() -> None:
                     n_mrays * (24 + 2 * 34) + igr_w_bytes, TF32_PEAK)
     print(f"  kernel {mk_ms:.3f} ms  plain {mk_pms:.3f} ms  bound {mk_b[0]:.4f} ms ({mk_b[1]})")
 
+    # the f32 tile's sums against exactly formed ones (float64 sums rounded
+    # once, `exact_sums`), beside cuBLAS's float32 sums (TF32 off) on the same
+    # points: the sampler's fine evaluations (bracket re-validation and
+    # secant steps) on both trace buffers, and the f32 mode's most frequent
+    # launch in the trace
+    def fine_points(buf):
+        *f_args, n_sec, f_margin, f_coarse = captured[f"sampler {buf}"]
+        pts = []
+
+        def recording_fine(p):
+            pts.append(p.reshape(-1, 3).clone())
+            return fine(p)
+        fused_sampler.sweep_plain(recording_fine, *f_args, n_sec, f_margin,
+                                  sdf_fn_coarse=coarse if f_coarse else None)
+        return torch.cat(pts)
+
+    print(f"f32 tile against exact sums: RMS and max |err| of the values "
+          f"against exactly summed ones, and the share within 1e-6; fatal if "
+          f"the tile's RMS exceeds {F32_EXACT_RATIO} x cuBLAS's (float32, TF32 "
+          f"off) on the same points")
+    for label, p in (("the kernel trace's sampler fine points", fine_points("kernel")),
+                     ("the plain trace's sampler fine points", fine_points("plain")),
+                     (f"{n32} points in [-1.2, 1.2]^3 (the f32 mode's most "
+                      f"frequent trace launch)",
+                      torch.rand((n32, 3), generator=gen, device=dev) * 2.4 - 1.2)):
+        ex = fused_mlp.igr_sdf_plain(ipack, p, False, True)
+        stats = []
+        for v in (fine(p), fused_mlp.igr_sdf_plain(ipack, p)):
+            e = (v - ex).abs()
+            stats.append((float(e.square().mean().sqrt()), float(e.max()),
+                           float((e <= 1e-6).float().mean())))
+        ratio = stats[0][0] / stats[1][0]
+        print(f"  {label} ({p.shape[0]}): tile RMS {stats[0][0]:.4g}, max "
+              f"{stats[0][1]:.4g}, within 1e-6 {stats[0][2]:.6f}; cuBLAS RMS "
+              f"{stats[1][0]:.4g}, max {stats[1][1]:.4g}, within 1e-6 "
+              f"{stats[1][2]:.6f}; RMS ratio {ratio:.4f}")
+        if not ratio <= F32_EXACT_RATIO:
+            fail(f"the f32 tile's RMS error against exact sums on {label} is "
+                 f"{ratio:.4f} x cuBLAS's (bar {F32_EXACT_RATIO})")
+
     # ---- 8. the splat path at bench.py's size
     scene = bench.splat_scene(bench.N_SPLATS, bench.SPLAT_IMAGE_SIZE, dev)
     sst = scene.settings
@@ -1264,8 +1398,17 @@ def main() -> None:
           f"5 runs of {bench.SPLAT_REP})")
 
     # ---- 10. the kernels line
-    n_trace = 4 * cfg.training.n_rays
-    mlp_err, mlp_ms, mlp_pms, mlp_b = check_mlp(n_trace, 2e-5, 1e-4, False)
+    # fused_mlp at every shape the projected run gave it, most frequent first
+    # (the row of the JSON line)
+    mlp_rows = []
+    for (what, n), c in mlp_split.most_common():
+        m_row = check_mlp(n, 2e-5, 1e-4, what == "value+grad")
+        print(f"fused_mlp {what} n={n} ({c} launches in the projected run): "
+              f"max_abs_err {m_row[0]:.3g}  kernel {m_row[1]:.4f} ms  plain "
+              f"{m_row[2]:.4f} ms  bound {m_row[3][0]:.4f} ms ({m_row[3][1]})")
+        mlp_rows.append(m_row)
+    mlp_err, mlp_ms, mlp_pms, mlp_b = mlp_rows[0]
+    (mlp_what, n_mlp), _ = mlp_split.most_common(1)[0]
     s_err, _, s_ms, s_pms, s_b = check_sampler(
         2 * cfg.training.n_rays, linspace01(trainer.model.raytrace_cfg.n_steps, dev),
         trainer.model.raytrace_cfg.n_secant_steps)
@@ -1310,8 +1453,8 @@ def main() -> None:
             library_note="no single PyTorch call computes this windowed, "
             "gated sum per point"),
     ]
-    print(f"timed shapes: fused_mlp {n_trace} points (value; the warm-up "
-          f"trace); fused_sampler {2 * cfg.training.n_rays} rays x "
+    print(f"timed shapes: fused_mlp {n_mlp} points ({mlp_what}; its most "
+          f"frequent launch in the projected run); fused_sampler {2 * cfg.training.n_rays} rays x "
           f"{trainer.model.raytrace_cfg.n_steps} steps (the warm-up trace); "
           f"knn P={state.points.shape[1]} k=8 and splat_select / splat_fine "
           f"{state.points.shape[1]} splats x {cam.batch_size} views at "

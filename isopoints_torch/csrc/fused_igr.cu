@@ -3,7 +3,7 @@
 //
 // Replaces `_igr_kernel` (isopoints_tpu/ops/pallas_mlp.py:417, reached by
 // `make_fused_igr_sdf` :489, pallas_call :535) in both of its modes. A block
-// loads its points and runs igr_mma.cuh's `tile()` on them; see there for
+// loads its points and runs mlp_mma.cuh's `tile()` on them; see there for
 // the layout, the skip and the precision of each mode.
 //
 // Bound on an H100. One value eval of the 4x256 bench field is 2(3*256 +
@@ -33,13 +33,13 @@
 // Plain C interface for ctypes; launches on the caller's stream and returns
 // cudaGetLastError() after the launch.
 
-#include "igr_mma.cuh"
+#include "mlp_mma.cuh"
 
 namespace {
 
-using igr_mma::kRows;
-using igr_mma::kThreads;
-using igr_mma::Net;
+using mlp_mma::kRows;
+using mlp_mma::kThreads;
+using mlp_mma::Net;
 
 template <class Mode, int NJ, int C>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -49,19 +49,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int P = kRows / C;  // points per block
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* act = smem;
-  unsigned char* wbuf = act + kRows * igr_mma::pitch_a<Mode>(H);
-  float* xs = reinterpret_cast<float*>(wbuf + 2 * igr_mma::stage_bytes<Mode>(H));
+  unsigned char* wbuf = act + kRows * mlp_mma::pitch_a<Mode>(H);
+  float* xs = reinterpret_cast<float*>(wbuf + 2 * mlp_mma::stage_bytes<Mode>(H));
   const int p0 = blockIdx.x * P;
   for (int e = threadIdx.x; e < P * 3; e += kThreads)
     xs[e] = (p0 + e / 3 < n) ? x[(size_t)p0 * 3 + e] : 0.f;
-  igr_mma::tile<Mode, H, C>(net, xs, act, wbuf, p0, n, val, grad);
+  mlp_mma::tile<Mode, H, C>(net, xs, act, wbuf, p0, n, val, grad);
 }
 
 template <class Mode, int NJ, int C>
 int launch(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t stream) {
   constexpr int H = NJ * 32;
   constexpr int P = kRows / C;
-  constexpr int smem = igr_mma::smem_bytes<Mode, C>(H);
+  constexpr int smem = mlp_mma::smem_bytes<Mode, C>(H);
   static_assert(smem <= 232448, "the tile exceeds a block's shared memory");
   static const cudaError_t attr = cudaFuncSetAttribute(
       igr_points_kernel<Mode, NJ, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -102,8 +102,8 @@ extern "C" int igr_forward(const float* x, int n, const float* w0, const float* 
   const Net net{w0, b0, wh, wh_lo, bh, wout, bout, n_hidden, skip, final_tanh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return grad == nullptr ? dispatch<igr_mma::Bf16Mode, 1>(net, hidden, x, n, val, grad, s)
-                           : dispatch<igr_mma::Bf16Mode, 4>(net, hidden, x, n, val, grad, s);
-  return grad == nullptr ? dispatch<igr_mma::Tf32x3Mode, 1>(net, hidden, x, n, val, grad, s)
-                         : dispatch<igr_mma::Tf32x3Mode, 4>(net, hidden, x, n, val, grad, s);
+    return grad == nullptr ? dispatch<mlp_mma::Bf16Mode, 1>(net, hidden, x, n, val, grad, s)
+                           : dispatch<mlp_mma::Bf16Mode, 4>(net, hidden, x, n, val, grad, s);
+  return grad == nullptr ? dispatch<mlp_mma::Tf32x3Mode, 1>(net, hidden, x, n, val, grad, s)
+                         : dispatch<mlp_mma::Tf32x3Mode, 4>(net, hidden, x, n, val, grad, s);
 }

@@ -1,103 +1,122 @@
-// Fused SIREN SDF-MLP: value, or value + input gradient, for N points.
+// Fused SIREN SDF-MLP: value, or value + input gradient, for N points, in
+// f32 as 3xTF32 on the tensor cores.
 //
 // Replaces `_siren_kernel` (isopoints_tpu/ops/pallas_mlp.py:250, reached by
-// `make_fused_siren_sdf` :309, pallas_call :348). The per-tile MLP lives in
-// siren.cuh; see there for the layout and the precision choices.
+// `make_fused_siren_sdf` :309, pallas_call :348), its f32 mode. A block
+// loads its points and runs mlp_mma.cuh's `tile()` with the sine activation
+// on them; see there for the layout and the precision (each operand split
+// into tf32 hi and lo; hi*hi of each k8 step and the correction products
+// lo*hi + hi*lo of each k16 chunk summed into zeroed tiles and added to the
+// f32 accumulator with IEEE adds; the first layer, the head, the biases and
+// the sine epilogue in f32 on the CUDA cores with the accurate
+// sinf/sincosf).
 //
 // Bound on an H100: the work is operations, not bytes. One value eval of a
 // 3x256 SIREN is 2(3*256 + 3*256^2 + 256) ~ 0.40 MFLOP against 16 bytes of
 // point and value, so the products bound it: the least time f32 products
 // take on the card is three tf32 tensor-core passes over the tf32 peak
-// (495 TFLOP/s); this kernel runs them as f32 FMA on the CUDA cores (67
-// TFLOP/s), a gap left to a later redesign. With the gradient the three
-// tangent rows make it ~4x the operations. The design
-// keeps every activation in shared memory and reads each weight chunk once
-// per 64-row tile, so device memory traffic is the points, the outputs and
-// the (L2-resident) weights.
+// (495 TFLOP/s). With the gradient the three tangent rows make it ~4x the
+// operations.
+//
+// Design. What bounds the path's small launches is filling the card: the
+// warm-up trace evaluates 4096 points at a time, value only, which 128-row
+// tiles cut into 32 blocks for 132 SMs. Each block streams the whole weight
+// stack (hi and lo, 1.5 MB at 3x256) from L2 whatever its rows, so large
+// launches want many rows a block and small ones many blocks: a launch takes
+// 128-row tiles when they give at least half the SMs a block, and 32-row
+// tiles below that. Measured on an H100 (kernel_variants.py, PERF.md): at
+// 4096 value rows (32 blocks of 128) 32-row tiles take 0.141 ms against
+// 0.246; at 3000 points with the gradient (12,000 rows, 94 blocks) 128-row
+// tiles take 0.183 ms against 0.238; 64-row tiles won at no shape.
 //
 // Plain C interface for ctypes; launches on the caller's stream and returns
 // cudaGetLastError() after the launch.
 
-#include "siren.cuh"
+#include "mlp_mma.cuh"
 
 namespace {
 
-using siren::kChunk;
-using siren::kRows;
-using siren::kThreads;
-using siren::Net;
+using mlp_mma::Net;
+using mlp_mma::SirenAct;
+using mlp_mma::Tf32x3Mode;
 
-template <int NJ, int C>
-__global__ void __launch_bounds__(kThreads)
-    siren_points_kernel(Net net, const float* __restrict__ x, int n,
-                        float* __restrict__ val, float* __restrict__ grad) {
+template <int NJ, int C, int RG>
+__global__ void __launch_bounds__(128 * RG, 1)
+    siren_points_kernel(Net net, const float* __restrict__ x, int n, float* __restrict__ val,
+                        float* __restrict__ grad) {
   constexpr int H = NJ * 32;
-  constexpr int P = kRows / C;  // points per tile
-  extern __shared__ float smem[];
-  float* act = smem;
-  float* wbuf = act + kRows * H;
-  float* xs = wbuf + kChunk * H;
-  float* vs = xs + P * 3;
-  float* gs = vs + P;
-
+  constexpr int P = 32 * RG / C;  // points per block
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* act = smem;
+  unsigned char* wbuf = act + 32 * RG * mlp_mma::pitch_a<Tf32x3Mode>(H);
+  float* xs = reinterpret_cast<float*>(wbuf + 2 * mlp_mma::stage_bytes<Tf32x3Mode>(H));
   const int p0 = blockIdx.x * P;
-  for (int e = threadIdx.x; e < P * 3; e += kThreads)
+  for (int e = threadIdx.x; e < P * 3; e += 128 * RG)
     xs[e] = (p0 + e / 3 < n) ? x[(size_t)p0 * 3 + e] : 0.f;
-  __syncthreads();
-
-  siren::tile<NJ, C>(net, xs, act, wbuf, vs, gs);
-
-  for (int e = threadIdx.x; e < P; e += kThreads)
-    if (p0 + e < n) val[p0 + e] = vs[e];
-  if constexpr (C == 4) {
-    for (int e = threadIdx.x; e < P * 3; e += kThreads)
-      if (p0 + e / 3 < n) grad[(size_t)p0 * 3 + e] = gs[e];
-  }
+  mlp_mma::tile<Tf32x3Mode, H, C, SirenAct, RG>(net, xs, act, wbuf, p0, n, val, grad);
 }
 
-template <int NJ, int C>
-int launch(const Net& net, const float* x, int n, float* val, float* grad,
-           cudaStream_t stream) {
+template <int NJ, int C, int RG>
+int launch(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t stream) {
   constexpr int H = NJ * 32;
-  constexpr int P = kRows / C;
-  const size_t smem = sizeof(float) * (siren::tile_smem_floats(H) + P * 3 + P + P * 3);
-  cudaError_t err = cudaFuncSetAttribute(
-      siren_points_kernel<NJ, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  constexpr int P = 32 * RG / C;
+  constexpr int smem = mlp_mma::smem_bytes<Tf32x3Mode, C, RG>(H);
+  static_assert(smem <= 232448, "the tile exceeds a block's shared memory");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      siren_points_kernel<NJ, C, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
   const int blocks = (n + P - 1) / P;
-  siren_points_kernel<NJ, C><<<blocks, kThreads, smem, stream>>>(net, x, n, val, grad);
+  siren_points_kernel<NJ, C, RG><<<blocks, 128 * RG, smem, stream>>>(net, x, n, val, grad);
   return (int)cudaGetLastError();
 }
 
+// row groups a block: 4 (128 rows) when that gives half the SMs a block
+int row_groups(int n, int c) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return 2LL * ((long long)n * c + 127) / 128 >= sms ? 4 : 1;
+}
+
+template <int NJ, int C>
+int by_rows(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t s) {
+  switch (row_groups(n, C)) {
+    case 4: return launch<NJ, C, 4>(net, x, n, val, grad, s);
+    default: return launch<NJ, C, 1>(net, x, n, val, grad, s);
+  }
+}
+
 template <int C>
-int dispatch(const Net& net, int hidden, const float* x, int n, float* val,
-             float* grad, cudaStream_t stream) {
+int dispatch(const Net& net, int hidden, const float* x, int n, float* val, float* grad,
+             cudaStream_t stream) {
   switch (hidden / 32) {
-    case 1: return launch<1, C>(net, x, n, val, grad, stream);
-    case 2: return launch<2, C>(net, x, n, val, grad, stream);
-    case 3: return launch<3, C>(net, x, n, val, grad, stream);
-    case 4: return launch<4, C>(net, x, n, val, grad, stream);
-    case 5: return launch<5, C>(net, x, n, val, grad, stream);
-    case 6: return launch<6, C>(net, x, n, val, grad, stream);
-    case 7: return launch<7, C>(net, x, n, val, grad, stream);
-    case 8: return launch<8, C>(net, x, n, val, grad, stream);
+#define CASE(NJ) \
+  case NJ: return by_rows<NJ, C>(net, x, n, val, grad, stream);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+#undef CASE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x (n, 3) -> val (n,) [, grad (n, 3) when grad != nullptr].
-// hidden must be a multiple of 32 in [32, 256]; the wrapper checks it.
+// x (n, 3) -> val (n,) [, grad (n, 3) when grad != nullptr]. w0 (H, 3), b0,
+// bh (L, H), wout (H,), bout (1,): float32; wh, wh_lo: the hidden layers
+// (L, H, H) in (out, in) layout as their tf32 hi and lo parts (float32).
+// hidden must be a multiple of 32 in [32, 256] (the wrapper checks it).
 extern "C" int siren_forward(const float* x, int n, const float* w0, const float* b0,
-                             const float* wh_t, const float* bh, const float* wout,
-                             const float* bout, int hidden, int n_hidden,
-                             float omega_first, float omega_hidden, float* val,
-                             float* grad, void* stream) {
-  if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0)
+                             const float* wh, const float* wh_lo, const float* bh,
+                             const float* wout, const float* bout, int hidden, int n_hidden,
+                             float omega_first, float omega_hidden, float* val, float* grad,
+                             void* stream) {
+  if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 ||
+      (n_hidden > 0 && (wh == nullptr || wh_lo == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const Net net{w0, b0, wh_t, bh, wout, bout, n_hidden, omega_first, omega_hidden};
+  const Net net{w0, b0, wh, wh_lo, bh, wout, bout, n_hidden, 0u, 0, omega_first, omega_hidden};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return grad == nullptr ? dispatch<1>(net, hidden, x, n, val, grad, s)
                          : dispatch<4>(net, hidden, x, n, val, grad, s);

@@ -29,7 +29,7 @@
 // peak (the least time for f32 products on the card); the bytes moved are
 // 32 per ray in and 16 out.
 //
-// IGR (igr_mma.cuh's 128-row tensor-core tile, 512 threads): a block takes
+// IGR (mlp_mma.cuh's 128-row tensor-core tile, 512 threads): a block takes
 // kRays rays, and each sweep tile holds kRows / kRays consecutive steps of
 // every one of them (row j * kRays + r: step j of ray r; a ragged last tile
 // and the rays past n_rays are masked). After each sweep tile thread r < kRays
@@ -41,7 +41,7 @@
 // fine mode; the re-validation tile (rows r: z_low of ray r, kRays + r: its
 // t_pick) and each secant step's tile (row r: ray r) run in the fine mode
 // (3xTF32, or bf16 for a bf16 callable). Every point goes through
-// igr_mma::tile(), which gives a row the same value as the fused IGR kernel
+// mlp_mma::tile(), which gives a row the same value as the fused IGR kernel
 // does, so the sampler equals `sweep_plain` over the fused callables bit for
 // bit. Bound on an H100: operations, n_steps bf16 evals per ray (one pass
 // over the bf16 tensor-core peak) and 2 + n_secant fine evals (f32: three
@@ -59,7 +59,7 @@
 
 #include <limits.h>
 
-#include "igr_mma.cuh"
+#include "mlp_mma.cuh"
 #include "siren.cuh"
 
 namespace {
@@ -290,16 +290,16 @@ int launch(const siren::Net& net, const float* cam, const float* dir, const floa
 }  // namespace siren_sweep
 
 // ---------------------------------------------------------------------------
-// IGR: igr_mma.cuh's tensor-core tile, a streaming pick
+// IGR: mlp_mma.cuh's tensor-core tile, a streaming pick
 // ---------------------------------------------------------------------------
 
 namespace igr_sweep {
 
-using igr_mma::Bf16Mode;
-using igr_mma::kRows;
-using igr_mma::kThreads;
-using igr_mma::Net;
-using igr_mma::Tf32x3Mode;
+using mlp_mma::Bf16Mode;
+using mlp_mma::kRows;
+using mlp_mma::kThreads;
+using mlp_mma::Net;
+using mlp_mma::Tf32x3Mode;
 
 // rays per block: 64 took 18.4 ms at the bench trace's sampler shape on an
 // H100, 32 took 23.6 and 128 took 20.8 (PERF.md)
@@ -360,12 +360,12 @@ constexpr int kRayFloats = 8 + kPickFloats + 5;
 
 template <int H>
 __host__ __device__ constexpr int act_bytes() {
-  return kRows * igr_mma::pitch_a<Tf32x3Mode>(H);
+  return kRows * mlp_mma::pitch_a<Tf32x3Mode>(H);
 }
 
 template <int H>
 constexpr int smem_bytes() {
-  return act_bytes<H>() + 2 * igr_mma::stage_bytes<Tf32x3Mode>(H) +
+  return act_bytes<H>() + 2 * mlp_mma::stage_bytes<Tf32x3Mode>(H) +
          4 * (kRows * 3 + kRows + kRays * kRayFloats);
 }
 
@@ -383,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* act = smem;
   unsigned char* wbuf = act + act_bytes<H>();
-  float* xs = reinterpret_cast<float*>(wbuf + 2 * igr_mma::stage_bytes<Tf32x3Mode>(H));
+  float* xs = reinterpret_cast<float*>(wbuf + 2 * mlp_mma::stage_bytes<Tf32x3Mode>(H));
   float* vs = xs + kRows * 3;         // (kRows,)
   float* ray = vs + kRows;            // (8, kRays): cam xyz, dir xyz, t_lo, span
   float* pk = ray + 8 * kRays;        // (kPickFloats, kRays)
@@ -464,9 +464,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // time would make the tile read it through local memory
     const Net net = sweeping ? sweep_net : fine_net;
     if (sweeping ? sweep_bf16 : fine_bf16)
-      igr_mma::tile<Bf16Mode, H, 1>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+      mlp_mma::tile<Bf16Mode, H, 1>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
     else
-      igr_mma::tile<Tf32x3Mode, H, 1>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+      mlp_mma::tile<Tf32x3Mode, H, 1>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
     // ---- its values
     if (sweeping) {
       if (tid < kRays) {
@@ -558,7 +558,7 @@ extern "C" int sampler_sweep(const float* cam, const float* dir, const float* t_
 }
 
 // The same on the IGR net, on the tensor-core tile. `sw` and `fw` are the
-// seven pointers of igr_mma::Net (w0, b0, wh, wh_lo, bh, wout, bout) of the
+// seven pointers of mlp_mma::Net (w0, b0, wh, wh_lo, bh, wout, bout) of the
 // sweep and the fine net, `sweep_bf16` and `fine_bf16` their modes (bf16, or
 // f32 as 3xTF32 with wh_lo the tf32 lo part); `revalidate` evaluates the
 // bracket ends again on the fine net before the secant (the coarse sweep).
@@ -575,7 +575,7 @@ extern "C" int sampler_sweep_igr(const float* cam, const float* dir, const float
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   auto net = [&](const void* const* w) {
-    return igr_mma::Net{static_cast<const float*>(w[0]), static_cast<const float*>(w[1]),
+    return mlp_mma::Net{static_cast<const float*>(w[0]), static_cast<const float*>(w[1]),
                         w[2],
                         w[3],
                         static_cast<const float*>(w[4]),
@@ -585,7 +585,7 @@ extern "C" int sampler_sweep_igr(const float* cam, const float* dir, const float
                         skip,
                         final_tanh};
   };
-  const igr_mma::Net sweep = net(sw), fine = net(fw);
+  const mlp_mma::Net sweep = net(sw), fine = net(fw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hidden / 32) {
 #define CASE(NJ)                                                                              \

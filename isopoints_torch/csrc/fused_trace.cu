@@ -18,7 +18,7 @@
 // 0..63 write their ray's two front points (cam + acc * dir, one __fmaf_rn
 // per coordinate, as the PyTorch loop forms them with utils.fma) as rows r
 // and 64 + r of one 128-row tile, the whole block evaluates the tile on the
-// tensor cores (igr_mma::tile, the fused IGR kernel's per-row arithmetic),
+// tensor cores (mlp_mma::tile, the fused IGR kernel's per-row arithmetic),
 // and threads 0..63 update the state. Each update is a separate IEEE
 // operation (__fadd_rn/__fmul_rn) so that no contraction into an FMA changes
 // it: the march equals the PyTorch loop over the fused IGR kernel bit for
@@ -35,15 +35,15 @@
 
 #include <stdint.h>
 
-#include "igr_mma.cuh"
+#include "mlp_mma.cuh"
 
 namespace {
 
-using igr_mma::Bf16Mode;
-using igr_mma::kRows;
-using igr_mma::kThreads;
-using igr_mma::Net;
-using igr_mma::Tf32x3Mode;
+using mlp_mma::Bf16Mode;
+using mlp_mma::kRows;
+using mlp_mma::kThreads;
+using mlp_mma::Net;
+using mlp_mma::Tf32x3Mode;
 
 constexpr int kRays = kRows / 2;  // rays per block: both fronts in one tile
 // per ray in shared memory, [field][kRays]
@@ -66,7 +66,7 @@ struct State {
 
 template <class Mode, int H>
 constexpr int smem_bytes() {
-  return kRows * igr_mma::pitch_a<Mode>(H) + 2 * igr_mma::stage_bytes<Mode>(H) +
+  return kRows * mlp_mma::pitch_a<Mode>(H) + 2 * mlp_mma::stage_bytes<Mode>(H) +
          4 * (kRows * 3 + kRows + kRays * (kRayFloats + kRayInts));
 }
 
@@ -77,8 +77,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                  int gate_end) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* act = smem;
-  unsigned char* wbuf = act + kRows * igr_mma::pitch_a<Mode>(H);
-  float* xs = reinterpret_cast<float*>(wbuf + 2 * igr_mma::stage_bytes<Mode>(H));
+  unsigned char* wbuf = act + kRows * mlp_mma::pitch_a<Mode>(H);
+  float* xs = reinterpret_cast<float*>(wbuf + 2 * mlp_mma::stage_bytes<Mode>(H));
   float* vs = xs + kRows * 3;  // (kRows,)
   float* F = vs + kRows;       // (kRayFloats, kRays)
   int* I = reinterpret_cast<int*>(F + kRayFloats * kRays);  // (kRayInts, kRays)
@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // starts with a barrier (the points visible) and ends with one (vs
     // visible, xs free for the next iteration's points)
-    igr_mma::tile<Mode, H, 1>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+    mlp_mma::tile<Mode, H, 1>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
     if (r < kRays) {
       const float new_s = vs[r], new_e = vs[kRays + r];
       const bool may_s = un_s && new_s < 0.f && bk_s < line_step_iters;
@@ -202,7 +202,7 @@ int dispatch(int hidden, const Net& net, const float* cam, const float* dir, con
 
 // cam, dir (n, 3); the ten state arrays (n,) are updated in place: acc_s,
 // acc_e, sdf_s, sdf_e, cur_s, cur_e float32, un_s, un_e uint8 (0/1), bk_s,
-// bk_e int32. `ls` is 1 - line_search_step. The net is igr_mma::Net's seven
+// bk_e int32. `ls` is 1 - line_search_step. The net is mlp_mma::Net's seven
 // pointers (w0, b0, wh, wh_lo, bh, wout, bout) of the callable's mode
 // (`bf16`, or f32 as 3xTF32 with wh_lo the tf32 lo part).
 extern "C" int trace_march_igr(const float* cam, const float* dir, float* acc_s, float* acc_e,

@@ -1,5 +1,5 @@
 // The IGR field's scalar arithmetic, shared by the tensor-core tile
-// (igr_mma.cuh) on the CUDA cores: softplus with beta = 100 and the bf16
+// (mlp_mma.cuh) on the CUDA cores: softplus with beta = 100 and the bf16
 // rounding of an operand.
 //
 // Replaces the activation of `_igr_kernel` / `_make_igr_forward` in

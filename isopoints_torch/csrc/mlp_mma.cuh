@@ -1,23 +1,29 @@
-// IGR SDF-MLP forward on Hopper's tensor cores, one 128-row tile per call:
+// SDF-MLP forward on Hopper's tensor cores, one tile of 32 rows per row
+// group (4 row groups, 128 rows, unless a caller asks for one) per call:
 // the tile of the fused IGR kernel (fused_igr.cu), the IGR ray sampler
-// (fused_sampler.cu) and the in-kernel march (fused_trace.cu). Every one of
-// them evaluates a point through `tile()`, and an `mma.sync` row's sum
-// depends only on that row and the weights, not on which rows share the
-// tile, so the three give a point the same value bit for bit.
+// (fused_sampler.cu), the in-kernel march (fused_trace.cu) and the fused
+// SIREN kernel (fused_mlp.cu). The activation is a template parameter:
+// `IgrAct` (softplus, beta = 100) or `SirenAct` (sin of omega z). Every
+// IGR kernel evaluates a point through `tile()`, and an `mma.sync` row's
+// sum depends only on that row and the weights, not on which rows share
+// the tile or how many rows a tile has, so they give a point the same value
+// bit for bit.
 //
-// Replaces the layer stack of `_igr_kernel` (isopoints_tpu/ops/pallas_mlp.py
+// Replaces the layer stacks of `_igr_kernel` (isopoints_tpu/ops/pallas_mlp.py
 // :417): L+2 linear layers, softplus with beta = 100 after every layer but
 // the head, the input concatenated back and the row scaled by 1/sqrt(2)
-// before the layers of the skip mask, an optional final tanh. With C = 4 a
-// point has four rows, its value row and its three forward-mode tangent rows
-// J <- (J W^T) * sigmoid(beta z); the tangent rows are extra rows of the
-// product's M dimension.
+// before the layers of the skip mask, an optional final tanh; and of
+// `_siren_kernel` (:250): sin(omega z) after every layer but the head
+// (omega_first after the first), no skip, no tanh. With C = 4 a point has
+// four rows, its value row and its three forward-mode tangent rows
+// J <- (J W^T) * act'(z) (sigmoid(beta z), or omega cos(omega z)); the
+// tangent rows are extra rows of the product's M dimension.
 //
-// Layout. 16 warps: warp w owns rows 32 (w / 4) .. +32 and the column
-// quarter w % 4 of every hidden product, as two m16 x (H/4) warp tiles of
-// `mma.sync` (64 accumulators per thread at H = 256, so that 16 warps fit
-// an SM's registers and hide the epilogue's latency). With C = 4 a warp's
-// 32 rows hold 8 points as [values,
+// Layout. 4 warps per row group: warp w owns rows 32 (w / 4) .. +32 and the
+// column quarter w % 4 of every hidden product, as two m16 x (H/4) warp
+// tiles of `mma.sync` (64 accumulators per thread at H = 256, so that 16
+// warps fit an SM's registers and hide the epilogue's latency). With C = 4
+// a warp's 32 rows hold 8 points as [values,
 // x tangents, y tangents, z tangents] (8 rows each), so a lane's
 // accumulators of row g, g+8, g+16, g+24 are one point's value and tangent
 // rows and the epilogue needs no exchange between lanes. The activations
@@ -41,22 +47,33 @@
 //     fragments are loaded. The product is lo*hi + hi*lo + hi*hi in three
 //     m16n8k8 passes into one f32 accumulator (lo*lo, ~2^-22 relative, is
 //     dropped). Tangents are carried in f32 as values are.
-// Accumulation. The tensor cores do not round their f32 sums to nearest,
-// and with the whole K in one accumulator their error grew with the sum:
-// on an H100 the bf16 mode then flipped a bf16 rounding of the next
-// operand, and so moved the output by more than 1e-5, on 2-5% of the
-// points against the plain version. So each 64-byte k-chunk (k32 bf16,
-// k16 tf32) is summed into a zeroed tile and added to the f32 accumulator
-// with an IEEE add on the CUDA cores: 1.1-1.6% of bf16 outputs then differ
-// from the plain version by more than 1e-5 (a zeroed tile per k16 step
-// did no better), about as many as two correct float32 sums in different
-// orders differ by (the bf16 mode's tolerance is stated against exact
-// sums, see chip_smoke.py), and the f32 mode's error is that of a float32
-// sum in another order.
+// Accumulation. The tensor cores do not round their f32 sums to nearest
+// (they truncate), and with the whole K in one accumulator their error
+// grew with the sum: on an H100 the bf16 mode then flipped a bf16 rounding
+// of the next operand, and so moved the output by more than 1e-5, on 2-5%
+// of the points against the plain version. So in the bf16 mode each
+// 64-byte k-chunk (k32) is summed into a zeroed tile and added to the f32
+// accumulator with an IEEE add on the CUDA cores: 1.1-1.6% of bf16 outputs
+// then differ from the plain version by more than 1e-5 (a zeroed tile per
+// k16 step did no better), about as many as two correct float32 sums in
+// different orders differ by (the bf16 mode's tolerance is stated against
+// exact sums, see chip_smoke.py). In the f32 mode the same chunk sums
+// (all three passes of a k16 chunk in one zeroed tile) left the values
+// 2.1x as far from exactly formed sums as cuBLAS's float32 sums (RMS, on
+// the IGR sampler's fine points; chip_smoke.py phase 7): the truncation
+// of the hi*hi sums, taken relative to the whole chunk's partial sum. So
+// the f32 mode sums hi*hi of each k8 step into a zeroed tile of its own,
+// added at once, and the two correction products, 2^-11 of the size, into
+// another tile added once per chunk (`python -m
+// isopoints_torch.kernel_variants` times each arrangement and reads its
+// error).
 // The first layer (K = 3) and the head (N = 1) run on the CUDA cores in
 // f32, and so do biases and the whole epilogue: softplus (igr.cuh) as
 // logaddexp(beta z, 0) / beta with the accurate expf/log1pf (never
-// -use_fast_math), and the skip without a concatenation (the layer before a
+// -use_fast_math), or SIREN's sine with the accurate sinf/sincosf (never
+// __sinf: SIREN arguments reach |omega z| ~ 100, where the fast
+// intrinsic's error is far above 5e-5), and the IGR skip without a
+// concatenation (the layer before a
 // skip has H - 3 outputs, packed as H with three zero rows of W and zero
 // biases; its last three columns are overwritten by the point, or e_k on
 // tangent rows, and the row scaled by 1/sqrt(2), which is the JAX kernel's
@@ -65,8 +82,14 @@
 // Bound on an H100: the tensor cores do 2*128*H*H FLOP per block and layer
 // (3x that in f32 mode, at half the bf16 rate), while the epilogue computes
 // one softplus (expf, log1pf, a division; on value rows also the sigmoid's
-// expf and division) per activation on the CUDA cores. At H = 256 the
-// epilogue is the larger part; see fused_igr.cu.
+// expf and division) or one sine per activation on the CUDA cores. At H =
+// 256 the IGR epilogue is the larger part; see fused_igr.cu.
+//
+// Row groups. A tile of RG row groups has 32 RG rows and 128 RG threads.
+// Every block streams the whole weight stack, so the more rows share it the
+// less each row pays (RG = 4 at large launches); a launch of a few thousand
+// points fills the card's 132 SMs only with smaller tiles (RG = 1 in
+// fused_mlp.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,7 +98,7 @@
 
 #include "igr.cuh"
 
-namespace igr_mma {
+namespace mlp_mma {
 
 constexpr int kThreads = 512;    // 16 warps: 4 row groups x 4 column quarters
 constexpr int kRows = 128;       // MMA rows per block
@@ -94,6 +117,32 @@ struct Net {
   int n_hidden;       // L
   unsigned skip;      // bit l set: layer l (1 <= l <= L + 1) takes [h, x] / sqrt(2)
   int final_tanh;
+  float omega_first;   // SIREN: the first layer's omega (SirenAct only)
+  float omega_hidden;  // SIREN: the other layers' omega (SirenAct only)
+};
+
+// The activation after every layer but the head: a = act(z) and, where the
+// tangent rows need it (kGrad), d = act'(z).
+struct IgrAct {  // softplus(beta z) / beta, beta = 100; omega unused
+  template <bool kGrad>
+  __device__ static __forceinline__ void apply(float z, float, float& a, float& d) {
+    igr::softplus(z, a, d);
+  }
+};
+
+struct SirenAct {  // sin(omega z), omega cos(omega z)
+  template <bool kGrad>
+  __device__ static __forceinline__ void apply(float z, float omega, float& a, float& d) {
+    const float w = __fmul_rn(omega, z);
+    if constexpr (kGrad) {
+      float c;
+      sincosf(w, &a, &c);
+      d = __fmul_rn(omega, c);
+    } else {
+      a = sinf(w);
+      d = 0.f;
+    }
+  }
 };
 
 struct Bf16Mode {
@@ -118,10 +167,11 @@ __host__ __device__ constexpr int stage_bytes(int hidden) {
   return (Mode::kSplit ? 2 : 1) * hidden * kPitchW;
 }
 
-// dynamic shared memory of one block: activations, two weight stages, points
-template <class Mode, int C>
+// dynamic shared memory of one block of RG row groups: activations, two
+// weight stages, points
+template <class Mode, int C, int RG = 4>
 __host__ __device__ constexpr int smem_bytes(int hidden) {
-  return kRows * pitch_a<Mode>(hidden) + 2 * stage_bytes<Mode>(hidden) + (kRows / C) * 3 * 4;
+  return 32 * RG * pitch_a<Mode>(hidden) + 2 * stage_bytes<Mode>(hidden) + (32 * RG / C) * 3 * 4;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -216,13 +266,13 @@ __device__ __forceinline__ void store_col(unsigned char* act, int p, int c, floa
 }
 
 // First layer (3 inputs) on the CUDA cores, straight from the points xs
-// (kRows / C, 3), into the activation tile.
-template <class Mode, int H, int C>
+// (32 RG / C, 3), into the activation tile.
+template <class Mode, class Act, int H, int C, int RG>
 __device__ void layer0(const Net& net, const float* xs, unsigned char* act) {
-  constexpr int P = kRows / C;
+  constexpr int P = 32 * RG / C;
   constexpr bool kBf16 = !Mode::kSplit;
   const bool skip = (net.skip >> 1) & 1u;
-  for (int e = threadIdx.x; e < P * H; e += kThreads) {
+  for (int e = threadIdx.x; e < P * H; e += 128 * RG) {
     const int p = e / H, c = e - p * H;
     const float* x = xs + p * 3;
     const float x0 = igr::operand(x[0], kBf16), x1 = igr::operand(x[1], kBf16),
@@ -231,7 +281,7 @@ __device__ void layer0(const Net& net, const float* xs, unsigned char* act) {
     const float w0 = __ldg(w), w1 = __ldg(w + 1), w2 = __ldg(w + 2);
     const float z = __fadd_rn(fmaf(x2, w2, fmaf(x1, w1, __fmul_rn(x0, w0))), __ldg(net.b0 + c));
     float a, d;
-    igr::softplus(z, a, d);
+    Act::template apply<C == 4>(z, net.omega_first, a, d);
     const float t[3] = {w0, w1, w2};
     store_col<Mode, H, C>(act, p, c, a, d, t, x, skip);
   }
@@ -286,20 +336,30 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[2][NT][4], const unsigned
       ldsm_x4(b_addr + (part * H + nt * 8) * kPitchW, b[part]);
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      float t[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        if constexpr (Mode::kSplit) {  // small terms first
-          mma_tf32(t, lo[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
-          mma_tf32(t, a[ks][mt], b[1][2 * ks], b[1][2 * ks + 1]);
-          mma_tf32(t, a[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
-        } else {
-          mma_bf16(t, a[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
-        }
-      }
       float(&d)[4] = acc[mt][nt];
+      if constexpr (Mode::kSplit) {
+        // the correction products (lo*hi, hi*lo) in a tile of their own,
+        // added once per chunk; hi*hi of each k-step into a zeroed tile,
+        // added at once (see "Accumulation")
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);
+        for (int ks = 0; ks < KS; ++ks) {
+          mma_tf32(c, lo[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
+          mma_tf32(c, a[ks][mt], b[1][2 * ks], b[1][2 * ks + 1]);
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(t, a[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], c[i]);
+      } else {
+        float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) mma_bf16(t, a[ks][mt], b[0][2 * ks], b[0][2 * ks + 1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[i] = __fadd_rn(d[i], t[i]);
+      }
     }
   }
 }
@@ -307,7 +367,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[2][NT][4], const unsigned
 // Bias, softplus and the operand store of hidden layer l from the warp's
 // accumulators (c0, c1: row g, columns 2t, 2t+1 of an n8 tile; c2, c3: row
 // g + 8).
-template <class Mode, int H, int C, int NT>
+template <class Mode, class Act, int H, int C, int NT>
 __device__ __forceinline__ void epilogue(const float (&acc)[2][NT][4], const Net& net, int l,
                                          const float* xs, unsigned char* act) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -326,14 +386,15 @@ __device__ __forceinline__ void epilogue(const float (&acc)[2][NT][4], const Net
         for (int r = 0; r < 4; ++r) {  // rows g, g + 8 of m-tile 0, then of m-tile 1
           const int p = wr * 32 + r * 8 + g;
           float a, d;
-          igr::softplus(__fadd_rn(acc[r >> 1][nt][(r & 1) * 2 + e], bc), a, d);
+          Act::template apply<false>(__fadd_rn(acc[r >> 1][nt][(r & 1) * 2 + e], bc),
+                                     net.omega_hidden, a, d);
           const float none[3] = {0.f, 0.f, 0.f};
           store_col<Mode, H, 1>(act, p, c, a, d, none, xs + p * 3, skip);
         }
       } else {
         const int p = wr * 8 + g;
         float a, d;
-        igr::softplus(__fadd_rn(acc[0][nt][e], bc), a, d);
+        Act::template apply<true>(__fadd_rn(acc[0][nt][e], bc), net.omega_hidden, a, d);
         const float tq[3] = {acc[0][nt][2 + e], acc[1][nt][e], acc[1][nt][2 + e]};
         store_col<Mode, H, 4>(act, p, c, a, d, tq, xs + p * 3, skip);
       }
@@ -342,13 +403,13 @@ __device__ __forceinline__ void epilogue(const float (&acc)[2][NT][4], const Net
 }
 
 // Head (out_dim 1): one warp-shuffle dot product per row, then tanh; the
-// block's points p0 .. p0 + kRows / C written to val (and grad).
+// block's points p0 .. p0 + 32 RG / C written to val (and grad).
 template <class Mode, int H, int C>
 __device__ void head(const Net& net, const unsigned char* act, int p0, int n, float* val,
                      float* grad) {
   constexpr int NJ = H / 32;
   constexpr int kPitch = pitch_a<Mode>(H);
-  constexpr int kPerWarp = kRows / C / (kThreads / 32);
+  constexpr int kPerWarp = 32 / C / 4;  // a row group's points over its 4 warps
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float wo[NJ];
 #pragma unroll
@@ -385,17 +446,18 @@ __device__ void head(const Net& net, const unsigned char* act, int p0, int n, fl
   }
 }
 
-// The whole MLP on one tile: the block-local points xs (kRows / C, 3, shared
-// memory) -> val[p0 + p] (and grad[p0 + p], C == 4) for every p with
-// p0 + p < n; val and grad may be shared or device memory. act holds the
-// kRows activation rows (pitch_a<Mode>(H) bytes each) and wbuf the two
+// The whole MLP on one tile of RG row groups (blockDim.x = 128 RG): the
+// block-local points xs (32 RG / C, 3, shared memory) -> val[p0 + p] (and
+// grad[p0 + p], C == 4) for every p with p0 + p < n; val and grad may be
+// shared or device memory. act holds the
+// 32 RG activation rows (pitch_a<Mode>(H) bytes each) and wbuf the two
 // weight stages (stage_bytes<Mode>(H) each). The hidden layers' weights
 // stream through wbuf in 64-byte k-chunks by `cp.async`, the next chunk (also
 // the next layer's first) in flight while the current one is multiplied.
 // Every thread of the block calls it. It starts with a barrier, so the
 // caller's writes of xs need none, and ends with one, so the caller may read
 // val and overwrite xs right after it.
-template <class Mode, int H, int C>
+template <class Mode, int H, int C, class Act = IgrAct, int RG = 4>
 __device__ void tile(const Net& net, const float* xs, unsigned char* act, unsigned char* wbuf,
                      int p0, int n, float* val, float* grad) {
   constexpr int NT = H / 32;  // n8 tiles of a warp's column quarter
@@ -413,7 +475,7 @@ __device__ void tile(const Net& net, const float* xs, unsigned char* act, unsign
 #pragma unroll
     for (int part = 0; part < kParts; ++part) {
       const unsigned char* src = wsrc[part] + (size_t)l * H * H * Mode::kEsz + c * kChunkBytes;
-      for (int e = threadIdx.x; e < H * 4; e += kThreads) {
+      for (int e = threadIdx.x; e < H * 4; e += 128 * RG) {
         const int r = e >> 2, q = e & 3;
         cp_async16(dst + part * H * kPitchW + r * kPitchW + q * 16,
                    src + (size_t)r * H * Mode::kEsz + q * 16);
@@ -423,7 +485,7 @@ __device__ void tile(const Net& net, const float* xs, unsigned char* act, unsign
   };
   if (total > 0) issue(0);  // in flight during the first layer
   __syncthreads();          // the points visible, the last tile's reads of act done
-  layer0<Mode, H, C>(net, xs, act);
+  layer0<Mode, Act, H, C, RG>(net, xs, act);
 
   float acc[2][NT][4];
 #pragma unroll
@@ -445,7 +507,7 @@ __device__ void tile(const Net& net, const float* xs, unsigned char* act, unsign
     mma_chunk<Mode, H, NT>(acc, act, wbuf + (s & 1) * kStage, c);
     if (c == kChunks - 1) {
       __syncthreads();  // every warp done reading the operand
-      epilogue<Mode, H, C, NT>(acc, net, l, xs, act);
+      epilogue<Mode, Act, H, C, NT>(acc, net, l, xs, act);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -460,4 +522,4 @@ __device__ void tile(const Net& net, const float* xs, unsigned char* act, unsign
   __syncthreads();  // val written; xs and act free for the next tile
 }
 
-}  // namespace igr_mma
+}  // namespace mlp_mma

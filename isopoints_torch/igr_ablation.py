@@ -3,7 +3,7 @@
     python -m isopoints_torch.igr_ablation
 
 Builds two variants of csrc/fused_igr.cu beside the kernel itself, each
-missing one part of the work of igr_mma.cuh's tile: `no_epilogue` (every
+missing one part of the work of mlp_mma.cuh's tile: `no_epilogue` (every
 softplus replaced by a max, so the accurate expf/log1pf and divisions are
 gone) and `no_mma` (the tensor-core products left out, so the layers are
 the epilogue over the biases). Times all three with CUDA events (median of
@@ -38,14 +38,14 @@ def _build_variant(name: str):
     d = os.path.join(OUT, name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC, d)
-    hdr = os.path.join(d, "igr_mma.cuh")
+    hdr = os.path.join(d, "mlp_mma.cuh")
     h = open(hdr).read()
     if name == "no_epilogue":
-        h = h.replace("namespace igr_mma {", "namespace igr_mma {\n" + _CHEAP, 1)
+        h = h.replace("namespace mlp_mma {", "namespace mlp_mma {\n" + _CHEAP, 1)
         h = h.replace("igr::softplus(", "cheap_softplus(")
     elif name == "no_mma":
         if _MMA_CALL not in h:
-            raise RuntimeError("igr_mma.cuh no longer calls mma_chunk as expected")
+            raise RuntimeError("mlp_mma.cuh no longer calls mma_chunk as expected")
         h = h.replace(_MMA_CALL, "")
     with open(hdr, "w") as f:
         f.write(h)

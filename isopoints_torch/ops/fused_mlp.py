@@ -2,19 +2,25 @@
 
 SIREN. Replaces `make_fused_siren_sdf` / `_siren_kernel` of
 isopoints_tpu/ops/pallas_mlp.py (:250, :309). The kernel
-(csrc/fused_mlp.cu + csrc/siren.cuh) evaluates the whole SIREN stack per
-64-row tile with the activations in shared memory, in plain f32 FMA, and
-with `with_grad` also the input gradient as three forward-mode tangent
-rows per point. Its bound on an H100: 2(3H + L·H² + H) FLOP per value
-eval (~0.40 MFLOP at 3×256), about 4x that with the gradient, as three
-tf32 passes over the tf32 tensor-core peak, the least time f32 products
-take on the card. Only the f32 mode is ported; the bf16 mode comes
-with the next slice (ROADMAP "Slices of the port").
+(csrc/fused_mlp.cu on csrc/mlp_mma.cuh, the tensor-core tile the IGR
+kernels use, with the sine as its activation) evaluates the whole SIREN
+stack per tile with the activations in shared memory, the hidden products
+as 3xTF32 on the tensor cores (the weights split once on the host,
+`SirenPack.mma_net`), the first layer, head and sine epilogue in f32 on
+the CUDA cores, and with `with_grad` also the input gradient as three
+forward-mode tangent rows per point. A launch takes tiles of 128 rows, or
+of 32 where 128-row tiles would leave half the SMs idle. Its bound on an H100:
+2(3H + L·H² + H) FLOP per value eval (~0.40 MFLOP at 3×256), about 4x
+that with the gradient, as three tf32 passes over the tf32 tensor-core
+peak. Only the f32 mode is ported; the bf16 mode comes with the next
+slice (ROADMAP "Slices of the port"). The SIREN sampler
+(ops/fused_sampler.py) still evaluates on csrc/siren.cuh's f32 FMA tile,
+from `SirenPack.kernel_args`.
 
 IGR. Replaces `make_fused_igr_sdf` / `_igr_kernel` (pallas_mlp.py:417,
 :489) for an `SDFField` without positional encoding: softplus(β=100)
 layers, the input concatenated back and scaled by 1/√2 at `skip_in`,
-optional final tanh. The kernel (csrc/fused_igr.cu + csrc/igr_mma.cuh)
+optional final tanh. The kernel (csrc/fused_igr.cu + csrc/mlp_mma.cuh)
 runs the hidden products on the tensor cores (`mma.sync`, 128 rows per
 block, the tangent rows of `with_grad` as extra rows) and the first
 layer, the head and the softplus epilogue on the CUDA cores in f32. Two
@@ -74,8 +80,8 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp")
-    lib.siren_forward.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _F, _F, _P, _P, _P]
+    lib.siren_forward.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _F, _F, _P, _P, _P]
     lib.siren_forward.restype = _I
     return lib
 
@@ -95,10 +101,30 @@ def _check_hidden(h: int, what: str) -> None:
                          f"is a multiple of 32 in [32, 256], got {h}")
 
 
+def _round_bf16(a: torch.Tensor) -> torch.Tensor:
+    """Round to the nearest bf16 (ties to even), kept as float32."""
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """Round float32 to the nearest tf32 (10 mantissa bits), ties away from
+    zero, as `cvt.rna.tf32.f32` does: add half an ulp to the magnitude's
+    bits and clear the low 13."""
+    bits = a.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(a) and lo = tf32(a − hi): the operand split of
+    the kernel's 3xTF32 products."""
+    hi = tf32_round(a)
+    return hi, tf32_round(a - hi)
+
+
 class SirenPack:
     """Detached SIREN weights: the (out, in) layers for the plain version,
-    and on first CUDA use the kernel's layout (hidden layers stacked as
-    W^T)."""
+    and on first CUDA use the kernels' layouts: `mma_net` for the fused
+    MLP's tensor-core tile, `kernel_args` for the sampler's f32 FMA tile."""
     kind = "siren"
 
     def __init__(self, field: SirenField):
@@ -110,10 +136,37 @@ class SirenPack:
         self.omega_hidden = float(field.hidden_omega_0)
         self.device = self.ws[0].device
         self._kernel_args = None
+        self._mma_net = None
+
+    def mma_net(self) -> Tuple[List[torch.Tensor], Tuple]:
+        """(tensors kept alive, pointer/int/float args) of the fused MLP's
+        tensor-core tile (mlp_mma.cuh): w0 (H, 3), b0 (H,), wh and wh_lo,
+        the hidden layers (L, H, H) as (out, in), the K-major B operand,
+        split into tf32 hi and lo (`tf32_split`), bh (L, H), wout (H,),
+        bout (1,); then hidden, n_hidden, ω₀, ω."""
+        if self._mma_net is None:
+            h = self.hidden
+            _check_hidden(h, "SIREN")
+            ws, bs = self.ws, self.bs
+            for t in ws + bs:
+                if t.dtype != torch.float32:
+                    raise TypeError("the CUDA SIREN kernel takes float32 weights")
+            mid = ws[1:-1]
+            wh = (torch.stack(mid) if mid else
+                  torch.zeros((0, h, h), dtype=torch.float32, device=self.device))
+            bh = (torch.stack(bs[1:-1]) if mid else
+                  torch.zeros((0, h), dtype=torch.float32, device=self.device))
+            tensors = [t.contiguous() for t in
+                       (ws[0], bs[0], *tf32_split(wh), bh, ws[-1].reshape(-1),
+                        bs[-1])]
+            self._mma_net = (tensors, tuple(t.data_ptr() for t in tensors) + (
+                h, self.n_hidden, self.omega_first, self.omega_hidden))
+        return self._mma_net
 
     def kernel_args(self) -> Tuple:
-        """(tensors kept alive, pointer/int/float args) for the launchers:
-        w0, b0, wh_t, bh, wout, bout, hidden, n_hidden, ω₀, ω."""
+        """(tensors kept alive, pointer/int/float args) for the sampler's
+        f32 FMA tile (siren.cuh): w0, b0, wh_t, bh, wout, bout, hidden,
+        n_hidden, ω₀, ω."""
         if self._kernel_args is None:
             h = self.hidden
             _check_hidden(h, "SIREN")
@@ -187,7 +240,7 @@ def siren_forward_cuda(pack: SirenPack, x: torch.Tensor, with_grad: bool
     if not x.is_cuda or not x.is_contiguous():
         raise ValueError("siren_forward_cuda takes a contiguous CUDA tensor")
     lib = _lib()
-    _, wargs = pack.kernel_args()
+    _, wargs = pack.mma_net()
     val, grad = _outputs(x, with_grad)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.launches += 1
@@ -200,26 +253,6 @@ def siren_forward_cuda(pack: SirenPack, x: torch.Tensor, with_grad: bool
 # ---------------------------------------------------------------------------
 # IGR
 # ---------------------------------------------------------------------------
-
-def _round_bf16(a: torch.Tensor) -> torch.Tensor:
-    """Round to the nearest bf16 (ties to even), kept as float32."""
-    return a.to(torch.bfloat16).to(torch.float32)
-
-
-def tf32_round(a: torch.Tensor) -> torch.Tensor:
-    """Round float32 to the nearest tf32 (10 mantissa bits), ties away from
-    zero, as `cvt.rna.tf32.f32` does: add half an ulp to the magnitude's
-    bits and clear the low 13."""
-    bits = a.to(torch.float32).contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) with hi = tf32(a) and lo = tf32(a − hi): the operand split of
-    the kernel's 3xTF32 products."""
-    hi = tf32_round(a)
-    return hi, tf32_round(a - hi)
-
 
 class IgrPack:
     """Detached IGR weights of an `SDFField` without positional encoding,
@@ -257,7 +290,7 @@ class IgrPack:
     def mma_net(self, bf16: bool
                 ) -> Tuple[List[torch.Tensor], List[Optional[int]]]:
         """(tensors kept alive, pointers) of the tensor-core tile's layout
-        (igr_mma.cuh), which the fused IGR kernel, the IGR sampler and the
+        (mlp_mma.cuh), which the fused IGR kernel, the IGR sampler and the
         march read: w0 (H, 3), b0 (H,), wh, wh_lo, bh (L, H), wout (H,),
         bout (1,), each layer zero-padded to H outputs. The hidden layers
         stay (L, H, H) as (out, in), the K-major B operand: in bf16 as

@@ -4,9 +4,18 @@ plain version (port of isopoints_tpu/ops/neighbors.py `knn_points` and
 
 The kernel (csrc/knn.cu) replaces `_knn_kernel` of
 isopoints_tpu/ops/pallas_knn.py (:83, wrapper `knn_points_pallas` :286):
-one thread per query streams the points through shared memory and keeps a
-sorted insertion list of its k <= 16 best. Bound on an H100: the f32
-CUDA-core rate over the N·P distance evaluations.
+a group of 16 lanes serves one query, each lane scanning a strided share
+of the points from shared memory, and the group keeps one sorted list of
+the k <= 16 best by (distance, index), an entry a lane, whose k-th entry
+bounds which points are candidates; a candidate is inserted by a ballot
+and a shuffle. From `SORT_MIN` points on, the wrapper first orders the
+points (and the queries, when they are the points) by Morton code, on the
+card (`knn_morton_codes`, then `torch.sort`), and the kernel skips every
+64-point block of that order whose bounding box cannot hold a point
+nearer than the bound, and every tile no query of a block needs: the TPU
+kernel's pruning. Below it the sort's launches cost more than the pruning
+saves. Bound on an H100: the f32 CUDA-core rate over the N·P distance
+evaluations.
 
 `knn_points(..., method="auto")` launches the kernel for CUDA tensors
 (k <= 16, the TPU kernel's limit; larger k on CUDA raises) and runs the
@@ -31,6 +40,7 @@ from isopoints_torch.utils import fma
 
 KERNEL = _build.LaunchCount("knn")
 MAX_K = 16
+SORT_MIN = 16384   # points from which the kernel runs on the Morton order
 _BIG = 1e10
 _BLOCK = 1024
 
@@ -41,8 +51,11 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("knn")
-    lib.knn_forward.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.knn_forward.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _P, _P, _P]
     lib.knn_forward.restype = _I
+    lib.knn_morton_codes.argtypes = [_P, _P, _I, _I, _P, _P]
+    lib.knn_morton_codes.restype = _I
     return lib
 
 
@@ -123,20 +136,37 @@ def knn_points_cuda(query: torch.Tensor, points: torch.Tensor,
     p = points.shape[1]
     if exclude_self and n != p:
         raise ValueError("exclude_self needs query IS points (n == p)")
+    if query_mask.dtype != torch.bool or points_mask.dtype != torch.bool:
+        raise TypeError("knn_points_cuda takes bool masks")
     q = query.contiguous()
     pts = points.contiguous()
-    qm = query_mask.to(torch.uint8).contiguous()
-    pm = points_mask.to(torch.uint8).contiguous()
+    qm = query_mask.contiguous()   # bool: one byte, 0 or 1, as the kernel reads it
+    pm = points_mask.contiguous()
     dists = torch.empty((b, n, k), dtype=torch.float32, device=q.device)
-    idx = torch.empty((b, n, k), dtype=torch.int32, device=q.device)
+    idx = torch.empty((b, n, k), dtype=torch.int64, device=q.device)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    order = box = q_order = None
+    if p >= SORT_MIN:
+        code = torch.empty((b, p), dtype=torch.int32, device=q.device)
+        err = lib.knn_morton_codes(pts.data_ptr(), pm.data_ptr(), b, p,
+                                   code.data_ptr(), stream)
+        _build.check_launch(lib, err, "knn (Morton codes)")
+        order = torch.sort(code, dim=1).indices
+        box = torch.empty((b, -(-p // 64), 8), dtype=torch.float32, device=q.device)
+        if (query.data_ptr() == points.data_ptr() and n == p
+                and query_mask.data_ptr() == points_mask.data_ptr()):
+            q_order = order   # queries are the points: take them in the same order
+    ptr = lambda t: None if t is None else t.data_ptr()
     KERNEL.launches += 1
     err = lib.knn_forward(q.data_ptr(), qm.data_ptr(), pts.data_ptr(),
-                          pm.data_ptr(), b, n, p, k, int(exclude_self),
-                          dists.data_ptr(), idx.data_ptr(), stream)
+                          pm.data_ptr(), ptr(q_order), ptr(order), ptr(box), b,
+                          n, p, k, int(exclude_self), dists.data_ptr(),
+                          idx.data_ptr(), stream)
     _build.check_launch(lib, err, "knn")
-    return _finish(dists, idx.long(), query_mask, k)
+    # the kernel leaves -1 and 1e10 in every empty entry and on every
+    # column of a masked query, as `_finish` does for the plain version
+    return KNNResult(dists=dists, idx=idx, mask=idx >= 0)
 
 
 def knn_points(query: torch.Tensor, points: torch.Tensor,

@@ -23,6 +23,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from isopoints_tpu.config import default_config_path, load_config as j_load
@@ -40,6 +41,17 @@ from isopoints_torch.data.synthetic import make_synthetic_mvr, sphere_sdf
 from isopoints_torch.factories import create_model, create_trainer
 from isopoints_torch.models.combined import ProjectedDraws
 from isopoints_torch.training.trainer import StepDraws
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and OpenMP pools that each take every core stall one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(ROOT, "configs", "synthetic_sphere_iso.yml")

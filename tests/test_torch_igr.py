@@ -45,6 +45,16 @@ from isopoints_torch.models import fields as tf
 from isopoints_torch.ops import fused_mlp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and OpenMP pools that each take every core stall one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(hidden=64, n_layers=4, num_frequencies=0, seed=0, **kw):
     jfield = jf.SDFField(hidden_size=hidden, n_layers=n_layers,
                          num_frequencies=num_frequencies, **kw)
@@ -180,7 +190,7 @@ def test_plain_grad_matches_autograd(igr64):
 
 
 def _kernel_model(pack, x, bf16):
-    """The kernels' padded layout (csrc/igr_mma.cuh) in float32 PyTorch:
+    """The kernels' padded layout (csrc/mlp_mma.cuh) in float32 PyTorch:
     first layer from (H, 3), hidden layers from W (out, in), in f32 the
     tf32 hi + lo parts summed back in f32, in bf16 the bf16 pack; the skip
     written into the last three columns and the row scaled by 1/√2,
@@ -259,7 +269,7 @@ def _mm3(a: torch.Tensor, w_hi: torch.Tensor, w_lo: torch.Tensor) -> torch.Tenso
 
 
 def _tf32x3_model(pack, x):
-    """The f32 mode of the fused IGR kernel (csrc/igr_mma.cuh) on its
+    """The f32 mode of the fused IGR kernel (csrc/mlp_mma.cuh) on its
     tensor-core pack: first layer and head in float32, hidden products of
     values and tangent rows in 3xTF32, the skip as the kernel writes it."""
     (w0, b0, wh, wh_lo, bh, wout, bout), _ = pack.mma_net(False)

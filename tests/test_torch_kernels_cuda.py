@@ -7,16 +7,22 @@ machine without it:
     python -m pytest --noconftest -o addopts="" tests/test_torch_kernels_cuda.py
 
 The kNN, splat-selection and fine-stage kernels are held against their
-plain versions on the same inputs: kNN distances within 1e-6 and index
-sets equal except at near-ties (both form the distance with the same
-fused multiply-adds, so they agree exactly in practice); candidate SETS and
+plain versions on the same inputs: kNN distances, indices and masks equal
+bit for bit (both form the distance with the same fused multiply-adds and
+rank by (distance, index)), also on adversarial clouds (exact duplicates,
+an integer lattice, masked points and queries, two clusters far apart, k
+= 1, 8, 16, with and without self-exclusion; two of them past
+knn.SORT_MIN, on the Morton order with pruning); candidate SETS and
 overflow counts equal (the kernel lists a tile's candidates in index
 order, the plain version by depth); fragment maps, occupancy, used flags
 and visibility identical, conic values within 1e-6.
 
 Tolerances: MLP values atol 2e-5 and input gradients atol 1e-4 + rtol 1e-4
-(float32 FMA in the kernel against cuBLAS float32 in the twin; ω = 30
-sine layers amplify the round-off of the gradient). Sampler: the picked
+(3xTF32 tensor-core sums in the kernel against cuBLAS float32 in the twin;
+ω = 30 sine layers amplify the round-off of the gradient), at hidden
+widths 64, 128 and 256 and at launches of both tile sizes (32 and 128
+rows); the fused MLP's and the IGR kernels' libraries hold tensor-core
+instructions (HMMA) in their SASS. Sampler: the picked
 depths must be equal on all but 0.1% of rays (a pick flips only where two
 proposal values tie within round-off), and on equal picks f_pick agrees to
 1e-5 and the secant depth to 1e-4 on rays with a sign change.
@@ -31,8 +37,12 @@ per-pixel arithmetic, summed in another order), bit for bit on a repeat;
 gradients through `rasterize_splats` with every kernel against every plain
 version: xy as the occupancy kernel, z within 1e-5 relative.
 
-IGR (fused_igr, the IGR sampler and the march, all three on igr_mma.cuh's
-tensor-core tile): f32 (3xTF32) values atol 2e-5 and gradients
+IGR (fused_igr, the IGR sampler and the march, all three on mlp_mma.cuh's
+tensor-core tile): the outputs the kernels gave before the tile took the
+activation and the row groups as parameters and the f32 mode's sums were
+repaired (`isopoints_torch.igr_reference`, saved in
+tests/data/igr_reference.pt), bit for bit in the bf16 mode and within a
+tenth of the f32 tolerances in the f32 mode; f32 (3xTF32) values atol 2e-5 and gradients
 atol 1e-4 + rtol 1e-4 as for SIREN. bf16: kernel and plain version round
 the same operands, so they differ only where a sum formed another way
 lands on the other side of a bf16 rounding boundary: all within the
@@ -54,14 +64,19 @@ bench schedule with the march equals the loop route.
 """
 
 import dataclasses
+import os
+import shutil
+import subprocess
 
 import pytest
 import torch
 
+from chip_smoke import knn_clouds
+from isopoints_torch import igr_reference
 from isopoints_torch.models.fields import SDFField, SirenField
 from isopoints_torch.models.raytracing import (RayTracingConfig, march_plain,
                                                ray_trace)
-from isopoints_torch.ops import fused_mlp, fused_sampler, fused_trace, knn
+from isopoints_torch.ops import _build, fused_mlp, fused_sampler, fused_trace, knn
 from isopoints_torch.rendering import occ_bwd, select, splat
 from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                   rasterize_splats)
@@ -96,8 +111,9 @@ def _rays(dev, n, seed=1):
     return cam, d, t_lo, t_hi
 
 
-@pytest.mark.parametrize("hidden,n_layers,n", [(64, 2, 1000), (256, 3, 5000),
-                                               (96, 0, 77)])
+@pytest.mark.parametrize("hidden,n_layers,n", [(64, 2, 1000), (128, 3, 4096),
+                                               (256, 3, 4096), (256, 3, 5000),
+                                               (256, 3, 40000), (96, 0, 77)])
 def test_fused_mlp_matches_twin(dev, hidden, n_layers, n):
     field, sdf = _sdf(dev, hidden, n_layers)
     x = torch.rand(n, 3, device=dev) * 2 - 1
@@ -112,6 +128,15 @@ def test_fused_mlp_matches_twin(dev, hidden, n_layers, n):
     torch.testing.assert_close(g, g_ref, atol=1e-4, rtol=1e-4)
     with torch.no_grad():
         torch.testing.assert_close(v, field.sdf(x), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("lib", ["fused_mlp", "fused_igr", "fused_sampler",
+                                 "fused_trace"])
+def test_tensor_core_instructions_in_sass(dev, lib):
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass", _build.build_all()[lib]],
+                          capture_output=True, text=True, check=True).stdout
+    assert sum("HMMA" in line for line in sass.splitlines()) > 0
 
 
 def test_fused_mlp_checks_inputs(dev):
@@ -182,10 +207,26 @@ def test_knn_kernel_matches_plain(dev, p, k):
     assert knn.KERNEL.launches == before + 1
     b = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True,
                        method="dense")
-    assert torch.equal(a.mask, b.mask)
-    torch.testing.assert_close(a.dists, b.dists, atol=1e-6, rtol=0)
-    diff = a.idx != b.idx
-    assert not diff.any() or float((a.dists - b.dists)[diff].abs().max()) < 1e-6
+    assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
+    assert torch.equal(a.dists, b.dists)
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 16])
+@pytest.mark.parametrize("cloud", range(7))
+def test_knn_kernel_adversarial_clouds(dev, cloud, k, exclude_self):
+    """Exact duplicates, an integer lattice, masked points and queries, a
+    masked cloud, two clusters far apart, and a lattice and masked points
+    and queries of 20,480 points, past knn.SORT_MIN, where the kernel runs
+    on the Morton order and prunes (chip_smoke.knn_clouds, B = 2)."""
+    _, q, pts, qm, pm, is_self = knn_clouds(dev)[cloud]
+    if exclude_self and not is_self:
+        pytest.skip("self-exclusion needs query IS points")
+    a = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=exclude_self)
+    b = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=exclude_self,
+                       method="dense")
+    assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
+    assert torch.equal(a.dists, b.dists)
 
 
 def test_knn_kernel_masks_and_queries(dev):
@@ -197,7 +238,7 @@ def test_knn_kernel_masks_and_queries(dev):
     a = knn.knn_points(q, pts, qm, pm, k=8)
     b = knn.knn_points(q, pts, qm, pm, k=8, method="dense")
     assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
-    torch.testing.assert_close(a.dists, b.dists, atol=1e-6, rtol=0)
+    assert torch.equal(a.dists, b.dists)
     with pytest.raises(ValueError, match="k <= 16"):
         knn.knn_points(q, pts, k=17)
 
@@ -571,3 +612,41 @@ def test_ray_trace_igr_schedule_kernels(dev):
     agree = a.network_object_mask == p.network_object_mask
     assert float(agree.float().mean()) >= 0.99
     assert _close_frac(a.dists, p.dists, 1e-4) >= 0.98
+
+
+def _igr_reference(dev):
+    """The outputs saved from the IGR kernels before the tile took the
+    activation and the row groups as parameters and the f32 mode's sums
+    were repaired, and this build's on the same inputs."""
+    ref = torch.load(os.path.join(os.path.dirname(__file__), "data",
+                                  "igr_reference.pt"), weights_only=True)
+    got = igr_reference.outputs(dev)
+    assert sorted(got) == sorted(ref)
+    return got, ref
+
+
+def test_igr_bf16_kernels_equal_the_saved_reference(dev):
+    """fused_igr's bf16 mode (value and value+grad) and the bench trace in
+    bf16 with the sampler and with the march: bit for bit."""
+    got, ref = _igr_reference(dev)
+    for name in (n for n in got if n.startswith("bf16")):
+        assert torch.equal(got[name], ref[name]), name
+
+
+def test_igr_f32_kernels_near_the_saved_reference(dev):
+    """The f32 mode's sums changed (each k8 step's hi·hi and the correction
+    products in tiles of their own): values within a tenth of the f32
+    tolerance, gradients within 1e-5·max(1, |g|), and the trace's masks
+    and depths as the plain route's tolerances of chip_smoke.py allow."""
+    got, ref = _igr_reference(dev)
+    for name in ("f32 value", "f32 value+grad: value"):
+        torch.testing.assert_close(got[name], ref[name], atol=2e-6, rtol=0)
+    g = ref["f32 value+grad: grad"]
+    torch.testing.assert_close(got["f32 value+grad: grad"], g, rtol=0,
+                               atol=1e-5 * max(1.0, float(g.abs().max())))
+    for route in ("sampler", "march"):
+        key = f"f32 trace ({route}): "
+        hit = got[key + "network_object_mask"] == ref[key + "network_object_mask"]
+        assert float(hit.float().mean()) >= 0.995
+        near = (got[key + "dists"] - ref[key + "dists"]).abs() <= 1e-4
+        assert float(near[hit].float().mean()) >= 0.99

@@ -35,6 +35,16 @@ from isopoints_torch.ops.points import midpoint_upsample
 from isopoints_torch.utils import top_k
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and OpenMP pools that each take every core stall one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _clouds(seed, b=2, n=300, p=700, frac=0.9):
     rng = np.random.RandomState(seed)
     # iso-point scale: inside the cube of side 1.5 the clouds live in

@@ -26,6 +26,17 @@ from isopoints_torch.models import raytracing as trt
 from isopoints_torch.models.fields import SirenField
 from isopoints_torch.ops import fused_mlp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and OpenMP pools that each take every core stall one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_RAYS = 128
 CFG = dict(n_steps=16, n_secant_steps=8)
 

@@ -39,6 +39,16 @@ from isopoints_torch.ops import fused_mlp, fused_sampler
 from isopoints_torch.utils import eps_denom, fma, linspace01
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and OpenMP pools that each take every core stall one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def samplers():
     jfield = JSiren(hidden_size=64, n_layers=2)

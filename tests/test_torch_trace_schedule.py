@@ -61,6 +61,17 @@ from isopoints_torch.models.levelset import project_points_newton
 from isopoints_torch.ops import fused_mlp, fused_sampler, fused_trace
 from isopoints_torch.training.trainer import compute_loss
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and OpenMP pools that each take every core stall one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 THR = 5e-5
 # bench.py:135-149, the production schedule
 BENCH = dict(sphere_tracing_iters=21, sampler_chunk_rays=8192,

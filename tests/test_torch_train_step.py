@@ -44,6 +44,17 @@ from isopoints_torch.training.trainer import (AdamState, MVRTrainer, StepDraws,
                                               TrainerConfig, clip_and_adam,
                                               compute_loss)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and OpenMP pools that each take every core stall one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_RAYS, N_EIK, N_STEPS = 128, 128, 100
 HP = {"lambda_rgb": 1.0, "lambda_freespace": 1.0, "lambda_occupied": 1.0,
       "sdf_alpha": 10.0, "lambda_eikonal": 0.01}
