@@ -11,7 +11,8 @@ Phases, each fatal on failure:
      and fused_trace (`cuobjdump --dump-sass`; none in any is a failure);
   2. each kernel against its plain PyTorch version at full width (seeded):
      the fused SIREN MLP (3x256) value and value+grad on 262,144 points and
-     the sampler on 16,384 rays; the kNN on sphere clouds (P=8000 k=6,
+     the sampler on 16,384 rays (also equal to sweep_plain over the fused
+     callable bit for bit: every point on fused_mlp's tile); the kNN on sphere clouds (P=8000 k=6,
      P=3000 k=8, P=6000 k=16, self-excluded) and on adversarial clouds
      (`knn_clouds`: exact duplicates, an integer lattice, masked points and
      queries, two clusters far apart, at ~3000 and at 20,480 points, past
@@ -107,7 +108,27 @@ Phases, each fatal on failure:
      non-zero, log_size none; the same step with every plain version (no
      launch; loss rtol 1e-5, gradients within phase 8's per-element bound);
      the kNN and both backward kernels launched; the step's time;
-  10. fused_mlp timed at every shape the projected run gave it; one JSON
+  10. the uni ablation arm's path, isopoints_torch/configs/mvr_uni_siren.yml
+     (SIREN 3x256 under the production trace schedule with the bf16 coarse
+     phase and the coarse sampler, the neural texture 3x128) through the
+     factories: 2 warm-up steps, the resample and 4 projected steps,
+     counters set to 0 before and read after, launches per step, fused_mlp's
+     launches by mode and shape (both modes must launch) and the sampler's
+     by sweep (the coarse sweep must launch); the warm-up, resample and
+     projected step times; one warm-up and one projected step with the
+     kernels and with the plain versions (the plain f32 and bf16 SIREN
+     values tracing the same schedule) on identical draws (phase 4's bars),
+     the texture's gradients of both finite and non-zero; the first warm-up
+     step's trace three ways (kernels, the SIREN march, plain): launches,
+     overflow 0, the converged-ray invariant as phase 6, the march route
+     equal to the loop route; the SIREN bf16 mode on 262,144 points and at
+     its most frequent shape held as phase 7 holds IGR's bf16 mode; the
+     SIREN sampler, coarse (margin 2e-3) and fine, on the trace's own
+     sampler buffer, bit for bit against sweep_plain over the fused
+     callables and against the plain version within phase 7's bars; the
+     SIREN march on the trace's first compacted stage, bit for bit against
+     march_plain over the fused callable and against the plain version;
+  11. fused_mlp timed at every shape the projected run gave it; one JSON
      line {"kernels": [...]} (each kernel timed at the shape the main path
      gives it most often), then the device line
      {"ok": true, "device": {...}}.
@@ -141,6 +162,7 @@ IGR_F32_TOL = 2e-5
 F32_EXACT_RATIO = 1.2
 N_WARMUP_SMOKE = 3
 N_PROJECTED = 6
+N_UNI_PROJECTED = 4
 NO_LIBRARY = ("no single PyTorch call computes this function")
 
 
@@ -255,7 +277,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     t_start = time.time()
     sys.path.insert(0, ROOT)
-    from isopoints_torch.config import load_config
+    from isopoints_torch.config import default_config_path, load_config
     from isopoints_torch.core.camera import (PerspectiveCamera,
                                              cameras_from_matrices,
                                              look_at_view_transform)
@@ -264,6 +286,7 @@ def main() -> None:
     from isopoints_torch.models.combined import back_camera
     from isopoints_torch.models.fields import SirenField, sdf_and_grad
     from isopoints_torch import bench
+    from isopoints_torch.models import implicit as implicit_mod
     from isopoints_torch.models import raytracing
     from isopoints_torch.models.raytracing import march_plain
     from isopoints_torch.ops import (_build, fused_mlp, fused_sampler,
@@ -358,6 +381,11 @@ def main() -> None:
         args = (cam, d, t_lo, t_hi, steps)
         out = sdf.fused_ray_sampler(*args, n_secant=n_secant)
         ref = fused_sampler.sweep_plain(plain, *args, n_secant)
+        # every point on fused_mlp's tile: sweep_plain over the fused callable
+        if not all(torch.equal(a, b) for a, b in zip(
+                out, fused_sampler.sweep_plain(sdf, *args, n_secant))):
+            fail(f"fused_sampler (SIREN) differs from sweep_plain over the fused "
+                 f"callable at {n_rays} rays")
         same = (out[0] == ref[0]) & (out[2] == ref[2])
         frac = 1.0 - float(same.float().mean())
         hit = same & (ref[1] < 0)
@@ -517,9 +545,10 @@ def main() -> None:
                             (torch.rand(100, generator=gen, device=dev), 0,
                              "random, no secant")):
         err, frac, ms, pms, (bms, by) = check_sampler(16_384, steps, ns)
-        print(f"fused_sampler {what} rays=16384: max_abs_err {err:.3g}  picks "
-              f"differing {frac:.2e}  kernel {ms:.3f} ms  plain {pms:.3f} ms  "
-              f"bound {bms:.3f} ms ({by})")
+        print(f"fused_sampler {what} rays=16384: equal to sweep_plain over the "
+              f"fused callable bit for bit; against the plain version max_abs_err "
+              f"{err:.3g}  picks differing {frac:.2e}  kernel {ms:.3f} ms  plain "
+              f"{pms:.3f} ms  bound {bms:.3f} ms ({by})")
     for p, k in ((8000, 6), (3000, 8), (6000, 16)):
         pts, _, mask = sphere_cloud(p, seed=p + k)
         knn_case(pts, mask, k, "sphere cloud")
@@ -536,7 +565,7 @@ def main() -> None:
     # ---- 3. the warm-up path: warm-up training steps through the factories
     def run_steps(cfg_name, n_steps):
         cfg = load_config(os.path.join(ROOT, "isopoints_torch", "configs",
-                                       cfg_name))
+                                       cfg_name), default_config_path())
         data = create_dataset(cfg, device=dev)
         images = torch.as_tensor(data["img.rgb"], device=dev)
         masks = torch.as_tensor(data["img.mask"], device=dev)
@@ -594,7 +623,11 @@ def main() -> None:
     def kernels_vs_plain(cfg, trainer, state, batch, it, loss_keys, project):
         """One step's loss with the kernels and with every plain version
         (fused MLP off, plain rasterizer stages, dense kNN) on the same
-        draws and the same iso-point buffer."""
+        draws and the same iso-point buffer. Under a coarse trace phase the
+        plain model traces with the plain f32 and bf16 SIREN values
+        (`PlainSDF`), the same schedule. With a neural texture the
+        texture's gradients of both runs must be finite and non-zero;
+        returns their largest difference over the plain run's largest."""
         model = trainer.model
         img, mask, cam = batch(it)
         n_pts = state.points.shape[1] if project else None
@@ -609,20 +642,29 @@ def main() -> None:
         plain_model.cfg = dataclasses.replace(model.cfg, use_fused_mlp=False)
         plain_model.raster_settings = dataclasses.replace(
             model.raster_settings, use_pallas=False)
-        res = {}
+        if model.trace_sdf_fn_coarse() is not None:
+            plain_model.trace_sdf_fn = lambda: fused_mlp.PlainSDF(
+                fused_mlp.SirenPack(plain_model.decoder))
+            plain_model.trace_sdf_fn_coarse = lambda: fused_mlp.PlainSDF(
+                fused_mlp.SirenPack(plain_model.decoder), "bf16")
+        textured = model.texture is not None
+        res, tex_grads = {}, {}
         knn_cuda = knn.knn_points_cuda
         for name, m in (("kernels", model), ("plain", plain_model)):
             if name == "plain":   # the plain run swaps the kNN kernel out too
                 knn.knn_points_cuda = knn.knn_points_dense
             try:
-                with torch.no_grad():
-                    _, met, _, _ = compute_loss(
+                with torch.set_grad_enabled(textured):
+                    total, met, _, _ = compute_loss(
                         m, state.points, state.points_mask, draws.pixels, img,
                         mask, cam, draws.eikonal, draws.u_minsdf, hp,
                         project=project, proj_draws=draws.projected)
+                    if textured:
+                        tex_grads[name] = torch.autograd.grad(
+                            total, list(m.texture.parameters()))
             finally:
                 knn.knn_points_cuda = knn_cuda
-            res[name] = {k: float(v) for k, v in met.items()}
+            res[name] = {k: float(v.detach()) for k, v in met.items()}
         print(f"reference check ({'projected' if project else 'warm-up'} step), "
               f"kernels vs plain versions on one step's draws: {res}")
         cap = (model.ccfg.max_iso_per_batch if project
@@ -633,6 +675,18 @@ def main() -> None:
             a, b = res["kernels"][k], res["plain"][k]
             if abs(a - b) > 1e-2 * abs(b) + 1e-6:
                 fail(f"{k}: kernel path {a} vs plain path {b} (rtol 1e-2)")
+        if not textured:
+            return None
+        for name, gs in tex_grads.items():
+            if not all(bool(torch.isfinite(g).all()) for g in gs) or \
+                    not any(bool((g != 0).any()) for g in gs):
+                fail(f"texture gradients of the {name} run are non-finite or zero")
+        scale = max(float(g.abs().max()) for g in tex_grads["plain"])
+        rel = max(float((a - b).abs().max()) for a, b in
+                  zip(tex_grads["kernels"], tex_grads["plain"])) / scale
+        print(f"  texture gradients finite and non-zero in both runs (max |g| "
+              f"{scale:.4g}); largest difference {rel:.3g} of it")
+        return rel
 
     (cfg, trainer, state, batch, step_ms, _, _, warm_launches,
      loss_keys, _) = run_steps("mvr_warmup_siren.yml", N_WARMUP_SMOKE)
@@ -650,7 +704,10 @@ def main() -> None:
     mlp_split = collections.Counter()
     siren_cuda = fused_mlp.siren_forward_cuda
 
-    def recording_siren(pack, x, with_grad):
+    def recording_siren(pack, x, with_grad, bf16=False):
+        if bf16:
+            fail("a bf16 fused_mlp launch on the projected path, which has no "
+                 "coarse phase")
         mlp_split[("value+grad" if with_grad else "value", x.shape[0])] += 1
         return siren_cuda(pack, x, with_grad)
 
@@ -1397,7 +1454,360 @@ def main() -> None:
     print(f"point model step (forward + backward): {point_ms:.3f} ms (median of "
           f"5 runs of {bench.SPLAT_REP})")
 
-    # ---- 10. the kernels line
+    # ---- 10. the uni arm's SIREN schedule with the neural texture
+    # fused_mlp's launches in the run by (mode, rows, points), and the
+    # sampler's by (sweep, rays, steps)
+    uni_mlp = collections.Counter()
+    uni_smp = collections.Counter()
+    sweep_cuda = fused_sampler.sweep_cuda
+    traces = []   # the warm-up steps' ray_trace calls, as (args, kwargs)
+    implicit_trace = implicit_mod.ray_trace
+
+    def recording_siren_modes(pack, x, with_grad, bf16=False):
+        uni_mlp[("bf16" if bf16 else "f32", "value+grad" if with_grad else "value",
+                 x.shape[0])] += 1
+        return siren_cuda(pack, x, with_grad, bf16)
+
+    def recording_sweep_cuda(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin,
+                             coarse_sweep=False, fine_bf16=False):
+        uni_smp[("coarse" if coarse_sweep else "fine", dirs.shape[0],
+                 steps.shape[0])] += 1
+        return sweep_cuda(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin,
+                          coarse_sweep, fine_bf16)
+
+    def recording_trace(*args, **kw):
+        traces.append((args, kw))
+        return implicit_trace(*args, **kw)
+
+    fused_mlp.siren_forward_cuda = recording_siren_modes
+    fused_sampler.sweep_cuda = recording_sweep_cuda
+    implicit_mod.ray_trace = recording_trace
+    try:
+        (u_cfg, u_trainer, u_state, u_batch, u_ms, u_metrics, u_per_step,
+         u_launches, u_keys, _) = run_steps("mvr_uni_siren.yml", 2 + 1 + N_UNI_PROJECTED)
+    finally:
+        fused_mlp.siren_forward_cuda = siren_cuda
+        fused_sampler.sweep_cuda = sweep_cuda
+        implicit_mod.ray_trace = implicit_trace
+    u_warm = u_trainer.cfg.warm_up_iters
+    print(f"uni SIREN path (mvr_uni_siren.yml): warm-up median "
+          f"{statistics.median(u_ms[:u_warm]):.2f} ms over {u_warm} steps, resample "
+          f"step (it={u_warm}) {u_ms[u_warm]:.1f} ms, projected median "
+          f"{statistics.median(u_ms[u_warm + 1:]):.2f} ms over "
+          f"{len(u_ms) - u_warm - 1} steps; launches in the run: {u_launches}")
+    for i, p in enumerate(u_per_step):
+        kind = ("warm-up" if i < u_warm else "resample" if i == u_warm
+                else "projected")
+        print(f"  step {i} ({kind}): launches {p}")
+    print(f"  fused_mlp launches in the run: {u_launches['fused_mlp']} = " + ", ".join(
+        f"{c} x {mode} {what} n={n}" for (mode, what, n), c in uni_mlp.most_common()))
+    print(f"  fused_sampler launches in the run: {u_launches['fused_sampler']} = "
+          + ", ".join(f"{c} x {sw} sweep, {r} rays x {ns} steps"
+                      for (sw, r, ns), c in uni_smp.most_common()))
+    uni_modes = collections.Counter()
+    for (mode, _, _), c in uni_mlp.items():
+        uni_modes[mode] += c
+    if sum(uni_mlp.values()) != u_launches["fused_mlp"] or min(
+            uni_modes["bf16"], uni_modes["f32"]) <= 0:
+        fail(f"fused_mlp's launches on the uni path {dict(uni_mlp)} do not add up "
+             f"to its counter or miss a mode")
+    uni_coarse = sum(c for (sw, _, _), c in uni_smp.items() if sw == "coarse")
+    if sum(uni_smp.values()) != u_launches["fused_sampler"] or uni_coarse <= 0:
+        fail(f"fused_sampler's launches on the uni path {dict(uni_smp)} do not add "
+             f"up to its counter or hold no coarse sweep")
+    for name in ("fused_mlp", "fused_sampler", "knn", "splat_select", "splat_fine"):
+        if u_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the uni path")
+    for i, p in enumerate(u_per_step):
+        if i < u_warm and (p["fused_mlp"] <= 0 or p["fused_sampler"] <= 0):
+            fail(f"uni warm-up step {i} launched {p}")
+        if i > u_warm and (p["splat_select"], p["splat_fine"], p["splat_zbuf_bwd"],
+                           p["occ_bwd"]) != (2, 2, 0, 0):
+            fail(f"uni projected step {i} launched {p}: expected 2 selection and 2 "
+                 f"fine launches and no backward")
+    u_iso = [m["n_iso"] for m in u_metrics[u_warm:]]
+    if min(u_iso) <= 0 or u_state.points.shape[1] != u_cfg.model.combined_kwargs.max_iso_per_batch:
+        fail(f"uni projected steps found no iso-points: n_iso {u_iso}")
+    # one warm-up and one projected step with the kernels and plain on
+    # identical draws, the texture's gradients of both
+    kernels_vs_plain(u_cfg, u_trainer, u_state, u_batch, 0, u_keys, project=False)
+    kernels_vs_plain(u_cfg, u_trainer, u_state, u_batch, len(u_ms), u_keys,
+                     project=True)
+
+    # the first warm-up step's trace three ways: the kernels, again with the
+    # SIREN march (`trace_in_kernel`), and every plain version
+    (t_f, t_cam, t_dirs, t_gt, t_u, t_cfg), t_kw = traces[0]
+    t_c = t_kw["sdf_fn_coarse"]
+    if not (isinstance(t_f, fused_mlp.FusedSirenSDF) and t_c is not None
+            and t_c.precision == "bf16"):
+        fail("the uni warm-up trace did not run on the fused f32 and bf16 SIREN "
+             "callables")
+    t_pf, t_pc = fused_mlp.PlainSDF(t_f.pack), fused_mlp.PlainSDF(t_f.pack, "bf16")
+    t_cfg_m = dataclasses.replace(t_cfg, trace_in_kernel=True)
+    u_captured = {}
+    u_sampler, u_stepper = t_f.fused_ray_sampler, t_f.fused_trace_stepper
+
+    def u_recording_sampler(*args, n_secant, margin, coarse_sweep):
+        if n_secant > 0:
+            u_captured.setdefault("sampler", args + (n_secant, margin, coarse_sweep))
+        return u_sampler(*args, n_secant=n_secant, margin=margin,
+                         coarse_sweep=coarse_sweep)
+    u_recording_sampler.packing_stride = u_sampler.packing_stride
+
+    def u_recording_stepper(*args):
+        u_captured.setdefault("stepper", args)
+        return u_stepper(*args)
+
+    def u_traced(fn, fn_c, cfg, label, must_launch):
+        reset()
+        with torch.no_grad():
+            res = raytracing.ray_trace(fn, t_cam, t_dirs, t_gt, t_u, cfg,
+                                       training=t_kw.get("training", True),
+                                       sdf_fn_coarse=fn_c)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"uni trace ({label}): launches {got}; hits "
+              f"{int(res.network_object_mask.sum())} of {res.dists.numel()}, "
+              f"sampler rays {int(res.sampler_mask.sum())}, overflow trace "
+              f"{int(res.trace_overflow)} sampler {int(res.sampler_overflow)}")
+        for name in must_launch:
+            if got[name] <= 0:
+                fail(f"kernel {name} was not launched on the uni trace ({label})")
+        for name in set(got) - set(must_launch):
+            if got[name] != 0:
+                fail(f"kernel {name} launched on the uni trace ({label})")
+        return res
+
+    t_f.fused_ray_sampler = u_recording_sampler
+    try:
+        ur_k = u_traced(t_f, t_c, t_cfg, "fused MLP + sampler",
+                        ("fused_mlp", "fused_sampler"))
+    finally:
+        t_f.fused_ray_sampler = u_sampler
+    t_f.fused_trace_stepper = u_recording_stepper
+    try:
+        ur_m = u_traced(t_f, t_c, t_cfg_m, "+ in-kernel SIREN march",
+                        ("fused_mlp", "fused_sampler", "trace_march"))
+        u_march_launches = counts()["trace_march"]
+    finally:
+        t_f.fused_trace_stepper = u_stepper
+    ur_p = u_traced(t_pf, t_pc, t_cfg, "every plain version", ())
+    t_thr = t_cfg.sdf_threshold
+    for res, label in ((ur_k, "kernels"), (ur_m, "march"), (ur_p, "plain")):
+        if int(res.trace_overflow) or int(res.sampler_overflow):
+            fail(f"uni trace ({label}): overflow trace {int(res.trace_overflow)} "
+                 f"sampler {int(res.sampler_overflow)}")
+        # a training trace moves the points of out-of-mask rays to their
+        # min-SDF points: the invariant holds for the in-mask hits
+        conv = res.network_object_mask & ~res.sampler_mask & t_gt
+        f_conv = (t_f if label != "plain" else t_pf)(res.points[conv])
+        slack = 0.0 if label != "plain" else 1e-6
+        n_bad = int((f_conv > t_thr + slack).sum())
+        worst = float(f_conv.max()) if f_conv.numel() else float("-inf")
+        print(f"uni converged-ray invariant ({label}): {int(conv.sum())} rays, max "
+              f"f_fine {worst:.6g} (thr {t_thr:g}, slack {slack:g}), {n_bad} above")
+        if n_bad or not torch.isfinite(res.dists).all():
+            fail(f"uni trace ({label}): {n_bad} converged rays with f_fine > thr")
+    um_exact = (torch.equal(ur_k.network_object_mask, ur_m.network_object_mask)
+                and torch.equal(ur_k.sampler_mask, ur_m.sampler_mask)
+                and torch.equal(ur_k.dists, ur_m.dists))
+    u_same = ((ur_k.network_object_mask == ur_p.network_object_mask)
+              & (ur_k.sampler_mask == ur_p.sampler_mask))
+    u_hit_agree = float((ur_k.network_object_mask == ur_p.network_object_mask)
+                        .float().mean())
+    u_d_close = float(((ur_k.dists - ur_p.dists).abs() <= 1e-4)[u_same].float().mean())
+    print(f"uni trace: the SIREN march route equals the loop route (masks and "
+          f"depths, tolerance 0): {um_exact}; kernels vs plain: hit masks agree on "
+          f"{u_hit_agree:.6f}, depths within 1e-4 on {u_d_close:.6f} of equal-mask "
+          f"rays (tolerances as phase 6)")
+    if not um_exact:
+        fail("the SIREN march route differs from the loop route")
+    if u_hit_agree < 0.995 or float(u_same.float().mean()) < 0.995 or u_d_close < 0.99:
+        fail("the uni kernel and plain traces disagree beyond the stated tolerance")
+    u_trace_times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            raytracing.ray_trace(t_f, t_cam, t_dirs, t_gt, t_u, t_cfg,
+                                 training=t_kw.get("training", True),
+                                 sdf_fn_coarse=t_c)
+        torch.cuda.synchronize()
+        u_trace_times.append(1e3 * (time.perf_counter() - t0))
+    u_trace_ms = statistics.median(u_trace_times)
+
+    # the three kernel instances at full width against their plain versions
+    spack = t_f.pack
+    s_flops = mlp_flops(1, spack.hidden, spack.n_hidden)
+    s_w_bytes = 4 * sum(w.numel() + b.numel() for w, b in zip(spack.ws, spack.bs))
+
+    def check_siren_bf16(n, with_grad):
+        x = torch.rand((n, 3), generator=gen, device=dev) * 2 - 1
+        fn = t_c
+        if with_grad:
+            out = fn.sdf_and_grad(x)
+            ref = fused_mlp.siren_sdf_and_grad_plain(spack, x, True)
+            own = fused_mlp.siren_sdf_and_grad_plain(spack, x)
+            ex = fused_mlp.siren_sdf_and_grad_plain(spack, x, True, True)
+            run_k = lambda: fn.sdf_and_grad(x)
+            run_p = lambda: fused_mlp.siren_sdf_and_grad_plain(spack, x, True)
+        else:
+            out, ref = (fn(x),), (fused_mlp.siren_sdf_plain(spack, x, True),)
+            own = (fused_mlp.siren_sdf_plain(spack, x),)
+            ex = (fused_mlp.siren_sdf_plain(spack, x, True, True),)
+            run_k = lambda: fn(x)
+            run_p = lambda: fused_mlp.siren_sdf_plain(spack, x, True)
+        errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+        own_err = [float((a - b).abs().max()) for a, b in zip(ref, own)]
+        share = lambda us, vs: min(float(((u - v).abs() <= 1e-5).float().mean())
+                                   for u, v in zip(us, vs))
+        near_k, near_p = share(out, ex), share(ref, ex)
+        print(f"fused_mlp SIREN bf16 {'value+grad' if with_grad else 'value'} n={n}: "
+              f"max_abs_err {max(errs):.3g} (the mode's own error against f32 "
+              f"{max(own_err):.3g}); within 1e-5 of the exact sums on {near_k:.5f} "
+              f"(the plain version on {near_p:.5f})")
+        if not all(torch.isfinite(a).all() for a in out) or any(
+                e > o for e, o in zip(errs, own_err)) or near_k < min(0.99, near_p):
+            fail(f"fused_mlp SIREN bf16: errs {errs} (tol {own_err}), {near_k:.5f} "
+                 f"within 1e-5 of the exact sums (tol 0.99 or {near_p:.5f})")
+        ms, plain_ms = time_ms(run_k), time_ms(run_p)
+        b = bound_ms(s_flops * n * (4 if with_grad else 1),
+                     n * (12 + (16 if with_grad else 4)) + s_w_bytes, BF16_PEAK)
+        print(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b[0]:.4f} ms "
+              f"({b[1]}, bf16 peak)")
+        return max(errs), ms, plain_ms, b
+
+    print("SIREN bf16 tolerances (fused_mlp's bf16 mode, as phase 7 holds IGR's): "
+          "|err| <= the mode's own max error against f32 on the same points, and "
+          "within 1e-5 of the exactly summed bf16 mode on >= 99% of outputs or on "
+          "as many as the plain version is")
+    for grad in (False, True):
+        check_siren_bf16(262_144, grad)
+    (_, sb_what, sb_n), _ = max(((k, c) for k, c in uni_mlp.items() if k[0] == "bf16"),
+                                key=lambda kc: (kc[1], kc[0][2]))
+    sb_err, sb_ms, sb_pms, sb_b = check_siren_bf16(sb_n, sb_what == "value+grad")
+
+    def bracketed(fine, args, out):
+        """Rays whose picked bracket [z_low, t_pick] holds a root of `fine`,
+        f(z_low) > 0 > f(t_pick), z_low the proposal before the pick. The
+        coarse pick is the first step below -margin, so its re-validated
+        ends may both lie inside (on the random-init field of a first step,
+        |f| ~ 0.03, most do): the secant then extrapolates from two values
+        of one sign, and no version's z_secant is a root."""
+        d = args[1].reshape(-1, 3)
+        c = torch.broadcast_to(args[0], args[1].shape).reshape(-1, 3)
+        lo, hi = args[2].reshape(-1), args[3].reshape(-1)
+        ts = fma(args[4], (hi - lo)[:, None], lo[:, None])
+        idx = torch.argmax((ts == out[0].reshape(-1, 1)).int(), dim=-1)
+        z_low = torch.gather(ts, 1, (idx - 1).clamp(min=0)[:, None])[:, 0]
+        f_low = fine(fma(z_low[:, None], d, c))
+        return ((f_low > 0) & (out[1].reshape(-1) < 0)).reshape(out[1].shape)
+
+    def siren_slope(args, z):
+        """|df/dz| of the plain f32 SIREN along each ray at depth z."""
+        d = args[1].reshape(-1, 3)
+        c = torch.broadcast_to(args[0], args[1].shape).reshape(-1, 3)
+        _, g = t_pf.sdf_and_grad(fma(z.reshape(-1, 1), d, c))
+        return (g * d).sum(-1).abs().reshape(z.shape)
+
+    *us_args, us_nsec, us_margin, us_coarse = u_captured["sampler"]
+    us_rays = us_args[1].reshape(-1, 3).shape[0]
+    us_steps = us_args[4].shape[0]
+    if not us_coarse:
+        fail("the uni trace's sampler did not sweep coarse")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for coarse_sw, margin in ((True, us_margin), (False, 0.0)):
+        kw = dict(n_secant=us_nsec, margin=margin, coarse_sweep=coarse_sw)
+        out = t_f.fused_ray_sampler(*us_args, **kw)
+        ref_f = fused_sampler.sweep_plain(t_f, *us_args, us_nsec, margin,
+                                          sdf_fn_coarse=t_c if coarse_sw else None)
+        ref = fused_sampler.sweep_plain(t_pf, *us_args, us_nsec, margin,
+                                        sdf_fn_coarse=t_pc if coarse_sw else None)
+        s_exact = all(torch.equal(a.reshape(-1), b.reshape(-1)) for a, b in zip(out, ref_f))
+        same = (out[0] == ref[0]) & (out[2] == ref[2])
+        frac = float(same.float().mean())
+        ferr = float((out[1] - ref[1])[same].abs().max())
+        cross = same & (ref[1] < 0)
+        hit = cross & bracketed(t_pf, us_args, ref)
+        dz = (out[3] - ref[3]).abs()
+        slope = siren_slope(us_args, ref[3])
+        ok_z = (dz <= 1e-4) | (dz * slope <= IGR_F32_TOL)
+        cond = float(ok_z[hit].float().mean())
+        cond_all = float(ok_z[cross].float().mean())
+        near = float((dz <= 1e-4)[hit].float().mean())
+        if int(hit.sum()) < 100:
+            fail(f"fused_sampler (SIREN, coarse {coarse_sw}): only {int(hit.sum())} "
+                 f"of {int(cross.sum())} crossing rays hold a root in their bracket")
+        line = (f"fused_sampler (SIREN, coarse sweep {coarse_sw}) on the uni trace's "
+                f"{us_rays}-ray buffer x {us_steps} steps + {us_nsec} secant, margin "
+                f"{margin} ({fused_sampler.rays_per_block(us_rays, us_steps, us_nsec, coarse_sw, n_sms)} "
+                f"rays a block): all four outputs equal to sweep_plain over the "
+                f"fused callables: {s_exact}; against the plain version: picks "
+                f"equal on {frac:.5f}, f_pick err {ferr:.3g}, z_secant within 1e-4 "
+                f"or {IGR_F32_TOL:g} / slope on {cond:.5f} of the {int(hit.sum())} "
+                f"crossing rays whose bracket holds the root (within 1e-4 on "
+                f"{near:.5f}; the conditioned bar on all {int(cross.sum())} "
+                f"crossing rays: {cond_all:.5f})")
+        if coarse_sw:
+            ctl = t_c.fused_ray_sampler(*us_args, **kw)
+            ctl_hit = hit & (ctl[0] == ref[0])
+            dzc = (ctl[3] - ref[3]).abs()
+            ctl_cond = float(((dzc <= 1e-4) | (dzc * slope <= IGR_F32_TOL))[ctl_hit]
+                             .float().mean())
+            line += f"; the bf16 fine field: {ctl_cond:.5f}"
+        print(line)
+        if not s_exact:
+            fail(f"fused_sampler (SIREN, coarse {coarse_sw}) differs from sweep_plain "
+                 f"over the fused callables")
+        if frac < 0.99 or ferr > 1e-5 or cond < 0.999:
+            fail(f"fused_sampler (SIREN, coarse {coarse_sw}) disagrees with its plain "
+                 f"version beyond the stated bars")
+        if coarse_sw and int(ctl_hit.sum()) >= 100 and ctl_cond >= 0.999:
+            fail(f"the conditioned z_secant bar passes the SIREN sampler with a bf16 "
+                 f"fine field ({ctl_cond:.5f})")
+        if coarse_sw:
+            us_kw, us_err = kw, max(ferr, float(dz[hit].max()) if bool(hit.any()) else 0.0)
+    us_ms = time_ms(lambda: t_f.fused_ray_sampler(*us_args, **us_kw))
+    us_pms = time_ms(lambda: fused_sampler.sweep_plain(
+        t_pf, *us_args, us_nsec, us_margin, sdf_fn_coarse=t_pc))
+    us_b = (1e3 * max(s_flops * us_rays * us_steps / BF16_PEAK
+                      + 3 * s_flops * us_rays * (2 + us_nsec) / TF32_PEAK,
+                      (us_rays * 48 + 4 * us_steps + 2 * s_w_bytes) / HBM_RATE),
+            "operations")
+    print(f"  coarse sweep: kernel {us_ms:.3f} ms  plain {us_pms:.3f} ms  bound "
+          f"{us_b[0]:.4f} ms")
+
+    um_args = u_captured["stepper"]
+    um_cam, um_dirs, um_st, um_it = um_args[0], um_args[1], um_args[2], um_args[3]
+    um_rays = um_st[0].numel()
+    flat = lambda a: (a[0].reshape(-1, 3), a[1].reshape(-1, 3),
+                      [x.reshape(-1) for x in a[2]])
+    um_out = t_f.fused_trace_stepper(*um_args)
+    um_loop = march_plain(t_f, *flat(um_args), *um_args[3:])
+    um_ref = march_plain(t_pf, *flat(um_args), *um_args[3:])
+    um_exact = all(torch.equal(a.reshape(-1), b) for a, b in zip(um_out, um_loop))
+    um_eq = min(float((a.reshape(-1) == b).float().mean())
+                for a, b in zip(um_out[4:8], um_ref[4:8]))
+    um_close = min(float(((a.reshape(-1) - b).abs() <= 1e-5).float().mean())
+                   for a, b in zip(um_out[:2], um_ref[:2]))
+    um_err = max(float((a.reshape(-1) - b).abs().max()) for a, b in zip(um_out[:2], um_ref[:2]))
+    print(f"trace_march (SIREN) on the uni trace's first compacted stage: {um_rays} "
+          f"rays x {um_it} iterations: all ten state arrays equal to march_plain "
+          f"over the fused f32 callable: {um_exact}; against the plain version: "
+          f"masks/bk equal on {um_eq:.6f}, depths within 1e-5 on {um_close:.6f} "
+          f"(max diff {um_err:.3g})")
+    if not um_exact:
+        fail("trace_march (SIREN) differs from march_plain over the fused callable")
+    if um_eq < 0.999 or um_close < 0.999:
+        fail("trace_march (SIREN) disagrees with its plain version")
+    um_ms = time_ms(lambda: t_f.fused_trace_stepper(*um_args))
+    um_pms = time_ms(lambda: march_plain(t_pf, *flat(um_args), *um_args[3:]))
+    um_b = bound_ms(3 * s_flops * 2 * um_it * um_rays,
+                    um_rays * (24 + 2 * 34) + s_w_bytes, TF32_PEAK)
+    print(f"  kernel {um_ms:.3f} ms  plain {um_pms:.3f} ms  bound {um_b[0]:.4f} ms "
+          f"({um_b[1]}); the uni warm-up trace {u_trace_ms:.3f} ms (median of 5)")
+
+    # ---- 11. the kernels line
     # fused_mlp at every shape the projected run gave it, most frequent first
     # (the row of the JSON line)
     mlp_rows = []
@@ -1441,6 +1851,16 @@ def main() -> None:
         row("trace_march", "isopoints_torch/csrc/fused_trace.cu",
             "isopoints_tpu/ops/pallas_trace.py:43", march_launches["trace_march"],
             m_err, mk_ms, mk_pms, mk_b),
+        row("fused_mlp (SIREN bf16)", "isopoints_torch/csrc/fused_mlp.cu",
+            "isopoints_tpu/ops/pallas_mlp.py:250", uni_modes["bf16"],
+            sb_err, sb_ms, sb_pms, sb_b),
+        row("fused_sampler (SIREN, coarse sweep)",
+            "isopoints_torch/csrc/fused_sampler.cu",
+            "isopoints_tpu/ops/pallas_sampler.py:52", uni_coarse,
+            us_err, us_ms, us_pms, us_b),
+        row("trace_march (SIREN)", "isopoints_torch/csrc/fused_trace.cu",
+            "isopoints_tpu/ops/pallas_trace.py:43", u_march_launches,
+            um_err, um_ms, um_pms, um_b),
         row("splat_zbuf_bwd", "isopoints_torch/csrc/splat_zbuf_bwd.cu",
             "isopoints_tpu/rendering/pallas_splat.py:186",
             splat_launches["splat_zbuf_bwd"], zb_err, zb_ms, zb_pms, zb_b,
@@ -1470,7 +1890,12 @@ def main() -> None:
           f"{bench.SPLAT_IMAGE_SIZE} px). Launches: the SIREN "
           f"kernels' in the projected path's run, fused_igr's (by mode) and "
           f"fused_sampler (IGR)'s in one bench trace, trace_march's in one trace "
-          f"with the march, the splat backward's in one splat frame")
+          f"with the march, the splat backward's in one splat frame; the SIREN "
+          f"bf16 mode on {sb_n} points ({sb_what}, its most frequent launch in "
+          f"the uni run), the SIREN coarse sampler on the uni warm-up trace's "
+          f"{us_rays}-ray buffer and the SIREN march on its first compacted stage "
+          f"({um_rays} rays x {um_it} iterations), launches in the uni run (the "
+          f"march's in one trace with it)")
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")
     print(json.dumps({"kernels": rows}))

@@ -51,7 +51,7 @@ from isopoints_torch.models.fields import SDFField
 from isopoints_torch.models.levelset import project_points_newton
 from isopoints_torch.models.raytracing import (RayTraceResult,
                                                RayTracingConfig, ray_trace)
-from isopoints_torch.ops.fused_mlp import PlainIgrSDF, make_fused_igr_sdf
+from isopoints_torch.ops.fused_mlp import PlainSDF, make_fused_igr_sdf
 from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                   compute_splat_params,
                                                   rasterize_splats,
@@ -130,7 +130,7 @@ def trace_fns(field: SDFField, plain: bool = False
     `plain` their plain versions (no sampler, no march)."""
     fine = make_fused_igr_sdf(field)
     if plain:
-        return PlainIgrSDF(fine.pack), PlainIgrSDF(fine.pack, "bf16")
+        return PlainSDF(fine.pack), PlainSDF(fine.pack, "bf16")
     return fine, make_fused_igr_sdf(field, "bf16")
 
 

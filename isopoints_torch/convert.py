@@ -41,8 +41,9 @@ def params_from_jax(tree: Dict, keep_weight_norm: bool = False
     """JAX params (numpy leaves) -> state_dict of the port's model."""
     out = {}
     for module, sub in tree.items():
+        keep = keep_weight_norm or module == "texture"
         for i, lp in enumerate(sub["layers"]):
-            out.update(_linear(f"{module}.layers.{i}", lp, keep_weight_norm))
+            out.update(_linear(f"{module}.layers.{i}", lp, keep))
     return out
 
 

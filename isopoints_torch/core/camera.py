@@ -100,6 +100,15 @@ class PerspectiveCamera:
         dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
         return self.camera_center(), dirs
 
+    def view_direction(self, pts_world: torch.Tensor) -> torch.Tensor:
+        """Unit vectors from the camera center to world points (B, ..., 3)
+        (camera.py:138-143)."""
+        c = self.camera_center()
+        c = c.reshape(c.shape[:1] + (1,) * (pts_world.dim() - 2) + c.shape[1:])
+        d = pts_world - c
+        return d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True),
+                               min=1e-12)
+
 
 def look_at_rotation(camera_position, at=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
                      device=None) -> torch.Tensor:

@@ -1,21 +1,27 @@
 // Fused SIREN SDF-MLP: value, or value + input gradient, for N points, in
-// f32 as 3xTF32 on the tensor cores.
+// the f32 mode (3xTF32) or the bf16 mode, on the tensor cores.
 //
 // Replaces `_siren_kernel` (isopoints_tpu/ops/pallas_mlp.py:250, reached by
-// `make_fused_siren_sdf` :309, pallas_call :348), its f32 mode. A block
-// loads its points and runs mlp_mma.cuh's `tile()` with the sine activation
-// on them; see there for the layout and the precision (each operand split
-// into tf32 hi and lo; hi*hi of each k8 step and the correction products
-// lo*hi + hi*lo of each k16 chunk summed into zeroed tiles and added to the
-// f32 accumulator with IEEE adds; the first layer, the head, the biases and
-// the sine epilogue in f32 on the CUDA cores with the accurate
-// sinf/sincosf).
+// `make_fused_siren_sdf` :309, pallas_call :348) in both of its modes. A
+// block loads its points and runs mlp_mma.cuh's `tile()` with the sine
+// activation on them; see there for the layout and the precision. f32:
+// each operand split into tf32 hi and lo; hi*hi of each k8 step and the
+// correction products lo*hi + hi*lo of each k16 chunk summed into zeroed
+// tiles and added to the f32 accumulator with IEEE adds. bf16 (the coarse
+// phase of the trace, JAX's 'bf16' mode): x, the activations and tangents
+// and every layer's weights rounded to bf16 (the weights on the host), one
+// m16n8k16 pass per k16 step, each chunk summed into a zeroed tile and
+// added in f32. In both modes the first layer, the head, the biases and the
+// sine epilogue run in f32 on the CUDA cores with the accurate
+// sinf/sincosf (JAX's bf16 mode takes a range-reduced polynomial within
+// ~1e-7 of them; the plain version takes torch.sin, as here).
 //
 // Bound on an H100: the work is operations, not bytes. One value eval of a
 // 3x256 SIREN is 2(3*256 + 3*256^2 + 256) ~ 0.40 MFLOP against 16 bytes of
-// point and value, so the products bound it: the least time f32 products
-// take on the card is three tf32 tensor-core passes over the tf32 peak
-// (495 TFLOP/s). With the gradient the three tangent rows make it ~4x the
+// point and value, so the products bound it: in bf16 one pass over the
+// dense bf16 tensor-core peak (989 TFLOP/s), in f32 three tf32 passes over
+// the tf32 peak (495 TFLOP/s), the least time f32 products take on the
+// card. With the gradient the three tangent rows make it ~4x the
 // operations.
 //
 // Design. What bounds the path's small launches is filling the card: the
@@ -36,11 +42,12 @@
 
 namespace {
 
+using mlp_mma::Bf16Mode;
 using mlp_mma::Net;
 using mlp_mma::SirenAct;
 using mlp_mma::Tf32x3Mode;
 
-template <int NJ, int C, int RG>
+template <class Mode, int NJ, int C, int RG>
 __global__ void __launch_bounds__(128 * RG, 1)
     siren_points_kernel(Net net, const float* __restrict__ x, int n, float* __restrict__ val,
                         float* __restrict__ grad) {
@@ -48,25 +55,25 @@ __global__ void __launch_bounds__(128 * RG, 1)
   constexpr int P = 32 * RG / C;  // points per block
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* act = smem;
-  unsigned char* wbuf = act + 32 * RG * mlp_mma::pitch_a<Tf32x3Mode>(H);
-  float* xs = reinterpret_cast<float*>(wbuf + 2 * mlp_mma::stage_bytes<Tf32x3Mode>(H));
+  unsigned char* wbuf = act + 32 * RG * mlp_mma::pitch_a<Mode>(H);
+  float* xs = reinterpret_cast<float*>(wbuf + 2 * mlp_mma::stage_bytes<Mode>(H));
   const int p0 = blockIdx.x * P;
   for (int e = threadIdx.x; e < P * 3; e += 128 * RG)
     xs[e] = (p0 + e / 3 < n) ? x[(size_t)p0 * 3 + e] : 0.f;
-  mlp_mma::tile<Tf32x3Mode, H, C, SirenAct, RG>(net, xs, act, wbuf, p0, n, val, grad);
+  mlp_mma::tile<Mode, H, C, SirenAct, RG>(net, xs, act, wbuf, p0, n, val, grad);
 }
 
-template <int NJ, int C, int RG>
+template <class Mode, int NJ, int C, int RG>
 int launch(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t stream) {
   constexpr int H = NJ * 32;
   constexpr int P = 32 * RG / C;
-  constexpr int smem = mlp_mma::smem_bytes<Tf32x3Mode, C, RG>(H);
+  constexpr int smem = mlp_mma::smem_bytes<Mode, C, RG>(H);
   static_assert(smem <= 232448, "the tile exceeds a block's shared memory");
   static const cudaError_t attr = cudaFuncSetAttribute(
-      siren_points_kernel<NJ, C, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      siren_points_kernel<Mode, NJ, C, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = (n + P - 1) / P;
-  siren_points_kernel<NJ, C, RG><<<blocks, 128 * RG, smem, stream>>>(net, x, n, val, grad);
+  siren_points_kernel<Mode, NJ, C, RG><<<blocks, 128 * RG, smem, stream>>>(net, x, n, val, grad);
   return (int)cudaGetLastError();
 }
 
@@ -81,20 +88,20 @@ int row_groups(int n, int c) {
   return 2LL * ((long long)n * c + 127) / 128 >= sms ? 4 : 1;
 }
 
-template <int NJ, int C>
+template <class Mode, int NJ, int C>
 int by_rows(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t s) {
   switch (row_groups(n, C)) {
-    case 4: return launch<NJ, C, 4>(net, x, n, val, grad, s);
-    default: return launch<NJ, C, 1>(net, x, n, val, grad, s);
+    case 4: return launch<Mode, NJ, C, 4>(net, x, n, val, grad, s);
+    default: return launch<Mode, NJ, C, 1>(net, x, n, val, grad, s);
   }
 }
 
-template <int C>
+template <class Mode, int C>
 int dispatch(const Net& net, int hidden, const float* x, int n, float* val, float* grad,
              cudaStream_t stream) {
   switch (hidden / 32) {
 #define CASE(NJ) \
-  case NJ: return by_rows<NJ, C>(net, x, n, val, grad, stream);
+  case NJ: return by_rows<Mode, NJ, C>(net, x, n, val, grad, stream);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
@@ -104,20 +111,25 @@ int dispatch(const Net& net, int hidden, const float* x, int n, float* val, floa
 }  // namespace
 
 // x (n, 3) -> val (n,) [, grad (n, 3) when grad != nullptr]. w0 (H, 3), b0,
-// bh (L, H), wout (H,), bout (1,): float32; wh, wh_lo: the hidden layers
-// (L, H, H) in (out, in) layout as their tf32 hi and lo parts (float32).
-// hidden must be a multiple of 32 in [32, 256] (the wrapper checks it).
+// bh (L, H), wout (H,), bout (1,): float32 (in the bf16 mode w0 and wout
+// bf16-rounded); wh: the hidden layers (L, H, H) in (out, in) layout, bf16
+// in the bf16 mode and the tf32 hi part (float32) in the f32 mode, with
+// wh_lo the tf32 lo part (f32 mode only). hidden must be a multiple of 32 in
+// [32, 256] (the wrapper checks it).
 extern "C" int siren_forward(const float* x, int n, const float* w0, const float* b0,
-                             const float* wh, const float* wh_lo, const float* bh,
+                             const void* wh, const void* wh_lo, const float* bh,
                              const float* wout, const float* bout, int hidden, int n_hidden,
-                             float omega_first, float omega_hidden, float* val, float* grad,
-                             void* stream) {
+                             float omega_first, float omega_hidden, int bf16, float* val,
+                             float* grad, void* stream) {
   if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 ||
-      (n_hidden > 0 && (wh == nullptr || wh_lo == nullptr)))
+      (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const Net net{w0, b0, wh, wh_lo, bh, wout, bout, n_hidden, 0u, 0, omega_first, omega_hidden};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return grad == nullptr ? dispatch<1>(net, hidden, x, n, val, grad, s)
-                         : dispatch<4>(net, hidden, x, n, val, grad, s);
+  if (bf16)
+    return grad == nullptr ? dispatch<Bf16Mode, 1>(net, hidden, x, n, val, grad, s)
+                           : dispatch<Bf16Mode, 4>(net, hidden, x, n, val, grad, s);
+  return grad == nullptr ? dispatch<Tf32x3Mode, 1>(net, hidden, x, n, val, grad, s)
+                         : dispatch<Tf32x3Mode, 4>(net, hidden, x, n, val, grad, s);
 }

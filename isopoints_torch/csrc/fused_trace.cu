@@ -1,8 +1,13 @@
 // In-kernel sphere-trace march: a fixed number of fused-backstep iterations
-// of both ray fronts against the IGR MLP, on the tensor-core tile.
+// of both ray fronts against the SDF MLP (SIREN or IGR), on the tensor-core
+// tile.
 //
 // Replaces `_march_kernel` (isopoints_tpu/ops/pallas_trace.py:43, reached by
-// `make_trace_stepper` :103, pallas_call :150) for the IGR field. Per
+// `make_trace_stepper` :103, pallas_call :150) for both fields (the SIREN
+// instance :121-122): the activation is a template parameter of the kernel
+// and of mlp_mma::tile(), IgrAct (softplus, the skip mask, the final tanh)
+// or SirenAct (sin of omega z with the first layer's and the other layers'
+// omegas, no skip, no tanh). Per
 // iteration and ray (`body_fused`, isopoints_tpu/models/raytracing.py:555):
 //   fwd   = un & bk == 0 & sdf > thr ? sdf : 0
 //   move  = bk > 0 ? -(ls * 2^-(bk - 1)) * cur : fwd      (ls = 1 - line_search_step)
@@ -18,16 +23,17 @@
 // 0..63 write their ray's two front points (cam + acc * dir, one __fmaf_rn
 // per coordinate, as the PyTorch loop forms them with utils.fma) as rows r
 // and 64 + r of one 128-row tile, the whole block evaluates the tile on the
-// tensor cores (mlp_mma::tile, the fused IGR kernel's per-row arithmetic),
+// tensor cores (mlp_mma::tile, the fused MLP kernels' per-row arithmetic),
 // and threads 0..63 update the state. Each update is a separate IEEE
 // operation (__fadd_rn/__fmul_rn) so that no contraction into an FMA changes
-// it: the march equals the PyTorch loop over the fused IGR kernel bit for
-// bit. A ray's ten state scalars, its front moves and its geometry live in
+// it: the march equals the PyTorch loop over the fused MLP kernel
+// (fused_igr.cu, fused_mlp.cu) of the same field and mode bit for bit. A ray's ten state scalars, its front moves and its geometry live in
 // shared memory between the updates: the tile takes the 128 registers a
 // thread has at 512 threads, and a value held across it would spill.
 //
-// Bound on an H100: operations, 2 * n_iters IGR evals per ray (~0.40 MFLOP
-// each at 4x256), in the f32 mode three tf32 passes over the tf32 peak; the
+// Bound on an H100: operations, 2 * n_iters MLP evals per ray (~0.40 MFLOP
+// each at 3x256 SIREN or 4x256 IGR), in the f32 mode three tf32 passes over
+// the tf32 peak, in the bf16 mode one pass over the bf16 peak; the
 // bytes moved are 24 of rays plus 2 * 34 of state per ray. What the design
 // does about it: both fronts of 64 rays fill one 128-row tile, so every
 // streamed weight chunk serves 128 evals; the tile's f32 mode is bound by
@@ -40,9 +46,11 @@
 namespace {
 
 using mlp_mma::Bf16Mode;
+using mlp_mma::IgrAct;
 using mlp_mma::kRows;
 using mlp_mma::kThreads;
 using mlp_mma::Net;
+using mlp_mma::SirenAct;
 using mlp_mma::Tf32x3Mode;
 
 constexpr int kRays = kRows / 2;  // rays per block: both fronts in one tile
@@ -70,7 +78,7 @@ constexpr int smem_bytes() {
          4 * (kRows * 3 + kRows + kRays * (kRayFloats + kRayInts));
 }
 
-template <class Mode, int H>
+template <class Mode, class Act, int H>
 __global__ void __launch_bounds__(kThreads, 1)
     march_kernel(Net net, const float* __restrict__ cam, const float* __restrict__ dir,
                  State st, int n, int n_iters, float thr, float ls, int line_step_iters,
@@ -136,7 +144,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // starts with a barrier (the points visible) and ends with one (vs
     // visible, xs free for the next iteration's points)
-    mlp_mma::tile<Mode, H, 1>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+    mlp_mma::tile<Mode, H, 1, Act>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
     if (r < kRays) {
       const float new_s = vs[r], new_e = vs[kRays + r];
       const bool may_s = un_s && new_s < 0.f && bk_s < line_step_iters;
@@ -168,30 +176,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <class Mode, int H>
+template <class Mode, class Act, int H>
 int launch(const Net& net, const float* cam, const float* dir, const State& st, int n,
            int n_iters, float thr, float ls, int line_step_iters, int gate_end,
            cudaStream_t stream) {
   constexpr int smem = smem_bytes<Mode, H>();
   static_assert(smem <= 232448, "the march exceeds a block's shared memory");
   static const cudaError_t attr = cudaFuncSetAttribute(
-      march_kernel<Mode, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      march_kernel<Mode, Act, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = (n + kRays - 1) / kRays;
-  march_kernel<Mode, H><<<blocks, kThreads, smem, stream>>>(net, cam, dir, st, n, n_iters, thr,
-                                                           ls, line_step_iters, gate_end);
+  march_kernel<Mode, Act, H><<<blocks, kThreads, smem, stream>>>(
+      net, cam, dir, st, n, n_iters, thr, ls, line_step_iters, gate_end);
   return (int)cudaGetLastError();
 }
 
-template <class Mode>
+template <class Mode, class Act>
 int dispatch(int hidden, const Net& net, const float* cam, const float* dir, const State& st,
              int n, int n_iters, float thr, float ls, int line_step_iters, int gate_end,
              cudaStream_t s) {
   switch (hidden / 32) {
 #define CASE(NJ)                                                                           \
   case NJ:                                                                                 \
-    return launch<Mode, NJ * 32>(net, cam, dir, st, n, n_iters, thr, ls, line_step_iters, \
-                                 gate_end, s);
+    return launch<Mode, Act, NJ * 32>(net, cam, dir, st, n, n_iters, thr, ls,            \
+                                      line_step_iters, gate_end, s);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
@@ -204,25 +212,32 @@ int dispatch(int hidden, const Net& net, const float* cam, const float* dir, con
 // acc_e, sdf_s, sdf_e, cur_s, cur_e float32, un_s, un_e uint8 (0/1), bk_s,
 // bk_e int32. `ls` is 1 - line_search_step. The net is mlp_mma::Net's seven
 // pointers (w0, b0, wh, wh_lo, bh, wout, bout) of the callable's mode
-// (`bf16`, or f32 as 3xTF32 with wh_lo the tf32 lo part).
-extern "C" int trace_march_igr(const float* cam, const float* dir, float* acc_s, float* acc_e,
-                               float* sdf_s, float* sdf_e, uint8_t* un_s, uint8_t* un_e,
-                               int32_t* bk_s, int32_t* bk_e, float* cur_s, float* cur_e, int n,
-                               int n_iters, float thr, float ls, int line_step_iters,
-                               int gate_end, const float* w0, const float* b0, const void* wh,
-                               const void* wh_lo, const float* bh, const float* wout,
-                               const float* bout, int hidden, int n_hidden, unsigned skip,
-                               int final_tanh, int bf16, void* stream) {
+// (`bf16`, or f32 as 3xTF32 with wh_lo the tf32 lo part); `siren` selects
+// the sine activation with its omegas (otherwise IGR's softplus with the
+// skip mask and final tanh).
+extern "C" int trace_march(const float* cam, const float* dir, float* acc_s, float* acc_e,
+                           float* sdf_s, float* sdf_e, uint8_t* un_s, uint8_t* un_e,
+                           int32_t* bk_s, int32_t* bk_e, float* cur_s, float* cur_e, int n,
+                           int n_iters, float thr, float ls, int line_step_iters, int gate_end,
+                           const float* w0, const float* b0, const void* wh, const void* wh_lo,
+                           const float* bh, const float* wout, const float* bout, int hidden,
+                           int n_hidden, unsigned skip, int final_tanh, float omega_first,
+                           float omega_hidden, int siren, int bf16, void* stream) {
   if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 ||
       n_iters < 0 || (skip & 1u) ||
       (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0 || n_iters == 0) return 0;
-  const Net net{w0, b0, wh, wh_lo, bh, wout, bout, n_hidden, skip, final_tanh};
+  const Net net{w0,       b0,         wh,          wh_lo,       bh,   wout, bout, n_hidden,
+                skip,     final_tanh, omega_first, omega_hidden};
   const State st{acc_s, acc_e, sdf_s, sdf_e, un_s, un_e, bk_s, bk_e, cur_s, cur_e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<Bf16Mode>(hidden, net, cam, dir, st, n, n_iters, thr, ls,
-                                   line_step_iters, gate_end, s)
-              : dispatch<Tf32x3Mode>(hidden, net, cam, dir, st, n, n_iters, thr, ls,
-                                     line_step_iters, gate_end, s);
+  auto run = [&](auto mode, auto act) {
+    using Mode = decltype(mode);
+    using Act = decltype(act);
+    return dispatch<Mode, Act>(hidden, net, cam, dir, st, n, n_iters, thr, ls, line_step_iters,
+                               gate_end, s);
+  };
+  if (siren) return bf16 ? run(Bf16Mode{}, SirenAct{}) : run(Tf32x3Mode{}, SirenAct{});
+  return bf16 ? run(Bf16Mode{}, IgrAct{}) : run(Tf32x3Mode{}, IgrAct{});
 }

@@ -1,13 +1,13 @@
 // SDF-MLP forward on Hopper's tensor cores, one tile of 32 rows per row
 // group (4 row groups, 128 rows, unless a caller asks for one) per call:
-// the tile of the fused IGR kernel (fused_igr.cu), the IGR ray sampler
-// (fused_sampler.cu), the in-kernel march (fused_trace.cu) and the fused
-// SIREN kernel (fused_mlp.cu). The activation is a template parameter:
-// `IgrAct` (softplus, beta = 100) or `SirenAct` (sin of omega z). Every
-// IGR kernel evaluates a point through `tile()`, and an `mma.sync` row's
-// sum depends only on that row and the weights, not on which rows share
-// the tile or how many rows a tile has, so they give a point the same value
-// bit for bit.
+// the tile of the fused IGR and SIREN kernels (fused_igr.cu, fused_mlp.cu),
+// the ray sampler (fused_sampler.cu) and the in-kernel march
+// (fused_trace.cu), for both fields and both modes. The activation is a
+// template parameter: `IgrAct` (softplus, beta = 100) or `SirenAct` (sin of
+// omega z). Every kernel evaluates a point through `tile()`, and an
+// `mma.sync` row's sum depends only on that row and the weights, not on
+// which rows share the tile or how many rows a tile has, so they give a
+// point of one field and mode the same value bit for bit.
 //
 // Replaces the layer stacks of `_igr_kernel` (isopoints_tpu/ops/pallas_mlp.py
 // :417): L+2 linear layers, softplus with beta = 100 after every layer but

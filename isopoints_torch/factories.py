@@ -1,7 +1,7 @@
 """Config-driven factories (port of isopoints_tpu/factories.py, for what
 the ported configs name: a SIREN or IGR (`decoder_type: sdf`) decoder, the
-combined or implicit model with the Phong texture, the DSS point model, the
-splat raster settings, the synthetic datasets)."""
+combined or implicit model with the Phong or the neural texture, the DSS
+point model, the splat raster settings, the synthetic datasets)."""
 
 from typing import Optional
 
@@ -9,7 +9,7 @@ import torch
 
 from isopoints_torch.config import AttrDict
 from isopoints_torch.models.combined import CombinedConfig, CombinedModel
-from isopoints_torch.models.fields import SDFField, SirenField
+from isopoints_torch.models.fields import RenderingNetwork, SDFField, SirenField
 from isopoints_torch.models.implicit import ImplicitConfig, ImplicitModel
 from isopoints_torch.models.point import PointModel, PointModelConfig
 from isopoints_torch.rendering.rasterizer import RasterizationSettings
@@ -47,12 +47,21 @@ def create_model(cfg: AttrDict, generator: Optional[torch.Generator] = None,
                           device=device)
     decoder = create_decoder(cfg, generator, device)
     icfg = ImplicitConfig(**dict(cfg.model.get("implicit_kwargs", {})))
+    rendering_net = None
+    if icfg.texture_type == "neural":
+        # no latent code feeds the texture net (c_dim 0), inputs [normals,
+        # points, embedded view] (factories.py:64-71)
+        tkw = {"dim": 9, "c_dim": 0}
+        tkw.update(dict(cfg.model.get("texture_kwargs", {})))
+        rendering_net = RenderingNetwork(**tkw, generator=generator,
+                                         device=device)
     if mtype == "implicit":
-        return ImplicitModel(decoder, icfg)
+        return ImplicitModel(decoder, icfg, rendering_net)
     if mtype == "combined":
         ccfg = CombinedConfig(**dict(cfg.model.get("combined_kwargs", {})))
         return CombinedModel(decoder, icfg, ccfg,
-                             raster_settings=create_raster_settings(cfg))
+                             raster_settings=create_raster_settings(cfg),
+                             rendering_net=rendering_net)
     raise NotImplementedError(f"model type {mtype!r} is not ported yet")
 
 

@@ -1,4 +1,4 @@
-"""The measurements behind three design choices of the kernels, on the card.
+"""The measurements behind four design choices of the kernels, on the card.
 
     python -m isopoints_torch.kernel_variants
 
@@ -26,7 +26,15 @@ there and on 245,760 points within 0.02 of the surface (where the
 sampler's fine evaluations fall). Each copy's output is held to the plain
 version (the kNN bit for bit, the MLPs within phase 2's and phase 7's
 tolerances of chip_smoke.py; fused_igr's bf16 mode bit for bit to the
-kernel as built) before it is timed. Needs nvcc and a CUDA device.
+kernel as built) before it is timed. The sampler (csrc/fused_sampler.cu)
+takes the rays a block `fused_sampler.rays_per_block` chooses from the
+launch's shape: this times it at every block size it takes (the choice
+replaced in the wrapper, each output bit for bit the built choice's) at
+the SIREN 3x256 sampler's path shapes, the uni ablation arm's coarse
+buffer (1024 rays x 100 steps + 8 secant, margin 2e-3) and a warm-up
+trace's fine sweep (2048 rays x 100 + 8), and at the fitted IGR bench
+field's coarse buffer (24,576 rays x 100 + 8). Needs nvcc and a CUDA
+device.
 """
 
 import ctypes
@@ -39,7 +47,8 @@ import torch
 
 from isopoints_torch import bench
 from isopoints_torch.models.fields import SirenField
-from isopoints_torch.ops import _build, fused_mlp, knn
+from isopoints_torch.ops import _build, fused_mlp, fused_sampler, knn
+from isopoints_torch.utils import linspace01
 
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_variants")
 _RULE = "  switch (row_groups(n, C)) {"
@@ -208,9 +217,44 @@ def main() -> None:
         print(f"fused_mlp 3x256 {what} n={n}: " + ", ".join(row))
 
 
+    # the sampler's rays a block: every size the kernel takes, at the path's
+    # shapes, against the wrapper's choice
+    ifield, _ = bench.fit_sphere_field(dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    choose = fused_sampler.rays_per_block
+    for label, fld, n_rays, coarse in (
+            ("SIREN 3x256, the uni arm's coarse buffer", field, 1024, True),
+            ("SIREN 3x256, a warm-up trace's fine sweep", field, 2048, False),
+            ("IGR 4x256 bench field, its coarse buffer", ifield, 24_576, True)):
+        fine = (fused_mlp.make_fused_siren_sdf(fld) if fld is field
+                else fused_mlp.make_fused_igr_sdf(fld))
+        g = torch.Generator(device=dev).manual_seed(n_rays)
+        cam = torch.tensor([0.0, 0.0, -2.0], device=dev).expand(n_rays, 3).contiguous()
+        d = torch.randn((n_rays, 3), generator=g, device=dev) * 0.3
+        d[:, 2] = 1.0
+        d = d / d.norm(dim=-1, keepdim=True)
+        t_lo = 0.8 + 0.4 * torch.rand(n_rays, generator=g, device=dev)
+        t_hi = t_lo + 2.2 * torch.rand(n_rays, generator=g, device=dev)
+        kw = dict(n_secant=8, margin=2e-3 if coarse else 0.0, coarse_sweep=coarse)
+        args = (cam, d, t_lo, t_hi, linspace01(100, dev))
+        built = choose(n_rays, 100, 8, coarse, n_sms)
+        ref = fine.fused_ray_sampler(*args, **kw)
+        row = []
+        for rays in fused_sampler.RAYS:
+            fused_sampler.rays_per_block = lambda *a, r=rays: r
+            try:
+                got = fine.fused_ray_sampler(*args, **kw)
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise RuntimeError(f"the sampler at {rays} rays a block differs "
+                                       f"from the built choice's outputs")
+                ms = _time(lambda: fine.fused_ray_sampler(*args, **kw))
+            finally:
+                fused_sampler.rays_per_block = choose
+            row.append(f"{rays} rays {ms:.3f} ms" + (" (chosen)" if rays == built else ""))
+        print(f"fused_sampler {label}, {n_rays} rays x 100 + 8: " + ", ".join(row))
+
     # fused_igr's f32 sums: time at its most frequent trace launch, and the
     # RMS error against exactly summed values beside cuBLAS's (TF32 off)
-    ifield, _ = bench.fit_sphere_field(dev)
     ipack = fused_mlp.IgrPack(ifield)
     x_cube = torch.rand((220_202, 3), generator=gen, device=dev) * 2.4 - 1.2
     v = torch.randn((245_760, 3), generator=gen, device=dev)

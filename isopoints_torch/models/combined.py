@@ -26,7 +26,8 @@ from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.models.implicit import (ImplicitConfig, ImplicitModel,
                                              ModelOutput)
-from isopoints_torch.models.levelset import project_points, sample_network
+from isopoints_torch.models.levelset import (directional_sample_network,
+                                             project_points, sample_network)
 from isopoints_torch.models.raytracing import intersection_with_unit_cube
 from isopoints_torch.ops.images import sample_image_at_ndc
 from isopoints_torch.ops.points import midpoint_upsample
@@ -70,8 +71,9 @@ class CombinedModel(ImplicitModel):
 
     def __init__(self, decoder, cfg: ImplicitConfig = ImplicitConfig(),
                  combined_cfg: CombinedConfig = CombinedConfig(),
-                 raster_settings: Optional[RasterizationSettings] = None):
-        super().__init__(decoder, cfg)
+                 raster_settings: Optional[RasterizationSettings] = None,
+                 rendering_net=None):
+        super().__init__(decoder, cfg, rendering_net)
         self.ccfg = combined_cfg
         # the visibility rasters run at visibility_image_size, not the
         # renderer's size (combined.py:67-78)
@@ -130,7 +132,9 @@ class CombinedModel(ImplicitModel):
                                          camera: PerspectiveCamera,
                                          training: bool = True):
         """In-mask visible iso-points, differentiably re-attached
-        (combined.py:145-166). Returns (points, mask)."""
+        (combined.py:145-166): by the sample network with the Phong
+        texture, along the camera rays by the directional sample network
+        otherwise. Returns (points, mask)."""
         b = camera.batch_size
         pts = iso_points.expand((b,) + iso_points.shape[1:])
         msk = iso_mask.expand((b,) + iso_mask.shape[1:])
@@ -138,9 +142,12 @@ class CombinedModel(ImplicitModel):
         in_gt = sample_image_at_ndc(mask_img, torch.clamp(pix, -1.0, 1.0),
                                     mode="nearest")[..., 0] > 0.5
         if training:
-            # the lighting texture's re-attachment (the port has no neural
-            # texture, whose directional sample network JAX uses instead)
-            pts = sample_network(self.sdf_fn(), pts)
+            if self.cfg.texture_type == "lighting":
+                pts = sample_network(self.sdf_fn(), pts)
+            else:
+                cam_pos = camera.camera_center()[:, None, :]
+                pts = directional_sample_network(self.sdf_fn(), pts,
+                                                 pts.detach() - cam_pos, cam_pos)
         return pts, in_gt & msk
 
     @torch.no_grad()

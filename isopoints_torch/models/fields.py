@@ -7,10 +7,9 @@ softplus field (fields.py:190-262) with weight-normalised layers that keep
 the JAX parametrisation `{v, g, b}`, and `positional_embedder` its NeRF
 input encoding (fields.py:64-88). `sdf_and_grad` returns the SDF and its
 input gradient, dispatching to a fused `.sdf_and_grad` when the callable
-carries one (ops/fused_mlp.py), like the reference.
-
-`RenderingNetwork` and the occupancy field are not ported yet (ROADMAP
-Queue 1 item 3).
+carries one (ops/fused_mlp.py), like the reference. `RenderingNetwork` is
+the IDR colour net of the neural texture (fields.py:269-323). The
+occupancy field is not ported yet (ROADMAP Queue 1 item 3).
 """
 
 import math
@@ -195,6 +194,59 @@ class SDFField(nn.Module):
 
     def sdf(self, x: torch.Tensor) -> torch.Tensor:
         return self(x)
+
+
+class RenderingNetwork(nn.Module):
+    """IDR colour net (reference common.py:313-366): `n_layers` ReLU layers
+    of `hidden_size` and a linear head, then tanh, rgb = (tanh + 1) / 2
+    (fields.py:269-323, `_split_output` with `scale_rgb`). The caller embeds
+    the view direction, so `dim` counts raw dims (9 = normal, point, view)
+    and the input is dim + (embed_dim − 3) wide; `apply_with_view` forms
+    the [normals, points, embed(view)] layout of the neural texture. Init
+    as the JAX net: w and b U(±1/√fan_in); weight-normalised layers are
+    `WeightNormLinear`s with the JAX leaves `v, g, b` (g = ‖w‖_row), else
+    `nn.Linear`s. No latent code feeds the texture in any config, so
+    `c_dim` must be 0, and the head is rgb only (the JAX net's other
+    `out_dims` are not ported)."""
+
+    def __init__(self, dim: int = 9, c_dim: int = 0, hidden_size: int = 512,
+                 n_layers: int = 4, weight_norm: bool = True,
+                 num_frequencies: int = 4,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if c_dim != 0:
+            raise ValueError(f"RenderingNetwork: a latent code (c_dim {c_dim}) "
+                             f"is not ported; no config feeds one")
+        self.embed_view, view_dim = positional_embedder(num_frequencies, 3)
+        in_dim = dim + (view_dim - 3 if num_frequencies > 0 else 0)
+        self.dims = [in_dim] + [hidden_size] * n_layers + [3]
+        f32 = dict(dtype=torch.float32, device=device or "cpu")
+        layers = []
+        for in_d, out_d in zip(self.dims[:-1], self.dims[1:]):
+            bound = 1.0 / math.sqrt(in_d)
+            w = torch.empty((out_d, in_d), **f32).uniform_(-bound, bound,
+                                                           generator=generator)
+            b = torch.empty((out_d,), **f32).uniform_(-bound, bound,
+                                                      generator=generator)
+            layers.append(WeightNormLinear(w, b) if weight_norm
+                          else _plain_linear(w, b))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., in_dim) -> rgb (..., 3)."""
+        h = x
+        for l, lin in enumerate(self.layers):
+            h = lin(h)
+            if l < len(self.layers) - 1:
+                h = torch.relu(h)
+        return (torch.tanh(h) + 1.0) / 2.0
+
+    def apply_with_view(self, normals: torch.Tensor, points: torch.Tensor,
+                        view_dirs: torch.Tensor) -> torch.Tensor:
+        """rgb of the [normals, points, embed(view)] layout
+        (fields.py:316-323)."""
+        return self(torch.cat([normals, points, self.embed_view(view_dirs)],
+                              dim=-1))
 
 
 def sdf_and_grad(apply_sdf: Callable[[torch.Tensor], torch.Tensor],

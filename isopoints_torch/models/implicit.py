@@ -8,7 +8,10 @@ IGR decoder), `trace_sdf_fn_coarse` its bf16 variant for the coarse phase
 of the trace precision schedule, and the ray trace runs under
 `torch.no_grad()`. Loss-path evaluations use the plain decoder, so
 θ-gradients reach the parameters only through the sample network, the
-normals, the texture and the SDF losses.
+normals, the texture and the SDF losses. With `texture_type: neural` the
+model holds the `RenderingNetwork` as its submodule `texture`, so its
+parameters sit beside the decoder's in `named_parameters()` (JAX's
+`params["texture"]`).
 """
 
 import dataclasses
@@ -19,14 +22,14 @@ import torch
 from torch import nn
 
 from isopoints_torch.core.camera import PerspectiveCamera
-from isopoints_torch.models.fields import sdf_and_grad
+from isopoints_torch.models.fields import RenderingNetwork, sdf_and_grad
 from isopoints_torch.models.levelset import (ProjectionConfig,
                                              directional_sample_network)
 from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
 from isopoints_torch.ops.fused_mlp import make_fused_sdf_fn
 from isopoints_torch.ops.images import sample_image_at_ndc
 from isopoints_torch.rendering.lighting import DirectionalLights
-from isopoints_torch.rendering.texture import lighting_texture
+from isopoints_torch.rendering.texture import lighting_texture, neural_texture
 
 
 class ModelOutput(NamedTuple):
@@ -62,16 +65,23 @@ class ImplicitConfig:
 
 
 class ImplicitModel(nn.Module):
-    """SDF decoder + Phong texture + IDR ray tracing."""
+    """SDF decoder + texture (Phong, or the neural `RenderingNetwork`) + IDR
+    ray tracing. `rendering_net` serves `texture_type: neural`; without one
+    the model makes `RenderingNetwork(dim=9, c_dim=0)`, as the JAX model
+    does (implicit.py:104-105)."""
 
-    def __init__(self, decoder: nn.Module, cfg: ImplicitConfig = ImplicitConfig()):
+    def __init__(self, decoder: nn.Module, cfg: ImplicitConfig = ImplicitConfig(),
+                 rendering_net: Optional[RenderingNetwork] = None):
         super().__init__()
-        if cfg.texture_type != "lighting":
-            raise NotImplementedError(
-                "texture_type 'neural' needs RenderingNetwork, not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+        if cfg.texture_type not in ("lighting", "neural"):
+            raise ValueError(f"texture_type must be 'lighting' or 'neural', got "
+                             f"{cfg.texture_type!r}")
         self.decoder = decoder
         self.cfg = cfg
+        if cfg.texture_type == "neural" and rendering_net is None:
+            rendering_net = RenderingNetwork(dim=9, c_dim=0, device=next(
+                decoder.parameters()).device)
+        self.texture = rendering_net
         rt = RayTracingConfig(object_bounding_sphere=cfg.object_bounding_sphere,
                               sdf_threshold=cfg.proj_tolerance,
                               sphere_tracing_iters=cfg.proj_max_iters,
@@ -113,6 +123,11 @@ class ImplicitModel(nn.Module):
 
     def decode_color(self, points, normals, camera: PerspectiveCamera,
                      lights: Optional[DirectionalLights] = None):
+        """Per-point RGB by the neural texture or Phong (implicit.py:
+        178-191)."""
+        if self.cfg.texture_type == "neural":
+            return neural_texture(self.texture, points, normals,
+                                  camera.view_direction(points))
         if lights is None:
             lights = DirectionalLights.create(device=points.device)
         return lighting_texture(points, normals, lights,

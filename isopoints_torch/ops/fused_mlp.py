@@ -1,21 +1,22 @@
 """Fused SDF-MLPs: hand-written CUDA kernels and their plain versions.
 
 SIREN. Replaces `make_fused_siren_sdf` / `_siren_kernel` of
-isopoints_tpu/ops/pallas_mlp.py (:250, :309). The kernel
-(csrc/fused_mlp.cu on csrc/mlp_mma.cuh, the tensor-core tile the IGR
-kernels use, with the sine as its activation) evaluates the whole SIREN
-stack per tile with the activations in shared memory, the hidden products
-as 3xTF32 on the tensor cores (the weights split once on the host,
-`SirenPack.mma_net`), the first layer, head and sine epilogue in f32 on
-the CUDA cores, and with `with_grad` also the input gradient as three
-forward-mode tangent rows per point. A launch takes tiles of 128 rows, or
-of 32 where 128-row tiles would leave half the SMs idle. Its bound on an H100:
+isopoints_tpu/ops/pallas_mlp.py (:250, :309) in both of its modes. The
+kernel (csrc/fused_mlp.cu on csrc/mlp_mma.cuh, the tensor-core tile the
+IGR kernels use, with the sine as its activation) evaluates the whole
+SIREN stack per tile with the activations in shared memory, the hidden
+products on the tensor cores, the first layer, head and sine epilogue in
+f32 on the CUDA cores, and with `with_grad` also the input gradient as
+three forward-mode tangent rows per point. Two precisions, as for IGR
+below: `"f32"` as 3xTF32 (the weights split once on the host,
+`SirenPack.mma_net`), and `"bf16"`, JAX's `bf16` mode: every matmul
+operand (x, the activations and tangents, every layer's weights,
+the head's included) rounded to bf16, the products exact in f32 and
+accumulated in f32, the biases f32. A launch takes tiles of 128 rows, or of
+32 where 128-row tiles would leave half the SMs idle. Its bound on an H100:
 2(3H + L·H² + H) FLOP per value eval (~0.40 MFLOP at 3×256), about 4x
-that with the gradient, as three tf32 passes over the tf32 tensor-core
-peak. Only the f32 mode is ported; the bf16 mode comes with the next
-slice (ROADMAP "Slices of the port"). The SIREN sampler
-(ops/fused_sampler.py) still evaluates on csrc/siren.cuh's f32 FMA tile,
-from `SirenPack.kernel_args`.
+that with the gradient, in bf16 over the bf16 tensor-core peak and in
+f32 as three tf32 passes over the tf32 peak.
 
 IGR. Replaces `make_fused_igr_sdf` / `_igr_kernel` (pallas_mlp.py:417,
 :489) for an `SDFField` without positional encoding: softplus(β=100)
@@ -47,8 +48,9 @@ weights are detached when the callable is made and every call runs under
 
 A CUDA input launches the kernel or raises; a CPU input runs the plain
 version (`siren_sdf_plain`, `siren_sdf_and_grad_plain`, `igr_sdf_plain`,
-`igr_sdf_and_grad_plain`): the same function in PyTorch ops, which is what
-the CPU tests compare with JAX.
+`igr_sdf_and_grad_plain`, each in f32 or bf16): the same function in
+PyTorch ops, which is what the CPU tests compare with JAX. `PlainSDF` is
+a callable of the plain version alone, on any device.
 """
 
 import ctypes
@@ -68,8 +70,6 @@ KERNEL = _build.LaunchCount("fused_mlp")
 IGR_KERNEL = _build.LaunchCount("fused_igr")
 
 PRECISIONS = ("f32", "bf16")
-NEXT_SLICE = ("is not ported yet: it comes with the next slice (ROADMAP "
-              "'Slices of the port': the SIREN bf16 coarse mode)")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,7 +81,7 @@ _F = ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp")
     lib.siren_forward.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _I, _F, _F, _P, _P, _P]
+                                  _I, _F, _F, _I, _P, _P, _P]
     lib.siren_forward.restype = _I
     return lib
 
@@ -121,98 +121,120 @@ def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(a - hi)
 
 
+def _mma_tensors(w0, b0, mid_ws, mid_bs, wout, bout, h: int, bf16: bool,
+                 device) -> List[Optional[torch.Tensor]]:
+    """The tensor-core tile's seven tensors (mlp_mma::Net): w0, b0, wh and
+    wh_lo, the hidden layers (L, H, H) as (out, in), the K-major B operand,
+    as `torch.bfloat16` and None in bf16 or as the tf32 split
+    (`tf32_split`) in f32, bh (L, H), wout (H,), bout (1,)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    wh = torch.stack(mid_ws) if mid_ws else torch.zeros((0, h, h), **f32)
+    bh = torch.stack(mid_bs) if mid_bs else torch.zeros((0, h), **f32)
+    his = (wh.to(torch.bfloat16), None) if bf16 else tf32_split(wh)
+    return [None if t is None else t.contiguous() for t in
+            (w0, b0, *his, bh, wout.reshape(-1), bout)]
+
+
 class SirenPack:
-    """Detached SIREN weights: the (out, in) layers for the plain version,
-    and on first CUDA use the kernels' layouts: `mma_net` for the fused
-    MLP's tensor-core tile, `kernel_args` for the sampler's f32 FMA tile."""
+    """Detached SIREN weights: the (out, in) layers for the plain versions
+    (f32, and bf16-rounded for the bf16 mode), and on first CUDA use the
+    tensor-core tile's layout `mma_net`, which the fused MLP, the sampler
+    and the march read."""
     kind = "siren"
 
     def __init__(self, field: SirenField):
-        self.ws = tuple(l.weight.detach() for l in field.layers)
-        self.bs = tuple(l.bias.detach() for l in field.layers)
+        with torch.no_grad():
+            self.ws = tuple(l.weight.detach().clone() for l in field.layers)
+            self.bs = tuple(l.bias.detach().clone() for l in field.layers)
+        self.ws_bf16 = tuple(_round_bf16(w) for w in self.ws)
         self.hidden = field.hidden_size
         self.n_hidden = field.n_layers
         self.omega_first = float(field.first_omega_0)
         self.omega_hidden = float(field.hidden_omega_0)
         self.device = self.ws[0].device
-        self._kernel_args = None
-        self._mma_net = None
+        self._mma_nets = {}
 
-    def mma_net(self) -> Tuple[List[torch.Tensor], Tuple]:
-        """(tensors kept alive, pointer/int/float args) of the fused MLP's
-        tensor-core tile (mlp_mma.cuh): w0 (H, 3), b0 (H,), wh and wh_lo,
-        the hidden layers (L, H, H) as (out, in), the K-major B operand,
-        split into tf32 hi and lo (`tf32_split`), bh (L, H), wout (H,),
-        bout (1,); then hidden, n_hidden, ω₀, ω."""
-        if self._mma_net is None:
+    def weights(self, bf16: bool) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+        return (self.ws_bf16 if bf16 else self.ws), self.bs
+
+    def arch_args(self) -> Tuple[int, int, int, int]:
+        """hidden, n_hidden, skip mask (none), final_tanh (none)."""
+        return (self.hidden, self.n_hidden, 0, 0)
+
+    def omegas(self) -> Tuple[float, float]:
+        return (self.omega_first, self.omega_hidden)
+
+    def mma_net(self, bf16: bool = False) -> Tuple[List[torch.Tensor], Tuple]:
+        """(tensors kept alive, args) of the tensor-core tile (mlp_mma.cuh):
+        w0 (H, 3), b0 (H,), wh and wh_lo, the hidden layers (L, H, H) as
+        (out, in), the K-major B operand, bh (L, H), wout (H,), bout (1,);
+        args are their seven pointers, then hidden, n_hidden, ω₀, ω. In f32
+        wh and wh_lo are the tf32 split (`tf32_split`) of the weights; in
+        bf16 wh is `torch.bfloat16`, wh_lo None, and w0 and wout are the
+        bf16-rounded weights (every matmul operand of JAX's bf16 mode is
+        bf16; the biases stay f32). The bf16 weights are the bf16 rounding
+        of the same weights the f32 mode splits, so a coarse sweep of the
+        f32 callable equals a sweep with the bf16 callable (JAX's "hi half"
+        rule, pallas_sampler.py:21-26)."""
+        if bf16 not in self._mma_nets:
             h = self.hidden
             _check_hidden(h, "SIREN")
-            ws, bs = self.ws, self.bs
+            ws, bs = self.weights(bf16)
             for t in ws + bs:
                 if t.dtype != torch.float32:
                     raise TypeError("the CUDA SIREN kernel takes float32 weights")
-            mid = ws[1:-1]
-            wh = (torch.stack(mid) if mid else
-                  torch.zeros((0, h, h), dtype=torch.float32, device=self.device))
-            bh = (torch.stack(bs[1:-1]) if mid else
-                  torch.zeros((0, h), dtype=torch.float32, device=self.device))
-            tensors = [t.contiguous() for t in
-                       (ws[0], bs[0], *tf32_split(wh), bh, ws[-1].reshape(-1),
-                        bs[-1])]
-            self._mma_net = (tensors, tuple(t.data_ptr() for t in tensors) + (
-                h, self.n_hidden, self.omega_first, self.omega_hidden))
-        return self._mma_net
-
-    def kernel_args(self) -> Tuple:
-        """(tensors kept alive, pointer/int/float args) for the sampler's
-        f32 FMA tile (siren.cuh): w0, b0, wh_t, bh, wout, bout, hidden,
-        n_hidden, ω₀, ω."""
-        if self._kernel_args is None:
-            h = self.hidden
-            _check_hidden(h, "SIREN")
-            ws, bs = self.ws, self.bs
-            f32 = dict(dtype=torch.float32, device=self.device)
-            mid = ws[1:-1]
-            wh_t = (torch.stack([w.t() for w in mid]) if mid
-                    else torch.zeros((0, h, h), **f32)).contiguous()
-            bh = (torch.stack(bs[1:-1]) if mid
-                  else torch.zeros((0, h), **f32)).contiguous()
-            tensors = (ws[0].contiguous(), bs[0].contiguous(), wh_t, bh,
-                       ws[-1].reshape(-1).contiguous(), bs[-1].contiguous())
-            for t in tensors:
-                if t.dtype != torch.float32:
-                    raise TypeError("the CUDA SIREN kernel takes float32 weights")
-            ptrs = tuple(t.data_ptr() for t in tensors)
-            self._kernel_args = (tensors, ptrs + (h, self.n_hidden,
-                                                  self.omega_first,
-                                                  self.omega_hidden))
-        return self._kernel_args
+            tensors = _mma_tensors(ws[0], bs[0], ws[1:-1], bs[1:-1], ws[-1],
+                                   bs[-1], h, bf16, self.device)
+            self._mma_nets[bf16] = (tensors, tuple(
+                None if t is None else t.data_ptr() for t in tensors) + (
+                    h, self.n_hidden, self.omega_first, self.omega_hidden))
+        return self._mma_nets[bf16]
 
 
-def siren_sdf_plain(pack: SirenPack, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of the value kernel: x (N, 3) -> (N,)."""
-    ws, bs = pack.ws, pack.bs
-    h = torch.sin(pack.omega_first * F.linear(x, ws[0], bs[0]))
+def _layers(pack, bf16: bool, exact_sums: bool):
+    """A pack's weights and the plain versions' operand rounding and sums:
+    bf16 rounding of every matmul operand when `bf16`, float64 sums rounded
+    once when `exact_sums`."""
+    ws, bs = pack.weights(bf16)
+    rnd = _round_bf16 if bf16 else (lambda a: a)
+    lin = _linear_exact if exact_sums else F.linear
+    return ws, bs, rnd, lin
+
+
+def siren_sdf_plain(pack: SirenPack, x: torch.Tensor, bf16: bool = False,
+                    exact_sums: bool = False) -> torch.Tensor:
+    """Plain version of the value kernel, x (N, 3) -> (N,): sin(ω(xW + b))
+    layers and a linear head, every matmul operand (x, the activations, the
+    weights) rounded to bf16 when `bf16` (pallas_mlp.py:78-97), the biases
+    f32. `exact_sums` forms each product's sum in float64 and rounds it
+    once: the reference the bf16 mode is held to on the card. The sine is
+    the accurate one in both modes, as in the kernel; JAX's bf16/f32x3
+    modes take a range-reduced polynomial within ~1e-7 of it
+    (pallas_mlp.py:222-248)."""
+    ws, bs, rnd, lin = _layers(pack, bf16, exact_sums)
+    h = torch.sin(pack.omega_first * lin(rnd(x), ws[0], bs[0]))
     for w, b in zip(ws[1:-1], bs[1:-1]):
-        h = torch.sin(pack.omega_hidden * F.linear(h, w, b))
-    return F.linear(h, ws[-1], bs[-1])[..., 0]
+        h = torch.sin(pack.omega_hidden * lin(rnd(h), w, b))
+    return lin(rnd(h), ws[-1], bs[-1])[..., 0]
 
 
-def siren_sdf_and_grad_plain(pack: SirenPack, x: torch.Tensor
+def siren_sdf_and_grad_plain(pack: SirenPack, x: torch.Tensor,
+                             bf16: bool = False, exact_sums: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the value+grad kernel: forward-mode tangents
-    J ← (J Wᵀ)·ω cos(ω z), as the kernel carries them. x (N, 3) ->
-    ((N,), (N, 3))."""
-    ws, bs = pack.ws, pack.bs
-    a = pack.omega_first * F.linear(x, ws[0], bs[0])
+    J ← (J Wᵀ)·ω cos(ω z), as the kernel carries them, the tangent
+    operands rounded like the values in bf16 (`exact_sums` as in
+    `siren_sdf_plain`). x (N, 3) -> ((N,), (N, 3))."""
+    ws, bs, rnd, lin = _layers(pack, bf16, exact_sums)
+    a = pack.omega_first * lin(rnd(x), ws[0], bs[0])
     h = torch.sin(a)
     jac = (pack.omega_first * torch.cos(a))[:, None, :] * ws[0].t()[None]
     for w, b in zip(ws[1:-1], bs[1:-1]):
-        a = pack.omega_hidden * F.linear(h, w, b)
+        a = pack.omega_hidden * lin(rnd(h), w, b)
         h = torch.sin(a)
-        jac = (pack.omega_hidden * torch.cos(a))[:, None, :] * (jac @ w.t())
-    out = F.linear(h, ws[-1], bs[-1])[..., 0]
-    grad = (jac @ ws[-1].t())[..., 0]
+        jac = (pack.omega_hidden * torch.cos(a))[:, None, :] * lin(rnd(jac), w)
+    out = lin(rnd(h), ws[-1], bs[-1])[..., 0]
+    grad = lin(rnd(jac), ws[-1])[..., 0]
     return out, grad
 
 
@@ -233,18 +255,20 @@ def _outputs(x: torch.Tensor, with_grad: bool):
     return val, grad
 
 
-def siren_forward_cuda(pack: SirenPack, x: torch.Tensor, with_grad: bool
+def siren_forward_cuda(pack: SirenPack, x: torch.Tensor, with_grad: bool,
+                       bf16: bool = False
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the CUDA kernel on (N, 3) contiguous float32 CUDA points."""
     _check_points(x, pack)
     if not x.is_cuda or not x.is_contiguous():
         raise ValueError("siren_forward_cuda takes a contiguous CUDA tensor")
     lib = _lib()
-    _, wargs = pack.mma_net()
+    _, wargs = pack.mma_net(bf16)
     val, grad = _outputs(x, with_grad)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.launches += 1
-    err = lib.siren_forward(x.data_ptr(), x.shape[0], *wargs, val.data_ptr(),
+    err = lib.siren_forward(x.data_ptr(), x.shape[0], *wargs, int(bf16),
+                            val.data_ptr(),
                             grad.data_ptr() if with_grad else None, stream)
     _build.check_launch(lib, err, "fused_mlp")
     return val, grad
@@ -278,6 +302,9 @@ class IgrPack:
 
     def weights(self, bf16: bool) -> Tuple[Tuple[torch.Tensor, ...], ...]:
         return (self.ws_bf16 if bf16 else self.ws), self.bs
+
+    def omegas(self) -> Tuple[float, float]:
+        return (0.0, 0.0)   # SIREN's; the IGR tile reads none
 
     def skip_mask(self) -> int:
         return sum(1 << l for l in self.skip_in if 0 <= l < self.n_layers)
@@ -317,14 +344,8 @@ class IgrPack:
 
             w0, b0 = pad(ws[0], bs[0])
             mid = [pad(w, b) for w, b in zip(ws[1:-1], bs[1:-1])]
-            f32 = dict(dtype=torch.float32, device=self.device)
-            wh = (torch.stack([w for w, _ in mid]) if mid
-                  else torch.zeros((0, h, h), **f32))
-            bh = (torch.stack([b for _, b in mid]) if mid
-                  else torch.zeros((0, h), **f32))
-            his = (wh.to(torch.bfloat16), None) if bf16 else tf32_split(wh)
-            tensors = [None if t is None else t.contiguous() for t in
-                       (w0, b0, *his, bh, ws[-1].reshape(-1), bs[-1])]
+            tensors = _mma_tensors(w0, b0, [w for w, _ in mid], [b for _, b in mid],
+                                   ws[-1], bs[-1], h, bf16, self.device)
             self._mma_nets[bf16] = (tensors, [None if t is None else t.data_ptr()
                                               for t in tensors])
         return self._mma_nets[bf16]
@@ -338,13 +359,6 @@ def _linear_exact(a: torch.Tensor, w: torch.Tensor,
                     None if b is None else b.double()).float()
 
 
-def _igr_layers(pack: IgrPack, bf16: bool, exact_sums: bool):
-    ws, bs = pack.weights(bf16)
-    rnd = _round_bf16 if bf16 else (lambda a: a)
-    lin = _linear_exact if exact_sums else F.linear
-    return ws, bs, rnd, lin, 1.0 / math.sqrt(2.0)
-
-
 def igr_sdf_plain(pack: IgrPack, x: torch.Tensor, bf16: bool = False,
                   exact_sums: bool = False) -> torch.Tensor:
     """Plain version of the value kernel, x (N, 3) -> (N,): the JAX
@@ -353,7 +367,8 @@ def igr_sdf_plain(pack: IgrPack, x: torch.Tensor, bf16: bool = False,
     rounds it once (the float32 epilogue unchanged): the reference the
     tensor-core kernel's bf16 mode is held to, since its sums are neither
     exact nor float32 sums in this version's order."""
-    ws, bs, rnd, lin, inv_sqrt2 = _igr_layers(pack, bf16, exact_sums)
+    ws, bs, rnd, lin = _layers(pack, bf16, exact_sums)
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
     h = x
     nl = len(ws)
     for l, (w, b) in enumerate(zip(ws, bs)):
@@ -373,7 +388,8 @@ def igr_sdf_and_grad_plain(pack: IgrPack, x: torch.Tensor, bf16: bool = False,
     J ← (J Wᵀ)·σ(βz), the skip appending e_k and scaling by 1/√2, the tanh
     head scaling by 1 − tanh², tangent operands rounded like the values
     (`exact_sums` as in `igr_sdf_plain`). x (N, 3) -> ((N,), (N, 3))."""
-    ws, bs, rnd, lin, inv_sqrt2 = _igr_layers(pack, bf16, exact_sums)
+    ws, bs, rnd, lin = _layers(pack, bf16, exact_sums)
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
     eye = torch.eye(3, dtype=x.dtype, device=x.device).expand(x.shape[0], 3, 3)
     h, jac = x, eye                                   # jac (N, 3 tangents, width)
     nl = len(ws)
@@ -421,32 +437,46 @@ def igr_forward_cuda(pack: IgrPack, x: torch.Tensor, with_grad: bool,
 def _run(pack, x: torch.Tensor, with_grad: bool, bf16: bool):
     flat = x.reshape(-1, 3)
     if flat.is_cuda:
-        if pack.kind == "siren":
-            val, grad = siren_forward_cuda(pack, flat.contiguous(), with_grad)
-        else:
-            val, grad = igr_forward_cuda(pack, flat.contiguous(), with_grad,
-                                         bf16)
+        launch = siren_forward_cuda if pack.kind == "siren" else igr_forward_cuda
+        val, grad = launch(pack, flat.contiguous(), with_grad, bf16)
         return (val, grad) if with_grad else val
     if flat.device.type != "cpu":
         raise ValueError(f"the fused MLP runs on CUDA or CPU, not {flat.device}")
     _check_points(flat, pack)
-    if pack.kind == "siren":
-        return (siren_sdf_and_grad_plain(pack, flat) if with_grad
-                else siren_sdf_plain(pack, flat))
-    return (igr_sdf_and_grad_plain(pack, flat, bf16) if with_grad
-            else igr_sdf_plain(pack, flat, bf16))
+    return (_PLAIN_GRAD[pack.kind](pack, flat, bf16) if with_grad
+            else _PLAIN[pack.kind](pack, flat, bf16))
+
+
+_PLAIN = {"siren": siren_sdf_plain, "igr": igr_sdf_plain}
+_PLAIN_GRAD = {"siren": siren_sdf_and_grad_plain, "igr": igr_sdf_and_grad_plain}
 
 
 class _FusedSDF:
     """`sdf(x)`: (..., 3) -> (...), on frozen weights, no autograd.
 
-    Attributes:
+    Made from a pack at `precision` ("f32" or "bf16"). Attributes:
       sdf_and_grad(x): (..., 3) -> ((...), (..., 3)).
-      fused_ray_sampler: the in-kernel dense sampler on the same weights.
+      fused_ray_sampler: the in-kernel dense sampler on the same pack. It
+        sweeps coarse at bf16 from the same pack (the bf16-rounded
+        weights), so for the f32 callable `coarse_sweep` equals a sweep
+        with the bf16 callable of the same field.
       fused_trace_stepper: the in-kernel fused-backstep march.
       precision: "f32" or "bf16".
     """
-    precision = "f32"
+
+    def __init__(self, pack, precision: str):
+        if precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                             f"{precision!r}")
+        self.precision = precision
+        self.pack = pack
+        bf16 = precision == "bf16"
+        plain = _PLAIN[pack.kind]
+        self.fused_ray_sampler = FusedSampler(
+            pack, lambda p: plain(pack, p, bf16),
+            sdf_plain_coarse=lambda p: plain(pack, p, True), fine_bf16=bf16)
+        self.fused_trace_stepper = TraceStepper(
+            pack, bf16, lambda p: plain(pack, p, bf16))
 
     def _bf16(self) -> bool:
         return self.precision == "bf16"
@@ -463,59 +493,46 @@ class _FusedSDF:
 
 
 class FusedSirenSDF(_FusedSDF):
-    """The fused SIREN callable (f32). Its march raises: the SIREN instance
-    of the march kernel comes with the next slice."""
+    """The fused SIREN callable at `precision`."""
 
-    def __init__(self, field: SirenField):
-        self.pack = SirenPack(field)
-        self.fused_ray_sampler = FusedSampler(
-            self.pack, lambda p: siren_sdf_plain(self.pack, p))
-        self.fused_trace_stepper = TraceStepper(self.pack, False)
+    def __init__(self, field: SirenField, precision: str = "f32"):
+        super().__init__(SirenPack(field), precision)
 
 
 class FusedIgrSDF(_FusedSDF):
-    """The fused IGR callable at `precision`. Its sampler sweeps coarse at
-    bf16 from the same pack (the bf16-rounded weights), so for the f32
-    callable `coarse_sweep` equals a sweep with the bf16 callable of the
-    same field."""
+    """The fused IGR callable at `precision`."""
 
     def __init__(self, field: SDFField, precision: str = "f32"):
-        if precision not in PRECISIONS:
-            raise ValueError(f"precision must be one of {PRECISIONS}, got "
-                             f"{precision!r}")
-        self.precision = precision
-        self.pack = IgrPack(field)
-        bf16 = precision == "bf16"
-        self.fused_ray_sampler = FusedSampler(
-            self.pack, lambda p: igr_sdf_plain(self.pack, p, bf16),
-            sdf_plain_coarse=lambda p: igr_sdf_plain(self.pack, p, True),
-            fine_bf16=bf16)
-        self.fused_trace_stepper = TraceStepper(
-            self.pack, bf16, lambda p: igr_sdf_plain(self.pack, p, bf16))
+        super().__init__(IgrPack(field), precision)
 
 
-class PlainIgrSDF:
-    """The plain version of a fused IGR callable's value, on any device
-    (`igr_sdf_plain`). It carries no sampler and no march, so `ray_trace`
-    takes its plain routes with it: the all-plain reference the kernels
-    are held against."""
+class PlainSDF:
+    """The plain version of a fused callable's value and gradient, on any
+    device (`siren_sdf_plain` / `igr_sdf_plain` and their gradients). It
+    carries no sampler and no march, so `ray_trace` takes its plain routes
+    with it: the all-plain reference the kernels are held against."""
 
-    def __init__(self, pack: IgrPack, precision: str = "f32"):
+    def __init__(self, pack, precision: str = "f32"):
         self.pack = pack
         self.precision = precision
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        v = igr_sdf_plain(self.pack, x.reshape(-1, 3), self.precision == "bf16")
+        v = _PLAIN[self.pack.kind](self.pack, x.reshape(-1, 3),
+                                   self.precision == "bf16")
         return v.reshape(x.shape[:-1])
+
+    @torch.no_grad()
+    def sdf_and_grad(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        v, g = _PLAIN_GRAD[self.pack.kind](self.pack, x.reshape(-1, 3),
+                                           self.precision == "bf16")
+        return v.reshape(x.shape[:-1]), g.reshape(x.shape)
 
 
 def make_fused_siren_sdf(field: SirenField, precision: str = "f32"
                          ) -> FusedSirenSDF:
-    if precision != "f32":
-        raise NotImplementedError(f"the fused SIREN {precision!r} mode "
-                                  f"{NEXT_SLICE}")
-    return FusedSirenSDF(field)
+    return FusedSirenSDF(field, precision)
 
 
 def make_fused_igr_sdf(field: SDFField, precision: str = "f32"
@@ -525,9 +542,8 @@ def make_fused_igr_sdf(field: SDFField, precision: str = "f32"
 
 def make_fused_sdf_fn(field, precision: str = "f32"):
     """The fused callable for a supported field, or None (pallas_mlp.py:
-    383-410): a `SirenField` (f32 only; its bf16 mode raises
-    NotImplementedError until the next slice) or an `SDFField` without
-    positional encoding. An `SDFField` with `num_frequencies > 0` has no
+    383-410): a `SirenField` or an `SDFField` without positional
+    encoding. An `SDFField` with `num_frequencies > 0` has no
     kernel in either package, so this returns None for it and the caller
     traces the plain field."""
     if isinstance(field, SirenField):

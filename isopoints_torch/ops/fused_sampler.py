@@ -6,12 +6,11 @@ isopoints_tpu/ops/pallas_sampler.py (:52, :129). The kernel
 as MLP tiles, picks the first sign change (the first minimum of
 sign(f + margin)·countdown), the bracket and the f-argmin, and runs the
 fixed secant, all without writing a (rays × n_steps) array to device
-memory. SIREN: 16 rays a block on the 64-row CUDA-core tile, the
-proposals buffered in shared memory (so n_steps is bounded, `max_steps`).
-IGR: 64 rays a block on the fused IGR kernel's 128-row tensor-core tile,
-the pick folded tile by tile (any n_steps), so a point's value is the
-fused IGR callable's bit for bit. Bound on an H100: the products of
-(n_steps + n_secant [+ 2]) MLP evals per ray, bf16 ones over the bf16
+memory. For the SIREN and the IGR field alike it evaluates on the fused
+MLP kernels' 128-row tensor-core tile (csrc/mlp_mma.cuh), `rays_per_block`
+rays a block, the pick folded tile by tile (any n_steps), so a point's
+value is the fused callable's bit for bit. Bound on an H100: the products
+of (n_steps + n_secant [+ 2]) MLP evals per ray, bf16 ones over the bf16
 peak and f32 ones as three tf32 passes over the tf32 peak.
 
 `FusedSampler` is what a fused callable's `.fused_ray_sampler` holds:
@@ -21,14 +20,13 @@ peak and f32 ones as three tf32 passes over the tf32 peak.
       -> (t_pick, f_pick, t_min, z_secant), each shaped like t_lo
 
 With `coarse_sweep` (pallas_sampler.py:97-104) the sweep runs on the bf16
-IGR net of the same pack, with the hysteresis `margin`; the bracket ends
-are evaluated again at the callable's precision and the secant runs there
+net of the same pack, with the hysteresis `margin`; the bracket ends are
+evaluated again at the callable's precision and the secant runs there
 too. `packing_stride` carries the capability `models/raytracing` checks
 before it asks for a coarse sweep, with the JAX meaning
 (raytracing.py:829-836): 3 where the coarse sweep equals a sweep with the
 bf16 callable of the same weights (the f32 packs), 2 where the callable is
-itself bf16 and coarse equals fine. The SIREN instance of the coarse sweep
-raises NotImplementedError: it comes with the next slice.
+itself bf16 and coarse equals fine.
 
 A CUDA input launches the kernel or raises; a CPU input runs
 `sweep_plain`, the plain branch of `_dense_ray_sampler`
@@ -57,15 +55,40 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_sampler")
-    lib.sampler_sweep.argtypes = ([_P] * 5 + [_I, _I, _I, _F] + [_P] * 6
-                                  + [_I, _I, _F, _F] + [_P] * 5)
+    lib.sampler_sweep.argtypes = ([_P] * 5 + [_I, _I, _I, _F, _I, _P, _P]
+                                  + [_I, _I, _U, _I, _F, _F, _I, _I, _I, _I]
+                                  + [_P] * 5)
     lib.sampler_sweep.restype = _I
-    lib.sampler_sweep_igr.argtypes = ([_P] * 5 + [_I, _I, _I, _F, _I, _P, _P]
-                                      + [_I, _I, _U, _I, _I, _I] + [_P] * 5)
-    lib.sampler_sweep_igr.restype = _I
-    lib.sampler_max_steps.argtypes = [_I]
-    lib.sampler_max_steps.restype = _I
     return lib
+
+
+RAYS = (64, 32, 16, 8)   # rays a block the kernel takes
+
+
+def rays_per_block(n_rays: int, n_steps: int, n_secant: int,
+                   revalidate: bool, n_sms: int) -> int:
+    """The kernel's rays a block, from the launch's shape: the one of
+    `RAYS` with the fewest tile rounds on the busiest SM, the larger on a
+    tie. A block (one to an SM: the f32 tile's shared memory) runs
+    ceil(n_steps·rays / 128) sweep tiles, then one re-validation tile and
+    one tile a secant step whatever its rays, and every tile streams the
+    whole weight stack, so the rounds are ceil(blocks / n_sms) waves times
+    the tiles a block. At the bench trace's 24,576 rays that keeps 64 (384
+    blocks; measured 18.4 ms on an H100 against 23.6 at 32); at a training
+    step's 1-2k sampler rays it takes 8-16, where 64 would fill 16-32 of the
+    132 SMs."""
+    tail = int(bool(revalidate)) + n_secant
+
+    def rounds(rays):
+        waves = -(-max(-(-n_rays // rays), 1) // n_sms)
+        return waves * (-(-n_steps * rays // 128) + tail)
+
+    return min(RAYS, key=lambda r: (rounds(r), -r))
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def secant_scan(sdf_fn: Callable, f_low, f_high, z_low, z_high, origins,
@@ -138,21 +161,14 @@ def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
     return t_pick, f_pick, t_min, z_secant
 
 
-def max_steps(pack) -> Optional[int]:
-    """The kernel's largest n_steps at this pack's field and width: the
-    SIREN kernel's proposal buffers bound it; the IGR kernel has no limit
-    (None)."""
-    return _lib().sampler_max_steps(pack.hidden) if pack.kind == "siren" else None
-
-
 def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
                t_hi: torch.Tensor, steps: torch.Tensor, n_secant: int,
                margin: float, coarse_sweep: bool = False,
                fine_bf16: bool = False) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel: cam, dirs (R, 3), t_lo, t_hi (R,), steps
-    (S,), all contiguous float32 on the weights' CUDA device. The IGR
-    sweep runs at bf16 with `coarse_sweep` (then the bracket is
-    re-validated) and else at the fine precision (`fine_bf16`)."""
+    (S,), all contiguous float32 on the weights' CUDA device. The sweep
+    runs at bf16 with `coarse_sweep` (then the bracket is re-validated) and
+    else at the fine precision (`fine_bf16`)."""
     r = dirs.shape[0]
     for name, t, shape in (("cam", cam, (r, 3)), ("dirs", dirs, (r, 3)),
                            ("t_lo", t_lo, (r,)), ("t_hi", t_hi, (r,)),
@@ -165,30 +181,25 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
                              f"{tuple(t.shape)} on {t.device}")
     if n_secant < 0:
         raise ValueError("n_secant must be >= 0")
-    lib = _lib()
     n_steps = steps.shape[0]
-    limit = max_steps(pack)
-    if n_steps < 1 or (limit is not None and n_steps > limit):
-        raise ValueError(f"the sampler kernel takes 1..{limit or 'any'} steps "
-                         f"at hidden {pack.hidden}, got {n_steps}")
+    if n_steps < 1:
+        raise ValueError("the sampler kernel takes at least one step")
+    lib = _lib()
     outs = [torch.empty(r, dtype=torch.float32, device=dirs.device)
             for _ in range(4)]
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
-    rays = (cam.data_ptr(), dirs.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
-            steps.data_ptr(), r, n_steps, int(n_secant), float(margin))
-    out_ptrs = tuple(o.data_ptr() for o in outs)
-    if pack.kind == "siren":
-        _, wargs = pack.kernel_args()
-        KERNEL.launches += 1
-        err = lib.sampler_sweep(*rays, *wargs, *out_ptrs, stream)
-    else:
-        sweep_bf16 = bool(coarse_sweep or fine_bf16)
-        sw = (_P * 7)(*pack.mma_net(sweep_bf16)[1])
-        fw = (_P * 7)(*pack.mma_net(bool(fine_bf16))[1])
-        KERNEL.launches += 1
-        err = lib.sampler_sweep_igr(*rays, int(bool(coarse_sweep)), sw, fw,
-                                    *pack.arch_args(), int(sweep_bf16),
-                                    int(bool(fine_bf16)), *out_ptrs, stream)
+    sweep_bf16 = bool(coarse_sweep or fine_bf16)
+    sw = (_P * 7)(*pack.mma_net(sweep_bf16)[1][:7])
+    fw = (_P * 7)(*pack.mma_net(bool(fine_bf16))[1][:7])
+    rays = rays_per_block(r, n_steps, int(n_secant), coarse_sweep,
+                          _n_sms(dirs.device.index or 0))
+    KERNEL.launches += 1
+    err = lib.sampler_sweep(
+        cam.data_ptr(), dirs.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
+        steps.data_ptr(), r, n_steps, int(n_secant), float(margin),
+        int(bool(coarse_sweep)), sw, fw, *pack.arch_args(), *pack.omegas(),
+        int(pack.kind == "siren"), int(sweep_bf16), int(bool(fine_bf16)), rays,
+        *(o.data_ptr() for o in outs), stream)
     _build.check_launch(lib, err, "fused_sampler")
     return tuple(outs)
 
@@ -196,11 +207,10 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
 class FusedSampler:
     """In-kernel dense sampler over a SirenPack or an IgrPack (see the
     module docstring). `sdf_plain` is the callable's plain value function,
-    `sdf_plain_coarse` the plain bf16 one (IGR only), used on CPU."""
+    `sdf_plain_coarse` the plain bf16 one, used on CPU."""
 
-    def __init__(self, pack, sdf_plain: Callable,
-                 sdf_plain_coarse: Optional[Callable] = None,
-                 fine_bf16: bool = False):
+    def __init__(self, pack, sdf_plain: Callable, sdf_plain_coarse: Callable,
+                 fine_bf16: bool):
         self.pack = pack
         self.sdf_plain = sdf_plain
         self.sdf_plain_coarse = sdf_plain_coarse
@@ -211,11 +221,6 @@ class FusedSampler:
     def __call__(self, cam_loc, ray_dirs, t_lo, t_hi, steps,
                  n_secant: int = 8, margin: float = 0.0,
                  coarse_sweep: bool = False):
-        if coarse_sweep and self.pack.kind == "siren":
-            raise NotImplementedError(
-                "the SIREN coarse sweep (bf16 sweep + bracket re-validation) "
-                "is not ported yet: it comes with the next slice (ROADMAP "
-                "'Slices of the port': the SIREN bf16 coarse mode)")
         shp = t_lo.shape
         cam = torch.broadcast_to(cam_loc, ray_dirs.shape).reshape(-1, 3)
         drs = ray_dirs.reshape(-1, 3)

@@ -2,12 +2,12 @@
 version.
 
 Replaces `make_trace_stepper` / `_march_kernel` of
-isopoints_tpu/ops/pallas_trace.py (:43, :103) for the IGR field. The
-kernel (csrc/fused_trace.cu) marches a fixed count of fused-backstep
-iterations (`body_fused`, models/raytracing.py) per ray, both fronts of 64
-rays evaluated as one 128-row tile of the fused IGR kernel's tensor-core
-MLP per iteration, so it equals the loop over the fused callable bit for
-bit. A fixed count equals the while loop, because a finished ray takes
+isopoints_tpu/ops/pallas_trace.py (:43, :103) for the SIREN and the IGR
+field. The kernel (csrc/fused_trace.cu) marches a fixed count of
+fused-backstep iterations (`body_fused`, models/raytracing.py) per ray,
+both fronts of 64 rays evaluated as one 128-row tile of the fused MLP
+kernels' tensor-core tile per iteration, so it equals the loop over the
+fused callable bit for bit. A fixed count equals the while loop, because a finished ray takes
 zero moves, and it needs no host synchronisation.
 
 `TraceStepper` is what a fused callable's `.fused_trace_stepper` holds:
@@ -19,13 +19,12 @@ state10 = (acc_s, acc_e, sdf_s, sdf_e, un_s, un_e, bk_s, bk_e, cur_s,
 cur_e), un_* bool, bk_* int32, the rest float32, all shaped (...). A CUDA
 input launches the kernel or raises; a CPU input runs the plain version,
 `models/raytracing.march_plain`: the port's `body_fused` loop over the
-callable's plain value function for the same fixed count. The SIREN
-instance raises NotImplementedError: it comes with the next slice.
+callable's plain value function for the same fixed count.
 """
 
 import ctypes
 import functools
-from typing import Callable, Optional, Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -45,9 +44,9 @@ _DTYPES = (torch.float32,) * 4 + (torch.bool,) * 2 + (torch.int32,) * 2 \
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_trace")
-    lib.trace_march_igr.argtypes = ([_P] * 12 + [_I, _I, _F, _F, _I, _I]
-                                    + [_P] * 7 + [_I, _I, _U, _I, _I, _P])
-    lib.trace_march_igr.restype = _I
+    lib.trace_march.argtypes = ([_P] * 12 + [_I, _I, _F, _F, _I, _I]
+                                + [_P] * 7 + [_I, _I, _U, _I, _F, _F, _I, _I, _P])
+    lib.trace_march.restype = _I
     return lib
 
 
@@ -73,24 +72,25 @@ def march_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, state10,
     if n_iters < 0 or line_step_iters < 0:
         raise ValueError("n_iters and line_step_iters must be >= 0")
     lib = _lib()
-    _, ptrs = pack.mma_net(bool(bf16))
+    ptrs = pack.mma_net(bool(bf16))[1][:7]
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
     KERNEL.launches += 1
-    err = lib.trace_march_igr(cam.data_ptr(), dirs.data_ptr(),
-                              *(s.data_ptr() for s in out), r, int(n_iters),
-                              float(thr), float(1.0 - line_search_step),
-                              int(line_step_iters), int(bool(gate_end_front)),
-                              *ptrs, *pack.arch_args(), int(bool(bf16)),
-                              stream)
+    err = lib.trace_march(cam.data_ptr(), dirs.data_ptr(),
+                          *(s.data_ptr() for s in out), r, int(n_iters),
+                          float(thr), float(1.0 - line_search_step),
+                          int(line_step_iters), int(bool(gate_end_front)),
+                          *ptrs, *pack.arch_args(), *pack.omegas(),
+                          int(pack.kind == "siren"), int(bool(bf16)), stream)
     _build.check_launch(lib, err, "trace_march")
     return tuple(out)
 
 
 class TraceStepper:
-    """In-kernel fused-backstep march over an IgrPack (see the module
-    docstring); `sdf_plain` is the callable's plain value function."""
+    """In-kernel fused-backstep march over a SirenPack or an IgrPack (see
+    the module docstring); `sdf_plain` is the callable's plain value
+    function."""
 
-    def __init__(self, pack, bf16: bool, sdf_plain: Optional[Callable] = None):
+    def __init__(self, pack, bf16: bool, sdf_plain: Callable):
         self.pack = pack
         self.bf16 = bf16
         self.sdf_plain = sdf_plain
@@ -99,11 +99,6 @@ class TraceStepper:
     def __call__(self, cam, dirs, state10, n_iters: int, thr: float,
                  line_search_step: float, line_step_iters: int,
                  gate_end_front: bool):
-        if self.pack.kind != "igr":
-            raise NotImplementedError(
-                "the SIREN instance of the in-kernel march is not ported yet: "
-                "it comes with the next slice (ROADMAP 'Slices of the port': "
-                "the SIREN bf16 coarse mode)")
         shp = state10[0].shape
         cam2 = torch.broadcast_to(cam, dirs.shape).reshape(-1, 3)
         drs = dirs.reshape(-1, 3)

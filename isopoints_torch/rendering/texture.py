@@ -1,10 +1,12 @@
-"""Per-point Phong texturing (port of isopoints_tpu/rendering/texture.py
-`lighting_texture`; the neural texture waits for RenderingNetwork)."""
+"""Per-point texturing (port of isopoints_tpu/rendering/texture.py):
+Phong shading from the normals (`lighting_texture`) and the neural colour
+field on [normals, points, embedded view direction] (`neural_texture`)."""
 
 from typing import Optional
 
 import torch
 
+from isopoints_torch.models.fields import RenderingNetwork
 from isopoints_torch.rendering.lighting import DirectionalLights, apply_lighting
 
 
@@ -18,3 +20,10 @@ def lighting_texture(points: torch.Tensor, normals: torch.Tensor,
     ambient, diff, spec = apply_lighting(points, normals, lights,
                                          camera_position, shininess)
     return points_rgb * (ambient[:, None, :] + diff) + spec
+
+
+def neural_texture(net: RenderingNetwork, points: torch.Tensor,
+                   normals: torch.Tensor, view_dirs: torch.Tensor) -> torch.Tensor:
+    """Colour decoder on [normals, points, embed(view)] (texture.py:31-37;
+    reference NeuralTexture, texture.py:130-162), without a latent code."""
+    return net.apply_with_view(normals, points, view_dirs)

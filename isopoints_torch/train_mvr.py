@@ -1,10 +1,11 @@
 """Multiview-reconstruction training (port of the training loop of
 train_mvr.py).
 
-    python -m isopoints_torch.train_mvr isopoints_torch/configs/mvr_projected_siren.yml \
+    python -m isopoints_torch.train_mvr isopoints_torch/configs/mvr_uni_siren.yml \
         [--max-iters N] [--seed S] [--out-dir DIR] [--device cuda|cpu] \
         [--profile-at IT]
 
+The config is read over configs/default.yaml, as train_mvr.py reads it.
 Builds the dataset, model and trainer from the config, runs N steps on
 views drawn as a pure function of (seed, it) — warm-up steps before the
 config's `warm_up_iters`, projected steps with iso-point resampling from
@@ -37,14 +38,15 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
 
     from isopoints_torch import get_logger
-    from isopoints_torch.config import load_config, save_config
+    from isopoints_torch.config import (default_config_path, load_config,
+                                        save_config)
     from isopoints_torch.core.camera import cameras_from_matrices
     from isopoints_torch.factories import (create_dataset, create_model,
                                            create_trainer)
 
     log = get_logger()
     device = torch.device(args.device)
-    cfg = load_config(args.config)
+    cfg = load_config(args.config, default_config_path())
     out_dir = args.out_dir or os.path.join(
         "out", "torch_" + os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(out_dir, exist_ok=True)

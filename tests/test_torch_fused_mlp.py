@@ -6,6 +6,18 @@ values atol 1e-6, input gradients atol 1e-5 — float32 round-off of two
 summation orders, the gradient amplified by the ω = 30 layers. Against
 the default `"f32x3"` mode (bf16 hi/lo split dots, polynomial sin whose
 documented error is ~5.7e-7): values atol 1e-5.
+
+The bf16 mode against JAX's `precision="bf16"` (both round every matmul
+operand to bf16 and sum exact products in f32; JAX takes its polynomial
+sine, the port the accurate one): the sums in two orders, and the sines
+~1e-7 apart, land on the two sides of a bf16 rounding of the next layer's
+operand now and then, and at ω = 30 a layer such a flip moves the output
+by up to ~2e-5 (measured on this 2×64 field: max 1.8e-5, 99.8% of values
+within 1e-5; gradients max 1.5e-3·max|g|, 99.98% within 1e-3·max|g|). So:
+values all within 1e-4 and >= 99% within 1e-5; gradients all within
+5e-3·max|g| and >= 99% within 1e-3·max|g|. The mode's own error against
+f32 on the same points is ~3e-3 (values) and ~4e-2 (gradients), so the
+bars tell the bf16 mode from f32 and from a mode that rounds elsewhere.
 """
 
 import jax
@@ -84,3 +96,69 @@ def test_detached_and_input_checks(pair):
     assert not sdf(x).requires_grad
     with pytest.raises(TypeError):
         sdf(x.detach().double())
+
+
+@pytest.fixture(scope="module")
+def bf16_pair(pair):
+    jfield, params, _ = pair
+    tfield = SirenField(hidden_size=64, n_layers=2, device="cpu")
+    sd = params_from_jax({"decoder": jax.tree.map(np.asarray, params)})
+    tfield.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
+    return jfield, params, fused_mlp.make_fused_siren_sdf(tfield, "bf16")
+
+
+def test_bf16_values_and_grads_match_jax_bf16(pair, bf16_pair):
+    jfield, params, sdf = bf16_pair
+    assert sdf.precision == "bf16"
+    _, j_sdf_grad = jax_fused(jfield, params, interpret=True, precision="bf16")
+    x = _x((2000, 3), seed=6)
+    v, g = (t.numpy() for t in sdf.sdf_and_grad(torch.from_numpy(x)))
+    v_j, g_j = (np.asarray(a) for a in j_sdf_grad(jnp.asarray(x)))
+    np.testing.assert_array_equal(sdf(torch.from_numpy(x)).numpy(), v)
+    dv, dg = np.abs(v - v_j), np.abs(g - g_j)
+    scale = float(np.abs(g_j).max())
+    assert dv.max() <= 1e-4 and np.mean(dv <= 1e-5) >= 0.99, dv.max()
+    assert dg.max() <= 5e-3 * scale and np.mean(dg <= 1e-3 * scale) >= 0.99
+    # the bars are far inside the mode's own error against f32
+    v32, g32 = (t.numpy() for t in pair[2].sdf_and_grad(torch.from_numpy(x)))
+    assert np.abs(v_j - v32).max() > 10 * 1e-4
+    assert np.abs(g_j - g32).max() > 2 * 5e-3 * scale
+
+
+def test_bf16_exact_sums_are_near_the_plain_bf16(bf16_pair):
+    """`exact_sums` (float64 sums rounded once, the chip's reference for
+    the kernel's bf16 mode) differs from the float32 sums only by their
+    rounding, flipped through a bf16 operand rounding now and then."""
+    _, _, sdf = bf16_pair
+    x = torch.from_numpy(_x((1000, 3), seed=7))
+    v, g = fused_mlp.siren_sdf_and_grad_plain(sdf.pack, x, True)
+    v_x, g_x = fused_mlp.siren_sdf_and_grad_plain(sdf.pack, x, True, True)
+    np.testing.assert_array_equal(
+        v_x.numpy(), fused_mlp.siren_sdf_plain(sdf.pack, x, True, True).numpy())
+    dv = (v - v_x).abs()
+    assert float(dv.max()) <= 1e-4 and float((dv <= 1e-5).float().mean()) >= 0.99
+    assert float((g - g_x).abs().max()) <= 5e-3 * float(g_x.abs().max())
+
+
+def test_bf16_pack_layout(pair, bf16_pair):
+    """The bf16 tensor-core pack: hidden layers (L, H, H) as bf16, no lo
+    part, the first layer and the head bf16-rounded in float32, biases as
+    they are; the f32 callable's bf16 pack (its coarse sweep's) is the bf16
+    callable's, the hi-half rule."""
+    _, _, sdf = bf16_pair
+    pack = sdf.pack
+    tensors, args = pack.mma_net(True)
+    w0, b0, wh, wh_lo, bh, wout, bout = tensors
+    rnd = lambda a: a.to(torch.bfloat16).to(torch.float32)
+    assert wh.dtype == torch.bfloat16 and wh_lo is None
+    assert torch.equal(wh.float(), rnd(torch.stack(pack.ws[1:-1])))
+    assert torch.equal(w0, rnd(pack.ws[0])) and torch.equal(wout, rnd(pack.ws[-1][0]))
+    assert torch.equal(b0, pack.bs[0]) and torch.equal(bh, torch.stack(pack.bs[1:-1]))
+    assert torch.equal(bout, pack.bs[-1])
+    assert args[3] is None and args[7:] == (64, 2, 30.0, 30.0)
+    other = pair[2].pack.mma_net(True)[0]
+    for a, b in zip(tensors, other):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert pair[2].fused_ray_sampler.packing_stride == 3
+    assert sdf.fused_ray_sampler.packing_stride == 2
+    assert fused_mlp.KERNEL.launches == 0

@@ -237,8 +237,12 @@ def test_dispatch_and_cpu_route():
                          device="cpu")
     assert fused_mlp.make_fused_sdf_fn(posenc) is None
     siren = tf.SirenField(hidden_size=32, n_layers=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        fused_mlp.make_fused_sdf_fn(siren, precision="bf16")
+    siren_bf16 = fused_mlp.make_fused_sdf_fn(siren, precision="bf16")
+    assert isinstance(siren_bf16, fused_mlp.FusedSirenSDF)
+    assert siren_bf16.precision == "bf16"
+    assert siren_bf16.fused_ray_sampler.packing_stride == 2
+    with pytest.raises(ValueError):
+        fused_mlp.make_fused_sdf_fn(siren, precision="f16")
     sdf = fused_mlp.make_fused_sdf_fn(tfield, precision="bf16")
     assert sdf.fused_ray_sampler.packing_stride == 2
     assert fused_mlp.make_fused_sdf_fn(tfield).fused_ray_sampler.packing_stride == 3

@@ -1,7 +1,8 @@
 """Port parity: the fused dense ray sampler (ops/fused_sampler.py) on the
 CPU, which is its plain twin, against the JAX Pallas sampler kernel in
-interpret mode (`precision="highest"`), for the SIREN and the IGR field;
-and a model of the IGR kernel's block schedule against the plain version.
+interpret mode (`precision="highest"`), for the SIREN and the IGR field,
+each also with the coarse sweep; and a model of the kernel's block
+schedule against the plain version.
 
 Tolerances: the picked depths `t_pick` and `t_min` must be equal (they are
 proposal depths formed by the same float32 arithmetic, and the pick is an
@@ -13,14 +14,22 @@ equal on all but 2% of rays, and there the port's field gives both depths
 values within 1e-6. The IGR coarse sweep exists in JAX only in its f32x3
 packing, whose fine evals are held to plain f32 at 2e-5, so the coarse
 case holds `f_pick` to 2e-5 and `z_secant` to 1e-4 (the root moves by the
-value's error over the field's slope along the ray).
+value's error over the field's slope along the ray). The SIREN coarse
+sweep likewise (JAX's f32x3 packing, margin 2e-3): picks and t_min equal,
+f_pick within 2e-5, and z_secant within 1e-4 or within 2e-5 over the
+field's slope along the ray |df/dz| at JAX's root (phase 7 of
+chip_smoke.py holds the kernel so): a grazing ray's root moves by the
+fine fields' difference over its slope (measured 4.4e-4 at slope 0.038 on
+another seed of these rays, |dz|·slope 1.7e-5).
 
-The block schedule (csrc/fused_sampler.cu, IGR): R rays a block, each
+The block schedule (csrc/fused_sampler.cu, both fields): R rays a block, each
 128-row sweep tile holding 128 / R steps of every ray, masked rows at the
 origin, the pick folded tile by tile, then the re-validation and secant
 tiles. Modelled in PyTorch on an elementwise field (a row's value cannot
 depend on the rows beside it, as on the tensor-core tile), with tied
-values, NaN and empty intervals, it equals `sweep_plain` bit for bit.
+values, NaN and empty intervals, it equals `sweep_plain` bit for bit; and
+on a SIREN field (f32 fine, bf16 coarse, each point evaluated alone) at the
+rays a block `rays_per_block` chooses.
 """
 
 import math
@@ -115,13 +124,59 @@ def test_linspace01_matches_jnp():
 
 
 def test_cpu_sampler_launches_no_kernel(samplers):
+    """On the CPU the sampler is `sweep_plain` over the callable's plain
+    values, the coarse sweep over the plain bf16 values; no launch."""
     _, sdf = samplers
     cam, dirs, t_lo, t_hi = (torch.from_numpy(a) for a in _rays(32))
     sdf.fused_ray_sampler(cam, dirs, t_lo, t_hi, linspace01(8))
+    out = sdf.fused_ray_sampler(cam, dirs, t_lo, t_hi, linspace01(8),
+                                margin=2e-3, coarse_sweep=True)
+    pack = sdf.pack
+    ref = fused_sampler.sweep_plain(
+        lambda p: fused_mlp.siren_sdf_plain(pack, p.reshape(-1, 3)).reshape(p.shape[:-1]),
+        cam, dirs, t_lo, t_hi, linspace01(8), 8, 2e-3,
+        sdf_fn_coarse=lambda p: fused_mlp.siren_sdf_plain(
+            pack, p.reshape(-1, 3), True).reshape(p.shape[:-1]))
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert fused_sampler.KERNEL.launches == 0
-    with pytest.raises(NotImplementedError):
-        sdf.fused_ray_sampler(cam, dirs, t_lo, t_hi, linspace01(8),
-                              coarse_sweep=True)
+
+
+@pytest.fixture(scope="module")
+def siren_x3_sampler():
+    """JAX's SIREN Pallas sampler in its default f32x3 packing, whose
+    coarse sweep is the bf16 mode of the same weights."""
+    jfield = JSiren(hidden_size=64, n_layers=2)
+    params = jfield.init(jax.random.key(0))
+    return jax_fused(jfield, params, interpret=True)[0].fused_ray_sampler
+
+
+@pytest.mark.parametrize("nan", [False, True])
+def test_siren_coarse_sampler_matches_jax(samplers, siren_x3_sampler, nan):
+    _, sdf = samplers
+    arrays = _rays()
+    steps = linspace01(24).numpy()
+    if nan:
+        steps = _nan_step(steps)
+    kw = dict(n_secant=8, margin=2e-3, coarse_sweep=True)
+    ref = siren_x3_sampler(*(jnp.asarray(a) for a in arrays), jnp.asarray(steps), **kw)
+    out = sdf.fused_ray_sampler(*(torch.from_numpy(a) for a in arrays),
+                                torch.from_numpy(steps), **kw)
+    t_pick, f_pick, t_min, z_sec = (o.numpy() for o in out)
+    r_pick, r_f, r_min, r_sec = (np.asarray(o) for o in ref)
+    np.testing.assert_array_equal(t_pick, r_pick)
+    np.testing.assert_array_equal(t_min, r_min)
+    np.testing.assert_allclose(f_pick, r_f, atol=2e-5)
+    crossing = r_f < 0
+    assert crossing.sum() > 10
+    cam, dirs = (torch.from_numpy(a) for a in arrays[:2])
+    _, g = sdf.sdf_and_grad(fma(torch.from_numpy(r_sec)[..., None], dirs, cam))
+    slope = (g * dirs).sum(-1).abs().numpy()
+    dz = np.abs(z_sec - r_sec)
+    ok = (dz <= 1e-4) | (dz * slope <= 2e-5) | (np.isnan(z_sec) & np.isnan(r_sec))
+    assert ok[crossing].all(), (dz[crossing].max(), (dz * slope)[crossing].max())
+    if nan:   # a NaN step before the pick makes a NaN bracket on some rays
+        assert np.isnan(r_sec[crossing]).any()
 
 
 # ---------------------------------------------------------------------------
@@ -293,3 +348,59 @@ def test_igr_block_schedule_matches_plain(rays, n_rays, n_steps, n_secant,
     ties = (vals[:, 1:] == vals[:, :-1]).any(-1)[7:]   # past the empty rays
     assert int(ties.sum()) >= 3 and bool((vals == 0).any())
     assert int((ref[1] < 0).sum()) > 10
+
+
+def test_rays_per_block():
+    """The fewest tile rounds on the busiest SM (waves × tiles a block),
+    the larger block on a tie: the bench trace's 24,576-ray coarse buffer
+    keeps 64 rays a block (384 blocks on 132 SMs, the measured best), a
+    training step's 2048 rays x (100 + 8) take 16 (128 blocks, 21 tiles
+    each) and 1024 rays take 8 (128 blocks, 15 tiles each)."""
+    rpb = fused_sampler.rays_per_block
+    assert rpb(24_576, 100, 8, True, 132) == 64
+    assert rpb(2048, 100, 8, False, 132) == 16
+    assert rpb(2048, 100, 8, True, 132) == 16
+    assert rpb(1024, 100, 8, True, 132) == 8
+    assert rpb(0, 100, 8, False, 132) == 8 and rpb(1, 5, 0, False, 132) == 16
+    for n in (1, 100, 1000, 5000, 30_000):
+        for steps, sec in ((100, 8), (16, 0), (1000, 8)):
+            r = rpb(n, steps, sec, False, 132)
+            assert r in (8, 16, 32, 64) and 128 % r == 0
+
+
+def _one_by_one(fn):
+    """`fn` on each point alone: a row's value does not depend on the rows
+    beside it, as on the kernel's tensor-core tile."""
+    def run(p):
+        flat = p.reshape(-1, 3)
+        return torch.cat([fn(flat[i:i + 1]) for i in range(flat.shape[0])]
+                         ).reshape(p.shape[:-1])
+    return run
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("n_rays,n_sms,n_steps,rays", [
+    (40, 132, 20, 8),     # 16 steps a tile
+    (150, 16, 9, 16),     # 8 steps a tile; a ragged last block
+    (300, 16, 5, 32),     # 4 steps a tile, two sweep tiles
+])
+def test_siren_block_schedule_matches_plain(samplers, n_rays, n_sms, n_steps,
+                                            rays, coarse):
+    """The SIREN sampler's block schedule at the rays a block the wrapper
+    chooses for `n_rays` on `n_sms` SMs, on the f32 field (and its bf16
+    sweep under `coarse`), equals `sweep_plain` bit for bit."""
+    _, sdf = samplers
+    assert fused_sampler.rays_per_block(n_rays, n_steps, 4, coarse, n_sms) == rays
+    cam, dirs, t_lo, t_hi = (torch.from_numpy(a[0]) for a in _rays(n_rays, seed=5))
+    steps = linspace01(n_steps)
+    pack = sdf.pack
+    fine = _one_by_one(lambda p: fused_mlp.siren_sdf_plain(pack, p))
+    crs = (_one_by_one(lambda p: fused_mlp.siren_sdf_plain(pack, p, True))
+           if coarse else None)
+    margin = 2e-3 if coarse else 0.0
+    ref = fused_sampler.sweep_plain(fine, cam, dirs, t_lo, t_hi, steps, 4,
+                                    margin, sdf_fn_coarse=crs)
+    out = _igr_schedule(fine, crs, cam, dirs, t_lo, t_hi, steps, 4, margin, rays)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert int((ref[1] < 0).sum()) > 5

@@ -1,6 +1,7 @@
 """Port parity: the production trace schedule (models/raytracing.py), the
 hybrid Newton projection and a warm-up training step on an IGR decoder,
-against the JAX package on the CPU.
+and the "uni" ablation arm's schedule on a SIREN decoder, against the JAX
+package on the CPU.
 
 The field is an IGR `SDFField` (hidden 64, 4 layers, no positional
 encoding) from the JAX init, its head scaled by 1.35 in both packages so
@@ -32,6 +33,16 @@ within 1e-3 (the bf16 steps' rounding differences move a start point along
 the surface, and the fine steps then converge to another point on it).
 Training step: loss terms rtol 1e-3 (one ray's outcome flipping moves a
 term by ~1/256).
+
+SIREN: a 2×64 SIREN fitted to the r = 0.6 sphere's SDF in PyTorch (200
+Adam steps on seeded points, one thread), its weights handed to both
+packages; configs/ablation_compound_uni.yml's schedule (a bf16 coarse
+phase of 6 iterations with stall-on-cross inside the first compaction
+stage at 8, the fused backstep, the coarse sampler with margin 2e-3, the
+end-front gate), with and without `trace_in_kernel`, held to the same
+tolerances as the IGR traces; the SIREN bf16 values of the two packages
+differ by their sums' order and by JAX's polynomial sine (~1e-7), so the
+same decisions can flip.
 """
 
 import dataclasses
@@ -324,3 +335,73 @@ def test_bench_runs_on_cpu():
     assert set(out["projections"]) == {"f32", "bf16", "hybrid"}
     assert all(0.0 <= p["converged"] <= 1.0 for p in out["projections"].values())
     assert bench.bench_config().sphere_tracing_iters == 21
+
+
+# ---------------------------------------------------------------------------
+# The "uni" arm's schedule on a SIREN decoder
+# ---------------------------------------------------------------------------
+
+# configs/ablation_compound_uni.yml:17-41 (n_steps cut to 48 for the CPU)
+UNI = dict(sphere_tracing_iters=21, trace_compact_after=(8, 12),
+           trace_compact_fraction=(0.8, 0.55), sampler_fraction=0.5,
+           coarse_trace_iters=6, sampler_coarse=True,
+           sampler_coarse_margin=2e-3, coarse_stall_on_cross=True,
+           fused_backstep=True, trace_gate_end_front=True,
+           sampler_in_kernel=True, n_steps=48)
+
+
+@pytest.fixture(scope="module")
+def siren_fns():
+    """A 2x64 SIREN fitted to the r = 0.6 sphere: JAX `highest` and `bf16`
+    fused callables (interpret mode) and the port's f32 and bf16 ones."""
+    from isopoints_tpu.models.fields import SirenField as JSiren
+    from isopoints_tpu.ops.pallas_mlp import make_fused_siren_sdf as jax_siren
+    from isopoints_torch.models.fields import SirenField
+    field = SirenField(hidden_size=64, n_layers=2,
+                       generator=torch.Generator().manual_seed(0), device="cpu")
+    opt = torch.optim.Adam(field.parameters(), lr=1e-3)
+    rng = np.random.RandomState(0)
+    for _ in range(200):
+        x = torch.from_numpy(rng.uniform(-1, 1, (1024, 3)).astype(np.float32))
+        loss = ((field(x) - (x.norm(dim=-1) - 0.6)) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    jfield = JSiren(hidden_size=64, n_layers=2)
+    params = {"layers": [{"w": l.weight.detach().numpy().copy(),
+                          "b": l.bias.detach().numpy().copy()}
+                         for l in field.layers]}
+    return (jax_siren(jfield, params, interpret=True, precision="highest")[0],
+            jax_siren(jfield, params, interpret=True, precision="bf16")[0],
+            fused_mlp.make_fused_siren_sdf(field),
+            fused_mlp.make_fused_siren_sdf(field, "bf16"), field)
+
+
+@pytest.mark.parametrize("in_kernel", [False, True])
+def test_siren_uni_schedule_matches_jax(siren_fns, in_kernel):
+    """The uni arm's schedule at 1024 rays; with `trace_in_kernel` the
+    compacted stages run the SIREN march's plain version."""
+    cfg = dict(UNI, trace_in_kernel=in_kernel)
+    r_j, r_t = _trace_both(siren_fns, cfg, 1024)
+    _compare(r_j, r_t, siren_fns)
+    assert int(r_t.trace_overflow) == int(r_t.sampler_overflow) == 0
+    assert (fused_mlp.KERNEL.launches == fused_sampler.KERNEL.launches
+            == fused_trace.KERNEL.launches == 0)
+
+
+def test_siren_march_plain_equals_the_loop(siren_fns):
+    """On a SIREN callable too, the march (`trace_in_kernel`, here its plain
+    version over the callable's values) gives the loop's state exactly."""
+    _, _, t_fine, t_coarse, _ = siren_fns
+    cfg = trt.RayTracingConfig(**dict(UNI, n_steps=16))
+    cam, d, gt = (torch.from_numpy(a) for a in _fan(256, seed=3))
+    with torch.no_grad():
+        a = trt.ray_trace(t_fine, cam, d, gt, None, cfg, training=False,
+                          sdf_fn_coarse=t_coarse)
+        b = trt.ray_trace(t_fine, cam, d, gt, None,
+                          dataclasses.replace(cfg, trace_in_kernel=True),
+                          training=False, sdf_fn_coarse=t_coarse)
+    for name in ("network_object_mask", "sampler_mask"):
+        assert torch.equal(getattr(a, name), getattr(b, name))
+    torch.testing.assert_close(a.dists, b.dists, atol=0, rtol=0)
+    assert 0 < int(a.network_object_mask.sum()) < 256
