@@ -19,9 +19,11 @@ Phases, each fatal on failure:
      knn.SORT_MIN; k = 1, 8, 16, with and without self-exclusion),
      distances and indices equal bit for bit; the splat candidate
      selection and fine stage on an 8000-point sphere cloud in 2 views at
-     256 px (T=16, M=256, K=5, strip 2048). Max error against the stated
-     tolerance, kernel and plain times (median of 7 after warm-up, CUDA
-     events) and the bound;
+     256 px (T=16, M=256, K=5, strip 2048), the fine stage also on each
+     tile's candidate list permuted (the same maps, `used` and `slots`
+     permuted to match). Max error against the stated tolerance, kernel
+     and plain times (median of 7 after warm-up, CUDA events) and the
+     bound;
   3. the warm-up path: isopoints_torch/configs/mvr_warmup_siren.yml, 3
      warm-up train_steps, every launch counter set to 0 just before and
      read just after; the same step's loss with the fused kernels and with
@@ -43,7 +45,11 @@ Phases, each fatal on failure:
      6000-point buffer of the resample, with their Newton normals and
      splat spacing, in the step's views and the back camera's (the same
      exact checks as phase 2); the kNN there at k=6 and 8 (3000 points),
-     k=6 and 16 (6000) and k=8 on the resample's 8000-point seed;
+     k=6 and 16 (6000) and k=8 on the resample's 8000-point seed; the
+     selection and the fine stage timed on the projected-step buffer in
+     the step's views, as the path calls them (wrapper, CUDA events) and
+     alone (calls queued behind a spin of the card between two events, so
+     no host time is inside; the selection's one torch.sum taken off);
   6. the trace path (isopoints_torch.bench): the 4x256 IGR bench field
      fitted to the r=0.6 sphere, 262,144 rays traced under the production
      schedule three ways: with the fused MLP and the in-kernel sampler,
@@ -88,8 +94,10 @@ Phases, each fatal on failure:
      splat_zbuf_bwd and occ_bwd once each), then with every plain version
      (the spacing from the plain kNN; no launch at all) on the same inputs:
      fragment maps equal, xy gradients within 1e-5·max(1, |g|) + 16 ulp of
-     max|g| per element, z within 1e-5 relative, overflow 0; both backward
-     kernels on the frame's inputs (rebuilt from its forward and checked to
+     max|g| per element, z within 1e-5 relative, overflow 0; the selection
+     and the fine stage on the frame's own inputs against their plain
+     versions (also on a permuted candidate list) and timed as in phase 5;
+     both backward kernels on the frame's inputs (rebuilt from its forward and checked to
      give its gradient) run twice (the zbuf kernel's tile sums and the
      occupancy gradient bit-identical), against their plain versions
      (the zbuf kernel's points also against its own tile sums scattered
@@ -220,12 +228,22 @@ def bound_ms(flops: float, n_bytes: float, peak: float = F32_PEAK):
 
 
 def row(name, source, replaces, launches, err, ms, plain_ms, b,
-        library_ms=None, library_note=NO_LIBRARY):
+        library_ms=None, library_note=NO_LIBRARY, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms,
-            "library_note": library_note}
+            "library_note": library_note, **extra}
+
+
+def splat_row(name, source, replaces, launches, path, frame):
+    """A splat stage's row: timed at the projected step's shape (`path`)
+    and at the splat frame's (`frame`), each (err, wrapper ms, plain ms,
+    bound, kernel alone ms)."""
+    return row(name, source, replaces, launches, max(path[0], frame[0]),
+               *path[1:4], alone_ms=path[4], frame_ms=frame[1],
+               frame_alone_ms=frame[4], frame_plain_ms=frame[2],
+               frame_bound_ms=frame[3][0], frame_bound_by=frame[3][1])
 
 
 def knn_clouds(device):
@@ -285,7 +303,7 @@ def main() -> None:
                                            create_trainer)
     from isopoints_torch.models.combined import back_camera
     from isopoints_torch.models.fields import SirenField, sdf_and_grad
-    from isopoints_torch import bench
+    from isopoints_torch import bench, kernel_variants
     from isopoints_torch.models import implicit as implicit_mod
     from isopoints_torch.models import raytracing
     from isopoints_torch.models.raytracing import march_plain
@@ -295,7 +313,8 @@ def main() -> None:
     from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                       _rasterize_forward,
                                                       compute_splat_params,
-                                                      splat_spacing)
+                                                      splat_spacing,
+                                                      stage_inputs)
     from isopoints_torch.training.trainer import compute_loss
     from isopoints_torch.utils import fma, linspace01
 
@@ -444,19 +463,13 @@ def main() -> None:
 
     def raster_inputs(pts, normals, mask, cam, st, spacing=None):
         """The selection's and the fine stage's inputs as the rasterizer
-        forms them (rendering/rasterizer.py _rasterize_forward)."""
+        forms them (rendering/rasterizer.py stage_inputs)."""
         b = cam.batch_size
         sp = compute_splat_params(pts.expand(b, -1, -1),
                                   normals.expand(b, -1, -1),
                                   mask.expand(b, -1), cam, st, spacing=spacing)
-        px, py, z = (sp.pts_ndc[..., i] for i in range(3))
-        rx, ry = sp.radii[..., 0], sp.radii[..., 1]
-        m_tile = min(st.max_points_per_tile, pts.shape[1])
-        sel = (px, py, z, rx, ry, sp.mask & (z >= 0), st.image_size,
-               st.tile_size, st.max_points_per_strip, m_tile)
-        table = torch.stack([px, py, z, sp.ellipse[..., 0], sp.ellipse[..., 1],
-                             sp.ellipse[..., 2], rx, ry, sp.cutoff], -1)
-        return sel, table
+        return stage_inputs(sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff,
+                            sp.mask, st)
 
     def sphere_raster_inputs(n_points=8000, S=256):
         pts, normals, mask = sphere_cloud(n_points, seed=3)
@@ -466,10 +479,32 @@ def main() -> None:
         return raster_inputs(pts, normals, mask, cam,
                              RasterizationSettings(image_size=S, use_pallas=True))
 
+    perm_gen = torch.Generator(device=dev).manual_seed(9)
+
+    def fine_need(table, ci, ok, S, T, fr):
+        """(pixel, candidate) pairs any walk must score: the candidates whose
+        box covers the pixel, up to its last kept hit in (depth, id) order
+        (none for a pixel without one)."""
+        b, n_t, m = ci.shape
+        a = torch.gather(table, 1, ci.reshape(b, -1, 1).expand(-1, -1, 9)
+                         ).reshape(b, n_t, 1, m, 9)
+        xf, yf = splat._tile_pixels(torch.arange(n_t, device=dev), S, T)
+        cover = ((torch.abs(xf[None, :, :, None] - a[..., 0]) <= a[..., 6])
+                 & (torch.abs(yf[None, :, :, None] - a[..., 1]) <= a[..., 7])
+                 & ok[:, :, None, :])
+        n_kept = (fr.idx >= 0).sum(-1, keepdim=True)
+        last = (n_kept - 1).clamp(min=0)
+        z_l = torch.gather(fr.zbuf, -1, last)
+        g_l = torch.gather(fr.idx, -1, last)
+        before = (a[..., 2] < z_l) | ((a[..., 2] == z_l) & (ci[:, :, None, :] <= g_l))
+        return float((cover & before & (n_kept > 0)).sum())
+
     def check_raster(sel, table, label, K=5, depth_merge=0.05, timed=False):
         """Selection and fine stage against their plain versions: candidate
-        sets, overflow and every fragment map identical. With `timed`, the
-        kernel and plain times and the bounds at these shapes."""
+        sets, overflow and every fragment map identical, also with each
+        tile's list permuted (`used` and `slots` permuted to match). With
+        `timed`, the wrappers' and the kernels' own times (queued_ms),
+        the plain times and the bounds at these shapes."""
         S, T, m_tile = sel[6], sel[7], sel[9]
         ci, ok, ovf = select.select_candidates(*sel)
         ci_p, ok_p, ovf_p = select.select_candidates_plain(*sel)
@@ -480,9 +515,7 @@ def main() -> None:
             fail(f"splat_select ({label}): candidate sets or overflow differ "
                  f"from the plain version")
         b, p = table.shape[:2]
-        attrs = torch.gather(table, 1, ci.reshape(b, -1, 1).expand(-1, -1, 9)
-                             ).reshape(ci.shape + (9,))
-        fine_args = (attrs, ok, ci, S, T, K, depth_merge)
+        fine_args = (table, ci, ok, S, T, K, depth_merge)
         fk = splat.rasterize_fine(*fine_args)
         fp = splat.rasterize_fine_plain(*fine_args)
         for name in ("idx", "zbuf", "occ", "used", "slots"):
@@ -497,31 +530,54 @@ def main() -> None:
             1, torch.where(fp.used, ci, p).reshape(b, -1), True)
         if not torch.equal(vis_k, vis_p):
             fail(f"splat_fine ({label}): visibility differs from the plain version")
+        # each tile's list permuted: the same maps, used and slots permuted
+        perm = torch.argsort(torch.rand(ci.shape, generator=perm_gen, device=dev), -1)
+        inv = torch.argsort(perm, -1)
+        fq = splat.rasterize_fine(table, ci.gather(2, perm), ok.gather(2, perm),
+                                  S, T, K, depth_merge)
+        moved = torch.gather(inv, 2, fp.slots.long().clamp(min=0).reshape(b, ci.shape[1], -1)
+                             ).reshape(fp.slots.shape)
+        if not (all(torch.equal(getattr(fq, n), getattr(fp, n)) for n in ("idx", "zbuf", "occ"))
+                and float((fq.qvalue - fp.qvalue).abs().max()) <= 1e-6
+                and torch.equal(fq.used, fp.used.gather(2, perm))
+                and torch.equal(fq.slots, torch.where(fp.slots >= 0, moved, -1).int())):
+            fail(f"splat_fine ({label}): a permuted candidate list changes the maps")
         print(f"splat_select + splat_fine, {label}: P={p} x {b} views S={S} "
               f"M={m_tile}: candidate sets equal, overflow {ovf.tolist()}; "
               f"idx/zbuf/occ/used/slots/visibility identical, qvalue err "
-              f"{q_err:.3g}; {int(vis_k.sum())} visible splats")
+              f"{q_err:.3g}, also on a permuted candidate list; "
+              f"{int(vis_k.sum())} visible splats")
         if not timed:
             return None
-        sel_ms = time_ms(lambda: select.select_candidates(*sel))
+        run_sel = lambda: select.select_candidates(*sel)
+        run_fine = lambda: splat.rasterize_fine(*fine_args)
+        sel_ms = time_ms(run_sel)
         sel_pms = time_ms(lambda: select.select_candidates_plain(*sel), reps=3)
-        n_t = ci.shape[1]
-        # px, py, z, rx, ry (f32) + valid in; cidx (i32) + cok out
-        sel_b = bound_ms(0.0, b * p * 21 + b * n_t * m_tile * 5)
-        fine_ms = time_ms(lambda: splat.rasterize_fine(*fine_args))
+        fine_ms = time_ms(run_fine)
         fine_pms = time_ms(lambda: splat.rasterize_fine_plain(*fine_args), reps=3)
-        # ~12 FLOP per (pixel, valid candidate of its tile); 9 attributes
-        # (f32) + ok + gid (i32) in, idx/zbuf/qvalue/slots per fragment,
-        # occ per pixel and used per candidate out
-        n_ok = float(ok.sum())
-        fine_b = bound_ms(12.0 * T * T * n_ok,
-                          b * n_t * m_tile * 41 + b * S * S * (K * 16 + 4)
-                          + b * n_t * m_tile)
-        print(f"  splat_select kernel {sel_ms:.3f} ms  plain {sel_pms:.3f} ms  "
-              f"bound {sel_b[0]:.4f} ms ({sel_b[1]}); splat_fine kernel "
-              f"{fine_ms:.3f} ms  plain {fine_pms:.3f} ms  bound "
-              f"{fine_b[0]:.4f} ms ({fine_b[1]})")
-        return ((0.0, sel_ms, sel_pms, sel_b), (q_err, fine_ms, fine_pms, fine_b))
+        # the kernels alone: the calls queued behind a spin of the card,
+        # timed by events (the selection's torch.sum taken off)
+        sel_alone = kernel_variants.selection_alone_ms(run_sel, sel)
+        fine_alone = kernel_variants.queued_ms(run_fine)
+        n_t = ci.shape[1]
+        # px, py, z, rx, ry (f32) + valid in; cidx (i64) + cok out
+        sel_b = bound_ms(0.0, b * p * 21 + b * n_t * m_tile * 9)
+        # ~12 FLOP per (pixel, candidate) pair any walk must score; the ok
+        # flag in and the used flag out per slot, the id (i64) and the
+        # table row (9 f32) per ok candidate only, idx (i64), zbuf, qvalue,
+        # slots per fragment and occ per pixel out
+        need = fine_need(table, ci, ok, S, T, fp)
+        fine_b = bound_ms(12.0 * need, b * n_t * m_tile * 2 + int(ok.sum()) * 44
+                          + b * S * S * (K * 20 + 4))
+        print(f"  splat_select wrapper {sel_ms:.4f} ms (kernel alone "
+              f"{sel_alone:.4f} ms)  plain {sel_pms:.3f} ms  bound {sel_b[0]:.4f} "
+              f"ms ({sel_b[1]}); splat_fine wrapper {fine_ms:.4f} ms (kernel "
+              f"alone {fine_alone:.4f} ms)  plain {fine_pms:.3f} ms  bound "
+              f"{fine_b[0]:.4f} ms ({fine_b[1]}; {need:.0f} pairs a walk must "
+              f"score, {float(ok.sum()) * T * T:.0f} (pixel, candidate) pairs "
+              f"in the tiles)")
+        return ((0.0, sel_ms, sel_pms, sel_b, sel_alone),
+                (q_err, fine_ms, fine_pms, fine_b, fine_alone))
 
     def knn_case(pts, mask, k, label, timed=False):
         ms, pms, (bms, by), alone = check_knn(pts, mask, k, timed)
@@ -1278,6 +1334,10 @@ def main() -> None:
                                                    sp.radii, sp.cutoff, sp.mask, sst)
     if not torch.equal(fr_b.idx, fr_k.idx):
         fail("splat frame: the rebuilt forward differs from the frame's")
+    # the selection and the fine stage at the frame's shape, timed
+    sel_frame, fine_frame = check_raster(
+        *stage_inputs(sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff, sp.mask, sst),
+        "splat frame", K=K, depth_merge=sst.depth_merging_threshold, timed=True)
     zb_m, n_pts = cand_b.shape[-1], bench.N_SPLATS
     zb_args = (slots_b, (fr_b.zbuf > 0).float(), cand_b, n_pts)
     zk, zt = splat.zbuf_backward_points_cuda(*zb_args, tile_sums=True)
@@ -1832,12 +1892,12 @@ def main() -> None:
         row("knn", "isopoints_torch/csrc/knn.cu",
             "isopoints_tpu/ops/pallas_knn.py:83", launches["knn"],
             k_err, k_ms, k_pms, k_b),
-        row("splat_select", "isopoints_torch/csrc/splat_select.cu",
-            "isopoints_tpu/rendering/pallas_select.py:73",
-            launches["splat_select"], *sel_row),
-        row("splat_fine", "isopoints_torch/csrc/splat_fine.cu",
-            "isopoints_tpu/rendering/pallas_splat.py:42",
-            launches["splat_fine"], *fine_row),
+        splat_row("splat_select", "isopoints_torch/csrc/splat_select.cu",
+                  "isopoints_tpu/rendering/pallas_select.py:73",
+                  launches["splat_select"], sel_row, sel_frame),
+        splat_row("splat_fine", "isopoints_torch/csrc/splat_fine.cu",
+                  "isopoints_tpu/rendering/pallas_splat.py:42",
+                  launches["splat_fine"], fine_row, fine_frame),
         row("fused_igr (bf16)", "isopoints_torch/csrc/fused_igr.cu",
             "isopoints_tpu/ops/pallas_mlp.py:417", igr_modes["bf16"],
             igr_err, igr_ms, igr_pms, igr_b),
@@ -1879,7 +1939,11 @@ def main() -> None:
           f"knn P={state.points.shape[1]} k=8 and splat_select / splat_fine "
           f"{state.points.shape[1]} splats x {cam.batch_size} views at "
           f"{st.image_size} px, on the projected run's iso-point buffer (the "
-          f"midpoint upsampling and the frontal raster of every projected step); "
+          f"midpoint upsampling and the frontal raster of every projected step), "
+          f"and splat_select / splat_fine again at the splat frame's shape "
+          f"(frame_* keys: {bench.N_SPLATS} splats at {bench.SPLAT_IMAGE_SIZE} "
+          f"px; alone_ms: the kernel alone, its calls queued behind a spin of the "
+          f"card between two events, the selection's torch.sum taken off); "
           f"fused_igr bf16 {'value+grad' if grad16 else 'value'} on {n16} "
           f"points and f32 {'value+grad' if grad32 else 'value'} on {n32} "
           f"points (each mode's most frequent launch in the trace); the IGR "

@@ -1,6 +1,6 @@
-"""The measurements behind four design choices of the kernels, on the card.
+"""The measurements behind the kernels' design choices, on the card.
 
-    python -m isopoints_torch.kernel_variants
+    python -m isopoints_torch.kernel_variants [splat]
 
 The kNN (csrc/knn.cu) runs on the Morton order with pruning from
 `knn.SORT_MIN` points; the fused SIREN kernel (csrc/fused_mlp.cu) takes
@@ -33,8 +33,21 @@ replaced in the wrapper, each output bit for bit the built choice's) at
 the SIREN 3x256 sampler's path shapes, the uni ablation arm's coarse
 buffer (1024 rays x 100 steps + 8 secant, margin 2e-3) and a warm-up
 trace's fine sweep (2048 rays x 100 + 8), and at the fitted IGR bench
-field's coarse buffer (24,576 rays x 100 + 8). Needs nvcc and a CUDA
-device.
+field's coarse buffer (24,576 rays x 100 + 8). The splat candidate
+selection (csrc/splat_select.cu) runs a cluster of 8 blocks of 256
+threads per strip and the fine stage (csrc/splat_fine.cu) a
+depth-ordered walk that stops early, with a per-warp box cull: this
+builds copies of the selection with clusters of 1, 4 and 16 blocks (16
+with the non-portable cluster size allowed), with blocks of 512 threads,
+and as two kernels (the strip lists through device memory, then a block
+per tile), and of the fine stage without the early exit, without the
+cull and without both, and times each as the wrapper calls it (CUDA
+events) and its kernels alone (`queued_ms`: calls queued behind a spin
+of the card, the selection's one `torch.sum` taken off), each output
+equal to the built choice's, at the projected step's shape (3000 splats
+on the r = 0.5 sphere x 2 views, 256 px) and at the splat frame's
+(24,576 splats at 512 px, bench.py's); with `splat`, only these. Needs nvcc and
+a CUDA device.
 """
 
 import ctypes
@@ -42,12 +55,19 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
+import time
 
 import torch
 
 from isopoints_torch import bench
+from isopoints_torch.core.camera import PerspectiveCamera, look_at_view_transform
 from isopoints_torch.models.fields import SirenField
 from isopoints_torch.ops import _build, fused_mlp, fused_sampler, knn
+from isopoints_torch.rendering import select, splat
+from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
+                                                  compute_splat_params,
+                                                  splat_spacing, stage_inputs)
 from isopoints_torch.utils import linspace01
 
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernel_variants")
@@ -98,18 +118,21 @@ _F32_VARIANTS = {
 }
 
 
-def _variant(src: str, name: str, old: str, new: str, edit: str = ""):
-    """Build csrc/`src`.cu with `old` replaced by `new` in csrc/`edit`
-    (default: the source itself) into build/kernel_variants/`name`/."""
+def _variant(src: str, name: str, edits, edit: str = ""):
+    """Build csrc/`src`.cu with each `old` of the (old, new) pairs `edits`
+    replaced by its `new` in csrc/`edit` (default: the source itself) into
+    build/kernel_variants/`name`/."""
     d = os.path.join(OUT, name)
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC, d)
     path = os.path.join(d, edit or src + ".cu")
     text = open(path).read()
-    if old not in text:
-        raise RuntimeError(f"{os.path.basename(path)} no longer holds {old!r}")
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{os.path.basename(path)} does not hold {old!r} once")
+        text = text.replace(old, new)
     with open(path, "w") as f:
-        f.write(text.replace(old, new))
+        f.write(text)
     so = os.path.join(d, src + ".so")
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, os.path.join(d, src + ".cu")]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -143,17 +166,228 @@ def _load(so: str, proc, like: ctypes.CDLL, fn: str) -> ctypes.CDLL:
     return lib
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device time (ms) of one call's launches: `reps` calls enqueued
+    behind a spin of the card (~5 ms) and timed between two CUDA events, so
+    no host time falls inside. Raises if the calls took the host longer
+    than the spin."""
+    fn()
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms >= spin.elapsed_time(start):
+        raise RuntimeError("the calls' host time outlasted the spin: the events "
+                           "would time the host")
+    return start.elapsed_time(end) / reps
+
+
+def selection_alone_ms(run, sel) -> float:
+    """The selection's kernels alone: the wrapper's device time less that
+    of its one other device op, the per-cloud sum of the tiles' overflow."""
+    nt = sel[6] // sel[7]
+    ovf = torch.zeros((sel[0].shape[0], nt * nt), dtype=torch.int64, device=sel[0].device)
+    return queued_ms(run) - queued_ms(lambda: torch.sum(ovf, dim=-1))
+
+
+def _host_us(fn, n: int = 100) -> float:
+    """Host time per call of `fn` (µs), over n calls enqueued back to back:
+    the wrapper's own cost where the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def _splat_shapes(dev):
+    """(label, selection arguments, per-splat table, K, depth cut) at the
+    projected step's shape and at the splat frame's."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    v = torch.randn(1, 3000, 3, generator=g, device=dev)
+    v = v / v.norm(dim=-1, keepdim=True)
+    mask = torch.rand(1, 3000, generator=g, device=dev) < 0.97
+    st = RasterizationSettings(image_size=256, use_pallas=True)
+    R, T = look_at_view_transform(2.0, [10.0, -30.0], [20.0, 150.0], device=dev)
+    cam = PerspectiveCamera.create(R=R, T=T, focal_length=2.0, device=dev)
+    pts = 0.5 * v
+    sp = compute_splat_params(pts.expand(2, -1, -1), v.expand(2, -1, -1),
+                              mask.expand(2, -1), cam, st,
+                              spacing=splat_spacing(pts, mask, st))
+    scene = bench.splat_scene(bench.N_SPLATS, bench.SPLAT_IMAGE_SIZE, dev)
+    sf = compute_splat_params(scene.points, scene.normals, scene.mask,
+                              scene.camera, scene.settings, spacing=scene.spacing)
+    out = []
+    for label, p, s in (("projected shape, 3000 splats x 2 views at 256 px", sp, st),
+                        (f"splat frame, {bench.N_SPLATS} splats at "
+                         f"{bench.SPLAT_IMAGE_SIZE} px", sf, scene.settings)):
+        sel, table = stage_inputs(p.pts_ndc, p.ellipse, p.radii, p.cutoff, p.mask, s)
+        out.append((label, sel, table, s.points_per_pixel, s.depth_merging_threshold))
+    return out
+
+
+_CLUSTER = "constexpr int kCluster = 8;"
+_SMEM = "  const int smem = R * 16;\n"
+# the two-kernel arrangement: the cluster's strip phase writes the strip's
+# list to device memory and leaves; a block per tile takes it from there
+_TWO_KERNELS = (
+    ("constexpr int kTileGroup = 4;", """__device__ List g_list;  // the strips' lists, (B, nt, R) each array
+__device__ int* g_count;  // (B, nt) the strips' overlap counts
+
+constexpr int kTileGroup = 4;"""),
+    ("  List own;\n", """  {
+    const size_t s0 = ((size_t)b * nt + g) * R;
+    const List gl = {g_list.px + s0, g_list.rx + s0, g_list.key + s0, g_list.idx + s0};
+    warp_compact(in_strip, zkey, wlo, whi, v, ties_before, n_tie, slot, [&](int i, int s) {
+      gl.px[s] = px[i * in.sp[0]];
+      gl.rx[s] = rx[i * in.sp[3]];
+      gl.key[s] = zkey(i);
+      gl.idx[s] = i;
+    });
+    if (rank == 0 && threadIdx.x == 0) g_count[(size_t)b * nt + g] = count_s;
+    cluster.sync();  // no block leaves while a peer reads its counts
+    return;
+  }
+  List own;
+"""),
+    ("}  // namespace", """__global__ void __launch_bounds__(kThreads)
+    tile_kernel(int S, int T, int nt, int R, int M, float inv_s, float half,
+                long long* __restrict__ cidx, unsigned char* __restrict__ cok,
+                long long* __restrict__ ovf) {
+  __shared__ Shared sh;
+  const int g = blockIdx.x / nt, tj = blockIdx.x % nt, b = blockIdx.y;
+  const size_t s0 = ((size_t)b * nt + g) * R;
+  const List l = {g_list.px + s0, g_list.rx + s0, g_list.key + s0, g_list.idx + s0};
+  const int count_s = g_count[(size_t)b * nt + g];
+  tile_group(l, min(R, count_s), count_s, b, g, tj, 1, S, T, nt, R, M, inv_s, half, sh, cidx,
+             cok, ovf);
+}
+
+}  // namespace"""),
+    ("  cfg.dynamicSmemBytes = smem;\n", """  static void* buf = nullptr;
+  static size_t n_set = 0, c_set = 0;
+  const size_t n = (size_t)B * nt * R, n_c = (size_t)B * nt;
+  if (n != n_set || n_c != c_set) {  // the lists' storage, once per shape
+    cudaFree(buf);
+    if (cudaMalloc(&buf, n * 16 + n_c * 4) != cudaSuccess) return (int)cudaErrorMemoryAllocation;
+    const List gl = {(float*)buf, (float*)buf + n, (unsigned*)buf + 2 * n, (int*)buf + 3 * n};
+    int* gc = (int*)buf + 4 * n;
+    cudaMemcpyToSymbol(g_list, &gl, sizeof gl);
+    cudaMemcpyToSymbol(g_count, &gc, sizeof gc);
+    n_set = n;
+    c_set = n_c;
+  }
+  cfg.dynamicSmemBytes = 0;
+"""),
+    ("  if (err != cudaSuccess) return (int)err;\n  return (int)cudaGetLastError();",
+     """  if (err != cudaSuccess) return (int)err;
+  tile_kernel<<<dim3(nt * nt, B), kThreads, 0, cfg.stream>>>(S, T, nt, R, M, inv_s, half, cidx,
+                                                             cok, ovf);
+  return (int)cudaGetLastError();"""),
+)
+_SELECT_VARIANTS = {
+    "1 block a strip": ((_CLUSTER, "constexpr int kCluster = 1;"),),
+    "4 blocks": ((_CLUSTER, "constexpr int kCluster = 4;"),),
+    "16 blocks": ((_CLUSTER, "constexpr int kCluster = 16;"),
+                  (_SMEM, _SMEM + "  cudaFuncSetAttribute(select_kernel, "
+                   "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n")),
+    "8 blocks of 512 threads": (("constexpr int kThreads = 256;",
+                                 "constexpr int kThreads = 512;"),),
+    "8 blocks, two kernels": _TWO_KERNELS,
+}
+_EXIT = "    if (__all_sync(kFull, done)) break;\n"
+_CULL = """      near = __fsub_rn(x_hi, cx) >= -rx && __fsub_rn(x_lo, cx) <= rx &&
+             __fsub_rn(y_hi, cy) >= -ry && __fsub_rn(y_lo, cy) <= ry;"""
+_FINE_VARIANTS = {
+    "no early exit": ((_EXIT, ""),),
+    "no cull": ((_CULL, "      near = true;"),),
+    "neither": ((_EXIT, ""), (_CULL, "      near = true;")),
+}
+
+
+def _splat_jobs():
+    """The selection's and the fine stage's copies, their builds started."""
+    jobs = {("splat_select", v): _variant("splat_select", "select_" + str(i), e)
+            for i, (v, e) in enumerate(_SELECT_VARIANTS.items())}
+    jobs.update({("splat_fine", v): _variant("splat_fine", "fine_" + str(i), e)
+                 for i, (v, e) in enumerate(_FINE_VARIANTS.items())})
+    return jobs
+
+
+def splat_variants(dev, jobs) -> None:
+    """The selection's cluster sizes, block width and two-kernel
+    arrangement, the fine stage without its early exit or its cull, at both
+    shapes, each a copy of the source (`_splat_jobs`)."""
+    module = {"splat_select": select, "splat_fine": splat}
+    fn = {"splat_select": "select_candidates", "splat_fine": "rasterize_fine"}
+    own = {name: m._lib for name, m in module.items()}
+    libs = {}
+    for key, (so, proc) in jobs.items():
+        try:
+            libs[key] = _load(so, proc, own[key[0]](), fn[key[0]])
+        except RuntimeError as e:
+            print(f"{key[0]} {key[1]}: did not build ({e})")
+
+    def timed(name, variant, run, alone, ref):
+        """`run` on the copy `variant` of `name` (None: as built): its
+        output held to `ref`, its time by events and alone."""
+        if variant is not None:
+            module[name]._lib = lambda lib=libs[(name, variant)]: lib
+        try:
+            try:
+                got = run()
+            except RuntimeError as e:   # a cluster of 16 the card refuses
+                return f"{variant}: did not launch ({e})"
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise RuntimeError(f"{name} {variant} differs from the built "
+                                   f"choice's outputs")
+            return (f"{variant or 'as built'} {_time(run):.4f} ms (alone "
+                    f"{alone(run):.4f} ms)"
+                    + ("" if variant else f" (host {_host_us(run):.1f} us a call)"))
+        finally:
+            module[name]._lib = own[name]
+
+    for label, sel, table, K, dm in _splat_shapes(dev):
+        run = lambda: select.select_candidates_cuda(*sel)
+        built = run()
+        alone = lambda r: selection_alone_ms(r, sel)
+        row = [timed("splat_select", v, run, alone, built)
+               for v in (None, *_SELECT_VARIANTS) if v is None or ("splat_select", v) in libs]
+        print(f"splat_select, {label}: " + "; ".join(row))
+        ci, ok, _ = built
+        run = lambda: splat.rasterize_fine_cuda(table, ci, ok, sel[6], sel[7], K, dm)
+        ref = run()
+        row = [timed("splat_fine", v, run, queued_ms, ref)
+               for v in (None, *_FINE_VARIANTS) if v is None or ("splat_fine", v) in libs]
+        print(f"splat_fine, {label}: " + "; ".join(row))
+
+
 def main() -> None:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    splat_jobs = _splat_jobs()
+    if sys.argv[1:] == ["splat"]:       # the splat stages alone
+        print(torch.cuda.get_device_name(0))
+        splat_variants(dev, splat_jobs)
+        return
     jobs = {("fused_mlp", rg): _variant(
-        "fused_mlp", f"fused_mlp_rows{32 * rg}", _RULE,
-        f"  switch ({rg}) {{") for rg in (1, 4)}
+        "fused_mlp", f"fused_mlp_rows{32 * rg}", ((_RULE, f"  switch ({rg}) {{"),))
+        for rg in (1, 4)}
     f32_names = ("as built",) + tuple(_F32_VARIANTS)
     jobs.update({("fused_igr", v): _variant(
-        "fused_igr", "f32_" + v.replace(" ", "_"), _F32_BUILT,
-        _F32_BUILT if v == "as built" else _F32_VARIANTS[v], "mlp_mma.cuh")
-        for v in f32_names})
+        "fused_igr", "f32_" + v.replace(" ", "_"),
+        ((_F32_BUILT, _F32_BUILT if v == "as built" else _F32_VARIANTS[v]),),
+        "mlp_mma.cuh") for v in f32_names})
     # the wrappers launch through their module's _lib(), swapped per copy
     own = {"fused_mlp": fused_mlp._lib, "fused_igr": fused_mlp._igr_lib}
     like = {name: own[name]() for name in own}
@@ -162,6 +396,7 @@ def main() -> None:
             for key, (so, proc) in jobs.items()}
     print(f"{torch.cuda.get_device_name(0)}; launches of the kernels as built "
           f"(the wrappers), with each constant replaced")
+    splat_variants(dev, splat_jobs)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     # the kNN with and without the Morton order and the pruning: knn.SORT_MIN

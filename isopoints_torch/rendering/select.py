@@ -6,8 +6,10 @@ isopoints_tpu/rendering/pallas_select.py (:73, wrapper
 `select_candidates_pallas` :258): per strip of tiles, the
 `max_points_per_strip` front-most splats overlapping it, then per tile the
 `max_points_per_tile` front-most of those, by radix select on the depth
-bits and block prefix scans. Bound on an H100: bytes (the (P,) inputs and
-the (nt², M) candidate table).
+bits and warp-ballot compaction. A thread-block cluster of 8 blocks
+takes a strip: the blocks split its splats, meet through distributed
+shared memory, each hold the strip's list and take nt/8 of its tiles. Bound on an H100: bytes (the (P,) inputs and the (nt², M)
+candidate table).
 
 The plain version is the XLA path's `_tile_candidates`
 (isopoints_tpu/rendering/rasterizer.py:293-330) over every tile row, with
@@ -16,7 +18,11 @@ per tile and the same overflow count; the kernel lists a tile's
 candidates in index order, the plain version by depth.
 
 `select_candidates` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors.
+version for CPU tensors. The wrapper is the launch and one `torch.sum`
+(the per-tile overflow counts the kernel writes, summed per cloud): it
+reads the splat attributes through their strides and `valid` as the bytes
+of its bool storage, and the kernel writes the candidates as int64 and the
+flags into a bool tensor's storage.
 """
 
 import ctypes
@@ -39,7 +45,7 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("splat_select")
-    lib.select_candidates.argtypes = ([_P] * 6 + [_I] * 7 + [_F] * 2 + [_P] * 4)
+    lib.select_candidates.argtypes = [_P] * 7 + [_I] * 7 + [_F] * 2 + [_P] * 4
     lib.select_candidates.restype = _I
     return lib
 
@@ -108,33 +114,35 @@ def select_candidates_cuda(px, py, z, rx, ry, valid, S: int, T: int, R: int,
                            M: int):
     """Launch the CUDA kernel; same arguments and results as the plain
     version (candidate order aside)."""
-    ins = (px, py, z, rx, ry)
-    for t in ins + (valid,):
+    ins = (px, py, z, rx, ry, valid)
+    for t in ins:
         if not t.is_cuda or t.shape != px.shape or t.device != px.device:
             raise ValueError("select_candidates_cuda takes (B, P) CUDA tensors "
                              "on one device")
-    if any(t.dtype != torch.float32 for t in ins):
-        raise TypeError("select_candidates_cuda takes float32 splat attributes")
+    if any(t.dtype != torch.float32 for t in ins[:5]) or valid.dtype != torch.bool:
+        raise TypeError("select_candidates_cuda takes float32 splat attributes "
+                        "and a bool valid mask")
     b, p = px.shape
     nt = S // T
     r = min(R, p) if R else p
     if not 1 <= M <= r:
         raise ValueError(f"tile capacity M={M} must be in [1, strip capacity {r}]")
-    ins = [t.contiguous() for t in ins]
-    v = valid.to(torch.uint8).contiguous()
+    ins = ins[:5] + (valid.view(torch.uint8),)
+    strides = (ctypes.c_longlong * 12)(*(t.stride(0) for t in ins),
+                                       *(t.stride(1) for t in ins))
     dev = px.device
-    cidx = torch.empty((b, nt * nt, M), dtype=torch.int32, device=dev)
-    cok = torch.empty((b, nt * nt, M), dtype=torch.uint8, device=dev)
-    ovf = torch.empty((b, nt), dtype=torch.int32, device=dev)
+    cidx = torch.empty((b, nt * nt, M), dtype=torch.int64, device=dev)
+    cok = torch.empty((b, nt * nt, M), dtype=torch.bool, device=dev)
+    ovf = torch.empty((b, nt * nt), dtype=torch.int64, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     KERNEL.launches += 1
-    err = lib.select_candidates(*(t.data_ptr() for t in ins), v.data_ptr(), b,
-                                p, S, T, nt, r, M, 1.0 / S, float(T - 1) / S,
-                                cidx.data_ptr(), cok.data_ptr(),
-                                ovf.data_ptr(), stream)
+    err = lib.select_candidates(*(t.data_ptr() for t in ins), strides, b, p, S,
+                                T, nt, r, M, 1.0 / S, float(T - 1) / S,
+                                cidx.data_ptr(), cok.data_ptr(), ovf.data_ptr(),
+                                stream)
     _build.check_launch(lib, err, "splat_select")
-    return cidx.long(), cok.bool(), torch.sum(ovf.long(), dim=-1)
+    return cidx, cok, torch.sum(ovf, dim=-1)
 
 
 def select_candidates(px, py, z, rx, ry, valid, S: int, T: int, R: int,

@@ -4,23 +4,31 @@ hand-written CUDA kernels and their plain versions.
 The kernel (csrc/splat_fine.cu) replaces `_fine_kernel` of
 isopoints_tpu/rendering/pallas_splat.py (:42, wrapper
 `rasterize_fine_pallas` :126): one block per T×T tile, one thread per
-pixel, the tile's candidates in shared memory and a K-entry insertion
-list per pixel. Bound on an H100: the f32 rate over the S²·M
-(pixel, candidate) scores.
+pixel. The block gathers its candidates from the (B, P, 9) per-splat table,
+ranks them by (depth, global id) in shared memory, and each pixel walks
+them in that order, appending its hits until K are kept or, once it has a
+hit, until a candidate fails the depth-merging cut against the first (the
+cut is monotone in depth, so no later candidate could pass it); a warp
+skips the candidates whose boxes miss its pixels. Bound on an H100: bytes
+(the candidates and their table rows read, the maps written).
 
 The plain version is the fine half of the XLA path's `_rasterize_one`
 (isopoints_tpu/rendering/rasterizer.py:364-399) on the tiled candidate
-table: score every (pixel, candidate) pair, then K masked-min sweeps.
-Both break depth ties by the smaller global point index (the JAX package
-gets the same order from its candidate lists, whose equal depths come in
-index order), and both form q = a·dx² + b·dx·dy + c·dy² with the fused
-multiply-adds XLA puts there.
+table: gather the candidates' attributes, score every (pixel, candidate)
+pair, then K masked-min sweeps. Both break depth ties by the smaller
+global point index (the JAX package gets the same order from its
+candidate lists, whose equal depths come in index order), so neither
+depends on the order of a tile's list, and both form
+q = a·dx² + b·dx·dy + c·dy² with the fused multiply-adds XLA puts there.
 
 `rasterize_fine` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors. Outputs, per cloud and tile (all tiled):
-idx (global ids) / zbuf / qvalue / slots (local candidate slots, which the
-zbuf backward reads) (B, n_tiles, T², K), occupancy (B, n_tiles, T²) and
-per-candidate `used` flags (B, n_tiles, M).
+version for CPU tensors. Both take the per-splat table and the
+selection's candidates as they come (the kernel writes idx as int64 and
+`used` into a bool tensor's storage: the wrapper is the launch alone).
+Outputs, per cloud and tile (all tiled): idx (global ids) / zbuf /
+qvalue / slots (local candidate slots, which the zbuf backward reads)
+(B, n_tiles, T², K), occupancy (B, n_tiles, T²) and per-candidate `used`
+flags (B, n_tiles, M).
 
 The zbuf backward's kernel (csrc/splat_zbuf_bwd.cu) replaces
 `_zbuf_bwd_kernel` of the same file (:186, wrapper
@@ -51,7 +59,6 @@ from isopoints_torch.utils import fma
 KERNEL = _build.LaunchCount("splat_fine")
 ZBUF_KERNEL = _build.LaunchCount("splat_zbuf_bwd")
 N_ATTRS = 9          # px, py, z, ea, eb, ec, rx, ry, cutoff
-MAX_K = 8
 _BIG = 1e10
 
 _P = ctypes.c_void_p
@@ -62,7 +69,7 @@ _F = ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("splat_fine")
-    lib.rasterize_fine.argtypes = [_P] * 3 + [_I] * 7 + [_F] * 2 + [_P] * 7
+    lib.rasterize_fine.argtypes = [_P] * 3 + [_I] * 8 + [_F] * 2 + [_P] * 7
     lib.rasterize_fine.restype = _I
     return lib
 
@@ -94,12 +101,27 @@ def _tile_pixels(tiles: torch.Tensor, S: int, T: int):
     return pixel_ndc(cols, S), pixel_ndc(rows, S)
 
 
-def rasterize_fine_plain(attrs: torch.Tensor, ok: torch.Tensor,
-                         gid: torch.Tensor, S: int, T: int, K: int,
+def _check_fine_inputs(table: torch.Tensor, cand_idx: torch.Tensor,
+                       cand_ok: torch.Tensor):
+    b, p, n_att = table.shape
+    if n_att != N_ATTRS or cand_idx.dim() != 3 or cand_idx.shape[0] != b:
+        raise ValueError(f"table (B, P, {N_ATTRS}) and cand_idx (B, n_tiles, M) "
+                         f"must agree")
+    if cand_ok.shape != cand_idx.shape:
+        raise ValueError("cand_ok must be (B, n_tiles, M) as cand_idx")
+
+
+def rasterize_fine_plain(table: torch.Tensor, cand_idx: torch.Tensor,
+                         cand_ok: torch.Tensor, S: int, T: int, K: int,
                          depth_merging_threshold: float) -> FineResult:
-    """Plain version, one tile row at a time. attrs (B, n_tiles, M, 9),
-    ok (B, n_tiles, M) bool, gid (B, n_tiles, M) global ids."""
-    b, n_tiles, m, _ = attrs.shape
+    """Plain version, one tile row at a time. table (B, P, 9) per-splat
+    attributes, cand_idx (B, n_tiles, M) point ids of each tile's
+    candidates, cand_ok (B, n_tiles, M) bool."""
+    _check_fine_inputs(table, cand_idx, cand_ok)
+    b, n_tiles, m = cand_idx.shape
+    attrs = torch.gather(table, 1, cand_idx.reshape(b, -1, 1).expand(-1, -1, N_ATTRS)
+                         ).reshape(b, n_tiles, m, N_ATTRS)
+    gid = cand_idx
     nt = S // T
     outs = []
     for lo in range(0, n_tiles, nt):
@@ -111,7 +133,7 @@ def rasterize_fine_plain(attrs: torch.Tensor, ok: torch.Tensor,
         dy = yf[None, :, :, None] - c(1)
         q = fma(c(5) * dy, dy, fma(c(3) * dx, dx, c(4) * dx * dy))
         inside = ((torch.abs(dx) <= c(6)) & (torch.abs(dy) <= c(7))
-                  & (q <= c(8)) & ok[:, lo:lo + nt, None, :])
+                  & (q <= c(8)) & cand_ok[:, lo:lo + nt, None, :])
         g = torch.broadcast_to(gid[:, lo:lo + nt, None, :], q.shape)
         zwork = torch.where(inside, c(2), _BIG)
         occ = torch.any(inside, dim=-1).float()
@@ -141,56 +163,57 @@ def rasterize_fine_plain(attrs: torch.Tensor, ok: torch.Tensor,
     return FineResult(idx, zbuf, qv, occ, used, slots.to(torch.int32))
 
 
-def rasterize_fine_cuda(attrs: torch.Tensor, ok: torch.Tensor,
-                        gid: torch.Tensor, S: int, T: int, K: int,
+def rasterize_fine_cuda(table: torch.Tensor, cand_idx: torch.Tensor,
+                        cand_ok: torch.Tensor, S: int, T: int, K: int,
                         depth_merging_threshold: float) -> FineResult:
     """Launch the CUDA kernel; same arguments and results as the plain
     version."""
-    b, n_tiles, m, n_att = attrs.shape
-    for t in (attrs, ok, gid):
-        if not t.is_cuda or t.device != attrs.device:
+    for t in (table, cand_idx, cand_ok):
+        if not t.is_cuda or t.device != table.device:
             raise ValueError("rasterize_fine_cuda takes CUDA tensors on one device")
-    if attrs.dtype != torch.float32 or n_att != N_ATTRS:
-        raise TypeError(f"attrs must be float32 (B, n_tiles, M, {N_ATTRS})")
-    if ok.shape != (b, n_tiles, m) or gid.shape != ok.shape:
-        raise ValueError("ok and gid must be (B, n_tiles, M)")
-    if not 1 <= K <= MAX_K or T * T > 1024:
-        raise ValueError(f"the CUDA fine stage takes K <= {MAX_K} and T*T <= 1024")
-    dev = attrs.device
-    a = attrs.contiguous()
-    o = ok.to(torch.uint8).contiguous()
-    g = gid.to(torch.int32).contiguous()
-    i32 = dict(dtype=torch.int32, device=dev)
+    if (table.dtype != torch.float32 or cand_idx.dtype != torch.int64
+            or cand_ok.dtype != torch.bool):
+        raise TypeError("rasterize_fine_cuda takes a float32 table, int64 "
+                        "candidate ids and bool flags")
+    _check_fine_inputs(table, cand_idx, cand_ok)
+    if K < 1 or T * T > 1024:
+        raise ValueError("the CUDA fine stage takes K >= 1 and T*T <= 1024")
+    b, p, _ = table.shape
+    _, n_tiles, m = cand_idx.shape
+    dev = table.device
+    tab, ci = table.contiguous(), cand_idx.contiguous()
+    ok = cand_ok.contiguous().view(torch.uint8)
     f32 = dict(dtype=torch.float32, device=dev)
-    idx = torch.empty((b, n_tiles, T * T, K), **i32)
-    slots = torch.empty((b, n_tiles, T * T, K), **i32)
+    idx = torch.empty((b, n_tiles, T * T, K), dtype=torch.int64, device=dev)
+    slots = torch.empty((b, n_tiles, T * T, K), dtype=torch.int32, device=dev)
     zbuf = torch.empty((b, n_tiles, T * T, K), **f32)
     qv = torch.empty((b, n_tiles, T * T, K), **f32)
     occ = torch.empty((b, n_tiles, T * T), **f32)
-    used = torch.empty((b, n_tiles, m), dtype=torch.uint8, device=dev)
+    used = torch.empty((b, n_tiles, m), dtype=torch.bool, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     KERNEL.launches += 1
-    err = lib.rasterize_fine(a.data_ptr(), o.data_ptr(), g.data_ptr(), b,
+    err = lib.rasterize_fine(tab.data_ptr(), ci.data_ptr(), ok.data_ptr(), b, p,
                              n_tiles, m, S, T, S // T, K, 1.0 / S,
-                             float(depth_merging_threshold), idx.data_ptr(),
-                             zbuf.data_ptr(), qv.data_ptr(), slots.data_ptr(),
-                             occ.data_ptr(), used.data_ptr(), stream)
+                             float(depth_merging_threshold),
+                             idx.data_ptr(), zbuf.data_ptr(), qv.data_ptr(),
+                             slots.data_ptr(), occ.data_ptr(), used.data_ptr(),
+                             stream)
     _build.check_launch(lib, err, "splat_fine")
-    return FineResult(idx.long(), zbuf, qv, occ, used.bool(), slots)
+    return FineResult(idx, zbuf, qv, occ, used, slots)
 
 
-def rasterize_fine(attrs: torch.Tensor, ok: torch.Tensor, gid: torch.Tensor,
-                   S: int, T: int, K: int,
+def rasterize_fine(table: torch.Tensor, cand_idx: torch.Tensor,
+                   cand_ok: torch.Tensor, S: int, T: int, K: int,
                    depth_merging_threshold: float) -> FineResult:
     """Fine stage over all tiles of B clouds: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
-    if attrs.is_cuda:
-        return rasterize_fine_cuda(attrs, ok, gid, S, T, K,
+    if table.is_cuda:
+        return rasterize_fine_cuda(table, cand_idx, cand_ok, S, T, K,
                                    depth_merging_threshold)
-    if attrs.device.type != "cpu":
-        raise ValueError(f"rasterize_fine runs on CUDA or CPU, not {attrs.device}")
-    return rasterize_fine_plain(attrs, ok, gid, S, T, K,
+    if table.device.type != "cpu":
+        raise ValueError(f"rasterize_fine runs on CUDA or CPU, not {table.device}")
+    return rasterize_fine_plain(table, cand_idx, cand_ok, S, T, K,
                                 depth_merging_threshold)
 
 

@@ -14,8 +14,12 @@ an integer lattice, masked points and queries, two clusters far apart, k
 = 1, 8, 16, with and without self-exclusion; two of them past
 knn.SORT_MIN, on the Morton order with pruning); candidate SETS and
 overflow counts equal (the kernel lists a tile's candidates in index
-order, the plain version by depth); fragment maps, occupancy, used flags
-and visibility identical, conic values within 1e-6.
+order, the plain version by depth), also at the splat frame's shape and on
+a strip whose threshold ties straddle two blocks of its cluster (clusters
+of 8 and 4, and the two-kernel arrangement); fragment maps, occupancy,
+used flags and visibility identical, conic values within 1e-6, with and
+without the fine kernel's early exit and per-warp cull, and on a permuted
+candidate list (`used` and `slots` permuted to match).
 
 Tolerances: MLP values atol 2e-5 and input gradients atol 1e-4 + rtol 1e-4
 (3xTF32 tensor-core sums in the kernel against cuBLAS float32 in the twin;
@@ -268,7 +272,9 @@ def _sets(ci, ok):
 
 @pytest.mark.parametrize("P,S,R,M,z_ties", [(8000, 256, 2048, 256, False),
                                             (8000, 256, 512, 64, True),
-                                            (640, 64, 2048, 128, True)])
+                                            (640, 64, 2048, 128, True),
+                                            (24_576, 512, 1280, 256, False),
+                                            (3000, 256, 3000, 256, False)])
 def test_select_kernel_matches_plain(dev, P, S, R, M, z_ties):
     args = _splats(dev, P, seed=P + M, z_ties=z_ties)
     before = select.KERNEL.launches
@@ -280,17 +286,65 @@ def test_select_kernel_matches_plain(dev, P, S, R, M, z_ties):
     assert _sets(ci[0], ok[0]) == _sets(ci_p[0], ok_p[0])
 
 
-def test_fine_kernel_and_rasterizer_match_plain(dev):
+def test_select_kernel_threshold_ties_in_two_ranks(dev):
+    """A strip past R whose threshold ties straddle the first two blocks'
+    parts of the splats (the cluster's 8 blocks split P in contiguous
+    parts): every splat overlaps every strip, 20 splats at depth 1.0 (each
+    over every tile) around the parts' boundary, R - 13 strictly in front.
+    The plain version's sets and overflow, the strip's first 13 ties among
+    them."""
+    P, S, R, M = 8000, 256, 512, 512
+    g = torch.Generator(device=dev).manual_seed(8)
+    chunk = -(-P // 8)
+    ties = torch.arange(chunk - 10, chunk + 10, device=dev)
+    rest = torch.ones(P, dtype=torch.bool, device=dev)
+    rest[ties] = False
+    rest = rest.nonzero()[:, 0]
+    front = rest[torch.randperm(len(rest), generator=g, device=dev)[:R - 13]]
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(1, P, generator=g, device=dev)
+    z = u(1.01, 3.0)
+    z[0, front] = u(0.5, 0.99)[0, :R - 13]
+    z[0, ties] = 1.0
+    px, rx = u(-1.0, 1.0), u(0.02, 0.2)
+    px[0, ties], rx[0, ties] = 0.0, 2.0
+    py, ry = torch.zeros(1, P, device=dev), torch.full((1, P), 2.0, device=dev)
+    valid = torch.ones(1, P, dtype=torch.bool, device=dev)
+    args = (px, py, z, rx, ry, valid, S, 16, R, M)
+    ci, ok, ovf = select.select_candidates_cuda(*args)
+    torch.cuda.synchronize()
+    ci_p, ok_p, ovf_p = select.select_candidates_plain(*args)
+    assert torch.equal(ovf, ovf_p) and int(ovf) >= 16 * (P - R)
+    assert _sets(ci[0], ok[0]) == _sets(ci_p[0], ok_p[0])
+    first = set(ci[0, 0][ok[0, 0]].tolist())
+    assert set(ties[:13].tolist()) <= first and not set(ties[13:].tolist()) & first
+    # a tile's list in index order, then the padding
+    assert bool(((ci[..., 1:] > ci[..., :-1]) | ~ok[..., 1:]).all())
+    assert bool((ci[~ok] == 0).all())
+
+
+def _fine_inputs(dev):
+    """The selection's candidates and the per-splat table of an 8000-point
+    sphere cloud in two views at 256 px, and the splat parameters."""
     pts, normals, mask = _sphere_cloud(dev, 8000, seed=3)
     from isopoints_torch.core.camera import (PerspectiveCamera,
                                              look_at_view_transform)
-    from isopoints_torch.rendering.rasterizer import compute_splat_params
+    from isopoints_torch.rendering.rasterizer import (compute_splat_params,
+                                                      stage_inputs)
     R, T = look_at_view_transform(2.0, [10.0, -30.0], [20.0, 150.0], device=dev)
     cam = PerspectiveCamera.create(R=R, T=T, focal_length=2.0, device=dev)
     kern = RasterizationSettings(image_size=256, use_pallas=True)
-    plain = RasterizationSettings(image_size=256, use_pallas=False)
     sp = compute_splat_params(pts.expand(2, -1, -1), normals.expand(2, -1, -1),
                               mask.expand(2, -1), cam, kern)
+    sel, table = stage_inputs(sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff,
+                              sp.mask, kern)
+    ci, ok, _ = select.select_candidates_plain(*sel)
+    return sp, table, ci, ok
+
+
+def test_fine_kernel_and_rasterizer_match_plain(dev):
+    sp, table, ci, ok = _fine_inputs(dev)
+    kern = RasterizationSettings(image_size=256, use_pallas=True)
+    plain = RasterizationSettings(image_size=256, use_pallas=False)
     args = (sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff, sp.mask)
     before = (select.KERNEL.launches, splat.KERNEL.launches)
     a = rasterize_splats(*args, kern)
@@ -303,21 +357,33 @@ def test_fine_kernel_and_rasterizer_match_plain(dev):
     torch.testing.assert_close(a.zbuf, b.zbuf, atol=0, rtol=0)
     torch.testing.assert_close(a.qvalue, b.qvalue, atol=1e-6, rtol=0)
     assert int(a.visibility.sum()) > 2000
-    # the fine kernel alone on the plain selection's candidate table
-    px, py, z = (sp.pts_ndc[..., i] for i in range(3))
-    valid = sp.mask & (z >= 0)
-    ci, ok, _ = select.select_candidates_plain(
-        px, py, z, sp.radii[..., 0], sp.radii[..., 1], valid, 256, 16, 2048, 256)
-    table = torch.stack([px, py, z, sp.ellipse[..., 0], sp.ellipse[..., 1],
-                         sp.ellipse[..., 2], sp.radii[..., 0], sp.radii[..., 1],
-                         sp.cutoff], -1)
-    attrs = torch.gather(table, 1, ci.reshape(2, -1, 1).expand(-1, -1, 9)).reshape(
-        ci.shape + (9,))
-    fk = splat.rasterize_fine(attrs, ok, ci, 256, 16, 5, 0.05)
-    fp = splat.rasterize_fine_plain(attrs, ok, ci, 256, 16, 5, 0.05)
+    # the fine kernel alone on the plain selection's candidates
+    fp = splat.rasterize_fine_plain(table, ci, ok, 256, 16, 5, 0.05)
+    fk = splat.rasterize_fine_cuda(table, ci, ok, 256, 16, 5, 0.05)
     for name in ("idx", "zbuf", "occ", "used", "slots"):
         assert torch.equal(getattr(fk, name), getattr(fp, name)), name
     torch.testing.assert_close(fk.qvalue, fp.qvalue, atol=1e-6, rtol=0)
+
+
+def test_fine_kernel_on_permuted_list(dev):
+    """Each tile's candidate list permuted: the kernel's maps equal the
+    plain version's on the original list, with `used` and `slots` permuted
+    to match."""
+    _, table, ci, ok = _fine_inputs(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    perm = torch.argsort(torch.rand(ci.shape, generator=g, device=dev), dim=-1)
+    inv = torch.argsort(perm, dim=-1)
+    fk = splat.rasterize_fine(table, torch.gather(ci, 2, perm),
+                              torch.gather(ok, 2, perm), 256, 16, 5, 0.05)
+    fp = splat.rasterize_fine_plain(table, ci, ok, 256, 16, 5, 0.05)
+    for name in ("idx", "zbuf", "occ"):
+        assert torch.equal(getattr(fk, name), getattr(fp, name)), name
+    torch.testing.assert_close(fk.qvalue, fp.qvalue, atol=1e-6, rtol=0)
+    assert torch.equal(fk.used, torch.gather(fp.used, 2, perm))
+    b, n_t = ci.shape[:2]
+    moved = torch.gather(inv, 2, fp.slots.long().clamp(min=0).reshape(b, n_t, -1)
+                         ).reshape(fp.slots.shape)
+    assert torch.equal(fk.slots, torch.where(fp.slots >= 0, moved, -1).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -209,12 +209,10 @@ def test_fine_stage_ignores_candidate_order():
     ell[..., 1] = 0.0
     table = torch.stack([px, py, z, ell[..., 0], ell[..., 1], ell[..., 2], rx,
                          ry, torch.ones_like(px)], -1)
-    attrs = table[0][ci]
     perm = torch.from_numpy(np.stack([rng.permutation(M) for _ in range(ci.shape[1])]))[None]
-    shuf = lambda x: torch.gather(x, 2, perm if x.dim() == 3 else
-                                  perm[..., None].expand(-1, -1, -1, x.shape[-1]))
-    a = rasterize_fine_plain(attrs, ok, ci, S, T, 5, 0.05)
-    b = rasterize_fine_plain(shuf(attrs), shuf(ok), shuf(ci), S, T, 5, 0.05)
+    shuf = lambda x: torch.gather(x, 2, perm)
+    a = rasterize_fine_plain(table, ci, ok, S, T, 5, 0.05)
+    b = rasterize_fine_plain(table, shuf(ci), shuf(ok), S, T, 5, 0.05)
     assert int((a.idx >= 0).sum()) > 100
     for name in ("idx", "zbuf", "qvalue", "occ"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
