@@ -101,12 +101,16 @@ Phases, each fatal on failure:
      give its gradient) run twice (the zbuf kernel's tile sums and the
      occupancy gradient bit-identical), against their plain versions
      (the zbuf kernel's points also against its own tile sums scattered
-     by `index_add_`), timed as the path calls them (median of 7, CUDA
-     events; the kernels alone from a profiled frame, which must hold no
-     `index_add_`) with their bounds and, for the zbuf backward, one
-     per-fragment `index_add_` to the points (and the old per-tile
-     `scatter_add_`); the frame time (median of 5 runs of 3 frames),
-     splats/s and the kNN spacing's time;
+     by `index_add_`; the occupancy window kernel's renderable flags and
+     search radius bit-equal to backward_window's), timed as the path
+     calls them (median of 7, CUDA events) and alone (the zbuf kernel from
+     a profiled frame, which must hold no `index_add_`; the occupancy
+     backward's two kernels queued behind a spin of the card) with their
+     bounds (the occupancy backward's from the pairs its sums need,
+     `occ_bwd.occ_work`, beside the same FLOP over every patch pixel)
+     and, for the zbuf backward, one per-fragment `index_add_` to
+     the points (and the old per-tile `scatter_add_`); the frame time
+     (median of 5 runs of 3 frames), splats/s and the kNN spacing's time;
   9. the DSS point model: isopoints_torch/configs/dss_point.yml through
      the factories, 5000 points on the r=0.5 sphere (seeded), two views at
      256 px; the kNN against its plain version on the (2, 5000) cloud of its
@@ -115,7 +119,10 @@ Phases, each fatal on failure:
      sphere; gradients of points, normal angles and colours finite and
      non-zero, log_size none; the same step with every plain version (no
      launch; loss rtol 1e-5, gradients within phase 8's per-element bound);
-     the kNN and both backward kernels launched; the step's time;
+     the kNN and both backward kernels launched, the occupancy backward
+     once for the two views (one call, one C call); that call's inputs
+     (the step's signed cotangent) recorded and the occupancy backward held
+     and timed on them as in phase 8; the step's time;
   10. the uni ablation arm's path, isopoints_torch/configs/mvr_uni_siren.yml
      (SIREN 3x256 under the production trace schedule with the bf16 coarse
      phase and the coarse sampler, the neural texture 3x128) through the
@@ -303,7 +310,7 @@ def main() -> None:
                                            create_trainer)
     from isopoints_torch.models.combined import back_camera
     from isopoints_torch.models.fields import SirenField, sdf_and_grad
-    from isopoints_torch import bench, kernel_variants
+    from isopoints_torch import bench, kernel_variants, point_scene
     from isopoints_torch.models import implicit as implicit_mod
     from isopoints_torch.models import raytracing
     from isopoints_torch.models.raytracing import march_plain
@@ -586,6 +593,54 @@ def main() -> None:
         print(f"knn {label} P={pts.shape[1]} k={k}: distances and indices "
               f"equal to the plain version's{times}")
         return 0.0, ms, pms, (bms, by)   # error 0: equal bit for bit
+
+    def check_occ(args, label):
+        """The occupancy backward on (pts, radii, visible, grad, settings) of
+        B clouds: twice bit-identical, the window kernel's flags and search
+        radius bit-equal to backward_window's, within GRAD_TOL of the plain
+        version; timed as the path calls it (CUDA events), alone (queued)
+        and plain. Returns (err, ms, plain ms, bound, alone ms, gradient,
+        the bound over every patch pixel)."""
+        pts, radii, vis, grad, st = args
+        out, scratch = occ_bwd.launch(*args)
+        if not torch.equal(out, occ_bwd.occ_backward_cuda(*args)):
+            fail(f"occ_bwd ({label}): two runs on the same inputs differ")
+        ren, sr2, _ = occ_bwd.window_of(scratch, pts.shape[1])
+        n_rend = 0
+        for i in range(pts.shape[0]):
+            r, s2, w = occ_bwd.backward_window(pts[i], radii[i], vis[i], st)
+            if not (torch.equal(ren[i], r) and torch.equal(
+                    sr2[i:i + 1].view(torch.int32), s2.reshape(1).view(torch.int32))):
+                fail(f"occ_bwd ({label}): cloud {i}'s renderable flags or search "
+                     f"radius ({float(sr2[i])} against {float(s2)}) differ from "
+                     f"backward_window's")
+            n_rend += int(r.sum())
+        ref = occ_bwd.occ_backward_plain(*args)
+        oc = grad_check(out, ref)
+        if not oc[1]:
+            fail(f"occ_bwd ({label}): {oc[0]}")
+        run = lambda: occ_bwd.occ_backward_cuda(*args)
+        ms, alone = time_ms(run), kernel_variants.queued_ms(run)
+        pms = time_ms(lambda: occ_bwd.occ_backward_plain(*args))
+        # the work these inputs need: ~15 FLOP per term of the sums (dx,
+        # dist², four compares, the max, two divisions, two products, two
+        # sums), a compare per other nonzero pixel of a point's window;
+        # beside it, 15 FLOP per (renderable point, patch pixel), the
+        # row's earlier count. Points, radii, flags and the cotangent image
+        # in, (B, P, 2) out
+        terms, window = occ_bwd.occ_work(*args)
+        n_bytes = pts.shape[0] * pts.shape[1] * (12 + 8 + 1 + 8) + 4.0 * grad.numel()
+        b = bound_ms(15.0 * terms + (window - terms), n_bytes)
+        b_all = bound_ms(15.0 * n_rend * w * w, n_bytes)
+        print(f"occ_bwd on {label} ({pts.shape[0]} x {pts.shape[1]} points, "
+              f"{n_rend} renderable, at {st.image_size} px, W={w}; cotangent "
+              f"{int((grad < 0).sum())} negative, {int((grad > 0).sum())} positive "
+              f"pixels): repeat bit-identical, flags and search radius bit-equal "
+              f"to backward_window's, {oc[0]}  wrapper {ms:.4f} ms (kernels "
+              f"alone {alone:.4f} ms)  plain {pms:.3f} ms  bound {b[0]:.4f} ms ({b[1]}; "
+              f"{terms} terms, {window} nonzero window pixels; over every patch "
+              f"pixel {b_all[0]:.4f} ms)")
+        return float((out - ref).abs().max()), ms, pms, b, alone, out, b_all
 
     print("tolerances: MLP value |err| <= 2e-5, grad |err| <= 1e-4·max(1,|g|); "
           "sampler picks equal on >= 99.9% of rays, f_pick |err| <= 1e-5, "
@@ -1379,27 +1434,20 @@ def main() -> None:
              f"{zb_err} against the plain version, {lib_err} against index_add_ "
              f"(rtol 1e-5)")
 
-    occ_args = (sp.pts_ndc[0], sp.radii[0], (fr_b.visibility & sp.mask)[0],
-                torch.ones((S, S), device=dev), sst)
-    ok_ = occ_bwd.occ_backward_one_cuda(*occ_args)
-    if not torch.equal(ok_, occ_bwd.occ_backward_one_cuda(*occ_args)):
-        fail("occ_bwd: two runs on the same inputs differ")
-    if not torch.equal(ok_, gndc_k[0, :, :2]):
+    # the occupancy backward on the frame's inputs: the all-ones cotangent of
+    # Σ occupancy, expanded as autograd hands it over
+    occ_args = (sp.pts_ndc, sp.radii, fr_b.visibility & sp.mask,
+                torch.ones((1, 1, 1), device=dev).expand(1, S, S), sst)
+    occ_row = check_occ(occ_args, "the splat frame's inputs, all-ones cotangent")
+    if not torch.equal(occ_row[5], gndc_k[..., :2]):
         fail("occ_bwd: the rebuilt inputs do not give the frame's xy gradient")
-    occ_ref = occ_bwd.occ_backward_one_plain(*occ_args)
-    oc = grad_check(ok_, occ_ref)
-    occ_err = float((ok_ - occ_ref).abs().max())
-    if not oc[1]:
-        fail(f"occ_bwd: {oc[0]}")
 
-    # both rows timed as the path calls them, wrapper included; the kernels
+    # the zbuf row timed as the path calls it, wrapper included; its kernel
     # alone from the profiler's trace of one frame
     zb_ms = time_ms(lambda: splat.zbuf_backward_points_cuda(*zb_args))
     zb_pms = time_ms(lambda: splat.zbuf_backward_points_plain(*zb_args))
     zb_lib_ms = time_ms(lib_zb)
     zb_old_ms = time_ms(old_zb)
-    occ_ms = time_ms(lambda: occ_bwd.occ_backward_one_cuda(*occ_args))
-    occ_pms = time_ms(lambda: occ_bwd.occ_backward_one_plain(*occ_args))
     prof = bench.profile_call(lambda: bench.splat_step(scene), dev,
                               "splat frame with the kernels")
     alone = lambda tag: sum(ms for key, ms, _ in prof["kernels"] if tag in key)
@@ -1422,17 +1470,6 @@ def main() -> None:
           f"index_add_ per fragment {zb_lib_ms:.4f} ms (tile sums alone by a "
           f"per-tile scatter_add_ {zb_old_ms:.4f} ms)  bound {zb_b[0]:.4f} ms ({zb_b[1]}); "
           f"no index_add_ in the profiled frame")
-    o_pts, o_radii, o_vis, o_grad, o_st = occ_args
-    renderable, _, o_w = occ_bwd.backward_window(o_pts, o_radii, o_vis, o_st)
-    n_rend = int(renderable.sum())
-    # ~15 FLOP per (renderable point, patch pixel) (csrc/occ_bwd.cu); points,
-    # radii, flags and the cotangent image in, (P, 2) out
-    occ_b = bound_ms(15.0 * n_rend * o_w * o_w,
-                     o_pts.shape[0] * (12 + 8 + 1 + 8) + 4.0 * o_grad.numel())
-    print(f"occ_bwd on the frame's {o_pts.shape[0]} points ({n_rend} renderable) "
-          f"at {S} px, W={o_w}: repeat bit-identical, {oc[0]}  wrapper "
-          f"{occ_ms:.3f} ms (kernel alone {alone_txt(alone('occ_bwd_kernel'))})  "
-          f"plain {occ_pms:.3f} ms  bound {occ_b[0]:.4f} ms ({occ_b[1]})")
     frame_ms = bench.time_frames(lambda: bench.splat_step(scene), dev, reps=5)
     plain_frame_ms = bench.time_frames(
         lambda: bench.splat_step(plain_scene, plain_st), dev, reps=3)
@@ -1444,40 +1481,23 @@ def main() -> None:
           f"version; +{spacing_ms:.3f} ms kNN spacing per point-set refresh)")
 
     # ---- 9. the DSS point model through the factories
-    pcfg = load_config(os.path.join(ROOT, "isopoints_torch", "configs",
-                                    "dss_point.yml"))
-    pgen = torch.Generator(device=dev).manual_seed(5)
-    pmodel = create_model(pcfg, generator=pgen, device=dev)
+    ps = point_scene.point_model_scene(dev)
+    pcfg, pmodel, pcam = ps.cfg, ps.model, ps.camera
     n_pm = pmodel.cfg.n_points_per_cloud
-    dirs = torch.randn((1, n_pm, 3), generator=pgen, device=dev)
-    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
-    pmodel.init(points=0.5 * dirs, normals=dirs)
-    target = create_model(pcfg, device=dev)
-    target.init(points=0.5 * dirs + torch.tensor([0.06, -0.04, 0.0], device=dev),
-                normals=dirs, colors=torch.tensor([0.8, 0.4, 0.2], device=dev
-                                                  ).expand(1, n_pm, 3))
-    R2, T2 = look_at_view_transform(2.0, [10.0, -20.0], [0.0, 120.0], device=dev)
-    pcam = PerspectiveCamera.create(R=R2, T=T2, focal_length=2.0, device=dev)
-    with torch.no_grad():
-        tgt = target(pcam).rgba
-    mask_img = tgt[..., 3:]
     # the kNN of the model's splat spacing, at the shape its forward gives
     # it: the cloud in every view
     nv = pcam.batch_size
     knn_case(pmodel.points.detach().expand(nv, -1, -1),
              torch.ones((nv, n_pm), dtype=torch.bool, device=dev),
              pmodel.raster_settings.knn_k - 1, "point model cloud")
+    point_step = lambda m: point_scene.point_model_step(ps, m)
 
-    def point_step(m):
-        m.zero_grad(set_to_none=True)
-        out = m(pcam, mask_img=mask_img)
-        loss = (torch.sum((out.rgba[..., 3] - tgt[..., 3]) ** 2)
-                + torch.sum(torch.abs(out.rgba[..., :3] - tgt[..., :3])))
-        loss.backward()
-        return loss.detach(), {k: p.grad for k, p in m.named_parameters()}, out
-
+    # the step's occupancy backward: its calls and their inputs (the
+    # signed cotangent of the DSS loss), recorded where the rasterizer's
+    # backward calls it
     reset()
-    pl_k, pg_k, pout = point_step(pmodel)
+    (pl_k, pg_k, pout), occ_calls = point_scene.record_occ_calls(
+        lambda: point_step(pmodel))
     torch.cuda.synchronize()
     point_launches = counts()
     plain_pm = create_model(pcfg, device=dev)
@@ -1497,6 +1517,9 @@ def main() -> None:
     for name in ("knn", "splat_select", "splat_fine", "splat_zbuf_bwd", "occ_bwd"):
         if point_launches[name] <= 0:
             fail(f"kernel {name} was not launched by the point model's step")
+    if len(occ_calls) != 1 or point_launches["occ_bwd"] != 1:
+        fail(f"point model: the {nv}-view step made {len(occ_calls)} occupancy "
+             f"calls and {point_launches['occ_bwd']} C calls (expected one each)")
     if abs(float(pl_k) - float(pl_p)) > 1e-5 * abs(float(pl_p)):
         fail("point model: kernel and plain losses differ beyond rtol 1e-5")
     for k in ("points", "normals_azim", "normals_elev", "colors"):
@@ -1510,6 +1533,8 @@ def main() -> None:
     if any(g["log_size"] is not None and bool((g["log_size"] != 0).any())
            for g in (pg_k, pg_p)):
         fail("point model: log_size got a non-zero gradient")
+    pm_occ = check_occ(occ_calls[0], "the point model step's own inputs, its "
+                       "signed cotangent")
     point_ms = bench.time_frames(lambda: point_step(pmodel), dev, reps=5)
     print(f"point model step (forward + backward): {point_ms:.3f} ms (median of "
           f"5 runs of {bench.SPLAT_REP})")
@@ -1929,9 +1954,14 @@ def main() -> None:
             "here only"),
         row("occ_bwd", "isopoints_torch/csrc/occ_bwd.cu",
             "isopoints_tpu/rendering/pallas_occ_bwd.py:41",
-            splat_launches["occ_bwd"], occ_err, occ_ms, occ_pms, occ_b,
+            splat_launches["occ_bwd"], max(occ_row[0], pm_occ[0]), *occ_row[1:4],
             library_note="no single PyTorch call computes this windowed, "
-            "gated sum per point"),
+            "gated sum per point", alone_ms=occ_row[4],
+            point_model_launches=point_launches["occ_bwd"],
+            point_model_ms=pm_occ[1], point_model_alone_ms=pm_occ[4],
+            point_model_plain_ms=pm_occ[2], point_model_bound_ms=pm_occ[3][0],
+            point_model_bound_by=pm_occ[3][1], bound_ms_all_pairs=occ_row[6][0],
+            point_model_bound_ms_all_pairs=pm_occ[6][0]),
     ]
     print(f"timed shapes: fused_mlp {n_mlp} points ({mlp_what}; its most "
           f"frequent launch in the projected run); fused_sampler {2 * cfg.training.n_rays} rays x "
@@ -1951,7 +1981,13 @@ def main() -> None:
           f"the march trace's first compacted "
           f"stage ({n_mrays} rays x {n_it} iterations); splat_zbuf_bwd and "
           f"occ_bwd on the splat frame's own inputs ({bench.N_SPLATS} splats at "
-          f"{bench.SPLAT_IMAGE_SIZE} px). Launches: the SIREN "
+          f"{bench.SPLAT_IMAGE_SIZE} px; occ_bwd's alone_ms: its two kernels "
+          f"queued behind a spin of the card; its bound_ms from the (point, "
+          f"pixel) pairs its sums need, bound_ms_all_pairs the same FLOP over "
+          f"every patch pixel of every renderable point), occ_bwd again on the point model "
+          f"step's own inputs (point_model_* keys: {n_pm} points x {nv} views at "
+          f"{pmodel.raster_settings.image_size} px, the step's signed "
+          f"cotangent; launches per step). Launches: the SIREN "
           f"kernels' in the projected path's run, fused_igr's (by mode) and "
           f"fused_sampler (IGR)'s in one bench trace, trace_march's in one trace "
           f"with the march, the splat backward's in one splat frame; the SIREN "

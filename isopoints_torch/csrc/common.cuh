@@ -1,7 +1,8 @@
 // Helpers shared by the port's CUDA kernels: the error-string entry point
 // every library exports for its ctypes wrapper, the dynamic shared-memory
-// limit, the splat stages' pixel centers, a warp scan, and the radix selection the splat candidate
-// selection runs on depth bits.
+// limit, the splat stages' pixel centers, a warp scan, and the radix
+// selection the splat candidate selection runs on depth bits and the
+// occupancy backward's window kernel on the radii's keys (radix_pick).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,6 +1,6 @@
 """The measurements behind the kernels' design choices, on the card.
 
-    python -m isopoints_torch.kernel_variants [splat]
+    python -m isopoints_torch.kernel_variants [splat|occ]
 
 The kNN (csrc/knn.cu) runs on the Morton order with pruning from
 `knn.SORT_MIN` points; the fused SIREN kernel (csrc/fused_mlp.cu) takes
@@ -46,8 +46,24 @@ events) and its kernels alone (`queued_ms`: calls queued behind a spin
 of the card, the selection's one `torch.sum` taken off), each output
 equal to the built choice's, at the projected step's shape (3000 splats
 on the r = 0.5 sphere x 2 views, 256 px) and at the splat frame's
-(24,576 splats at 512 px, bench.py's); with `splat`, only these. Needs nvcc and
-a CUDA device.
+(24,576 splats at 512 px, bench.py's); with `splat`, only these. The
+occupancy backward (csrc/occ_bwd.cu) runs a window kernel as a cluster of
+8 blocks a cloud and a walk kernel as a block of 16 warps a chunk of at
+most 16 points of a 32-pixel cell, with the cotangent's halo in shared
+memory, choosing rows: this builds copies with clusters of 1, 4 and 16
+blocks, cells of 8 and 16 pixels, chunks of 8 and 32 points and a block a
+cell, 4 and 8 warps a block, at most 42 registers a walk thread, without
+the row choice or the halo, with the columns cut to the window, and with
+the earlier walk (a warp a point over P warps, the cotangent from device
+memory), each gradient equal to the built choice's (the earlier walk's
+within 1e-5·max(1, max|g|)); and copies that leave out part of the work,
+timed only (`_TIMING_ONLY`): the window kernel alone, with and without
+its radix rounds 2-4, both kernels exiting at once, the walk's blocks
+exiting at once, the walk without its halo loads and without its points.
+It times each as the wrapper calls it and its two kernels alone
+(`queued_ms`) at the splat frame's inputs (the all-ones cotangent) and at
+the DSS point model step's (2 views x 5000 points at 256 px, its signed
+cotangent); with `occ`, only these. Needs nvcc and a CUDA device.
 """
 
 import ctypes
@@ -60,13 +76,14 @@ import time
 
 import torch
 
-from isopoints_torch import bench
+from isopoints_torch import bench, point_scene
 from isopoints_torch.core.camera import PerspectiveCamera, look_at_view_transform
 from isopoints_torch.models.fields import SirenField
 from isopoints_torch.ops import _build, fused_mlp, fused_sampler, knn
-from isopoints_torch.rendering import select, splat
+from isopoints_torch.rendering import occ_bwd, select, splat
 from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                   compute_splat_params,
+                                                  rasterize_splats,
                                                   splat_spacing, stage_inputs)
 from isopoints_torch.utils import linspace01
 
@@ -372,13 +389,197 @@ def splat_variants(dev, jobs) -> None:
         print(f"splat_fine, {label}: " + "; ".join(row))
 
 
+def occ_cases(dev):
+    """(label, occupancy backward inputs (pts, radii, visible, grad,
+    settings)): the splat frame's (bench.py's 24,576 splats at 512 px; the
+    all-ones cotangent of Σ occupancy, expanded as autograd hands it over)
+    and the point model step's own (its signed cotangent)."""
+    scene = bench.splat_scene(bench.N_SPLATS, bench.SPLAT_IMAGE_SIZE, dev)
+    st = scene.settings
+    with torch.no_grad():
+        sp = compute_splat_params(scene.points, scene.normals, scene.mask,
+                                  scene.camera, st, spacing=scene.spacing)
+        fr = rasterize_splats(sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff, sp.mask, st)
+    S = st.image_size
+    frame = (sp.pts_ndc, sp.radii, fr.visibility & sp.mask,
+             torch.ones((1, 1, 1), device=dev).expand(1, S, S), st)
+    ps = point_scene.point_model_scene(dev)
+    _, calls = point_scene.record_occ_calls(lambda: point_scene.point_model_step(ps))
+    pts = calls[0][0]
+    return [(f"splat frame, {bench.N_SPLATS} splats at {S} px, all-ones cotangent",
+             frame),
+            (f"point model step, {pts.shape[1]} points x {pts.shape[0]} views at "
+             f"{ps.model.raster_settings.image_size} px, its signed cotangent",
+             calls[0])]
+
+
+_WALK_LAUNCH = "  const dim3 grid((P + kChunk - 1) / kChunk + L.ncell, B);  // at least the chunks\n"
+# the earlier walk (the kernel before the redesign): a warp a list entry
+# over P warps, eight a block, so most warps exit at once; the cotangent
+# from device memory; every column of each row in the window
+_EARLIER_WALK = (
+    ("}  // namespace", r"""__global__ void earlier_walk_kernel(const float* __restrict__ pts,
+                                   const float* __restrict__ radii,
+                                   const float* __restrict__ grad, long long g_sb,
+                                   long long g_sr, long long g_sc, Layout L,
+                                   int* __restrict__ scratch, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31, b = blockIdx.y;
+  const int e = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const Scratch sc = cloud_scratch(scratch, L, b);
+  if (e >= sc.head[1]) return;  // the whole warp
+  const size_t q = (size_t)b * L.P + sc.ids[e];
+  const float* img = grad + b * g_sb;
+  const float sr2 = __int_as_float(sc.head[0]);
+  const float px = pts[3 * q], py = pts[3 * q + 1];
+  const float rx = radii[2 * q], ry = radii[2 * q + 1];
+  const int c0 = patch_origin(px, L.S, L.W), r0 = patch_origin(py, L.S, L.W);
+  float gx = 0.f, gy = 0.f;
+  for (int i = 0; i < L.W; ++i) {
+    const int row = r0 + i;
+    const float dy = __fsub_rn(common::pixel_ndc(row, L.S, L.inv_s), py);
+    const float dy2 = __fmul_rn(dy, dy);
+    if (dy2 > sr2) continue;
+    const bool out_y = fabsf(dy) > ry;
+    for (int j = lane; j < L.W; j += 32) {
+      const int col = c0 + j;
+      const float g = img[row * g_sr + col * g_sc];
+      if (g == 0.f) continue;
+      const float dx = __fsub_rn(common::pixel_ndc(col, L.S, L.inv_s), px);
+      const float dist2 = __fadd_rn(__fmul_rn(dx, dx), dy2);
+      if (!(dist2 <= sr2) || (g > 0.f && (fabsf(dx) > rx || out_y))) continue;
+      const float denom = fmaxf(dist2, (float)1e-10);
+      gx = __fadd_rn(gx, __fmul_rn(__fdiv_rn(dx, denom), g));
+      gy = __fadd_rn(gy, __fmul_rn(__fdiv_rn(dy, denom), g));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    gx = __fadd_rn(gx, __shfl_down_sync(kFull, gx, o));
+    gy = __fadd_rn(gy, __shfl_down_sync(kFull, gy, o));
+  }
+  if (lane == 0) reinterpret_cast<float2*>(out)[q] = make_float2(gx, gy);
+}
+
+}  // namespace"""),
+    (_WALK_LAUNCH, """  earlier_walk_kernel<<<dim3((P + 7) / 8, B), 256, 0, st>>>(pts, radii, grad, g_sb, g_sr,
+                                                             g_sc, L, scratch, out);
+  return (int)cudaGetLastError();
+""" + _WALK_LAUNCH),
+)
+_WIN = "constexpr int kWinCluster = 8;"
+_OCC_VARIANTS = {
+    "one block a cloud": ((_WIN, "constexpr int kWinCluster = 1;"),),
+    "4 blocks a cloud": ((_WIN, "constexpr int kWinCluster = 4;"),),
+    "16 blocks a cloud": ((_WIN, "constexpr int kWinCluster = 16;"),
+                          ("  err = cudaLaunchKernelEx(", "  cudaFuncSetAttribute(window_kernel, "
+                           "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
+                           "  err = cudaLaunchKernelEx(")),
+    "cells of 16 px": (("constexpr int kCell = 32;", "constexpr int kCell = 16;"),),
+    "cells of 8 px": (("constexpr int kCell = 32;", "constexpr int kCell = 8;"),),
+    "chunks of 8 points": (("constexpr int kChunk = 16;", "constexpr int kChunk = 8;"),),
+    "chunks of 32 points": (("constexpr int kChunk = 16;", "constexpr int kChunk = 32;"),),
+    "a block a cell": (("constexpr int kChunk = 16;", "constexpr int kChunk = 1 << 30;"),),
+    "4 warps a block": (("constexpr int kWarps = 16;", "constexpr int kWarps = 4;"),),
+    "8 warps a block": (("constexpr int kWarps = 16;", "constexpr int kWarps = 8;"),),
+    "no row choice": (("const unsigned f = kHalo ? flags[row - hr0] : 3u;",
+                       "const unsigned f = 3u;"),),
+    # a column whose fl(dx^2) exceeds search_r2 holds no pixel of the window
+    "columns cut to the window": (("const bool ina = ja < L.W, inb = jb < L.W;",
+                                   "const bool ina = ja < L.W && !(dxa2 > sr2), "
+                                   "inb = jb < L.W && !(dxb2 > sr2);"),),
+    "no halo": (("  const bool use_halo = halo_smem <= max_smem;",
+                 "  const bool use_halo = false;"),),
+    "the earlier walk": _EARLIER_WALK,
+    "the window kernel alone": ((_WALK_LAUNCH, "  return (int)cudaGetLastError();\n"
+                                 + _WALK_LAUNCH),),
+    "the window kernel alone, without radix rounds 2-4": (
+        (_WALK_LAUNCH, "  return (int)cudaGetLastError();\n" + _WALK_LAUNCH),
+        ("for (int a = 0; n > 0 && a < 2; ++a) {", "for (int a = 0; false && a < 2; ++a) {"),
+        ("  if (n > 0) {\n    cluster.sync();", "  if (false) {\n    cluster.sync();"),
+        ("  if (n > 0) {\n    const int n_cand", "  if (false) {\n    const int n_cand")),
+    "at most 42 registers a walk thread": (
+        ("__launch_bounds__(32 * kWarps)", "__launch_bounds__(32 * kWarps, 3)"),),
+    "both kernels exit at once": (
+        ("  cg::cluster_group cluster = cg::this_cluster();",
+         "  if (L.P > 0) return;\n  cg::cluster_group cluster = cg::this_cluster();"),
+        ("  if ((int)blockIdx.x >= sc.head[2]) return;  // past the chunks", "  return;")),
+    "the walk's blocks exit at once": (
+        ("  if ((int)blockIdx.x >= sc.head[2]) return;  // past the chunks", "  return;"),),
+    "the walk without its halo loads": (
+        ("halo[r * L.hs + c] = src[c * g_sc];", "halo[r * L.hs + c] = 1.f;"),),
+    "the walk without its points": (
+        ("  for (; e < end; e += kWarps) {", "  for (e = end; e < end; e += kWarps) {"),),
+}
+# copies that leave out part of the work: timed, their output not checked
+_TIMING_ONLY = ("the window kernel alone", "the window kernel alone, without radix rounds 2-4",
+                "both kernels exit at once",
+                "the walk's blocks exit at once", "the walk without its halo loads",
+                "the walk without its points")
+
+
+def _occ_jobs():
+    """The occupancy backward's copies, their builds started."""
+    return {v: _variant("occ_bwd", "occ_" + str(i), e)
+            for i, (v, e) in enumerate(_OCC_VARIANTS.items())}
+
+
+def occ_variants(dev, jobs) -> None:
+    """The occupancy backward's window cluster, cell and block sizes, the
+    walk's chunk size, the walk without its halo or row choice, with the
+    columns cut to the window, and the earlier walk,
+    each a copy of the source (`_occ_jobs`), timed as the wrapper calls it
+    (CUDA events) and its two kernels alone (`queued_ms`) at the splat
+    frame's inputs and the point model step's, and the window kernel alone
+    (the walk not launched). Each copy's gradient equals the built one's
+    bit for bit (the same per-point sums), the earlier walk's (its own
+    order) is within 1e-5·max(1, max|g|) of it."""
+    own = occ_bwd._lib
+    libs = {}
+    for v, (so, proc) in jobs.items():
+        try:
+            libs[v] = _load(so, proc, own(), "occ_backward")
+            libs[v].occ_scratch_ints.argtypes = own().occ_scratch_ints.argtypes
+            libs[v].occ_scratch_ints.restype = own().occ_scratch_ints.restype
+        except RuntimeError as e:
+            print(f"occ_bwd {v}: did not build ({e})")
+    for label, args in occ_cases(dev):
+        run = lambda: occ_bwd.occ_backward_cuda(*args)
+        built = run()
+        row = [f"as built {_time(run):.4f} ms (alone {queued_ms(run):.4f} ms) "
+               f"(host {_host_us(run):.1f} us a call)"]
+        for v, lib in libs.items():
+            occ_bwd._lib = lambda lib=lib: lib
+            try:
+                try:
+                    got = run()
+                except RuntimeError as e:   # a cluster the card refuses
+                    row.append(f"{v}: did not launch ({e})")
+                    continue
+                same = (torch.allclose(got, built, rtol=0, atol=1e-5 * max(
+                    1.0, float(built.abs().max()))) if v == "the earlier walk"
+                    else v in _TIMING_ONLY or torch.equal(got, built))
+                if not same:
+                    raise RuntimeError(f"occ_bwd {v} differs from the built choice's "
+                                       f"gradient")
+                row.append(f"{v} {_time(run):.4f} ms (alone {queued_ms(run):.4f} ms)")
+            finally:
+                occ_bwd._lib = own
+        print(f"occ_bwd, {label}: " + "; ".join(row))
+
+
 def main() -> None:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    splat_jobs = _splat_jobs()
-    if sys.argv[1:] == ["splat"]:       # the splat stages alone
+    mode = sys.argv[1:]
+    if mode not in ([], ["splat"], ["occ"]):
+        raise SystemExit("usage: python -m isopoints_torch.kernel_variants [splat|occ]")
+    splat_jobs = _splat_jobs() if mode != ["occ"] else {}
+    occ_jobs = _occ_jobs() if mode != ["splat"] else {}
+    if mode:                            # the splat stages or the occupancy backward alone
         print(torch.cuda.get_device_name(0))
-        splat_variants(dev, splat_jobs)
+        if mode == ["splat"]:
+            splat_variants(dev, splat_jobs)
+        else:
+            occ_variants(dev, occ_jobs)
         return
     jobs = {("fused_mlp", rg): _variant(
         "fused_mlp", f"fused_mlp_rows{32 * rg}", ((_RULE, f"  switch ({rg}) {{"),))
@@ -397,6 +598,7 @@ def main() -> None:
     print(f"{torch.cuda.get_device_name(0)}; launches of the kernels as built "
           f"(the wrappers), with each constant replaced")
     splat_variants(dev, splat_jobs)
+    occ_variants(dev, occ_jobs)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     # the kNN with and without the Morton order and the pruning: knn.SORT_MIN

@@ -30,8 +30,7 @@ import torch
 
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.ops.knn import knn_points
-from isopoints_torch.rendering.occ_bwd import (occ_backward_one,
-                                               occ_backward_one_plain)
+from isopoints_torch.rendering.occ_bwd import occ_backward, occ_backward_plain
 from isopoints_torch.rendering.select import (select_candidates,
                                               select_candidates_plain)
 from isopoints_torch.rendering.splat import (rasterize_fine,
@@ -262,17 +261,14 @@ def _rasterize_backward(pts_ndc, radii, mask, visibility, slots, cand_idx,
     `use_pallas` one kernel on CUDA tensors, which reads the cotangent in
     image layout and adds each hit slot's sum with an atomic, so the sums
     to the points run in another order than on the CPU; else the plain
-    tile sums and `index_add_`); xy from the occupancy backward of each
-    cloud on its visible, renderable points."""
+    tile sums and `index_add_`); xy from the occupancy backward of the
+    clouds' visible, renderable points (one call for all clouds)."""
     s = settings
-    b, p, _ = pts_ndc.shape
+    p = pts_ndc.shape[1]
     zbuf_bwd = zbuf_backward_points if s.use_pallas else zbuf_backward_points_plain
     gz = zbuf_bwd(slots, g_zbuf, cand_idx, p)
-    occ_bwd = (occ_backward_one_plain if s.use_pallas_backward is False
-               else occ_backward_one)
-    vis = visibility & mask
-    gxy = torch.stack([occ_bwd(pts_ndc[i], radii[i], vis[i], g_occ[i], s)
-                       for i in range(b)])
+    occ_bwd = occ_backward_plain if s.use_pallas_backward is False else occ_backward
+    gxy = occ_bwd(pts_ndc, radii, visibility & mask, g_occ, s)
     grad = torch.cat([gxy, gz[..., None]], dim=-1).to(pts_ndc.dtype)
     if s.clip_pts_grad > 0:
         n = torch.linalg.norm(grad, dim=-1, keepdim=True)

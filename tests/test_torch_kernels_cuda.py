@@ -36,10 +36,19 @@ plain version within 1e-5 (the same terms in another order) and bit for
 bit on a repeat; its point gradient within rtol 1e-5 of the plain version
 and of its own tile sums scattered by `index_add_` (atomics add in another
 order); padded slots (candidate 0, hit by no fragment) add nothing. The
-occupancy kernel within 1e-5·max(1, max|g|) (the same pixel set and
-per-pixel arithmetic, summed in another order), bit for bit on a repeat;
-gradients through `rasterize_splats` with every kernel against every plain
-version: xy as the occupancy kernel, z within 1e-5 relative.
+occupancy kernels within 1e-5·max(1, max|g|) (the same pixel set and
+per-pixel arithmetic, summed in another order), bit for bit on a repeat,
+for one and for several clouds in one call (one C call), on signed sparse
+cotangents and on the all-ones one (expanded, strides 0), also beside a
+cloud with no visible point (zeros); the window kernel's renderable flags
+and search radius bit-equal to `backward_window`'s (an odd and an even
+count of radii, NaN radii, ties, an all-NaN cloud, none renderable, at W =
+S and W < S); a patch too wide for the halo in shared memory and an image
+wide enough to double the cell side; one occupancy C call per backward of
+`rasterize_splats` at
+B = 1, 2, 3; gradients through `rasterize_splats` with every kernel
+against every plain version: xy as the occupancy kernels, z within 1e-5
+relative.
 
 IGR (fused_igr, the IGR sampler and the march, all three on mlp_mma.cuh's
 tensor-core tile): the outputs the kernels gave before the tile took the
@@ -478,6 +487,134 @@ def test_occ_bwd_kernel_matches_plain(dev, n, S, edge):
     assert torch.equal(none, torch.zeros_like(none))
 
 
+def _occ_batch(dev, B, n, S, seed, cotangent, edge=False):
+    """B clouds of `_occ_case`'s kind (cloud i from seed + i) with a signed
+    sparse cotangent or the all-ones one (the splat frame's: positive
+    everywhere, an expanded tensor whose strides are 0)."""
+    cases = [_occ_case(dev, n, S, seed + i, edge) for i in range(B)]
+    pts, radii, vis, grad = (torch.stack(a) for a in zip(*cases))
+    if cotangent == "ones":
+        grad = torch.ones((1, 1, 1), device=dev).expand(B, S, S)
+    return pts, radii, vis, grad
+
+
+@pytest.mark.parametrize("cotangent", ["signed", "ones"])
+@pytest.mark.parametrize("B,n,S,edge", [(1, 600, 128, False), (2, 600, 128, True),
+                                        (2, 200, 64, False), (1, 24576, 512, False),
+                                        (2, 5000, 256, False)])
+def test_occ_bwd_batched_kernel_matches_plain(dev, B, n, S, edge, cotangent):
+    """The batched kernels against the plain version; twice bit-identical;
+    one C call for the B clouds."""
+    case = _occ_batch(dev, B, n, S, seed=n + S, cotangent=cotangent, edge=edge)
+    st = RasterizationSettings(image_size=S)
+    before = occ_bwd.KERNEL.launches
+    a = occ_bwd.occ_backward(*case, st)
+    b = occ_bwd.occ_backward(*case, st)
+    torch.cuda.synchronize()
+    assert occ_bwd.KERNEL.launches == before + 2
+    assert torch.equal(a, b)
+    ref = occ_bwd.occ_backward_plain(*case, st)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(a, ref, rtol=0,
+                               atol=1e-5 * max(1.0, float(ref.abs().max())))
+
+
+def test_occ_bwd_kernel_all_invisible_cloud(dev):
+    """A cloud with no visible point beside one with: zeros for it, the
+    other's gradient unchanged."""
+    pts, radii, vis, grad = _occ_batch(dev, 2, 600, 128, seed=9, cotangent="signed")
+    vis[1] = False
+    st = RasterizationSettings(image_size=128)
+    got = occ_bwd.occ_backward(pts, radii, vis, grad, st)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    assert torch.equal(got[0], occ_bwd.occ_backward(pts[:1], radii[:1], vis[:1],
+                                                    grad[:1], st)[0])
+
+
+@pytest.mark.parametrize("S", [64, 128])           # W = S, and W < S
+def test_occ_bwd_window_matches_backward_window(dev, S):
+    """The window kernel's renderable flags and search_r² bit-equal to
+    backward_window's: an even and an odd count of radii, a renderable
+    point with a NaN radius, ties, an all-NaN cloud and one without a
+    renderable point."""
+    pts, radii, vis, grad = _occ_batch(dev, 6, 300, S, seed=4, cotangent="signed")
+    radii[1, 7, 0] = float("nan")                 # an odd count
+    radii[2, 3] = float("nan")                    # both radii of a point
+    radii[3] = torch.round(radii[3] * 100) / 100  # ties
+    radii[4] = float("nan")                       # all NaN
+    vis[5] = False                                # none renderable
+    pts[0, :5, 2] = -1.0                          # behind the camera
+    st = RasterizationSettings(image_size=S)
+    _, scratch = occ_bwd.launch(pts, radii, vis, grad, st)
+    ren, sr2, ids = occ_bwd.window_of(scratch, pts.shape[1])
+    for i in range(6):
+        r, s2, _ = occ_bwd.backward_window(pts[i], radii[i], vis[i], st)
+        assert torch.equal(ren[i], r), i
+        assert int(sr2[i:i + 1].view(torch.int32)) == int(s2.reshape(1).view(torch.int32)), \
+            (i, float(sr2[i]), float(s2))
+        assert len(set(ids[i].tolist())) == len(ids[i])
+
+
+@pytest.mark.parametrize("n,S,W", [(600, 512, 256), (2000, 3072, 64)])
+def test_occ_bwd_no_halo_and_doubled_cells(dev, n, S, W):
+    """The launch's two rarer branches: a patch whose halo does not fit in
+    shared memory (W = 256 at 512 px: the walk reads device memory and
+    visits every window row) and an image wide enough to double the cell
+    side past kMaxCells cells (3072 px, W = 64: 64-px cells). Against the
+    plain version, twice bit-identical, the flags and search radius
+    bit-equal to backward_window's, the walk order bucketed by cell."""
+    cs = 32
+    while ((S - W) // cs + 1) ** 2 > 8192:      # csrc/occ_bwd.cu kMaxCells
+        cs *= 2
+    hs = min(cs + W - 1, S)
+    if W == 256:
+        assert (hs * hs + hs) * 4 > 232448       # past an H100 block's opt-in smem
+    else:
+        assert cs == 64
+    pts, radii, vis, grad = _occ_case(dev, n, S, seed=n + S)
+    st = RasterizationSettings(image_size=S, backward_patch_pixels=W)
+    args = (pts[None], radii[None], vis[None], grad[None], st)
+    before = occ_bwd.KERNEL.launches
+    a, scratch = occ_bwd.launch(*args)
+    b = occ_bwd.occ_backward(*args)
+    torch.cuda.synchronize()
+    assert occ_bwd.KERNEL.launches == before + 2
+    assert torch.equal(a, b)
+    ren, sr2, ids = occ_bwd.window_of(scratch, n)
+    r, s2, w = occ_bwd.backward_window(pts, radii, vis, st)
+    assert w == W and torch.equal(ren[0], r)
+    assert int(sr2[:1].view(torch.int32)) == int(s2.reshape(1).view(torch.int32))
+    nca = (S - W) // cs + 1
+    c0 = occ_bwd._patch_origin(pts[ids[0], 0], S, W)
+    r0 = occ_bwd._patch_origin(pts[ids[0], 1], S, W)
+    cell = (r0 // cs) * nca + c0 // cs
+    assert bool((cell[1:] >= cell[:-1]).all())
+    ref = occ_bwd.occ_backward_plain(*args)
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(a, ref, rtol=0,
+                               atol=1e-5 * max(1.0, float(ref.abs().max())))
+
+
+def test_occ_bwd_one_call_per_backward(dev):
+    """rasterize_splats' backward makes one occupancy C call whatever B is."""
+    pts, normals, mask = _sphere_cloud(dev, 3000, seed=5)
+    from isopoints_torch.core.camera import (PerspectiveCamera,
+                                             look_at_view_transform)
+    from isopoints_torch.rendering.rasterizer import compute_splat_params
+    st = RasterizationSettings(image_size=256, use_pallas=True)
+    for B in (1, 2, 3):
+        R, T = look_at_view_transform(2.0, [10.0, -30.0, 40.0][:B],
+                                      [20.0, 150.0, 270.0][:B], device=dev)
+        cam = PerspectiveCamera.create(R=R, T=T, focal_length=2.0, device=dev)
+        sp = compute_splat_params(pts.expand(B, -1, -1), normals.expand(B, -1, -1),
+                                  mask.expand(B, -1), cam, st)
+        p = sp.pts_ndc.detach().clone().requires_grad_(True)
+        fr = rasterize_splats(p, sp.ellipse, sp.radii, sp.cutoff, sp.mask, st)
+        before = occ_bwd.KERNEL.launches
+        torch.autograd.grad(fr.occupancy.sum(), p)
+        assert occ_bwd.KERNEL.launches - before == 1, B
+
+
 def test_rasterize_backward_kernels_match_plain(dev):
     pts, normals, mask = _sphere_cloud(dev, 8000, seed=3)
     from isopoints_torch.core.camera import (PerspectiveCamera,
@@ -500,7 +637,7 @@ def test_rasterize_backward_kernels_match_plain(dev):
         torch.cuda.synchronize()
         launched = (splat.ZBUF_KERNEL.launches - before[0],
                     occ_bwd.KERNEL.launches - before[1])
-        assert launched == ((1, 2) if st is kern else (0, 0))
+        assert launched == ((1, 1) if st is kern else (0, 0))
         grads.append(g)
     a, b = grads
     assert float(b[..., :2].abs().max()) > 0 and float(b[..., 2].abs().max()) > 0
