@@ -143,10 +143,28 @@ Phases, each fatal on failure:
      callables and against the plain version within phase 7's bars; the
      SIREN march on the trace's first compacted stage, bit for bit against
      march_plain over the fused callable and against the plain version;
-  11. fused_mlp timed at every shape the projected run gave it; one JSON
-     line {"kernels": [...]} (each kernel timed at the shape the main path
-     gives it most often), then the device line
-     {"ok": true, "device": {...}}.
+  11. fused_mlp timed at every shape the projected run gave it; the rows of
+     the JSON line {"kernels": [...]} (each kernel timed at the shape the
+     main path gives it most often);
+  12. the lossS ablation arm's path, isopoints_torch/configs/mvr_lossS_siren.yml
+     (the uni arm with saliency resampling, a 4096-point reference cloud)
+     through the factories: 2 warm-up steps and 6 projected steps with
+     resamples at 2, 4 and 6, counters set to 0 before and read after; the
+     insertion gate must open at 4 and 6 and children must be appended;
+     launches per step (the kNN: uni's +1 a projected step for the
+     statistics, +2 more an insertion resample; fused_mlp by shape, one
+     Newton set at the children's shape an insertion); the step times beside
+     phase 10's; on the run's own state at the first insertion resample,
+     kernels against plain: update_ref_metric's statistics bit-equal, the
+     three saliency kNN calls (statistics, hot-point lookup, mothers), an
+     all-masked database and one of 5 valid points (k=8) bit-equal,
+     insert_around_salient's children bit-equal (none from an all-masked
+     reference cloud), the whole insertion resample (valid counts within
+     0.5% of the capacity, 98% of the plain version's points within 1e-4 of
+     a kernel point); the statistics' kNN timed with its bound,
+     update_ref_metric and farthest point sampling alone; then the JSON
+     line {"kernels": [...]} (row 4 also at the statistics' shape) and the
+     device line {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -178,6 +196,7 @@ F32_EXACT_RATIO = 1.2
 N_WARMUP_SMOKE = 3
 N_PROJECTED = 6
 N_UNI_PROJECTED = 4
+N_LOSS_S_PROJECTED = 6
 NO_LIBRARY = ("no single PyTorch call computes this function")
 
 
@@ -322,6 +341,9 @@ def main() -> None:
                                                       compute_splat_params,
                                                       splat_spacing,
                                                       stage_inputs)
+    from isopoints_torch.models import levelset
+    from isopoints_torch.ops.sampling import farthest_point_sampling
+    from isopoints_torch.training import trainer as trainer_mod
     from isopoints_torch.training.trainer import compute_loss
     from isopoints_torch.utils import fma, linspace01
 
@@ -766,7 +788,7 @@ def main() -> None:
                 knn.knn_points_cuda = knn.knn_points_dense
             try:
                 with torch.set_grad_enabled(textured):
-                    total, met, _, _ = compute_loss(
+                    total, met, _, _, _ = compute_loss(
                         m, state.points, state.points_mask, draws.pixels, img,
                         mask, cam, draws.eikonal, draws.u_minsdf, hp,
                         project=project, proj_draws=draws.projected)
@@ -1996,6 +2018,347 @@ def main() -> None:
           f"{us_rays}-ray buffer and the SIREN march on its first compacted stage "
           f"({um_rays} rays x {um_it} iterations), launches in the uni run (the "
           f"march's in one trace with it)")
+    # ---- 12. the lossS arm: saliency statistics and insertion at resamples
+    # what the run does, in order: each uniform resample ("uniform") and
+    # each insertion ("insert"); the insertions' inputs and what each append
+    # added; the trainer's saliency arrays before each update and the
+    # update's inputs; fused_mlp's launches in order, by (mode, what, rows)
+    events, inserts, appended, updates, s_mlp = [], [], [], [], []
+    uniform_fn, project_fn = trainer_mod.sample_uniform_iso_points, trainer_mod.project_points
+    insert_fn, append_fn = levelset.insert_around_salient, levelset._append_into_capacity
+    update_fn = trainer_mod.MVRTrainer.update_ref_metric
+    saliency_keys = ("ref_points", "ref_mask", "ref_stat_mean", "ref_stat_n")
+
+    def recording_uniform(*args, **kw):
+        events.append("uniform")
+        return uniform_fn(*args, **kw)
+
+    def recording_project(*args, **kw):
+        events.append("insert")
+        return project_fn(*args, **kw)
+
+    def recording_insert(*args):
+        inserts.append(args)
+        return insert_fn(*args)
+
+    def recording_append(pts, mask, nrm, new_pts, new_mask, new_nrm):
+        out = append_fn(pts, mask, nrm, new_pts, new_mask, new_nrm)
+        appended.append((int(new_mask.sum()), int(out[1].sum() - mask.sum())))
+        return out
+
+    def recording_update(self, *args):
+        updates.append(({k: getattr(self, k) for k in saliency_keys}, args))
+        return update_fn(self, *args)
+
+    def recording_siren_lossS(pack, x, with_grad, bf16=False):
+        s_mlp.append(("bf16" if bf16 else "f32",
+                      "value+grad" if with_grad else "value", x.shape[0]))
+        return siren_cuda(pack, x, with_grad, bf16)
+
+    patches = ((trainer_mod, "sample_uniform_iso_points", recording_uniform),
+               (trainer_mod, "project_points", recording_project),
+               (levelset, "insert_around_salient", recording_insert),
+               (levelset, "_append_into_capacity", recording_append),
+               (trainer_mod.MVRTrainer, "update_ref_metric", recording_update),
+               (fused_mlp, "siren_forward_cuda", recording_siren_lossS))
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        (_, s_trainer, _, _, s_ms, s_metrics, s_per_step, s_launches, _,
+         s_resampled) = run_steps("mvr_lossS_siren.yml", 2 + N_LOSS_S_PROJECTED)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    s_warm = s_trainer.cfg.warm_up_iters
+    s_every = s_trainer.cfg.resample_every
+    s_resample_its = [i for i in range(s_warm, len(s_ms))
+                      if i == s_warm or i % s_every == 0]
+    s_insert_its = s_resample_its[1:]
+    # the event list reads uniform, uniform, insert, uniform, insert for
+    # resamples at 2, 4 and 6 with the gate open at 4 and 6
+    opened, k = [], -1
+    for ev in events:
+        if ev == "uniform":
+            k += 1
+        else:
+            opened.append(s_resample_its[k])
+    if opened != s_insert_its or not opened:
+        fail(f"lossS: the insertion gate opened at its {opened}, expected "
+             f"{s_insert_its}")
+    if not appended or sum(a for _, a in appended) <= 0:
+        fail(f"lossS: no child was appended at the inserting resamples "
+             f"(valid children, appended: {appended})")
+    print(f"lossS path (mvr_lossS_siren.yml): resamples at its {s_resample_its}, "
+          f"insertion gate open at {opened}; valid children and appended "
+          f"points per insertion {appended}; reference cloud "
+          f"{tuple(s_trainer.ref_points.shape)} ({int(s_trainer.ref_mask.sum())} "
+          f"valid), statistics counts up to {int(s_trainer.ref_stat_n.max())}")
+    # launches per step, beside the uni run's from phase 10
+    per_shape, i0 = [], 0
+    for p in s_per_step:
+        per_shape.append(collections.Counter(s_mlp[i0:i0 + p["fused_mlp"]]))
+        i0 += p["fused_mlp"]
+    if i0 != len(s_mlp) or len(s_mlp) != s_launches["fused_mlp"]:
+        fail("lossS: fused_mlp's launches by shape do not add up to its counter")
+    # children: 8 for each of the (at most) 64 fathers
+    n_children = 8 * min(64, inserts[0][0].shape[1])
+    # uni's resample step, and its projected step after a resample (which
+    # takes the splat spacing of the new buffer anew: one kNN more than the
+    # later ones); every lossS projected step follows a resample
+    u_res = u_per_step[u_warm]["knn"]
+    u_proj = u_per_step[u_warm + 1]["knn"]
+    for i, p in enumerate(s_per_step):
+        kind = ("warm-up" if i < s_warm else "insertion resample" if i in opened
+                else "resample + seeding" if i == s_warm else "projected")
+        u_i = i if i < s_warm else u_warm if i in s_resample_its else u_warm + 1
+        print(f"  lossS step {i} ({kind}): {s_ms[i]:.1f} ms (uni step {u_i}: "
+              f"{u_ms[u_i]:.1f} ms); launches {p}; fused_mlp by shape: "
+              + ", ".join(f"{c} x {m} {w} n={n}" for (m, w, n), c in
+                          sorted(per_shape[i].items(), key=lambda kv: -kv[1])))
+        want = (u_per_step[i]["knn"] if i < s_warm else u_res + 1 if i == s_warm
+                else u_res + 3 if i in opened else u_proj + 1)
+        if p["knn"] != want:
+            fail(f"lossS step {i} ({kind}) launched {p['knn']} kNN, expected "
+                 f"{want} (uni: {u_res} a resample step, {u_proj} a projected "
+                 f"step; +1 statistics a projected step, +2 an insertion)")
+        if i in opened and per_shape[i][("f32", "value+grad", n_children)] <= 0:
+            fail(f"lossS step {i}: no fused_mlp launch at the children's shape "
+                 f"({n_children} points)")
+    s_proj_ms = [s_ms[i] for i in range(s_warm + 1, len(s_ms))
+                 if i not in s_resample_its]
+    print(f"lossS times: projected median {statistics.median(s_proj_ms):.2f} ms "
+          f"over {len(s_proj_ms)} steps (uni {statistics.median(u_ms[u_warm + 1:]):.2f}), "
+          f"resample + seeding step (it={s_warm}) {s_ms[s_warm]:.1f} ms (uni "
+          f"resample {u_ms[u_warm]:.1f}), insertion resample steps "
+          + ", ".join(f"it={i} {s_ms[i]:.1f} ms" for i in opened))
+    s_iso = [m["n_iso"] for m in s_metrics[s_warm:]]
+    if min(s_iso) <= 0:
+        fail(f"lossS projected steps found no iso-points: n_iso {s_iso}")
+
+    # kernels against plain on the run's own state at the first insertion
+    # resample: its update's inputs and the statistics before it
+    knn_cuda = knn.knn_points_cuda
+    snap, s_args = updates[opened[0] - s_warm]
+
+    def set_saliency(state):
+        for key in saliency_keys:
+            setattr(s_trainer, key, state[key])
+
+    def run_update(plain):
+        set_saliency(snap)
+        if plain:
+            knn.knn_points_cuda = knn.knn_points_dense
+        try:
+            s_trainer.update_ref_metric(*s_args)
+        finally:
+            knn.knn_points_cuda = knn_cuda
+        return s_trainer.ref_stat_mean, s_trainer.ref_stat_n
+
+    before = counts()
+    up_k, up_p = run_update(False), run_update(True)
+    if counts()["knn"] != before["knn"] + 1:
+        fail("lossS: update_ref_metric did not launch the kNN once (kernel run) "
+             "and not at all (plain run)")
+    if not (torch.equal(up_k[0], up_p[0]) and torch.equal(up_k[1], up_p[1])):
+        fail("lossS: update_ref_metric's statistics with the kNN kernel differ "
+             "from the plain version's")
+    print(f"lossS update_ref_metric at it={opened[0]}: ref_stat_mean and ref_stat_n "
+          f"bit-equal, kernel against plain (mean over counted points "
+          f"{float(up_k[0][up_k[1] > 0].mean()):.6g})")
+    iso_pts, _, iso_mask = s_args
+    stats_q = (snap["ref_points"], iso_pts.reshape(1, -1, 3), snap["ref_mask"],
+               iso_mask.reshape(1, -1))
+    n_stats = knn_equal(*stats_q, 8, False, "saliency statistics")
+    # the insertion's two kNN calls, recorded from a call on its inputs
+    ins_args = inserts[0]
+    knn_calls = []
+    level_knn = levelset.knn_points
+
+    def recording_knn(*args, **kw):
+        knn_calls.append((args, kw))
+        return level_knn(*args, **kw)
+    levelset.knn_points = recording_knn
+    try:
+        ch_k = levelset.insert_around_salient(*ins_args)
+    finally:
+        levelset.knn_points = level_knn
+    knn.knn_points_cuda = knn.knn_points_dense
+    try:
+        ch_p = levelset.insert_around_salient(*ins_args)
+    finally:
+        knn.knn_points_cuda = knn_cuda
+    if not (torch.equal(ch_k[0], ch_p[0]) and torch.equal(ch_k[1], ch_p[1])):
+        fail("lossS: insert_around_salient's children with the kernels differ "
+             "from the plain version's")
+    (hot_a, hot_kw), (mom_a, mom_kw) = knn_calls
+    n_hot = knn_equal(*hot_a, hot_kw["k"], False, "hot-point lookup")
+    n_mom = knn_equal(*mom_a, mom_kw["k"], False, "mothers")
+    q_all, db_all, qm_all, dbm_all = hot_a
+    none = torch.zeros_like(dbm_all)
+    if knn_equal(q_all, db_all, qm_all, none, 1, False, "all-masked database"):
+        fail("lossS: the kNN over an all-masked database returned a neighbour")
+    pts_i, mask_i = ins_args[0], ins_args[1]
+    few = torch.zeros_like(mask_i)
+    few[:, torch.nonzero(mask_i[0])[:5, 0]] = True
+    n_few = knn_equal(mom_a[0], pts_i, mom_a[2], few, 8, False,
+                      "a database of 5 valid points")
+    if n_few > 5 * int(mom_a[2].sum()):
+        fail("lossS: the kNN over 5 valid points returned more than 5 a query")
+    none_ref = torch.zeros_like(ins_args[4])
+    ch0 = levelset.insert_around_salient(*ins_args[:4], none_ref)
+    knn.knn_points_cuda = knn.knn_points_dense
+    try:
+        ch0_p = levelset.insert_around_salient(*ins_args[:4], none_ref)
+    finally:
+        knn.knn_points_cuda = knn_cuda
+    if bool(ch0[1].any()) or not (torch.equal(ch0[0], ch0_p[0])
+                                  and torch.equal(ch0[1], ch0_p[1])):
+        fail("lossS: an all-masked reference cloud gave children, or the kernel "
+             "and plain children differ")
+    print(f"lossS kNN at the path's shapes, bit-equal to the plain version: "
+          f"statistics {tuple(stats_q[0].shape[:2])} x {stats_q[1].shape[1]} k=8 "
+          f"({n_stats} neighbours), hot-point lookup {q_all.shape[1]} x "
+          f"{db_all.shape[1]} k=1 ({n_hot}; {int(dbm_all.sum())} hot), mothers "
+          f"{mom_a[0].shape[1]} x {mom_a[1].shape[1]} k=8 ({n_mom}), an all-masked "
+          f"database (none), 5 valid points k=8 ({n_few}); insert_around_salient "
+          f"children and masks bit-equal ({int(ch_k[1].sum())} valid children), "
+          f"none from an all-masked reference cloud")
+
+    # the full insertion resample, kernels against plain on the same inputs
+    hp4 = s_trainer.scheduler.at(opened[0])
+    init_pts, init_mask = s_resampled[s_resample_its.index(opened[0])][:2]
+    trace_fn = s_trainer.model.trace_sdf_fn
+
+    def resample_at(plain):
+        set_saliency(snap)
+        if plain:
+            s_trainer.model.trace_sdf_fn = lambda: fused_mlp.PlainSDF(
+                fused_mlp.SirenPack(s_trainer.model.decoder))
+            knn.knn_points_cuda = knn.knn_points_dense
+        reset()
+        try:
+            out = s_trainer.resample_iso_points(
+                hp4["n_points_dss"], proj_max_iters=hp4["proj_max_iters"],
+                proj_tolerance=hp4["proj_tolerance"], init_points=init_pts,
+                init_mask=init_mask)
+        finally:
+            s_trainer.model.trace_sdf_fn = trace_fn
+            knn.knn_points_cuda = knn_cuda
+        torch.cuda.synchronize()
+        return out, counts()
+
+    (rk_pts, rk_mask), rk_launch = resample_at(False)
+    (rp_pts, rp_mask), rp_launch = resample_at(True)
+    if any(rp_launch.values()) or rk_launch["knn"] <= 0 or rk_launch["fused_mlp"] <= 0:
+        fail(f"lossS resample launches: kernels {rk_launch}, plain {rp_launch}")
+    cap = rk_mask.shape[1]
+    nk, np_ = int(rk_mask.sum()), int(rp_mask.sum())
+    d_near = torch.cdist(rp_pts[0][rp_mask[0]], rk_pts[0][rk_mask[0]],
+                         compute_mode="donot_use_mm_for_euclid_dist").min(-1).values
+    near = float((d_near <= 1e-4).float().mean())
+    print(f"lossS insertion resample (it={opened[0]}) with the kernels and with "
+          f"every plain version: {nk} and {np_} valid of {cap}; of the plain "
+          f"version's points {near:.5f} have a kernel point within 1e-4 "
+          f"({float((d_near <= 1e-5).float().mean()):.5f} within 1e-5); launches "
+          f"(kernels) {rk_launch}")
+    # Newton stops at |f| <= tol (5e-5, |grad f| ~ 1): two correct fields
+    # leave a point up to ~1e-4 apart; a few midpoint inserts change slot
+    if abs(nk - np_) > 0.005 * cap or near < 0.98:
+        fail("lossS: the insertion resample with the kernels and plain differ "
+             "beyond the stated bars (counts within 0.5% of the capacity, 98% "
+             "of points within 1e-4)")
+    set_saliency({k: getattr(s_trainer, k) for k in saliency_keys})
+
+    # the children's Newton projection on the run's own children of the
+    # first insertion: fused_mlp (f32 value+grad) at the children's shape
+    # against the plain SIREN, then the projection with each
+    c_pts, c_mask = ch_k
+    c_fn = s_trainer.model.trace_sdf_fn()
+    c_pack = fused_mlp.SirenPack(s_trainer.model.decoder)
+    c_plain = fused_mlp.PlainSDF(c_pack)
+    c_x = c_pts.reshape(-1, 3)
+    (c_v, c_g), (c_vp, c_gp) = c_fn.sdf_and_grad(c_x), c_plain.sdf_and_grad(c_x)
+    c_err = (float((c_v - c_vp).abs().max()), float((c_g - c_gp).abs().max()))
+    c_gscale = float(c_gp.abs().max())
+    if not (bool(torch.isfinite(c_v).all()) and bool(torch.isfinite(c_g).all())
+            and c_err[0] <= 2e-5 and c_err[1] <= 1e-4 * max(1.0, c_gscale)):
+        fail(f"lossS: fused_mlp value+grad at the {c_x.shape[0]} children: "
+             f"errors {c_err} against the plain SIREN (bars 2e-5 and "
+             f"1e-4·max(1, {c_gscale:.4g}), phase 2's)")
+
+    def project_children(fn):
+        reset()
+        out = levelset.project_points_newton(
+            fn, c_pts, c_mask, max_iters=10, tolerance=hp4["proj_tolerance"])
+        torch.cuda.synchronize()
+        return out, counts()["fused_mlp"]
+
+    (cp_k, c_launch), (cp_p, c_plain_launch) = (project_children(c_fn),
+                                                project_children(c_plain))
+    if c_launch <= 0 or c_plain_launch != 0:
+        fail(f"lossS: the children's projection launched fused_mlp "
+             f"{c_launch} times with the kernel and {c_plain_launch} plain")
+    both = cp_k.mask & cp_p.mask
+    c_d = (cp_k.points - cp_p.points).norm(dim=-1)[both]
+    c_near = float((c_d <= 1e-4).float().mean()) if c_d.numel() else 0.0
+    nck, ncp = int(cp_k.mask.sum()), int(cp_p.mask.sum())
+    print(f"lossS children (it={opened[0]}): fused_mlp value+grad at "
+          f"{c_x.shape[0]} points, max err value {c_err[0]:.3g}, grad "
+          f"{c_err[1]:.3g} (max |g| {c_gscale:.4g}); Newton (10 iterations) "
+          f"with the kernel ({c_launch} launches) and plain: {nck} and {ncp} "
+          f"valid of {int(c_mask.sum())}; of the {int(both.sum())} valid in "
+          f"both {c_near:.5f} within 1e-4 (max {float(c_d.max()) if c_d.numel() else 0.0:.3g})")
+    # Newton stops at |f| <= tol (5e-5, |grad f| ~ 1): two correct fields
+    # leave a point up to ~1e-4 apart
+    if abs(nck - ncp) > 0.005 * c_x.shape[0] or c_near < 0.99 or nck <= 0:
+        fail("lossS: the children's projection with the kernel and plain "
+             "differ beyond the stated bars (counts within 0.5% of the "
+             "children, 99% of the points valid in both within 1e-4)")
+    c_ms = time_ms(lambda: c_fn.sdf_and_grad(c_x))
+    c_pms = time_ms(lambda: c_plain.sdf_and_grad(c_x))
+    c_b = bound_ms(3 * 2.0 * c_x.shape[0] * sum(w.numel() for w in c_pack.ws) * 4,
+                   c_x.shape[0] * 28 + 4 * sum(w.numel() + b.numel() for w, b
+                                               in zip(c_pack.ws, c_pack.bs)),
+                   TF32_PEAK)
+    print(f"  fused_mlp value+grad at the children's {c_x.shape[0]} points: "
+          f"kernel {c_ms:.4f} ms  plain {c_pms:.4f} ms  bound {c_b[0]:.5f} ms "
+          f"({c_b[1]})")
+
+    # times: the statistics' kNN, update_ref_metric and FPS alone
+    sq = stats_q
+    sk_ms = time_ms(lambda: knn.knn_points(*sq, k=8))
+    sk_alone = kernel_variants.queued_ms(lambda: knn.knn_points(*sq, k=8))
+    sk_pms = time_ms(lambda: knn.knn_points(*sq, k=8, method="dense"), reps=3)
+    nq, npts = sq[0].shape[1], sq[1].shape[1]
+    sk_b = bound_ms(9.0 * float(sq[2].sum()) * float(sq[3].sum()),
+                    (nq + npts) * 13 + nq * 8 * 12)
+    print(f"knn at the update_ref_metric shape ({nq} queries x {npts} points, "
+          f"k=8): kernel {sk_ms:.4f} ms (alone {sk_alone:.4f})  plain {sk_pms:.3f} "
+          f"ms  bound {sk_b[0]:.5f} ms ({sk_b[1]}; the f32 rate over the valid "
+          f"pairs' distance evaluations)")
+    up_ms = time_ms(lambda: run_update(False))
+    fps_n = min(s_trainer.cfg.n_ref_points, iso_pts.shape[1])
+    fps_ms = time_ms(lambda: farthest_point_sampling(iso_pts[:1], fps_n,
+                                                     iso_mask[:1]))
+    print(f"update_ref_metric alone {up_ms:.3f} ms (median of 7, CUDA events); "
+          f"farthest_point_sampling of the run's {iso_pts.shape[1]}-point iso set "
+          f"({int(iso_mask[0].sum())} valid) to {fps_n} points {fps_ms:.1f} ms")
+    rows[2].update(lossS_shape=f"{nq} x {npts}, k=8", lossS_ms=sk_ms,
+                   lossS_alone_ms=sk_alone, lossS_plain_ms=sk_pms,
+                   lossS_bound_ms=sk_b[0], lossS_bound_by=sk_b[1],
+                   lossS_launches_per_projected_step=s_per_step[s_warm + 1]["knn"],
+                   lossS_launches_per_insertion_resample=[
+                       s_per_step[i]["knn"] for i in opened])
+    rows[0].update(lossS_children_shape=f"{c_x.shape[0]} x 3, f32 value+grad",
+                   lossS_children_launches_per_insertion_resample=[
+                       per_shape[i][("f32", "value+grad", n_children)]
+                       for i in opened],
+                   lossS_children_max_abs_err=max(c_err),
+                   lossS_children_ms=c_ms, lossS_children_plain_ms=c_pms,
+                   lossS_children_bound_ms=c_b[0],
+                   lossS_children_bound_by=c_b[1])
+
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """Level-set sampling: Newton projection, repulsion resampling, the
-seeded uniform resample, and the implicit-differentiation sample
-networks (port of isopoints_tpu/models/levelset.py:38-213, 408-455,
-484-598).
+seeded uniform resample, saliency-guided insertion, and the
+implicit-differentiation sample networks (port of
+isopoints_tpu/models/levelset.py:38-213, 224-268, 408-478, 484-598).
 
 The projection and resampling run without autograd on the tracing SDF
 (the fused CUDA MLP with `use_fused_mlp`), on full-width padded buffers
@@ -10,9 +10,11 @@ with masks as in the JAX package. The Newton loop's early exit is one
 JAX `lax.while_loop` condition.
 
 `project_points_newton` carries the hybrid coarse/fine precision schedule.
-Not ported yet (ROADMAP Queue 1 item 8): the mesh-sharded projection,
-saliency insertion, edge-aware upsampling, and the unseeded (WLOP)
-bootstrap of `sample_uniform_iso_points`; those branches raise.
+Not ported yet (ROADMAP Queue 1 item 11, the DTU workload, their only
+caller): `project_points`' repulsion and midpoint-upsampling branches,
+edge-aware upsampling, and the unseeded (WLOP) bootstrap of
+`sample_uniform_iso_points`; those branches raise. The mesh-sharded
+projection waits for item 13.
 
 Frozen surface points are re-attached to the parameters θ with
 `p0 − (f − sg f)·...`: the value is the frozen point, the θ-gradient is
@@ -28,11 +30,11 @@ import torch
 from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.ops.knn import knn_gather, knn_points
 from isopoints_torch.ops.points import bbox_diag, midpoint_upsample, num_valid
-from isopoints_torch.utils import eps_denom
+from isopoints_torch.utils import eps_denom, nanmedian_mid, top_k
 
 SDFFn = Callable[[torch.Tensor], torch.Tensor]
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 8)"
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 11)"
 
 
 class ProjectionResult(NamedTuple):
@@ -136,20 +138,123 @@ def resample_repulsion(sdf_fn: SDFFn, points: torch.Tensor,
     return ProjectionResult(pts, nrm, valid)
 
 
+# ---------------------------------------------------------------------------
+# Saliency-guided insertion (levelset.py:224-268)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def insert_around_salient(points: torch.Tensor, mask: torch.Tensor,
+                          ref_points: torch.Tensor, ref_metric: torch.Tensor,
+                          ref_mask: torch.Tensor, patch_size: int = 8,
+                          max_parents: int = 64):
+    """Children 2·father/3 + mother/3 around the reference points of high
+    metric. Hot reference points: metric above min(2·median, max/2), the
+    hottest max(min(50, n_ref/20), 1) kept; fathers: the cloud's points
+    within 2·avg_spacing of a hot one (the nearest `max_parents`); mothers:
+    each father's `patch_size` nearest points of the cloud.
+
+    As in the JAX package, a kept slot past the hot points holds the next
+    valid reference point in index order (its metric, not the hot-masked
+    one, decides the slot's validity).
+
+    Returns (children (B, F·patch_size, 3), child_mask), F = min(max_parents,
+    P)."""
+    b, p, _ = points.shape
+    n_ref = torch.clamp(num_valid(ref_mask).float(), min=1.0)
+    avg_spacing = torch.sqrt(bbox_diag(points, mask) / n_ref)       # (B,)
+
+    metric = torch.where(ref_mask, ref_metric, float("-inf"))
+    med = nanmedian_mid(torch.where(ref_mask, ref_metric, float("nan")))
+    thresh = torch.minimum(2.0 * med, 0.5 * torch.amax(metric, dim=-1))
+    hot = metric > thresh[:, None]
+    n_keep = torch.clamp(torch.clamp((n_ref / 20.0).int(), max=50), min=1)
+    k_cap = min(50, ref_points.shape[1])
+    _, hot_idx = top_k(torch.where(hot, metric, float("-inf")), k_cap)
+    hot_sel = torch.gather(metric, 1, hot_idx) > float("-inf")
+    hot_sel = hot_sel & (torch.arange(k_cap, device=points.device)[None]
+                         < n_keep[:, None])
+    hot_pts = torch.gather(ref_points, 1, hot_idx[..., None].expand(-1, -1, 3))
+
+    res_ref = knn_points(points, hot_pts, mask, hot_sel, k=1)
+    d_ref = res_ref.dists[..., 0]
+    father = ((d_ref < 4.0 * (avg_spacing * avg_spacing)[:, None])
+              & (d_ref > 0) & mask & res_ref.mask[..., 0])
+    score = torch.where(father, -d_ref, float("-inf"))
+    f_score, f_idx = top_k(score, min(max_parents, p))
+    f_ok = f_score > float("-inf")
+    f_pts = torch.gather(points, 1, f_idx[..., None].expand(-1, -1, 3))
+
+    res_nn = knn_points(f_pts, points, f_ok, mask, k=patch_size)
+    mothers = knn_gather(points, res_nn.idx)                     # (B,F,K,3)
+    children = 2.0 * f_pts[:, :, None, :] / 3.0 + mothers / 3.0
+    child_mask = f_ok[:, :, None] & res_nn.mask
+    f = f_pts.shape[1]
+    return (children.reshape(b, f * patch_size, 3),
+            child_mask.reshape(b, f * patch_size))
+
+
+def _front_compact(mask: torch.Tensor, *rows: torch.Tensor):
+    """Valid entries first, in their order (a stable sort of ~mask)."""
+    order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+    return (torch.gather(mask, 1, order),) + tuple(
+        torch.gather(r, 1, order[..., None].expand(-1, -1, r.shape[-1]))
+        for r in rows)
+
+
+def _append_into_capacity(pts, mask, nrm, new_pts, new_mask, new_nrm):
+    """Both sides front-compacted, then the new valid entries written into
+    the free slots from each cloud's count on; what does not fit is
+    dropped (levelset.py:458-478). Returns (points, mask, normals)."""
+    b, cap, _ = pts.shape
+    mask, pts, nrm = _front_compact(mask, pts, nrm)
+    new_mask, new_pts, new_nrm = _front_compact(new_mask, new_pts, new_nrm)
+    counts = num_valid(mask)
+    j = torch.arange(new_pts.shape[1], device=pts.device)[None, :]
+    # the row past the capacity takes every entry that is dropped
+    slots = torch.clamp(torch.where(new_mask, counts[:, None] + j, cap), max=cap)
+    pad = lambda t, fill: torch.cat([t, torch.full_like(t[:, :1], fill)], 1)
+    idx3 = slots[..., None].expand(-1, -1, 3)
+    pts = pad(pts, 0.0).scatter(1, idx3, new_pts)[:, :cap]
+    nrm = pad(nrm, 0.0).scatter(1, idx3, new_nrm)[:, :cap]
+    mask = pad(mask, False).scatter(1, slots, True)[:, :cap]
+    return pts, mask, nrm
+
+
 def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
                    cfg: ProjectionConfig = ProjectionConfig(),
                    skip_resampling: bool = False,
-                   skip_upsampling: bool = True) -> ProjectionResult:
+                   skip_upsampling: bool = True,
+                   ref_points: Optional[torch.Tensor] = None,
+                   ref_metric: Optional[torch.Tensor] = None,
+                   ref_mask: Optional[torch.Tensor] = None
+                   ) -> ProjectionResult:
     """Newton projection with the config's iterations and tolerance
-    (levelset.py:408-455), the branch every caller of the training path
-    takes (skip_resampling and skip_upsampling). The resampling and
-    upsampling branches raise."""
-    if not (skip_resampling and skip_upsampling):
+    (levelset.py:408-455), then, with `skip_upsampling=False` and
+    `ref_points`, the saliency insertion: children around the hot
+    reference points, projected (10 iterations) and appended into the free
+    capacity. The repulsion (`skip_resampling=False`) and the upsampling
+    without `ref_points` raise (the DTU workload's; JAX's `edge_aware`
+    option comes with the latter)."""
+    if not skip_resampling:
         raise NotImplementedError(
-            f"project_points' resampling and upsampling branches {_NOT_PORTED}")
-    return project_points_newton(sdf_fn, points, mask,
+            f"project_points' repulsion resampling branch {_NOT_PORTED}")
+    if not skip_upsampling and ref_points is None:
+        raise NotImplementedError(
+            f"project_points' upsampling without a reference cloud (midpoint "
+            f"or edge-aware) {_NOT_PORTED}")
+    proj = project_points_newton(sdf_fn, points, mask,
                                  max_iters=cfg.proj_max_iters,
                                  tolerance=cfg.proj_tolerance)
+    if skip_upsampling:
+        return proj
+    children, cmask = insert_around_salient(proj.points, proj.mask, ref_points,
+                                            ref_metric, ref_mask)
+    cproj = project_points_newton(sdf_fn, children, cmask, max_iters=10,
+                                  tolerance=cfg.proj_tolerance)
+    pts, valid, nrm = _append_into_capacity(proj.points, proj.mask,
+                                            proj.normals, cproj.points,
+                                            cproj.mask, cproj.normals)
+    return ProjectionResult(pts, nrm, valid)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ isopoints_tpu/ops/points.py:26-32, 113-208).
 Fixed-capacity padded buffers with masks, as in the JAX package: each
 round scatters into preallocated slots, and the round count is static, so
 the loop needs no host synchronisation. `wlop`, `resample_uniformly` and
-the other consolidation ops are not ported yet (ROADMAP Queue 1 item 8):
+the other consolidation ops are not ported yet (ROADMAP Queue 1 item 11):
 the training path always resamples from the current cloud.
 """
 

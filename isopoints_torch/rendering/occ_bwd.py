@@ -39,7 +39,7 @@ import torch
 
 from isopoints_torch.ops import _build
 from isopoints_torch.rendering.select import pixel_ndc
-from isopoints_torch.utils import eps_denom
+from isopoints_torch.utils import eps_denom, nanmedian_mid
 
 KERNEL = _build.LaunchCount("occ_bwd")
 CHUNK = 2048          # points per patch gather of the plain version
@@ -59,17 +59,6 @@ def _lib() -> ctypes.CDLL:
     lib.occ_scratch_ints.argtypes = [_I]
     lib.occ_scratch_ints.restype = _L
     return lib
-
-
-def nanmedian_mid(x: torch.Tensor) -> torch.Tensor:
-    """Median of the non-NaN entries of a 1-D tensor, the mean of the two
-    middle ones for an even count (numpy's and `jnp.nanmedian`'s
-    midpoint rule: (lo + hi)·0.5); NaN when all are NaN. Device ops only."""
-    s = torch.sort(x).values                    # NaN sorts last
-    n = torch.sum(~torch.isnan(x))
-    lo = torch.clamp((n - 1) // 2, min=0).reshape(1)
-    hi = (n // 2).reshape(1)
-    return ((s.index_select(0, lo) + s.index_select(0, hi)) * 0.5)[0]
 
 
 def backward_window(pts: torch.Tensor, radii: torch.Tensor,

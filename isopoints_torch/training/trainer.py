@@ -1,5 +1,5 @@
 """MVR training step (port of isopoints_tpu/training/trainer.py:79-174,
-177-318, 416-460).
+177-318, 321-460).
 
 `compute_loss` assembles the photoconsistency L1, the freespace /
 occupancy BCE and the eikonal loss exactly as the JAX version does with
@@ -18,6 +18,14 @@ from the current cloud (`resample_iso_points`), and the splat spacing of
 the buffer is cached in `TrainState.spacing` until the buffer's shape
 changes (trainer.py:248-314).
 
+With `saliency_sampling` (the "lossS" arm), every projected step also
+averages the per-point RGB residuals onto a reference cloud, seeded by
+farthest point sampling of the first projected iso set, as a masked
+running mean (`update_ref_metric`, no host read); each resample after the
+first statistics inserts children around the reference points of high
+residual (`levelset.insert_around_salient`), at the cost of one host read
+of the gate.
+
 The step takes an optional `draws` (StepDraws); without it the step draws
 from its own generator chain. Tests pass the JAX step's draws to compare
 the two packages on the same random numbers.
@@ -27,13 +35,17 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.logger import get_logger
 from isopoints_torch.models.combined import CombinedModel, ProjectedDraws
-from isopoints_torch.models.levelset import sample_uniform_iso_points
+from isopoints_torch.models.levelset import (project_points,
+                                             sample_uniform_iso_points)
 from isopoints_torch.ops.images import sample_random_pixels
+from isopoints_torch.ops.knn import knn_gather, knn_points
+from isopoints_torch.ops.sampling import farthest_point_sampling
 from isopoints_torch.rendering.rasterizer import splat_spacing
 from isopoints_torch.rng import GeneratorChain
 from isopoints_torch.training.losses import (
@@ -42,14 +54,18 @@ from isopoints_torch.training.losses import (
     sdf_occupancy_loss,
 )
 from isopoints_torch.training.scheduler import TrainerScheduler
-from isopoints_torch.utils import check_weights
+from isopoints_torch.utils import check_weights, eps_denom
+from isopoints_torch.utils.mathutils import local_coord_frames
 
 
 @dataclass(frozen=True)
 class TrainerConfig:
-    """Loss weights and cadences of trainer.py:43-64. Saliency-weighted
-    resampling (`saliency_sampling`) is not ported: it raises at the
-    first resample (ROADMAP Queue 1 item 8)."""
+    """Loss weights and cadences of trainer.py:43-64. `saliency_sampling`
+    turns on the insertion around salient reference points at each
+    resample: `n_ref_points` is the reference cloud's size, and
+    `saliency_mode` its metric, 'loss' (the running mean of the RGB
+    residuals) or 'curvature' (the static surface variation λ0/λ2 of
+    12-NN frames)."""
     lambda_rgb: float = 1.0
     lambda_freespace: float = 1.0
     lambda_occupied: float = 1.0
@@ -61,6 +77,11 @@ class TrainerConfig:
     grad_clip: float = 1.0
     learning_rate: float = 1e-4
     saliency_sampling: bool = False
+    n_ref_points: int = 2048
+    saliency_mode: str = "loss"
+
+
+_SALIENCY_KEYS = ("ref_points", "ref_mask", "ref_stat_mean", "ref_stat_n")
 
 
 class StepDraws(NamedTuple):
@@ -98,10 +119,13 @@ def compute_loss(model: CombinedModel, points, points_mask,
                  proj_draws: Optional[ProjectedDraws] = None,
                  spacing: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
-                            Optional[torch.Tensor], Optional[torch.Tensor]]:
+                            Optional[torch.Tensor], Optional[torch.Tensor],
+                            Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Loss assembly (trainer.py:79-174 with n_dev = 1: the freespace
     set's ray rows and iso-point rows share the normaliser 1/n_px).
-    Returns (total, metrics, new_points, new_points_mask)."""
+    Returns (total, metrics, new_points, new_points_mask, saliency): the
+    last is the detached (iso_points, per-point RGB residual, iso_mask)
+    that `MVRTrainer.update_ref_metric` takes."""
     b, n_ray = ndc_pixels.shape[:2]
     out, new_pts, new_mask = model(ndc_pixels, img, mask_img, camera,
                                    u_minsdf, points=points,
@@ -131,7 +155,8 @@ def compute_loss(model: CombinedModel, points, points_mask,
                "loss_eikonal": loss_eik, "n_iso": torch.sum(out.iso_mask),
                "overflow_trace": out.overflow_trace,
                "overflow_sampler": out.overflow_sampler}
-    return total, metrics, new_pts, new_mask
+    saliency = (out.iso_points.detach(), rgb_diff.detach(), out.iso_mask)
+    return total, metrics, new_pts, new_mask, saliency
 
 
 @torch.no_grad()
@@ -173,6 +198,14 @@ class MVRTrainer:
             init_lambda_occupied=cfg.lambda_occupied)
         self.generators = GeneratorChain(seed, device=self.device)
         self.log = get_logger()
+        if cfg.saliency_mode not in ("loss", "curvature"):
+            raise ValueError(f"unknown saliency_mode {cfg.saliency_mode!r}")
+        # the saliency reference cloud: (1, R, 3) points, (1, R) mask, and
+        # the running mean and count of its metric; None until seeded
+        self.ref_points: Optional[torch.Tensor] = None
+        self.ref_mask: Optional[torch.Tensor] = None
+        self.ref_stat_mean: Optional[torch.Tensor] = None
+        self.ref_stat_n: Optional[torch.Tensor] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -250,7 +283,7 @@ class MVRTrainer:
             draws = self.draw(hp_host["n_rays"], tuple(img.shape[1:3]),
                               img.shape[0],
                               n_points=points.shape[1] if project else None)
-        total, metrics, new_pts, new_mask = compute_loss(
+        total, metrics, new_pts, new_mask, saliency = compute_loss(
             self.model, points, points_mask, draws.pixels, img,
             mask_img, camera, draws.eikonal, draws.u_minsdf, hp,
             project=project, proj_draws=draws.projected, spacing=spacing)
@@ -259,6 +292,8 @@ class MVRTrainer:
                                                      list(params.values()))))
         opt_state = clip_and_adam(params, grads, state.opt_state,
                                   self.cfg.learning_rate, self.cfg.grad_clip)
+        if self.cfg.saliency_sampling and project:
+            self.update_ref_metric(*saliency)
         names: List[str] = list(metrics)
         values = torch.stack([metrics[k].detach().float() for k in names])
         host = dict(zip(names, values.tolist()))   # one device->host copy
@@ -268,6 +303,88 @@ class MVRTrainer:
                            points_mask=new_mask, it=it + 1,
                            spacing=spacing if keep else None), host)
 
+    # ---- the saliency reference cloud (trainer.py:321-414)
+    def saliency_state(self) -> Optional[Dict[str, np.ndarray]]:
+        """The reference cloud and its statistics as numpy arrays, or None
+        before seeding (trainer.py:321-332)."""
+        if self.ref_points is None:
+            return None
+        return {k: getattr(self, k).cpu().numpy() for k in _SALIENCY_KEYS}
+
+    def load_saliency_state(self, state) -> None:
+        """Adopt a `saliency_state` on the trainer's device; raises
+        ValueError when the four arrays' shapes disagree: ref_points
+        (1, R, 3), the others (1, R)."""
+        shapes = {k: tuple(np.shape(state[k])) for k in _SALIENCY_KEYS}
+        ref = shapes["ref_points"]
+        if len(ref) != 3 or ref[-1] != 3 or any(
+                shapes[k] != ref[:2] for k in _SALIENCY_KEYS[1:]):
+            raise ValueError(f"saliency state shapes disagree: {shapes}")
+        dtypes = (torch.float32, torch.bool, torch.float32, torch.float32)
+        for k, dt in zip(_SALIENCY_KEYS, dtypes):
+            setattr(self, k, torch.tensor(np.asarray(state[k]), dtype=dt,
+                                          device=self.device))
+
+    def _seed_reference(self, points: torch.Tensor, mask: torch.Tensor) -> None:
+        """The reference cloud: FPS of `points` (1, P, 3) under `mask`,
+        min(n_ref_points, P) samples, zero statistics; the curvature
+        metric in that mode."""
+        idx, ok = farthest_point_sampling(
+            points, min(self.cfg.n_ref_points, points.shape[1]), mask)
+        self.ref_points = torch.gather(points, 1, idx[..., None].expand(-1, -1, 3))
+        self.ref_mask = ok
+        self.ref_stat_mean = torch.zeros(ok.shape, device=points.device)
+        self.ref_stat_n = torch.zeros(ok.shape, device=points.device)
+        if self.cfg.saliency_mode == "curvature":
+            self._seed_curvature_metric()
+
+    def set_reference_cloud(self, points) -> None:
+        """Seed the reference cloud by FPS of a ground-truth cloud (P, 3)
+        (trainer.py:340-356); without one, `update_ref_metric` seeds it
+        from the first projected iso set."""
+        pts = torch.as_tensor(np.asarray(points), dtype=torch.float32,
+                              device=self.device)[None]
+        self._seed_reference(pts, torch.ones(pts.shape[:2], dtype=torch.bool,
+                                             device=self.device))
+
+    def _seed_curvature_metric(self) -> None:
+        """The static metric of 'curvature' mode (trainer.py:358-374): per
+        reference point λ0 / eps_denom(λ2, 1e-12) of the frame of its 12
+        nearest reference points (itself included), count 1."""
+        res = knn_points(self.ref_points, self.ref_points, self.ref_mask,
+                         self.ref_mask, k=12)
+        nn = knn_gather(self.ref_points, res.idx)
+        evals, _ = local_coord_frames(self.ref_points, nn, res.mask)
+        metric = evals[..., 0] / eps_denom(evals[..., -1], 1e-12)
+        self.ref_stat_mean = torch.where(self.ref_mask, metric, 0.0)
+        self.ref_stat_n = torch.ones_like(self.ref_stat_mean)
+
+    @torch.no_grad()
+    def update_ref_metric(self, iso_points: torch.Tensor,
+                          rgb_losses: torch.Tensor,
+                          iso_mask: torch.Tensor) -> None:
+        """Average the per-point RGB residuals of one step onto the
+        reference cloud (trainer.py:376-414): the mean over each reference
+        point's 8 nearest iso-points of all views, folded into a masked
+        running mean. Seeds the cloud on its first call. Device ops only."""
+        if self.ref_points is None:
+            self._seed_reference(iso_points[:1], iso_mask[:1])
+        if self.cfg.saliency_mode == "curvature":
+            return   # a static metric: nothing to accumulate
+        flat_pts = iso_points.reshape(1, -1, 3)
+        flat_loss = rgb_losses.reshape(1, -1, 1)
+        res = knn_points(self.ref_points, flat_pts, self.ref_mask,
+                         iso_mask.reshape(1, -1), k=8)
+        vals = knn_gather(flat_loss, res.idx)[..., 0]
+        w = torch.where(res.mask, 1.0, 0.0)
+        w_sum = torch.sum(w, dim=-1)
+        m = torch.sum(vals * w, dim=-1) / torch.clamp(w_sum, min=1.0)
+        has = w_sum > 0
+        n_new = self.ref_stat_n + has
+        delta = torch.where(has, m - self.ref_stat_mean, 0.0)
+        self.ref_stat_mean = self.ref_stat_mean + delta / torch.clamp(n_new, min=1.0)
+        self.ref_stat_n = n_new
+
     def resample_iso_points(self, n_points: int,
                             proj_max_iters: Optional[int] = None,
                             proj_tolerance: Optional[float] = None,
@@ -276,11 +393,10 @@ class MVRTrainer:
                             subsample_u: Optional[torch.Tensor] = None):
         """A fresh uniform iso-point set seeded from the current cloud
         (trainer.py:416-460); the scheduler's projection iterations and
-        tolerance override the model's. Returns (points, mask)."""
-        if self.cfg.saliency_sampling:
-            raise NotImplementedError(
-                "saliency-weighted resampling is not ported yet (ROADMAP "
-                "Queue 1 item 8)")
+        tolerance override the model's. With `saliency_sampling`, once the
+        reference cloud holds statistics (one host read), children around
+        its salient points are projected and appended. Returns (points,
+        mask)."""
         g = self.generators.next()
         if (subsample_u is None and init_points is not None
                 and init_points.shape[1] > n_points):
@@ -290,11 +406,18 @@ class MVRTrainer:
             self.model.proj_cfg,
             proj_max_iters=proj_max_iters or self.model.proj_cfg.proj_max_iters,
             proj_tolerance=proj_tolerance or self.model.proj_cfg.proj_tolerance)
+        f = self.model.trace_sdf_fn()
         res = sample_uniform_iso_points(
-            self.model.trace_sdf_fn(), n_points, init_points, init_mask,
-            subsample_u=subsample_u,
+            f, n_points, init_points, init_mask, subsample_u=subsample_u,
             bounding_sphere_radius=self.model.cfg.object_bounding_sphere,
             cfg=pcfg)
+        if (self.cfg.saliency_sampling and self.ref_points is not None
+                and float(torch.max(self.ref_stat_n)) > 0):
+            res = project_points(
+                f, res.points, res.mask, pcfg, skip_resampling=True,
+                skip_upsampling=False, ref_points=self.ref_points,
+                ref_metric=self.ref_stat_mean,
+                ref_mask=self.ref_mask & (self.ref_stat_n > 0))
         return res.points, res.mask
 
     def check_state(self) -> bool:

@@ -43,6 +43,18 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def nanmedian_mid(x: torch.Tensor) -> torch.Tensor:
+    """Median of the non-NaN entries along the last axis, the mean of the
+    two middle ones for an even count (numpy's and `jnp.nanmedian`'s
+    midpoint rule: (lo + hi)·0.5, where `torch.nanmedian` returns the
+    lower one); NaN where all are NaN. Device ops only."""
+    s = torch.sort(x, dim=-1).values            # NaN sorts last
+    n = torch.sum(~torch.isnan(x), dim=-1, keepdim=True)
+    lo = torch.clamp((n - 1) // 2, min=0)
+    hi = n // 2
+    return ((torch.gather(s, -1, lo) + torch.gather(s, -1, hi)) * 0.5)[..., 0]
+
+
 def linspace01(n: int, device=None) -> torch.Tensor:
     """`jnp.linspace(0, 1, n)` bit for bit in float32: i·fl(1/(n-1)) for
     i < n-1, then exactly 1 (XLA multiplies by the rounded reciprocal;

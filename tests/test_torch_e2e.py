@@ -19,6 +19,7 @@ projected tests state theirs.
 """
 
 import os
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -102,7 +103,7 @@ def test_warmup_trajectory_tracks_jax():
     keys.next(), keys.next()                       # init_state's two keys
     n_rays = trainer.scheduler.at(0)["n_rays"]
     s = tcfg.data.image_size
-    rows = []
+    rows, saliency = [], []
     for it in range(n_iters):
         idx = np.random.RandomState((seed * 1_000_003 + it) % (2 ** 31)).choice(
             tcfg.data.n_views, size=2, replace=False)
@@ -144,18 +145,26 @@ def _projected_draws(key, n_rays, n_eik, n_steps, image_size, n_points, m):
         t(jax.random.uniform(k_off, (1, m, 3))), t(ray_u)))
 
 
-def _run_projected(forced: bool):
-    """configs/synthetic_sphere_iso.yml with warm_up_iters 3 in both
-    packages: three warm-up steps, the first resample (it 3) and two more
-    projected steps. With `forced`, each projected step of the port starts
-    from the JAX state (parameters, iso-point buffer and cached spacing)
-    just before JAX's step. Returns the per-step metrics and the port's
-    final state."""
-    n_iters, seed, warm = 6, 0, 3
-    jcfg = j_load(CFG, default_config_path())
-    tcfg = load_config(CFG, default_config_path())
-    jcfg.training.warm_up_iters = warm
-    tcfg.training.warm_up_iters = warm
+def _run_projected(forced: bool, cfg_path: str = CFG, n_iters: int = 6,
+                   resample_every: Optional[int] = None):
+    """`cfg_path` (configs/synthetic_sphere_iso.yml) with warm_up_iters 3 in
+    both packages: three warm-up steps, the first resample (it 3) and
+    projected steps up to `n_iters`, with a resample every
+    `resample_every` steps if given. With `forced`, each projected step of
+    the port starts from the JAX state (parameters, iso-point buffer,
+    cached spacing and the saliency reference cloud's four arrays) just
+    before JAX's step. Returns the per-step metrics, the warm-up length,
+    the buffer's capacity, the two trainers and, in the forced run, each
+    projected step's saliency arrays as the two packages left them after
+    the step (before the next load) as (it, port's, JAX's), once JAX has
+    seeded them."""
+    seed, warm = 0, 3
+    jcfg = j_load(cfg_path, default_config_path())
+    tcfg = load_config(cfg_path, default_config_path())
+    for c in (jcfg, tcfg):
+        c.training.warm_up_iters = warm
+        if resample_every is not None:
+            c.training.resample_every = resample_every
     data = make_synthetic_mvr(sphere_sdf(), n_views=tcfg.data.n_views,
                               image_size=tcfg.data.image_size, device="cpu")
     j_trainer = j_create_trainer(j_create_model(jcfg), jcfg, seed=seed)
@@ -173,7 +182,7 @@ def _run_projected(forced: bool):
     n_rays = trainer.scheduler.at(0)["n_rays"]
     s = tcfg.data.image_size
     m = model.ccfg.max_iso_per_batch
-    rows = []
+    rows, saliency = [], []
     for it in range(n_iters):
         idx = np.random.RandomState((seed * 1_000_003 + it) % (2 ** 31)).choice(
             tcfg.data.n_views, size=2, replace=False)
@@ -189,16 +198,22 @@ def _run_projected(forced: bool):
             t_state = t_state._replace(points=t(j_state.points),
                                        points_mask=t(j_state.points_mask),
                                        spacing=t(j_state.spacing))
+            if j_trainer.saliency_state() is not None:
+                trainer.load_saliency_state(jax.tree.map(
+                    np.asarray, j_trainer.saliency_state()))
+        resample = it == warm or (it > warm and it % trainer.cfg.resample_every == 0)
         resample_u = None
-        if it == warm:                             # the resample's own key
+        if resample:                               # the resample's own key
             rk = keys.next()
-            resample_u = torch.from_numpy(np.array(jax.random.uniform(
-                jax.random.split(rk)[1], t_state.points_mask.shape)))
+            n_target = trainer.scheduler.at(it)["n_points_dss"]
+            if t_state.points.shape[1] > n_target:
+                resample_u = torch.from_numpy(np.array(jax.random.uniform(
+                    jax.random.split(rk)[1], t_state.points_mask.shape)))
         if it < warm:
             draws = _step_draws(keys.next(), n_rays, trainer.cfg.n_eikonal_points,
                                 model.raytrace_cfg.n_steps, (s, s))
         else:
-            width = (tcfg.training.scheduler_init_n_points_dss if it == warm
+            width = (trainer.scheduler.at(it)["n_points_dss"] if resample
                      else t_state.points.shape[1])
             draws = _projected_draws(keys.next(), n_rays,
                                      trainer.cfg.n_eikonal_points,
@@ -210,9 +225,12 @@ def _run_projected(forced: bool):
                                          torch.from_numpy(mask), tcam,
                                          draws=draws)
         rows.append((jm, tm))
+        if forced and it >= warm and j_trainer.saliency_state() is not None:
+            saliency.append((it, trainer.saliency_state(), jax.tree.map(
+                np.asarray, j_trainer.saliency_state())))
     assert t_state.points.shape == (1, m, 3)
-    assert t_state.spacing is not None           # cached since it 4
-    return rows, warm, m
+    assert t_state.spacing is not None           # cached since the last resample
+    return rows, warm, m, j_trainer, trainer, saliency
 
 
 def test_projected_trajectory_tracks_jax():
@@ -230,7 +248,7 @@ def test_projected_trajectory_tracks_jax():
     the visible sets differ by a few points: measured on this run, 179 vs
     180 valid at the resample step (total loss 0.21% apart) and 201 vs 208
     two steps later (total 0.44%, the RGB term 5.0%)."""
-    rows, warm, m = _run_projected(forced=False)
+    rows, warm, m, _, _, _ = _run_projected(forced=False)
     for it, (jm, tm) in enumerate(rows):
         if it < warm:
             assert tm["n_iso"] == jm["n_iso"], it
@@ -253,7 +271,7 @@ def test_projected_steps_match_jax_from_its_state():
     iso-point counts equal and every loss term within rtol 1e-4 + atol
     1e-6 (float32 sums in two summation orders; measured gaps <= 5e-7).
     The resample runs the port's own seeded resample on the JAX buffer."""
-    rows, warm, _ = _run_projected(forced=True)
+    rows, warm, _, _, _, _ = _run_projected(forced=True)
     for it, (jm, tm) in enumerate(rows[warm:], start=warm):
         assert tm["n_iso"] == jm["n_iso"], it
         for k in LOSS_KEYS:

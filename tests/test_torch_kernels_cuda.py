@@ -83,6 +83,12 @@ rays: 8, 16, 32 and 64) and the SIREN march bit for bit against `sweep_plain` /
 `march_plain` over the fused SIREN callables, and against the plain
 versions at the IGR sampler's and march's tolerances; the uni ablation
 arm's schedule with the march equal to the loop route.
+
+The lossS arm: the kNN at its three saliency shapes (the statistics, the
+hot-point lookup, the mothers), over an all-masked database and over one
+of 5 valid points, bit for bit against the plain version; the reference
+cloud's statistics (`update_ref_metric`) with the kernel and with the plain
+kNN, bit for bit.
 """
 
 import dataclasses
@@ -1017,3 +1023,81 @@ def test_ray_trace_siren_uni_schedule_kernels(dev):
     agree = a.network_object_mask == p.network_object_mask
     assert float(agree.float().mean()) >= 0.99
     assert _close_frac(a.dists, p.dists, 1e-4) >= 0.98
+
+
+def _saliency_shapes(dev):
+    """The lossS arm's three kNN calls at its shapes, as (label, query,
+    points, query mask, points mask, k): the statistics (3000 reference
+    points over the 2 x 3000 iso-points of a step), the hot-point lookup
+    (6000 resampled points over 50 hot reference points, some unselected)
+    and the mothers (64 fathers, some unused, over the 6000 points)."""
+    ref, _, ref_m = _sphere_cloud(dev, 3000, seed=21)
+    iso, _, iso_m = _sphere_cloud(dev, 6000, seed=22, frac=0.7)
+    pts, _, pts_m = _sphere_cloud(dev, 6000, seed=23)
+    hot_m = ref_m[:, :50] & (torch.arange(50, device=dev) < 41)
+    fathers_m = torch.arange(64, device=dev)[None] < 57
+    return [("statistics", ref, iso, ref_m, iso_m, 8),
+            ("hot-point lookup", pts, ref[:, :50], pts_m, hot_m, 1),
+            ("mothers", pts[:, 100:164], pts, fathers_m, pts_m, 8)]
+
+
+@pytest.mark.parametrize("case", range(3), ids=["statistics", "hot", "mothers"])
+def test_knn_kernel_saliency_shapes(dev, case):
+    _, q, pts, qm, pm, k = _saliency_shapes(dev)[case]
+    before = knn.KERNEL.launches
+    a = knn.knn_points(q, pts, qm, pm, k=k)
+    assert knn.KERNEL.launches == before + 1
+    b = knn.knn_points(q, pts, qm, pm, k=k, method="dense")
+    assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
+    assert torch.equal(a.dists, b.dists)
+    assert a.mask.any()
+
+
+def test_knn_kernel_saliency_empty_and_sparse_databases(dev):
+    """An all-masked database (no hot reference point): no neighbour at
+    all; a database of 5 valid points at k = 8: at most 5 a query."""
+    _, q, pts, qm, pm, _ = _saliency_shapes(dev)[1]
+    none = torch.zeros_like(pm)
+    a = knn.knn_points(q, pts, qm, none, k=1)
+    b = knn.knn_points(q, pts, qm, none, k=1, method="dense")
+    assert not a.mask.any() and torch.equal(a.idx, b.idx)
+    assert torch.equal(a.dists, b.dists) and torch.equal(a.mask, b.mask)
+    _, q, pts, qm, pm, k = _saliency_shapes(dev)[2]
+    few = torch.zeros_like(pm)
+    few[:, :5] = pm[:, :5]
+    a = knn.knn_points(q, pts, qm, few, k=k)
+    b = knn.knn_points(q, pts, qm, few, k=k, method="dense")
+    assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
+    assert torch.equal(a.dists, b.dists)
+    assert int(a.mask.sum(-1).max()) == int(few.sum())
+
+
+def test_update_ref_metric_kernel_matches_plain(dev, monkeypatch):
+    """The lossS statistics on the card: seeding by FPS of a 3000-point iso
+    set, then three updates over 2 x 3000 iso-points, with the kNN kernel
+    and with its plain version: the reference cloud and the running mean and
+    count bit-equal (the kNN is exact and the sums keep one order)."""
+    from isopoints_torch.training.trainer import MVRTrainer, TrainerConfig
+    g = torch.Generator(device=dev).manual_seed(31)
+    steps = []
+    for _ in range(3):
+        iso, _, mask = _sphere_cloud(dev, 6000, seed=len(steps) + 40, frac=0.7)
+        loss = torch.rand(1, 6000, generator=g, device=dev)
+        steps.append((iso.reshape(2, 3000, 3), loss.reshape(2, 3000),
+                      mask.reshape(2, 3000)))
+    states = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(knn, "knn_points_cuda", knn.knn_points_dense)
+        tr = MVRTrainer(None, TrainerConfig(saliency_sampling=True,
+                                            n_ref_points=4096), device=dev)
+        before = knn.KERNEL.launches
+        for args in steps:
+            tr.update_ref_metric(*args)
+        torch.cuda.synchronize()
+        assert knn.KERNEL.launches - before == (0 if plain else 3)
+        states.append(tr.saliency_state())
+    for key, v in states[0].items():
+        assert (v == states[1][key]).all(), key
+    assert states[0]["ref_points"].shape == (1, 3000, 3)
+    assert states[0]["ref_stat_n"].max() == 3

@@ -201,7 +201,7 @@ def test_step_with_neural_texture_matches_jax(project):
             n_eikonal_points=N_EIK)
         return total, metrics
     (_, j_metrics), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    total, t_metrics, _, _ = compute_loss(
+    total, t_metrics, _, _, _ = compute_loss(
         tmodel, t_pts, t_pmask, torch.from_numpy(np.array(pixels)),
         torch.from_numpy(img), torch.from_numpy(mask), tcam, eik, u, HP,
         project=project, proj_draws=proj)

@@ -310,7 +310,7 @@ def test_warmup_step_igr_bench_schedule_matches_jax():
         jmodel, p, None, None, pixels, jnp.asarray(img), jnp.asarray(mask),
         jcam, k_loss, {k: jnp.float32(v) for k, v in HP.items()},
         project=False, n_eikonal_points=draws.eikonal.shape[1]))(params)
-    _, t_metrics, _, _ = compute_loss(
+    _, t_metrics, _, _, _ = compute_loss(
         tmodel, None, None, draws.pixels, torch.from_numpy(img),
         torch.from_numpy(mask), tcam, draws.eikonal, draws.u_minsdf, HP,
         project=False)

@@ -115,7 +115,7 @@ def step_pair(world):
     pixels, k_loss, draws = jax_step_draws(jax.random.key(11), 2, (16, 16))
     j_metrics, j_grads = _jax_loss_and_grads(world, pixels, k_loss)
     tmodel = world["tmodel"]
-    total, t_metrics, _, _ = compute_loss(
+    total, t_metrics, _, _, _ = compute_loss(
         tmodel, None, None, draws.pixels, torch.from_numpy(world["img"]),
         torch.from_numpy(world["mask"]), world["tcam"], draws.eikonal,
         draws.u_minsdf, HP, project=False)
@@ -241,7 +241,7 @@ def projected_pair():
         jax.value_and_grad(loss_fn, has_aux=True))(params)
     eik, draws = jax_projected_draws(k_loss, pts.shape[1],
                                      CCFG["max_iso_per_batch"])
-    total, t_metrics, t_pts, t_mask = compute_loss(
+    total, t_metrics, t_pts, t_mask, _ = compute_loss(
         tmodel, torch.from_numpy(pts), torch.from_numpy(pmask),
         torch.from_numpy(np.array(pixels)), torch.from_numpy(img),
         torch.from_numpy(mask), tcam, eik, None, HP, project=True,
