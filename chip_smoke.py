@@ -162,9 +162,33 @@ Phases, each fatal on failure:
      reference cloud), the whole insertion resample (valid counts within
      0.5% of the capacity, 98% of the plain version's points within 1e-4 of
      a kernel point); the statistics' kNN timed with its bound,
-     update_ref_metric and farthest point sampling alone; then the JSON
-     line {"kernels": [...]} (row 4 also at the statistics' shape) and the
-     device line {"ok": true, "device": {...}}.
+     update_ref_metric and farthest point sampling alone;
+  13. training from data directories through the entry points a user
+     calls (`create_mvr_data.main`, `train_mvr.main`): (a) the torus written
+     as an MVR directory at the lossS arm's data size, 24 views at 512 px
+     (timed), read back with MVRDataset: images equal to the 8-bit
+     truncation of the arrays written, masks, cameras and GT points equal,
+     bit for bit; (b) 8 iterations of isopoints_torch/configs/mvr_lossS_dir.yml
+     with a checkpoint every 4, counters set to 0 before and read after:
+     fused_mlp in both modes, the coarse sampler, the kNN, the selection
+     and the fine stage must launch, the insertion gate must open at its 4
+     and 6; each step's time beside phase 12's at 64 px; (c) 4 iterations,
+     a resume that runs none (every restored piece of state, the iso-point
+     buffer's capacity adopted, equal bit for bit to what was saved, and
+     the checkpoint written back unchanged), then a resume to 8: the views
+     and pixels of its 4-7 equal to (b)'s; a repeat of (b): if the two
+     uninterrupted runs agree bit for bit, the resumed run must too (metrics
+     rows and final checkpoint), else it must agree with (b) as closely as
+     the repeat does (bars printed beside the repeat's gap); (d)
+     `--exit-after` must exit with code 3 after a checkpoint holding the
+     steps taken; (e) the torus in the DTU layout (8 views at 512 px,
+     cameras decomposed per view, focal negated), 2 warm-up steps, the
+     resample and 2 projected steps of isopoints_torch/configs/mvr_uni_dtu.yml
+     (the five SIREN-path kernels must launch), and a warm-up and a projected
+     step with the kernels and with the plain versions on identical draws
+     (phase 4's bars); then the JSON line {"kernels": [...]} (row 4 also at
+     the statistics' shape; the SIREN-path rows with their launches in (b)
+     and (e)) and the device line {"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -2358,6 +2382,336 @@ def main() -> None:
                    lossS_children_ms=c_ms, lossS_children_plain_ms=c_pms,
                    lossS_children_bound_ms=c_b[0],
                    lossS_children_bound_by=c_b[1])
+
+    # ---- 13. training from data directories: write, read back, train,
+    # checkpoint, stop and resume, through the entry points a user calls
+    import numpy as np
+    from isopoints_torch import create_mvr_data, train_mvr
+    from isopoints_torch.data.dataset import DTUDataset, MVRDataset
+    from isopoints_torch.misc import checkpoints as ckpt_mod
+    from isopoints_torch.misc.metrics import load_metrics
+    # the configs name their data directories relative to the checkout
+    os.chdir(ROOT)
+    data_dir = os.path.join("out", "torch_data_torus512")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mem = create_mvr_data.main(["torus", data_dir, "--image-size", "512",
+                                "--n-views", "24"])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = MVRDataset(data_dir)
+    items = [ds[i] for i in range(len(ds))]
+    read_s = time.perf_counter() - t0
+    if len(items) != 24 or items[0]["img.rgb"].shape != (512, 512, 3):
+        fail(f"directory data: {len(items)} views of {items[0]['img.rgb'].shape}")
+    for i, item in enumerate(items):
+        u8 = np.clip(mem["img.rgb"][i] * 255.0, 0, 255).astype(np.uint8)
+        if not (np.array_equal(item["img.rgb"], u8.astype(np.float32) / 255.0)
+                and np.array_equal(item["img.mask"], mem["img.mask"][i])):
+            fail(f"directory data: view {i} read back differs from the 8-bit "
+                 f"truncation of the arrays written")
+    for key, got in (("camera_mat", ds.camera_mat), ("points", ds.points),
+                     ("normals", ds.normals), ("focal_length", ds.focal_length),
+                     ("principal_point", ds.principal_point)):
+        if not np.array_equal(got, mem[key]):
+            fail(f"directory data: {key} read back differs from the one written")
+    cover = float(np.mean(mem["img.mask"]))
+    if not 0.02 < cover < 0.9:
+        fail(f"the torus masks cover {cover:.3f} of the pixels")
+    print(f"directory data: the torus, 24 views at 512 px written to {data_dir} "
+          f"in {write_s:.2f} s (rendered on the card, PNG-encoded on the host) and "
+          f"read back in {read_s:.2f} s: every image equal to the 8-bit truncation "
+          f"of the arrays written, masks, cameras, GT points ({len(ds.points)}) "
+          f"equal bit for bit; masks cover {cover:.4f}")
+
+    # each run through train_mvr.main: per step its time, launches, views and
+    # pixel draws; fused_mlp's and the sampler's launches by mode; the
+    # insertions' iterations; each checkpoint save's time
+    rec = {}
+    train_step_fn = trainer_mod.MVRTrainer.train_step
+    draw_fn = trainer_mod.MVRTrainer.draw
+    draw_views_fn = train_mvr.draw_views
+    save_fn = ckpt_mod.CheckpointIO.save
+
+    def rec_step(self, state, *args, **kw):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step_fn(self, state, *args, **kw)
+        torch.cuda.synchronize()
+        rec["ms"][state.it] = 1e3 * (time.perf_counter() - t)
+        rec["launches"][state.it] = {k: v - before[k] for k, v in counts().items()}
+        return out
+
+    def rec_draw(self, *args, **kw):
+        d = draw_fn(self, *args, **kw)
+        rec["pixels"].append(d.pixels.clone())
+        return d
+
+    def rec_views(seed, it, *args):
+        idx = draw_views_fn(seed, it, *args)
+        rec["views"][it] = idx.tolist()
+        return idx
+
+    def rec_project(*args, **kw):
+        rec["inserts"].append(len(rec["ms"]) + rec["it0"])
+        return project_fn(*args, **kw)
+
+    def rec_siren(pack, x, with_grad, bf16=False):
+        rec["mlp"][("bf16" if bf16 else "f32", "value+grad" if with_grad
+                    else "value", x.shape[0])] += 1
+        return siren_cuda(pack, x, with_grad, bf16)
+
+    def rec_sweep(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin,
+                  coarse_sweep=False, fine_bf16=False):
+        rec["sweeps"][("coarse" if coarse_sweep else "fine", dirs.shape[0])] += 1
+        return sweep_cuda(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin,
+                          coarse_sweep, fine_bf16)
+
+    def rec_save(self, *args, **kw):
+        t = time.perf_counter()
+        out = save_fn(self, *args, **kw)
+        rec["save_s"].append(time.perf_counter() - t)
+        return out
+
+    def train(cfg_name, out_dir, n_iters, *flags, fresh=True, expect_exit=None):
+        """train_mvr.main on `cfg_name` into `out_dir` (emptied first when
+        `fresh`), recording as above; returns (run or None, record, wall s).
+        A SystemExit is caught only to compare its code with `expect_exit`."""
+        if fresh:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        it0 = 0
+        if os.path.exists(os.path.join(out_dir, "model.npz")):
+            with np.load(os.path.join(out_dir, "model.npz")) as f:
+                it0 = int(f["scalar:it"])
+        rec.clear()
+        rec.update(ms={}, launches={}, pixels=[], views={}, inserts=[], it0=it0,
+                   mlp=collections.Counter(), sweeps=collections.Counter(), save_s=[])
+        patches = ((trainer_mod.MVRTrainer, "train_step", rec_step),
+                   (trainer_mod.MVRTrainer, "draw", rec_draw),
+                   (train_mvr, "draw_views", rec_views),
+                   (trainer_mod, "project_points", rec_project),
+                   (fused_mlp, "siren_forward_cuda", rec_siren),
+                   (fused_sampler, "sweep_cuda", rec_sweep),
+                   (ckpt_mod.CheckpointIO, "save", rec_save))
+        saved_attrs = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        argv = [os.path.join("isopoints_torch", "configs", cfg_name), "--out-dir",
+                out_dir, "--max-iters", str(n_iters), "--print-every", "1000", *flags]
+        run, code = None, None
+        t = time.perf_counter()
+        try:
+            run = train_mvr.main(argv)
+        except SystemExit as e:
+            code = e.code
+        finally:
+            for obj, name, fn in saved_attrs:
+                setattr(obj, name, fn)
+        wall = time.perf_counter() - t
+        if code != expect_exit:
+            fail(f"train_mvr {' '.join(argv)} exited with {code!r}, expected "
+                 f"{expect_exit!r}")
+        return run, dict(rec), wall
+
+    def npz(out_dir):
+        with np.load(os.path.join(out_dir, "model.npz")) as f:
+            return {k: f[k] for k in f.files}
+
+    def rows_of(out_dir):
+        return [{k: v for k, v in r.items() if k != "ts"}
+                for r in load_metrics(os.path.join(out_dir, "metrics.jsonl"))]
+
+    def same_arrays(a, b):
+        return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+    # (b) the uninterrupted run, counters set to 0 just before and read after
+    dir_b = os.path.join("out", "torch_mvr_lossS_dir")
+    reset()
+    run_b, rec_b, wall_b = train("mvr_lossS_dir.yml", dir_b, 8,
+                                 "--checkpoint-every", "4")
+    dir_launches = counts()
+    print(f"mvr_lossS_dir.yml (the lossS arm from {data_dir}), 8 iterations in "
+          f"{wall_b:.2f} s: launches {dir_launches}; fused_mlp by mode "
+          f"{dict(rec_b['mlp'])}; the sampler by sweep {dict(rec_b['sweeps'])}; "
+          f"insertions at its {rec_b['inserts']}")
+    modes = {m for m, _, _ in rec_b["mlp"]}
+    if modes != {"f32", "bf16"}:
+        fail(f"mvr_lossS_dir.yml: fused_mlp launched in modes {modes}, not both")
+    if not any(s == "coarse" for s, _ in rec_b["sweeps"]):
+        fail("mvr_lossS_dir.yml: the sampler never ran its coarse sweep")
+    for name in ("knn", "splat_select", "splat_fine"):
+        if dir_launches[name] <= 0:
+            fail(f"mvr_lossS_dir.yml: kernel {name} was not launched")
+    if rec_b["inserts"] != [4, 6]:
+        fail(f"mvr_lossS_dir.yml: the insertion gate opened at its "
+             f"{rec_b['inserts']}, expected [4, 6]")
+    m_b = rows_of(dir_b)
+    if [r["it"] for r in m_b] != list(range(8)) or not all(
+            np.isfinite([r[k] for k in loss_keys]).all() for r in m_b):
+        fail(f"mvr_lossS_dir.yml: metrics rows {m_b}")
+    if min(r["n_iso"] for r in m_b[2:]) <= 0:
+        fail("mvr_lossS_dir.yml: a projected step found no iso-point")
+    kinds = {0: "warm-up", 1: "warm-up", 2: "resample + seeding", 3: "projected",
+             4: "insertion resample", 5: "projected", 6: "insertion resample",
+             7: "projected"}
+    for i in range(8):
+        print(f"  step {i} ({kinds[i]}): {rec_b['ms'][i]:.1f} ms at 512 px "
+              f"(phase 12 at 64 px: {s_ms[i]:.1f} ms); launches "
+              f"{rec_b['launches'][i]}")
+    proj_512 = statistics.median(rec_b["ms"][i] for i in (3, 5, 7))
+    proj_64 = statistics.median(s_ms[i] for i in (3, 5, 7))
+    steps_s = sum(rec_b["ms"].values()) / 1e3
+    print(f"step times at 512 px / phase 12 at 64 px: warm-up median "
+          f"{statistics.median([rec_b['ms'][0], rec_b['ms'][1]]):.2f} / "
+          f"{statistics.median(s_ms[:2]):.2f} ms, resample + seeding "
+          f"{rec_b['ms'][2]:.1f} / {s_ms[2]:.1f} ms, insertion resamples "
+          f"{rec_b['ms'][4]:.1f}, {rec_b['ms'][6]:.1f} / {s_ms[4]:.1f}, "
+          f"{s_ms[6]:.1f} ms, projected median {proj_512:.2f} / {proj_64:.2f} ms; "
+          f"the entry's own time outside the steps {wall_b - steps_s:.2f} s "
+          f"(data read, model, checkpoints: {len(rec_b['save_s'])} saves, "
+          f"{1e3 * max(rec_b['save_s']):.1f} ms the longest)")
+    new_shapes = sorted(set(rec_b["mlp"]) - set(s_mlp))
+    print(f"fused_mlp shapes of this run not in phase 12's: {new_shapes or 'none'}")
+
+    # (c) a run of 4 iterations, a resume that runs none, then one to 8
+    dir_c = os.path.join("out", "torch_mvr_lossS_dir_resumed")
+    train("mvr_lossS_dir.yml", dir_c, 4)
+    saved4 = npz(dir_c)
+    run_c0, rec_c0, wall_c0 = train("mvr_lossS_dir.yml", dir_c, 4, fresh=False)
+    if rec_c0["ms"] or not same_arrays(npz(dir_c), saved4):
+        fail("resume: a resume that runs no iteration did not write back the "
+             "checkpoint it read, bit for bit")
+    st = run_c0.state
+    restored = {
+        "parameters": all(np.array_equal(v.cpu().numpy(), saved4["model:" + k])
+                          for k, v in run_c0.trainer.model.state_dict().items()),
+        "Adam moments": st.opt_state.count == int(saved4["opt:count"]) and all(
+            np.array_equal(v.cpu().numpy(), saved4[f"opt:{m}/{k}"])
+            for m in ("mu", "nu") for k, v in getattr(st.opt_state, m).items()),
+        "iso-point buffer": (np.array_equal(st.points.cpu().numpy(), saved4["points:"])
+                             and np.array_equal(st.points_mask.cpu().numpy(),
+                                                saved4["points_mask:"])),
+        "spacing": np.array_equal(st.spacing.cpu().numpy(), saved4["spacing:"]),
+        "generator state": np.array_equal(run_c0.trainer.generators.state(),
+                                          saved4["scalar:rng_state"]),
+        "saliency arrays": all(np.array_equal(
+            run_c0.trainer.saliency_state()[k], saved4["saliency:" + k])
+            for k in ("ref_points", "ref_mask", "ref_stat_mean", "ref_stat_n")),
+    }
+    cap = saved4["points:"].shape[1]
+    start_cap = run_c0.trainer.model.ccfg.n_points_per_cloud
+    print(f"resume at it 4: restored bit for bit {restored}; the buffer's capacity "
+          f"{cap} adopted from the checkpoint (the start cloud holds {start_cap}); "
+          f"the entry took {wall_c0:.2f} s for a resume that runs no step")
+    if not all(restored.values()) or cap == start_cap:
+        fail(f"resume: state not restored bit for bit: {restored}")
+    run_c, rec_c, wall_c = train("mvr_lossS_dir.yml", dir_c, 8, fresh=False)
+    m_c = rows_of(dir_c)
+    if [r["it"] for r in m_c] != list(range(8)) or sorted(rec_c["ms"]) != [4, 5, 6, 7]:
+        fail(f"resume: the resumed run stepped its {sorted(rec_c['ms'])}")
+    if any(rec_c["views"][i] != rec_b["views"][i] for i in range(4, 8)) or not all(
+            torch.equal(a, b) for a, b in zip(rec_c["pixels"], rec_b["pixels"][4:])):
+        fail("resume: the views or pixels drawn at its 4-7 differ from the "
+             "uninterrupted run's")
+    print(f"resumed run, its 4-7 in {wall_c:.2f} s (steps "
+          f"{sum(rec_c['ms'].values()) / 1e3:.2f} s, the entry's own time "
+          f"{wall_c - sum(rec_c['ms'].values()) / 1e3:.2f} s; the uninterrupted "
+          f"run's {wall_b - steps_s:.2f} s): views and pixels drawn at its 4-7 "
+          f"equal to the uninterrupted run's; insertions at its {rec_c['inserts']}")
+    # does a repeat of the uninterrupted run agree with it bit for bit?
+    dir_r = os.path.join("out", "torch_mvr_lossS_dir_repeat")
+    train("mvr_lossS_dir.yml", dir_r, 8, "--checkpoint-every", "4")
+    m_r = rows_of(dir_r)
+    f_b, f_r, f_c = npz(dir_b), npz(dir_r), npz(dir_c)
+    repeat_equal = m_r == m_b and same_arrays(f_r, f_b)
+    resumed_equal = m_c[4:] == m_b[4:] and same_arrays(f_c, f_b)
+
+    def gaps(m_x, f_x):
+        """Largest relative gap of the loss terms over its 4-7, largest
+        n_iso difference, largest parameter difference at the end."""
+        rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-6)
+                  for x, y in zip(m_x[4:], m_b[4:]) for k in loss_keys)
+        n_iso = max(abs(x["n_iso"] - y["n_iso"]) for x, y in zip(m_x[4:], m_b[4:]))
+        par = max(float(np.abs(f_x[k] - f_b[k]).max()) for k in f_b
+                  if k.startswith("model:"))
+        return rel, n_iso, par
+
+    g_rep, g_res = gaps(m_r, f_r), gaps(m_c, f_c)
+    print(f"two uninterrupted runs agree bit for bit: {repeat_equal} (their gap: "
+          f"loss terms {g_rep[0]:.3g} relative, n_iso {g_rep[1]:.0f}, parameters "
+          f"{g_rep[2]:.3g}); the resumed run against the uninterrupted one: "
+          f"bit for bit {resumed_equal} (loss terms {g_res[0]:.3g}, n_iso "
+          f"{g_res[1]:.0f}, parameters {g_res[2]:.3g})")
+    if repeat_equal:
+        if not resumed_equal:
+            fail("resume: two uninterrupted runs agree bit for bit, the resumed "
+                 "run does not")
+        print("  bar: bit for bit (metrics rows of its 4-7 and the final checkpoint)")
+    else:
+        bars = (max(2 * g_rep[0], 1e-6), max(g_rep[1], 0.005 * cap),
+                max(2 * g_rep[2], 1e-7))
+        print(f"  bars (the repeat's own gap, doubled; n_iso within the larger "
+              f"of its gap and 0.5% of the capacity): loss terms {bars[0]:.3g}, "
+              f"n_iso {bars[1]:.0f}, parameters {bars[2]:.3g}")
+        if any(g > b for g, b in zip(g_res, bars)):
+            fail(f"resume: the resumed run's gap {g_res} exceeds the bars {bars}")
+
+    # (d) --exit-after: a checkpoint, then exit code 3
+    dir_d = os.path.join("out", "torch_mvr_lossS_dir_exit")
+    _, rec_d, _ = train("mvr_lossS_dir.yml", dir_d, 8, "--exit-after", "1e-9",
+                        expect_exit=3)
+    it_d = int(npz(dir_d)["scalar:it"])
+    if it_d != len(rec_d["ms"]) or it_d != len(rows_of(dir_d)) or it_d < 1:
+        fail(f"--exit-after: the checkpoint holds it={it_d} after "
+             f"{len(rec_d['ms'])} steps")
+    print(f"--exit-after 1e-9: exit code 3 after {len(rec_d['ms'])} step, the "
+          f"checkpoint holds it={it_d}")
+
+    # (e) DTU-layout data: per-view decomposed cameras on the kernel route
+    dtu_dir = os.path.join("out", "torch_data_dtu_torus")
+    shutil.rmtree(dtu_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    create_mvr_data.main(["torus", dtu_dir, "--dtu", "--image-size", "512",
+                          "--n-views", "8"])
+    dtu_write_s = time.perf_counter() - t0
+    dtu = DTUDataset(dtu_dir)
+    dcam = dtu.camera(np.arange(8), (512, 512), device=dev)
+    fx = [float(k[0, 0]) for k in dtu.intrinsics]
+    if len(dtu) != 8 or not bool((dcam.focal_length < 0).all()) or max(
+            abs(f - 512.0) for f in fx) > 1e-2:
+        fail(f"DTU data: {len(dtu)} views, focal lengths {fx} px, NDC "
+             f"{dcam.focal_length.tolist()}")
+    print(f"DTU-layout torus, 8 views at 512 px, written in {dtu_write_s:.2f} s; "
+          f"cameras decomposed from cameras.npz: focal {min(fx):.4f}-{max(fx):.4f} "
+          f"px, NDC focal negated in every view "
+          f"({float(dcam.focal_length.max()):.6f} the largest)")
+    reset()
+    run_e, rec_e, wall_e = train("mvr_uni_dtu.yml",
+                                 os.path.join("out", "torch_mvr_uni_dtu"), 5)
+    dtu_launches = counts()
+    print(f"mvr_uni_dtu.yml: 2 warm-up steps, the resample and 2 projected steps "
+          f"in {wall_e:.2f} s, steps " + ", ".join(
+              f"{rec_e['ms'][i]:.1f}" for i in range(5)) +
+          f" ms; launches {dtu_launches}; fused_mlp by mode {dict(rec_e['mlp'])}")
+    for name in ("fused_mlp", "fused_sampler", "knn", "splat_select", "splat_fine"):
+        if dtu_launches[name] <= 0:
+            fail(f"mvr_uni_dtu.yml: kernel {name} was not launched")
+    dtu_batch = lambda it: run_e.views(train_mvr.draw_views(0, it, 8))
+    for project, it in ((False, 0), (True, run_e.state.it)):
+        kernels_vs_plain(run_e.cfg, run_e.trainer, run_e.state, dtu_batch, it,
+                         loss_keys, project=project)
+    # launches in the two runs, each row's own: fused_mlp by mode, the
+    # SIREN sampler by sweep
+    for i, name in ((2, "knn"), (3, "splat_select"), (4, "splat_fine")):
+        rows[i].update(lossS_dir_launches=dir_launches[name],
+                       dtu_launches=dtu_launches[name])
+    for i, key, val in ((0, "mlp", "f32"), (9, "mlp", "bf16"),
+                        (1, "sweeps", "fine"), (10, "sweeps", "coarse")):
+        rows[i].update(**{f"{run}_launches": sum(c for k, c in r[key].items()
+                                                 if k[0] == val)
+                          for run, r in (("lossS_dir", rec_b), ("dtu", rec_e))})
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")

@@ -1,26 +1,53 @@
-"""Synthetic MVR data (port of isopoints_tpu/data/synthetic.py:
-`sphere_sdf`, `render_view`, `make_synthetic_mvr`).
+"""Synthetic MVR data (port of isopoints_tpu/data/synthetic.py: the
+sphere, torus and box SDFs, `render_view`, `make_synthetic_mvr`,
+`make_synthetic_dtu` and `export_mvr_dataset`).
 
 Views of an analytic SDF are ray-traced with the port's own ray engine and
-Phong-shaded into image / mask / camera arrays; data is made anew from a
-seed on every run.
+Phong-shaded into image / mask / camera arrays, in memory or written as an
+MVR or a DTU (IDR) directory; data is made anew from a seed on every run.
+The mesh-rendered datasets (`make_mesh_mvr`) wait for the mesh ray-caster
+(ROADMAP Queue 1 items C and E).
 """
 
+import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from isopoints_torch.core.camera import PerspectiveCamera, look_at_view_transform
+from isopoints_torch.data.dataset import DTUDataset
 from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
 from isopoints_torch.ops.images import arange_pixels
 from isopoints_torch.rendering.lighting import DirectionalLights
 from isopoints_torch.rendering.texture import lighting_texture
+from isopoints_torch.utils.io import save_image, save_ply
 
 
 def sphere_sdf(r: float = 0.5) -> Callable[[torch.Tensor], torch.Tensor]:
     return lambda x: torch.linalg.norm(x, dim=-1) - r
+
+
+def torus_sdf(R: float = 0.4, r: float = 0.15
+              ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A torus about the z axis, major radius R, minor radius r."""
+    def f(x):
+        q = torch.stack([torch.linalg.norm(x[..., :2], dim=-1) - R, x[..., 2]], -1)
+        return torch.linalg.norm(q, dim=-1) - r
+    return f
+
+
+def box_sdf(half: float = 0.35) -> Callable[[torch.Tensor], torch.Tensor]:
+    """An axis-aligned cube of half side `half`."""
+    def f(x):
+        q = torch.abs(x) - half
+        return (torch.linalg.norm(torch.clamp(q, min=0.0), dim=-1)
+                + torch.clamp(torch.amax(q, dim=-1), max=0.0))
+    return f
+
+
+SDFS = {"sphere": sphere_sdf, "torus": torus_sdf, "box": box_sdf}
 
 
 @torch.no_grad()
@@ -114,3 +141,92 @@ def make_synthetic_mvr(sdf_fn: Callable, n_views: int = 24,
         "points": gt_points.astype(np.float32),
         "normals": gt_normals.astype(np.float32),
     }
+
+
+@torch.no_grad()
+def make_synthetic_dtu(sdf_fn: Callable, out_dir: str, n_views: int = 8,
+                       image_size: int = 64, dist: float = 2.0,
+                       focal_pix: Optional[float] = None, seed: int = 0,
+                       scale_mat: Optional[np.ndarray] = None,
+                       device="cuda") -> None:
+    """Write a dataset in the IDR/DTU layout `DTUDataset` reads
+    (synthetic.py:232-319): image/, mask/, cameras.npz with `world_mat_%d`
+    = K[R|t] projections and `scale_mat_%d`, and points.ply.
+
+    `scale_mat` (4, 4) is the normalized->world similarity: `world_mat_i`
+    is written as P_norm @ inv(scale_mat), so the loader's world_mat @
+    scale_mat recovers the normalized cameras, and the GT points are
+    written in world coordinates. The images are rendered through the
+    cameras `DTUDataset.camera` decomposes back out of the written
+    matrices, the round trip training takes on a real scan."""
+    h = w = image_size
+    f = focal_pix if focal_pix is not None else image_size
+    K = np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]],
+                 np.float32)
+    rng = np.random.RandomState(seed)
+    elev = rng.uniform(-30.0, 30.0, size=n_views)
+    azim = np.linspace(0.0, 360.0, n_views, endpoint=False)
+    R_row, T_row = (a.cpu().numpy() for a in look_at_view_transform(
+        [dist] * n_views, elev, azim, device="cpu"))
+    scale_mat = np.asarray(np.eye(4) if scale_mat is None else scale_mat,
+                           np.float32)
+    scale_inv = np.linalg.inv(scale_mat).astype(np.float32)
+    cams_npz = {}
+    for i in range(n_views):
+        # the loader's R is column world->view and the camera takes R.T
+        P = K @ np.concatenate([R_row[i].T, T_row[i][:, None]], axis=1)
+        wm = np.eye(4, dtype=np.float32)
+        wm[:3, :4] = P
+        cams_npz[f"world_mat_{i}"] = wm @ scale_inv
+        cams_npz[f"scale_mat_{i}"] = scale_mat
+    os.makedirs(os.path.join(out_dir, "image"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "mask"), exist_ok=True)
+    np.savez(os.path.join(out_dir, "cameras.npz"), **cams_npz)
+    # placeholder images so the loader can enumerate the views
+    blank = np.zeros((h, w), np.float32)
+    for i in range(n_views):
+        save_image(os.path.join(out_dir, "image", f"{i:06d}.png"), blank)
+        save_image(os.path.join(out_dir, "mask", f"{i:06d}.png"), blank)
+    ds = DTUDataset(out_dir)
+    for i in range(n_views):
+        out = render_view(sdf_fn, ds.camera([i], (h, w), device=device),
+                          image_size)
+        save_image(os.path.join(out_dir, "image", f"{i:06d}.png"),
+                   out["img.rgb"][0])
+        save_image(os.path.join(out_dir, "mask", f"{i:06d}.png"),
+                   out["img.mask"][0][..., 0])
+    init = torch.as_tensor(rng.uniform(-0.9, 0.9, (1, 4096, 3)),
+                           dtype=torch.float32, device=device)
+    pts, nrm, ok = _project_newton(sdf_fn, init, max_iters=30, tolerance=1e-5)
+    ok = ok[0].cpu().numpy()
+    # the GT scan lies in world coordinates, as a real DTU scan: the
+    # similarity to the points, its rotation part to the normals
+    pts_n, nrm_n = pts[0].cpu().numpy()[ok], nrm[0].cpu().numpy()[ok]
+    pts_w = pts_n @ scale_mat[:3, :3].T + scale_mat[:3, 3]
+    nrm_w = nrm_n @ np.linalg.inv(scale_mat[:3, :3]).astype(np.float32)
+    nrm_w /= np.maximum(np.linalg.norm(nrm_w, axis=-1, keepdims=True), 1e-12)
+    save_ply(os.path.join(out_dir, "points.ply"), pts_w, normals=nrm_w)
+
+
+def export_mvr_dataset(data: Dict[str, np.ndarray], out_dir: str) -> None:
+    """Write the MVRDataset directory layout (synthetic.py:322-348): image/,
+    mask/[, depth/*.npy], data_dict.npz[, mesh.ply]."""
+    os.makedirs(os.path.join(out_dir, "image"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "mask"), exist_ok=True)
+    for i in range(data["img.rgb"].shape[0]):
+        save_image(os.path.join(out_dir, "image", f"{i:05d}.png"),
+                   data["img.rgb"][i])
+        save_image(os.path.join(out_dir, "mask", f"{i:05d}.png"),
+                   data["img.mask"][i][..., 0])
+        if "img.depth" in data:
+            os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+            np.save(os.path.join(out_dir, "depth", f"{i:05d}.npy"),
+                    data["img.depth"][i])
+    extra = {k: data[k] for k in ("points", "normals") if k in data}
+    np.savez(os.path.join(out_dir, "data_dict.npz"),
+             camera_mat=data["camera_mat"],
+             focal_length=data["focal_length"],
+             principal_point=data["principal_point"], **extra)
+    if "mesh_verts" in data:
+        save_ply(os.path.join(out_dir, "mesh.ply"), data["mesh_verts"],
+                 faces=data["mesh_faces"])

@@ -1,7 +1,8 @@
 """Config-driven factories (port of isopoints_tpu/factories.py, for what
 the ported configs name: a SIREN or IGR (`decoder_type: sdf`) decoder, the
 combined or implicit model with the Phong or the neural texture, the DSS
-point model, the splat raster settings, the synthetic datasets)."""
+point model, the splat raster settings, the MVR, DTU and synthetic
+datasets)."""
 
 from typing import Optional
 
@@ -78,17 +79,20 @@ def create_trainer(model, cfg: AttrDict, seed: int = 0,
 
 
 def create_dataset(cfg: AttrDict, device="cuda"):
-    """The synthetic dataset of `data` (in-memory arrays); the MVR and DTU
-    directory loaders are not ported yet (ROADMAP Queue 1 item 7)."""
+    """The dataset of `data.type` (factories.py:102-126): an `MVRDataset`
+    or a `DTUDataset` directory, or the in-memory arrays of a synthetic
+    `sphere | torus | box` rendered on `device`."""
     dtype = cfg.data.get("type", "MVR")
+    if dtype in ("MVR", "DTU"):
+        from isopoints_torch.data.dataset import DTUDataset, MVRDataset
+        cls = MVRDataset if dtype == "MVR" else DTUDataset
+        return cls(cfg.data.data_dir,
+                   img_extension=cfg.data.get("img_extension", "png"))
     if dtype != "synthetic":
-        raise NotImplementedError(f"dataset type {dtype!r} is not ported yet")
+        raise ValueError(f"unknown dataset type {dtype}")
     from isopoints_torch.data import synthetic
-    name = cfg.data.get("sdf", "sphere")
-    if name != "sphere":
-        raise NotImplementedError(f"synthetic sdf {name!r} is not ported yet")
     return synthetic.make_synthetic_mvr(
-        synthetic.sphere_sdf(),
+        synthetic.SDFS[cfg.data.get("sdf", "sphere")](),
         n_views=cfg.data.get("n_views", 24),
         image_size=cfg.data.get("image_size", 64),
         dist=cfg.data.get("camera_distance", 2.0),

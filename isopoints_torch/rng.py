@@ -8,6 +8,7 @@ numbers; tests that compare the two packages make their draws with numpy
 or JAX and pass them in explicitly.
 """
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,14 @@ class GeneratorChain:
     def next(self) -> torch.Generator:
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._host))
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    # The chain's position is training state: a resumed run restores it,
+    # so that it draws the same numbers at the same iterations as the
+    # uninterrupted run (KeyChain.key_data / set_key_data).
+    def state(self) -> np.ndarray:
+        """The host generator's state as a uint8 array (npz-serialisable)."""
+        return self._host.get_state().numpy().copy()
+
+    def set_state(self, state) -> None:
+        """Restore the chain to a `state()` snapshot."""
+        self._host.set_state(torch.from_numpy(np.asarray(state, np.uint8).copy()))

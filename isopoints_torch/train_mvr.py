@@ -1,48 +1,153 @@
-"""Multiview-reconstruction training (port of the training loop of
-train_mvr.py).
+"""Multiview-reconstruction training (port of train_mvr.py).
 
-    python -m isopoints_torch.train_mvr isopoints_torch/configs/mvr_uni_siren.yml \
-        [--max-iters N] [--seed S] [--out-dir DIR] [--device cuda|cpu] \
+    python -m isopoints_torch.train_mvr CONFIG [--max-iters N] [--seed S] \
+        [--out-dir DIR] [--device cuda|cpu] [--checkpoint-every N] \
+        [--print-every N] [--exit-after SECONDS] [--fresh-keys] \
         [--profile-at IT]
 
 The config is read over configs/default.yaml, as train_mvr.py reads it.
-Builds the dataset, model and trainer from the config, runs N steps on
-views drawn as a pure function of (seed, it) — warm-up steps before the
-config's `warm_up_iters`, projected steps with iso-point resampling from
-then on (the trainer logs each resample's start and yield) — and appends
-one JSON object per step to OUT_DIR/metrics.jsonl. `--profile-at IT`
-traces iterations IT..IT+4 with torch.profiler into OUT_DIR/profile/
-(chrome trace + an op table sorted by device time), as train_mvr.py's
-`--profile-at` does with the JAX profiler.
+Builds the dataset (an MVR or DTU directory, or a synthetic shape rendered
+in memory), the model and the trainer from the config, and runs to
+`--max-iters` on views drawn as a pure function of (seed, it): warm-up
+steps before the config's `warm_up_iters`, projected steps with iso-point
+resampling from then on. Each step appends one JSON row to
+OUT_DIR/metrics.jsonl (misc/metrics.py).
+
+Checkpoints: OUT_DIR/model.npz holds the parameters, the Adam state, the
+iso-point buffer and its cached splat spacing, the saliency reference
+cloud and its statistics (`saliency:` entries), the iteration and the
+trainer's generator state. It is written every `--checkpoint-every`
+iterations, at the end, and before `--exit-after SECONDS` of training
+ends the process with exit code 3. A run whose OUT_DIR holds model.npz
+resumes from it: the buffer's capacity is taken from the file before the
+load, and the generator state is restored unless `--fresh-keys`, so the
+resumed run draws what the uninterrupted one would have. With
+`training.saliency_ref_gt` the saliency reference cloud is seeded from the
+data's ground-truth points (an oracle, opt-in). `--profile-at IT` traces
+iterations IT..IT+4 with torch.profiler into OUT_DIR/profile/. A hang
+watchdog (`ISOPOINTS_WATCHDOG_S`, default 600 s; 0 turns it off) dumps
+every thread's stack and exits when one iteration stalls that long; it is
+cancelled when `main` returns or raises.
+
+Not ported yet: validation and mesh visualisation (`--validate-every`,
+`--visualize-every`, ROADMAP Queue 1 item C) and more than one device
+(`--n-devices`, `--multihost`, item F); each raises when asked for.
+`main(argv)` returns the run's `TrainRun` for callers in the same process.
 """
 
 import argparse
-import json
+import faulthandler
 import os
+import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-PRINT_EVERY = 10
+STAGE_LIMIT_BYTES = 2 * 1024 ** 3   # views staged on the device below this
 
 
-def main(argv=None) -> None:
+class TrainRun(NamedTuple):
+    cfg: object
+    trainer: object
+    state: object
+    # views(idx) -> (images, masks, cameras) of those views, on the device
+    views: Callable
+
+
+def draw_views(seed: int, it: int, n_views: int, batch_views: int = 2):
+    """The views of iteration `it`: a pure function of (seed, it), so a
+    resumed run draws the uninterrupted run's views."""
+    r = np.random.RandomState((seed * 1_000_003 + it) % (2 ** 31))
+    return r.choice(n_views, size=batch_views, replace=batch_views > n_views)
+
+
+def _parse(argv):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("config", type=str)
     parser.add_argument("--out-dir", type=str, default=None)
     parser.add_argument("--max-iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--checkpoint-every", type=int, default=500)
+    parser.add_argument("--print-every", type=int, default=20)
+    parser.add_argument("--exit-after", type=float, default=-1,
+                        help="checkpoint and exit(3) after this many seconds")
+    parser.add_argument("--fresh-keys", action="store_true",
+                        help="on resume, do not restore the generator state "
+                             "from the checkpoint")
     parser.add_argument("--profile-at", type=int, default=-1)
+    parser.add_argument("--validate-every", type=int, default=0)
+    parser.add_argument("--visualize-every", type=int, default=0)
+    parser.add_argument("--n-devices", type=int, default=1)
+    parser.add_argument("--multihost", action="store_true")
     args = parser.parse_args(argv)
+    if args.validate_every > 0 or args.visualize_every > 0:
+        raise NotImplementedError(
+            "--validate-every / --visualize-every: evaluation and mesh "
+            "extraction are not ported yet (ROADMAP Queue 1 item C)")
+    if args.n_devices != 1 or args.multihost:
+        raise NotImplementedError(
+            "--n-devices / --multihost: training on more than one device is "
+            "not ported yet (ROADMAP Queue 1 item F)")
+    return args
+
+
+def _views(data, device):
+    """(images, masks, get_camera, gt_points) of a dataset: `get_camera(idx)`
+    gives those views' cameras on `device` (per-view intrinsics for DTU)."""
+    from isopoints_torch.core.camera import cameras_from_matrices
+    from isopoints_torch.data.dataset import DTUDataset
+
+    if isinstance(data, dict):   # synthetic: in-memory arrays
+        return (data["img.rgb"], data["img.mask"],
+                lambda idx: cameras_from_matrices(
+                    data["camera_mat"][idx], data["focal_length"],
+                    data["principal_point"], device),
+                data.get("points"))
+    items = [data[i] for i in range(len(data))]
+    images = np.stack([i["img.rgb"] for i in items])
+    masks = np.stack([i["img.mask"] for i in items])
+    if isinstance(data, DTUDataset):
+        gt = data.get_gt_pointcloud()
+        return (images, masks,
+                lambda idx: data.camera(idx, images.shape[1:3], device=device),
+                None if gt is None else gt["points"])
+    return (images, masks, lambda idx: data.camera(idx, device=device),
+            data.get_pointclouds()[0])
+
+
+def _adopt_saved_shapes(ckpt, path: str, device) -> None:
+    """Take the checkpoint's shapes for the state whose size changes in
+    training: the iso-point buffer (its capacity follows the resample
+    targets), its cached spacing and the saliency arrays. The non-strict
+    load would otherwise keep the templates of a fresh start (the random
+    initial points) and only warn."""
+    with np.load(path) as saved:
+        for name in ("points", "points_mask", "spacing"):
+            key = name + ":"
+            tmpl = ckpt.registry.get(name)
+            if key in saved.files and (tmpl is None
+                                       or tuple(tmpl.shape) != saved[key].shape):
+                ckpt.registry[name] = torch.from_numpy(
+                    np.zeros_like(saved[key])).to(device)
+        sal = {k[len("saliency:"):]: np.zeros_like(saved[k])
+               for k in saved.files if k.startswith("saliency:")}
+    ckpt.registry["saliency"] = sal or None
+
+
+def main(argv=None) -> TrainRun:
+    args = _parse(argv)
 
     from isopoints_torch import get_logger
     from isopoints_torch.config import (default_config_path, load_config,
                                         save_config)
-    from isopoints_torch.core.camera import cameras_from_matrices
     from isopoints_torch.factories import (create_dataset, create_model,
                                            create_trainer)
+    from isopoints_torch.misc.checkpoints import CheckpointIO
+    from isopoints_torch.misc.metrics import MetricsWriter
+    from isopoints_torch.training.trainer import TrainState
 
     log = get_logger()
     device = torch.device(args.device)
@@ -52,46 +157,110 @@ def main(argv=None) -> None:
     os.makedirs(out_dir, exist_ok=True)
     save_config(os.path.join(out_dir, "config.yaml"), cfg)
 
-    data = create_dataset(cfg, device=device)
-    images = torch.as_tensor(data["img.rgb"], device=device)
-    masks = torch.as_tensor(data["img.mask"], device=device)
+    images, masks, get_camera, gt_points = _views(
+        create_dataset(cfg, device=device), device)
     n_views = images.shape[0]
     log.info("dataset: %d views of %s", n_views, tuple(images.shape[1:3]))
+    if images.nbytes + masks.nbytes < STAGE_LIMIT_BYTES:
+        # every view on the device once; a step gathers its two there
+        images_dev = torch.as_tensor(images, device=device)
+        masks_dev = torch.as_tensor(masks, device=device)
+
+        def views(idx):
+            i = torch.as_tensor(idx, device=device)
+            return images_dev[i], masks_dev[i], get_camera(idx)
+    else:
+        def views(idx):
+            return (torch.as_tensor(images[idx], device=device),
+                    torch.as_tensor(masks[idx], device=device), get_camera(idx))
 
     model = create_model(
         cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
         device=device)
     trainer = create_trainer(model, cfg, seed=args.seed, device=device)
+    if (trainer.cfg.saliency_sampling and gt_points is not None
+            and cfg.training.get("saliency_ref_gt", False)):
+        # an oracle: by default the reference cloud is seeded from the
+        # model's own first projected iso-points
+        trainer.set_reference_cloud(gt_points)
+        log.info("saliency reference cloud (oracle, opt-in): FPS of %d GT "
+                 "points", len(gt_points))
     state = trainer.init_state()
 
-    batch_views = 2
+    ckpt = CheckpointIO(out_dir, backend=cfg.training.get("checkpoint_backend",
+                                                          "npz"))
+
+    def register(state):
+        ckpt.register_modules(model=model.state_dict(), opt=state.opt_state,
+                              points=state.points, points_mask=state.points_mask,
+                              spacing=state.spacing,
+                              saliency=trainer.saliency_state())
+
+    def save(name):
+        register(state)
+        ckpt.save(name, it=state.it, rng_state=trainer.generators.state())
+
+    register(state)
+    model_npz = os.path.join(out_dir, "model.npz")
+    if os.path.exists(model_npz):
+        _adopt_saved_shapes(ckpt, model_npz, device)
+        scalars = ckpt.load("model.npz")
+        model.load_state_dict(ckpt.registry["model"])
+        state = TrainState(opt_state=ckpt.registry["opt"],
+                           points=ckpt.registry["points"],
+                           points_mask=ckpt.registry["points_mask"],
+                           it=int(scalars.get("it", 0)),
+                           spacing=ckpt.registry["spacing"])
+        if trainer.cfg.saliency_sampling and ckpt.registry["saliency"] is not None:
+            trainer.load_saliency_state(ckpt.registry["saliency"])
+        restore = "rng_state" in scalars and not args.fresh_keys
+        if restore:
+            trainer.generators.set_state(scalars["rng_state"])
+        log.info("resumed from it=%d (%s generator state)", state.it,
+                 "restored" if restore else "fresh")
+
+    metrics_writer = MetricsWriter(out_dir)
+    watchdog_s = int(os.environ.get("ISOPOINTS_WATCHDOG_S", "600"))
     prof = None
-    t_start = time.time()
-    with open(os.path.join(out_dir, "metrics.jsonl"), "a",
-              buffering=1) as metrics_file:
-        for it in range(args.max_iters):
+    it0 = state.it
+    t_start = t_last = time.time()
+    try:
+        for it in range(it0, args.max_iters):
+            if watchdog_s > 0:
+                faulthandler.dump_traceback_later(watchdog_s, repeat=True,
+                                                  exit=True)
             if it == args.profile_at:
                 prof = _start_profiler(device)
-            r = np.random.RandomState((args.seed * 1_000_003 + it) % (2 ** 31))
-            idx = r.choice(n_views, size=batch_views,
-                           replace=batch_views > n_views)
-            idx_t = torch.as_tensor(idx, device=device)
-            camera = cameras_from_matrices(data["camera_mat"][idx],
-                                           data["focal_length"],
-                                           data["principal_point"], device)
-            state, metrics = trainer.train_step(state, images[idx_t],
-                                                masks[idx_t], camera)
-            metrics_file.write(json.dumps({"it": it, "ts": time.time(),
-                                           **metrics}) + "\n")
+            state, metrics = trainer.train_step(
+                state, *views(draw_views(args.seed, it, n_views)))
+            metrics_writer.log(it, metrics)
             if prof is not None and it == args.profile_at + 4:
                 _stop_profiler(prof, device, os.path.join(out_dir, "profile"))
                 prof = None
-            if it % PRINT_EVERY == 0:
-                log.info("it %05d %s", it, " ".join(
-                    f"{k}={v:.4g}" for k, v in metrics.items()))
+            if it % args.print_every == 0:
+                log.info("it %05d %s (%.1fs)", it, " ".join(
+                    f"{k}={v:.4g}" for k, v in metrics.items()),
+                    time.time() - t_last)
+                t_last = time.time()
+            if args.checkpoint_every > 0 and it > 0 and it % args.checkpoint_every == 0:
+                log.info("stage: checkpoint it=%d", it)
+                save("model.npz")
+            if args.exit_after > 0 and time.time() - t_start > args.exit_after:
+                save("model.npz")
+                log.info("exit-after reached; checkpointed at it=%d", state.it)
+                sys.exit(3)
+    finally:
+        if watchdog_s > 0:
+            faulthandler.cancel_dump_traceback_later()
+        if prof is not None:
+            prof.stop()
+        metrics_writer.close()
     if not trainer.check_state():
         raise SystemExit("non-finite parameters after training")
-    log.info("done: %d iters in %.1fs", args.max_iters, time.time() - t_start)
+    save("model.npz")
+    log.info("done: %d iters in %.1fs", args.max_iters - it0,
+             time.time() - t_start)
+    return TrainRun(cfg, trainer, state, views)
 
 
 def _start_profiler(device: torch.device):
