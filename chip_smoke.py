@@ -186,9 +186,38 @@ Phases, each fatal on failure:
      resample and 2 projected steps of isopoints_torch/configs/mvr_uni_dtu.yml
      (the five SIREN-path kernels must launch), and a warm-up and a projected
      step with the kernels and with the plain versions on identical draws
-     (phase 4's bars); then the JSON line {"kernels": [...]} (row 4 also at
-     the statistics' shape; the SIREN-path rows with their launches in (b)
-     and (e)) and the device line {"ok": true, "device": {...}}.
+     (phase 4's bars);
+  14. evaluation and generation through the entry points: (a) phase 13's
+     8 iterations of mvr_lossS_dir.yml with `--validate-every 4
+     --visualize-every 4`: an `eval_` row at its 4 (finite, iou_full in
+     [0, 1]), model_best.npz (the best iou_full, its saliency state) and
+     000004_mesh.ply written, the training rows of its 0-4 equal to phase
+     13's run (bit for bit where two runs are), the evaluation's time by
+     part; (b) `generate_mvr` on phase 13's final model.npz, mesh 256 (100³
+     then 256³ in the PCA frame) and 4 views at 512 px: fused_mlp in both
+     modes and the coarse sampler must launch; the grid's time a chunk, the
+     host's marching tetrahedra and largest component, the render a view,
+     the overflow; (c) the kernels against their plain versions on this
+     phase's shapes: fused_mlp on a 262,144-point grid chunk (2e-5); the
+     256³ mesh from the plain grid (face counts within 0.1%, the vertices'
+     chamfer within (grid spacing / 10)²); a 16,384-ray render chunk of the 4
+     views on the kernel routes and on the plain (alpha equal on >= 99.9%,
+     hit depths within 1e-4 on >= 99.9% of the rays both hit, RGB within
+     1e-3 on those: the level set of a barely trained field is dense, and a
+     ray may stop at another crossing), its coarse sampler (picks on >= 0.99,
+     f_pick 1e-5), the bf16 mode at the renders' most frequent shape as
+     phase 10 holds it; (d) `evaluate --gt-sdf torus --n-samples 50000` on
+     (b)'s directory: eval.csv finite, 2 kNN launches; a known answer, the
+     analytic torus meshed at 256³ against the same GT points: chamfer_p on
+     the card within rtol 1e-5 of the CPU's (the plain kNN) and below
+     TORUS_CHAMFER_BAR; the chamfer's kNN at 50,000 x 50,000, k=1, bit for
+     bit against the plain version; (e) phase 9's point model meshed by
+     IMLS at 128³ (8 kNN launches, a chunk's bit for bit). Counters are set
+     to 0 before (b), (d) and (e) and read after each;
+then the JSON line {"kernels": [...]} (row 4 also at the statistics', the
+chamfer's and the IMLS shapes; the SIREN-path rows with their launches in
+13 (b) and (e) and 14 (b) and (d)) and the device line {"ok": true,
+"device": {...}}.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -222,6 +251,11 @@ N_PROJECTED = 6
 N_UNI_PROJECTED = 4
 N_LOSS_S_PROJECTED = 6
 NO_LIBRARY = ("no single PyTorch call computes this function")
+# phase 14's known answer: the analytic torus (R 0.4, r 0.15) meshed at 256³
+# over [-1, 1]³, 50,000 samples (seed 0) against evaluate's 50,000 GT points
+# of the torus: chamfer_p 4.3774e-05 on the CPU (the plain kNN), almost all of
+# it the two samplings' spacing; the bar leaves 14% above that
+TORUS_CHAMFER_BAR = 5e-5
 
 
 def fail(msg: str) -> None:
@@ -2712,6 +2746,441 @@ def main() -> None:
         rows[i].update(**{f"{run}_launches": sum(c for k, c in r[key].items()
                                                  if k[0] == val)
                           for run, r in (("lossS_dir", rec_b), ("dtu", rec_e))})
+
+    # ---- 14. evaluate and generate through the entry points a user calls
+    import contextlib
+
+    from isopoints_torch import evaluate as evaluate_entry
+    from isopoints_torch import generate_mvr
+    from isopoints_torch.data import synthetic
+    from isopoints_torch.misc.checkpoints import CheckpointIO
+    from isopoints_torch.models.generator import Generator, GeneratorConfig
+    from isopoints_torch.ops import imls
+    from isopoints_torch.ops.images import arange_pixels
+    from isopoints_torch.training import evaluation
+    from isopoints_torch.utils import meshing
+    from isopoints_torch.utils.io import read_ply
+    t14 = time.perf_counter()
+    stage_s = collections.defaultdict(list)   # stage -> wall seconds a call
+    seen = {"mlp": collections.Counter(), "sweeps": collections.Counter(),
+            "grids": [], "overflow": [], "knn": []}
+
+    def timing(key, fn):
+        def timed_call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stage_s[key].append(time.perf_counter() - t)
+            return out
+        return timed_call
+
+    def seen_siren(pack, x, with_grad, bf16=False):
+        seen["mlp"][("bf16" if bf16 else "f32", "value+grad" if with_grad
+                     else "value", x.shape[0])] += 1
+        return siren_cuda(pack, x, with_grad, bf16)
+
+    def seen_sweep(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin,
+                   coarse_sweep=False, fine_bf16=False):
+        seen["sweeps"][("coarse" if coarse_sweep else "fine", dirs.shape[0])] += 1
+        return sweep_cuda(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin,
+                          coarse_sweep, fine_bf16)
+
+    grid_fn = meshing.eval_sdf_grid
+
+    def seen_grid(sdf_fn, resolution, bbox_min, bbox_max, *args, **kw):
+        seen["grids"].append((resolution, np.asarray(bbox_min, np.float64),
+                              np.asarray(bbox_max, np.float64)))
+        return grid_fn(sdf_fn, resolution, bbox_min, bbox_max, *args, **kw)
+
+    render_fn = Generator.raytrace_images
+
+    def seen_render(self, *args, **kw):
+        out = render_fn(self, *args, **kw)
+        seen["overflow"].append(self.overflow)
+        return out
+
+    @contextlib.contextmanager
+    def patched(*triples):
+        """Set obj.name = fn for each (obj, name, fn) and restore after."""
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in triples]
+        for obj, name, fn in triples:
+            setattr(obj, name, fn)
+        try:
+            yield
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+
+    def stage(key):
+        v = stage_s[key]
+        return f"{sum(v):.3f} s ({len(v)} call{'s' if len(v) != 1 else ''})"
+
+    # (a) the validate cadence: the run of phase 13 (b) with an evaluation
+    # and a mesh at its 4
+    MVRT = trainer_mod.MVRTrainer
+    dir_v = os.path.join("out", "torch_mvr_lossS_dir_validate")
+    with patched(*((MVRT, k, timing(k, getattr(MVRT, k))) for k in
+                   ("eval_step", "eval_step_full", "evaluate_mesh_vs_gt")),
+                 (meshing, "extract_mesh", timing("visualize",
+                                                  meshing.extract_mesh))):
+        _, rec_v, wall_v = train("mvr_lossS_dir.yml", dir_v, 8,
+                                 "--validate-every", "4", "--visualize-every", "4")
+    m_v = rows_of(dir_v)
+    ev_rows = [r for r in m_v if any(k.startswith("eval_") for k in r)]
+    tr_rows = [r for r in m_v if r not in ev_rows]
+    if [r["it"] for r in ev_rows] != [4] or [r["it"] for r in tr_rows] != list(range(8)):
+        fail(f"validate cadence: eval rows at its {[r['it'] for r in ev_rows]}, "
+             f"training rows at {[r['it'] for r in tr_rows]}")
+    ev = {k: v for k, v in ev_rows[0].items() if k != "it"}
+    ev_keys = {"eval_iou", "eval_rgb_mse", "eval_psnr", "eval_iou_full",
+               "eval_psnr_full", "eval_mse_full", "eval_chamfer", "eval_chamfer_n"}
+    if set(ev) != ev_keys or not all(np.isfinite(list(ev.values()))) or not (
+            0.0 <= ev["eval_iou_full"] <= 1.0):
+        fail(f"validate cadence: eval row {ev}")
+    for name in ("model_best.npz", "000004_mesh.ply"):
+        if not os.path.exists(os.path.join(dir_v, name)):
+            fail(f"validate cadence: {name} was not written")
+    if len(read_ply(os.path.join(dir_v, "000004_mesh.ply"))["faces"]) == 0:
+        fail("validate cadence: the visualised mesh has no face")
+    with np.load(os.path.join(dir_v, "model_best.npz")) as f:
+        best_iou, best_keys = float(f["scalar:loss_val_best"]), set(f.files)
+    if best_iou != ev["eval_iou_full"] or not any(
+            k.startswith("saliency:") for k in best_keys):
+        fail(f"validate cadence: model_best.npz holds iou {best_iou} and "
+             f"saliency keys {sorted(k for k in best_keys if 'saliency' in k)}")
+    # the evaluation draws from the generator chain: training rows equal
+    # phase 13's uninterrupted run up to its 4, where it evaluates
+    if repeat_equal and tr_rows[:5] != m_b[:5]:
+        fail("validate cadence: the training rows of its 0-4 differ from "
+             "phase 13's uninterrupted run")
+    gap_v = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-6)
+                for x, y in zip(tr_rows[:5], m_b[:5]) for k in loss_keys)
+    print(f"validate cadence (mvr_lossS_dir.yml, 8 iterations, --validate-every 4 "
+          f"--visualize-every 4) in {wall_v:.2f} s: the eval row at its 4 {ev}; "
+          f"model_best.npz (iou_full {best_iou:.6f}, its saliency state) and "
+          f"000004_mesh.ply written; training rows of its 0-4 against phase 13's: "
+          f"bit for bit {tr_rows[:5] == m_b[:5]} (largest relative loss gap "
+          f"{gap_v:.3g}), its 5-7 drawn after the evaluation")
+    print(f"  the evaluation's wall time: eval_step (2 views x 4096 rays) "
+          f"{stage('eval_step')}, eval_step_full (2 views at 512 px, 524,288 rays) "
+          f"{stage('eval_step_full')}, evaluate_mesh_vs_gt (96³ mesh against "
+          f"{len(ds.points)} GT points) {stage('evaluate_mesh_vs_gt')}; the "
+          f"visualisation's 96³ mesh of the plain field {stage('visualize')}")
+
+    # (b) generation at full size from phase 13's final checkpoint
+    cfg_dir = os.path.join("isopoints_torch", "configs", "mvr_lossS_dir.yml")
+    ckpt_b = os.path.join(dir_b, "model.npz")
+    gen_dir = os.path.join(dir_b, "generation")
+    shutil.rmtree(gen_dir, ignore_errors=True)
+    stage_s.clear()
+    reset()
+    with patched((fused_mlp, "siren_forward_cuda", seen_siren),
+                 (fused_sampler, "sweep_cuda", seen_sweep),
+                 (meshing, "eval_sdf_grid", timing("grid", seen_grid)),
+                 (meshing, "marching_tetrahedra",
+                  timing("marching", meshing.marching_tetrahedra)),
+                 (meshing, "largest_component",
+                  timing("largest", meshing.largest_component)),
+                 (Generator, "raytrace_images", timing("render", seen_render))):
+        t = time.perf_counter()
+        g_verts, g_faces, g_rgba = generate_mvr.main([
+            cfg_dir, "--checkpoint", ckpt_b, "--out-dir", gen_dir,
+            "--mesh-resolution", "256", "--image-size", "512", "--n-views", "4"])
+        wall_g = time.perf_counter() - t
+    gen_launches = counts()
+    gen_mlp = collections.Counter(seen["mlp"])
+    gen_sweeps = collections.Counter(seen["sweeps"])
+    if [g[0] for g in seen["grids"]] != [100, 256]:
+        fail(f"generation: grids at {[g[0] for g in seen['grids']]}, expected "
+             f"[100, 256]")
+    if (len(g_faces) == 0 or not np.isfinite(g_verts).all()
+            or g_rgba.shape != (4, 512, 512, 4) or not np.isfinite(g_rgba).all()):
+        fail(f"generation: {len(g_verts)} verts, {len(g_faces)} faces, images "
+             f"{g_rgba.shape}")
+    if {m for m, _, _ in gen_mlp} != {"f32", "bf16"} or not any(
+            s == "coarse" for s, _ in gen_sweeps):
+        fail(f"generation: fused_mlp by mode {dict(gen_mlp)}, the sampler by "
+             f"sweep {dict(gen_sweeps)}")
+    n_chunks = [-(-g[0] ** 3 // 262_144) for g in seen["grids"]]
+    fine_lo, fine_hi = seen["grids"][1][1:]
+    fine_spacing = float(np.max((fine_hi - fine_lo) / 255.0))
+    print(f"generation (generate_mvr, mvr_lossS_dir.yml, phase 13's model at its "
+          f"8, mesh 256, 4 views at 512 px) in {wall_g:.2f} s: {len(g_verts)} "
+          f"verts, {len(g_faces)} faces; launches {gen_launches}; fused_mlp by "
+          f"mode {dict(gen_mlp)}; the sampler by sweep {dict(gen_sweeps)}")
+    print(f"  grids on the card (fused f32 value, 262,144-point chunks): 100³ "
+          f"{1e3 * stage_s['grid'][0] / n_chunks[0]:.3f} ms a chunk ({n_chunks[0]} "
+          f"chunks), 256³ in the PCA frame (spacing {fine_spacing:.6f}) "
+          f"{1e3 * stage_s['grid'][1] / n_chunks[1]:.3f} ms a chunk ({n_chunks[1]} "
+          f"chunks); marching tetrahedra on the host {stage('marching')}; largest "
+          f"component {stage('largest')}; renders {1e3 * stage_s['render'][0] / 4:.1f} "
+          f"ms a view (1,048,576 rays in chunks of 16,384 a view), overflow "
+          f"{seen['overflow']}")
+
+    # (c) the kernels against their plain versions on this phase's shapes
+    model_g = create_model(run_b.cfg, device=dev)
+    ck = CheckpointIO(dir_b, model=model_g.state_dict())
+    ck.load("model.npz")
+    model_g.load_state_dict(ck.registry["model"])
+    f_g = model_g.trace_sdf_fn()
+    fc_g = model_g.trace_sdf_fn_coarse()
+    g_pack = f_g.pack
+    g_plain, g_plain_c = fused_mlp.PlainSDF(g_pack), fused_mlp.PlainSDF(g_pack, "bf16")
+    g_w_bytes = 4 * sum(w.numel() + b.numel() for w, b in zip(g_pack.ws, g_pack.bs))
+    # one 262,144-point chunk of a 256³ grid over the box, its middle
+    ax = torch.from_numpy(np.linspace(-1.0, 1.0, 256).astype(np.float32)).to(dev)
+    idx = torch.arange(32 * 262_144, 33 * 262_144, device=dev)
+    chunk_pts = torch.stack([ax[idx // 65536], ax[(idx // 256) % 256], ax[idx % 256]], -1)
+    v_k, v_p = f_g(chunk_pts), fused_mlp.siren_sdf_plain(g_pack, chunk_pts)
+    grid_err = float((v_k - v_p).abs().max())
+    if not (grid_err <= 2e-5 and torch.isfinite(v_k).all()):
+        fail(f"fused_mlp on a grid chunk: max err {grid_err} > 2e-5")
+    grid_ms = time_ms(lambda: f_g(chunk_pts))
+    grid_pms = time_ms(lambda: fused_mlp.siren_sdf_plain(g_pack, chunk_pts))
+    grid_b = bound_ms(3 * mlp_flops(262_144, g_pack.hidden, g_pack.n_hidden),
+                      262_144 * 16 + g_w_bytes, TF32_PEAK)
+    print(f"fused_mlp f32 value on a 262,144-point grid chunk of phase 13's model: "
+          f"max_abs_err {grid_err:.3g} (tol 2e-5)  kernel {grid_ms:.4f} ms  plain "
+          f"{grid_pms:.4f} ms  bound {grid_b[0]:.4f} ms ({grid_b[1]})")
+    # the whole 256³ mesh from the plain grid
+    t = time.perf_counter()
+    p_verts, p_faces = meshing.get_surface_high_res_mesh(g_plain, 256, device=dev)
+    plain_mesh_s = time.perf_counter() - t
+    face_gap = abs(len(p_faces) - len(g_faces)) / max(len(p_faces), 1)
+    mesh_cd = evaluation.chamfer_distance(torch.from_numpy(g_verts).to(dev),
+                                          torch.from_numpy(p_verts).to(dev))["chamfer_p"]
+    print(f"the 256³ mesh from the kernel grid against the one from the plain grid "
+          f"({plain_mesh_s:.2f} s): faces {len(g_faces)} / {len(p_faces)} (gap "
+          f"{face_gap:.2e}, bar 1e-3); the vertices' chamfer {mesh_cd:.3g} (bar "
+          f"(spacing / 10)² = {(fine_spacing / 10) ** 2:.3g})")
+    if face_gap > 1e-3 or not mesh_cd <= (fine_spacing / 10) ** 2:
+        fail("the kernel grid's mesh disagrees with the plain grid's beyond the bars")
+    # one 16,384-ray render chunk a view, on the kernel routes and the plain
+    gen_g = Generator(model_g, GeneratorConfig(image_size=512))
+    rt_g = gen_g.render_cfg()
+    n4 = 4
+    R4, T4 = look_at_view_transform(
+        [run_b.cfg.data.get("camera_distance", 2.0)] * n4, [15.0] * n4,
+        np.linspace(0, 360, n4, endpoint=False), device=dev)
+    cam4 = PerspectiveCamera.create(R=R4, T=T4, focal_length=run_b.cfg.data.get(
+        "focal_length", 2.0), device=dev)
+    ndc4 = arange_pixels((512, 512), n4, device=dev)[1][:, 7 * 16384:8 * 16384]
+    captured = {}
+    g_sampler = f_g.fused_ray_sampler
+
+    def g_recording_sampler(*args, n_secant, margin, coarse_sweep):
+        if n_secant > 0:
+            captured.setdefault("sampler", args + (n_secant, margin, coarse_sweep))
+        return g_sampler(*args, n_secant=n_secant, margin=margin,
+                         coarse_sweep=coarse_sweep)
+    g_recording_sampler.packing_stride = g_sampler.packing_stride
+    f_g.fused_ray_sampler = g_recording_sampler
+    rgba_k, ovf_k = gen_g.render_chunk(ndc4, cam4, f_g, fc_g, rt_g)
+    f_g.fused_ray_sampler = g_sampler
+    reset()
+    rgba_p, ovf_p = gen_g.render_chunk(ndc4, cam4, g_plain, g_plain_c, rt_g)
+    torch.cuda.synchronize()
+    if any(counts().values()):
+        fail(f"the plain render chunk launched kernels: {counts()}")
+    a_k, a_p = rgba_k[..., 3] > 0.5, rgba_p[..., 3] > 0.5
+    alpha_eq = float((a_k == a_p).float().mean())
+    # the hits' depths: on this dense level set a ray may stop at another
+    # crossing on one route; the colours are held where the hit is the same
+    c4, d4 = cam4.ndc_to_rays(ndc4)
+    ones4 = torch.ones(d4.shape[:-1], dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        z_k = raytracing.ray_trace(f_g, c4[:, None, :], d4, ones4, None, rt_g,
+                                   training=False, sdf_fn_coarse=fc_g).dists
+        z_p = raytracing.ray_trace(g_plain, c4[:, None, :], d4, ones4, None, rt_g,
+                                   training=False, sdf_fn_coarse=g_plain_c).dists
+    both = a_k & a_p
+    same_z = both & ((z_k - z_p).abs() <= 1e-4)
+    z_share = float(same_z.sum()) / max(int(both.sum()), 1)
+    rgb_d = (rgba_k[..., :3] - rgba_p[..., :3]).abs().amax(-1)
+    rgb_err = float(rgb_d[same_z].max()) if bool(same_z.any()) else 0.0
+    rgb_all = float(rgb_d[both].max()) if bool(both.any()) else 0.0
+    rend_ms = time_ms(lambda: gen_g.render_chunk(ndc4, cam4, f_g, fc_g, rt_g), reps=3)
+    rend_pms = time_ms(lambda: gen_g.render_chunk(ndc4, cam4, g_plain, g_plain_c,
+                                                  rt_g), reps=3)
+    print(f"render chunk (4 views x 16,384 rays, the image's rows 224-255): alpha "
+          f"equal on {alpha_eq:.6f} of the rays (bar 0.999; {int(a_k.sum())} / "
+          f"{int(a_p.sum())} hits); hit depths within 1e-4 on {z_share:.6f} of the "
+          f"rays both hit (bar 0.999), and there RGB max err {rgb_err:.3g} (bar "
+          f"1e-3; on all rays both hit {rgb_all:.3g}, {int((rgb_d[both] > 1e-3).sum())} "
+          f"rays beyond 1e-3); overflow {int(ovf_k)} / {int(ovf_p)}; kernels "
+          f"{rend_ms:.2f} ms, plain {rend_pms:.2f} ms")
+    if (alpha_eq < 0.999 or z_share < 0.999 or rgb_err > 1e-3
+            or int(a_k.sum()) == 0):
+        fail("the render chunk on the kernel routes disagrees with the plain routes")
+    # the render's coarse sampler at its captured shape
+    *gs_args, gs_nsec, gs_margin, gs_coarse = captured["sampler"]
+    gs_rays, gs_steps = gs_args[1].reshape(-1, 3).shape[0], gs_args[4].shape[0]
+    gs_kw = dict(n_secant=gs_nsec, margin=gs_margin, coarse_sweep=gs_coarse)
+    gs_out = g_sampler(*gs_args, **gs_kw)
+    gs_ref = fused_sampler.sweep_plain(g_plain, *gs_args, gs_nsec, gs_margin,
+                                       sdf_fn_coarse=g_plain_c if gs_coarse else None)
+    gs_same = (gs_out[0] == gs_ref[0]) & (gs_out[2] == gs_ref[2])
+    gs_frac = float(gs_same.float().mean())
+    gs_err = float((gs_out[1] - gs_ref[1])[gs_same].abs().max())
+    if not gs_coarse or gs_frac < 0.99 or gs_err > 1e-5:
+        fail(f"the render's sampler (coarse {gs_coarse}): picks equal on "
+             f"{gs_frac:.5f} (bar 0.99), f_pick err {gs_err} (bar 1e-5)")
+    gs_ms = time_ms(lambda: g_sampler(*gs_args, **gs_kw))
+    gs_pms = time_ms(lambda: fused_sampler.sweep_plain(
+        g_plain, *gs_args, gs_nsec, gs_margin, sdf_fn_coarse=g_plain_c), reps=3)
+    g_flops = mlp_flops(1, g_pack.hidden, g_pack.n_hidden)
+    gs_b = (1e3 * max(g_flops * gs_rays * gs_steps / BF16_PEAK
+                      + 3 * g_flops * gs_rays * (2 + gs_nsec) / TF32_PEAK,
+                      (gs_rays * 48 + 4 * gs_steps + 2 * g_w_bytes) / HBM_RATE),
+            "operations")
+    print(f"fused_sampler (SIREN, coarse sweep) on the render chunk's {gs_rays}-ray "
+          f"buffer x {gs_steps} steps + {gs_nsec} secant: picks equal to the plain "
+          f"version on {gs_frac:.5f}, f_pick err {gs_err:.3g}; kernel {gs_ms:.3f} ms  "
+          f"plain {gs_pms:.3f} ms  bound {gs_b[0]:.4f} ms")
+    # the render's most frequent bf16 launch, on phase 10's field of the width
+    (_, gb_what, gb_n), _ = max(((k, c) for k, c in gen_mlp.items() if k[0] == "bf16"),
+                                key=lambda kc: (kc[1], kc[0][2]))
+    gb_err, gb_ms, gb_pms, gb_b = check_siren_bf16(gb_n, gb_what == "value+grad")
+
+    # (d) the evaluate entry on (b)'s directory, and a known answer
+    stage_s.clear()
+    seen["mlp"].clear()
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    knn_fn = evaluation.knn_points
+
+    def seen_knn(query, points, *args, **kw):
+        seen["knn"].append((query.shape[1], points.shape[1], kw.get("k")))
+        return knn_fn(query, points, *args, **kw)
+
+    with patched((fused_mlp, "siren_forward_cuda", seen_siren),
+                 (evaluate_entry, "analytic_gt_points",
+                  timing("gt", evaluate_entry.analytic_gt_points)),
+                 (evaluation, "sample_points_from_mesh",
+                  timing("sample", evaluation.sample_points_from_mesh)),
+                 (evaluation, "chamfer_distance",
+                  timing("chamfer", evaluation.chamfer_distance)),
+                 (evaluation, "knn_points", timing("knn", seen_knn)),
+                 (evaluation, "point_face_distance",
+                  timing("point_face", evaluation.point_face_distance))):
+        t = time.perf_counter()
+        ev_rows_d = evaluate_entry.main([gen_dir, "--gt-sdf", "torus",
+                                         "--n-samples", "50000"])
+        wall_d = time.perf_counter() - t
+    eval_launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(gen_dir, "eval.csv")) as f:
+        csv_rows = f.read().splitlines()
+    cols = csv_rows[0].split(",") if csv_rows else []
+    d_row = ev_rows_d[0] if ev_rows_d else {}
+    if (cols != ["mesh", "chamfer_p", "point_face_rev"] or len(csv_rows) != 2
+            or not all(np.isfinite(d_row[k]) for k in cols[1:])):
+        fail(f"evaluate: eval.csv {csv_rows[:2]}")
+    gt_t = evaluate_entry.analytic_gt_points("torus", 50000, dev)
+    if eval_launches["knn"] != 2 or seen["knn"] != [(50000, len(gt_t), 1),
+                                                    (len(gt_t), 50000, 1)]:
+        fail(f"evaluate: kNN launches {eval_launches['knn']}, calls {seen['knn']}")
+    print(f"evaluate --gt-sdf torus --n-samples 50000 on {gen_dir} in {wall_d:.2f} "
+          f"s: {d_row} (no chamfer_n: the analytic GT carries no normals, as in "
+          f"evaluate.py); launches {eval_launches}; the GT's Newton projection "
+          f"{stage('gt')}, sampling {stage('sample')}, chamfer {stage('chamfer')} "
+          f"(its two kNN calls {stage('knn')}), point-face {stage('point_face')}; "
+          f"peak device memory {peak_gb:.2f} GiB")
+    # the known answer: the analytic torus meshed at 256, on the card and on
+    # the CPU (the plain kNN) against the same GT points and samples
+    t_v, t_f = meshing.extract_mesh(synthetic.torus_sdf(), 256, device=dev)
+    s_t, _ = meshing.sample_points_from_mesh(t_v, t_f, 50000, seed=0)
+    ka_gpu = evaluation.chamfer_distance(torch.from_numpy(s_t).to(dev),
+                                         torch.from_numpy(gt_t).to(dev))["chamfer_p"]
+    t = time.perf_counter()
+    ka_cpu = evaluation.chamfer_distance(torch.from_numpy(s_t),
+                                         torch.from_numpy(gt_t))["chamfer_p"]
+    ka_cpu_s = time.perf_counter() - t
+    ka_rel = abs(ka_gpu - ka_cpu) / ka_cpu
+    print(f"known answer: the analytic torus meshed at 256³ ({len(t_f)} faces), "
+          f"50,000 samples against the {len(gt_t)} GT points: chamfer_p on the card "
+          f"{ka_gpu:.9g}, on the CPU {ka_cpu:.9g} ({ka_cpu_s:.1f} s; relative gap "
+          f"{ka_rel:.3g}, bar 1e-5); bar {TORUS_CHAMFER_BAR:g}")
+    if ka_rel > 1e-5 or not ka_gpu < TORUS_CHAMFER_BAR:
+        fail("the known answer's chamfer disagrees with the CPU's or exceeds its bar")
+    # the chamfer's kNN at 50,000 x 50,000, k = 1, against the plain version
+    cq = torch.from_numpy(s_t).to(dev)[None]
+    cp = torch.from_numpy(gt_t).to(dev)[None]
+    ones_q = torch.ones(cq.shape[:2], dtype=torch.bool, device=dev)
+    ones_p = torch.ones(cp.shape[:2], dtype=torch.bool, device=dev)
+    knn_equal(cq, cp, ones_q, ones_p, 1, False, "chamfer 50,000 x 50,000")
+    ck_ms = time_ms(lambda: knn.knn_points(cq, cp, k=1))
+    ck_pms = time_ms(lambda: knn.knn_points(cq, cp, k=1, method="dense"), reps=3)
+    ck_b = bound_ms(9.0 * cq.shape[1] * cp.shape[1],
+                    (cq.shape[1] + cp.shape[1]) * 13 + cq.shape[1] * 12)
+    print(f"knn (the chamfer's, {cq.shape[1]} x {cp.shape[1]}, k=1, the Morton "
+          f"route): distances and indices equal to the plain version; kernel "
+          f"{ck_ms:.4f} ms  plain {ck_pms:.3f} ms  bound {ck_b[0]:.4f} ms "
+          f"({ck_b[1]})")
+
+    # (e) the point model's mesh after phase 9's steps: IMLS on the kNN
+    captured_knn = []
+    imls_knn = imls.knn_points
+
+    def imls_recording_knn(*args, **kw):
+        captured_knn.append((args, kw))
+        return imls_knn(*args, **kw)
+
+    reset()
+    with patched((imls, "knn_points", imls_recording_knn)):
+        t = time.perf_counter()
+        pm_verts, pm_faces = pmodel.generate_mesh(resolution=128)
+        torch.cuda.synchronize()
+        pm_mesh_s = time.perf_counter() - t
+    imls_launches = counts()
+    if len(pm_faces) == 0 or imls_launches["knn"] != 8 or len(captured_knn) != 8:
+        fail(f"point model mesh: {len(pm_faces)} faces, {imls_launches['knn']} kNN "
+             f"launches (expected 8)")
+    (iq, ip, iqm, ipm), ikw = captured_knn[3][0][:4], captured_knn[3][1]
+    ipm = torch.ones(ip.shape[:2], dtype=torch.bool, device=dev) if ipm is None else ipm
+    iqm = torch.ones(iq.shape[:2], dtype=torch.bool, device=dev) if iqm is None else iqm
+    knn_equal(iq, ip, iqm, ipm, ikw["k"], False, "IMLS chunk")
+    im_ms = time_ms(lambda: knn.knn_points(iq, ip, iqm, ipm, k=ikw["k"]))
+    im_pms = time_ms(lambda: knn.knn_points(iq, ip, iqm, ipm, k=ikw["k"],
+                                            method="dense"), reps=3)
+    im_b = bound_ms(9.0 * iq.shape[1] * ip.shape[1],
+                    iq.shape[1] * 13 + ip.shape[1] * 13 + iq.shape[1] * ikw["k"] * 12)
+    print(f"point model mesh (IMLS at 128³ = 2,097,152 queries x {ip.shape[1]} "
+          f"points, k={ikw['k']}): {len(pm_verts)} verts, {len(pm_faces)} faces in "
+          f"{pm_mesh_s:.2f} s; launches {imls_launches}; a chunk's kNN "
+          f"({iq.shape[1]} queries) equal to the plain version bit for bit; kernel "
+          f"{im_ms:.4f} ms  plain {im_pms:.3f} ms  bound {im_b[0]:.4f} ms ({im_b[1]})")
+
+    # the SIREN-path rows with this phase's shapes and launches: in (b) and
+    # (d), not the comparisons of (c)
+    gen_launch = lambda mode: sum(c for k, c in gen_mlp.items() if k[0] == mode) + \
+        sum(c for k, c in seen["mlp"].items() if k[0] == mode)
+    rows[0].update(generate_launches=gen_launch("f32"),
+                   generate_shape="value, a 262,144-point 256³ grid chunk",
+                   generate_max_abs_err=grid_err, generate_ms=grid_ms,
+                   generate_plain_ms=grid_pms, generate_bound_ms=grid_b[0],
+                   generate_bound_by=grid_b[1])
+    rows[9].update(generate_launches=gen_launch("bf16"),
+                   generate_shape=f"{gb_what}, {gb_n} points (the renders' most "
+                   f"frequent)", generate_max_abs_err=gb_err, generate_ms=gb_ms,
+                   generate_plain_ms=gb_pms, generate_bound_ms=gb_b[0],
+                   generate_bound_by=gb_b[1])
+    rows[10].update(generate_launches=sum(c for k, c in gen_sweeps.items()
+                                          if k[0] == "coarse"),
+                    generate_shape=f"{gs_rays} rays x {gs_steps} + 2 + {gs_nsec} "
+                    f"(a render chunk's buffer)", generate_max_abs_err=gs_err,
+                    generate_ms=gs_ms, generate_plain_ms=gs_pms,
+                    generate_bound_ms=gs_b[0], generate_bound_by=gs_b[1])
+    rows[2].update(evaluate_launches=eval_launches["knn"],
+                   evaluate_shape=f"{cq.shape[1]} x {cp.shape[1]}, k=1",
+                   evaluate_ms=ck_ms, evaluate_plain_ms=ck_pms,
+                   evaluate_bound_ms=ck_b[0], evaluate_bound_by=ck_b[1],
+                   imls_launches=imls_launches["knn"],
+                   imls_shape=f"{iq.shape[1]} x {ip.shape[1]}, k={ikw['k']}",
+                   imls_ms=im_ms, imls_plain_ms=im_pms, imls_bound_ms=im_b[0],
+                   imls_bound_by=im_b[1])
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")

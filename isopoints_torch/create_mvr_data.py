@@ -13,8 +13,8 @@ the same shape is written in the IDR/DTU layout that `type: DTU` reads
 (cameras.npz with per-view projections, points.ply; `--focal-length` is
 then unused: the focal length is the image size in pixels). Rendering a
 mesh (`mesh`) needs the mesh ray-caster, which is not ported yet (ROADMAP
-Queue 1 items C and E). `main(argv)` returns the in-memory MVR arrays it
-wrote (None with `--dtu`).
+Queue 1 item E; marching tetrahedra and the mesh I/O are). `main(argv)`
+returns the in-memory MVR arrays it wrote (None with `--dtu`).
 """
 
 import argparse
@@ -37,8 +37,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.shape == "mesh":
         raise NotImplementedError(
-            "shape 'mesh' needs the mesh ray-caster and mesh I/O of ROADMAP "
-            "Queue 1 items C and E, which are not ported yet")
+            "shape 'mesh' needs the mesh ray-caster (ops/raymesh.py) of "
+            "ROADMAP Queue 1 item E, which is not ported yet")
 
     from isopoints_torch import get_logger
     from isopoints_torch.data import synthetic

@@ -6,7 +6,7 @@ Views of an analytic SDF are ray-traced with the port's own ray engine and
 Phong-shaded into image / mask / camera arrays, in memory or written as an
 MVR or a DTU (IDR) directory; data is made anew from a seed on every run.
 The mesh-rendered datasets (`make_mesh_mvr`) wait for the mesh ray-caster
-(ROADMAP Queue 1 items C and E).
+(ROADMAP Queue 1 item E).
 """
 
 import os

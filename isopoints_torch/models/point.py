@@ -133,8 +133,18 @@ class PointModel(nn.Module):
         gradient is exactly zero (point.py:128-133)."""
         return activation_mask & ~torch.all(grad_points == 0.0, dim=-1)
 
+    @torch.no_grad()
     def generate_mesh(self, resolution: int = 128,
                       activation_mask: Optional[torch.Tensor] = None):
-        raise NotImplementedError("meshing the point model (IMLS + marching "
-                                  "tetrahedra, ops/imls.py) is not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
+        """Mesh the active points of the cloud by IMLS and marching
+        tetrahedra on the points' device (point.py:135-148; the reference's
+        Poisson reconstruction replaced as in the JAX package). Returns
+        (verts (V, 3) float32, faces (F, 3) int64)."""
+        from isopoints_torch.ops.imls import pointcloud_to_mesh
+
+        pc = self.cloud(activation_mask)
+        m = pc.mask[0].cpu().numpy()
+        return pointcloud_to_mesh(pc.points[0].cpu().numpy()[m],
+                                  pc.normals[0].cpu().numpy()[m],
+                                  resolution=resolution,
+                                  device=self.points.device)

@@ -3,7 +3,8 @@
     python -m isopoints_torch.train_mvr CONFIG [--max-iters N] [--seed S] \
         [--out-dir DIR] [--device cuda|cpu] [--checkpoint-every N] \
         [--print-every N] [--exit-after SECONDS] [--fresh-keys] \
-        [--profile-at IT]
+        [--profile-at IT] [--validate-every N] [--visualize-every N] \
+        [--eval-mesh-resolution R]
 
 The config is read over configs/default.yaml, as train_mvr.py reads it.
 Builds the dataset (an MVR or DTU directory, or a synthetic shape rendered
@@ -29,10 +30,18 @@ watchdog (`ISOPOINTS_WATCHDOG_S`, default 600 s; 0 turns it off) dumps
 every thread's stack and exits when one iteration stalls that long; it is
 cancelled when `main` returns or raises.
 
-Not ported yet: validation and mesh visualisation (`--validate-every`,
-`--visualize-every`, ROADMAP Queue 1 item C) and more than one device
-(`--n-devices`, `--multihost`, item F); each raises when asked for.
-`main(argv)` returns the run's `TrainRun` for callers in the same process.
+Every `--validate-every` iterations (default 500) the first two views are
+scored (`eval_step` on random rays, `eval_step_full` on whole rendered
+images, and, where the data has GT points, `evaluate_mesh_vs_gt` on a
+one-stage mesh at `--eval-mesh-resolution`); the scores go to
+metrics.jsonl as `eval_` rows and the best `iou_full` so far is kept as
+OUT_DIR/model_best.npz (with its own saliency state). Every
+`--visualize-every` iterations (default off) the plain field is meshed at
+96³ into OUT_DIR/{it:06d}_mesh.ply.
+
+Not ported yet: more than one device (`--n-devices`, `--multihost`, ROADMAP
+Queue 1 item F); each raises when asked for. `main(argv)` returns the run's
+`TrainRun` for callers in the same process.
 """
 
 import argparse
@@ -78,15 +87,12 @@ def _parse(argv):
                         help="on resume, do not restore the generator state "
                              "from the checkpoint")
     parser.add_argument("--profile-at", type=int, default=-1)
-    parser.add_argument("--validate-every", type=int, default=0)
-    parser.add_argument("--visualize-every", type=int, default=0)
+    parser.add_argument("--validate-every", type=int, default=500)
+    parser.add_argument("--visualize-every", type=int, default=-1)
+    parser.add_argument("--eval-mesh-resolution", type=int, default=96)
     parser.add_argument("--n-devices", type=int, default=1)
     parser.add_argument("--multihost", action="store_true")
     args = parser.parse_args(argv)
-    if args.validate_every > 0 or args.visualize_every > 0:
-        raise NotImplementedError(
-            "--validate-every / --visualize-every: evaluation and mesh "
-            "extraction are not ported yet (ROADMAP Queue 1 item C)")
     if args.n_devices != 1 or args.multihost:
         raise NotImplementedError(
             "--n-devices / --multihost: training on more than one device is "
@@ -95,8 +101,9 @@ def _parse(argv):
 
 
 def _views(data, device):
-    """(images, masks, get_camera, gt_points) of a dataset: `get_camera(idx)`
-    gives those views' cameras on `device` (per-view intrinsics for DTU)."""
+    """(images, masks, get_camera, gt_points, gt_normals) of a dataset:
+    `get_camera(idx)` gives those views' cameras on `device` (per-view
+    intrinsics for DTU); the GT surface samples may be None."""
     from isopoints_torch.core.camera import cameras_from_matrices
     from isopoints_torch.data.dataset import DTUDataset
 
@@ -105,17 +112,18 @@ def _views(data, device):
                 lambda idx: cameras_from_matrices(
                     data["camera_mat"][idx], data["focal_length"],
                     data["principal_point"], device),
-                data.get("points"))
+                data.get("points"), data.get("normals"))
     items = [data[i] for i in range(len(data))]
     images = np.stack([i["img.rgb"] for i in items])
     masks = np.stack([i["img.mask"] for i in items])
     if isinstance(data, DTUDataset):
-        gt = data.get_gt_pointcloud()
+        gt = data.get_gt_pointcloud() or {}
         return (images, masks,
                 lambda idx: data.camera(idx, images.shape[1:3], device=device),
-                None if gt is None else gt["points"])
+                gt.get("points"), gt.get("normals"))
+    points, normals, _ = data.get_pointclouds()
     return (images, masks, lambda idx: data.camera(idx, device=device),
-            data.get_pointclouds()[0])
+            points, normals)
 
 
 def _adopt_saved_shapes(ckpt, path: str, device) -> None:
@@ -148,6 +156,8 @@ def main(argv=None) -> TrainRun:
     from isopoints_torch.misc.checkpoints import CheckpointIO
     from isopoints_torch.misc.metrics import MetricsWriter
     from isopoints_torch.training.trainer import TrainState
+    from isopoints_torch.utils.io import save_ply
+    from isopoints_torch.utils.meshing import extract_mesh
 
     log = get_logger()
     device = torch.device(args.device)
@@ -157,7 +167,7 @@ def main(argv=None) -> TrainRun:
     os.makedirs(out_dir, exist_ok=True)
     save_config(os.path.join(out_dir, "config.yaml"), cfg)
 
-    images, masks, get_camera, gt_points = _views(
+    images, masks, get_camera, gt_points, gt_normals = _views(
         create_dataset(cfg, device=device), device)
     n_views = images.shape[0]
     log.info("dataset: %d views of %s", n_views, tuple(images.shape[1:3]))
@@ -196,9 +206,10 @@ def main(argv=None) -> TrainRun:
                               spacing=state.spacing,
                               saliency=trainer.saliency_state())
 
-    def save(name):
+    def save(name, **extra):
         register(state)
-        ckpt.save(name, it=state.it, rng_state=trainer.generators.state())
+        ckpt.save(name, it=state.it, rng_state=trainer.generators.state(),
+                  **extra)
 
     register(state)
     model_npz = os.path.join(out_dir, "model.npz")
@@ -220,6 +231,7 @@ def main(argv=None) -> TrainRun:
                  "restored" if restore else "fresh")
 
     metrics_writer = MetricsWriter(out_dir)
+    best_iou = -1.0
     watchdog_s = int(os.environ.get("ISOPOINTS_WATCHDOG_S", "600"))
     prof = None
     it0 = state.it
@@ -245,6 +257,22 @@ def main(argv=None) -> TrainRun:
             if args.checkpoint_every > 0 and it > 0 and it % args.checkpoint_every == 0:
                 log.info("stage: checkpoint it=%d", it)
                 save("model.npz")
+            if args.validate_every > 0 and it > 0 and it % args.validate_every == 0:
+                ev = _validate(trainer, state, it,
+                               views(np.arange(min(2, n_views))),
+                               gt_points, gt_normals, args.eval_mesh_resolution)
+                metrics_writer.log(it, ev, prefix="eval_")
+                log.info("eval it %05d %s", it, " ".join(
+                    f"{k}={v:.4g}" for k, v in ev.items()))
+                if ev["iou_full"] > best_iou:
+                    best_iou = ev["iou_full"]
+                    save("model_best.npz", loss_val_best=best_iou)
+            if (args.visualize_every > 0 and it > 0
+                    and it % args.visualize_every == 0):
+                verts, faces = extract_mesh(model.sdf_fn(), resolution=96,
+                                            device=device)
+                save_ply(os.path.join(out_dir, f"{it:06d}_mesh.ply"), verts,
+                         faces=faces)
             if args.exit_after > 0 and time.time() - t_start > args.exit_after:
                 save("model.npz")
                 log.info("exit-after reached; checkpointed at it=%d", state.it)
@@ -261,6 +289,24 @@ def main(argv=None) -> TrainRun:
     log.info("done: %d iters in %.1fs", args.max_iters - it0,
              time.time() - t_start)
     return TrainRun(cfg, trainer, state, views)
+
+
+def _validate(trainer, state, it: int, batch, gt_points, gt_normals,
+              mesh_resolution: int):
+    """The validate cadence's scores on one batch of views (train_mvr.py:
+    339-358): random rays, whole images, and the mesh against the GT
+    samples where there are any."""
+    from isopoints_torch import get_logger
+
+    log = get_logger()
+    log.info("stage: eval start it=%d", it)
+    ev = trainer.eval_step(state, *batch)
+    ev.update(trainer.eval_step_full(state, *batch))
+    if gt_points is not None:
+        ev.update(trainer.evaluate_mesh_vs_gt(state, gt_points, gt_normals,
+                                              resolution=mesh_resolution))
+    log.info("stage: eval done it=%d", it)
+    return ev
 
 
 def _start_profiler(device: torch.device):

@@ -29,9 +29,17 @@ of the gate.
 The step takes an optional `draws` (StepDraws); without it the step draws
 from its own generator chain. Tests pass the JAX step's draws to compare
 the two packages on the same random numbers.
+
+Evaluation on the validate cadence (trainer.py:463-529): `eval_step` scores
+random rays of the pure IDR path, `eval_step_full` whole rendered images
+(models/generator.py), `evaluate_mesh_vs_gt` the chamfer of the one-stage
+mesh against GT samples (training/evaluation.py). Each takes a generator
+from the chain where the JAX trainer takes a key, so the training draws
+after an evaluation come in JAX's order.
 """
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -43,7 +51,7 @@ from isopoints_torch.logger import get_logger
 from isopoints_torch.models.combined import CombinedModel, ProjectedDraws
 from isopoints_torch.models.levelset import (project_points,
                                              sample_uniform_iso_points)
-from isopoints_torch.ops.images import sample_random_pixels
+from isopoints_torch.ops.images import sample_image_at_ndc, sample_random_pixels
 from isopoints_torch.ops.knn import knn_gather, knn_points
 from isopoints_torch.ops.sampling import farthest_point_sampling
 from isopoints_torch.rendering.rasterizer import splat_spacing
@@ -419,6 +427,78 @@ class MVRTrainer:
                 ref_metric=self.ref_stat_mean,
                 ref_mask=self.ref_mask & (self.ref_stat_n > 0))
         return res.points, res.mask
+
+    # ---- evaluation (trainer.py:463-529)
+    def eval_step(self, state: TrainState, img: torch.Tensor,
+                  mask_img: torch.Tensor, camera: PerspectiveCamera,
+                  n_rays: int = 4096, pixels: Optional[torch.Tensor] = None
+                  ) -> Dict[str, float]:
+        """Mask IoU, photometric MSE and PSNR on `n_rays` random rays a view
+        of the pure IDR path with `training=False` (trainer.py:463-487).
+        `pixels` (B, n_rays, 2) replaces the draw, which comes from the
+        generator chain where JAX draws its key."""
+        g = self.generators.next()
+        if pixels is None:
+            pixels = sample_random_pixels(g, n_rays, tuple(img.shape[1:3]),
+                                          img.shape[0], device=self.device)
+        with torch.no_grad():
+            out, _, _ = self.model(pixels, img, mask_img, camera, None,
+                                   points=state.points,
+                                   points_mask=state.points_mask,
+                                   project=False, training=False)
+        gt_mask = sample_image_at_ndc(mask_img, pixels,
+                                      mode="nearest")[..., 0] > 0.5
+        pred = out.network_mask
+        inter = torch.sum((pred & gt_mask).float())
+        union = torch.sum((pred | gt_mask).float())
+        iou = inter / torch.clamp(union, min=1.0)
+        err = (out.iso_rgb - out.iso_rgb_gt) ** 2
+        rgb_mse = torch.sum(torch.where(out.iso_mask[..., None], err, 0.0))
+        rgb_mse = rgb_mse / torch.clamp(torch.sum(out.iso_mask) * 3, min=1)
+        psnr = -10.0 * torch.log10(torch.clamp(rgb_mse, min=1e-10))
+        iou, rgb_mse, psnr = torch.stack([iou, rgb_mse, psnr]).tolist()
+        return {"iou": iou, "rgb_mse": rgb_mse, "psnr": psnr}
+
+    def eval_step_full(self, state: TrainState, img: torch.Tensor,
+                       mask_img: torch.Tensor, camera: PerspectiveCamera
+                       ) -> Dict[str, float]:
+        """Whole square images rendered by `Generator.raytrace_images`, with
+        mask IoU, MSE and PSNR against the views (trainer.py:489-509)."""
+        from isopoints_torch.models.generator import Generator, GeneratorConfig
+
+        s = img.shape[1]
+        assert img.shape[2] == s, "eval_step_full expects square images"
+        gen = Generator(self.model, GeneratorConfig(image_size=s))
+        self.generators.next()   # JAX draws the render's key here
+        rgba = gen.raytrace_images(camera)                  # (B, s, s, 4)
+        pred_mask = rgba[..., 3] > 0.5
+        gt_mask = mask_img[..., 0].cpu().numpy() > 0.5
+        inter = float(np.sum(pred_mask & gt_mask))
+        union = float(np.sum(pred_mask | gt_mask))
+        iou = inter / max(union, 1.0)
+        mse = float(np.mean((rgba[..., :3] - img.cpu().numpy()) ** 2))
+        psnr = -10.0 * math.log10(max(mse, 1e-10))
+        return {"iou_full": iou, "psnr_full": psnr, "mse_full": mse}
+
+    def evaluate_mesh_vs_gt(self, state: TrainState, gt_points: np.ndarray,
+                            gt_normals: Optional[np.ndarray] = None,
+                            resolution: int = 96) -> Dict[str, float]:
+        """Chamfer of the one-stage mesh at `resolution` against GT surface
+        samples (trainer.py:511-529); {"chamfer": inf} for an empty mesh."""
+        from isopoints_torch.models.generator import Generator, GeneratorConfig
+        from isopoints_torch.training.evaluation import evaluate_mesh
+
+        gen = Generator(self.model, GeneratorConfig(mesh_resolution=resolution))
+        verts, faces = gen.generate_mesh(two_stage=False)
+        if len(verts) == 0:
+            return {"chamfer": float("inf")}
+        res = evaluate_mesh(verts, faces, gt_points, gt_normals,
+                            n_samples=min(20_000, 4 * len(gt_points)),
+                            device=self.device)
+        out = {"chamfer": res["chamfer_p"]}
+        if "chamfer_n" in res:
+            out["chamfer_n"] = res["chamfer_n"]
+        return out
 
     def check_state(self) -> bool:
         return check_weights(self.model)

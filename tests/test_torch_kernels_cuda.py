@@ -89,6 +89,12 @@ hot-point lookup, the mothers), over an all-masked database and over one
 of 5 valid points, bit for bit against the plain version; the reference
 cloud's statistics (`update_ref_metric`) with the kernel and with the plain
 kNN, bit for bit.
+
+Evaluation and generation: the SIREN MLP on a 262,144-point chunk of a
+256³ grid and a whole grid through `eval_sdf_grid` (two chunks, the last
+padded) at the MLP tolerance; the kNN at the chamfer's shape (50,000 x
+48,000, k=1, the Morton route) and an IMLS grid chunk's (262,144 x 5000,
+k=8), bit for bit against the plain version.
 """
 
 import dataclasses
@@ -96,6 +102,7 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -1212,3 +1219,47 @@ def test_checkpoint_on_the_card_feeds_the_fused_mlp(dev, tmp_path):
     assert torch.equal(vb, va) and torch.equal(vb2, va2) and torch.equal(gb, ga)
     assert torch.equal(cb, ca)
     assert torch.equal(stale(x), vb0)
+
+
+def test_fused_mlp_on_a_grid_chunk(dev):
+    """Row 1 at the mesh extraction's shape: the value on one 262,144-point
+    chunk of a 256³ grid (utils/meshing.eval_sdf_grid), and a whole 64³ grid
+    through `eval_sdf_grid` (chunks of 262,144, the last padded) against the
+    plain version's grid, at the MLP tolerance."""
+    from isopoints_torch.utils.meshing import eval_sdf_grid
+    field, sdf = _sdf(dev, 256, 3)
+    ax = torch.linspace(-1.0, 1.0, 256, device=dev)
+    idx = torch.arange(32 * 262_144, 33 * 262_144, device=dev)
+    x = torch.stack([ax[idx // 65536], ax[(idx // 256) % 256], ax[idx % 256]], -1)
+    before = fused_mlp.KERNEL.launches
+    v = sdf(x)
+    torch.cuda.synchronize()
+    assert fused_mlp.KERNEL.launches == before + 1
+    torch.testing.assert_close(v, fused_mlp.siren_sdf_plain(sdf.pack, x),
+                               atol=2e-5, rtol=0)
+    before = fused_mlp.KERNEL.launches
+    grid = eval_sdf_grid(sdf, 70, (-1.0,) * 3, (1.0,) * 3, device=dev)
+    assert fused_mlp.KERNEL.launches == before + 2   # 343,000 points
+    ref = eval_sdf_grid(fused_mlp.PlainSDF(sdf.pack), 70, (-1.0,) * 3,
+                        (1.0,) * 3, device=dev)
+    np.testing.assert_allclose(grid, ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n,p,k", [(50_000, 48_000, 1), (262_144, 5000, 8)],
+                         ids=["chamfer", "imls"])
+def test_knn_kernel_evaluation_shapes(dev, n, p, k):
+    """Row 4 at the chamfer's shape (50,000 samples against ~50,000 GT
+    points, k=1, past knn.SORT_MIN: the Morton route) and at an IMLS grid
+    chunk's (262,144 queries against a 5000-point cloud, k=8): distances,
+    indices and masks bit for bit against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(n + p)
+    q = torch.rand(1, n, 3, generator=g, device=dev) * 2 - 1
+    pts = torch.randn(1, p, 3, generator=g, device=dev)
+    pts = 0.5 * pts / pts.norm(dim=-1, keepdim=True)
+    before = knn.KERNEL.launches
+    a = knn.knn_points(q, pts, k=k)
+    torch.cuda.synchronize()
+    assert knn.KERNEL.launches == before + 1
+    b = knn.knn_points(q, pts, k=k, method="dense")
+    assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
+    assert torch.equal(a.dists, b.dists)

@@ -179,8 +179,10 @@ def test_point_model_init_and_factory():
     np.testing.assert_allclose(m.normals().detach().numpy(), radial.detach().numpy(),
                                atol=1e-6)
     assert {k for k, _ in m.named_parameters()} == set(POINT_PARAMS)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        m.generate_mesh()
+    # the cloud's IMLS mesh (ported: tests/test_torch_generator.py holds it
+    # against JAX's)
+    verts, faces = m.generate_mesh(resolution=16)
+    assert len(faces) > 0 and np.isfinite(verts).all()
     cfg = load_config("isopoints_torch/configs/dss_point.yml")
     model = create_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     assert isinstance(model, PointModel)
