@@ -214,15 +214,37 @@ Phases, each fatal on failure:
      bit against the plain version; (e) phase 9's point model meshed by
      IMLS at 128³ (8 kNN launches, a chunk's bit for bit). Counters are set
      to 0 before (b), (d) and (e) and read after each;
+  15. the DTU point-cloud workload (`dtu_phase`): a 1,000,000-point noisy
+     torus (sigma 0.02) written without normals as a binary PLY, then
+     `python -m isopoints_torch.train_dtu_points` on it with the entry's
+     defaults, uncut (SIREN 3x256, batch 5000, 4000 iso-points, 2000
+     iterations, warm-up 200, refreshes at 200/700/1200/1700, bilateral
+     weights, SAL, mesh 256; the data normals through the grid search):
+     every step and refresh recorded with its launches (the kNN must launch
+     in every projected step, both kernels in every refresh) and time, the
+     loss terms finite; on the run's own state the kNN at every shape the
+     run gave it and at the 20,000-point default cloud's data normals (k=16,
+     the Morton route) bit for bit, fused_mlp value+grad at the 4000
+     iso-points within phase 2's bars, one refresh on the fused callable and
+     on `PlainSDF` (counts within 0.5% of the capacity, 99% of the points
+     valid in both within 1e-4), the final mesh on both (face counts within
+     1e-4, the vertices' chamfer within (spacing / 10)²), a projected step's
+     terms with the kernels and the plain versions (rtol 1e-5); a step each of
+     weight modes 2 and 3 and of the off-normal loss (finite terms; mode 3's
+     `pinverse` on the card within 1e-4 of the CPU's in float64, its float32
+     gaps and weights printed); a known answer: the
+     median |torus_sdf| at final.ply's vertices below the noise sigma; the
+     times (PLY read, grid search, eigh, steps, refreshes, mesh parts, run);
 then the JSON line {"kernels": [...]} (row 4 also at the statistics', the
-chamfer's and the IMLS shapes; the SIREN-path rows with their launches in
-13 (b) and (e) and 14 (b) and (d)) and the device line {"ok": true,
-"device": {...}}.
+chamfer's, the IMLS and the DTU shapes; the SIREN-path rows with their
+launches in 13 (b) and (e), 14 (b) and (d) and 15) and the device line
+{"ok": true, "device": {...}}.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -256,6 +278,15 @@ NO_LIBRARY = ("no single PyTorch call computes this function")
 # of the torus: chamfer_p 4.3774e-05 on the CPU (the plain kNN), almost all of
 # it the two samplings' spacing; the bar leaves 14% above that
 TORUS_CHAMFER_BAR = 5e-5
+# phase 15's scan: a noisy torus of the raw-scan size the DTU workload's grid
+# search serves, noise sigma as train_dtu_points' default
+DTU_POINTS = 1_000_000
+DTU_NOISE = 0.02
+# the bar on the 95th percentile of final.ply's |torus_sdf|: above the
+# readings of the full schedule, 0.190 on the card at 1 M points and 0.237
+# (JAX) / 0.245 (the port) on the CPU at 100,000 (tests/dtu_parity_run.py),
+# where sheets that the largest component keeps set the tail in both packages
+DTU_P95 = 0.25
 
 
 def fail(msg: str) -> None:
@@ -372,6 +403,460 @@ def knn_clouds(device):
         ("masked points and queries, 20,480 points", t(big_q), t(big),
          m(big_qmask), m(big_mask), False),
     ]
+
+
+def stage_timer(stage_s):
+    """timing(key, fn): `fn` wrapped to append its wall seconds, between two
+    synchronisations of the card, to stage_s[key]."""
+    def timing(key, fn):
+        def timed_call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stage_s[key].append(time.perf_counter() - t)
+            return out
+        return timed_call
+    return timing
+
+
+@contextlib.contextmanager
+def patched(*triples):
+    """Set obj.name = fn for each (obj, name, fn) and restore after."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in triples]
+    for obj, name, fn in triples:
+        setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def knn_equal(q, pts, qm, pm, k, exclude_self, label):
+    """The kNN kernel's distances, indices and mask equal the plain
+    version's bit for bit; returns the number of valid entries."""
+    from isopoints_torch.ops import knn
+    a = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=exclude_self)
+    b = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=exclude_self,
+                       method="dense")
+    for name in ("dists", "idx", "mask"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            bad = int((getattr(a, name) != getattr(b, name)).sum())
+            fail(f"knn {label} k={k} exclude_self={exclude_self}: {name} "
+                 f"differs from the plain version in {bad} entries")
+    return int(a.mask.sum())
+
+
+def dtu_phase(dev, kernels) -> dict:
+    """Phase 15: the DTU point-cloud workload through its entry point, uncut
+    (see the module docstring). `kernels` are the launch counters. Returns
+    the `dtu_*` keys of the fused_mlp and knn rows of the kernels line."""
+    import copy
+
+    import numpy as np
+
+    from isopoints_torch import train_dtu_points
+    from isopoints_torch.core.cloud import PointCloud
+    from isopoints_torch.data import synthetic
+    from isopoints_torch.ops import fused_mlp, knn
+    from isopoints_torch.training import evaluation
+    from isopoints_torch.utils import meshing
+    from isopoints_torch.utils.io import save_ply
+    from isopoints_torch.workloads import dtu_points
+
+    t15 = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in kernels}
+    stage_s = collections.defaultdict(list)   # stage -> seconds a call
+    timing = stage_timer(stage_s)
+
+    # (1) the scan: a noisy torus of 1,000,000 points, no normals, binary PLY
+    out_root = os.path.join(ROOT, "out")
+    dtu_dir = os.path.join(out_root, "torch_dtu_points")
+    shutil.rmtree(dtu_dir, ignore_errors=True)
+    scan = os.path.join(out_root, "dtu_torus_1m.ply")
+    t = time.perf_counter()
+    pts, _ = train_dtu_points.load_cloud("synthetic:torus", DTU_NOISE,
+                                         DTU_POINTS + DTU_POINTS // 20, 0,
+                                         device=dev)
+    if len(pts) < DTU_POINTS:
+        fail(f"the synthetic torus kept {len(pts)} < {DTU_POINTS} points")
+    save_ply(scan, pts[:DTU_POINTS])
+    print(f"phase 15: wrote {DTU_POINTS:,} noisy torus points (sigma "
+          f"{DTU_NOISE}) without normals to {os.path.relpath(scan, ROOT)} in "
+          f"{time.perf_counter() - t:.2f} s ({os.path.getsize(scan) / 2**20:.1f} MiB)")
+
+    # (2)-(3) the entry with its own defaults; each step and refresh recorded
+    calls = []       # (kind, it, launches, seconds)
+    run = {}
+    knn_seen = {}    # (N, P, k, exclude_self) -> the run's first such inputs
+    eighs = []       # (batch, seconds)
+    step_fn, refresh_fn = dtu_points.train_step, dtu_points.refresh_iso
+    knn_cuda, eigh_fn = knn.knn_points_cuda, torch.linalg.eigh
+
+    def recorded(kind, fn, *args):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        calls.append((kind, run.get("it"), {k: v - before[k] for k, v in
+                                            counts().items()},
+                      time.perf_counter() - t))
+        return out
+
+    def rec_step(decoder, opt_state, data, iso, draws, it, warm, cfg):
+        run.update(it=it, cfg=cfg)
+        return recorded("warm-up" if warm else "projected", step_fn, decoder,
+                        opt_state, data, iso, draws, it, warm, cfg)
+
+    def rec_refresh(sdf_fn, iso_points, iso_mask, u, cfg):
+        run["it"] = run.get("it", -1) + 1
+        return recorded("refresh", refresh_fn, sdf_fn, iso_points, iso_mask, u, cfg)
+
+    def rec_knn(q, p, qm, pm, k, exclude_self=False):
+        key = (q.shape[1], p.shape[1], k, bool(exclude_self))
+        if key not in knn_seen:
+            knn_seen[key] = tuple(x.clone() for x in (q, p, qm, pm))
+        return knn_cuda(q, p, qm, pm, k, exclude_self)
+
+    def rec_eigh(a, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eigh_fn(a, *args, **kw)
+        torch.cuda.synchronize()
+        eighs.append((run.get("stage"), a.shape[:-2].numel(),
+                      time.perf_counter() - t))
+        return out
+
+    normals_fn = timing("data normals", dtu_points.data_normals)
+
+    def rec_normals(*args):
+        run["stage"] = "data normals"
+        try:
+            return normals_fn(*args)
+        finally:
+            run["stage"] = None
+
+    for k in kernels:
+        k.launches = 0
+    t = time.perf_counter()
+    with patched((dtu_points, "train_step", rec_step),
+                 (dtu_points, "refresh_iso", rec_refresh),
+                 (knn, "knn_points_cuda", rec_knn),
+                 (torch.linalg, "eigh", rec_eigh),
+                 (knn, "grid_radius_search",
+                  timing("grid search", knn.grid_radius_search)),
+                 (dtu_points, "data_normals", rec_normals),
+                 (train_dtu_points, "read_ply",
+                  timing("PLY read", train_dtu_points.read_ply)),
+                 (meshing, "eval_sdf_grid", timing("mesh grids", meshing.eval_sdf_grid)),
+                 (meshing, "marching_tetrahedra",
+                  timing("marching tetrahedra", meshing.marching_tetrahedra)),
+                 (meshing, "largest_component",
+                  timing("largest component", meshing.largest_component))):
+        decoder, info = train_dtu_points.main([scan, "--out-dir", dtu_dir])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = counts()
+    cfg = run["cfg"]
+    iso, data, opt_state = info["iso"], info["data"], info["opt_state"]
+    p_total, cap = data[0].shape[1], cfg.n_iso_points
+    kinds = collections.Counter(c[0] for c in calls)
+    refresh_its = [c[1] for c in calls if c[0] == "refresh"]
+    print(f"train_dtu_points on {p_total:,} points, entry defaults (SIREN 3x256, "
+          f"batch {cfg.batch_size}, {cap} iso-points, {cfg.total_iters} "
+          f"iterations, warm-up {cfg.warm_up}, weight mode {cfg.weight_mode}, "
+          f"SAL, mesh {cfg.mesh_resolution}): {run_s:.1f} s; {dict(kinds)} "
+          f"(refreshes at {refresh_its}); launches in the run {launches}")
+    # uncut: the entry's defaults, every step and refresh of them
+    a = train_dtu_points.parse_args([scan])
+    uncut = (cfg.total_iters, cfg.warm_up, cfg.resample_every, cfg.batch_size,
+             cfg.n_iso_points, cfg.mesh_resolution, cfg.decoder_type) == (
+        a.total_iters, a.warm_up, a.resample_every, min(a.batch_size, p_total),
+        a.n_iso_points, a.mesh_resolution, a.decoder_type)
+    want = [i for i in range(cfg.total_iters) if dtu_points.is_refresh(i, cfg)]
+    if not uncut or kinds != {"warm-up": cfg.warm_up, "refresh": len(want),
+                              "projected": cfg.total_iters - cfg.warm_up} \
+            or refresh_its != want:
+        fail(f"the DTU run is not the entry's default run: {cfg}, {dict(kinds)}, "
+             f"refreshes at {refresh_its}")
+    for it, total, terms in info["history"]:
+        if not all(np.isfinite(v) for v in [total, *terms.values()]):
+            fail(f"non-finite DTU loss terms at {it}: {terms}")
+    print("history: " + "; ".join(f"{it} {total:.4g}" for it, total, _ in
+                                  info["history"]))
+
+    def per(kind):
+        rows = [c[2] for c in calls if c[0] == kind]
+        return {k: sorted(collections.Counter(r[k] for r in rows).items())
+                for k in ("fused_mlp", "knn")}, rows
+    per_warm, warm_rows = per("warm-up")
+    per_proj, proj_rows = per("projected")
+    per_ref, ref_rows = per("refresh")
+    print(f"launches (count: calls) a warm-up step {per_warm}, a projected step "
+          f"{per_proj}, a refresh {per_ref}")
+    if any(r["knn"] < 1 for r in proj_rows):
+        fail("a projected DTU step launched no kNN kernel")
+    if any(r["knn"] < 1 or r["fused_mlp"] < 1 for r in ref_rows):
+        fail("a DTU refresh did not launch both the kNN and the fused MLP kernels")
+    step_ms = {kind: 1e3 * statistics.median(c[3] for c in calls if c[0] == kind)
+               for kind in ("warm-up", "projected")}
+    ref_ms = [1e3 * c[3] for c in calls if c[0] == "refresh"]
+
+    # (4) kernels against plain on the run's own state
+    knn_rows = {}
+    for key, (q, p, qm, pm) in sorted(knn_seen.items()):
+        n, pp, k, ex = key
+        knn_equal(q, p, qm, pm, k, ex, f"{n} x {pp}")
+        ms = time_ms(lambda: knn.knn_points(q, p, qm, pm, k=k, exclude_self=ex))
+        pms = time_ms(lambda: knn.knn_points(q, p, qm, pm, k=k, exclude_self=ex,
+                                             method="dense"), reps=3)
+        b = bound_ms(9.0 * n * pp, n * 13 + pp * 13 + n * k * 12)
+        knn_rows[key] = (ms, pms, b)
+        print(f"knn {n} x {pp}, k={k}{', self-excluded' if ex else ''} (the "
+              f"run's own inputs): equal to the plain version bit for bit; kernel "
+              f"{ms:.4f} ms  plain {pms:.3f} ms  bound {b[0]:.5f} ms ({b[1]})")
+    need = {(cfg.batch_size, cap, 1, False), (cap, cap, 16, True), (cap, cap, 8, False)}
+    if not need <= set(knn_seen):
+        fail(f"the DTU run's kNN shapes {sorted(knn_seen)} lack {sorted(need)}")
+    # the data normals of the 20,000-point default cloud: the kNN route
+    p20, _ = train_dtu_points.load_cloud("synthetic:torus", DTU_NOISE, 0, 0,
+                                         device=dev)
+    p20 = PointCloud.create(points=torch.from_numpy(p20)[None]).normalize_to_box(
+        1.5)[0].points.to(dev)
+    m20 = torch.ones(p20.shape[:2], dtype=torch.bool, device=dev)
+    knn_equal(p20, p20, m20, m20, 16, False, "the 20,000-point default cloud")
+    n20 = p20.shape[1]
+    ms20 = time_ms(lambda: knn.knn_points(p20, p20, m20, m20, k=16))
+    pms20 = time_ms(lambda: knn.knn_points(p20, p20, m20, m20, k=16,
+                                           method="dense"), reps=3)
+    b20 = bound_ms(9.0 * n20 * n20, n20 * 26 + n20 * 16 * 12)
+    print(f"knn {n20} x {n20}, k=16 (the default synthetic cloud's data normals, "
+          f"past knn.SORT_MIN: the Morton route): equal bit for bit; kernel "
+          f"{ms20:.4f} ms  plain {pms20:.3f} ms  bound {b20[0]:.5f} ms ({b20[1]})")
+
+    f = dtu_points.tracing_sdf(decoder)
+    pack = f.pack
+    x = iso.points[0]
+    v, g = f.sdf_and_grad(x)
+    v_ref, g_ref = fused_mlp.siren_sdf_and_grad_plain(pack, x)
+    err_v = float((v - v_ref).abs().max())
+    err_g = float((g - g_ref).abs().max())
+    scale_g = float(g_ref.abs().max())
+    if not (err_v <= 2e-5 and err_g <= 1e-4 * max(1.0, scale_g)):
+        fail(f"fused_mlp value+grad at the {cap} iso-points: value err {err_v}, "
+             f"grad err {err_g} (max |g| {scale_g})")
+    w_bytes = 4 * sum(w.numel() + b.numel() for w, b in zip(pack.ws, pack.bs))
+    mlp_ms = time_ms(lambda: f.sdf_and_grad(x))
+    mlp_pms = time_ms(lambda: fused_mlp.siren_sdf_and_grad_plain(pack, x))
+    mlp_b = bound_ms(3 * mlp_flops(cap, pack.hidden, pack.n_hidden) * 4,
+                     cap * 28 + w_bytes, TF32_PEAK)
+    print(f"fused_mlp f32 value+grad at the run's {cap} iso-points: value err "
+          f"{err_v:.3g} (2e-5), grad err {err_g:.3g} (1e-4·max(1, {scale_g:.4g})); "
+          f"kernel {mlp_ms:.4f} ms  plain {mlp_pms:.4f} ms  bound {mlp_b[0]:.4f} "
+          f"ms ({mlp_b[1]})")
+
+    # one refresh from the run's state with the fused callable and the plain
+    u = torch.rand(iso.points.shape, generator=torch.Generator(device=dev)
+                   .manual_seed(15), device=dev)
+    ref_k = dtu_points.refresh_iso(f, iso.points, iso.mask, u, cfg)
+    ref_p = dtu_points.refresh_iso(fused_mlp.PlainSDF(pack), iso.points, iso.mask,
+                                   u, cfg)
+    ref_s = dtu_points.refresh_iso(f, torch.nextafter(iso.points, torch.full_like(
+        iso.points, 2.0)), iso.mask, u, cfg)
+
+    def within(a, b):
+        both = a.mask & b.mask
+        d = (a.points - b.points).abs().amax(-1)[both]
+        return float((d <= 1e-4).float().mean())
+    n_k, n_p = int(ref_k.mask.sum()), int(ref_p.mask.sum())
+    share = within(ref_k, ref_p)
+    print(f"a refresh from the run's state, fused vs plain SIREN: valid {n_k} / "
+          f"{n_p} (bar: within 0.5% of {cap}); {share:.4f} of the points valid in "
+          f"both within 1e-4 (bar 0.99); the fused refresh against itself on "
+          f"points one ulp apart: {within(ref_k, ref_s):.4f}, valid "
+          f"{int(ref_s.mask.sum())}")
+    if abs(n_k - n_p) > 0.005 * cap or share < 0.99:
+        fail("the refresh on the fused kernel disagrees with the plain one")
+
+    # the final mesh's grid on the fused callable and on the plain field
+    t = time.perf_counter()
+    mk_v, mk_f = meshing.get_surface_high_res_mesh(f, cfg.mesh_resolution, device=dev)
+    mk_s = time.perf_counter() - t
+    t = time.perf_counter()
+    mp_v, mp_f = meshing.get_surface_high_res_mesh(fused_mlp.PlainSDF(pack),
+                                                   cfg.mesh_resolution, device=dev)
+    mp_s = time.perf_counter() - t
+    gap = abs(len(mk_f) - len(mp_f)) / max(len(mp_f), 1)
+    spacing = float(np.ptp(mp_v, axis=0).max()) / (cfg.mesh_resolution - 1)
+    cd = evaluation.chamfer_distance(torch.from_numpy(mk_v).to(dev),
+                                     torch.from_numpy(mp_v).to(dev))["chamfer_p"]
+    print(f"the final mesh at {cfg.mesh_resolution}³ on the fused kernel "
+          f"({mk_s:.2f} s) and on the plain field ({mp_s:.2f} s): faces {len(mk_f)} "
+          f"/ {len(mp_f)} (gap {gap:.2e}, bar 1e-4); the vertices' chamfer {cd:.3g} "
+          f"(bar (spacing / 10)² = {(spacing / 10) ** 2:.3g})")
+    if gap > 1e-4 or not cd <= (spacing / 10) ** 2:
+        fail("the final mesh on the fused kernel disagrees with the plain one")
+
+    # one projected step's terms with the kernels and with the plain versions
+    draws = dtu_points.DTUDraws(15, dev).step(cfg.batch_size, p_total, cap)
+    it = cfg.total_iters - 1
+    with torch.no_grad():
+        terms_k = {k: float(v) for k, v in dtu_points.compute_losses(
+            decoder, data, iso, draws, it, False, cfg).items()}
+        with patched((knn, "knn_points_cuda", knn.knn_points_dense)):
+            terms_p = {k: float(v) for k, v in dtu_points.compute_losses(
+                decoder, data, iso, draws, it, False, cfg).items()}
+    print(f"a projected step's terms, kernels {terms_k}, plain {terms_p}")
+    if any(abs(terms_k[k] - terms_p[k]) > 1e-5 * abs(terms_p[k]) for k in terms_p):
+        fail("a projected step's terms differ beyond rtol 1e-5 between the kernels "
+             "and the plain versions")
+
+    # (5) the other weight modes and the off-normal loss, a step each
+    km = []
+    pinv_fn = dtu_points.pinverse
+
+    def rec_pinv(m):
+        km.append(m.clone())
+        return pinv_fn(m)
+    for mode, off in ((2, False), (3, False), (1, True)):
+        cfg_m = dataclasses.replace(cfg, weight_mode=mode, use_off_normal_loss=off)
+        with patched((dtu_points, "pinverse", rec_pinv)):
+            _, total, terms = dtu_points.train_step(
+                copy.deepcopy(decoder), copy.deepcopy(opt_state), data, iso,
+                draws, it, False, cfg_m)
+        terms = {k: float(v) for k, v in terms.items()}
+        print(f"weight mode {mode}{', off-normal loss' if off else ''}: total "
+              f"{float(total):.6g} {terms}")
+        if not all(np.isfinite(v) for v in terms.values()) or \
+                (off and "sald" not in terms):
+            fail(f"weight mode {mode} (off-normal {off}): terms {terms}")
+    # mode 3 on the card against the CPU. Its Gram matrices are near
+    # singular (neighbouring features a few hundredths apart), so in float32
+    # any two SVD routines cut at 1e-6 of the largest singular value disagree
+    # in the inverted small values. The weights kᵀK⁺k the loss reads are held
+    # in float32 against float64 on the same neighbours: the card's share of
+    # points more than 1e-3 off at most 1.5x the CPU's float32 share.
+    # `pinverse` itself is held in float64, where the small values resolve.
+    (mats,) = km
+
+    def rel_err(a, ref):
+        mag = ref.abs().amax(dim=(-2, -1)).clamp(min=1.0)
+        return (a.double() - ref.double()).abs().amax(dim=(-2, -1)) / mag
+
+    def spread(r):
+        return f"max {float(r.max()):.3g}, {float((r <= 1e-4).double().mean()):.4f} within 1e-4"
+    p64_card = dtu_points.pinverse(mats.double()).cpu()
+    p64_cpu = dtu_points.pinverse(mats.cpu().double())
+    gap64 = rel_err(p64_card, p64_cpu)
+    pv_card, pv_cpu = dtu_points.pinverse(mats).cpu(), dtu_points.pinverse(mats.cpu())
+    print(f"pinverse of mode 3's {mats.shape[0]} Gram matrices (8 x 8), relative to "
+          f"max(1, max |entry|): float64 on the card against the CPU's "
+          f"{spread(gap64)} (bar: all within 1e-4); float32 (the workload's) on "
+          f"the card against the CPU's {spread(rel_err(pv_card, pv_cpu))}, and "
+          f"against float64 the CPU's {spread(rel_err(pv_cpu, p64_cpu))}, the "
+          f"card's {spread(rel_err(pv_card, p64_cpu))}")
+    if float(gap64.max()) > 1e-4:
+        fail("pinverse on the card disagrees with the CPU's in float64")
+    surf = [data[0][0][draws.idx][None], data[1][0][draws.idx][None]]
+    found = []
+
+    def rec_search(*a, **k):
+        found.append(knn.radius_search(*a, **k))
+        return found[-1]
+    with patched((dtu_points, "radius_search", rec_search)):
+        w_card = dtu_points.heat_kernel_weights(*surf, iso.points, iso.grads,
+                                                iso.mask).cpu()
+    nb = found[0]._replace(**{f: v.cpu() for f, v in found[0]._asdict().items()})
+    with patched((dtu_points, "radius_search", lambda *a, **k: nb)):
+        w_cpu, w64 = (dtu_points.heat_kernel_weights(*(t.cpu().to(dt) if
+            t.is_floating_point() else t.cpu() for t in (*surf, iso.points,
+                                                         iso.grads, iso.mask)))
+            for dt in (torch.float32, torch.float64))
+
+    def off(w):
+        gap = (w.double() - w64).abs()
+        return gap, float((gap > 1e-3).double().mean())
+    (gap_card, off_card), (gap_cpu, off_cpu) = off(w_card), off(w_cpu)
+    print(f"mode 3's weights (float32, the run's neighbours) against float64: "
+          f"the card's share more than 1e-3 off {off_card:.4f} (max "
+          f"{float(gap_card.max()):.3g}, mean {float(gap_card.mean()):.3g}), the "
+          f"CPU's {off_cpu:.4f} (max {float(gap_cpu.max()):.3g}, mean "
+          f"{float(gap_cpu.mean()):.3g}) (bar: the card's at most 1.5x the CPU's); "
+          f"card against CPU {float(((w_card - w_cpu).abs() <= 1e-3).float().mean()):.4f}"
+          f" within 1e-3; {float((w64 > 0).float().mean()):.3f} of the points "
+          f"weighted")
+    if off_card > 1.5 * off_cpu:
+        fail("mode 3's float32 weights on the card stray from float64 further "
+             "than the CPU's")
+
+    # (6) a known answer: the final mesh against the analytic torus
+    verts = torch.from_numpy(np.asarray(info["mesh"][0], np.float32))
+    err = synthetic.torus_sdf()(verts).abs().numpy()
+    med, p95 = float(np.median(err)), float(np.percentile(err, 95))
+    print(f"final.ply: {len(verts):,} vertices, {len(info['mesh'][1]):,} faces; "
+          f"|torus_sdf| at the vertices, world units: median {med:.5f}, 95th "
+          f"percentile {p95:.5f} (bars: median below the noise sigma {DTU_NOISE}, "
+          f"95th percentile below {DTU_P95})")
+    if not med < DTU_NOISE:
+        fail(f"the DTU mesh's median distance to the torus {med} >= {DTU_NOISE}")
+    if not p95 < DTU_P95:
+        fail(f"the DTU mesh's 95th percentile distance to the torus {p95} >= "
+             f"{DTU_P95}")
+
+    # (7) times
+    grid_cells = dtu_cells_over(data[0][0])
+    eigh_1m = [(n, s) for stage, n, s in eighs if stage == "data normals"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(f"DTU times on {smi}: PLY read {sum(stage_s['PLY read']):.4f} s; data "
+          f"normals {sum(stage_s['data normals']):.3f} s (grid search "
+          f"{sum(stage_s['grid search']):.3f} s, {grid_cells}; eigh of "
+          f"{sum(n for n, _ in eigh_1m):,} 3x3 in {len(eigh_1m)} calls "
+          f"{sum(s for _, s in eigh_1m):.3f} s); median warm-up step "
+          f"{step_ms['warm-up']:.2f} ms, projected step {step_ms['projected']:.2f} "
+          f"ms; refreshes " + ", ".join(f"{x:.1f}" for x in ref_ms) + " ms; mesh: "
+          f"grids {sum(stage_s['mesh grids']):.3f} s, marching tetrahedra "
+          f"{sum(stage_s['marching tetrahedra']):.3f} s, largest component "
+          f"{sum(stage_s['largest component']):.3f} s; the whole run {run_s:.1f} s")
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    sal = (cfg.batch_size, cap, 1, False)
+    return {
+        "fused_mlp": dict(
+            dtu_shape=f"value+grad, {cap} iso-points", dtu_launches=launches["fused_mlp"],
+            dtu_launches_per_refresh=per_ref["fused_mlp"],
+            dtu_max_abs_err=max(err_v, err_g), dtu_ms=mlp_ms, dtu_plain_ms=mlp_pms,
+            dtu_bound_ms=mlp_b[0], dtu_bound_by=mlp_b[1]),
+        "knn": dict(
+            dtu_shape=f"{sal[0]} x {sal[1]}, k=1 (the SAL match)",
+            dtu_launches=launches["knn"], dtu_launches_per_step=per_proj["knn"],
+            dtu_launches_per_refresh=per_ref["knn"], dtu_ms=knn_rows[sal][0],
+            dtu_plain_ms=knn_rows[sal][1], dtu_bound_ms=knn_rows[sal][2][0],
+            dtu_bound_by=knn_rows[sal][2][1],
+            dtu_shapes={f"{n}x{p},k={k}{',self' if ex else ''}": dict(
+                ms=r[0], plain_ms=r[1], bound_ms=r[2][0])
+                for (n, p, k, ex), r in knn_rows.items()},
+            dtu_data_normals_20k_ms=ms20, dtu_data_normals_20k_plain_ms=pms20,
+            dtu_data_normals_20k_bound_ms=b20[0]),
+    }
+
+
+def dtu_cells_over(points) -> str:
+    """How many grid cells of the data normals' search hold more points than
+    its 128 slots (the radius of dtu_points.data_normals)."""
+    import math
+    p = points.shape[0]
+    ext = points.amax(0) - points.amin(0)
+    r = math.sqrt(float(ext.norm()) / p) * 16.0
+    c = torch.clamp(torch.floor((points - points.amin(0)) / r), 0, 1023).long()
+    cid = (c[:, 0] << 20) + (c[:, 1] << 10) + c[:, 2]
+    n = torch.unique(cid, return_counts=True)[1]
+    return (f"{int((n > 128).sum())} of {n.numel()} cells over 128 points "
+            f"({int(n[n > 128].sum() - 128 * (n > 128).sum())} points dropped "
+            f"from their cells' slots), radius {r:.5f}")
 
 
 def main() -> None:
@@ -512,19 +997,6 @@ def main() -> None:
         v = torch.randn(1, n, 3, generator=g, device=dev)
         v = v / v.norm(dim=-1, keepdim=True)
         return 0.5 * v, v, torch.rand(1, n, generator=g, device=dev) < 0.97
-
-    def knn_equal(q, pts, qm, pm, k, exclude_self, label):
-        """The kernel's distances, indices and mask equal the plain
-        version's bit for bit; returns the number of valid entries."""
-        a = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=exclude_self)
-        b = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=exclude_self,
-                           method="dense")
-        for name in ("dists", "idx", "mask"):
-            if not torch.equal(getattr(a, name), getattr(b, name)):
-                bad = int((getattr(a, name) != getattr(b, name)).sum())
-                fail(f"knn {label} k={k} exclude_self={exclude_self}: {name} "
-                     f"differs from the plain version in {bad} entries")
-        return int(a.mask.sum())
 
     def check_knn(pts, mask, k, timed):
         p = pts.shape[1]
@@ -2748,8 +3220,6 @@ def main() -> None:
                           for run, r in (("lossS_dir", rec_b), ("dtu", rec_e))})
 
     # ---- 14. evaluate and generate through the entry points a user calls
-    import contextlib
-
     from isopoints_torch import evaluate as evaluate_entry
     from isopoints_torch import generate_mvr
     from isopoints_torch.data import synthetic
@@ -2765,15 +3235,7 @@ def main() -> None:
     seen = {"mlp": collections.Counter(), "sweeps": collections.Counter(),
             "grids": [], "overflow": [], "knn": []}
 
-    def timing(key, fn):
-        def timed_call(*args, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            stage_s[key].append(time.perf_counter() - t)
-            return out
-        return timed_call
+    timing = stage_timer(stage_s)
 
     def seen_siren(pack, x, with_grad, bf16=False):
         seen["mlp"][("bf16" if bf16 else "f32", "value+grad" if with_grad
@@ -2799,18 +3261,6 @@ def main() -> None:
         out = render_fn(self, *args, **kw)
         seen["overflow"].append(self.overflow)
         return out
-
-    @contextlib.contextmanager
-    def patched(*triples):
-        """Set obj.name = fn for each (obj, name, fn) and restore after."""
-        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in triples]
-        for obj, name, fn in triples:
-            setattr(obj, name, fn)
-        try:
-            yield
-        finally:
-            for obj, name, fn in saved:
-                setattr(obj, name, fn)
 
     def stage(key):
         v = stage_s[key]
@@ -3181,6 +3631,11 @@ def main() -> None:
                    imls_ms=im_ms, imls_plain_ms=im_pms, imls_bound_ms=im_b[0],
                    imls_bound_by=im_b[1])
     print(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
+    # ---- 15. the DTU point-cloud workload, uncut
+    dtu = dtu_phase(dev, kernels)
+    rows[0].update(dtu["fused_mlp"])
+    rows[2].update(dtu["knn"])
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")

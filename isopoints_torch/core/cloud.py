@@ -1,6 +1,7 @@
 """Padded point cloud (port of isopoints_tpu/core/cloud.py, the parts the
-point model and the renderer use): `(B, P, C)` arrays with a `(B, P)` bool
-validity mask; `with_features` returns a new cloud. Compaction,
+point model, the renderer and the DTU workload use): `(B, P, C)` arrays
+with a `(B, P)` bool validity mask; `with_features` returns a new cloud;
+`bounding_box` and `normalize_to_box`. Compaction, the sphere
 normalisation and the named filters are not ported yet (ROADMAP Queue 1
 item 2)."""
 
@@ -38,3 +39,24 @@ class PointCloud:
 
     def with_features(self, features) -> "PointCloud":
         return dataclasses.replace(self, features=features)
+
+    def bounding_box(self):
+        """Masked per-cloud min and max corners ((B, 3), (B, 3)); a cloud
+        with no valid point gives ±the dtype's largest value
+        (cloud.py:83-89)."""
+        big = torch.finfo(self.points.dtype).max
+        m = self.mask[..., None]
+        lo = torch.amin(torch.where(m, self.points, big), dim=1)
+        hi = torch.amax(torch.where(m, self.points, -big), dim=1)
+        return lo, hi
+
+    def normalize_to_box(self, side: float = 2.0):
+        """Centre and scale so the bounding box fits a cube of `side`
+        (cloud.py:103-111): x' = (x − c)/s. Returns (cloud, center (B, 1, 3),
+        scale (B, 1, 1))."""
+        lo, hi = self.bounding_box()
+        center = ((lo + hi) / 2.0)[:, None, :]
+        scale = (torch.amax(hi - lo, dim=-1) / side)[:, None, None]
+        scale = torch.clamp(scale, min=1e-12)
+        return (dataclasses.replace(self, points=(self.points - center) / scale),
+                center, scale)

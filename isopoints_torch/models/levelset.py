@@ -10,11 +10,12 @@ with masks as in the JAX package. The Newton loop's early exit is one
 JAX `lax.while_loop` condition.
 
 `project_points_newton` carries the hybrid coarse/fine precision schedule.
-Not ported yet (ROADMAP Queue 1 item 11, the DTU workload, their only
-caller): `project_points`' repulsion and midpoint-upsampling branches,
-edge-aware upsampling, and the unseeded (WLOP) bootstrap of
-`sample_uniform_iso_points`; those branches raise. The mesh-sharded
-projection waits for item 13.
+`project_points` runs the repulsion resampling (the DTU workload's
+refresh) and the saliency insertion. Not ported, because no workload of
+either package reaches them (ROADMAP Queue 1 item 14): `project_points`'
+upsampling without a reference cloud (midpoint or edge-aware) and the
+unseeded (WLOP) bootstrap of `sample_uniform_iso_points`; those branches
+raise. The mesh-sharded projection waits for item 13.
 
 Frozen surface points are re-attached to the parameters θ with
 `p0 − (f − sg f)·...`: the value is the frozen point, the θ-gradient is
@@ -34,7 +35,8 @@ from isopoints_torch.utils import eps_denom, nanmedian_mid, top_k
 
 SDFFn = Callable[[torch.Tensor], torch.Tensor]
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 11)"
+_NOT_PORTED = ("is not ported: no workload of either package reaches it "
+               "(ROADMAP Queue 1 item 14)")
 
 
 class ProjectionResult(NamedTuple):
@@ -229,15 +231,12 @@ def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
                    ref_mask: Optional[torch.Tensor] = None
                    ) -> ProjectionResult:
     """Newton projection with the config's iterations and tolerance
-    (levelset.py:408-455), then, with `skip_upsampling=False` and
-    `ref_points`, the saliency insertion: children around the hot
-    reference points, projected (10 iterations) and appended into the free
-    capacity. The repulsion (`skip_resampling=False`) and the upsampling
-    without `ref_points` raise (the DTU workload's; JAX's `edge_aware`
-    option comes with the latter)."""
-    if not skip_resampling:
-        raise NotImplementedError(
-            f"project_points' repulsion resampling branch {_NOT_PORTED}")
+    (levelset.py:408-455); with `skip_resampling=False` the repulsion
+    resampling (`cfg.sample_iters` rounds); then, with
+    `skip_upsampling=False` and `ref_points`, the saliency insertion:
+    children around the hot reference points, projected (10 iterations)
+    and appended into the free capacity. The upsampling without
+    `ref_points` raises (JAX's `edge_aware` option comes with it)."""
     if not skip_upsampling and ref_points is None:
         raise NotImplementedError(
             f"project_points' upsampling without a reference cloud (midpoint "
@@ -245,6 +244,8 @@ def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
     proj = project_points_newton(sdf_fn, points, mask,
                                  max_iters=cfg.proj_max_iters,
                                  tolerance=cfg.proj_tolerance)
+    if not skip_resampling:
+        proj = resample_repulsion(sdf_fn, *proj, cfg)
     if skip_upsampling:
         return proj
     children, cmask = insert_around_salient(proj.points, proj.mask, ref_points,

@@ -5,8 +5,8 @@ At a query x the field is the Gaussian-weighted mean of the point-to-plane
 distances ⟨x − pᵢ, nᵢ⟩ over its k nearest points, the bandwidth set by the
 nearest one; where no weight survives, the unsigned distance to the nearest
 point. The neighbours come from `knn_points` (the kNN kernel on CUDA
-tensors). `project_to_latent_surface` (the RIMLS projection) waits for its
-first caller, the RIMLS loss of ROADMAP Queue 1 item 11 (D).
+tensors). `project_to_latent_surface` (the RIMLS projection) is not ported:
+no workload of either package calls it (ROADMAP Queue 1 item 14).
 """
 
 from typing import Optional, Tuple

@@ -1,6 +1,7 @@
 """Exact masked k-nearest neighbours: a hand-written CUDA kernel and its
 plain version (port of isopoints_tpu/ops/neighbors.py `knn_points` and
-`knn_gather`).
+`knn_gather`), and the fixed-radius searches built on them
+(`radius_search`, `grid_radius_search`).
 
 The kernel (csrc/knn.cu) replaces `_knn_kernel` of
 isopoints_tpu/ops/pallas_knn.py (:83, wrapper `knn_points_pallas` :286):
@@ -205,3 +206,139 @@ def knn_gather(x: torch.Tensor, idx: torch.Tensor, fill: float = 0.0
     safe = torch.clamp(idx, min=0).reshape(b, n * k, 1).expand(-1, -1, x.shape[-1])
     out = torch.gather(x, 1, safe).reshape(b, n, k, x.shape[-1])
     return torch.where((idx < 0)[..., None], torch.full_like(out, fill), out)
+
+
+def radius_search(query: torch.Tensor, points: torch.Tensor, radius: float,
+                  query_mask: Optional[torch.Tensor] = None,
+                  points_mask: Optional[torch.Tensor] = None, k: int = 8,
+                  exclude_self: bool = False, method: str = "auto",
+                  max_per_cell: int = 64,
+                  block_size: Optional[int] = None) -> KNNResult:
+    """The k nearest points within `radius` (neighbors.py:152-195); misses
+    are idx -1 / dist 1e10. `method`: 'dense' takes `knn_points` (the kNN
+    kernel on CUDA tensors) and cuts by the radius; 'grid' is
+    `grid_radius_search`; 'auto' takes the grid above `GRID_MIN` database
+    points, as the JAX package does."""
+    if method == "auto":
+        method = "grid" if points.shape[1] > GRID_MIN else "dense"
+    if method == "grid":
+        return grid_radius_search(query, points, radius, query_mask,
+                                  points_mask, k=k, max_per_cell=max_per_cell,
+                                  block_size=block_size,
+                                  exclude_self=exclude_self)
+    if method != "dense":
+        raise ValueError(f"unknown radius search method {method!r}")
+    res = knn_points(query, points, query_mask, points_mask, k=k,
+                     exclude_self=exclude_self)
+    # the radius squared in double, then rounded to float32 (a weak-typed
+    # Python float against float32 distances in the JAX package)
+    r2 = torch.tensor(radius * radius, dtype=res.dists.dtype, device=res.dists.device)
+    valid = res.mask & (res.dists <= r2)
+    return KNNResult(dists=torch.where(valid, res.dists, _BIG),
+                     idx=torch.where(valid, res.idx, -1), mask=valid)
+
+
+# 10 bits a cell coordinate (neighbors.py:200-203): up to 1024 cells an axis
+_GRID_BITS = 10
+_GRID_MAX = (1 << _GRID_BITS) - 1
+_CELL_SENTINEL = 1 << 30
+GRID_MIN = 32768   # 'auto' takes the grid above this many database points
+
+
+def _grid_offsets(device) -> torch.Tensor:
+    """The 27 neighbour cell offsets in `meshgrid(indexing="ij")` order."""
+    r = torch.arange(-1, 2, device=device)
+    return torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(27, 3)
+
+
+def _cell_id(ci: torch.Tensor) -> torch.Tensor:
+    ci = torch.clamp(ci, 0, _GRID_MAX)
+    return ((ci[..., 0] << (2 * _GRID_BITS)) + (ci[..., 1] << _GRID_BITS)
+            + ci[..., 2])
+
+
+@torch.no_grad()
+def grid_radius_search(query: torch.Tensor, points: torch.Tensor,
+                       radius: float,
+                       query_mask: Optional[torch.Tensor] = None,
+                       points_mask: Optional[torch.Tensor] = None,
+                       k: int = 8, max_per_cell: int = 64,
+                       block_size: Optional[int] = None,
+                       exclude_self: bool = False) -> KNNResult:
+    """Grid-bucketed fixed-radius k-nearest search (neighbors.py:207-321),
+    plain PyTorch on either device, the same index sets as the JAX package.
+
+    Cells of edge `radius` from the minimum corner of the valid points, a
+    cell id of 10 bits an axis (clamped); masked points take a sentinel id.
+    The points are sorted by cell id (stable), and each query takes
+    `max_per_cell` slots from each of its 27 neighbouring cells (two binary
+    searches a cell): candidates past `max_per_cell` in a cell are dropped,
+    as in the JAX package. The k nearest candidates within the radius, equal
+    distances in candidate order (as `lax.top_k` orders them), padded to k
+    with −1 / 1e10. Queries go in blocks of `block_size` (by default 8192 on CUDA and
+    1024 on the CPU); the block size does not change the result."""
+    b, n, _ = query.shape
+    p = points.shape[1]
+    dev = points.device
+    if points_mask is None:
+        points_mask = torch.ones((b, p), dtype=torch.bool, device=dev)
+    if query_mask is None:
+        query_mask = torch.ones((b, n), dtype=torch.bool, device=dev)
+    if block_size is None:
+        block_size = 8192 if points.is_cuda else 1024
+    points = torch.where(points_mask[..., None], points, 0.0)
+    query = torch.where(query_mask[..., None], query, 0.0)
+    r = torch.tensor(radius, dtype=points.dtype, device=dev)
+    r2 = r * r
+    cap = min(max_per_cell, p)
+    if 27 * cap > 1 << 13:
+        raise ValueError(f"grid_radius_search takes max_per_cell <= "
+                         f"{(1 << 13) // 27}, got {max_per_cell}")
+    kk = min(k, 27 * cap)
+    offs = _grid_offsets(dev)
+    slots = torch.arange(cap, device=dev)
+    dists = torch.empty((b, n, kk), dtype=points.dtype, device=dev)
+    idx = torch.empty((b, n, kk), dtype=torch.long, device=dev)
+    for bi in range(b):
+        pts, pmask, q = points[bi], points_mask[bi], query[bi]
+        origin = torch.where(
+            pmask.any(), torch.amin(torch.where(pmask[:, None], pts, _BIG), dim=0),
+            0.0)
+
+        def cell_coords(x):
+            # clamped before the cast: every coordinate past the grid's
+            # range gives the same (out of range) cells
+            c = torch.floor((x - origin) / r)
+            return torch.clamp(c, -(1 << 20), 1 << 20).long()
+
+        cid = torch.where(pmask, _cell_id(cell_coords(pts)), _CELL_SENTINEL)
+        sorted_id, order = torch.sort(cid, stable=True)
+        sorted_pts = pts[order]
+        if exclude_self:   # each point's slot in the sorted order
+            rank = torch.empty_like(order)
+            rank[order] = torch.arange(p, device=dev)
+        for lo in range(0, n, block_size):
+            qb = q[lo:lo + block_size]
+            nci = cell_coords(qb)[:, None, :] + offs[None]          # (bs, 27, 3)
+            nok = torch.all((nci >= 0) & (nci <= _GRID_MAX), dim=-1)
+            nid = _cell_id(nci)
+            start = torch.searchsorted(sorted_id, nid)
+            end = torch.searchsorted(sorted_id, nid, right=True)
+            slot = start[..., None] + slots                           # (bs, 27, C)
+            ok = (slot < end[..., None]) & nok[..., None]
+            slot = torch.clamp(slot, max=p - 1)
+            diff = qb[:, None, None, :] - sorted_pts[slot]
+            d2 = dot3(diff, diff)   # an fma chain, as XLA's CPU build rounds it
+            ok = ok & (d2 <= r2)
+            if exclude_self:
+                ok = ok & (slot != rank[lo:lo + qb.shape[0], None, None])
+            d2 = torch.where(ok, d2, _BIG).reshape(qb.shape[0], -1)
+            # the k smallest in (distance, candidate position) order, as one
+            # key: a non-negative float's bits order as its value
+            key = (d2.view(torch.int32).long() << 13) + torch.arange(
+                d2.shape[1], device=dev)
+            sel = torch.topk(key, kk, dim=1, largest=False).indices
+            dists[bi, lo:lo + qb.shape[0]] = torch.gather(d2, 1, sel)
+            idx[bi, lo:lo + qb.shape[0]] = order[torch.gather(
+                slot.reshape(qb.shape[0], -1), 1, sel)]
+    return _finish(dists, idx, query_mask, k)

@@ -1,11 +1,11 @@
-"""Point-set consolidation: midpoint upsampling (port of
-isopoints_tpu/ops/points.py:26-32, 113-208).
+"""Point-set consolidation: midpoint upsampling and the bilateral normal
+denoising (port of isopoints_tpu/ops/points.py:26-32, 113-235).
 
 Fixed-capacity padded buffers with masks, as in the JAX package: each
 round scatters into preallocated slots, and the round count is static, so
-the loop needs no host synchronisation. `wlop`, `resample_uniformly` and
-the other consolidation ops are not ported yet (ROADMAP Queue 1 item 11):
-the training path always resamples from the current cloud.
+the loop needs no host synchronisation. `wlop`, `resample_uniformly`,
+`ear_lop_move` and `remove_outliers` are not ported: no workload of either
+package reaches them (ROADMAP Queue 1 item 14).
 """
 
 import math
@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from isopoints_torch.ops.knn import knn_gather, knn_points
-from isopoints_torch.utils import fma, sqrt_rn, top_k
+from isopoints_torch.utils import eps_denom, fma, sqrt_rn, top_k
 
 
 def num_valid(mask: torch.Tensor) -> torch.Tensor:
@@ -107,3 +107,31 @@ def midpoint_upsample(points: torch.Tensor, mask: torch.Tensor,
         buf = buf.scatter(1, slots[..., None].expand(-1, -1, 3), new_pts)
         bmask = bmask.scatter(1, slots, True)
     return buf[:, :cap], bmask[:, :cap]
+
+
+@torch.no_grad()
+def denoise_normals_bilateral(points: torch.Tensor, normals: torch.Tensor,
+                              mask: torch.Tensor, sharpness_sigma: float = 30.0,
+                              neighborhood_size: int = 16) -> torch.Tensor:
+    """Bilateral normal mollification (points.py:211-235): each valid
+    point's unit normal becomes the weighted mean of its k nearest
+    neighbours' (self excluded), weights exp(−((1 − ⟨n, nᵢ⟩)/σ_s)²) ·
+    exp(−|p − pᵢ|²·σ_sp⁻¹) with σ_sp⁻¹ = (valid count)/2 and the spatial
+    cutoff |p − pᵢ|² > 16/σ_sp⁻¹; masked points keep their unit normal."""
+    normals = normals / torch.clamp(torch.linalg.norm(normals, dim=-1, keepdim=True),
+                                    min=1e-12)
+    res = knn_points(points, points, mask, mask, k=neighborhood_size,
+                     exclude_self=True)
+    nn = knn_gather(points, res.idx)
+    nn_normals = knn_gather(normals, res.idx)
+    wn = (1.0 - torch.sum(nn_normals * normals[:, :, None, :], dim=-1)) / sharpness_sigma
+    wn = torch.exp(-wn * wn)
+    inv_sigma_sp = (num_valid(mask).float() / 2.0)[:, None, None]
+    spatial_cut = 16.0 / torch.clamp(inv_sigma_sp, min=1e-12)
+    d2 = torch.sum((nn - points[:, :, None, :]) ** 2, dim=-1)
+    wp = torch.where(d2 > spatial_cut, 0.0, torch.exp(-d2 * inv_sigma_sp))
+    w = torch.where(res.mask, wn * wp, 0.0)
+    out = torch.sum(nn_normals * w[..., None], dim=-2) / \
+        eps_denom(torch.sum(w, dim=-1, keepdim=True), 1e-12)
+    out = out / torch.clamp(torch.linalg.norm(out, dim=-1, keepdim=True), min=1e-12)
+    return torch.where(mask[..., None], out, normals)

@@ -1,13 +1,31 @@
 """Math helpers (port of isopoints_tpu/utils/mathutils.py: the local
 frames of 3×3 covariances by `eigh`, normals and the curvature proxy, and
-the angle conversions the point model stores its normals in; `pinverse`
-waits for its caller, ROADMAP Queue 1 item 11)."""
+the angle conversions the point model stores its normals in, and the
+SVD `pinverse` of the DTU workload's heat-kernel weights)."""
 
 from typing import Optional, Tuple
 
 import torch
 
 from isopoints_torch.utils import eps_denom
+
+
+# 3×3 matrices a torch.linalg.eigh call: cuSOLVER's batched syev (PyTorch
+# 2.11, CUDA 12.8, on an H100) refuses 32,768 and more in one call with
+# CUSOLVER_STATUS_INVALID_VALUE, and takes 16,384
+EIGH_CHUNK = 1 << 14
+
+
+def pinverse(mat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Batched pseudo-inverse by SVD with the relative cutoff eps·max(s)
+    (mathutils.py:17-26): singular values at or below it invert to 0, so an
+    all-zero matrix gives all zeros. Written out rather than
+    `torch.linalg.pinv`, whose cutoff keeps a value equal to it."""
+    u, s, vh = torch.linalg.svd(mat, full_matrices=False)
+    cutoff = eps * torch.amax(s, dim=-1, keepdim=True)
+    s_inv = torch.where(s > cutoff, 1.0 / torch.clamp(s, min=1e-30), 0.0)
+    # A = U S Vh  =>  A+ = Vh^T S^-1 U^T
+    return torch.einsum("...ji,...j,...kj->...ik", vh, s_inv, u)
 
 
 def local_coord_frames(points: torch.Tensor, nn: torch.Tensor,
@@ -25,7 +43,12 @@ def local_coord_frames(points: torch.Tensor, nn: torch.Tensor,
     centroid = torch.sum(nn * w[..., None], dim=-2) / wsum
     centered = (nn - centroid[..., None, :]) * w[..., None]
     cov = torch.einsum("...ki,...kj->...ij", centered, centered) / wsum[..., None]
-    return torch.linalg.eigh(cov)
+    flat = cov.reshape(-1, 3, 3)
+    if flat.shape[0] <= EIGH_CHUNK:
+        return torch.linalg.eigh(cov)
+    parts = [torch.linalg.eigh(c) for c in flat.split(EIGH_CHUNK)]
+    return (torch.cat([p[0] for p in parts]).reshape(cov.shape[:-1]),
+            torch.cat([p[1] for p in parts]).reshape(cov.shape))
 
 
 def disambiguate_normals(normals: torch.Tensor, points: torch.Tensor,

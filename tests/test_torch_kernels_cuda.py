@@ -1263,3 +1263,73 @@ def test_knn_kernel_evaluation_shapes(dev, n, p, k):
     b = knn.knn_points(q, pts, k=k, method="dense")
     assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
     assert torch.equal(a.dists, b.dists)
+
+
+@pytest.mark.parametrize("n,p,k,self_", [(5000, 4000, 1, False),
+                                         (4000, 4000, 16, True),
+                                         (4000, 4000, 8, False),
+                                         (20000, 20000, 16, False)],
+                         ids=["sal", "repulsion", "frames", "data-normals"])
+def test_knn_kernel_dtu_shapes(dev, n, p, k, self_):
+    """Row 4 at the DTU workload's shapes: the SAL match and the weights'
+    radius search (5000 space or surface points against 4000 iso-points,
+    k=1), a refresh's repulsion and denoising (4000, self-excluded, k=16)
+    and frames (k=8), the data normals of the 20,000-point default cloud
+    (k=16, past knn.SORT_MIN: the Morton route); masked iso-points; bit for
+    bit against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    pts = torch.randn(1, p, 3, generator=g, device=dev)
+    pts = 0.5 * pts / pts.norm(dim=-1, keepdim=True)
+    pm = torch.rand(1, p, generator=g, device=dev) < 0.9
+    q = pts if self_ or n == p else torch.rand(1, n, 3, generator=g, device=dev) * 2 - 1
+    qm = pm if q is pts else torch.ones(1, n, dtype=torch.bool, device=dev)
+    before = knn.KERNEL.launches
+    a = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=self_)
+    torch.cuda.synchronize()
+    assert knn.KERNEL.launches == before + 1
+    b = knn.knn_points(q, pts, qm, pm, k=k, exclude_self=self_, method="dense")
+    assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
+    assert torch.equal(a.dists, b.dists)
+
+
+@pytest.mark.parametrize("ear", [True, False], ids=["2 rounds", "5 rounds"])
+def test_dtu_refresh_on_the_card(dev, ear):
+    """A DTU refresh (perturbation, Newton, 2 or 5 repulsion rounds, frames,
+    denoising) of 4000 iso-points on a SIREN 3x256 through the fused kernel
+    and through the plain versions (`PlainSDF`, the plain kNN): both kernels
+    launch; fused_mlp's value+grad at the 4000 points within the MLP
+    tolerances; valid counts within 0.5% of the capacity; with 2 rounds 99%
+    of the points valid in both within 1e-4 (Newton stops at |f| <= 1e-5).
+    Five rounds amplify rounding past that on a random field
+    (tests/test_torch_dtu_refresh.py), so there only the counts."""
+    from isopoints_torch.workloads import dtu_points as tw
+    field, sdf = _sdf(dev, 256, 3)
+    cfg = tw.DTUPointsConfig(ear=ear)
+    g = torch.Generator(device=dev).manual_seed(3)
+    # seeds near the field's level set: a first projection
+    x0 = torch.rand(1, 4000, 3, generator=g, device=dev) * 1.5 - 0.75
+    from isopoints_torch.models.levelset import project_points_newton
+    seed = project_points_newton(sdf, x0, torch.ones(1, 4000, dtype=torch.bool,
+                                                     device=dev))
+    u = torch.rand(1, 4000, 3, generator=g, device=dev)
+    v, gr = sdf.sdf_and_grad(seed.points[0])
+    v_ref, g_ref = fused_mlp.siren_sdf_and_grad_plain(sdf.pack, seed.points[0])
+    torch.testing.assert_close(v, v_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(gr, g_ref, atol=1e-4, rtol=1e-4)
+    b_mlp, b_knn = fused_mlp.KERNEL.launches, knn.KERNEL.launches
+    a = tw.refresh_iso(sdf, seed.points, seed.mask, u, cfg)
+    torch.cuda.synchronize()
+    assert fused_mlp.KERNEL.launches > b_mlp and knn.KERNEL.launches > b_knn
+    knn_cuda = knn.knn_points_cuda
+    knn.knn_points_cuda = knn.knn_points_dense
+    try:
+        b = tw.refresh_iso(fused_mlp.PlainSDF(sdf.pack), seed.points, seed.mask,
+                           u, cfg)
+    finally:
+        knn.knn_points_cuda = knn_cuda
+    assert int(b.mask.sum()) > 1000
+    assert abs(int(a.mask.sum()) - int(b.mask.sum())) <= 0.005 * 4000
+    if ear:
+        both = a.mask & b.mask
+        d = (a.points - b.points).abs().amax(-1)[both]
+        assert float((d <= 1e-4).float().mean()) >= 0.99

@@ -132,10 +132,13 @@ def test_project_points_branches():
     plain = project_points(t_sdf, pts, mask, skip_resampling=True)
     ref = project_points_newton(t_sdf, pts, mask)
     assert torch.equal(plain.points, ref.points) and torch.equal(plain.mask, ref.mask)
-    for resampling, upsampling in ((False, True), (True, False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            project_points(t_sdf, pts, mask, skip_resampling=not resampling,
-                           skip_upsampling=not upsampling)
+    # the repulsion branch: Newton, then the repulsion resampling
+    rep = project_points(t_sdf, pts, mask, skip_resampling=False)
+    ref = resample_repulsion(t_sdf, *ref, ProjectionConfig())
+    assert torch.equal(rep.points, ref.points) and torch.equal(rep.mask, ref.mask)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        project_points(t_sdf, pts, mask, skip_resampling=True,
+                       skip_upsampling=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sample_uniform_iso_points(t_sdf, 64, None)
 
