@@ -235,10 +235,40 @@ Phases, each fatal on failure:
      gaps and weights printed); a known answer: the
      median |torus_sdf| at final.ply's vertices below the noise sigma; the
      times (PLY read, grid search, eigh, steps, refreshes, mesh parts, run);
+  16. the ablation's protocol (`ablation_phase`, from the checkout root: it
+     writes under out/torch_ablation): (a) `make_ablation_data` with its
+     defaults (the compound mesh at 128³, 24 views at 512 px through the
+     raymesh kernel), its stages timed; the kernel at the shape the dataset
+     launches it, views 0-3's 1,048,576 rays (median of 7; one view's time
+     beside it), against its bound (RM_FLOPS_ALL a ray-face pair) and the
+     plain version (one run, bit for bit), and on every 16th ray of view 0
+     against `ray_mesh_intersect_plain` (masks 0.9999, t and
+     normals 1e-5); a known answer, view 0's hits mapped back through
+     normalize_mesh on the compound SDF (median below ABL_MEDIAN, 99th
+     percentile below ABL_P99); (b) `train_mvr` on the three
+     `ablation_compound_*_dir.yml` arms over that directory, 8 iterations
+     each validated at 4 (the iso arms at warm_up_iters 2, resample_every 2):
+     step times and launches, the iso arms' kernels launched, lossS seeded
+     at 2 and inserting at 4 and 6; (c) `summarize_ablation` on the three
+     with finals at ABL_FINAL_RES³, each final's mesh, largest component and
+     evaluation timed; (d) `evaluate_pointclouds` on 50,000 mesh samples
+     against themselves shifted (2|offset|² within 1e-6; the CPU's within
+     rtol 1e-5; 2 kNN launches) and `filter_dtu_predictions` on an 8-view
+     512-px DTU torus with FILTER_POINTS points ABL_INSET inside its surface
+     (kept >= 0.99) and FILTER_OUTLIERS outside every silhouette (none
+     kept), the keep set equal on the CPU; (e) `pixels_to_world` on the uni
+     arm's model over one view and in training over 1024 rays (fused_mlp
+     launches by shape), fused against plain on every 16th ray (masks
+     0.999, points 1e-4), and the occupancy model (5 x 512, OCC_STEPS Adam
+     steps on its BCE targets over 2 views x 1024 rays) on the card and the
+     CPU (masks 0.999, logits 1e-4, a non-empty 128³ mesh); (f) a projected
+     uni step with the debug taps on: a finite "iso" capture, the loss and
+     the parameters bit-equal to the step with them off;
 then the JSON line {"kernels": [...]} (row 4 also at the statistics', the
 chamfer's, the IMLS and the DTU shapes; the SIREN-path rows with their
-launches in 13 (b) and (e), 14 (b) and (d) and 15) and the device line
-{"ok": true, "device": {...}}.
+launches in 13 (b) and (e), 14 (b) and (d) and 15; the raymesh row from 16
+(a)) and the device line {"ok": true, "device": {...}}. Phase 6 also prints
+isopoints_torch.bench's roofline line.
 
 Exits non-zero without a result when CUDA is unavailable.
 """
@@ -247,6 +277,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -287,6 +318,33 @@ DTU_NOISE = 0.02
 # (JAX) / 0.245 (the port) on the CPU at 100,000 (tests/dtu_parity_run.py),
 # where sheets that the largest component keeps set the tail in both packages
 DTU_P95 = 0.25
+# phase 16's known answer: the ray-cast hits of view 0, mapped back through
+# normalize_mesh, against the compound solid's SDF; the mesh is that SDF's
+# marching tetrahedra at 128³ over [-1, 1]³, so the hits lie within a grid
+# cell (2/128) of its zero set, most of them far closer
+ABL_MEDIAN = 0.004
+ABL_P99 = 2.0 / 128
+# Möller–Trumbore float32 operations that every ray-triangle pair needs:
+# pvec (9), det (5), tvec (3), u (6) and 1/det (1). The pairs past the u
+# test (csrc/raymesh.cu's early cut) also take q, v, t and u + v (22 more);
+# the bound leaves them out, a lower bound ~0.2% under the work of this
+# dataset (one view: 8.47e7 of 4.23e10 pairs pass the cut)
+RM_FLOPS_ALL = 24
+# phase 16 (d): the filter's scan, points of the torus ABL_INSET inside its
+# surface (~2 px at 512 px, more than a nearest-pixel lookup's 0.71 px), and
+# points outside every silhouette
+FILTER_POINTS = 1_000_000
+FILTER_OUTLIERS = 10_000
+ABL_INSET = 0.0075
+# phase 16 (e): Adam steps of the occupancy model on the BCE targets, and
+# the card's candidate logits against the CPU's, relative to max(1, |logit|):
+# the trained 5 x 512 field's logits reach tens, and float32 sums of 512
+# products in other orders differ by ~1e-6 of them a layer, so the gap
+# grows with the logits and an absolute bar cannot hold
+OCC_STEPS = 40
+OCC_LOGIT_TOL = 1e-4
+# phase 16 (c): the finals' mesh resolution (summarize_ablation's default)
+ABL_FINAL_RES = 192
 
 
 def fail(msg: str) -> None:
@@ -859,6 +917,492 @@ def dtu_cells_over(points) -> str:
             f"from their cells' slots), radius {r:.5f}")
 
 
+def ablation_phase(dev, kernels) -> dict:
+    """Phase 16: the ablation's protocol through its entry points at the
+    published size (see the module docstring). `kernels` are the launch
+    counters. Returns the raymesh row of the kernels line."""
+    import copy
+
+    import numpy as np
+
+    from isopoints_torch import (evaluate_pointclouds, filter_dtu_predictions,
+                                 make_ablation_data, summarize_ablation,
+                                 train_mvr)
+    from isopoints_torch import debug as debug_mod
+    from isopoints_torch.core.camera import cameras_from_matrices
+    from isopoints_torch.data import synthetic
+    from isopoints_torch.misc.metrics import load_metrics
+    from isopoints_torch.models import occupancy
+    from isopoints_torch.models.fields import OccupancyField
+    from isopoints_torch.ops import fused_mlp, raymesh
+    from isopoints_torch.ops.images import arange_pixels, sample_random_pixels
+    from isopoints_torch.training import trainer as trainer_mod
+    from isopoints_torch.utils import fma, meshing
+    from isopoints_torch.utils.io import save_ply
+
+    t16 = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in kernels}
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    stage_s = collections.defaultdict(list)
+    timing = stage_timer(stage_s)
+    root = os.path.join(ROOT, "out", "torch_ablation")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+
+    # (a) the dataset, through the entry with its defaults
+    reset()
+    with patched((meshing, "eval_sdf_grid", timing("grid", meshing.eval_sdf_grid)),
+                 (meshing, "marching_tetrahedra",
+                  timing("marching", meshing.marching_tetrahedra)),
+                 (meshing, "largest_component",
+                  timing("largest", meshing.largest_component)),
+                 (synthetic, "ray_mesh_intersect",
+                  timing("cast", synthetic.ray_mesh_intersect)),
+                 (synthetic, "save_image", timing("png", synthetic.save_image))):
+        t = time.perf_counter()
+        src_v, src_f, data = make_ablation_data.main([data_dir])
+        make_s = time.perf_counter() - t
+    rm_launches = counts()["raymesh"]
+    n_views, size = data["img.rgb"].shape[0], data["img.rgb"].shape[1]
+    if rm_launches <= 0:
+        fail("make_ablation_data: the raymesh kernel was not launched")
+    cover = float(data["img.mask"].mean())
+    print(f"ablation data (make_ablation_data, defaults): compound mesh {len(src_v)} "
+          f"verts, {len(src_f)} faces; {n_views} views at {size} px written in "
+          f"{make_s:.2f} s: grid {sum(stage_s['grid']):.3f} s, marching tetrahedra "
+          f"{sum(stage_s['marching']):.3f} s, largest component "
+          f"{sum(stage_s['largest']):.3f} s, ray cast {sum(stage_s['cast']):.3f} s "
+          f"({len(stage_s['cast'])} calls, {sum(stage_s['cast']) / n_views * 1e3:.1f} "
+          f"ms a view, {n_views * size * size:,} rays in all), {len(stage_s['png'])} "
+          f"PNG writes {sum(stage_s['png']):.3f} s; raymesh launches {rm_launches}; "
+          f"masks cover {cover:.4f}")
+    if not 0.02 < cover < 0.9 or n_views != 24 or size != 512:
+        fail(f"make_ablation_data: {n_views} views at {size} px, masks cover {cover}")
+
+    # the kernel at the shape the dataset launches it (4 views, 1,048,576
+    # rays, views 0-3), and its plain version on the same rays; one view's
+    # time beside it
+    cam4 = cameras_from_matrices(data["camera_mat"][:4], data["focal_length"],
+                                 data["principal_point"], dev)
+    _, ndc4 = arange_pixels((size, size), 4, device=dev)
+    _, d4 = cam4.ndc_to_rays(ndc4)
+    o4 = torch.broadcast_to(cam4.camera_center()[:, None, :], d4.shape)
+    o4, d4 = o4.reshape(-1, 3).contiguous(), d4.reshape(-1, 3).contiguous()
+    n1 = size * size
+    o0, d0 = o4[:n1], d4[:n1]   # view 0
+    # view 0 alone, for (e)
+    cam0 = cameras_from_matrices(data["camera_mat"][:1], data["focal_length"],
+                                 data["principal_point"], dev)
+    _, ndc = arange_pixels((size, size), 1, device=dev)
+    packed = raymesh.pack_faces(torch.as_tensor(data["mesh_verts"], device=dev),
+                                torch.as_tensor(data["mesh_faces"], device=dev))
+    rm_ms = time_ms(lambda: raymesh.intersect_cuda(o4, d4, packed))
+    rm_one_ms = time_ms(lambda: raymesh.intersect_cuda(o0, d0, packed))
+    t_k, f_k = raymesh.intersect_cuda(o4, d4, packed)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    t_p, f_p = raymesh.intersect_plain(o4, d4, packed)
+    torch.cuda.synchronize()
+    rm_plain_ms = 1e3 * (time.perf_counter() - t)
+    pairs = d4.shape[0] * packed.shape[0]
+    rm_b = bound_ms(RM_FLOPS_ALL * pairs,
+                    (o4.numel() + d4.numel() + packed.numel()) * 4 + d4.shape[0] * 8)
+    rm_one_b = bound_ms(RM_FLOPS_ALL * n1 * packed.shape[0],
+                        (o0.numel() + d0.numel() + packed.numel()) * 4 + n1 * 8)
+    full_equal = torch.equal(t_k, t_p) and torch.equal(f_k, f_p)
+    print(f"raymesh kernel at the launched shape (4 views, {d4.shape[0]:,} rays x "
+          f"{packed.shape[0]:,} faces): {rm_ms:.3f} ms (median of 7)  plain "
+          f"{rm_plain_ms:.1f} ms (one run)  bound {rm_b[0]:.3f} ms ({rm_b[1]}: "
+          f"{pairs:.4g} pairs x {RM_FLOPS_ALL} operations); t and faces equal the "
+          f"plain version's bit for bit: {full_equal}; one view ({n1:,} rays) "
+          f"{rm_one_ms:.3f} ms against {rm_one_b[0]:.3f} ms")
+    if not full_equal:
+        fail("raymesh: the kernel's t and faces differ from its plain version's "
+             "at the launched shape")
+    t_k = t_k[:n1]
+    # the subset check: every 16th ray of view 0 against all faces
+    sub = torch.arange(0, d0.shape[0], 16, device=dev)
+    ka = raymesh.ray_mesh_intersect(o0[sub], d0[sub], torch.as_tensor(
+        data["mesh_verts"], device=dev), torch.as_tensor(data["mesh_faces"], device=dev))
+    pa = raymesh.ray_mesh_intersect_plain(o0[sub], d0[sub], torch.as_tensor(
+        data["mesh_verts"], device=dev), torch.as_tensor(data["mesh_faces"], device=dev))
+    hit_eq = float((ka.hit == pa.hit).float().mean())
+    both = ka.hit & pa.hit
+    t_err = float((ka.t - pa.t)[both].abs().max()) if bool(both.any()) else 0.0
+    n_err = float((ka.normals - pa.normals)[both].abs().max()) if bool(both.any()) else 0.0
+    bad_face = both & (ka.face_idx != pa.face_idx) & ((ka.t - pa.t).abs() > 1e-6)
+    rm_err = max(t_err, n_err)
+    print(f"raymesh on {sub.numel():,} rays of view 0 against the plain version: hit "
+          f"masks equal on {hit_eq:.6f}, {int(both.sum())} rays both hit, t within "
+          f"{t_err:.3g}, normals within {n_err:.3g}, faces differing beyond a 1e-6 t "
+          f"tie {int(bad_face.sum())}")
+    if hit_eq < 0.9999 or t_err > 1e-5 or n_err > 1e-5 or bool(bad_face.any()):
+        fail("raymesh: the kernel disagrees with its plain version (bars: masks "
+             "0.9999, t 1e-5, normals 1e-5, faces where t differs by > 1e-6)")
+    # the known answer: the hits, mapped back to the solid's frame, lie on the
+    # compound SDF's zero set to within the 128³ grid
+    v = np.asarray(src_v, np.float32)
+    center = (v.max(0) + v.min(0)) / 2.0
+    scale = float(np.linalg.norm(v - center, axis=-1).max())
+    hits = fma(t_k[t_k < 5e9][:, None], d0[t_k < 5e9], o0[t_k < 5e9])
+    world = hits * (scale / 0.7) + torch.as_tensor(center, device=dev)
+    sdf = make_ablation_data.compound_sdf()(world).abs()
+    med, p99 = float(sdf.median()), float(torch.quantile(sdf[:2_000_000], 0.99))
+    print(f"raymesh known answer: {world.shape[0]:,} hits of view 0 mapped back through "
+          f"normalize_mesh (centre {center.tolist()}, scale {scale:.6f}): |compound_sdf| "
+          f"median {med:.3g} (bar {ABL_MEDIAN}), 99th percentile {p99:.3g} (bar "
+          f"{ABL_P99:.4g}, one grid cell)")
+    if not (med < ABL_MEDIAN and p99 < ABL_P99):
+        fail("raymesh known answer: the hits are off the compound solid's surface")
+    rm_row = row("raymesh", "isopoints_torch/csrc/raymesh.cu",
+                 "none (isopoints_tpu/ops/raymesh.py:36 is XLA, no Pallas kernel)",
+                 rm_launches, rm_err, rm_ms, rm_plain_ms, rm_b,
+                 shape=f"{d4.shape[0]} rays x {packed.shape[0]} faces (4 512-px views)",
+                 plain_runs=1, subset_rays=int(sub.numel()), subset_hit_equal=hit_eq,
+                 bit_equal=full_equal, one_view_ms=rm_one_ms,
+                 one_view_bound_ms=rm_one_b[0], cast_s=sum(stage_s["cast"]),
+                 cast_views=n_views)
+
+    # (b) the three arms, 8 iterations each, validated at 4
+    rec = {}
+    step_fn = trainer_mod.MVRTrainer.train_step
+    project_fn = trainer_mod.project_points
+    seed_fn = trainer_mod.MVRTrainer._seed_reference
+
+    def rec_step(self, state, *args, **kw):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rec["it"] = state.it
+        out = step_fn(self, state, *args, **kw)
+        torch.cuda.synchronize()
+        rec["ms"][state.it] = 1e3 * (time.perf_counter() - t)
+        rec["launches"][state.it] = {k: v - before[k] for k, v in counts().items()}
+        return out
+
+    def rec_project(*args, **kw):
+        rec["inserts"].append(rec["it"])
+        return project_fn(*args, **kw)
+
+    def rec_seed(self, *args, **kw):
+        rec["seeds"].append(rec["it"])
+        return seed_fn(self, *args, **kw)
+
+    cfg_root = os.path.join(ROOT, "isopoints_torch", "configs")
+    arms, runs = {}, {}
+    for arm in ("implicit", "uni", "lossS"):
+        cfg = os.path.join(root, f"{arm}.yml")
+        with open(cfg, "w") as f:
+            f.write(f"inherit_from: {cfg_root}/ablation_compound_{arm}_dir.yml\n"
+                    f"data:\n  data_dir: {data_dir}\n")
+            if arm != "implicit":
+                f.write("training:\n  warm_up_iters: 2\n  resample_every: 2\n")
+        out_dir = os.path.join(root, f"ablation_{arm}")
+        rec.clear()
+        rec.update(ms={}, launches={}, inserts=[], seeds=[], it=0)
+        reset()
+        t = time.perf_counter()
+        with patched((trainer_mod.MVRTrainer, "train_step", rec_step),
+                     (trainer_mod, "project_points", rec_project),
+                     (trainer_mod.MVRTrainer, "_seed_reference", rec_seed)):
+            runs[arm] = train_mvr.main([cfg, "--out-dir", out_dir, "--max-iters", "8",
+                                        "--validate-every", "4", "--print-every", "1000"])
+        wall = time.perf_counter() - t
+        arms[arm] = out_dir
+        launched = counts()
+        ms = rec["ms"]
+        rows_m = load_metrics(os.path.join(out_dir, "metrics.jsonl"))
+        ev = [r for r in rows_m if "eval_iou_full" in r]
+        tr = [r for r in rows_m if "eval_iou_full" not in r]
+        if len(ev) != 1 or [r["it"] for r in tr] != list(range(8)) or not all(
+                np.isfinite(r["loss"]) for r in tr):
+            fail(f"{arm} arm: metrics rows {rows_m}")
+        if arm == "implicit":
+            print(f"{arm} arm, 8 iterations in {wall:.1f} s: warm-up median "
+                  f"{statistics.median(ms.values()):.2f} ms; launches {launched}; "
+                  f"eval at 4: iou_full {ev[0]['eval_iou_full']:.4f}, psnr_full "
+                  f"{ev[0]['eval_psnr_full']:.2f}, chamfer {ev[0].get('eval_chamfer')}")
+            continue
+        for name in ("fused_mlp", "fused_sampler", "knn", "splat_select", "splat_fine"):
+            if launched[name] <= 0:
+                fail(f"{arm} arm: kernel {name} was not launched")
+        print(f"{arm} arm, 8 iterations in {wall:.1f} s: warm-up median "
+              f"{statistics.median([ms[0], ms[1]]):.2f} ms, resamples "
+              f"{ms[2]:.1f} / {ms[4]:.1f} / {ms[6]:.1f} ms, projected median "
+              f"{statistics.median([ms[3], ms[5], ms[7]]):.2f} ms; launches {launched}; "
+              f"seeded at {rec['seeds']}, insertions at {rec['inserts']}; eval at 4: "
+              f"iou_full {ev[0]['eval_iou_full']:.4f}, psnr_full "
+              f"{ev[0]['eval_psnr_full']:.2f}, chamfer {ev[0].get('eval_chamfer')}")
+        if arm == "lossS" and (rec["seeds"] != [2] or rec["inserts"] != [4, 6]):
+            fail(f"lossS arm: seeded at {rec['seeds']} and inserted at "
+                 f"{rec['inserts']}, expected [2] and [4, 6]")
+        if arm == "uni" and rec["inserts"]:
+            fail(f"uni arm: insertions at {rec['inserts']}")
+
+    # (c) the summary, with the finals at ABL_FINAL_RES³
+    reset()
+    t = time.perf_counter()
+    summ = summarize_ablation.main([arms["implicit"], arms["uni"], arms["lossS"],
+                                    "--data-dir", data_dir, "--device", "cuda",
+                                    "--final-mesh-resolution", str(ABL_FINAL_RES),
+                                    "--out", os.path.join(root, "ABLATION.md")])
+    sum_s = time.perf_counter() - t
+    head = next(i for i, line in enumerate(summ["lines"]) if line.startswith("| arm |"))
+    print("\n".join(summ["lines"][head + 2:head + 5]))
+    if set(summ["finals"]) != {"implicit", "uni", "lossS"} or any(
+            r is None for _, r in summ["rows"]):
+        fail(f"summarize_ablation: rows {summ['rows']}, finals {summ['finals']}")
+    for name, tm in summ["final_times"].items():
+        print(f"final {name}: chamfer_p {summ['finals'][name]:.6g}; mesh {ABL_FINAL_RES}³ "
+              f"{tm['mesh']:.2f} s, largest component {tm.get('largest', 0):.2f} s "
+              f"({tm.get('faces', 0):,} faces), evaluate_mesh {tm.get('evaluate', 0):.2f} s")
+    print(f"summarize_ablation in {sum_s:.1f} s: launches {counts()}")
+
+    # (d) the two scripts
+    pts50, _ = meshing.sample_points_from_mesh(data["mesh_verts"], data["mesh_faces"],
+                                               50_000, seed=1)
+    offset = np.float32([6e-4, -5e-4, 6e-4])
+    gt_ply, pred_ply = os.path.join(root, "gt50k.ply"), os.path.join(root, "pred50k.ply")
+    save_ply(gt_ply, pts50)
+    save_ply(pred_ply, pts50 + offset)
+    reset()
+    t = time.perf_counter()
+    ch = evaluate_pointclouds.main([pred_ply, gt_ply, "--max-points", "50000"])
+    ch_s = time.perf_counter() - t
+    ev_launch = counts()["knn"]
+    t = time.perf_counter()
+    ch_cpu = evaluate_pointclouds.main([pred_ply, gt_ply, "--max-points", "50000",
+                                        "--device", "cpu"])
+    ch_cpu_s = time.perf_counter() - t
+    want = 2.0 * float(np.sum(offset.astype(np.float64) ** 2))
+    print(f"evaluate_pointclouds, 50,000 samples against themselves shifted by "
+          f"{offset.tolist()}: chamfer_p {ch['chamfer_p']:.9g} on the card in {ch_s:.2f} s "
+          f"(knn launches {ev_launch}), {ch_cpu['chamfer_p']:.9g} on the CPU in "
+          f"{ch_cpu_s:.1f} s; 2|offset|² = {want:.9g}")
+    if (abs(ch["chamfer_p"] - want) > 1e-6 or ev_launch != 2
+            or abs(ch["chamfer_p"] - ch_cpu["chamfer_p"]) > 1e-5 * abs(ch_cpu["chamfer_p"])):
+        fail("evaluate_pointclouds: the chamfer misses the offset (1e-6) or the CPU's "
+             "(rtol 1e-5)")
+
+    dtu = os.path.join(root, "dtu_torus")
+    synthetic.make_synthetic_dtu(synthetic.torus_sdf(), dtu, n_views=8, image_size=512,
+                                 device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    # points of the torus (R 0.4, r 0.15), ABL_INSET inside its surface
+    a, b = (2 * math.pi * torch.rand(2, FILTER_POINTS, generator=g, device=dev))
+    rr = 0.15 - ABL_INSET
+    surf = torch.stack([(0.4 + rr * torch.cos(b)) * torch.cos(a),
+                        (0.4 + rr * torch.cos(b)) * torch.sin(a), rr * torch.sin(b)], -1)
+    exact = torch.stack([(0.4 + 0.15 * torch.cos(b)) * torch.cos(a),
+                         (0.4 + 0.15 * torch.cos(b)) * torch.sin(a), 0.15 * torch.sin(b)], -1)
+    out_pts = outside_every_silhouette(dtu, FILTER_OUTLIERS, dev)
+    scan = torch.cat([surf, out_pts]).cpu().numpy()
+    scan_ply = os.path.join(root, "scan.ply")
+    save_ply(scan_ply, scan)
+    t = time.perf_counter()
+    keep = filter_dtu_predictions.main([scan_ply, dtu, os.path.join(root, "kept.ply")])
+    f_s = time.perf_counter() - t
+    t = time.perf_counter()
+    keep_cpu = filter_dtu_predictions.main([scan_ply, dtu, os.path.join(root, "kept_cpu.ply"),
+                                            "--device", "cpu"])
+    f_cpu_s = time.perf_counter() - t
+    exact_ply = os.path.join(root, "exact.ply")
+    save_ply(exact_ply, exact.cpu().numpy())
+    keep_exact = filter_dtu_predictions.main([exact_ply, dtu, os.path.join(root, "k2.ply")])
+    kept_surf = float(keep[:FILTER_POINTS].mean())
+    print(f"filter_dtu_predictions on 8 views at 512 px of the torus: {FILTER_POINTS:,} "
+          f"points {ABL_INSET} inside the surface kept {kept_surf:.6f}, "
+          f"{FILTER_OUTLIERS:,} points outside every silhouette kept "
+          f"{int(keep[FILTER_POINTS:].sum())}; card {f_s:.2f} s, CPU {f_cpu_s:.1f} s, keep "
+          f"sets equal: {bool(np.array_equal(keep, keep_cpu))}; points exactly on the "
+          f"surface kept {float(keep_exact.mean()):.4f} (the silhouette's rim band)")
+    if kept_surf < 0.99 or keep[FILTER_POINTS:].any() or not np.array_equal(keep, keep_cpu):
+        fail("filter_dtu_predictions: surface points kept < 0.99, an outlier kept, or "
+             "the card's keep set differs from the CPU's")
+
+    # (e) DVR: pixels_to_world on the uni arm's model; the occupancy model
+    model = runs["uni"].trainer.model
+    cam_v = cameras_from_matrices(data["camera_mat"][:2], data["focal_length"],
+                                  data["principal_point"], dev)
+    seen = collections.Counter()
+    siren_cuda = fused_mlp.siren_forward_cuda
+
+    def rec_siren(pack, x, with_grad, bf16=False):
+        seen[("bf16" if bf16 else "f32", "value+grad" if with_grad else "value",
+              x.shape[0])] += 1
+        return siren_cuda(pack, x, with_grad, bf16)
+
+    reset()
+    with patched((fused_mlp, "siren_forward_cuda", rec_siren)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p_eval, m_eval = model.pixels_to_world(ndc, cam0, training=False)
+        torch.cuda.synchronize()
+        ptw_ms = 1e3 * (time.perf_counter() - t)
+        ndc_t = sample_random_pixels(torch.Generator(device=dev).manual_seed(5), 1024,
+                                     (size, size), 1, device=dev)
+        t = time.perf_counter()
+        p_tr, m_tr = model.pixels_to_world(ndc_t, cam0, training=True)
+        torch.cuda.synchronize()
+        ptw_tr_ms = 1e3 * (time.perf_counter() - t)
+    ptw_launches = counts()["fused_mlp"]
+    print(f"pixels_to_world (uni arm's model at its 8, SIREN 3x256, use_fused_mlp) over "
+          f"one 512-px view: {ptw_ms:.1f} ms, {int(m_eval.sum()):,} of {m_eval.numel():,} "
+          f"rays hit; training over 1024 rays {ptw_tr_ms:.1f} ms ({int(m_tr.sum())} hit, "
+          f"points carry gradients: {p_tr.requires_grad}); fused_mlp launches "
+          f"{ptw_launches} by mode and shape {dict(seen)}")
+    if ptw_launches <= 0 or not p_tr.requires_grad or not bool(torch.isfinite(p_eval).all()):
+        fail("pixels_to_world: no fused_mlp launch, no gradient or non-finite points")
+    sub_ndc = ndc[:, ::16]
+    pf, mf = model.pixels_to_world(sub_ndc, cam0, training=False)
+    plain_cfg = dataclasses.replace(model.cfg, use_fused_mlp=False)
+    fused_cfg, model.cfg = model.cfg, plain_cfg
+    try:
+        pp, mp = model.pixels_to_world(sub_ndc, cam0, training=False)
+    finally:
+        model.cfg = fused_cfg
+    m_eq = float((mf == mp).float().mean())
+    both = mf & mp
+    p_err = float((pf - pp)[both].abs().max()) if bool(both.any()) else 0.0
+    print(f"pixels_to_world fused against plain on {sub_ndc.shape[1]:,} rays: masks equal "
+          f"on {m_eq:.6f}, points within {p_err:.3g} on the {int(both.sum())} rays both hit")
+    if m_eq < 0.999 or p_err > 1e-4:
+        fail("pixels_to_world: the fused route disagrees with the plain (bars 0.999, 1e-4)")
+
+    occ = occupancy.OccupancyModel(OccupancyField(
+        generator=torch.Generator(device=dev).manual_seed(0), device=dev))
+    imgs = torch.as_tensor(data["img.mask"][:2], device=dev)
+    ndc_o = sample_random_pixels(torch.Generator(device=dev).manual_seed(6), 1024,
+                                 (size, size), 2, device=dev)
+    steps = torch.rand(100, generator=torch.Generator(device=dev).manual_seed(7),
+                       device=dev)
+    opt = torch.optim.Adam(occ.parameters(), lr=1e-3)
+    t = time.perf_counter()
+    for _ in range(OCC_STEPS):
+        o = occ(ndc_o, imgs, cam_v, steps)
+        loss = (occupancy.occupancy_bce_loss(o.logits_freespace,
+                                             torch.zeros_like(o.logits_freespace),
+                                             mask=o.freespace_mask)
+                + occupancy.occupancy_bce_loss(o.logits_occupancy,
+                                               torch.ones_like(o.logits_occupancy),
+                                               mask=o.occupancy_mask))
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    torch.cuda.synchronize()
+    occ_train_s = time.perf_counter() - t
+    with torch.no_grad():
+        t = time.perf_counter()
+        o_dev = occ(ndc_o, imgs, cam_v, steps)
+        torch.cuda.synchronize()
+        occ_ms = 1e3 * (time.perf_counter() - t)
+        occ_cpu = copy.deepcopy(occ).cpu()
+        cam_cpu = cameras_from_matrices(data["camera_mat"][:2], data["focal_length"],
+                                        data["principal_point"], "cpu")
+        t = time.perf_counter()
+        o_cpu = occ_cpu(ndc_o.cpu(), imgs.cpu(), cam_cpu, steps.cpu())
+        occ_cpu_s = time.perf_counter() - t
+    cross_eq = float((o_dev.network_mask.cpu() == o_cpu.network_mask).float().mean())
+    l_ref = o_cpu.logits_freespace
+    l_err = float((o_dev.logits_freespace.cpu() - l_ref).abs().max())
+    # per element within OCC_LOGIT_TOL·max(1, |logit|): float32 sums of 512
+    # products in another order, through 11 layers
+    l_share = float(((o_dev.logits_freespace.cpu() - l_ref).abs()
+                     / l_ref.abs().clamp(min=1.0)).max())
+    # the same forward with TF32 products, read beside it: the gap of a
+    # lower-precision run, which the bar must catch
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            o_tf = occ(ndc_o, imgs, cam_v, steps)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    tf_share = float(((o_tf.logits_freespace.cpu() - l_ref).abs()
+                      / l_ref.abs().clamp(min=1.0)).max())
+    t = time.perf_counter()
+    ov, of = occ.generate_mesh(128)
+    occ_mesh_s = time.perf_counter() - t
+    print(f"occupancy model (OccupancyField 5x512, n_steps 100) on 2 views x 1024 rays, "
+          f"after {OCC_STEPS} Adam steps on the BCE targets ({occ_train_s:.1f} s): forward "
+          f"{occ_ms:.1f} ms on the card, {occ_cpu_s:.1f} s on the CPU; crossings "
+          f"{int(o_dev.network_mask.sum())} (card) / {int(o_cpu.network_mask.sum())} (CPU), "
+          f"masks equal on {cross_eq:.6f}, candidate logits within {l_err:.3g} "
+          f"(|logit| up to {float(l_ref.abs().max()):.4g}; {l_share:.3g} of "
+          f"max(1, |logit|), bar {OCC_LOGIT_TOL}; with TF32 products "
+          f"{tf_share:.3g}); generate_mesh(128) {len(ov)} verts, {len(of)} faces in {occ_mesh_s:.2f} s; "
+          f"final loss {loss.item():.5f}")
+    if cross_eq < 0.999 or l_share > OCC_LOGIT_TOL or len(of) == 0:
+        fail(f"occupancy model: masks (0.999), logits ({OCC_LOGIT_TOL} of "
+             f"max(1, |logit|)) or an empty mesh")
+
+    # (f) one projected uni step with the debug taps on, and the same step off
+    trainer, state = runs["uni"].trainer, runs["uni"].state
+    state = state._replace(it=state.it + 1)   # a projected step without resample
+    batch = runs["uni"].views(np.asarray(train_mvr.draw_views(0, state.it, n_views)))
+    snap = {k: v.clone() for k, v in model.state_dict().items()}
+    opt0, gen0 = copy.deepcopy(state.opt_state), trainer.generators.state()
+    debug_mod.set_debugging_mode_(True)
+    try:
+        _, m_on = trainer.train_step(state, *batch)
+        cap = debug_mod.get_debugging_tensor()
+        iso_pts = cap.pts_world.get("iso")
+        iso_grad = cap.pts_world_grad.get("iso")
+        after_on = {k: v.clone() for k, v in model.state_dict().items()}
+    finally:
+        debug_mod.set_debugging_mode_(False)
+    model.load_state_dict(snap)
+    trainer.generators.set_state(gen0)
+    _, m_off = trainer.train_step(state._replace(opt_state=opt0), *batch)
+    same = m_on["loss"] == m_off["loss"] and all(
+        torch.equal(after_on[k], v) for k, v in model.state_dict().items())
+    ok = (iso_pts is not None and iso_pts.dim() == 3 and iso_pts.shape[-1] == 3
+          and iso_grad.shape == iso_pts.shape and bool(torch.isfinite(iso_grad).all()))
+    print(f"debug taps on a projected uni step (it {state.it}): 'iso' capture "
+          f"{None if iso_pts is None else tuple(iso_pts.shape)}, gradients finite "
+          f"{ok}, |g| max {float(iso_grad.abs().max()) if ok else float('nan'):.4g}; loss "
+          f"{m_on['loss']:.6g} and updated parameters bit-equal to the step with "
+          f"debugging off: {same}")
+    if not (ok and same):
+        fail("debug taps: no finite (B, n_iso, 3) capture, or the taps changed the step")
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    return rm_row
+
+
+def outside_every_silhouette(dtu_dir: str, n: int, dev) -> torch.Tensor:
+    """n points that every view of the DTU directory sees outside the torus
+    (R 0.4, r 0.15): candidates in [-0.9, 0.9]³ whose line of sight from
+    each camera passes the torus by more than 0.02 (~5 px at 512 px; the
+    analytic SDF at 4096 steps over the first 4 units of the ray, past
+    which the torus cannot lie), independent of the masks and the filter."""
+    from isopoints_torch.data.dataset import DTUDataset
+    from isopoints_torch.data.synthetic import torus_sdf
+
+    ds = DTUDataset(dtu_dir)
+    g = torch.Generator(device=dev).manual_seed(4)
+    cand = (torch.rand(8 * n, 3, generator=g, device=dev) * 1.8 - 0.9)
+    ok = torch.ones(cand.shape[0], dtype=torch.bool, device=dev)
+    sdf = torus_sdf()
+    steps = torch.linspace(0.0, 1.0, 4096, device=dev)
+    for v in range(len(ds)):
+        cam = ds.camera([v], (512, 512), device=dev)
+        c = cam.camera_center()[0]
+        for lo in range(0, cand.shape[0], 2048):
+            p = cand[lo:lo + 2048]
+            d = (p - c) / torch.linalg.norm(p - c, dim=-1, keepdim=True)
+            ray = c + 4.0 * steps[None, :, None] * d[:, None, :]
+            ok[lo:lo + 2048] &= sdf(ray).amin(-1) > 0.02
+    pts = cand[ok]
+    if pts.shape[0] < n:
+        fail(f"outside_every_silhouette: only {pts.shape[0]} of {cand.shape[0]} "
+             f"candidates miss the torus in every view")
+    return pts[:n]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -877,7 +1421,7 @@ def main() -> None:
     from isopoints_torch.models import raytracing
     from isopoints_torch.models.raytracing import march_plain
     from isopoints_torch.ops import (_build, fused_mlp, fused_sampler,
-                                     fused_trace, knn)
+                                     fused_trace, knn, raymesh)
     from isopoints_torch.rendering import occ_bwd, select, splat
     from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                       _rasterize_forward,
@@ -895,7 +1439,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     kernels = (fused_mlp.KERNEL, fused_sampler.KERNEL, knn.KERNEL,
                select.KERNEL, splat.KERNEL, fused_mlp.IGR_KERNEL,
-               fused_trace.KERNEL, splat.ZBUF_KERNEL, occ_bwd.KERNEL)
+               fused_trace.KERNEL, splat.ZBUF_KERNEL, occ_bwd.KERNEL,
+               raymesh.KERNEL)
 
     def reset():
         for k in kernels:
@@ -1589,6 +2134,10 @@ def main() -> None:
           f"({bench.N_RAYS / march_ms * 1e3:.0f} rays/s) with the march; "
           f"{plain_trace_ms:.3f} ms with every plain version "
           f"({bench.N_RAYS} rays, median of 5/5/3)")
+    # bench.py:186-216's roofline line, as isopoints_torch.bench prints it
+    print("trace path roofline: " + bench.trace_roofline(cfg_k, bench.N_RAYS,
+                                                         trace_ms).report()
+          + bench.UPPER_BOUND)
     pts, pmask = bench.projection_points(bench.N_POINTS, dev)
     for label, fn, kw in (("f32", fine, {}), ("bf16", coarse, {}),
                           ("hybrid", fine, dict(max_iters=4, fn_coarse=coarse,
@@ -3636,6 +4185,9 @@ def main() -> None:
     dtu = dtu_phase(dev, kernels)
     rows[0].update(dtu["fused_mlp"])
     rows[2].update(dtu["knn"])
+
+    # ---- 16. the ablation's data, arms, summary and scripts; DVR, occupancy, taps
+    rows.append(ablation_phase(dev, kernels))
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")

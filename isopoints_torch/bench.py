@@ -12,8 +12,9 @@ with angles U(±0.35) are traced under the production schedule of
 bench.py:135-149 (`BENCH_SCHEDULE`): a bf16 coarse phase with
 stall-on-cross, the 4-stage compaction chain with the fused backstep,
 end-front gating and the in-kernel sampler with a coarse sweep and a 2e-3
-margin. It prints the per-trace time, rays/s and the two overflow counters
-(asserted 0, as bench.py:218-225 does), then the Newton projection rate
+margin. It prints the per-trace time, rays/s, the MLP roofline line of
+bench.py:186-216 (`trace_roofline`, H100 peaks) and the two overflow
+counters (asserted 0, as bench.py:218-225 does), then the Newton projection rate
 and converged fraction of 65,536 points at 5e-5 in f32, bf16 and the
 bf16→f32 hybrid (`max_iters=4, coarse_iters=8, coarse_tolerance=1e-3`;
 bench.py:241-279), and one JSON line with these numbers. `--profile`
@@ -56,6 +57,7 @@ from isopoints_torch.rendering.rasterizer import (RasterizationSettings,
                                                   compute_splat_params,
                                                   rasterize_splats,
                                                   splat_spacing)
+from isopoints_torch.utils.profiling import mlp_eval_roofline
 
 N_RAYS = 262_144
 N_POINTS = 65_536
@@ -83,6 +85,34 @@ SPLAT_REP = 3
 
 def bench_config(**overrides) -> RayTracingConfig:
     return RayTracingConfig(**{**BENCH_SCHEDULE, **overrides})
+
+
+UPPER_BOUND = " (upper bound: early-exit rays counted full)"
+
+
+def trace_roofline(cfg: RayTracingConfig, n_rays: int, ms: float):
+    """bench.py:186-216's roofline of one trace of `n_rays` rays in `ms`:
+    an UPPER BOUND on the MLP evaluations of the schedule (rays that stop
+    early are counted to the end; compaction stages shrink the marched
+    width), each one of the 4x256 field. Its `report()`, with UPPER_BOUND,
+    is bench.py's line, against the H100's float32 product peak
+    (utils/profiling.py)."""
+    lsi = 1 + cfg.line_step_iters
+    lsi_fine = 1 if cfg.fused_backstep else lsi   # fused: 1 evaluation an iteration
+    stages = cfg.trace_compact_after
+    stages = (stages,) if isinstance(stages, int) and stages > 0 else \
+        (tuple(stages) if isinstance(stages, (tuple, list)) else ())
+    fr = cfg.trace_compact_fraction
+    fr = (fr,) * len(stages) if isinstance(fr, float) else fr
+    full_end = stages[0] if stages else cfg.sphere_tracing_iters
+    lsi_coarse = 1 if cfg.coarse_stall_on_cross else lsi
+    evals_per_ray = 2.0 * (full_end + 1) * lsi_coarse   # full-width coarse phase
+    bounds = list(stages[1:]) + [cfg.sphere_tracing_iters]
+    for a, nxt, f in zip(stages, bounds, fr):
+        evals_per_ray += 2.0 * (nxt - a) * lsi_fine * f   # compacted stages
+    evals_per_ray += cfg.sampler_fraction * (cfg.n_steps + cfg.n_secant_steps)
+    return mlp_eval_roofline("sphere_trace_mlp", int(n_rays * evals_per_ray),
+                             [3, 256, 256, 256, 256, 1], ms / 1e3)
 
 
 def sync(device: torch.device) -> None:
@@ -318,6 +348,7 @@ def run(device="cuda", n_rays: int = N_RAYS, n_points: int = N_POINTS,
         f"{n_rays / (ms / 1e3):.0f} rays/s; hits "
         f"{int(res.network_object_mask.sum())}, sampler rays "
         f"{int(res.sampler_mask.sum())}")
+    log(trace_roofline(cfg, n_rays, ms).report() + UPPER_BOUND)
     log(f"compaction_overflow: trace={ovf_trace} sampler={ovf_sampler} of "
         f"{n_rays} rays")
     prof = (profile_call(lambda: trace(fine, coarse, rays, cfg), dev, "trace", log)

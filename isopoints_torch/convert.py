@@ -8,7 +8,10 @@ layers fold to one `weight` = g·v / max(‖v‖_row, 1e-12), as
 isopoints_tpu/models/fields.py:95-100 computes it, unless
 `keep_weight_norm`: then they stay `<module>.layers.i.v` / `.g` / `.b`,
 the parameters of the port's `SDFField` (`WeightNormLinear`), so that an
-optimiser sees the same parametrisation as the JAX one. `load_jax_npz`
+optimiser sees the same parametrisation as the JAX one. An occupancy
+decoder's tree (`{"fc_in", "blocks": [{"fc0", "fc1"}], "fc_out"}`,
+isopoints_tpu/models/fields.py:346-365) maps to the same names in the
+port's `OccupancyField`. `load_jax_npz`
 reads the same tree from a JAX `model.npz` checkpoint
 (isopoints_tpu/misc/checkpoints.py: keys `model:['decoder']['layers'][0]['w']`).
 `point_params_from_jax` maps the point model's pytree
@@ -41,9 +44,22 @@ def params_from_jax(tree: Dict, keep_weight_norm: bool = False
     """JAX params (numpy leaves) -> state_dict of the port's model."""
     out = {}
     for module, sub in tree.items():
+        if "fc_in" in sub:
+            out.update(_occupancy(module, sub))
+            continue
         keep = keep_weight_norm or module == "texture"
         for i, lp in enumerate(sub["layers"]):
             out.update(_linear(f"{module}.layers.{i}", lp, keep))
+    return out
+
+
+def _occupancy(module: str, sub: Dict) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name in ("fc_in", "fc_out"):
+        out.update(_linear(f"{module}.{name}", sub[name], False))
+    for i, blk in enumerate(sub["blocks"]):
+        for name in ("fc0", "fc1"):
+            out.update(_linear(f"{module}.blocks.{i}.{name}", blk[name], False))
     return out
 
 

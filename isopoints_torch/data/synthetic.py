@@ -1,12 +1,14 @@
 """Synthetic MVR data (port of isopoints_tpu/data/synthetic.py: the
 sphere, torus and box SDFs, `render_view`, `make_synthetic_mvr`,
-`make_synthetic_dtu` and `export_mvr_dataset`).
+`make_synthetic_dtu`, the mesh datasets `normalize_mesh`,
+`render_mesh_view` and `make_mesh_mvr`, and `export_mvr_dataset`).
 
 Views of an analytic SDF are ray-traced with the port's own ray engine and
 Phong-shaded into image / mask / camera arrays, in memory or written as an
-MVR or a DTU (IDR) directory; data is made anew from a seed on every run.
-The mesh-rendered datasets (`make_mesh_mvr`) wait for the mesh ray-caster
-(ROADMAP Queue 1 item E).
+MVR or a DTU (IDR) directory. A triangle mesh is ray-cast exactly
+(ops/raymesh.py, the Möller–Trumbore kernel on the card) and flat-shaded,
+with dense depth and area-weighted GT surface samples. Data is made anew
+from a seed on every run.
 """
 
 import os
@@ -20,9 +22,11 @@ from isopoints_torch.data.dataset import DTUDataset
 from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
 from isopoints_torch.ops.images import arange_pixels
+from isopoints_torch.ops.raymesh import ray_mesh_intersect
 from isopoints_torch.rendering.lighting import DirectionalLights
 from isopoints_torch.rendering.texture import lighting_texture
 from isopoints_torch.utils.io import save_image, save_ply
+from isopoints_torch.utils.meshing import sample_points_from_mesh
 
 
 def sphere_sdf(r: float = 0.5) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -140,6 +144,95 @@ def make_synthetic_mvr(sdf_fn: Callable, n_views: int = 24,
         "principal_point": np.zeros(2, np.float32),
         "points": gt_points.astype(np.float32),
         "normals": gt_normals.astype(np.float32),
+    }
+
+
+def normalize_mesh(verts: np.ndarray, radius: float = 1.0) -> np.ndarray:
+    """Centre at the bounding box midpoint and scale the largest vertex
+    norm to `radius` (synthetic.py:128-136)."""
+    verts = np.asarray(verts, np.float32)
+    center = (verts.max(0) + verts.min(0)) / 2.0
+    verts = verts - center
+    scale = np.linalg.norm(verts, axis=-1).max()
+    return verts * (radius / max(scale, 1e-12))
+
+
+@torch.no_grad()
+def render_mesh_view(verts: torch.Tensor, faces: torch.Tensor,
+                     camera: PerspectiveCamera, image_size: int,
+                     lights: Optional[DirectionalLights] = None,
+                     base_color=(0.8, 0.5, 0.3)) -> Dict[str, np.ndarray]:
+    """Ray-cast one batch of views of a triangle mesh into rgb + mask +
+    depth images, flat-shaded (synthetic.py:139-170); the depth is t along
+    the ray, 100 at a miss."""
+    b = camera.batch_size
+    dev = camera.R.device
+    _, ndc = arange_pixels((image_size, image_size), b, device=dev)
+    cam_pos = camera.camera_center()[:, None, :]
+    _, dirs = camera.ndc_to_rays(ndc)
+    res = ray_mesh_intersect(torch.broadcast_to(cam_pos, dirs.shape), dirs,
+                             verts, faces)
+    mask = res.hit
+    lights = lights or DirectionalLights.create(device=dev)
+    rgb_pts = lighting_texture(
+        res.points, res.normals, lights, camera.camera_center(),
+        torch.broadcast_to(torch.tensor(base_color, device=dev),
+                           res.points.shape))
+    rgb = torch.where(mask[..., None], torch.clamp(rgb_pts, 0.0, 1.0),
+                      torch.ones_like(rgb_pts))
+    depth = torch.where(mask, res.t, 100.0)
+    s = image_size
+    return {"img.rgb": rgb.reshape(b, s, s, 3).cpu().numpy(),
+            "img.mask": mask.reshape(b, s, s, 1).float().cpu().numpy(),
+            "img.depth": depth.reshape(b, s, s, 1).cpu().numpy()}
+
+
+@torch.no_grad()
+def make_mesh_mvr(verts: np.ndarray, faces: np.ndarray, n_views: int = 24,
+                  image_size: int = 64, dist: float = 2.0, focal: float = 2.0,
+                  seed: int = 0, batch: int = 4, norm_radius: float = 0.7,
+                  n_gt_points: int = 20000, device="cuda") -> Dict[str, np.ndarray]:
+    """In-memory MVR dataset of a triangle mesh (synthetic.py:173-229):
+    the mesh normalised into the sphere of `norm_radius`, `n_views` views
+    at elevations drawn from `np.random.RandomState(seed)` and evenly
+    spaced azimuths, `batch` views a ray cast on `device`, GT samples with
+    their face normals, and the normalised mesh."""
+    verts = normalize_mesh(verts, norm_radius)
+    faces = np.asarray(faces)
+    verts_d = torch.as_tensor(verts, device=device)
+    faces_d = torch.as_tensor(faces.astype(np.int64), device=device)
+    rng = np.random.RandomState(seed)
+    elev = rng.uniform(-45.0, 45.0, size=n_views)
+    azim = np.linspace(0.0, 360.0, n_views, endpoint=False)
+    rgbs, masks, depths, cam_mats = [], [], [], []
+    for i in range(0, n_views, batch):
+        sl = slice(i, min(i + batch, n_views))
+        R, T = look_at_view_transform([dist] * (sl.stop - sl.start),
+                                      elev[sl], azim[sl], device=device)
+        cam = PerspectiveCamera.create(R=R, T=T, focal_length=focal,
+                                       device=device)
+        out = render_mesh_view(verts_d, faces_d, cam, image_size)
+        rgbs.append(out["img.rgb"])
+        masks.append(out["img.mask"])
+        depths.append(out["img.depth"])
+        for j in range(sl.stop - sl.start):
+            m = np.eye(4, dtype=np.float32)
+            m[:3, :3] = R[j].cpu().numpy()
+            m[3, :3] = T[j].cpu().numpy()
+            cam_mats.append(m)
+    gt_points, gt_normals = sample_points_from_mesh(verts, faces, n_gt_points,
+                                                    seed=seed)
+    return {
+        "img.rgb": np.concatenate(rgbs),
+        "img.mask": np.concatenate(masks),
+        "img.depth": np.concatenate(depths),
+        "camera_mat": np.stack(cam_mats),
+        "focal_length": np.asarray([focal, focal], np.float32),
+        "principal_point": np.zeros(2, np.float32),
+        "points": gt_points,
+        "normals": gt_normals,
+        "mesh_verts": verts,
+        "mesh_faces": faces.astype(np.int64),
     }
 
 

@@ -1,8 +1,8 @@
 """Config-driven factories (port of isopoints_tpu/factories.py, for what
 the ported configs name: a SIREN or IGR (`decoder_type: sdf`) decoder, the
 combined or implicit model with the Phong or the neural texture, the DSS
-point model, the splat raster settings, the MVR, DTU and synthetic
-datasets)."""
+point model, the splat raster settings, the lights, the MVR, DTU and
+synthetic datasets)."""
 
 from typing import Optional
 
@@ -13,6 +13,7 @@ from isopoints_torch.models.combined import CombinedConfig, CombinedModel
 from isopoints_torch.models.fields import RenderingNetwork, SDFField, SirenField
 from isopoints_torch.models.implicit import ImplicitConfig, ImplicitModel
 from isopoints_torch.models.point import PointModel, PointModelConfig
+from isopoints_torch.rendering.lighting import DirectionalLights, PointLights
 from isopoints_torch.rendering.rasterizer import RasterizationSettings
 from isopoints_torch.training.scheduler import TrainerScheduler
 from isopoints_torch.training.trainer import MVRTrainer, TrainerConfig
@@ -34,6 +35,18 @@ def create_decoder(cfg: AttrDict, generator: Optional[torch.Generator] = None,
 def create_raster_settings(cfg: AttrDict) -> RasterizationSettings:
     return RasterizationSettings(
         **dict(cfg.get("renderer", {}).get("raster_params", {})))
+
+
+def create_lights(cfg: AttrDict, device=None):
+    """The config's `lights` block (factories.py:43-51): `type: point`
+    makes `PointLights`, anything else `DirectionalLights`, with the
+    block's other keys; no block gives the default directional light."""
+    lcfg = cfg.get("lights", None)
+    if not lcfg:
+        return DirectionalLights.create(device=device)
+    kwargs = {k: v for k, v in lcfg.items() if k != "type"}
+    cls = PointLights if lcfg.get("type", "directional") == "point" else DirectionalLights
+    return cls.create(**kwargs, device=device)
 
 
 def create_model(cfg: AttrDict, generator: Optional[torch.Generator] = None,

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from isopoints_torch.core.camera import PerspectiveCamera
+from isopoints_torch.debug import tap_grad
 from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.models.implicit import (ImplicitConfig, ImplicitModel,
                                              ModelOutput)
@@ -241,6 +242,8 @@ class CombinedModel(ImplicitModel):
                 draws.iso_offset, frontal)
         ons_pts, ons_mask = self.sample_onsurface_using_isopoints(
             iso_pts, iso_mask, mask_img, camera, training=training)
+        # the pixel-gradient tap (isopoints_tpu/models/combined.py:300-302)
+        ons_pts = tap_grad("iso", ons_pts)
         p_free, free_mask, p_ins, ins_mask = \
             self.sample_offsurface_using_isopoints(
                 f_trace, ndc_pixels, mask_img, iso_pts, iso_mask, points,

@@ -8,8 +8,10 @@ the JAX parametrisation `{v, g, b}`, and `positional_embedder` its NeRF
 input encoding (fields.py:64-88). `sdf_and_grad` returns the SDF and its
 input gradient, dispatching to a fused `.sdf_and_grad` when the callable
 carries one (ops/fused_mlp.py), like the reference. `RenderingNetwork` is
-the IDR colour net of the neural texture (fields.py:269-323). The
-occupancy field is not ported yet (ROADMAP Queue 1 item 3).
+the IDR colour net of the neural texture (fields.py:269-323).
+`OccupancyField` is ONet's ResNet-FC occupancy decoder (fields.py:330-385)
+for the DVR occupancy model (models/occupancy.py), and
+`approximate_gradient` the central-difference gradient (fields.py:408).
 """
 
 import math
@@ -249,6 +251,37 @@ class RenderingNetwork(nn.Module):
                               dim=-1))
 
 
+class OccupancyField(nn.Module):
+    """ONet-style occupancy decoder (fields.py:330-385): fc_in (dim -> h),
+    `n_blocks` ResNet blocks h + fc1(relu(fc0(relu(h)))), and fc_out on
+    relu(h) to one raw logit. Init as the JAX field: U(±1/√fan_in) weights,
+    zero biases, and every block's fc1 zero (ONet's zero-initialised second
+    layer). The JAX field's conditional code (`c_dim`) and rgb head are not
+    ported: the occupancy model uses neither."""
+
+    def __init__(self, dim: int = 3, hidden_size: int = 512, n_blocks: int = 5,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        h = hidden_size
+
+        def lin(i, o, zero=False):
+            return _uniform_linear(i, o, 0.0 if zero else 1.0 / math.sqrt(i),
+                                   generator, device)
+
+        self.fc_in = lin(dim, h)
+        self.fc_out = lin(h, 1)
+        self.blocks = nn.ModuleList(
+            [nn.ModuleDict({"fc0": lin(h, h), "fc1": lin(h, h, zero=True)})
+             for _ in range(n_blocks)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (..., 3) -> raw occupancy logits (..., 1)."""
+        h = self.fc_in(x)
+        for blk in self.blocks:
+            h = h + blk["fc1"](torch.relu(blk["fc0"](torch.relu(h))))
+        return self.fc_out(torch.relu(h))
+
+
 def sdf_and_grad(apply_sdf: Callable[[torch.Tensor], torch.Tensor],
                  x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sdf, ∇ₓsdf) (parity: fields.py:392-405).
@@ -273,3 +306,15 @@ def sdf_and_grad(apply_sdf: Callable[[torch.Tensor], torch.Tensor],
     f = apply_sdf(x)
     (g,) = torch.autograd.grad(f.sum(), x, create_graph=True)
     return f, g
+
+
+def approximate_gradient(apply_sdf: Callable[[torch.Tensor], torch.Tensor],
+                         x: torch.Tensor, h: float = 1e-3) -> torch.Tensor:
+    """Central differences over the six axis offsets of ±h (fields.py:
+    408-416), for testing."""
+    offsets = torch.tensor([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                            [0, 0, 1], [0, 0, -1]], dtype=x.dtype,
+                           device=x.device) * h
+    vals = [apply_sdf(x + o) for o in offsets]
+    return torch.stack([(vals[2 * i] - vals[2 * i + 1]) / (2 * h)
+                        for i in range(3)], dim=-1)

@@ -28,8 +28,8 @@ from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
 from isopoints_torch.ops.images import arange_pixels
 from isopoints_torch.utils.meshing import extract_mesh, get_surface_high_res_mesh
 
-NO_PLOTLY = ("iso-contour plots need plotly (the JAX package's "
-             "misc/visualize.py plot_cuts), which is not installed")
+NO_PLOTLY = ("the plots need plotly (the JAX package's misc/visualize.py), "
+             "which is not installed")
 
 
 @dataclass(frozen=True)
@@ -168,4 +168,4 @@ class Generator:
     # -- contours ---------------------------------------------------------
     def generate_iso_contour(self, filename: str, **kwargs) -> None:
         """(generator.py:156) Raises: the contour plots need plotly."""
-        raise NotImplementedError(NO_PLOTLY)
+        raise NotImplementedError(f"iso-contour plots (plot_cuts): {NO_PLOTLY}")

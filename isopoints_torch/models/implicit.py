@@ -1,5 +1,6 @@
 """Implicit scene model: SDF decoder + texture + ray engine (port of
-isopoints_tpu/models/implicit.py:66-325, the IDR training forward).
+isopoints_tpu/models/implicit.py:66-325: the IDR training forward and the
+DVR-style `pixels_to_world`).
 
 The decoder is an `nn.Module`; the model's methods take tensors and an
 explicit camera. Tracing is no-grad by design: `trace_sdf_fn` returns the
@@ -22,10 +23,13 @@ import torch
 from torch import nn
 
 from isopoints_torch.core.camera import PerspectiveCamera
+from isopoints_torch.debug import tap_grad
 from isopoints_torch.models.fields import RenderingNetwork, sdf_and_grad
 from isopoints_torch.models.levelset import (ProjectionConfig,
                                              directional_sample_network)
-from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
+from isopoints_torch.models.raytracing import (
+    RayTracingConfig, find_zero_crossing_between_point_pairs,
+    intersection_with_unit_cube, ray_trace, sphere_trace_along_rays)
 from isopoints_torch.ops.fused_mlp import make_fused_sdf_fn
 from isopoints_torch.ops.images import sample_image_at_ndc
 from isopoints_torch.rendering.lighting import DirectionalLights
@@ -134,6 +138,44 @@ class ImplicitModel(nn.Module):
                                 camera.camera_center(),
                                 shininess=self.cfg.shininess)
 
+    def pixels_to_world(self, ndc_pixels: torch.Tensor,
+                        camera: PerspectiveCamera, training: bool = True):
+        """DVR-style surface points (implicit.py:193-233): the cube
+        interval, a sphere trace forward from the entry and one backward
+        from the exit on `trace_sdf_fn()` (the fused kernel with
+        `use_fused_mlp`), the secant between the forward point and the
+        backward one where the forward trace did not converge, and the
+        grazing-angle filter. In training the points are re-attached to the
+        plain field along their rays (`directional_sample_network`), so
+        θ-gradients reach the decoder. Returns (points (B, N, 3), mask
+        (B, N))."""
+        f = self.trace_sdf_fn()
+        cam_pos = camera.camera_center()[:, None, :]
+        _, dirs = camera.ndc_to_rays(ndc_pixels)
+        with torch.no_grad():
+            entry, exit_, hit = intersection_with_unit_cube(
+                cam_pos, dirs, side_length=self.cfg.object_bounding_sphere * 2)
+            kw = dict(max_iters=self.cfg.proj_max_iters,
+                      tolerance=self.cfg.proj_tolerance)
+            fwd = sphere_trace_along_rays(f, entry, dirs, **kw)
+            mask_pred = fwd.mask & hit
+            p_world = torch.where(mask_pred[..., None], fwd.points, entry)
+            bwd = sphere_trace_along_rays(f, exit_, -dirs, **kw)
+            p_secant, m_secant = find_zero_crossing_between_point_pairs(
+                f, p_world, bwd.points)
+            m_secant = ~mask_pred & m_secant
+            p_world = torch.where(m_secant[..., None], p_secant, p_world)
+            mask_pred = mask_pred | m_secant
+            # grazing-angle filter (implicit.py:221-226)
+            grad = sdf_and_grad(f, p_world)[1]
+            gn = grad / torch.clamp(torch.linalg.norm(grad, dim=-1, keepdim=True),
+                                    min=1e-12)
+            mask_pred = mask_pred & (torch.sum(gn * dirs, dim=-1) < -1e-2)
+        if training:
+            p_world = directional_sample_network(self.sdf_fn(), p_world, dirs,
+                                                 cam_pos)
+        return p_world, mask_pred
+
     def sample_from_pixels(self, ndc_pixels: torch.Tensor,
                            camera: PerspectiveCamera, mask_gt: torch.Tensor,
                            u: Optional[torch.Tensor], training: bool = True):
@@ -166,6 +208,8 @@ class ImplicitModel(nn.Module):
         iso_points, mask_pred, free_mask, occ_mask, res = \
             self.sample_from_pixels(ndc_pixels, camera, mask_gt, u,
                                     training=training)
+        # the pixel-gradient tap (isopoints_tpu/models/implicit.py:300-303)
+        iso_points = tap_grad("iso", iso_points)
         ray_points = res.points.detach()
         normals = self.normals_from_grad(iso_points)
         rgb = self.decode_color(iso_points, normals, camera, lights)

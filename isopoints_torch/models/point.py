@@ -17,6 +17,7 @@ from torch import nn
 
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.core.cloud import PointCloud
+from isopoints_torch.debug import get_debugging_mode, tap_image_grad
 from isopoints_torch.ops.images import sample_image_at_ndc
 from isopoints_torch.rendering.lighting import DirectionalLights
 from isopoints_torch.rendering.rasterizer import RasterizationSettings
@@ -112,11 +113,12 @@ class PointModel(nn.Module):
                                   camera.camera_center(), pc.features,
                                   shininess=self.cfg.shininess)
         scale = torch.exp(self.log_size) if self.cfg.learn_size else None
-        # the JAX package's mask-gradient debug tap (debug.tap_image_grad) is
-        # an identity outside its debugging mode and is not ported (ROADMAP
-        # Queue 1 item 12)
         out = render_pointcloud(pc.with_features(shaded), camera,
                                 self.raster_settings, cutoff_scale=scale)
+        if get_debugging_mode():
+            # the mask-image gradient tap (isopoints_tpu/models/point.py:111-117)
+            out = out._replace(rgba=torch.cat(
+                [out.rgba[..., :3], tap_image_grad(out.rgba[..., 3:])], dim=-1))
         if mask_img is not None:
             pix = camera.project_ndc(pc.points)[..., :2].detach()
             inmask = sample_image_at_ndc(mask_img, pix, mode="nearest")[..., 0] > 0.5

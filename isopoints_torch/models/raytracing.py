@@ -23,6 +23,13 @@ ops/fused_sampler.py beside the kernel they are the plain version of.
 Each `while_loop` of the JAX module is a Python loop whose exit test
 (`any(un_s | un_e)`) is one host synchronisation per iteration; the march
 kernel's fixed count needs none.
+
+The DVR pieces are ported too: `sphere_trace_along_rays` (one-directional
+tracing from given points, with the value and gradient at the first
+iterate) and `find_zero_crossing_between_point_pairs` (a dense sweep of
+each segment, the first sign change and the secant, in the SDF and the
+occupancy conventions), which `ImplicitModel.pixels_to_world` and the
+occupancy model use.
 """
 
 import math
@@ -31,7 +38,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from isopoints_torch.ops.fused_sampler import sweep_plain
+from isopoints_torch.models.fields import sdf_and_grad
+from isopoints_torch.ops.fused_sampler import secant_scan, sweep_plain
 from isopoints_torch.utils import eps_denom, fma, linspace01
 
 SDFFn = Callable[[torch.Tensor], torch.Tensor]  # (..., 3) -> (...)
@@ -93,6 +101,51 @@ def intersection_with_unit_sphere(cam_pos: torch.Tensor, rays: torch.Tensor,
     far = torch.where(hit[..., None], fma(chord[..., None], q, near),
                       fma(z_far_miss[..., None], q, p))
     return near, far, hit
+
+
+class SphereTraceResult(NamedTuple):
+    points: torch.Tensor   # (..., 3) final positions
+    sdf: torch.Tensor      # (...,) SDF at the final positions
+    grad: torch.Tensor     # (..., 3) SDF gradient at the FIRST iterate
+    mask: torch.Tensor     # (...,) converged (|sdf| <= tolerance)
+
+
+@torch.no_grad()
+def sphere_trace_along_rays(sdf_fn: SDFFn, ray0: torch.Tensor,
+                            ray_dir: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None,
+                            max_iters: int = 10, tolerance: float = 5e-5,
+                            alpha: float = 1.0, radius: float = 1.0,
+                            padding: float = 0.1, step_clip: float = 0.1
+                            ) -> SphereTraceResult:
+    """March p <- p + α·f(p)·d, each step clipped to `step_clip`, until
+    |f| <= 0.1·tolerance or the next step would leave the sphere of radius
+    + padding (raytracing.py:130-177); converged against the full
+    `tolerance`. The gradient is the one at the starting points, as the
+    reference returns its initial gradient cache. One host synchronisation
+    per iteration (the loop's exit test)."""
+    if mask is None:
+        mask = torch.ones(ray0.shape[:-1], dtype=torch.bool, device=ray0.device)
+    ray_dir = ray_dir / torch.clamp(torch.linalg.norm(ray_dir, dim=-1, keepdim=True),
+                                    min=1e-15)
+    sdf0, grad0 = sdf_and_grad(sdf_fn, ray0)
+    bound = radius + padding
+    inside = torch.linalg.norm(ray0, dim=-1) < bound
+    pts, sdf = ray0, sdf0
+    active = mask & inside & (sdf0.abs() > 0.1 * tolerance)
+    for _ in range(max_iters):
+        if not bool(active.any()):
+            break
+        move = alpha * sdf[..., None] * ray_dir
+        mnorm = torch.linalg.norm(move, dim=-1, keepdim=True)
+        cand = fma(move / torch.clamp(mnorm, min=1e-15),
+                   torch.clamp(mnorm, max=step_clip), pts)
+        in_sphere = torch.linalg.norm(cand, dim=-1) < bound
+        pts = torch.where((active & in_sphere)[..., None], cand, pts)
+        sdf = torch.where(active, sdf_fn(pts), sdf)
+        active = active & in_sphere & (sdf.abs() > 0.1 * tolerance)
+    return SphereTraceResult(points=pts, sdf=sdf, grad=grad0,
+                             mask=mask & (sdf.abs() <= tolerance))
 
 
 @dataclass(frozen=True)
@@ -603,3 +656,49 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
                           sampler_mask=sampler_mask,
                           trace_overflow=trace_overflow,
                           sampler_overflow=sampler_overflow.to(torch.int32))
+
+
+@torch.no_grad()
+def find_zero_crossing_between_point_pairs(
+        sdf_fn: SDFFn, p0: torch.Tensor, p1: torch.Tensor, n_steps: int = 100,
+        n_secant_steps: int = 8, is_occupancy: bool = False,
+        allow_in_to_out: bool = False, chunk_rays: int = 16384
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first zero crossing on each segment [p0, p1], refined by the
+    secant (raytracing.py:1074-1131). SDF convention: outside is f > 0 and
+    a crossing counts when it goes from outside to inside (any with
+    `allow_in_to_out`); `is_occupancy` flips the sign test (logits > 0
+    inside). The `n_steps` values of a segment are evaluated `chunk_rays`
+    segments at a time (the same values, bounded memory). Returns (points
+    (..., 3), mask (...)); a segment without a crossing gets ones under
+    mask False, the reference's fill."""
+    seg = p1 - p0
+    seg_len = torch.linalg.norm(seg, dim=-1)
+    ray_dir = seg / torch.clamp(seg_len[..., None], min=1e-10)
+    ts = linspace01(n_steps, device=p0.device) * seg_len[..., None]   # (..., S)
+    pts = fma(ts[..., None], ray_dir[..., None, :], p0[..., None, :])
+    flat = pts.reshape(-1, n_steps, 3)
+    val = torch.cat([sdf_fn(c) for c in flat.split(max(chunk_rays, 1))]
+                    ).reshape(ts.shape) if flat.shape[0] else ts.clone()
+    sign_mx = torch.cat([torch.sign(val[..., :-1] * val[..., 1:]),
+                         torch.ones_like(val[..., :1])], dim=-1)
+    countdown = torch.arange(n_steps, 0, -1, dtype=val.dtype, device=val.device)
+    cost = sign_mx * countdown
+    idx = torch.argmin(cost, dim=-1)
+    pick = lambda a, i: torch.gather(a, -1, i[..., None])[..., 0]
+    crossing = pick(cost, idx) < 0
+    f_start = pick(val, idx)
+    out_to_in = (f_start < 0.0) if is_occupancy else (f_start > 0.0)
+    mask = crossing if allow_in_to_out else crossing & out_to_in
+    idx_hi = torch.clamp(idx + 1, max=n_steps - 1)
+    d_start, d_end = pick(ts, idx), pick(ts, idx_hi)
+    f_end = pick(val, idx_hi)
+    # the secant assumes outside > 0: negate the occupancy logits
+    if is_occupancy:
+        z = secant_scan(lambda x: -sdf_fn(x), -f_start, -f_end, d_start, d_end,
+                        p0, ray_dir, n_secant_steps)
+    else:
+        z = secant_scan(sdf_fn, f_start, f_end, d_start, d_end, p0, ray_dir,
+                        n_secant_steps)
+    pt = fma(z[..., None], ray_dir, p0)
+    return torch.where(mask[..., None], pt, torch.ones_like(pt)), mask

@@ -1,6 +1,6 @@
-"""Multi-source Phong lighting (port of isopoints_tpu/rendering/lighting.py,
-directional lights). Batched (B, L, 3) light arrays against (B, P, 3)
-points."""
+"""Multi-source Phong lighting (port of isopoints_tpu/rendering/lighting.py:
+directional and point lights). Batched (B, L, 3) light arrays against
+(B, P, 3) points."""
 
 from dataclasses import dataclass
 
@@ -66,10 +66,47 @@ class DirectionalLights:
         return torch.sum(self.ambient_color, dim=1)
 
 
-def apply_lighting(points: torch.Tensor, normals: torch.Tensor,
-                   lights: DirectionalLights, camera_position: torch.Tensor,
-                   shininess: float = 64.0):
-    """(ambient (B, 3), diffuse (B, P, 3), specular (B, P, 3))."""
+@dataclass(frozen=True)
+class PointLights:
+    """L point sources per batch (lighting.py:86-106)."""
+    ambient_color: torch.Tensor   # (B, L, 3)
+    diffuse_color: torch.Tensor   # (B, L, 3)
+    specular_color: torch.Tensor  # (B, L, 3)
+    location: torch.Tensor        # (B, L, 3)
+
+    @classmethod
+    def create(cls, ambient_color=((0.5, 0.5, 0.5),),
+               diffuse_color=((0.3, 0.3, 0.3),),
+               specular_color=((0.2, 0.2, 0.2),),
+               location=((0.0, 1.0, 0.0),), device=None) -> "PointLights":
+        return cls(ambient_color=_as_bl3(ambient_color, device),
+                   diffuse_color=_as_bl3(diffuse_color, device),
+                   specular_color=_as_bl3(specular_color, device),
+                   location=_as_bl3(location, device))
+
+    def ambient(self) -> torch.Tensor:
+        """(B, 3) summed over sources."""
+        return torch.sum(self.ambient_color, dim=1)
+
+
+def apply_lighting(points: torch.Tensor, normals: torch.Tensor, lights,
+                   camera_position: torch.Tensor, shininess: float = 64.0):
+    """(ambient (B, 3), diffuse (B, P, 3), specular (B, P, 3)) for
+    `DirectionalLights` or `PointLights` (lighting.py:109-137)."""
+    if isinstance(lights, PointLights):
+        # a direction per (light, point): toward each source from the point
+        n = _unit(normals)[:, None]
+        d = _unit(lights.location[:, :, None, :] - points[:, None])
+        cos_angle = torch.sum(n * d, dim=-1)
+        diff = torch.sum(lights.diffuse_color[:, :, None, :]
+                         * torch.relu(cos_angle)[..., None], dim=1)
+        reflect = 2.0 * cos_angle[..., None] * n - d
+        view = _unit(camera_position[:, None, None, :] - points[:, None])
+        alpha = torch.relu(torch.sum(view * reflect, dim=-1)) ** shininess
+        alpha = torch.where(cos_angle > 0, alpha, torch.zeros_like(alpha))
+        spec = torch.sum(lights.specular_color[:, :, None, :] * alpha[..., None],
+                         dim=1)
+        return lights.ambient(), diff, spec
     diff = diffuse(normals, lights.diffuse_color, lights.direction)
     spec = specular(points, normals, lights.specular_color, lights.direction,
                     camera_position, shininess)

@@ -502,3 +502,18 @@ class MVRTrainer:
 
     def check_state(self) -> bool:
         return check_weights(self.model)
+
+    def debug_dump(self, out_dir: str, it: int, mesh=None) -> Optional[str]:
+        """The captured per-point gradients as quiver plots (trainer.py:536).
+        None when debugging is off or nothing was captured; otherwise it
+        raises, since the plots are plotly HTML and plotly is not
+        installed. The capture itself (`debug.get_debugging_tensor()`) is
+        left for the caller."""
+        from isopoints_torch.debug import get_debugging_mode, get_debugging_tensor
+        from isopoints_torch.models.generator import NO_PLOTLY
+
+        dbg = get_debugging_tensor()
+        if not get_debugging_mode() or (not dbg.pts_world
+                                        and dbg.img_mask_grad is None):
+            return None
+        raise NotImplementedError(f"debug_dump writes quiver plots: {NO_PLOTLY}")

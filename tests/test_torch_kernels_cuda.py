@@ -95,6 +95,11 @@ Evaluation and generation: the SIREN MLP on a 262,144-point chunk of a
 padded) at the MLP tolerance; the kNN at the chamfer's shape (50,000 x
 48,000, k=1, the Morton route) and an IMLS grid chunk's (262,144 x 5000,
 k=8), bit for bit against the plain version.
+
+The mesh ray-caster (csrc/raymesh.cu): t, faces, points and normals bit for
+bit against `ray_mesh_intersect_plain` (the same roundings in the same
+order) on 1, 2047 and 20,000 rays with duplicate faces, one launch a call;
+float64, CPU and malformed face arrays refused.
 """
 
 import dataclasses
@@ -1333,3 +1338,49 @@ def test_dtu_refresh_on_the_card(dev, ear):
         both = a.mask & b.mask
         d = (a.points - b.points).abs().amax(-1)[both]
         assert float((d <= 1e-4).float().mean()) >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# The mesh ray-caster (csrc/raymesh.cu)
+# ---------------------------------------------------------------------------
+
+def _raymesh_scene(dev, n_rays, n_faces, seed=0):
+    rng = np.random.RandomState(seed)
+    verts = rng.uniform(-1, 1, (n_faces, 3)).astype(np.float32)
+    faces = rng.randint(0, n_faces, (n_faces, 3))
+    faces = np.concatenate([faces, faces[: n_faces // 10]])   # duplicates: lowest index wins
+    orig = (np.array([[0.0, 0.0, -3.0]]) + rng.normal(0, 0.05, (n_rays, 3))).astype(np.float32)
+    dirs = rng.normal(0, 0.3, (n_rays, 3)).astype(np.float32)
+    dirs[:, 2] = rng.uniform(0.5, 2.0, n_rays)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(orig), t(dirs), t(verts), t(faces).long()
+
+
+@pytest.mark.parametrize("n_rays,n_faces", [(1, 5), (2047, 513), (20_000, 3000)])
+def test_raymesh_kernel_equals_plain(dev, n_rays, n_faces):
+    """Kernel and plain version round the same operations in the same
+    order: t, faces, points and normals bit for bit, with ragged blocks
+    (2048 rays a block) and ragged face tiles (512 a tile)."""
+    from isopoints_torch.ops import raymesh
+    o, d, v, f = _raymesh_scene(dev, n_rays, n_faces)
+    before = raymesh.KERNEL.launches
+    a = raymesh.ray_mesh_intersect(o, d, v, f)
+    assert raymesh.KERNEL.launches == before + 1
+    b = raymesh.ray_mesh_intersect_plain(o, d, v, f)
+    torch.cuda.synchronize()
+    for name in a._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    if n_rays > 1:
+        assert 0 < int(a.hit.sum()) < n_rays
+
+
+def test_raymesh_kernel_refuses_bad_inputs(dev):
+    from isopoints_torch.ops import raymesh
+    o, d, v, f = _raymesh_scene(dev, 64, 40)
+    packed = raymesh.pack_faces(v, f)
+    with pytest.raises(TypeError):
+        raymesh.intersect_cuda(o.double(), d.double(), packed)
+    with pytest.raises(ValueError):
+        raymesh.intersect_cuda(o.cpu(), d, packed)
+    with pytest.raises(ValueError):
+        raymesh.intersect_cuda(o, d, packed[:, :6])

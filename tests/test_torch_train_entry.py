@@ -323,8 +323,12 @@ def test_unported_flags_raise(setup, tmp_path, flags, match):
 
 
 def test_unported_data_raises(setup, tmp_path):
-    with pytest.raises(NotImplementedError, match="item E"):
-        create_mvr_data.main(["mesh", str(tmp_path / "m"), "--device", "cpu"])
+    # `mesh` is ported: without --mesh, or with --dtu, it is a usage error
+    for extra in ([], ["--mesh", str(tmp_path / "m.ply"), "--dtu"]):
+        with pytest.raises(SystemExit) as e:
+            create_mvr_data.main(["mesh", str(tmp_path / "m"), "--device", "cpu",
+                                  *extra])
+        assert e.value.code == 2
     cfg = load_config(setup[1][False])
     cfg.data.type = "Blender"
     with pytest.raises(ValueError, match="unknown dataset type"):
@@ -337,9 +341,12 @@ def test_unported_data_raises(setup, tmp_path):
      {"warm_up_iters": 2, "resample_every": 2}),
     ("mvr_uni_dtu.yml", "ablation_compound_uni.yml",
      {"type": "DTU", "data_dir": "out/torch_data_dtu_torus"},
-     {"warm_up_iters": 2})])
+     {"warm_up_iters": 2})] + [
+    (f"ablation_compound_{a}_dir.yml", f"ablation_compound_{a}.yml",
+     {"type": "MVR", "data_dir": "out/torch_data_compound"}, {})
+    for a in ("implicit", "uni", "lossS")])
 def test_directory_configs_are_the_arms(name, arm, data, cuts):
-    """The two directory configs are their ablation arm at full width, read
+    """The directory configs are their ablation arm at full width, read
     as train_mvr.py reads it, but for the data directory, the kernel rasters
     and the schedule cuts their headers state."""
     from isopoints_tpu.config import default_config_path, load_config as j_load
