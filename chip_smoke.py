@@ -264,6 +264,25 @@ Phases, each fatal on failure:
      CPU (masks 0.999, logits 1e-4, a non-empty 128³ mesh); (f) a projected
      uni step with the debug taps on: a finite "iso" capture, the loss and
      the parameters bit-equal to the step with them off;
+  17. the reference's main MVR configuration at full width (`dtu_mvr_phase`:
+     configs/dtu_mvr.yml through isopoints_torch/configs/dtu_mvr_dir.yml,
+     IGR 8x512 with 6 encoding frequencies and the neural texture, 2048
+     rays, 4000 of 8000 iso-points, 512-px rasters, 256-px visibility,
+     plain f32 products with TF32 off) on phase 13's DTU-layout torus:
+     `train_mvr` for 40 warm-up steps, the resample at 40 and 3 projected
+     steps with the validate cadence at 43 (the eval row finite,
+     model_best.npz), each step's time and launches: the kNN, selection and
+     fine kernels in every projected step, and fused_mlp, fused_igr,
+     fused_sampler and trace_march never (no kernel exists for a field with
+     positional encoding, in either package); a projected step under the
+     profiler (busy share, the plain MLP's GEMM share); a projected step's
+     terms with the kernels and with the plain versions on identical draws
+     (rtol 1e-5); `generate_mvr` at mesh 256 (the config's 512 reduced),
+     its stages timed;
+  18. parallel/ at world size 1 under NCCL (`parallel_phase`): a projected
+     step of phase 17's state through `make_train_step` over the process
+     group bit-equal to the step without one (a repeat without it printed
+     beside), and the step's all-reduce timed;
 then the JSON line {"kernels": [...]} (row 4 also at the statistics', the
 chamfer's, the IMLS and the DTU shapes; the SIREN-path rows with their
 launches in 13 (b) and (e), 14 (b) and (d) and 15; the raymesh row from 16
@@ -1371,6 +1390,302 @@ def ablation_phase(dev, kernels) -> dict:
         fail("debug taps: no finite (B, n_iso, 3) capture, or the taps changed the step")
     print(f"phase 16: {time.perf_counter() - t16:.1f} s")
     return rm_row
+
+
+DTU_MVR_ITERS = 44         # 40 warm-up steps, the resample at 40, 3 projected
+DTU_MVR_VALIDATE = 43      # the validate cadence's one evaluation, at its 43
+# the kernels of the G phase's path: launched in every projected step; the
+# MLP, sampler and march kernels have no instance for a field with
+# positional encoding (neither has the JAX package) and must not launch
+DTU_MVR_KERNELS = ("knn", "splat_select", "splat_fine")
+DTU_MVR_NO_KERNEL = ("fused_mlp", "fused_igr", "fused_sampler", "trace_march")
+
+
+def kernel_of(source: str) -> str:
+    """The launch counter's name of a kernels-line row's source file."""
+    name = os.path.splitext(os.path.basename(source))[0]
+    return {"fused_trace": "trace_march"}.get(name, name)
+
+
+def dtu_mvr_phase(dev, kernels):
+    """Phase 17: the reference's main MVR configuration at full width
+    (isopoints_torch/configs/dtu_mvr_dir.yml over configs/dtu_mvr.yml, see
+    the module docstring). `kernels` are the launch counters. Returns (the
+    launches by kernel of the train_mvr run, the run)."""
+    import numpy as np
+
+    from isopoints_torch import create_mvr_data, generate_mvr, train_mvr
+    from isopoints_torch.factories import create_model
+    from isopoints_torch.misc.metrics import load_metrics
+    from isopoints_torch.models.generator import Generator
+    from isopoints_torch.ops import knn
+    from isopoints_torch.training import trainer as trainer_mod
+    from isopoints_torch.training.trainer import compute_loss
+    from isopoints_torch.utils import meshing
+
+    t17 = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in kernels}
+    # the plain f32 field, as the port's parity bars assume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_path = os.path.join("isopoints_torch", "configs", "dtu_mvr_dir.yml")
+    data_dir = os.path.join("out", "torch_data_dtu_torus")   # the config's
+    if not os.path.exists(os.path.join(data_dir, "cameras.npz")):
+        create_mvr_data.main(["torus", data_dir, "--dtu", "--image-size", "512",
+                              "--n-views", "8"])
+    stage_s = collections.defaultdict(list)
+    timing = stage_timer(stage_s)
+    rec = {"ms": {}, "launches": {}}
+    step_fn = trainer_mod.MVRTrainer.train_step
+
+    def rec_step(self, state, *args, **kw):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(self, state, *args, **kw)
+        torch.cuda.synchronize()
+        rec["ms"][state.it] = 1e3 * (time.perf_counter() - t)
+        rec["launches"][state.it] = {k: v - before[k] for k, v in counts().items()}
+        return out
+
+    out_dir = os.path.join("out", "torch_dtu_mvr_dir")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for k in kernels:
+        k.launches = 0
+    with patched((trainer_mod.MVRTrainer, "train_step", rec_step),
+                 (train_mvr, "_validate", timing("validate", train_mvr._validate))):
+        t = time.perf_counter()
+        run = train_mvr.main([cfg_path, "--out-dir", out_dir, "--max-iters",
+                              str(DTU_MVR_ITERS), "--print-every", "1000",
+                              "--validate-every", str(DTU_MVR_VALIDATE),
+                              "--checkpoint-every", "1000"])
+        wall = time.perf_counter() - t
+    launches = counts()
+    cfg, trainer, state = run.cfg, run.trainer, run.state
+    model = trainer.model
+    warm = trainer.cfg.warm_up_iters
+    width = (cfg.model.decoder_kwargs.hidden_size, cfg.model.decoder_kwargs.n_layers,
+             model.decoder.num_frequencies, cfg.training.n_rays,
+             model.ccfg.max_iso_per_batch, model.ccfg.n_points_per_cloud,
+             cfg.renderer.raster_params.image_size, model.raster_settings.image_size)
+    if width != (512, 8, 6, 2048, 4000, 8000, 512, 256):
+        fail(f"dtu_mvr_dir.yml: not the config's width (hidden, layers, frequencies, "
+             f"rays, visible, cloud, raster, visibility) {width}")
+    rows = load_metrics(os.path.join(out_dir, "metrics.jsonl"))
+    train_rows = [r for r in rows if "loss" in r]
+    eval_rows = [r for r in rows if any(k.startswith("eval_") for k in r)]
+    keys = ("loss", "loss_rgb", "loss_freespace", "loss_occupied", "loss_eikonal")
+    if [r["it"] for r in train_rows] != list(range(DTU_MVR_ITERS)) or not all(
+            math.isfinite(r[k]) for r in train_rows for k in keys):
+        fail(f"dtu_mvr_dir.yml: training rows {train_rows}")
+    if [r["it"] for r in eval_rows] != [DTU_MVR_VALIDATE] or not all(
+            math.isfinite(v) for k, v in eval_rows[0].items() if k != "ts"):
+        fail(f"dtu_mvr_dir.yml: evaluation rows {eval_rows}")
+    if not os.path.exists(os.path.join(out_dir, "model_best.npz")):
+        fail("dtu_mvr_dir.yml: no model_best.npz after the evaluation")
+    for it, lc in sorted(rec["launches"].items()):
+        if it > warm and any(lc[k] <= 0 for k in DTU_MVR_KERNELS):
+            fail(f"dtu_mvr_dir.yml: projected step {it} launched {lc}")
+    if any(launches[k] != 0 for k in DTU_MVR_NO_KERNEL):
+        fail(f"dtu_mvr_dir.yml: a kernel with no instance for this field launched: "
+             f"{launches}")
+    ms = rec["ms"]
+    w_ms = [ms[i] for i in range(1, warm)]
+    p_ms = [ms[i] for i in range(warm + 1, DTU_MVR_ITERS)]
+    print(f"dtu_mvr_dir.yml (configs/dtu_mvr.yml: IGR 8x512, 6 frequencies, "
+          f"skip at 4, neural texture; 2048 rays, 4000 of 8000 iso-points, 512-px "
+          f"rasters, 256-px visibility) on {data_dir}: {DTU_MVR_ITERS} iterations "
+          f"in {wall:.2f} s, the evaluation at its {DTU_MVR_VALIDATE} "
+          f"{sum(stage_s['validate']):.2f} s")
+    print(f"  steps (ms): the first {ms[0]:.2f}; warm-up its 1-{warm - 1} median "
+          f"{statistics.median(w_ms):.2f} (min {min(w_ms):.2f}, max {max(w_ms):.2f}); "
+          f"resample step at its {warm} "
+          f"{ms[warm]:.2f}; projected " + ", ".join(f"{v:.2f}" for v in p_ms)
+          + f" (median {statistics.median(p_ms):.2f})")
+    print("  launches by step (its 0, 1 and from the resample on): " + "; ".join(
+        f"{it}: " + ", ".join(f"{k} {v}" for k, v in lc.items() if v)
+        for it, lc in sorted(rec["launches"].items()) if it < 2 or it >= warm))
+    print(f"  launches in the run: {launches} (fused_mlp, fused_igr, fused_sampler "
+          f"and trace_march 0, as asserted)")
+    print(f"  losses (its 0, {warm - 1} and from the resample on): " + "; ".join(
+        f"{r['it']}: " + " ".join(f"{k}={r[k]:.6g}" for k in keys + ("n_iso",))
+        for r in train_rows if r["it"] in (0, warm - 1) or r["it"] >= warm)
+          + f"; n_iso by step {[int(r['n_iso']) for r in train_rows]}; overflow "
+          f"(trace, sampler) summed {sum(r['overflow_trace'] for r in train_rows)}, "
+          f"{sum(r['overflow_sampler'] for r in train_rows)}")
+    print(f"  evaluation: " + " ".join(f"{k}={v:.6g}" for k, v in eval_rows[0].items()
+                                       if k.startswith("eval_")))
+
+    # one projected step under the profiler: the device's busy share and
+    # the share of the plain MLP's products (the GEMM kernels)
+    it = state.it
+    batch = run.views(train_mvr.draw_views(0, it, 8))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = trainer.train_step(state, *batch)
+        torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t)
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    is_gemm = lambda n: any(s in n.lower() for s in ("gemm", "xmma", "cutlass"))
+    gemm = sum(e.time_range.elapsed_us() for e in dev_ev if is_gemm(e.name)) / 1e3
+    by_name = collections.Counter()
+    for e in dev_ev:
+        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    print(f"  a projected step (its {it}) profiled: {step_ms:.2f} ms wall, device "
+          f"{busy:.2f} ms ({100 * busy / step_ms:.1f}% busy); the plain MLP's GEMMs "
+          f"{gemm:.2f} ms = {100 * gemm / step_ms:.1f}% of the step, "
+          f"{100 * gemm / max(busy, 1e-9):.1f}% of device time; largest kernels: "
+          + "; ".join(f"{n} {v:.2f} ms" for n, v in by_name.most_common(5)))
+
+    # the same projected step's terms with the kernels and the plain versions
+    # (no kernel: plain rasterizer stages, dense kNN) on identical draws
+    it = state.it
+    img, mask, cam = run.views(train_mvr.draw_views(0, it, 8))
+    step = trainer.step_fn(True, trainer.scheduler.at(it)["n_rays"])
+    draws = trainer.draw(step.n_rays, tuple(img.shape[1:3]), img.shape[0],
+                         n_points=state.points.shape[1], n_eikonal=step.n_eikonal)
+    hp = {k: float(v) for k, v in trainer.scheduler.at(it).items()
+          if k in ("lambda_rgb", "lambda_freespace", "lambda_occupied", "sdf_alpha")}
+    hp["lambda_eikonal"] = trainer.cfg.lambda_eikonal
+    plain_model = create_model(cfg, device=dev)
+    plain_model.load_state_dict(model.state_dict())
+    plain_model.raster_settings = dataclasses.replace(model.raster_settings,
+                                                      use_pallas=False)
+    res, cmp_launches = {}, {}
+    for name, m in (("kernels", model), ("plain", plain_model)):
+        before = counts()
+        with patched(*(((knn, "knn_points_cuda", knn.knn_points_dense),)
+                       if name == "plain" else ())):
+            _, met, _, _, _ = compute_loss(
+                m, state.points, state.points_mask, draws.pixels, img, mask, cam,
+                draws.eikonal, draws.u_minsdf, hp, project=True,
+                proj_draws=draws.projected, spacing=state.spacing)
+        res[name] = {k: float(v.detach()) for k, v in met.items()}
+        cmp_launches[name] = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+    gap = max(abs(res["kernels"][k] - res["plain"][k]) / max(abs(res["plain"][k]), 1e-12)
+              for k in keys)
+    print(f"  a projected step (its {it}) with the kernels and with the plain "
+          f"versions on identical draws: {res}; launches {cmp_launches}; largest "
+          f"relative gap of the terms {gap:.3g} (rtol 1e-5)")
+    if res["kernels"]["n_iso"] != res["plain"]["n_iso"] or gap > 1e-5:
+        fail("dtu_mvr_dir.yml: the kernel and plain paths' terms differ beyond rtol 1e-5")
+    if cmp_launches["plain"] or not all(cmp_launches["kernels"].get(k, 0) > 0
+                                        for k in DTU_MVR_KERNELS):
+        fail(f"dtu_mvr_dir.yml: launches of the comparison {cmp_launches}")
+
+    # generation through the entry: the mesh at 256³ (the config's 512³,
+    # reduced), 4 views at the entry's 256 px
+    gen_dir = os.path.join(out_dir, "generation")
+    stage_s.clear()
+    with patched((meshing, "eval_sdf_grid", timing("grid", meshing.eval_sdf_grid)),
+                 (meshing, "marching_tetrahedra",
+                  timing("marching", meshing.marching_tetrahedra)),
+                 (meshing, "largest_component",
+                  timing("largest", meshing.largest_component)),
+                 (Generator, "raytrace_images", timing("render", Generator.raytrace_images))):
+        t = time.perf_counter()
+        verts, faces, rgba = generate_mvr.main([
+            cfg_path, "--checkpoint", os.path.join(out_dir, "model.npz"),
+            "--out-dir", gen_dir, "--mesh-resolution", "256"])
+        wall_g = time.perf_counter() - t
+    if len(faces) == 0 or not np.isfinite(verts).all() or not np.isfinite(rgba).all():
+        fail(f"dtu_mvr_dir.yml generation: {len(verts)} verts, {len(faces)} faces")
+    print(f"  generation (generate_mvr, mesh 256, reduced from the config's 512; "
+          f"{rgba.shape[0]} views at {rgba.shape[1]} px) in {wall_g:.2f} s: "
+          f"{len(verts)} verts, {len(faces)} faces; " + ", ".join(
+              f"{k} {sum(v):.3f} s ({len(v)})" for k, v in stage_s.items()))
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s")
+    return launches, run
+
+
+def parallel_phase(dev, run) -> None:
+    """Phase 18: parallel/ at world size 1 under NCCL: one projected step of
+    phase 17's state through `make_train_step` over a process group against
+    the same step without one (and a repeat of it), and the all-reduce's
+    time."""
+    import socket
+
+    import torch.distributed as dist
+
+    from isopoints_torch import train_mvr
+    from isopoints_torch.parallel.sharding import (Mesh, all_reduce_mean,
+                                                   make_mesh, make_train_step)
+
+    t18 = time.perf_counter()
+    trainer, state = run.trainer, run.state
+    model = trainer.model
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, dev)
+        if mesh.group is None or mesh.size != 1:
+            fail(f"parallel: make_mesh did not adopt the process group: {mesh}")
+        it = state.it
+        img, mask, cam = run.views(train_mvr.draw_views(0, it, 8))
+        n_rays = trainer.scheduler.at(it)["n_rays"]
+        kw = dict(n_eikonal_points=trainer.cfg.n_eikonal_points,
+                  learning_rate=trainer.cfg.learning_rate,
+                  grad_clip=trainer.cfg.grad_clip)
+        steps = {"no group": make_train_step(model, Mesh(), True, n_rays, **kw),
+                 "group": make_train_step(model, mesh, True, n_rays, **kw)}
+        draws = trainer.draw(steps["group"].n_rays, tuple(img.shape[1:3]),
+                             img.shape[0], n_points=state.points.shape[1],
+                             n_eikonal=steps["group"].n_eikonal)
+        hp = {k: float(v) for k, v in trainer.scheduler.at(it).items()
+              if k in ("lambda_rgb", "lambda_freespace", "lambda_occupied",
+                       "sdf_alpha")}
+        hp["lambda_eikonal"] = trainer.cfg.lambda_eikonal
+        saved = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def once(name):
+            model.load_state_dict(saved)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            opt, pts, msk, met, _ = steps[name](
+                state.opt_state, state.points, state.points_mask, state.spacing,
+                img, mask, cam, hp, draws)
+            torch.cuda.synchronize()
+            out = [v.clone() for v in model.state_dict().values()]
+            out += [opt.mu[k] for k in opt.mu] + [opt.nu[k] for k in opt.nu]
+            out += [pts, msk, torch.stack(list(met.values()))]
+            return out, 1e3 * (time.perf_counter() - t), met
+
+        a, a_ms, met = once("no group")
+        b, b_ms, _ = once("group")
+        c, c_ms, _ = once("no group")
+        model.load_state_dict(saved)
+        same = lambda x, y: all(torch.equal(u, v) for u, v in zip(x, y))
+        repeat_equal, group_equal = same(a, c), same(a, b)
+        n_par = sum(p.numel() for p in model.parameters())
+        grads = [torch.randn(p.shape, device=dev) for p in model.parameters()]
+        vals = torch.randn(len(met), device=dev)
+        ar_ms = time_ms(lambda: all_reduce_mean(grads + [vals], mesh))
+        flat = torch.randn(n_par + len(met), device=dev)
+        nccl_ms = time_ms(lambda: dist.all_reduce(flat, group=mesh.group))
+        print(f"parallel (world size 1, NCCL over tcp://127.0.0.1): a projected step "
+              f"of phase 17's state (its {it}) through make_train_step without a "
+              f"process group {a_ms:.2f} ms, with it {b_ms:.2f} ms, without again "
+              f"{c_ms:.2f} ms; parameters, Adam moments, the iso-point buffer and "
+              f"the metrics bit-equal with the group: {group_equal} (the repeat "
+              f"without: {repeat_equal})")
+        print(f"  the step's all-reduce of {n_par + len(met):,} floats "
+              f"({4 * (n_par + len(met)) / 2 ** 20:.2f} MiB; the gradients and "
+              f"metrics): all_reduce_mean {ar_ms:.4f} ms, the NCCL all_reduce alone "
+              f"{nccl_ms:.4f} ms (CUDA events, median of 7)")
+        if not group_equal:
+            fail("parallel: the step over the process group is not bit-equal to "
+                 "the step without one")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
 
 def outside_every_silhouette(dtu_dir: str, n: int, dev) -> torch.Tensor:
@@ -4188,6 +4503,12 @@ def main() -> None:
 
     # ---- 16. the ablation's data, arms, summary and scripts; DVR, occupancy, taps
     rows.append(ablation_phase(dev, kernels))
+
+    # ---- 17. configs/dtu_mvr.yml at full width; 18. parallel/ at world size 1
+    g_launches, g_run = dtu_mvr_phase(dev, kernels)
+    for r in rows:
+        r["dtu_mvr_launches"] = g_launches[kernel_of(r["source"])]
+    parallel_phase(dev, g_run)
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")

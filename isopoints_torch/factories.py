@@ -2,7 +2,10 @@
 the ported configs name: a SIREN or IGR (`decoder_type: sdf`) decoder, the
 combined or implicit model with the Phong or the neural texture, the DSS
 point model, the splat raster settings, the lights, the MVR, DTU and
-synthetic datasets)."""
+synthetic datasets, and the trainer over the ranks of a process group).
+An unknown decoder or model type raises ValueError with the reference's
+message; a dotted `decoder_type` (a class path, which for the JAX
+package names an `isopoints_tpu` class) raises NotImplementedError."""
 
 from typing import Optional
 
@@ -13,6 +16,7 @@ from isopoints_torch.models.combined import CombinedConfig, CombinedModel
 from isopoints_torch.models.fields import RenderingNetwork, SDFField, SirenField
 from isopoints_torch.models.implicit import ImplicitConfig, ImplicitModel
 from isopoints_torch.models.point import PointModel, PointModelConfig
+from isopoints_torch.parallel.sharding import make_mesh
 from isopoints_torch.rendering.lighting import DirectionalLights, PointLights
 from isopoints_torch.rendering.rasterizer import RasterizationSettings
 from isopoints_torch.training.scheduler import TrainerScheduler
@@ -24,10 +28,12 @@ def create_decoder(cfg: AttrDict, generator: Optional[torch.Generator] = None,
     """The decoder of `model.decoder_type` ('siren' | 'sdf') with
     `model.decoder_kwargs` (factories.py:24-35)."""
     dtype = cfg.model.get("decoder_type", "siren")
+    if "." in dtype:
+        raise NotImplementedError(f"a dotted decoder_type ({dtype!r}) is not "
+                                  "ported yet (ROADMAP Queue 1 item 3)")
     classes = {"siren": SirenField, "sdf": SDFField}
     if dtype not in classes:
-        raise NotImplementedError(f"decoder_type {dtype!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 3)")
+        raise ValueError(f"unknown decoder_type {dtype}")
     return classes[dtype](**dict(cfg.model.get("decoder_kwargs", {})),
                           generator=generator, device=device)
 
@@ -76,11 +82,16 @@ def create_model(cfg: AttrDict, generator: Optional[torch.Generator] = None,
         return CombinedModel(decoder, icfg, ccfg,
                              raster_settings=create_raster_settings(cfg),
                              rendering_net=rendering_net)
-    raise NotImplementedError(f"model type {mtype!r} is not ported yet")
+    raise ValueError(f"unknown model type {mtype}")
 
 
-def create_trainer(model, cfg: AttrDict, seed: int = 0,
-                   device="cuda") -> MVRTrainer:
+def create_trainer(model, cfg: AttrDict, seed: int = 0, device="cuda",
+                   n_devices: int = 1, views_sharded: bool = False
+                   ) -> MVRTrainer:
+    """The trainer of the config's `training` block (factories.py:82-99):
+    rays sharded over the ranks of `parallel.sharding.make_mesh(n_devices)`
+    (1: one rank, no process group; 0: every rank of the group), and with
+    `views_sharded` each rank passing only its share of the views."""
     tkw = dict(cfg.get("training", {}))
     sched_kw = {k[len("scheduler_"):]: v for k, v in tkw.items()
                 if k.startswith("scheduler_")}
@@ -88,7 +99,8 @@ def create_trainer(model, cfg: AttrDict, seed: int = 0,
                             if k in TrainerConfig.__dataclass_fields__})
     scheduler = TrainerScheduler(**sched_kw) if sched_kw else None
     return MVRTrainer(model, tcfg, scheduler=scheduler, seed=seed,
-                      device=device)
+                      device=device, mesh=make_mesh(n_devices, device),
+                      views_sharded=views_sharded)
 
 
 def create_dataset(cfg: AttrDict, device="cuda"):

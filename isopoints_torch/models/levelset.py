@@ -15,7 +15,11 @@ refresh) and the saliency insertion. Not ported, because no workload of
 either package reaches them (ROADMAP Queue 1 item 14): `project_points`'
 upsampling without a reference cloud (midpoint or edge-aware) and the
 unseeded (WLOP) bootstrap of `sample_uniform_iso_points`; those branches
-raise. The mesh-sharded projection waits for item 13.
+raise.
+
+With a `mesh` (parallel/sharding.py) of more than one rank, the Newton
+projection splits the points over the ranks and all-gathers the result
+(`_project_points_newton_sharded`); the callers pass the mesh down.
 
 Frozen surface points are re-attached to the parameters θ with
 `p0 − (f − sg f)·...`: the value is the frozen point, the θ-gradient is
@@ -27,6 +31,7 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.ops.knn import knn_gather, knn_points
@@ -84,15 +89,23 @@ def _newton_loop(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
 def project_points_newton(sdf_fn: SDFFn, points: torch.Tensor,
                           mask: torch.Tensor, max_iters: int = 10,
                           tolerance: float = 5e-5, step_clip: float = 0.1,
-                          sdf_fn_coarse: Optional[SDFFn] = None,
+                          mesh=None, sdf_fn_coarse: Optional[SDFFn] = None,
                           coarse_iters: int = 0,
                           coarse_tolerance: float = 1e-3
                           ) -> ProjectionResult:
-    """Project points onto the zero level set (levelset.py:92-134, without
-    the mesh). Hybrid schedule: with `sdf_fn_coarse` and `coarse_iters`
-    > 0, up to `coarse_iters` Newton steps run on the coarse fn to
+    """Project points onto the zero level set (levelset.py:92-134). Hybrid
+    schedule: with `sdf_fn_coarse` and `coarse_iters` > 0, up to
+    `coarse_iters` Newton steps run on the coarse fn to
     max(coarse_tolerance, tolerance), then the fine loop runs from there;
-    the result's mask always comes from fine values."""
+    the result's mask always comes from fine values. With a `mesh` of more
+    than one rank the points are split over the ranks; each point's
+    updates are masked, so the split changes no point's trajectory."""
+    if mesh is not None and mesh.size > 1:
+        return _project_points_newton_sharded(
+            sdf_fn, points, mask, mesh, max_iters=max_iters,
+            tolerance=tolerance, step_clip=step_clip,
+            sdf_fn_coarse=sdf_fn_coarse, coarse_iters=coarse_iters,
+            coarse_tolerance=coarse_tolerance)
     if coarse_iters > 0 and sdf_fn_coarse is not None:
         points, _, _ = _newton_loop(sdf_fn_coarse, points, mask, coarse_iters,
                                     max(coarse_tolerance, tolerance),
@@ -103,6 +116,31 @@ def project_points_newton(sdf_fn: SDFFn, points: torch.Tensor,
     return ProjectionResult(points=pts, normals=grad, mask=valid)
 
 
+def _project_points_newton_sharded(sdf_fn: SDFFn, points: torch.Tensor,
+                                   mask: torch.Tensor, mesh, **kw
+                                   ) -> ProjectionResult:
+    """The point axis split over the ranks (levelset.py:137-174): the
+    capacity padded to a multiple of the world size with masked points,
+    each rank projecting its contiguous slice (its loop stops on its own
+    points), the slices all-gathered in rank order and the padding cut."""
+    b, p, _ = points.shape
+    per = -(-p // mesh.size)
+    pad = per * mesh.size - p
+    if pad:
+        points = torch.cat([points, points.new_zeros((b, pad, 3))], 1)
+        mask = torch.cat([mask, mask.new_zeros((b, pad))], 1)
+    lo = mesh.rank * per
+    res = project_points_newton(sdf_fn, points[:, lo:lo + per].contiguous(),
+                                mask[:, lo:lo + per].contiguous(), **kw)
+
+    def gather(x):
+        parts = [torch.empty_like(x) for _ in range(mesh.size)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        return torch.cat(parts, 1)[:, :p]
+    return ProjectionResult(gather(res.points), gather(res.normals),
+                            gather(res.mask.to(torch.uint8)).bool())
+
+
 # ---------------------------------------------------------------------------
 # Repulsion resampling (levelset.py:180-213)
 # ---------------------------------------------------------------------------
@@ -110,7 +148,7 @@ def project_points_newton(sdf_fn: SDFFn, points: torch.Tensor,
 @torch.no_grad()
 def resample_repulsion(sdf_fn: SDFFn, points: torch.Tensor,
                        normals: torch.Tensor, mask: torch.Tensor,
-                       cfg: ProjectionConfig) -> ProjectionResult:
+                       cfg: ProjectionConfig, mesh=None) -> ProjectionResult:
     """Uniformise iso-points: a density-weighted tangential repulsion move
     followed by a 3-iteration re-projection, `sample_iters` times."""
     if cfg.sample_iters == 0:
@@ -135,7 +173,7 @@ def resample_repulsion(sdf_fn: SDFFn, points: torch.Tensor,
             eps_denom(torch.sum(w, dim=-1, keepdim=True), 1e-17)
         pts = torch.where(m[..., None], pts + move, pts)
         proj = project_points_newton(sdf_fn, pts, m, max_iters=3,
-                                     tolerance=cfg.proj_tolerance)
+                                     tolerance=cfg.proj_tolerance, mesh=mesh)
         pts, nrm, valid = proj
     return ProjectionResult(pts, nrm, valid)
 
@@ -228,8 +266,8 @@ def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
                    skip_upsampling: bool = True,
                    ref_points: Optional[torch.Tensor] = None,
                    ref_metric: Optional[torch.Tensor] = None,
-                   ref_mask: Optional[torch.Tensor] = None
-                   ) -> ProjectionResult:
+                   ref_mask: Optional[torch.Tensor] = None,
+                   mesh=None) -> ProjectionResult:
     """Newton projection with the config's iterations and tolerance
     (levelset.py:408-455); with `skip_resampling=False` the repulsion
     resampling (`cfg.sample_iters` rounds); then, with
@@ -243,15 +281,15 @@ def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
             f"or edge-aware) {_NOT_PORTED}")
     proj = project_points_newton(sdf_fn, points, mask,
                                  max_iters=cfg.proj_max_iters,
-                                 tolerance=cfg.proj_tolerance)
+                                 tolerance=cfg.proj_tolerance, mesh=mesh)
     if not skip_resampling:
-        proj = resample_repulsion(sdf_fn, *proj, cfg)
+        proj = resample_repulsion(sdf_fn, *proj, cfg, mesh=mesh)
     if skip_upsampling:
         return proj
     children, cmask = insert_around_salient(proj.points, proj.mask, ref_points,
                                             ref_metric, ref_mask)
     cproj = project_points_newton(sdf_fn, children, cmask, max_iters=10,
-                                  tolerance=cfg.proj_tolerance)
+                                  tolerance=cfg.proj_tolerance, mesh=mesh)
     pts, valid, nrm = _append_into_capacity(proj.points, proj.mask,
                                             proj.normals, cproj.points,
                                             cproj.mask, cproj.normals)
@@ -268,8 +306,8 @@ def sample_uniform_iso_points(sdf_fn: SDFFn, n_points: int,
                               init_mask: Optional[torch.Tensor] = None,
                               subsample_u: Optional[torch.Tensor] = None,
                               bounding_sphere_radius: float = 1.0,
-                              cfg: ProjectionConfig = ProjectionConfig()
-                              ) -> ProjectionResult:
+                              cfg: ProjectionConfig = ProjectionConfig(),
+                              mesh=None) -> ProjectionResult:
     """Uniform iso-point set seeded from the current cloud: project →
     repulsion (3 iterations when `cfg.sample_iters` is 0) → uniform random
     subsample when the seed is wider than `n_points` → midpoint-upsample
@@ -287,12 +325,12 @@ def sample_uniform_iso_points(sdf_fn: SDFFn, n_points: int,
              if init_mask is None else init_mask)
     proj = project_points_newton(sdf_fn, init_points, mask0,
                                  max_iters=cfg.proj_max_iters,
-                                 tolerance=cfg.proj_tolerance)
+                                 tolerance=cfg.proj_tolerance, mesh=mesh)
     inside = torch.linalg.norm(proj.points, dim=-1) < bounding_sphere_radius
     valid = proj.mask & inside
     rcfg = cfg if cfg.sample_iters > 0 else dataclasses.replace(cfg, sample_iters=3)
     pts, _, valid = resample_repulsion(sdf_fn, proj.points, proj.normals,
-                                       valid, rcfg)
+                                       valid, rcfg, mesh=mesh)
     if pts.shape[1] > n_points:
         if subsample_u is None:
             raise ValueError("a seed wider than n_points needs subsample_u")
@@ -302,7 +340,7 @@ def sample_uniform_iso_points(sdf_fn: SDFFn, n_points: int,
         valid = torch.gather(valid, 1, order)
     up, up_mask = midpoint_upsample(pts, valid, n_points, neighborhood_size=16)
     return project_points_newton(sdf_fn, up, up_mask, max_iters=10,
-                                 tolerance=cfg.proj_tolerance)
+                                 tolerance=cfg.proj_tolerance, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@
         [--out-dir DIR] [--device cuda|cpu] [--checkpoint-every N] \
         [--print-every N] [--exit-after SECONDS] [--fresh-keys] \
         [--profile-at IT] [--validate-every N] [--visualize-every N] \
-        [--eval-mesh-resolution R]
+        [--eval-mesh-resolution R] [--n-devices N] [--multihost]
+
+    torchrun --nproc-per-node N -m isopoints_torch.train_mvr CONFIG \
+        --n-devices N [--multihost]
 
 The config is read over configs/default.yaml, as train_mvr.py reads it.
 Builds the dataset (an MVR or DTU directory, or a synthetic shape rendered
@@ -39,9 +42,15 @@ OUT_DIR/model_best.npz (with its own saliency state). Every
 `--visualize-every` iterations (default off) the plain field is meshed at
 96³ into OUT_DIR/{it:06d}_mesh.ply.
 
-Not ported yet: more than one device (`--n-devices`, `--multihost`, ROADMAP
-Queue 1 item F); each raises when asked for. `main(argv)` returns the run's
-`TrainRun` for callers in the same process.
+`--n-devices N` shards each step's rays over the N processes of a torchrun
+launch (parallel/sharding.py; NCCL on the card, one card a process, gloo
+with `--device cpu`); without a launch, N > 1 raises ValueError. With
+`--multihost` each rank loads only its share of a step's views (one view a
+rank, the global batch drawn from (seed, it); parallel/data.py) and the
+step gathers them. Every rank validates, so that the ranks' generator chains
+stay equal; only rank 0 writes the config, metrics, checkpoints and
+meshes. `main(argv)` returns the run's `TrainRun` for callers in the same
+process.
 """
 
 import argparse
@@ -90,14 +99,13 @@ def _parse(argv):
     parser.add_argument("--validate-every", type=int, default=500)
     parser.add_argument("--visualize-every", type=int, default=-1)
     parser.add_argument("--eval-mesh-resolution", type=int, default=96)
-    parser.add_argument("--n-devices", type=int, default=1)
-    parser.add_argument("--multihost", action="store_true")
-    args = parser.parse_args(argv)
-    if args.n_devices != 1 or args.multihost:
-        raise NotImplementedError(
-            "--n-devices / --multihost: training on more than one device is "
-            "not ported yet (ROADMAP Queue 1 item F)")
-    return args
+    parser.add_argument("--n-devices", type=int, default=1,
+                        help="shard the rays over the N ranks of a torchrun "
+                             "launch (0 = every rank)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="each rank loads only its share of a step's "
+                             "views (one a rank); the step gathers them")
+    return parser.parse_args(argv)
 
 
 def _views(data, device):
@@ -155,17 +163,26 @@ def main(argv=None) -> TrainRun:
                                            create_trainer)
     from isopoints_torch.misc.checkpoints import CheckpointIO
     from isopoints_torch.misc.metrics import MetricsWriter
+    from isopoints_torch.parallel.data import local_view_indices
+    from isopoints_torch.parallel.sharding import any_rank, make_mesh
     from isopoints_torch.training.trainer import TrainState
     from isopoints_torch.utils.io import save_ply
     from isopoints_torch.utils.meshing import extract_mesh
 
     log = get_logger()
     device = torch.device(args.device)
+    # --multihost: the mesh spans every rank of the launch (train_mvr.py:71-74)
+    mesh = make_mesh(0 if args.multihost else args.n_devices, device)
+    if mesh.group is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    views_sharded = args.multihost and mesh.size > 1
+    is_main = mesh.rank == 0
     cfg = load_config(args.config, default_config_path())
     out_dir = args.out_dir or os.path.join(
         "out", "torch_" + os.path.splitext(os.path.basename(args.config))[0])
-    os.makedirs(out_dir, exist_ok=True)
-    save_config(os.path.join(out_dir, "config.yaml"), cfg)
+    if is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        save_config(os.path.join(out_dir, "config.yaml"), cfg)
 
     images, masks, get_camera, gt_points, gt_normals = _views(
         create_dataset(cfg, device=device), device)
@@ -187,7 +204,11 @@ def main(argv=None) -> TrainRun:
     model = create_model(
         cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
         device=device)
-    trainer = create_trainer(model, cfg, seed=args.seed, device=device)
+    trainer = create_trainer(model, cfg, seed=args.seed, device=device,
+                             n_devices=mesh.size, views_sharded=views_sharded)
+    if mesh.size > 1:
+        log.info("rank %d of %d; %s", mesh.rank, mesh.size,
+                 "views sharded" if views_sharded else "views replicated")
     if (trainer.cfg.saliency_sampling and gt_points is not None
             and cfg.training.get("saliency_ref_gt", False)):
         # an oracle: by default the reference cloud is seeded from the
@@ -207,6 +228,8 @@ def main(argv=None) -> TrainRun:
                               saliency=trainer.saliency_state())
 
     def save(name, **extra):
+        if not is_main:
+            return
         register(state)
         ckpt.save(name, it=state.it, rng_state=trainer.generators.state(),
                   **extra)
@@ -230,8 +253,17 @@ def main(argv=None) -> TrainRun:
         log.info("resumed from it=%d (%s generator state)", state.it,
                  "restored" if restore else "fresh")
 
-    metrics_writer = MetricsWriter(out_dir)
+    metrics_writer = MetricsWriter(out_dir) if is_main else None
     best_iou = -1.0
+
+    def step_views(it):
+        """Two views drawn from (seed, it); with views sharded, one a rank:
+        this rank's slice of the global batch drawn from (seed, it)."""
+        if not views_sharded:
+            return draw_views(args.seed, it, n_views)
+        return local_view_indices(draw_views(args.seed, it, n_views, mesh.size),
+                                  mesh.rank, mesh.size)
+
     watchdog_s = int(os.environ.get("ISOPOINTS_WATCHDOG_S", "600"))
     prof = None
     it0 = state.it
@@ -243,9 +275,9 @@ def main(argv=None) -> TrainRun:
                                                   exit=True)
             if it == args.profile_at:
                 prof = _start_profiler(device)
-            state, metrics = trainer.train_step(
-                state, *views(draw_views(args.seed, it, n_views)))
-            metrics_writer.log(it, metrics)
+            state, metrics = trainer.train_step(state, *views(step_views(it)))
+            if is_main:
+                metrics_writer.log(it, metrics)
             if prof is not None and it == args.profile_at + 4:
                 _stop_profiler(prof, device, os.path.join(out_dir, "profile"))
                 prof = None
@@ -261,19 +293,22 @@ def main(argv=None) -> TrainRun:
                 ev = _validate(trainer, state, it,
                                views(np.arange(min(2, n_views))),
                                gt_points, gt_normals, args.eval_mesh_resolution)
-                metrics_writer.log(it, ev, prefix="eval_")
+                if is_main:
+                    metrics_writer.log(it, ev, prefix="eval_")
                 log.info("eval it %05d %s", it, " ".join(
                     f"{k}={v:.4g}" for k, v in ev.items()))
                 if ev["iou_full"] > best_iou:
                     best_iou = ev["iou_full"]
                     save("model_best.npz", loss_val_best=best_iou)
-            if (args.visualize_every > 0 and it > 0
+            if (is_main and args.visualize_every > 0 and it > 0
                     and it % args.visualize_every == 0):
                 verts, faces = extract_mesh(model.sdf_fn(), resolution=96,
                                             device=device)
                 save_ply(os.path.join(out_dir, f"{it:06d}_mesh.ply"), verts,
                          faces=faces)
-            if args.exit_after > 0 and time.time() - t_start > args.exit_after:
+            # decided together, so that no rank waits in a step alone
+            if args.exit_after > 0 and any_rank(
+                    time.time() - t_start > args.exit_after, mesh, device):
                 save("model.npz")
                 log.info("exit-after reached; checkpointed at it=%d", state.it)
                 sys.exit(3)
@@ -282,7 +317,8 @@ def main(argv=None) -> TrainRun:
             faulthandler.cancel_dump_traceback_later()
         if prof is not None:
             prof.stop()
-        metrics_writer.close()
+        if metrics_writer is not None:
+            metrics_writer.close()
     if not trainer.check_state():
         raise SystemExit("non-finite parameters after training")
     save("model.npz")

@@ -2,15 +2,20 @@
 177-318, 321-460).
 
 `compute_loss` assembles the photoconsistency L1, the freespace /
-occupancy BCE and the eikonal loss exactly as the JAX version does with
-one device (n_dev = 1, so its local and global normalisers coincide).
-`MVRTrainer.train_step` replaces the jitted shard_map step of
-isopoints_tpu/parallel/sharding.py:85-127 on a single device: draw pixels,
-eikonal points and the phase's other random numbers, forward, backward,
-then clip by global norm and Adam(b1=0.9, b2=0.99, eps=1e-8) written out
-with optax's formulas (optax's clip divides by the norm without the +1e-6
-of `torch.nn.utils.clip_grad_norm_`). The update is applied in place to
-the model's parameters.
+occupancy BCE and the eikonal loss as the JAX version does, normalised per
+segment for a step sharded over `n_dev` ranks: sums over this rank's rays
+divide by the local pixel count, sums over the replicated iso-points by the
+global one. `MVRTrainer.train_step` runs the one step of
+parallel/sharding.py `make_train_step` (the JAX `shard_map` step of
+isopoints_tpu/parallel/sharding.py:53-140): draw the pixels, eikonal
+points and the phase's other random numbers full width, forward and
+backward on this rank's slice, average the gradients and metrics over the
+ranks, then clip by global norm and Adam(b1=0.9, b2=0.99, eps=1e-8) written
+out with optax's formulas (optax's clip divides by the norm without the
++1e-6 of `torch.nn.utils.clip_grad_norm_`). The update is applied in place
+to the model's parameters. Without a process group (world size 1) the step
+runs no collective. With `views_sharded` each rank passes its share of the
+views and the step gathers them.
 
 From `warm_up_iters` on, the step is projected: at `warm_up_iters` and
 every `resample_every` iterations the persistent iso-points are resampled
@@ -54,6 +59,7 @@ from isopoints_torch.models.levelset import (project_points,
 from isopoints_torch.ops.images import sample_image_at_ndc, sample_random_pixels
 from isopoints_torch.ops.knn import knn_gather, knn_points
 from isopoints_torch.ops.sampling import farthest_point_sampling
+from isopoints_torch.parallel.sharding import Mesh, make_train_step, replicate
 from isopoints_torch.rendering.rasterizer import splat_spacing
 from isopoints_torch.rng import GeneratorChain
 from isopoints_torch.training.losses import (
@@ -125,34 +131,53 @@ def compute_loss(model: CombinedModel, points, points_mask,
                  eikonal_points: torch.Tensor, u_minsdf: torch.Tensor,
                  hp: Dict[str, float], project: bool, training: bool = True,
                  proj_draws: Optional[ProjectedDraws] = None,
-                 spacing: Optional[torch.Tensor] = None
+                 spacing: Optional[torch.Tensor] = None,
+                 n_dev: int = 1, shard: int = 0
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                             Optional[torch.Tensor], Optional[torch.Tensor],
                             Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """Loss assembly (trainer.py:79-174 with n_dev = 1: the freespace
-    set's ray rows and iso-point rows share the normaliser 1/n_px).
-    Returns (total, metrics, new_points, new_points_mask, saliency): the
-    last is the detached (iso_points, per-point RGB residual, iso_mask)
-    that `MVRTrainer.update_ref_metric` takes."""
+    """Loss assembly (trainer.py:79-174) on rank `shard` of `n_dev`:
+    `ndc_pixels` is this rank's slice of the rays, while `eikonal_points`
+    and the projected draws' `ray_uniform` are full width and sliced here.
+    The RGB term of the projected phase (over replicated iso-points) and the
+    freespace set's iso-point rows divide by the global pixel count, the
+    ray rows, the occupancy and the warm-up RGB by the local one, so that
+    the mean of the ranks' losses is the global loss. Returns (total,
+    metrics, new_points, new_points_mask, saliency): the last is the
+    detached (iso_points, per-point RGB residual, iso_mask) that
+    `MVRTrainer.update_ref_metric` takes."""
     b, n_ray = ndc_pixels.shape[:2]
+    if proj_draws is not None:
+        proj_draws = proj_draws._replace(
+            ray_uniform=proj_draws.ray_uniform[:, shard * n_ray:(shard + 1) * n_ray])
     out, new_pts, new_mask = model(ndc_pixels, img, mask_img, camera,
                                    u_minsdf, points=points,
                                    points_mask=points_mask, project=project,
                                    training=training, draws=proj_draws,
                                    spacing=spacing)
-    n_px = float(b * n_ray)
+    n_px_local = float(b * n_ray)
+    n_px_global = n_px_local * n_dev
 
     rgb_diff = torch.sum(torch.abs(out.iso_rgb - out.iso_rgb_gt), dim=-1)
     loss_rgb = torch.sum(torch.where(out.iso_mask, rgb_diff,
-                                     torch.zeros_like(rgb_diff))) / n_px
+                                     torch.zeros_like(rgb_diff))) / (
+        n_px_global if project else n_px_local)
     alpha = hp["sdf_alpha"]
     free_elems = sdf_freespace_loss(out.sdf_freespace, alpha=alpha,
                                     mask=out.freespace_mask, reduction="none")
-    loss_free = torch.sum(free_elems * (1.0 / n_px))
+    # the freespace set is [n_ray ray rows | replicated iso-point rows]
+    nf = free_elems.shape[1]
+    w_free = torch.cat([
+        torch.full((n_ray,), 1.0 / n_px_local, device=free_elems.device),
+        torch.full((nf - n_ray,), 1.0 / n_px_global, device=free_elems.device)])
+    loss_free = torch.sum(free_elems * w_free)
     loss_occ = sdf_occupancy_loss(out.sdf_occupancy, alpha=alpha,
                                   mask=out.occupancy_mask,
-                                  reduction="sum") / n_px
-    loss_eik = eikonal_loss(model.normals_from_grad(eikonal_points))
+                                  reduction="sum") / n_px_local
+    # eikonal: this rank's slice of the full-width uniform set
+    n_eik = max(eikonal_points.shape[1] // n_dev, 1)
+    loss_eik = eikonal_loss(model.normals_from_grad(
+        eikonal_points[:, shard * n_eik:(shard + 1) * n_eik]))
 
     total = (hp["lambda_rgb"] * loss_rgb
              + hp["lambda_freespace"] * loss_free
@@ -160,9 +185,12 @@ def compute_loss(model: CombinedModel, points, points_mask,
              + hp["lambda_eikonal"] * loss_eik)
     metrics = {"loss": total, "loss_rgb": loss_rgb,
                "loss_freespace": loss_free, "loss_occupied": loss_occ,
-               "loss_eikonal": loss_eik, "n_iso": torch.sum(out.iso_mask),
-               "overflow_trace": out.overflow_trace,
-               "overflow_sampler": out.overflow_sampler}
+               "loss_eikonal": loss_eik,
+               # counts over sharded sets are scaled so that the mean over
+               # the ranks is the global count
+               "n_iso": torch.sum(out.iso_mask) * (1 if project else n_dev),
+               "overflow_trace": out.overflow_trace * n_dev,
+               "overflow_sampler": out.overflow_sampler * n_dev}
     saliency = (out.iso_points.detach(), rgb_diff.detach(), out.iso_mask)
     return total, metrics, new_pts, new_mask, saliency
 
@@ -191,15 +219,23 @@ def clip_and_adam(params: Dict[str, torch.Tensor],
 
 
 class MVRTrainer:
-    """Single-device trainer (reference Trainer)."""
+    """Host-side orchestration (reference Trainer) over `mesh`, the ranks
+    of parallel/sharding.py (default: one, no process group). Under a
+    process group the model's parameters are first taken from rank 0."""
 
     def __init__(self, model: CombinedModel,
                  cfg: TrainerConfig = TrainerConfig(),
                  scheduler: Optional[TrainerScheduler] = None,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh: Optional[Mesh] = None,
+                 views_sharded: bool = False):
         self.model = model
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else Mesh()
+        self.views_sharded = views_sharded
+        self._steps = {}
+        if model is not None:
+            replicate(model, self.mesh)
         self.scheduler = scheduler or TrainerScheduler(
             init_n_rays=cfg.n_rays, init_lambda_rgb=cfg.lambda_rgb,
             init_lambda_freespace=cfg.lambda_freespace,
@@ -228,15 +264,17 @@ class MVRTrainer:
                           points=points, points_mask=mask, it=0)
 
     def draw(self, n_rays: int, image_size: Tuple[int, int],
-             batch_size: int, n_points: Optional[int] = None) -> StepDraws:
+             batch_size: int, n_points: Optional[int] = None,
+             n_eikonal: Optional[int] = None) -> StepDraws:
         """One step's random numbers; with `n_points` (the iso-point
-        buffer's width) also the projected forward's."""
+        buffer's width) also the projected forward's. `n_eikonal` defaults
+        to the config's count."""
         g = self.generators.next()
         dev = self.device
         pixels = sample_random_pixels(g, n_rays, image_size, batch_size,
                                       device=dev)
-        eik = torch.rand((1, self.cfg.n_eikonal_points, 3), generator=g,
-                         device=dev) * 2.0 - 1.0
+        eik = torch.rand((1, n_eikonal or self.cfg.n_eikonal_points, 3),
+                         generator=g, device=dev) * 2.0 - 1.0
         u = torch.rand((self.model.raytrace_cfg.n_steps,), generator=g,
                        device=dev)
         proj = None
@@ -287,29 +325,40 @@ class MVRTrainer:
               ("lambda_rgb", "lambda_freespace", "lambda_occupied",
                "sdf_alpha")}
         hp["lambda_eikonal"] = float(self.cfg.lambda_eikonal)
+        step = self.step_fn(project, hp_host["n_rays"])
         if draws is None:
-            draws = self.draw(hp_host["n_rays"], tuple(img.shape[1:3]),
-                              img.shape[0],
-                              n_points=points.shape[1] if project else None)
-        total, metrics, new_pts, new_mask, saliency = compute_loss(
-            self.model, points, points_mask, draws.pixels, img,
-            mask_img, camera, draws.eikonal, draws.u_minsdf, hp,
-            project=project, proj_draws=draws.projected, spacing=spacing)
-        params = self.params()
-        grads = dict(zip(params, torch.autograd.grad(total,
-                                                     list(params.values()))))
-        opt_state = clip_and_adam(params, grads, state.opt_state,
-                                  self.cfg.learning_rate, self.cfg.grad_clip)
+            # full width: the batch of every rank's views, the rounded-up
+            # ray and eikonal counts
+            n_views = img.shape[0] * (self.mesh.size if self.views_sharded else 1)
+            draws = self.draw(step.n_rays, tuple(img.shape[1:3]), n_views,
+                              n_points=points.shape[1] if project else None,
+                              n_eikonal=step.n_eikonal)
+        opt_state, new_pts, new_mask, metrics, saliency = step(
+            state.opt_state, points, points_mask, spacing, img, mask_img,
+            camera, hp, draws)
         if self.cfg.saliency_sampling and project:
             self.update_ref_metric(*saliency)
         names: List[str] = list(metrics)
-        values = torch.stack([metrics[k].detach().float() for k in names])
+        values = torch.stack([metrics[k] for k in names])
         host = dict(zip(names, values.tolist()))   # one device->host copy
         # the cached spacing stays only while it matches the new buffer
         keep = spacing is not None and spacing.shape == new_pts.shape[:2]
         return (TrainState(opt_state=opt_state, points=new_pts,
                            points_mask=new_mask, it=it + 1,
                            spacing=spacing if keep else None), host)
+
+    def step_fn(self, project: bool, n_rays: int):
+        """The `make_train_step` step of this phase and ray count, built
+        once (trainer.py:194-210)."""
+        key = (project, n_rays)
+        if key not in self._steps:
+            self._steps[key] = make_train_step(
+                self.model, self.mesh, project, n_rays,
+                n_eikonal_points=self.cfg.n_eikonal_points,
+                views_sharded=self.views_sharded,
+                learning_rate=self.cfg.learning_rate,
+                grad_clip=self.cfg.grad_clip)
+        return self._steps[key]
 
     # ---- the saliency reference cloud (trainer.py:321-414)
     def saliency_state(self) -> Optional[Dict[str, np.ndarray]]:
@@ -418,14 +467,14 @@ class MVRTrainer:
         res = sample_uniform_iso_points(
             f, n_points, init_points, init_mask, subsample_u=subsample_u,
             bounding_sphere_radius=self.model.cfg.object_bounding_sphere,
-            cfg=pcfg)
+            cfg=pcfg, mesh=self.mesh)
         if (self.cfg.saliency_sampling and self.ref_points is not None
                 and float(torch.max(self.ref_stat_n)) > 0):
             res = project_points(
                 f, res.points, res.mask, pcfg, skip_resampling=True,
                 skip_upsampling=False, ref_points=self.ref_points,
                 ref_metric=self.ref_stat_mean,
-                ref_mask=self.ref_mask & (self.ref_stat_n > 0))
+                ref_mask=self.ref_mask & (self.ref_stat_n > 0), mesh=self.mesh)
         return res.points, res.mask
 
     # ---- evaluation (trainer.py:463-529)

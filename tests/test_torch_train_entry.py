@@ -21,8 +21,9 @@ from a 6-view 32-px torus directory written by the port. Held here:
   nothing; the hang watchdog is armed each iteration and cancelled on
   return and on exit.
 - `saliency_ref_gt` seeds the reference cloud from the data's GT points.
-- `MetricsWriter` / `load_metrics` against JAX's; the flags of parts not
-  ported yet (more than one device) raise.
+- `MetricsWriter` / `load_metrics` against JAX's; `--n-devices 2` without a
+  torchrun launch raises, `--n-devices 0` and `--multihost` run on the one
+  rank (tests/test_torch_parallel.py launches two).
 """
 
 import logging
@@ -314,12 +315,21 @@ def test_metrics_writer_against_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--n-devices", "2"], "item F"), (["--n-devices", "0"], "item F"),
-    (["--multihost"], "item F")])
+    (["--n-devices", "2"], "torchrun"), (["--n-devices", "0"], None),
+    (["--multihost"], None)])
 def test_unported_flags_raise(setup, tmp_path, flags, match):
+    """The multi-device flags without a torchrun launch: N > 1 devices raise
+    ValueError naming the launch; every rank (0) and `--multihost` take the
+    one rank there is and train as without them."""
     _, cfgs, _ = setup
-    with pytest.raises(NotImplementedError, match=match):
-        _train(cfgs[False], tmp_path, 1, *flags)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            _train(cfgs[False], tmp_path, 1, *flags)
+        return
+    run = _train(cfgs[False], tmp_path, 1, *flags)
+    assert run.trainer.mesh.size == 1 and not run.trainer.views_sharded
+    rows = _rows(tmp_path)
+    assert len(rows) == 1 and np.isfinite(rows[0]["loss"])
 
 
 def test_unported_data_raises(setup, tmp_path):
