@@ -283,10 +283,35 @@ Phases, each fatal on failure:
      step of phase 17's state through `make_train_step` over the process
      group bit-equal to the step without one (a repeat without it printed
      beside), and the step's all-reduce timed;
+  19. the point-set library at full width (`pointset_phase`; every part
+     with every launch counter set to 0 just before and read just after,
+     its kernels launched and no plain version called, then again with
+     every plain version and no launch; its time and its launches by
+     kernel and shape printed): (a) the kNN kernel at k = 17, 24, 31 and 32
+     (a warp a query) on `knn_clouds` and an 8000-point sphere, with and
+     without self-exclusion, bit for bit, and timed at the RIMLS losses'
+     shape (2 x 5000, k = 32); (b) on phase 4's SIREN 3x256 (fused_mlp,
+     f32 value+grad) at the config's 8000-point capacity: the unseeded WLOP
+     bootstrap, `project_points` with midpoint upsampling (k 31) and with
+     edge-aware upsampling, from the resample's 6000-point buffer and 2000
+     cube seeds (counts within 0.5% of the capacity, every valid |f| within
+     the tolerance); (c) on a 20,000-point subsample of phase 15's scan
+     with its data normals: `remove_outliers` with 1% planted blobs (all
+     dropped; on the noise-free torus the torus kept), `resample_uniformly`
+     (its count kept), `ear_lop_move` (k 17), `project_to_latent_surface`
+     (the median |torus_sdf| lowered); (d) the RIMLS `projection_loss` and
+     `repulsion_loss` at knn_k 32 on phase 9's clouds, values and
+     gradients at rtol 1e-5; (e) phase 8's splat frame with
+     `Vrk_isotropic=False` held as phase 8 holds its frame,
+     `visible_point_mask` against the plain scatter, and a point model
+     frame with `normalize_weights=False`; (f) `signed_distance_loss` on
+     phase 16's compound mesh at 4096 points near it, the card against the
+     CPU on 512 of them (rtol 1e-5), its sign against `compound_sdf`'s
+     past one 128³ cell (>= 99.9%);
 then the JSON line {"kernels": [...]} (row 4 also at the statistics', the
-chamfer's, the IMLS and the DTU shapes; the SIREN-path rows with their
-launches in 13 (b) and (e), 14 (b) and (d) and 15; the raymesh row from 16
-(a)) and the device line {"ok": true, "device": {...}}. Phase 6 also prints
+chamfer's, the IMLS, the DTU and the RIMLS (`rimls_*`) shapes; the
+SIREN-path rows with their launches in 13 (b) and (e), 14 (b) and (d) and
+15; the raymesh row from 16 (a)) and the device line {"ok": true, "device": {...}}. Phase 6 also prints
 isopoints_torch.bench's roofline line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -533,7 +558,7 @@ def dtu_phase(dev, kernels) -> dict:
 
     import numpy as np
 
-    from isopoints_torch import train_dtu_points
+    from isopoints_torch import bench, train_dtu_points
     from isopoints_torch.core.cloud import PointCloud
     from isopoints_torch.data import synthetic
     from isopoints_torch.ops import fused_mlp, knn
@@ -1688,6 +1713,432 @@ def parallel_phase(dev, run) -> None:
     print(f"phase 18: {time.perf_counter() - t18:.1f} s")
 
 
+# phase 19's kNN orders past 16 (a warp a query) and its known answers. The
+# bars were set before the first chip run from a CPU rehearsal of the same
+# code on the same data (PERF.md §6): on a noise-free torus with the
+# planted blobs, remove_outliers kept 100% of the torus and dropped 100% of
+# the blobs; on the noisy scan it dropped every blob (and, at the scan's
+# noise sigma 0.02, nearly every scan point); the latent projection lowered
+# the median |torus_sdf| of the scan's subsample from 0.0133 to 0.0123; the
+# signed distance's sign matched compound_sdf's on every rehearsed point
+# more than a 128³ cell from the surface
+PS_KS = (17, 24, 31, 32)
+PS_SCAN_POINTS = 20_000    # (c): the subsample of phase 15's scan
+PS_BLOBS, PS_BLOB_POINTS, PS_BLOB_SIGMA = 10, 20, 0.05   # 1% planted outliers
+PS_BLOB_DROP = 0.99        # share of the planted points remove_outliers drops
+PS_CLEAN_KEEP = 0.99       # share of a noise-free torus it keeps
+PS_SDL_POINTS = 4096       # (f): points near the compound mesh
+PS_SDL_CPU = 512           # of them, the CPU reference's (17.88 s on the GPU host)
+PS_SIGN_BAR = 0.999        # sign agreement with compound_sdf past one cell
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of every plain version a kernel stands for (the
+    dense kNN, the plain SIREN value and gradient, the plain selection,
+    fine stage, zbuf and occupancy backward), by name, while the block
+    runs."""
+    from isopoints_torch.ops import fused_mlp, knn
+    from isopoints_torch.rendering import occ_bwd, rasterizer, select, splat
+    calls = collections.Counter()
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    triples = [(knn, "knn_points_dense", counting("knn", knn.knn_points_dense))]
+    for mod, names in ((select, ("select_candidates_plain",)),
+                       (splat, ("rasterize_fine_plain", "zbuf_backward_points_plain")),
+                       (occ_bwd, ("occ_backward_plain",)),
+                       (rasterizer, ("select_candidates_plain", "rasterize_fine_plain",
+                                     "zbuf_backward_points_plain",
+                                     "occ_backward_plain"))):
+        triples += [(mod, n, counting(n, getattr(mod, n))) for n in names]
+    plain = {k: dict(v) for k, v in (("_PLAIN", fused_mlp._PLAIN),
+                                     ("_PLAIN_GRAD", fused_mlp._PLAIN_GRAD))}
+    for attr, table in plain.items():
+        getattr(fused_mlp, attr).update(
+            {kind: counting(f"mlp {kind}", fn) for kind, fn in table.items()})
+    try:
+        with patched(*triples):
+            yield calls
+    finally:
+        for attr, table in plain.items():
+            getattr(fused_mlp, attr).update(table)
+
+
+def pointset_phase(dev, kernels, p4, scene, pmodel, pcam) -> dict:
+    """Phase 19: the point-set library at full width (see the module
+    docstring). `p4`: phase 4's model, capacity and resample buffer;
+    `scene`: phase 8's splat frame; `pmodel`, `pcam`: phase 9's point
+    model and views. Returns the `rimls_*` keys of the knn row."""
+    import numpy as np
+
+    from isopoints_torch import bench, train_dtu_points
+    from isopoints_torch.core.cloud import PointCloud
+    from isopoints_torch.data import synthetic
+    from isopoints_torch.make_ablation_data import compound_sdf
+    from isopoints_torch.models import levelset
+    from isopoints_torch.ops import fused_mlp, knn
+    from isopoints_torch.ops import points as ops_points
+    from isopoints_torch.ops.imls import project_to_latent_surface
+    from isopoints_torch.rendering.rasterizer import (compute_splat_params,
+                                                      visible_point_mask)
+    from isopoints_torch.rendering.renderer import render_pointcloud
+    from isopoints_torch.training import losses
+    from isopoints_torch.utils import meshing
+    from isopoints_torch.utils.io import read_ply
+    from isopoints_torch.workloads import dtu_points
+
+    t19 = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in kernels}
+
+    def run(label, fn, plain=False):
+        """fn() with every launch counter 0 just before and read just after,
+        the plain versions' calls counted, the kNN and fused_mlp launches
+        recorded by shape; with `plain` the kNN kernel swapped for its plain
+        version. Returns (out, launches, plain calls, shapes, seconds)."""
+        shapes = collections.Counter()
+        knn_cuda, siren_cuda = knn.knn_points_cuda, fused_mlp.siren_forward_cuda
+
+        def rec_knn(q, p, qm, pm, k, exclude_self=False):
+            shapes[f"knn {q.shape[0]}x{q.shape[1]} of {p.shape[1]} k={k}"] += 1
+            return knn_cuda(q, p, qm, pm, k, exclude_self)
+
+        def rec_siren(pack, x, with_grad, bf16=False):
+            shapes[f"fused_mlp {'value+grad' if with_grad else 'value'} "
+                   f"{'bf16 ' if bf16 else ''}n={x.shape[0]}"] += 1
+            return siren_cuda(pack, x, with_grad, bf16)
+
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with plain_calls() as pc:
+            # inside: the swapped-in dense kNN's calls count as plain
+            swaps = ([(knn, "knn_points_cuda", knn.knn_points_dense)] if plain else
+                     [(knn, "knn_points_cuda", rec_knn),
+                      (fused_mlp, "siren_forward_cuda", rec_siren)])
+            with patched(*swaps):
+                out = fn()
+            torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        launched = {k: v for k, v in counts().items() if v}
+        if plain:
+            if launched:
+                fail(f"phase 19 {label}, plain versions: kernels launched {launched}")
+            if not pc:
+                fail(f"phase 19 {label}, plain versions: no plain version ran")
+        elif pc:
+            fail(f"phase 19 {label}: plain versions ran beside the kernels: {dict(pc)}")
+        print(f"phase 19 {label} ({'plain versions' if plain else 'kernels'}): "
+              f"{s:.3f} s; launches {launched or 'none'}"
+              + (f"; plain calls {dict(pc)}" if plain else
+                 f"; by shape {dict(shapes)}"))
+        return out, counts(), dict(pc), shapes, s
+
+    def launched(label, c, names):
+        for name in names:
+            if c[name] <= 0:
+                fail(f"phase 19 {label}: kernel {name} was not launched")
+
+    # ---- (a) the kNN kernel at 16 < k <= 32 (a warp a query)
+    g = torch.Generator(device=dev).manual_seed(19)
+    v = torch.randn((2, 8000, 3), generator=g, device=dev)
+    sphere = ("sphere", *(0.5 * v / v.norm(dim=-1, keepdim=True),) * 2,
+              *(torch.rand((2, 8000), generator=g, device=dev) < 0.95,) * 2, True)
+    cases = 0
+    for k in kernels:
+        k.launches = 0
+    for k in PS_KS:
+        for label, q, pts, qm, pm, is_self in knn_clouds(dev) + [sphere]:
+            for ex in ((False, True) if is_self else (False,)):
+                knn_equal(q, pts, qm, pm, k, ex, label)
+                cases += 1
+    if counts()["knn"] != cases:
+        fail(f"phase 19 (a): {counts()['knn']} kNN launches for {cases} cases")
+    print(f"phase 19 (a): the kNN kernel at k = {PS_KS} on knn_clouds' adversarial "
+          f"clouds and an 8000-point sphere, with and without self-exclusion: "
+          f"{cases} cases, distances, indices and masks equal to the plain "
+          f"version's bit for bit")
+    # the RIMLS losses' shape: phase 9's cloud in its 2 views, k = 32
+    x = pmodel.points.detach().expand(pcam.batch_size, -1, -1).contiguous()
+    xn = pmodel.normals().detach().expand(pcam.batch_size, -1, -1).contiguous()
+    xm = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+    knn_equal(x, x, xm, xm, 32, True, "RIMLS shape")
+    r_ms = time_ms(lambda: knn.knn_points(x, x, xm, xm, k=32, exclude_self=True))
+    r_pms = time_ms(lambda: knn.knn_points(x, x, xm, xm, k=32, exclude_self=True,
+                                           method="dense"), reps=3)
+    nv = xm.sum(-1).double()
+    # N·P distance evaluations of 9 FLOP (as row 4); xyz + mask in, k pairs out
+    r_b = bound_ms(9.0 * float((nv * nv).sum()),
+                   x.shape[0] * (x.shape[1] * 13 + x.shape[1] * 32 * 12))
+    print(f"knn at the RIMLS shape ({x.shape[0]} x {x.shape[1]}, k=32, "
+          f"self-excluded): kernel {r_ms:.4f} ms  plain {r_pms:.3f} ms  bound "
+          f"{r_b[0]:.4f} ms ({r_b[1]})")
+
+    # ---- (b) phase 4's SIREN 3x256 at the projected config's capacity
+    model, cap = p4["model"], p4["cap"]
+    f_k = model.trace_sdf_fn()
+    f_p = fused_mlp.PlainSDF(fused_mlp.SirenPack(model.decoder))
+    pcfg, radius = model.proj_cfg, model.cfg.object_bounding_sphere
+    tol = pcfg.proj_tolerance
+    cube = torch.rand((1, 4 * cap, 3), generator=g, device=dev)
+    noise = torch.randn((1, cap, 3), generator=g, device=dev)   # WLOP keeps 1/4
+    res_pts, res_mask = p4["res"]
+    n_free = cap - res_pts.shape[1]
+    buf = torch.cat([res_pts, (torch.rand((1, n_free, 3), generator=g, device=dev)
+                               - 0.5) * 2.0 * radius], 1)
+    bmask = torch.cat([res_mask, torch.ones((1, n_free), dtype=torch.bool,
+                                            device=dev)], 1)
+    parts = (
+        ("(b) unseeded bootstrap", lambda f: levelset.sample_uniform_iso_points(
+            f, cap, None, bounding_sphere_radius=radius, cfg=pcfg, cube_u=cube,
+            wlop_noise=noise)),
+        ("(b) project_points, midpoint upsampling", lambda f: levelset.project_points(
+            f, buf, bmask, pcfg, skip_upsampling=False)),
+        ("(b) project_points, edge-aware upsampling", lambda f: levelset.project_points(
+            f, buf, bmask, pcfg, skip_upsampling=False, edge_aware=True)))
+    print(f"phase 19 (b): capacity {cap}; the upsampling's input: the resample's "
+          f"{res_pts.shape[1]}-point buffer ({int(res_mask.sum())} valid) and "
+          f"{n_free} cube seeds, target {int(bmask.sum())}; tolerance {tol}")
+    for label, fn in parts:
+        outs = {}
+        for plain, f in ((False, f_k), (True, f_p)):
+            out, c, _, _, _ = run(label, lambda: fn(f), plain)
+            if not plain:
+                launched(label, c, ("fused_mlp", "knn"))
+            n = int(out.mask.sum())
+            fv = f(out.points[out.mask][None])
+            if (abs(n - cap) > 0.005 * cap or not torch.isfinite(out.points).all()
+                    or float(fv.abs().max()) > tol):
+                fail(f"phase 19 {label} ({'plain' if plain else 'kernels'}): "
+                     f"{n} of {cap} points (bar: within 0.5%), max |f| "
+                     f"{float(fv.abs().max()):.3g} (tol {tol})")
+            outs[plain] = out
+        a, b = outs[False], outs[True]
+        d = torch.cdist(a.points[a.mask], b.points[b.mask],
+                        compute_mode="donot_use_mm_for_euclid_dist").amin(dim=1)
+        print(f"  {label}: counts kernels {int(a.mask.sum())} / plain "
+              f"{int(b.mask.sum())} of {cap}; the kernel run's points within "
+              f"1e-5 / 1e-4 of a plain run's: {float((d <= 1e-5).float().mean()):.4f}"
+              f" / {float((d <= 1e-4).float().mean()):.4f}")
+        if abs(int(a.mask.sum()) - int(b.mask.sum())) > 0.005 * cap:
+            fail(f"phase 19 {label}: kernel and plain counts differ by > 0.5%")
+
+    # ---- (c) a subsample of phase 15's noisy torus scan
+    scan = os.path.join(ROOT, "out", "dtu_torus_1m.ply")
+    sub, _ = train_dtu_points.load_cloud(scan, 0.0, PS_SCAN_POINTS, 19, device=dev)
+    sub = torch.as_tensor(sub, device=dev)[None]
+    sm = torch.ones(sub.shape[:2], dtype=torch.bool, device=dev)
+    sn = dtu_points.data_normals(sub, sm)
+    rng = np.random.RandomState(19)
+    ang = np.arange(PS_BLOBS) * 2 * np.pi / PS_BLOBS
+    centers = np.stack([0.4 * np.cos(ang), 0.4 * np.sin(ang),
+                        np.where(np.arange(PS_BLOBS) % 2 == 0, 0.6, -0.6)], -1)
+    blobs = torch.as_tensor((centers[:, None] + PS_BLOB_SIGMA * rng.randn(
+        PS_BLOBS, PS_BLOB_POINTS, 3)).reshape(1, -1, 3).astype(np.float32), device=dev)
+    tsdf = synthetic.torus_sdf()
+    clean = levelset.project_points_newton(tsdf, sub, sm, max_iters=30,
+                                           tolerance=1e-5).points
+    n_bl = blobs.shape[1]
+    for label, base in (("noisy scan", sub), ("noise-free torus", clean)):
+        xs = torch.cat([base, blobs], 1)
+        xsm = torch.ones(xs.shape[:2], dtype=torch.bool, device=dev)
+        keep = {}
+        for plain in (False, True):
+            keep[plain], c, _, _, _ = run(f"(c) remove_outliers, {label}",
+                                          lambda: ops_points.remove_outliers(xs, xsm),
+                                          plain)
+            if not plain:
+                launched("(c) remove_outliers", c, ("knn",))
+        if not torch.equal(keep[False], keep[True]):
+            fail(f"phase 19 (c) remove_outliers ({label}): kernel and plain masks differ")
+        dropped = 1.0 - float(keep[False][0, -n_bl:].float().mean())
+        kept = float(keep[False][0, :-n_bl].float().mean())
+        print(f"  remove_outliers (k 16) on the {label} + {n_bl} planted points: "
+              f"planted dropped {dropped:.4f} (bar {PS_BLOB_DROP}), the rest kept "
+              f"{kept:.4f}" + (f" (bar {PS_CLEAN_KEEP})" if base is clean else ""))
+        if dropped < PS_BLOB_DROP or (base is clean and kept < PS_CLEAN_KEEP):
+            fail(f"phase 19 (c) remove_outliers ({label}): the known answer fails")
+    rs_noise = torch.randn((1, PS_SCAN_POINTS // 2, 3), generator=g, device=dev)
+    steps = (("(c) resample_uniformly", lambda: ops_points.resample_uniformly(
+                 sub, sm, rs_noise)),
+             ("(c) ear_lop_move", lambda: ops_points.ear_lop_move(sub, sn, sm)),
+             ("(c) project_to_latent_surface",
+              lambda: project_to_latent_surface(sub, sn, sm)))
+    outs = {}
+    for label, fn in steps:
+        o = {}
+        for plain in (False, True):
+            o[plain], c, _, _, _ = run(label, fn, plain)
+            if not plain:
+                launched(label, c, ("knn",))
+        ka = o[False][0] if isinstance(o[False], tuple) else o[False]
+        pa = o[True][0] if isinstance(o[True], tuple) else o[True]
+        err = float((ka - pa).abs().max())
+        if err > 1e-6:
+            fail(f"phase 19 {label}: kernels and plain versions differ by {err:.3g} "
+                 f"(tol 1e-6: the kNN is bit-equal, the rest the same operations)")
+        outs[label] = o[False]
+    n_rs = int(outs["(c) resample_uniformly"][1].sum())
+    med = lambda t: float(tsdf(t[0]).abs().median())
+    m0, m1 = med(sub), med(outs["(c) project_to_latent_surface"])
+    print(f"  resample_uniformly: {PS_SCAN_POINTS} -> WLOP {PS_SCAN_POINTS // 2} "
+          f"-> {n_rs} points; median |torus_sdf|: scan {m0:.5f}, EAR move "
+          f"{med(outs['(c) ear_lop_move']):.5f}, latent projection {m1:.5f}")
+    if n_rs != PS_SCAN_POINTS or not m1 < m0:
+        fail("phase 19 (c): the resample lost points or the latent projection did "
+             "not move the scan toward the torus")
+
+    # ---- (d) the DSS regularizers at knn_k 32 on phase 9's clouds
+    for name in ("projection_loss", "repulsion_loss"):
+        vals = {}
+        for plain in (False, True):
+            def step():
+                xp = x.clone().requires_grad_(True)
+                val = getattr(losses, name)(xp, xn, xm)
+                return val.detach(), torch.autograd.grad(val, xp)[0]
+            vals[plain], c, _, _, _ = run(f"(d) {name}", step, plain)
+            if not plain:
+                launched(name, c, ("knn",))
+        (va, ga), (vb, gb) = vals[False], vals[True]
+        g_err = float((ga - gb).abs().max()) / max(float(gb.abs().max()), 1e-30)
+        print(f"  {name} (knn_k 32): kernels {float(va):.9g} plain {float(vb):.9g}; "
+              f"gradient max err {g_err:.3g} of max |g| {float(gb.abs().max()):.4g}")
+        if (abs(float(va) - float(vb)) > 1e-5 * abs(float(vb)) or g_err > 1e-5
+                or not torch.isfinite(ga).all() or float(ga.abs().max()) == 0):
+            fail(f"phase 19 (d) {name}: kernels and plain versions beyond rtol 1e-5")
+
+    # ---- (e) phase 8's splat frame with the anisotropic Vrk
+    ast = dataclasses.replace(scene.settings, Vrk_isotropic=False)
+    a_scene = scene._replace(settings=ast)
+    a_plain = dataclasses.replace(ast, use_pallas=False, use_pallas_backward=False)
+    (loss_k, grad_k, gndc_k, fr_k), c, _, _, _ = run(
+        "(e) anisotropic splat frame", lambda: bench.splat_step(a_scene))
+    for name in ("knn", "splat_select", "splat_fine", "splat_zbuf_bwd", "occ_bwd"):
+        if c[name] != 1:
+            fail(f"phase 19 (e): {name} launched {c[name]} times (expected 1)")
+    (loss_p, grad_p, gndc_p, fr_p), _, _, _, _ = run(
+        "(e) anisotropic splat frame", lambda: bench.splat_step(a_scene, a_plain),
+        plain=True)
+    with torch.no_grad():
+        sp_k = compute_splat_params(scene.points, scene.normals, scene.mask,
+                                    scene.camera, ast)
+        sp_p = compute_splat_params(scene.points, scene.normals, scene.mask,
+                                    scene.camera, a_plain)
+    for name in ("ellipse", "radii", "scaler", "mask"):
+        if not torch.equal(getattr(sp_k, name), getattr(sp_p, name)):
+            fail(f"phase 19 (e): splat {name} differs between the kNN kernel and "
+                 f"its plain version")
+    for name in ("idx", "zbuf", "occupancy", "visibility", "tile_overflow"):
+        if not torch.equal(getattr(fr_k, name), getattr(fr_p, name)):
+            fail(f"phase 19 (e): {name} differs between the kernels and the plain "
+                 f"versions")
+    q_err = float((fr_k.qvalue - fr_p.qvalue).detach().abs().max())
+    xy = grad_check(gndc_k[..., :2], gndc_p[..., :2])
+    gz_k, gz_p = gndc_k[..., 2], gndc_p[..., 2]
+    z_rel = float(((gz_k - gz_p).abs() / gz_p.abs().clamp(min=1e-30))[gz_p != 0].max())
+    wg = grad_check(grad_k, grad_p)
+    ovf = int(fr_k.tile_overflow.sum())
+    iso = bench.splat_step(scene)[3]
+    print(f"  anisotropic frame: loss {float(loss_k):.9g} vs {float(loss_p):.9g}; "
+          f"maps equal, qvalue err {q_err:.3g}; d/d pts_ndc xy {xy[0]}, z max rel "
+          f"err {z_rel:.3g}; d/d points {wg[0]}; {int(fr_k.visibility.sum())} "
+          f"visible splats (isotropic frame {int(iso.visibility.sum())}); tile "
+          f"overflow {ovf}")
+    if (q_err > 1e-6 or not xy[1] or z_rel > 1e-5 or not wg[1] or ovf
+            or torch.equal(fr_k.idx, iso.idx)):
+        fail("phase 19 (e): the anisotropic frame disagrees beyond phase 8's "
+             "tolerances, overflowed, or equals the isotropic frame")
+    n_sp = scene.points.shape[1]
+    vis = visible_point_mask(fr_k.idx, n_sp)
+    ref = torch.zeros((fr_k.idx.shape[0], n_sp + 1), dtype=torch.bool, device=dev)
+    flat = fr_k.idx.reshape(ref.shape[0], -1)
+    ref[torch.arange(ref.shape[0], device=dev)[:, None].expand_as(flat),
+        torch.where(flat >= 0, flat, n_sp)] = True
+    if not torch.equal(vis, ref[:, :n_sp]) or not torch.equal(vis, fr_k.visibility):
+        fail("phase 19 (e): visible_point_mask differs from the plain scatter")
+    pc = pmodel.cloud()
+    tile = lambda t: t.detach().expand((pcam.batch_size,) + t.shape[1:])
+    pc = PointCloud(points=tile(pc.points), mask=tile(pc.mask),
+                    normals=tile(pc.normals), features=tile(pc.features))
+    pst = pmodel.raster_settings
+    rgba = {}
+    for plain in (False, True):
+        st = (dataclasses.replace(pst, use_pallas=False, use_pallas_backward=False)
+              if plain else pst)
+        rgba[plain], c, _, _, _ = run("(e) point model frame, unnormalised",
+                                      lambda: render_pointcloud(
+                                          pc, pcam, st, normalize_weights=False).rgba,
+                                      plain)
+        if not plain:
+            launched("(e) point model frame", c, ("knn", "splat_select", "splat_fine"))
+    r_err = float((rgba[False] - rgba[True]).abs().max())
+    if (not torch.isfinite(rgba[False]).all() or float(rgba[False][..., :3].sum()) <= 0
+            or r_err > 1e-5 * max(1.0, float(rgba[True].abs().max()))):
+        fail(f"phase 19 (e): the unnormalised point model frame (err {r_err:.3g})")
+    print(f"  visible_point_mask equal to the plain scatter and the frame's "
+          f"visibility; point model frame with normalize_weights=False: rgb sum "
+          f"{float(rgba[False][..., :3].sum()):.6g}, kernels vs plain max err {r_err:.3g}")
+
+    # ---- (f) signed_distance_loss on phase 16's compound mesh
+    mesh = read_ply(os.path.join(ROOT, "out", "torch_ablation", "data",
+                                 "mesh_source.ply"))
+    mv, mf = mesh["points"].astype(np.float32), mesh["faces"].astype(np.int64)
+    sp_pts, sp_nrm = meshing.sample_points_from_mesh(mv, mf, PS_SDL_POINTS, seed=19)
+    cell = 2.0 / 128
+    xq = (sp_pts + sp_nrm * rng.uniform(-4 * cell, 4 * cell, (PS_SDL_POINTS, 1))
+          ).astype(np.float32)
+    f_true = compound_sdf()(torch.as_tensor(xq))
+
+    def sdl(device, n):
+        """The loss (mean) over the first n points and its gradients to the
+        points and to sdf (the analytic compound SDF)."""
+        p = torch.as_tensor(xq[:n], device=device).requires_grad_(True)
+        s = f_true[:n].to(device).requires_grad_(True)
+        val = losses.signed_distance_loss(p, s, torch.as_tensor(mv, device=device),
+                                          torch.as_tensor(mf, device=device))
+        gp, gs = torch.autograd.grad(val, (p, s))
+        return val.detach().cpu(), gp.cpu(), gs.cpu()
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    val_d, gp_d, _ = sdl(dev, PS_SDL_POINTS)
+    torch.cuda.synchronize()
+    sdl_s = time.perf_counter() - t
+    card, t = sdl(dev, PS_SDL_CPU), time.perf_counter()
+    cpu = sdl("cpu", PS_SDL_CPU)
+    cpu_s = time.perf_counter() - t
+    v_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    g_errs = [float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(card[1:], cpu[1:])]
+    with torch.no_grad():
+        sd = losses.mesh_signed_distance(torch.as_tensor(xq, device=dev),
+                                         torch.as_tensor(mv, device=dev),
+                                         torch.as_tensor(mf, device=dev)).cpu()
+    far = f_true.abs() > cell
+    agree = float((torch.sign(sd) == torch.sign(f_true))[far].float().mean())
+    print(f"phase 19 (f): signed_distance_loss on the compound mesh ({len(mf):,} "
+          f"faces) at {PS_SDL_POINTS} points within 4 cells of it: "
+          f"{float(val_d):.6g}, {sdl_s:.3f} s with the gradient on the card; on "
+          f"the first {PS_SDL_CPU} points card vs CPU ({cpu_s:.2f} s): the loss "
+          f"{float(card[0]):.9g} vs {float(cpu[0]):.9g} (rel err {v_err:.3g}), "
+          f"d/dpoints and d/dsdf max err {g_errs[0]:.3g} / {g_errs[1]:.3g} of their "
+          f"max; sign equal to compound_sdf's on {agree:.5f} of the "
+          f"{int(far.sum())} points past one 128³ cell (bar {PS_SIGN_BAR})")
+    if (max([v_err] + g_errs) > 1e-5 or agree < PS_SIGN_BAR
+            or not torch.isfinite(gp_d).all()):
+        fail("phase 19 (f): the card against the CPU beyond rtol 1e-5, or the "
+             "signs against compound_sdf below the bar")
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s")
+    return {"rimls_shape": f"{x.shape[0]} x {x.shape[1]}, k=32, self-excluded",
+            "rimls_ms": r_ms, "rimls_plain_ms": r_pms, "rimls_bound_ms": r_b[0],
+            "rimls_bound_by": r_b[1], "k_max": 32}
+
+
 def outside_every_silhouette(dtu_dir: str, n: int, dev) -> torch.Tensor:
     """n points that every view of the DTU directory sees outside the torus
     (R 0.4, r 0.15): candidates in [-0.9, 0.9]³ whose line of sight from
@@ -2301,6 +2752,9 @@ def main() -> None:
     knn_case(res_pts, res_mask, st.knn_k - 1, "resample buffer")
     knn_case(seed_pts, seed_mask, model.proj_cfg.knn_k,
              "resample seed (before its projection)")
+    # phase 19 works on this run's field, capacity and resample buffer
+    p4 = {"model": model, "cap": cfg.model.combined_kwargs.n_points_per_cloud,
+          "res": (res_pts, res_mask)}
 
     # ---- 6. the trace path: the production schedule on the IGR bench field
     t_fit = time.time()
@@ -4509,6 +4963,9 @@ def main() -> None:
     for r in rows:
         r["dtu_mvr_launches"] = g_launches[kernel_of(r["source"])]
     parallel_phase(dev, g_run)
+
+    # ---- 19. the point-set library at full width
+    rows[2].update(pointset_phase(dev, kernels, p4, scene, pmodel, pcam))
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")

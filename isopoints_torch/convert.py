@@ -8,7 +8,10 @@ layers fold to one `weight` = g·v / max(‖v‖_row, 1e-12), as
 isopoints_tpu/models/fields.py:95-100 computes it, unless
 `keep_weight_norm`: then they stay `<module>.layers.i.v` / `.g` / `.b`,
 the parameters of the port's `SDFField` (`WeightNormLinear`), so that an
-optimiser sees the same parametrisation as the JAX one. An occupancy
+optimiser sees the same parametrisation as the JAX one. Extra heads
+(`out_dims`) and latent-code columns (`c_dim`) come across with their
+layers: the head's rows and the first layer's columns in the JAX order,
+which the port's `_split_output` and code concatenation read. An occupancy
 decoder's tree (`{"fc_in", "blocks": [{"fc0", "fc1"}], "fc_out"}`,
 isopoints_tpu/models/fields.py:346-365) maps to the same names in the
 port's `OccupancyField`. `load_jax_npz`

@@ -1,4 +1,4 @@
-// Exact masked k-nearest neighbours, k <= 16.
+// Exact masked k-nearest neighbours, k <= 32.
 //
 // Replaces `_knn_kernel` (isopoints_tpu/ops/pallas_knn.py:83, reached by
 // `knn_points_pallas` :286 through `_knn_flat`, pallas_call :255).
@@ -10,15 +10,17 @@
 //
 // Design. The path's calls are small (P = N = 3000, k = 8, 19 times a
 // projected step), so one thread per query left most of the card idle. Here
-// a group of kGroup = 16 lanes serves one query, two queries a warp: the
-// points stream through shared memory in tiles of kTile (x, y, z, |p|^2;
-// |p|^2 = -1 marks a masked point), lane l of a group scanning points l,
-// l + kGroup, ... of each tile. The group keeps one sorted list of the
-// query's k best, ordered by (distance, index), one entry a lane (lane s
-// holds entry s; k <= 16 = kGroup), so its k-th entry is an exact bound: a
-// lane's point is a candidate only if it ranks before that entry, which
-// after the first few points is rare. The lanes compute kSteps distances
-// each, then one ballot asks whether any of them is a candidate; if so the
+// a group of G lanes serves one query: G = 16 for k <= 16 (two queries a
+// warp), G = 32 for 16 < k <= 32 (a warp a query); k itself is a runtime
+// argument, so the library holds two instances. The points stream through
+// shared memory in tiles of G * kBlock (x, y, z, |p|^2; |p|^2 = -1 marks a
+// masked point), lane l of a group scanning points l, l + G, ... of each
+// tile. The group keeps one sorted list of the query's k best, ordered by
+// (distance, index), one entry a lane (lane s holds entry s; k <= G), so
+// its k-th entry is an exact bound: a lane's point is a candidate only if
+// it ranks before that entry, which after the first few points is rare.
+// The lanes compute kBlock / G distances each (a block of kBlock = 64
+// points), then one ballot asks whether any of them is a candidate; if so the
 // group inserts its candidates one at a time (the first by lane, then by
 // step): a ballot of the entries ranking before the candidate gives its
 // place, the entries from there on move up one lane (a shuffle), and the
@@ -32,7 +34,7 @@
 // code of their cell (`knn_morton`, then a sort), `knn_boxes` takes the
 // bounding box of every block of kBlock = 64 consecutive points of that
 // order, and the kernel reads points and queries through the order: each
-// block of 16 queries starts at the tile that holds them, lane c of a group
+// block of queries starts at the tile that holds them, lane c of a group
 // tests block c of each tile against the group's bound (`box_floor`), a
 // tile no query of the block needs is never loaded, and a block neither
 // query of a warp needs is never scanned. Indices and ties stay those of
@@ -54,13 +56,8 @@
 
 namespace {
 
-constexpr int kGroup = 16;  // lanes per query
 constexpr int kThreads = 256;
-constexpr int kQueries = kThreads / kGroup;  // per block
-constexpr int kTile = 1024;
-constexpr int kSteps = 4;                // points a lane scans between two ballots
-constexpr int kBlock = kGroup * kSteps;  // points under one box and one ballot
-static_assert(kTile / kBlock == kGroup, "lane c of a group tests block c of a tile");
+constexpr int kBlock = 64;  // points under one box and one ballot
 constexpr float kBig = 1e10f;
 constexpr unsigned kAll = 0xffffffffu;
 
@@ -206,21 +203,24 @@ __device__ __forceinline__ float box_floor(const float* o, float qx, float qy, f
 // query/qmask (B, n), points/pmask (B, p) in the caller's order; qorder
 // (B, n) and porder (B, p): the kernel's order of each (null: the
 // caller's); box (B, ceil(p / kBlock), 8): the blocks' boxes in porder
-// (null: no pruning).
-template <int K>
+// (null: no pruning). kGroup lanes a query, 1 <= k <= kGroup.
+template <int kGroup>
 __global__ void __launch_bounds__(kThreads)
     knn_kernel(const float* __restrict__ query, const unsigned char* __restrict__ qmask,
                const float* __restrict__ points, const unsigned char* __restrict__ pmask,
                const long long* __restrict__ qorder, const long long* __restrict__ porder,
-               const float* __restrict__ box, int n, int p, int exclude_self,
+               const float* __restrict__ box, int n, int p, int k, int exclude_self,
                float* __restrict__ out_d, long long* __restrict__ out_i) {
-  static_assert(K <= kGroup, "one list entry a lane");
+  static_assert(kGroup == 16 || kGroup == 32, "a half warp or a warp a query");
+  constexpr int kQueries = kThreads / kGroup;  // per block
+  constexpr int kSteps = kBlock / kGroup;      // points a lane scans between two ballots
+  constexpr int kTile = kGroup * kBlock;       // lane c of a group tests block c of a tile
   __shared__ float4 tile[kTile];
   __shared__ int tile_idx[kTile];  // each staged point's index in the caller's order
   const int b = blockIdx.y;
   const int lane = threadIdx.x % kGroup;
   const int base_lane = (threadIdx.x & 31) - lane;  // the group's first lane in the warp
-  const unsigned gmask = ((1u << kGroup) - 1) << base_lane;
+  const unsigned gmask = kGroup == 32 ? kAll : ((1u << kGroup) - 1) << base_lane;
   const int qs = blockIdx.x * kQueries + threadIdx.x / kGroup;  // in the kernel's order
   // the query's index in the caller's order: its output row, and the point
   // exclude_self drops
@@ -307,8 +307,8 @@ __global__ void __launch_bounds__(kThreads)
             ed = lane == pos ? cd : ud;
             ei = lane == pos ? ci : ui;
           }
-          bd = __shfl_sync(kAll, ed, base_lane + K - 1);
-          bi = __shfl_sync(kAll, ei, base_lane + K - 1);
+          bd = __shfl_sync(kAll, ed, base_lane + k - 1);
+          bi = __shfl_sync(kAll, ei, base_lane + k - 1);
           if ((threadIdx.x & 31) == src) cand[s] = false;
           cand[s] = cand[s] && before(d[s], jo[s], bd, bi);
         }
@@ -316,21 +316,22 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  if (qi >= 0 && lane < K) {
-    const size_t o = ((size_t)b * n + qi) * K + lane;
+  if (qi >= 0 && lane < k) {
+    const size_t o = ((size_t)b * n + qi) * k + lane;
     const bool full = ei != INT_MAX;
     out_d[o] = full ? ed : kBig;
     out_i[o] = full ? ei : -1;
   }
 }
 
-template <int K>
+template <int kGroup>
 int launch(const float* q, const unsigned char* qm, const float* p, const unsigned char* pm,
            const long long* qorder, const long long* porder, const float* box, int bsz, int n,
-           int np, int exclude_self, float* d, long long* i, cudaStream_t s) {
+           int np, int k, int exclude_self, float* d, long long* i, cudaStream_t s) {
+  constexpr int kQueries = kThreads / kGroup;
   const dim3 grid((n + kQueries - 1) / kQueries, bsz);
-  knn_kernel<K><<<grid, kThreads, 0, s>>>(q, qm, p, pm, qorder, porder, box, n, np,
-                                          exclude_self, d, i);
+  knn_kernel<kGroup><<<grid, kThreads, 0, s>>>(q, qm, p, pm, qorder, porder, box, n, np, k,
+                                               exclude_self, d, i);
   return (int)cudaGetLastError();
 }
 
@@ -352,12 +353,12 @@ extern "C" int knn_morton_codes(const float* points, const unsigned char* pmask,
 // of (B, ceil(np / 64), 8) floats (the blocks' boxes, for pruning) ->
 // dists (B, n, k) ascending (1e10 where empty), idx (B, n, k) int64 (-1
 // where empty, and on every column of a masked query), rows and indices as
-// given. 1 <= k <= 16; with exclude_self, query i is point i.
+// given. 1 <= k <= 32; with exclude_self, query i is point i.
 extern "C" int knn_forward(const float* query, const unsigned char* qmask, const float* points,
                            const unsigned char* pmask, const long long* qorder,
                            const long long* porder, float* box, int bsz, int n, int np, int k,
                            int exclude_self, float* dists, long long* idx, void* stream) {
-  if (bsz < 0 || n < 0 || np < 0 || k < 1 || k > 16 || (porder != nullptr && box == nullptr))
+  if (bsz < 0 || n < 0 || np < 0 || k < 1 || k > 32 || (porder != nullptr && box == nullptr))
     return (int)cudaErrorInvalidValue;
   if (bsz == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -368,16 +369,8 @@ extern "C" int knn_forward(const float* query, const unsigned char* qmask, const
     if (err != cudaSuccess) return (int)err;
   }
   const float* boxes = porder != nullptr ? box : nullptr;
-  switch (k) {
-#define KNN_CASE(KK)                                                                  \
-  case KK:                                                                            \
-    return launch<KK>(query, qmask, points, pmask, qorder, porder, boxes, bsz, n, np, \
-                      exclude_self, dists, idx, s);
-    KNN_CASE(1) KNN_CASE(2) KNN_CASE(3) KNN_CASE(4) KNN_CASE(5) KNN_CASE(6) KNN_CASE(7)
-    KNN_CASE(8) KNN_CASE(9) KNN_CASE(10) KNN_CASE(11) KNN_CASE(12) KNN_CASE(13)
-    KNN_CASE(14) KNN_CASE(15) KNN_CASE(16)
-#undef KNN_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return k <= 16 ? launch<16>(query, qmask, points, pmask, qorder, porder, boxes, bsz, n, np, k,
+                              exclude_self, dists, idx, s)
+                 : launch<32>(query, qmask, points, pmask, qorder, porder, boxes, bsz, n, np, k,
+                              exclude_self, dists, idx, s);
 }

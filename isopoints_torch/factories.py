@@ -3,9 +3,11 @@ the ported configs name: a SIREN or IGR (`decoder_type: sdf`) decoder, the
 combined or implicit model with the Phong or the neural texture, the DSS
 point model, the splat raster settings, the lights, the MVR, DTU and
 synthetic datasets, and the trainer over the ranks of a process group).
-An unknown decoder or model type raises ValueError with the reference's
-message; a dotted `decoder_type` (a class path, which for the JAX
-package names an `isopoints_tpu` class) raises NotImplementedError."""
+A dotted `decoder_type` is a class path inside this package, resolved by
+`utils.get_class_from_string`; a leading `isopoints_tpu.` is read as
+`isopoints_torch.`, so a config written for the JAX package loads. An
+unknown decoder or model type, or a path that names no class of the port,
+raises ValueError with the reference's message."""
 
 from typing import Optional
 
@@ -21,21 +23,26 @@ from isopoints_torch.rendering.lighting import DirectionalLights, PointLights
 from isopoints_torch.rendering.rasterizer import RasterizationSettings
 from isopoints_torch.training.scheduler import TrainerScheduler
 from isopoints_torch.training.trainer import MVRTrainer, TrainerConfig
+from isopoints_torch.utils import get_class_from_string
 
 
 def create_decoder(cfg: AttrDict, generator: Optional[torch.Generator] = None,
                    device="cuda"):
-    """The decoder of `model.decoder_type` ('siren' | 'sdf') with
-    `model.decoder_kwargs` (factories.py:24-35)."""
+    """The decoder of `model.decoder_type` ('siren' | 'sdf' | a dotted
+    class path) with `model.decoder_kwargs` (factories.py:24-35)."""
     dtype = cfg.model.get("decoder_type", "siren")
-    if "." in dtype:
-        raise NotImplementedError(f"a dotted decoder_type ({dtype!r}) is not "
-                                  "ported yet (ROADMAP Queue 1 item 3)")
     classes = {"siren": SirenField, "sdf": SDFField}
-    if dtype not in classes:
+    if "." in dtype:
+        try:
+            cls = get_class_from_string(dtype)
+        except ValueError:
+            raise ValueError(f"unknown decoder_type {dtype}") from None
+    elif dtype in classes:
+        cls = classes[dtype]
+    else:
         raise ValueError(f"unknown decoder_type {dtype}")
-    return classes[dtype](**dict(cfg.model.get("decoder_kwargs", {})),
-                          generator=generator, device=device)
+    return cls(**dict(cfg.model.get("decoder_kwargs", {})),
+               generator=generator, device=device)
 
 
 def create_raster_settings(cfg: AttrDict) -> RasterizationSettings:

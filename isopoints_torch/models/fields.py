@@ -8,18 +8,62 @@ the JAX parametrisation `{v, g, b}`, and `positional_embedder` its NeRF
 input encoding (fields.py:64-88). `sdf_and_grad` returns the SDF and its
 input gradient, dispatching to a fused `.sdf_and_grad` when the callable
 carries one (ops/fused_mlp.py), like the reference. `RenderingNetwork` is
-the IDR colour net of the neural texture (fields.py:269-323).
+the IDR colour net of the neural texture (fields.py:269-323). The SIREN,
+IGR and colour nets carry the JAX fields' `out_dims` heads ("sdf",
+"latent", "rgb", "occupancy"; `heads`, JAX's `apply`, returns a
+`FieldOutput`, split as
+`_split_output` splits it) and latent codes (`c_dim`); `forward` returns
+the SDF (the colour net: the rgb).
 `OccupancyField` is ONet's ResNet-FC occupancy decoder (fields.py:330-385)
 for the DVR occupancy model (models/occupancy.py), and
 `approximate_gradient` the central-difference gradient (fields.py:408).
 """
 
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+
+class FieldOutput(NamedTuple):
+    """The heads of a field's output (fields.py:24-29)."""
+    sdf: Optional[torch.Tensor] = None
+    latent: Optional[torch.Tensor] = None
+    rgb: Optional[torch.Tensor] = None
+    occupancy: Optional[torch.Tensor] = None
+
+
+_FIELDS = ("sdf", "latent", "rgb", "occupancy")
+
+
+def _validate_out_dims(out_dims: Dict[str, int]) -> None:
+    for k, v in out_dims.items():
+        if k not in _FIELDS:
+            raise ValueError(f"invalid out_dims key {k}")
+        if k in ("sdf", "occupancy") and v != 1:
+            raise ValueError(f"{k} must have dim 1")
+        if k == "rgb" and v != 3:
+            raise ValueError("rgb must have dim 3")
+
+
+def _split_output(x: torch.Tensor, out_dims: Dict[str, int],
+                  scale_rgb: bool = False, sigmoid_rgb: bool = False
+                  ) -> FieldOutput:
+    """The output's channels cut into the heads in `out_dims` order; rgb
+    mapped by (x + 1)/2 (`scale_rgb`) or a sigmoid (fields.py:45-57)."""
+    parts = {}
+    ofs = 0
+    for k, d in out_dims.items():
+        parts[k] = x[..., ofs:ofs + d]
+        ofs += d
+    if "rgb" in parts:
+        if scale_rgb:
+            parts["rgb"] = (parts["rgb"] + 1.0) / 2.0
+        elif sigmoid_rgb:
+            parts["rgb"] = torch.sigmoid(parts["rgb"])
+    return FieldOutput(**parts)
 
 
 def _uniform_linear(in_d: int, out_d: int, bound: float,
@@ -33,37 +77,74 @@ def _uniform_linear(in_d: int, out_d: int, bound: float,
 
 
 class SirenField(nn.Module):
-    """SIREN SDF MLP: first SineLayer(3 -> h), `n_layers` hidden
-    SineLayers, linear head to the SDF (reference common.py:56-167). Init
-    as the JAX field: first layer U(±1/3), the rest U(±√(6/h)/ω), zero
-    biases. The JAX field's other heads (`out_dims`, `c_dim`, output
-    activations) are not ported: the slice's configs use none of them."""
+    """SIREN MLP (reference common.py:56-167; fields.py:129-180): first
+    SineLayer(3 + c_dim -> h), `n_layers` hidden SineLayers, a linear head
+    to the `out_dims` channels (default the SDF alone), optionally a sine
+    head (`outermost_linear=False`) and a final tanh (rgb (x + 1)/2) or
+    sigmoid; without one, rgb takes a sigmoid. A latent code `c` is
+    concatenated before the points. Init as the JAX field: first layer
+    U(±1/(3 + c_dim)), the rest U(±√(6/h)/ω), zero biases."""
 
     def __init__(self, hidden_size: int = 256, n_layers: int = 3,
                  first_omega_0: float = 30.0, hidden_omega_0: float = 30.0,
+                 out_dims: Optional[Dict[str, int]] = None, c_dim: int = 0,
+                 outermost_linear: bool = True,
+                 activation: Optional[str] = None,
                  generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
+        self.out_dims = dict(out_dims or {"sdf": 1})
+        _validate_out_dims(self.out_dims)
+        self.out_dim = sum(self.out_dims.values())
+        self.c_dim = c_dim
+        self.in_dim = 3 + c_dim
         self.hidden_size = hidden_size
         self.n_layers = n_layers
         self.first_omega_0 = first_omega_0
         self.hidden_omega_0 = hidden_omega_0
+        self.outermost_linear = outermost_linear
+        self.activation = activation   # None | 'tanh' | 'sigmoid'
         bound = math.sqrt(6.0 / hidden_size) / hidden_omega_0
-        layers = [_uniform_linear(3, hidden_size, 1.0 / 3, generator, device)]
+        layers = [_uniform_linear(self.in_dim, hidden_size, 1.0 / self.in_dim,
+                                  generator, device)]
         layers += [_uniform_linear(hidden_size, hidden_size, bound, generator,
                                    device) for _ in range(n_layers)]
-        layers.append(_uniform_linear(hidden_size, 1, bound, generator, device))
+        layers.append(_uniform_linear(hidden_size, self.out_dim, bound,
+                                      generator, device))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., 3) -> sdf (...)."""
+    @property
+    def sdf_only(self) -> bool:
+        """A linear SDF head alone, no code: what the fused kernels take."""
+        return (self.out_dim == 1 and self.activation is None
+                and self.outermost_linear and self.c_dim == 0)
+
+    def heads(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+              ) -> FieldOutput:
+        """x (..., 3), c (..., c_dim) -> the heads (JAX `apply`,
+        fields.py:160-176)."""
+        if self.c_dim > 0 and c is not None:
+            x = torch.cat([c, x], dim=-1)
         h = torch.sin(self.first_omega_0 * self.layers[0](x))
         for lin in self.layers[1:-1]:
             h = torch.sin(self.hidden_omega_0 * lin(h))
-        return self.layers[-1](h)[..., 0]
+        out = self.layers[-1](h)
+        if not self.outermost_linear:
+            out = torch.sin(self.hidden_omega_0 * out)
+        if self.activation == "tanh":
+            return _split_output(torch.tanh(out), self.out_dims, scale_rgb=True)
+        if self.activation == "sigmoid":
+            return _split_output(torch.sigmoid(out), self.out_dims)
+        return _split_output(out, self.out_dims, sigmoid_rgb=True)
 
-    def sdf(self, x: torch.Tensor) -> torch.Tensor:
-        return self(x)
+    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """x (..., 3) -> sdf (...)."""
+        return self.heads(x, c).sdf[..., 0]
+
+    def sdf(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+        return self(x, c)
 
 
 def positional_embedder(multires: int, input_dims: int = 3,
@@ -138,20 +219,26 @@ class SDFField(nn.Module):
     N(√π/√fan_in, 1e-4) with bias −`bias`, hidden N(0, 2/out), the
     positional-encoding columns zeroed at the input and skip layers.
     Weight-normalised layers (`weight_norm`) are `WeightNormLinear`s with
-    the JAX leaves `v, g, b`; otherwise `nn.Linear`s. SDF head only: the
-    JAX field's other `out_dims` are not ported."""
+    the JAX leaves `v, g, b`; otherwise `nn.Linear`s. The head gives the
+    `out_dims` channels (default the SDF alone; rgb through a sigmoid), and
+    a code `c` is concatenated before the embedded points (fields.py:
+    241-262; the first layer's width does not count it, as in JAX)."""
 
     def __init__(self, dim: int = 3, hidden_size: int = 512,
                  n_layers: int = 8, bias: float = 0.6,
                  weight_norm: bool = True, skip_in: Sequence[int] = (4,),
                  num_frequencies: int = 6, final_tanh: bool = True,
+                 out_dims: Optional[Dict[str, int]] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        self.out_dims = dict(out_dims or {"sdf": 1})
+        _validate_out_dims(self.out_dims)
+        self.out_dim = sum(self.out_dims.values())
         self.raw_dim = dim
         self.embed, in_dim = positional_embedder(num_frequencies, dim)
         self.num_frequencies = num_frequencies
         self.hidden_size = hidden_size
-        self.dims = [in_dim] + [hidden_size] * n_layers + [1]
+        self.dims = [in_dim] + [hidden_size] * n_layers + [self.out_dim]
         self.skip_in = tuple(skip_in)
         self.final_tanh = final_tanh
         self.weight_norm = weight_norm
@@ -179,10 +266,12 @@ class SDFField(nn.Module):
                           else _plain_linear(w, b))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., 3) -> sdf (...)."""
+    def heads(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+              ) -> FieldOutput:
+        """x (..., 3), c (..., C) -> the heads (JAX `apply`,
+        fields.py:241-262)."""
         inp = self.embed(x)
-        h = inp
+        h = inp if c is None else torch.cat([c, inp], dim=-1)
         nl = len(self.layers)
         for l, lin in enumerate(self.layers):
             if l in self.skip_in:
@@ -192,36 +281,44 @@ class SDFField(nn.Module):
                 h = softplus_beta(h)
         if self.final_tanh:
             h = torch.tanh(h)
-        return h[..., 0]
+        return _split_output(h, self.out_dims, sigmoid_rgb=True)
 
-    def sdf(self, x: torch.Tensor) -> torch.Tensor:
-        return self(x)
+    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """x (..., 3) -> sdf (...)."""
+        return self.heads(x, c).sdf[..., 0]
+
+    def sdf(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+        return self(x, c)
 
 
 class RenderingNetwork(nn.Module):
-    """IDR colour net (reference common.py:313-366): `n_layers` ReLU layers
-    of `hidden_size` and a linear head, then tanh, rgb = (tanh + 1) / 2
-    (fields.py:269-323, `_split_output` with `scale_rgb`). The caller embeds
-    the view direction, so `dim` counts raw dims (9 = normal, point, view)
-    and the input is dim + (embed_dim − 3) wide; `apply_with_view` forms
-    the [normals, points, embed(view)] layout of the neural texture. Init
-    as the JAX net: w and b U(±1/√fan_in); weight-normalised layers are
-    `WeightNormLinear`s with the JAX leaves `v, g, b` (g = ‖w‖_row), else
-    `nn.Linear`s. No latent code feeds the texture in any config, so
-    `c_dim` must be 0, and the head is rgb only (the JAX net's other
-    `out_dims` are not ported)."""
+    """IDR colour net (reference common.py:313-366; fields.py:269-323):
+    `n_layers` ReLU layers of `hidden_size` and a linear head to the
+    `out_dims` channels (default rgb), then tanh, rgb = (tanh + 1) / 2
+    (`_split_output` with `scale_rgb`). The caller embeds the view
+    direction, so `dim` counts raw dims (9 = normal, point, view) and the
+    input is c_dim + dim + (embed_dim − 3) wide (c_dim 256 by default, as in
+    JAX; the neural texture passes 0), a latent code `c` first;
+    `apply_with_view` forms the [normals, points, embed(view)] layout of the
+    neural texture. Init as the JAX net: w and b U(±1/√fan_in);
+    weight-normalised layers are `WeightNormLinear`s with the JAX leaves
+    `v, g, b` (g = ‖w‖_row), else `nn.Linear`s."""
 
-    def __init__(self, dim: int = 9, c_dim: int = 0, hidden_size: int = 512,
+    def __init__(self, dim: int = 9, c_dim: int = 256, hidden_size: int = 512,
                  n_layers: int = 4, weight_norm: bool = True,
                  num_frequencies: int = 4,
+                 out_dims: Optional[Dict[str, int]] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        if c_dim != 0:
-            raise ValueError(f"RenderingNetwork: a latent code (c_dim {c_dim}) "
-                             f"is not ported; no config feeds one")
+        self.out_dims = dict(out_dims or {"rgb": 3})
+        _validate_out_dims(self.out_dims)
+        self.out_dim = sum(self.out_dims.values())
+        self.c_dim = c_dim
         self.embed_view, view_dim = positional_embedder(num_frequencies, 3)
-        in_dim = dim + (view_dim - 3 if num_frequencies > 0 else 0)
-        self.dims = [in_dim] + [hidden_size] * n_layers + [3]
+        in_dim = dim + c_dim + (view_dim - 3 if num_frequencies > 0 else 0)
+        self.dims = [in_dim] + [hidden_size] * n_layers + [self.out_dim]
         f32 = dict(dtype=torch.float32, device=device or "cpu")
         layers = []
         for in_d, out_d in zip(self.dims[:-1], self.dims[1:]):
@@ -234,21 +331,29 @@ class RenderingNetwork(nn.Module):
                           else _plain_linear(w, b))
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., in_dim) -> rgb (..., 3)."""
-        h = x
+    def heads(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+              ) -> FieldOutput:
+        """x (..., dim + embed), c (..., c_dim) -> the heads (JAX
+        `apply`)."""
+        h = x if c is None else torch.cat([c, x], dim=-1)
         for l, lin in enumerate(self.layers):
             h = lin(h)
             if l < len(self.layers) - 1:
                 h = torch.relu(h)
-        return (torch.tanh(h) + 1.0) / 2.0
+        return _split_output(torch.tanh(h), self.out_dims, scale_rgb=True)
+
+    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """x (..., in_dim) -> rgb (..., 3)."""
+        return self.heads(x, c).rgb
 
     def apply_with_view(self, normals: torch.Tensor, points: torch.Tensor,
-                        view_dirs: torch.Tensor) -> torch.Tensor:
+                        view_dirs: torch.Tensor,
+                        c: Optional[torch.Tensor] = None) -> torch.Tensor:
         """rgb of the [normals, points, embed(view)] layout
         (fields.py:316-323)."""
         return self(torch.cat([normals, points, self.embed_view(view_dirs)],
-                              dim=-1))
+                              dim=-1), c)
 
 
 class OccupancyField(nn.Module):

@@ -1,7 +1,8 @@
 """Level-set sampling: Newton projection, repulsion resampling, the
-seeded uniform resample, saliency-guided insertion, and the
+uniform resample (seeded, or bootstrapped from cube points through WLOP),
+saliency-guided insertion, midpoint and edge-aware upsampling, and the
 implicit-differentiation sample networks (port of
-isopoints_tpu/models/levelset.py:38-213, 224-268, 408-478, 484-598).
+isopoints_tpu/models/levelset.py).
 
 The projection and resampling run without autograd on the tracing SDF
 (the fused CUDA MLP with `use_fused_mlp`), on full-width padded buffers
@@ -11,11 +12,10 @@ JAX `lax.while_loop` condition.
 
 `project_points_newton` carries the hybrid coarse/fine precision schedule.
 `project_points` runs the repulsion resampling (the DTU workload's
-refresh) and the saliency insertion. Not ported, because no workload of
-either package reaches them (ROADMAP Queue 1 item 14): `project_points`'
-upsampling without a reference cloud (midpoint or edge-aware) and the
-unseeded (WLOP) bootstrap of `sample_uniform_iso_points`; those branches
-raise.
+refresh), then the saliency insertion, or the midpoint or edge-aware
+upsampling back to the input's count. The random draws of the unseeded
+bootstrap (its cube points and WLOP's jitter) are explicit tensors or come
+from a `torch.Generator`.
 
 With a `mesh` (parallel/sharding.py) of more than one rank, the Newton
 projection splits the points over the ranks and all-gathers the result
@@ -27,6 +27,7 @@ the implicit one (paper Eq. 13 / IDR Eq. 3). `sg` is `.detach()`.
 """
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -35,13 +36,11 @@ import torch.distributed as dist
 
 from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.ops.knn import knn_gather, knn_points
-from isopoints_torch.ops.points import bbox_diag, midpoint_upsample, num_valid
-from isopoints_torch.utils import eps_denom, nanmedian_mid, top_k
+from isopoints_torch.ops.points import bbox_diag, midpoint_upsample, wlop
+from isopoints_torch.utils import (eps_denom, eps_sqrt, nanmedian_mid,
+                                   num_valid, top_k)
 
 SDFFn = Callable[[torch.Tensor], torch.Tensor]
-
-_NOT_PORTED = ("is not ported: no workload of either package reaches it "
-               "(ROADMAP Queue 1 item 14)")
 
 
 class ProjectionResult(NamedTuple):
@@ -52,12 +51,20 @@ class ProjectionResult(NamedTuple):
 
 @dataclass(frozen=True)
 class ProjectionConfig:
-    """The projection knobs of levelset.py:44-55 that the ported branches
-    read."""
+    """The projection knobs (levelset.py:44-60); the last four are the
+    edge-aware upsampling's."""
     proj_max_iters: int = 10
     proj_tolerance: float = 5e-5
     knn_k: int = 8
     sample_iters: int = 1
+    sharpness_angle: float = 15.0
+    edge_sensitivity: float = 1.0
+    repulsion_mu: float = 0.5
+    upsample_ratio: float = 1.5
+
+    @property
+    def sharpness_sigma(self) -> float:
+        return 1.0 - math.cos(self.sharpness_angle / 180.0 * math.pi)
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +240,129 @@ def insert_around_salient(points: torch.Tensor, mask: torch.Tensor,
             child_mask.reshape(b, f * patch_size))
 
 
+# ---------------------------------------------------------------------------
+# Edge-aware upsampling (levelset.py:278-401)
+# ---------------------------------------------------------------------------
+
+def _unit_normals(sdf_fn: SDFFn, pts: torch.Tensor) -> torch.Tensor:
+    """Unit SDF gradients; non-finite ones (a kink of the field) zero."""
+    g = sdf_and_grad(sdf_fn, pts)[1]
+    g = torch.where(torch.isfinite(g), g, 0.0)
+    return g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-15)
+
+
+@torch.no_grad()
+def edge_aware_upsample(sdf_fn: SDFFn, points: torch.Tensor,
+                        mask: torch.Tensor, target_capacity: int,
+                        cfg: ProjectionConfig,
+                        n_target: Optional[torch.Tensor] = None):
+    """EAR upsampling (levelset.py:278-401): one kNN (k = cfg.knn_k, self
+    excluded) for a bilateral denoise of the field's normals and a LOP move
+    (point-to-plane data term and density repulsion, each clipped to the
+    mean nearest-neighbour spacing); then rounds of edge-weighted midpoint
+    insertion, priority (2 − ⟨n, nᵢ⟩)^edge_sensitivity · tangential
+    clearance, the `capacity // 10` best a round into the next free slots,
+    until every cloud holds `n_target` (default ceil(n·upsample_ratio),
+    at most the capacity), a round inserts nothing, or 4·ceil(cap /
+    max_new) + 4 rounds have run. The stop is read on the host once a
+    round (the JAX `lax.while_loop` condition). Returns (points (B, cap,
+    3), mask)."""
+    b, p, _ = points.shape
+    cap = target_capacity
+    dev = points.device
+    if n_target is None:
+        n_target = torch.clamp(torch.ceil(num_valid(mask) * cfg.upsample_ratio)
+                               .long(), max=cap)
+    k = cfg.knn_k
+    n_valid = num_valid(mask).float()
+    inv_sigma = (n_valid / 2.0)[:, None, None]
+    spatial_cut = 16.0 / torch.clamp(inv_sigma, min=1e-12)
+
+    # --- LOP relaxation of the input points
+    normals = _unit_normals(sdf_fn, points)
+    res = knn_points(points, points, mask, mask, k=k, exclude_self=True)
+    nn = knn_gather(points, res.idx)
+    nn_norm = knn_gather(normals, res.idx)
+    # bilateral denoise of the normals
+    wn = torch.exp(-(((1.0 - torch.sum(nn_norm * normals[:, :, None, :], dim=-1))
+                      / cfg.sharpness_sigma) ** 2))
+    d2 = torch.sum((nn - points[:, :, None, :]) ** 2, dim=-1)
+    wp = torch.where(d2 > spatial_cut, 0.0, torch.exp(-d2 * inv_sigma))
+    w = torch.where(res.mask, wn * wp, 0.0)
+    normals = torch.sum(nn_norm * w[..., None], dim=-2) / \
+        eps_denom(torch.sum(w, dim=-1, keepdim=True), 1e-17)
+    normals = normals / torch.clamp(torch.linalg.norm(normals, dim=-1, keepdim=True),
+                                    min=1e-15)
+    move_clip = torch.sqrt(torch.clamp(
+        torch.sum(torch.where(res.mask[..., 0], res.dists[..., 0], 0.0), dim=-1)
+        / torch.clamp(n_valid, min=1.0), min=0.0))[:, None, None]
+    pdiff = points[:, :, None, :] - nn
+    cut = (res.dists > spatial_cut) | ~res.mask
+    w_lop = torch.exp(-torch.sum(normals[:, :, None, :] * pdiff, dim=-1) ** 2
+                      * inv_sigma)
+    w_lop = torch.where(cut, 0.0, w_lop)
+    sw = torch.where(cut, 0.0, torch.exp(-res.dists * inv_sigma))
+    density = torch.sum(sw, dim=-1) + 1.0
+    move_data = torch.sum(w_lop[..., None] * pdiff, dim=-2) / \
+        eps_denom(torch.sum(w_lop, dim=-1, keepdim=True), 1e-17)
+    move_repul = cfg.repulsion_mu * density[..., None] * \
+        torch.sum(sw[..., None] * (-pdiff), dim=-2) / \
+        eps_denom(torch.sum(sw, dim=-1, keepdim=True), 1e-17)
+
+    def clip(v):
+        n = torch.linalg.norm(v, dim=-1, keepdim=True)
+        return v / torch.clamp(n, min=1e-15) * torch.minimum(n, move_clip)
+
+    points = torch.where(mask[..., None], points - clip(move_data) - clip(move_repul),
+                         points)
+
+    # --- edge-weighted midpoint insertion rounds, appending at slot `count`
+    mask, points = _front_compact(mask, points)
+    buf = torch.zeros((b, cap + 1, 3), dtype=points.dtype, device=dev)
+    bmask = torch.zeros((b, cap + 1), dtype=torch.bool, device=dev)
+    buf[:, :p] = points
+    bmask[:, :p] = mask
+    max_new = max(cap // 10, 1)
+    max_rounds = 4 * -(-cap // max_new) + 4
+    j = torch.arange(max_new, device=dev)[None, :]
+    for _ in range(max_rounds):
+        pts, m = buf[:, :cap], bmask[:, :cap]
+        counts = num_valid(m)
+        if not bool(torch.any(counts < n_target)):
+            break
+        nrm = _unit_normals(sdf_fn, pts)
+        r = knn_points(pts, pts, m, m, k=k, exclude_self=True)
+        knn_pts = knn_gather(pts, r.idx)
+        knn_nrm = knn_gather(nrm, r.idx)
+        mid = (knn_pts + 2.0 * pts[:, :, None, :]) / 3.0
+        diff = mid[:, :, :, None, :] - knn_pts[:, :, None, :, :]    # (B,C,K,K,3)
+        dot = (2.0 - torch.sum(nrm[:, :, None, :] * knn_nrm, dim=-1)) ** cfg.edge_sensitivity
+        dist = torch.linalg.norm(diff, dim=-1)
+        # less the normal component (the edge-aware tangential clearance)
+        dist = dist - torch.sum((diff * knn_nrm[:, :, None, :, :]) ** 2, dim=-1)
+        dist = torch.where(r.mask[:, :, None, :], dist, float("inf"))
+        clearance = torch.sqrt(eps_sqrt(torch.amin(dist, dim=-1), 1e-17))
+        clearance = torch.where(r.mask, clearance, float("-inf"))
+        priority = dot * clearance
+        sparsity = torch.amax(priority, dim=-1)
+        father_nb = torch.argmax(priority, dim=-1)
+        sparsity = torch.where(m & torch.isfinite(sparsity), sparsity, float("-inf"))
+        chosen = torch.gather(
+            mid, 2, father_nb[:, :, None, None].expand(-1, -1, 1, 3))[:, :, 0]
+        top_val, top_idx = top_k(sparsity, max_new)
+        new_pts = torch.gather(chosen, 1, top_idx[..., None].expand(-1, -1, 3))
+        top_ok = top_val > float("-inf")
+        n_new = torch.minimum(torch.clamp(n_target - counts, max=max_new),
+                              torch.sum(top_ok.long(), dim=-1))
+        # the slot past the capacity takes every insert that is dropped
+        slots = torch.where((j < n_new[:, None]) & top_ok, counts[:, None] + j, cap)
+        buf = buf.scatter(1, slots[..., None].expand(-1, -1, 3), new_pts)
+        bmask = bmask.scatter(1, slots, True)
+        if int(num_valid(bmask[:, :cap]).sum()) == int(counts.sum()):
+            break   # stalled: the round inserted nothing
+    return buf[:, :cap], bmask[:, :cap]
+
+
 def _front_compact(mask: torch.Tensor, *rows: torch.Tensor):
     """Valid entries first, in their order (a stable sort of ~mask)."""
     order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
@@ -264,6 +394,7 @@ def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
                    cfg: ProjectionConfig = ProjectionConfig(),
                    skip_resampling: bool = False,
                    skip_upsampling: bool = True,
+                   edge_aware: bool = False,
                    ref_points: Optional[torch.Tensor] = None,
                    ref_metric: Optional[torch.Tensor] = None,
                    ref_mask: Optional[torch.Tensor] = None,
@@ -271,14 +402,12 @@ def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
     """Newton projection with the config's iterations and tolerance
     (levelset.py:408-455); with `skip_resampling=False` the repulsion
     resampling (`cfg.sample_iters` rounds); then, with
-    `skip_upsampling=False` and `ref_points`, the saliency insertion:
-    children around the hot reference points, projected (10 iterations)
-    and appended into the free capacity. The upsampling without
-    `ref_points` raises (JAX's `edge_aware` option comes with it)."""
-    if not skip_upsampling and ref_points is None:
-        raise NotImplementedError(
-            f"project_points' upsampling without a reference cloud (midpoint "
-            f"or edge-aware) {_NOT_PORTED}")
+    `skip_upsampling=False`: with `ref_points`, the saliency insertion
+    (children around the hot reference points, projected with 10
+    iterations and appended into the free capacity); else the upsampling
+    back to the input's valid count in the input's capacity, edge-aware
+    (`edge_aware_upsample`) or by midpoints (`midpoint_upsample`, 31
+    neighbours), followed by a 10-iteration projection."""
     proj = project_points_newton(sdf_fn, points, mask,
                                  max_iters=cfg.proj_max_iters,
                                  tolerance=cfg.proj_tolerance, mesh=mesh)
@@ -286,6 +415,17 @@ def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
         proj = resample_repulsion(sdf_fn, *proj, cfg, mesh=mesh)
     if skip_upsampling:
         return proj
+    if ref_points is None:
+        if edge_aware:
+            up, m_up = edge_aware_upsample(sdf_fn, proj.points, proj.mask,
+                                           points.shape[1], cfg,
+                                           n_target=num_valid(mask))
+        else:
+            up, m_up = midpoint_upsample(proj.points, proj.mask, points.shape[1],
+                                         n_target=num_valid(mask),
+                                         neighborhood_size=31)
+        return project_points_newton(sdf_fn, up, m_up, max_iters=10,
+                                     tolerance=cfg.proj_tolerance, mesh=mesh)
     children, cmask = insert_around_salient(proj.points, proj.mask, ref_points,
                                             ref_metric, ref_mask)
     cproj = project_points_newton(sdf_fn, children, cmask, max_iters=10,
@@ -297,7 +437,7 @@ def project_points(sdf_fn: SDFFn, points: torch.Tensor, mask: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Seeded uniform resample (levelset.py:520-588)
+# Uniform resample (levelset.py:520-598)
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
@@ -307,19 +447,37 @@ def sample_uniform_iso_points(sdf_fn: SDFFn, n_points: int,
                               subsample_u: Optional[torch.Tensor] = None,
                               bounding_sphere_radius: float = 1.0,
                               cfg: ProjectionConfig = ProjectionConfig(),
-                              mesh=None) -> ProjectionResult:
-    """Uniform iso-point set seeded from the current cloud: project →
+                              mesh=None, cube_u: Optional[torch.Tensor] = None,
+                              wlop_noise: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None
+                              ) -> ProjectionResult:
+    """Uniform iso-point set. Seeded from the current cloud: project →
     repulsion (3 iterations when `cfg.sample_iters` is 0) → uniform random
     subsample when the seed is wider than `n_points` → midpoint-upsample
-    to `n_points` → final projection.
+    to `n_points` → final projection. Unseeded (`init_points` None): 4·n
+    points uniform in the cube of half-side `bounding_sphere_radius` →
+    project → WLOP at ratio max(min(0.5, n/4n), 1e-3) → project (10
+    iterations) → midpoint-upsample to n → final projection.
 
-    `subsample_u`: uniform [0, 1) draws shaped like `init_mask`, which rank
-    the valid seeds for the shrinking subsample (the JAX package draws them
-    from its key's second half); needed only when the seed is wider.
+    The draws the JAX package takes from its key, each a tensor or else
+    drawn from `generator` (on its device): `subsample_u`, uniform [0, 1)
+    shaped like `init_mask`, ranks the valid seeds for the shrinking
+    subsample; `cube_u`, uniform [0, 1) (1, 4n, 3), places the unseeded
+    cube points; `wlop_noise`, standard normal, WLOP's jitter (see
+    `ops.points.wlop`).
     """
     if init_points is None:
-        raise NotImplementedError(
-            f"the unseeded (WLOP) bootstrap of sample_uniform_iso_points {_NOT_PORTED}")
+        if cube_u is None:
+            if generator is None:
+                raise ValueError("the unseeded bootstrap needs cube_u or a "
+                                 "generator")
+            cube_u = torch.rand((1, n_points * 4, 3), generator=generator,
+                                device=generator.device)
+        init_points = (cube_u - 0.5) * 2.0 * bounding_sphere_radius
+        init_mask = None
+        seeded = False
+    else:
+        seeded = True
     mask0 = (torch.ones(init_points.shape[:2], dtype=torch.bool,
                         device=init_points.device)
              if init_mask is None else init_mask)
@@ -328,12 +486,26 @@ def sample_uniform_iso_points(sdf_fn: SDFFn, n_points: int,
                                  tolerance=cfg.proj_tolerance, mesh=mesh)
     inside = torch.linalg.norm(proj.points, dim=-1) < bounding_sphere_radius
     valid = proj.mask & inside
+    if not seeded:
+        ratio = max(min(0.5, n_points / init_points.shape[1]), 1e-3)
+        x, x_mask = wlop(proj.points, valid, wlop_noise, ratio=ratio,
+                         generator=generator)
+        proj2 = project_points_newton(sdf_fn, x, x_mask, max_iters=10,
+                                      tolerance=cfg.proj_tolerance, mesh=mesh)
+        up, up_mask = midpoint_upsample(proj2.points, proj2.mask, n_points,
+                                        neighborhood_size=16)
+        return project_points_newton(sdf_fn, up, up_mask, max_iters=10,
+                                     tolerance=cfg.proj_tolerance, mesh=mesh)
     rcfg = cfg if cfg.sample_iters > 0 else dataclasses.replace(cfg, sample_iters=3)
     pts, _, valid = resample_repulsion(sdf_fn, proj.points, proj.normals,
                                        valid, rcfg, mesh=mesh)
     if pts.shape[1] > n_points:
         if subsample_u is None:
-            raise ValueError("a seed wider than n_points needs subsample_u")
+            if generator is None:
+                raise ValueError("a seed wider than n_points needs subsample_u "
+                                 "or a generator")
+            subsample_u = torch.rand(valid.shape, generator=generator,
+                                     device=valid.device)
         order = torch.argsort(torch.where(valid, subsample_u, 2.0), dim=-1,
                               stable=True)[:, :n_points]
         pts = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))

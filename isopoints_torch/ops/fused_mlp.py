@@ -143,6 +143,9 @@ class SirenPack:
     kind = "siren"
 
     def __init__(self, field: SirenField):
+        if not field.sdf_only:
+            raise ValueError("the fused SIREN path needs a linear SDF head "
+                             "alone and no latent code (pallas_mlp.py:398-400)")
         with torch.no_grad():
             self.ws = tuple(l.weight.detach().clone() for l in field.layers)
             self.bs = tuple(l.bias.detach().clone() for l in field.layers)
@@ -286,9 +289,10 @@ class IgrPack:
     kind = "igr"
 
     def __init__(self, field: SDFField):
-        if field.num_frequencies > 0:
+        if field.num_frequencies > 0 or field.out_dim != 1:
             raise ValueError("the fused IGR path needs num_frequencies <= 0 "
-                             "(raw xyz input), as pallas_mlp.py:502 asserts")
+                             "(raw xyz input) and the SDF head alone, as "
+                             "pallas_mlp.py:502-503 asserts")
         with torch.no_grad():
             self.ws = tuple(l.weight.detach().clone() for l in field.layers)
             self.bs = tuple(l.bias.detach().clone() for l in field.layers)
@@ -542,12 +546,13 @@ def make_fused_igr_sdf(field: SDFField, precision: str = "f32"
 
 def make_fused_sdf_fn(field, precision: str = "f32"):
     """The fused callable for a supported field, or None (pallas_mlp.py:
-    383-410): a `SirenField` or an `SDFField` without positional
-    encoding. An `SDFField` with `num_frequencies > 0` has no
-    kernel in either package, so this returns None for it and the caller
-    traces the plain field."""
-    if isinstance(field, SirenField):
+    383-410): a `SirenField` with a linear SDF head alone and no code, or
+    an `SDFField` with the SDF head alone and no positional encoding. Any
+    other field has no kernel in either package, so this returns None for
+    it and the caller traces the plain field."""
+    if isinstance(field, SirenField) and field.sdf_only:
         return make_fused_siren_sdf(field, precision)
-    if isinstance(field, SDFField) and field.num_frequencies <= 0:
+    if (isinstance(field, SDFField) and field.num_frequencies <= 0
+            and field.out_dim == 1):
         return make_fused_igr_sdf(field, precision)
     return None

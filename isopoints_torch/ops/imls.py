@@ -5,8 +5,8 @@ At a query x the field is the Gaussian-weighted mean of the point-to-plane
 distances ⟨x − pᵢ, nᵢ⟩ over its k nearest points, the bandwidth set by the
 nearest one; where no weight survives, the unsigned distance to the nearest
 point. The neighbours come from `knn_points` (the kNN kernel on CUDA
-tensors). `project_to_latent_surface` (the RIMLS projection) is not ported:
-no workload of either package calls it (ROADMAP Queue 1 item 14).
+tensors). `project_to_latent_surface` moves points onto the cloud's latent
+RIMLS surface on the same neighbours.
 """
 
 from typing import Optional, Tuple
@@ -38,6 +38,50 @@ def imls_sdf(query: torch.Tensor, points: torch.Tensor, normals: torch.Tensor,
     # far-field fallback: the unsigned distance keeps the field monotone
     far = torch.sqrt(torch.clamp(res.dists[..., 0], min=0.0))
     return torch.where(w_sum < 1e-12, far, sdf)
+
+
+@torch.no_grad()
+def project_to_latent_surface(points: torch.Tensor, normals: torch.Tensor,
+                              mask: Optional[torch.Tensor] = None,
+                              k: int = 16, iters: int = 2,
+                              weight_iters: int = 3,
+                              sharpness_sigma: float = 0.75) -> torch.Tensor:
+    """RIMLS projection of each point onto the cloud's latent MLS surface
+    (imls.py:52-101). `iters` times: the k nearest cloud points of each
+    moved point (its own index excluded), spatial weights exp(−d²/h²) with
+    h² = 2·d₁², `weight_iters` robust re-weightings (residual × normal
+    bilateral), then a move along the weighted mean normal by the weighted
+    mean plane residual. points, normals (B, P, 3), mask (B, P) ->
+    moved points (B, P, 3); masked points stay."""
+    if mask is None:
+        mask = torch.ones(points.shape[:2], dtype=torch.bool, device=points.device)
+
+    def unit(v):
+        return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-12)
+
+    nrm = unit(normals)
+    inv_sig_n = 1.0 / (sharpness_sigma * sharpness_sigma)
+    x = points
+    for _ in range(iters):
+        res = knn_points(x, points, mask, mask, k=k, exclude_self=True)
+        nn = knn_gather(points, res.idx)                   # (B, P, K, 3)
+        nn_n = knn_gather(nrm, res.idx)
+        h2 = torch.clamp(res.dists[..., :1] * 2.0, min=1e-12)
+        w_sp = torch.where(res.mask, torch.exp(-res.dists / h2), 0.0)
+        f = torch.sum((x[:, :, None, :] - nn) * nn_n, dim=-1)   # plane residuals
+        w = w_sp
+        for _ in range(weight_iters):
+            mean_f = torch.sum(w * f, dim=-1, keepdim=True) / \
+                eps_denom(torch.sum(w, dim=-1, keepdim=True), 1e-12)
+            w_res = torch.exp(-((f - mean_f) ** 2) / torch.clamp(h2, min=1e-12))
+            avg_n = unit(torch.sum(w[..., None] * nn_n, dim=-2))
+            w_n = torch.exp(-torch.sum((nn_n - avg_n[:, :, None, :]) ** 2, dim=-1)
+                            * inv_sig_n)
+            w = torch.where(res.mask, w_sp * w_res * w_n, 0.0)
+        avg_n = unit(torch.sum(w[..., None] * nn_n, dim=-2))
+        move = torch.sum(w * f, dim=-1) / eps_denom(torch.sum(w, dim=-1), 1e-12)
+        x = torch.where(mask[..., None], x - move[..., None] * avg_n, x)
+    return x
 
 
 def pointcloud_to_mesh(points: np.ndarray, normals: np.ndarray,

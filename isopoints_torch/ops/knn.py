@@ -5,9 +5,10 @@ plain version (port of isopoints_tpu/ops/neighbors.py `knn_points` and
 
 The kernel (csrc/knn.cu) replaces `_knn_kernel` of
 isopoints_tpu/ops/pallas_knn.py (:83, wrapper `knn_points_pallas` :286):
-a group of 16 lanes serves one query, each lane scanning a strided share
-of the points from shared memory, and the group keeps one sorted list of
-the k <= 16 best by (distance, index), an entry a lane, whose k-th entry
+a group of 16 lanes (32 for 16 < k <= 32) serves one query, each lane
+scanning a strided share of the points from shared memory, and the group
+keeps one sorted list of the k best by (distance, index), an entry a lane,
+whose k-th entry
 bounds which points are candidates; a candidate is inserted by a ballot
 and a shuffle. From `SORT_MIN` points on, the wrapper first orders the
 points (and the queries, when they are the points) by Morton code, on the
@@ -19,8 +20,9 @@ saves. Bound on an H100: the f32 CUDA-core rate over the N·P distance
 evaluations.
 
 `knn_points(..., method="auto")` launches the kernel for CUDA tensors
-(k <= 16, the TPU kernel's limit; larger k on CUDA raises) and runs the
-plain version `knn_points_dense` for CPU tensors. `method="dense"` asks
+(k <= 32, the most any op of the JAX package asks for: the RIMLS losses'
+knn_k; larger k on CUDA raises) and runs the plain version
+`knn_points_dense` for CPU tensors. `method="dense"` asks
 for the plain version on any device. The plain version is the JAX
 package's dense path (neighbors.py:90-149): |q|² + |p|² − 2·q·p clamped at
 0, masked points pushed out by 1e10, then k masked-min sweeps whose
@@ -40,7 +42,7 @@ from isopoints_torch.ops import _build
 from isopoints_torch.utils import fma
 
 KERNEL = _build.LaunchCount("knn")
-MAX_K = 16
+MAX_K = 32
 SORT_MIN = 16384   # points from which the kernel runs on the Morton order
 _BIG = 1e10
 _BLOCK = 1024
@@ -124,10 +126,9 @@ def knn_points_dense(query: torch.Tensor, points: torch.Tensor,
 def knn_points_cuda(query: torch.Tensor, points: torch.Tensor,
                     query_mask: torch.Tensor, points_mask: torch.Tensor,
                     k: int, exclude_self: bool = False) -> KNNResult:
-    """Launch the CUDA kernel (contiguous float32 CUDA tensors, k <= 16)."""
+    """Launch the CUDA kernel (contiguous float32 CUDA tensors, k <= 32)."""
     if k > MAX_K:
-        raise ValueError(f"the CUDA kNN kernel takes k <= {MAX_K} (the TPU "
-                         f"kernel's limit), got k={k}")
+        raise ValueError(f"the CUDA kNN kernel takes k <= {MAX_K}, got k={k}")
     for t in (query, points, query_mask, points_mask):
         if not t.is_cuda or t.device != query.device:
             raise ValueError("knn_points_cuda takes CUDA tensors on one device")

@@ -1,7 +1,7 @@
-"""Fragment compositor (port of isopoints_tpu/rendering/compositor.py, the
-normalised one the renderer uses): plain gathers and weighted sums over the
-K fragments of a pixel, as pytorch3d's `NormWeightedCompositor` computes
-them. The JAX package has no kernel here and neither has the port."""
+"""Fragment compositors (port of isopoints_tpu/rendering/compositor.py):
+plain gathers and weighted sums over the K fragments of a pixel, normalised
+as pytorch3d's `NormWeightedCompositor` or not (`weighted_sum`). The JAX
+package has no kernel here and neither has the port."""
 
 from typing import Optional
 
@@ -14,6 +14,19 @@ def gather_fragments(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, c = table.shape[0], table.shape[-1]
     safe = torch.where(idx >= 0, idx, 0).reshape(b, -1, 1).expand(-1, -1, c)
     return torch.gather(table, 1, safe).reshape(idx.shape + (c,))
+
+
+def weighted_sum_composite(idx: torch.Tensor, weights: torch.Tensor,
+                           features: torch.Tensor,
+                           gathered_features: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Σ_k w_k·f_k over the valid fragments, unnormalised
+    (compositor.py:15-37). idx, weights (B, S, S, K), features (B, P, C) ->
+    (B, S, S, C)."""
+    if gathered_features is None:
+        gathered_features = gather_fragments(features, idx)
+    w = torch.where(idx >= 0, weights, 0.0)[..., None]
+    return torch.sum(gathered_features * w, dim=-2)
 
 
 def norm_weighted_sum_composite(idx: torch.Tensor, weights: torch.Tensor,

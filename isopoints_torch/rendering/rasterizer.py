@@ -1,8 +1,8 @@
 """Differentiable EWA surface-splatting rasterizer (port of
 isopoints_tpu/rendering/rasterizer.py).
 
-Per-point EWA splat setup (`compute_splat_params`, isotropic and global
-Vrk) and the tiled forward rasterization: per tile, the front-most
+Per-point EWA splat setup (`compute_splat_params`: isotropic, global and
+anisotropic Vrk) and the tiled forward rasterization: per tile, the front-most
 candidate splats (coarse stage, rendering/select.py), then per pixel the
 K nearest by depth with the depth-merging cut (fine stage,
 rendering/splat.py). With `use_pallas` the two stages run as the CUDA
@@ -18,8 +18,8 @@ stage's candidate slots and added to the candidates' points
 its xy part is the DSS occupancy
 backward (rendering/occ_bwd.py; `use_pallas_backward`). Without a
 gradient it runs the forward alone and keeps nothing for a backward: the
-combined model's visibility rasters stay graph-free. The anisotropic Vrk
-path raises (ROADMAP Queue 1 item 8).
+combined model's visibility rasters stay graph-free. `visible_point_mask`
+marks the points a fragment map shows.
 """
 
 import math
@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from isopoints_torch.core.camera import PerspectiveCamera
-from isopoints_torch.ops.knn import knn_points
+from isopoints_torch.ops.knn import knn_gather, knn_points
 from isopoints_torch.rendering.occ_bwd import occ_backward, occ_backward_plain
 from isopoints_torch.rendering.select import (select_candidates,
                                               select_candidates_plain)
@@ -38,6 +38,7 @@ from isopoints_torch.rendering.splat import (rasterize_fine,
                                              zbuf_backward_points,
                                              zbuf_backward_points_plain)
 from isopoints_torch.utils import eps_denom, eps_sqrt
+from isopoints_torch.utils.mathutils import local_coord_frames
 
 
 @dataclass(frozen=True)
@@ -104,6 +105,14 @@ def _tangent_basis(normals: torch.Tensor) -> torch.Tensor:
     return torch.stack([u0, u1], dim=-2)
 
 
+def _spacing_knn(points: torch.Tensor, mask: torch.Tensor,
+                 s: RasterizationSettings):
+    """The knn_k − 1 nearest others of each point (the reference's K = 7
+    with self); the kernel on CUDA tensors with `use_pallas`."""
+    return knn_points(points, points, mask, mask, k=max(s.knn_k - 1, 1),
+                      exclude_self=True, method="auto" if s.use_pallas else "dense")
+
+
 @torch.no_grad()
 def splat_spacing(points: torch.Tensor, mask: torch.Tensor,
                   settings: RasterizationSettings) -> torch.Tensor:
@@ -112,8 +121,7 @@ def splat_spacing(points: torch.Tensor, mask: torch.Tensor,
     fewer than knn_k points. The kNN is the kernel's on CUDA tensors with
     `use_pallas`, else its plain version."""
     s = settings
-    res = knn_points(points, points, mask, mask, k=max(s.knn_k - 1, 1),
-                     exclude_self=True, method="auto" if s.use_pallas else "dense")
+    res = _spacing_knn(points, mask, s)
     sq = torch.where(res.mask, res.dists, 0.0)
     h_k = 0.5 * torch.amax(sq, dim=-1)
     enough = torch.sum(mask.long(), dim=-1, keepdim=True) >= s.knn_k
@@ -126,15 +134,17 @@ def compute_splat_params(points: torch.Tensor, normals: torch.Tensor,
                          cutoff_scale: Optional[torch.Tensor] = None,
                          spacing: Optional[torch.Tensor] = None) -> SplatParams:
     """Per-point EWA parameters and the depth/backface filters
-    (rasterizer.py:164-280), isotropic or global (`Vrk_invariant`) Vrk.
-    `cutoff_scale`: a global splat-size scale on the cutoff, entering
-    detached (:267-270). `spacing`: a precomputed `splat_spacing` (B, P) or
-    (1, P), else it is computed here. Everything but `pts_ndc` is detached,
-    as in the JAX package."""
+    (rasterizer.py:164-280). Vrk: isotropic (h_k from the spacing on the
+    tangent plane), global (`Vrk_invariant`: the renderable points' mean
+    h_k), or anisotropic (`Vrk_isotropic=False`: the two tangent axes of
+    `local_coord_frames` on the knn_k − 1 nearest others, scaled by their
+    eigenvalues, Sk the same axes; :220-230). `cutoff_scale`: a global
+    splat-size scale on the cutoff, entering detached (:267-270).
+    `spacing`: a precomputed `splat_spacing` (B, P) or (1, P), else it is
+    computed here (the anisotropic Vrk reads its kNN and no spacing).
+    Everything but `pts_ndc` is detached, as in the JAX package."""
     s = settings
-    if not (s.Vrk_isotropic or s.Vrk_invariant):
-        raise NotImplementedError("the anisotropic Vrk path is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    anisotropic = not (s.Vrk_isotropic or s.Vrk_invariant)
     b, p, _ = points.shape
     view = camera.world_to_view(points)
     z = view[..., 2]
@@ -145,17 +155,29 @@ def compute_splat_params(points: torch.Tensor, normals: torch.Tensor,
     pts_ndc = camera.project_ndc(points)
 
     with torch.no_grad():
-        if spacing is None:
-            spacing = splat_spacing(points.detach(), mask, s)
-        h_k = torch.broadcast_to(spacing.detach(), (b, p))
-        if s.Vrk_invariant:
-            denom = torch.clamp(torch.sum(rmask.long(), dim=-1, keepdim=True), min=1)
-            h_k = torch.sum(torch.where(rmask, h_k, 0.0), dim=-1, keepdim=True) / denom
-            h_k = torch.clamp(h_k, 5e-5, 1e-3) * torch.ones_like(z)
+        if anisotropic:
+            # curvature-scaled tangent variance (rasterizer.py:220-230)
+            points_d = points.detach()
+            res = _spacing_knn(points_d, mask, s)
+            evals, frames = local_coord_frames(
+                points_d, knn_gather(points_d, res.idx), res.mask)
+            tang = frames[..., 1:]                      # (B, P, 3, 2), ascending
+            Vrk = torch.einsum("bpik,bpk,bpjk->bpij", tang, evals[..., 1:], tang)
+            Sk = tang.transpose(-1, -2)                 # (B, P, 2, 3)
         else:
-            h_k = torch.clamp(h_k, 5e-5, 0.01)
-        Sk = _tangent_basis(normals.detach())                       # (B, P, 2, 3)
-        Vrk = h_k[..., None, None] * torch.einsum("bpki,bpkj->bpij", Sk, Sk)
+            if spacing is None:
+                spacing = splat_spacing(points.detach(), mask, s)
+            h_k = torch.broadcast_to(spacing.detach(), (b, p))
+            if s.Vrk_invariant:
+                denom = torch.clamp(torch.sum(rmask.long(), dim=-1, keepdim=True),
+                                    min=1)
+                h_k = torch.sum(torch.where(rmask, h_k, 0.0), dim=-1,
+                                keepdim=True) / denom
+                h_k = torch.clamp(h_k, 5e-5, 1e-3) * torch.ones_like(z)
+            else:
+                h_k = torch.clamp(h_k, 5e-5, 0.01)
+            Sk = _tangent_basis(normals.detach())                   # (B, P, 2, 3)
+            Vrk = h_k[..., None, None] * torch.einsum("bpki,bpkj->bpij", Sk, Sk)
 
         # projection Jacobian Mk = d ndc_xy / d p_world (rasterizer.py:232-248)
         view_d = view.detach()
@@ -319,3 +341,13 @@ def rasterize_splats(pts_ndc, ellipse, radii, cutoff, mask,
                                                  cutoff, mask, settings))
     return _rasterize_forward(pts_ndc, ellipse, radii, cutoff, mask,
                               settings)[0]
+
+
+def visible_point_mask(idx: torch.Tensor, num_points: int) -> torch.Tensor:
+    """(B, num_points) bool: the points that appear in the fragment maps
+    idx (B, ...) (rasterizer.py:695-702; −1 is empty)."""
+    b = idx.shape[0]
+    flat = idx.reshape(b, -1)
+    safe = torch.where(flat >= 0, flat, num_points)
+    vis = torch.zeros((b, num_points + 1), dtype=torch.bool, device=idx.device)
+    return vis.scatter(1, safe, True)[:, :num_points]

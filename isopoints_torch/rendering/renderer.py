@@ -1,7 +1,7 @@
 """Surface-splatting renderer: point cloud + camera -> RGBA (port of
 isopoints_tpu/rendering/renderer.py): rasterize, fragment weights
-exp(−0.5·q)·scaler, the normalised weighted-sum composite, and the
-occupancy map as alpha."""
+exp(−0.5·q)·scaler, the normalised (or plain) weighted-sum composite, and
+the occupancy map as alpha."""
 
 from typing import NamedTuple, Optional
 
@@ -10,7 +10,8 @@ import torch
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.core.cloud import PointCloud
 from isopoints_torch.rendering.compositor import (gather_fragments,
-                                                  norm_weighted_sum_composite)
+                                                  norm_weighted_sum_composite,
+                                                  weighted_sum_composite)
 from isopoints_torch.rendering.rasterizer import (Fragments,
                                                   RasterizationSettings,
                                                   compute_splat_params,
@@ -26,10 +27,12 @@ class RenderOutput(NamedTuple):
 def render_pointcloud(cloud: PointCloud, camera: PerspectiveCamera,
                       settings: RasterizationSettings,
                       features: Optional[torch.Tensor] = None,
+                      normalize_weights: bool = True,
                       cutoff_scale: Optional[torch.Tensor] = None,
                       spacing: Optional[torch.Tensor] = None) -> RenderOutput:
     """The splat-render pipeline (renderer.py:33-78). `features[..., :3]`
-    are RGB (default the cloud's, else white); `cutoff_scale` a global
+    are RGB (default the cloud's, else white); `normalize_weights=False`
+    composites the plain weighted sum; `cutoff_scale` a global
     splat-size scale (entering detached); `spacing` a cached
     `splat_spacing`. Gradients reach the points through the occupancy
     (alpha) and the colours through the features: q and the EWA scaler
@@ -50,7 +53,9 @@ def render_pointcloud(cloud: PointCloud, camera: PerspectiveCamera,
     weights = torch.where(frags.idx >= 0,
                           torch.exp(-0.5 * frags.qvalue.detach())
                           * gathered[..., 0].detach(), 0.0)
-    rgb = norm_weighted_sum_composite(frags.idx, weights, features[..., :3],
-                                      gathered_features=gathered[..., 1:])
+    composite = (norm_weighted_sum_composite if normalize_weights
+                 else weighted_sum_composite)
+    rgb = composite(frags.idx, weights, features[..., :3],
+                    gathered_features=gathered[..., 1:])
     rgba = torch.cat([rgb, frags.occupancy[..., None]], dim=-1)
     return RenderOutput(rgba=rgba, fragments=frags, visibility=frags.visibility)

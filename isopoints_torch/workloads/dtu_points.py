@@ -184,7 +184,8 @@ def make_decoder(cfg: DTUPointsConfig,
 def projection_config(cfg: DTUPointsConfig) -> ProjectionConfig:
     """The refresh's projection (dtu_points.py:197-199)."""
     return ProjectionConfig(proj_max_iters=10, proj_tolerance=1e-5, knn_k=16,
-                            sample_iters=2 if cfg.ear else 5)
+                            sample_iters=2 if cfg.ear else 5,
+                            repulsion_mu=0.4, sharpness_angle=20.0)
 
 
 def learning_rate(cfg: DTUPointsConfig, count: int) -> float:
@@ -280,7 +281,8 @@ def refresh_iso(sdf_fn, iso_points: torch.Tensor, iso_mask: torch.Tensor,
     8-NN frames (self included), bilaterally denoised."""
     perturbed = iso_points + 0.1 * (u - 0.5)
     res = project_points(sdf_fn, perturbed, iso_mask, projection_config(cfg),
-                         skip_resampling=False, skip_upsampling=True)
+                         skip_resampling=False, skip_upsampling=True,
+                         edge_aware=cfg.ear)
     nn_res = knn_points(res.points, res.points, res.mask, res.mask, k=8)
     nn = knn_gather(res.points, nn_res.idx)
     normals = estimate_normals(res.points, nn, nn_res.mask)

@@ -3,10 +3,10 @@
 An unknown `model.decoder_type` and an unknown `model.type` raise
 ValueError in both packages, with the same message
 (isopoints_tpu/factories.py:35,79). A dotted `decoder_type` is a class
-path, which the JAX package resolves (factories.py:29-30); for it the port
-raises NotImplementedError naming ROADMAP Queue 1 item 3, since such a
-path written for JAX names an `isopoints_tpu` class the port may not
-import.
+path, which the JAX package resolves (factories.py:29-30); the port
+resolves it inside `isopoints_torch`, reading a leading `isopoints_tpu.`
+as `isopoints_torch.`, and a path that names no class of the port raises
+JAX's ValueError for an unknown decoder_type.
 """
 
 import pytest
@@ -42,10 +42,22 @@ def test_unknown_type_raises_the_references_value_error(model):
 
 
 def test_dotted_decoder_type_raises_not_implemented():
-    dotted = "isopoints_tpu.models.fields.SDFField"
-    jcfg, tcfg = _configs(decoder_type=dotted)
-    assert isinstance(j_create_decoder(jcfg), JSDF)      # JAX resolves the path
-    with pytest.raises(NotImplementedError, match="item 3"):
-        create_decoder(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        create_model(tcfg, device="cpu")
+    """The dotted path resolves to the port's class with the config's
+    kwargs, as JAX resolves its own; a path naming no class of the port
+    raises JAX's message."""
+    from isopoints_torch.models.fields import SDFField
+    for dotted in ("isopoints_tpu.models.fields.SDFField",
+                   "isopoints_torch.models.fields.SDFField"):
+        jcfg, tcfg = _configs(decoder_type=dotted)
+        j_dec = j_create_decoder(jcfg) if "tpu" in dotted else None
+        dec = create_decoder(tcfg, device="cpu")
+        assert isinstance(dec, SDFField) and dec.hidden_size == 16
+        if j_dec is not None:
+            assert isinstance(j_dec, JSDF) and j_dec.dims == dec.dims
+        model = create_model(tcfg, device="cpu")
+        assert isinstance(model.decoder, SDFField)
+    for bad in ("isopoints_torch.models.fields.NoSuch", "numpy.ndarray"):
+        _, tcfg = _configs(decoder_type=bad)
+        with pytest.raises(ValueError) as t_err:
+            create_decoder(tcfg, device="cpu")
+        assert str(t_err.value) == f"unknown decoder_type {bad}"

@@ -11,7 +11,8 @@ plain versions on the same inputs: kNN distances, indices and masks equal
 bit for bit (both form the distance with the same fused multiply-adds and
 rank by (distance, index)), also on adversarial clouds (exact duplicates,
 an integer lattice, masked points and queries, two clusters far apart, k
-= 1, 8, 16, with and without self-exclusion; two of them past
+= 1, 8, 16 and, on a warp a query, 17, 24, 31 and 32, with and without
+self-exclusion; two of them past
 knn.SORT_MIN, on the Morton order with pruning); candidate SETS and
 overflow counts equal (the kernel lists a tile's candidates in index
 order, the plain version by depth), also at the splat frame's shape and on
@@ -264,7 +265,7 @@ def test_knn_kernel_matches_plain(dev, p, k):
 
 
 @pytest.mark.parametrize("exclude_self", [False, True])
-@pytest.mark.parametrize("k", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 8, 16, 17, 24, 31, 32])
 @pytest.mark.parametrize("cloud", range(7))
 def test_knn_kernel_adversarial_clouds(dev, cloud, k, exclude_self):
     """Exact duplicates, an integer lattice, masked points and queries, a
@@ -291,8 +292,25 @@ def test_knn_kernel_masks_and_queries(dev):
     b = knn.knn_points(q, pts, qm, pm, k=8, method="dense")
     assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
     assert torch.equal(a.dists, b.dists)
-    with pytest.raises(ValueError, match="k <= 16"):
-        knn.knn_points(q, pts, k=17)
+    with pytest.raises(ValueError, match="k <= 32"):
+        knn.knn_points(q, pts, k=33)
+
+
+@pytest.mark.parametrize("k", [17, 24, 31, 32])
+def test_knn_kernel_warp_group_rimls_shape(dev, k):
+    """16 < k <= 32 (a warp a query) at the RIMLS losses' shape, (2, 5000)
+    self-excluded, bit for bit against the plain version."""
+    pts, _, mask = _sphere_cloud(dev, 5000, seed=k)
+    pts = torch.stack([pts[0], pts[0].flip(0)])
+    mask = torch.stack([mask[0], mask[0].flip(0)])
+    before = knn.KERNEL.launches
+    a = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True)
+    torch.cuda.synchronize()
+    assert knn.KERNEL.launches == before + 1
+    b = knn.knn_points(pts, pts, mask, mask, k=k, exclude_self=True,
+                       method="dense")
+    assert torch.equal(a.mask, b.mask) and torch.equal(a.idx, b.idx)
+    assert torch.equal(a.dists, b.dists)
 
 
 def _splats(dev, P, seed, z_ties=False):

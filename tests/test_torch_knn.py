@@ -70,7 +70,10 @@ def _jax(*arrays):
 
 
 @pytest.mark.parametrize("k,exclude_self", [(6, True), (8, False),
-                                            (16, True), (20, False)])
+                                            (16, True), (20, False),
+                                            (17, True), (24, False),
+                                            (31, True), (32, True),
+                                            (32, False)])
 def test_knn_matches_jax_dense(k, exclude_self):
     q, pts, qm, pm = _clouds(k)
     if exclude_self:

@@ -136,11 +136,23 @@ def test_project_points_branches():
     rep = project_points(t_sdf, pts, mask, skip_resampling=False)
     ref = resample_repulsion(t_sdf, *ref, ProjectionConfig())
     assert torch.equal(rep.points, ref.points) and torch.equal(rep.mask, ref.mask)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        project_points(t_sdf, pts, mask, skip_resampling=True,
-                       skip_upsampling=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the upsampling branch: Newton, then the midpoint upsampling (31
+    # neighbours) back to the input's count, then a 10-iteration projection
+    # (tests/test_torch_pointset.py holds both upsamplings against JAX)
+    from isopoints_torch.ops.points import midpoint_upsample
+    up = project_points(t_sdf, pts, mask, skip_resampling=True,
+                        skip_upsampling=False)
+    ref = project_points_newton(t_sdf, pts, mask)
+    ref = project_points_newton(t_sdf, *midpoint_upsample(
+        ref.points, ref.mask, pts.shape[1], n_target=mask.sum(-1),
+        neighborhood_size=31), max_iters=10)
+    assert torch.equal(up.points, ref.points) and torch.equal(up.mask, ref.mask)
+    # the unseeded bootstrap takes its draws or a generator
+    with pytest.raises(ValueError, match="cube_u or a generator"):
         sample_uniform_iso_points(t_sdf, 64, None)
+    boot = sample_uniform_iso_points(t_sdf, 64, None,
+                                     generator=torch.Generator().manual_seed(0))
+    assert boot.points.shape == (1, 64, 3) and int(boot.mask.sum()) >= 60
 
 
 def test_intersection_with_unit_cube_matches_jax():

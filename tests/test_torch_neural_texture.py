@@ -103,18 +103,22 @@ def test_rendering_network_matches_jax(weight_norm):
 
 
 def test_view_direction_and_refusals():
-    """The camera's view direction, and the inputs the port refuses: a
-    latent code and heads other than rgb."""
+    """The camera's view direction, and the net's latent code and heads:
+    its widths as JAX's, an unknown head refused."""
     from test_torch_combined import views
     _, _, jcam, tcam = views()
     pts, _, _ = _inputs(50, seed=4)
     np.testing.assert_allclose(tcam.view_direction(torch.from_numpy(pts)).numpy(),
                                np.asarray(jcam.view_direction(jnp.asarray(pts))),
                                atol=1e-6)
-    with pytest.raises(ValueError):
-        RenderingNetwork(c_dim=5)
-    with pytest.raises(TypeError):
-        RenderingNetwork(out_dims={"rgb": 3, "sdf": 1})
+    # a latent code and other heads are carried (tests/test_torch_cloud_utils.py
+    # holds them against JAX); an unknown head is refused as JAX refuses it
+    net = RenderingNetwork(c_dim=5, hidden_size=8, n_layers=1, device="cpu")
+    assert net.dims[0] == JRenderingNetwork(c_dim=5, hidden_size=8, n_layers=1).dims[0]
+    assert RenderingNetwork(out_dims={"rgb": 3, "sdf": 1}, hidden_size=8,
+                            n_layers=1, device="cpu").dims[-1] == 4
+    with pytest.raises(ValueError, match="invalid out_dims key"):
+        RenderingNetwork(out_dims={"rgb": 3, "nosuch": 1})
 
 
 def test_texture_keeps_weight_norm_in_conversion():

@@ -220,8 +220,84 @@ def test_fine_stage_ignores_candidate_order():
 
 
 def test_rasterizer_refuses_what_is_not_ported():
-    aniso = RasterizationSettings(Vrk_isotropic=False)
-    cam = PerspectiveCamera.create(T=[0.0, 0.0, 2.0])
-    with pytest.raises(NotImplementedError, match="anisotropic"):
-        compute_splat_params(torch.zeros(1, 4, 3), torch.ones(1, 4, 3),
-                             torch.ones(1, 4, dtype=torch.bool), cam, aniso)
+    """The anisotropic Vrk path, which raised before it was ported: splat
+    parameters against JAX's from identical points, normals and cameras,
+    with the tolerances of the isotropic ones (masks equal, positions
+    within 1e-6, conics, radii and scalers within rtol 1e-3 on at least 99%
+    of the splats and 1e-2 on all); its tangent frames come from each
+    package's own eigh, whose eigenvectors may differ in sign, which
+    Vrk = Σ λ t tᵀ and |det Mk| do not see, and on a neighbourhood whose two
+    smallest eigenvalues nearly meet, in how they mix the normal and a
+    tangent (an eigenvector's error grows as round-off over the eigenvalue
+    gap: one scaler of 1024 is 1.5e-3 apart here). A cached spacing changes
+    nothing (the anisotropic Vrk reads no spacing)."""
+    S, P = 48, 512
+    pts, normals, mask, Rm, Tm = _sphere_scene(P, S, seed=3)
+    pts = pts * np.array([1.0, 0.6, 1.3], np.float32)       # an ellipsoid
+    jcam, tcam = _cameras(Rm, Tm)
+    js = JSettings(image_size=S, Vrk_isotropic=False)
+    ts = RasterizationSettings(image_size=S, Vrk_isotropic=False)
+    j = jax.jit(j_splat_params, static_argnums=4)(
+        *(jnp.asarray(a) for a in (pts, normals, mask)), jcam, js)
+    t = compute_splat_params(*(torch.from_numpy(a) for a in (pts, normals, mask)),
+                             tcam, ts)
+    np.testing.assert_array_equal(t.mask.numpy(), np.asarray(j.mask))
+    np.testing.assert_allclose(t.pts_ndc.numpy(), np.asarray(j.pts_ndc), atol=1e-6)
+    for name in ("ellipse", "radii", "cutoff", "scaler"):
+        a, b = getattr(t, name).numpy(), np.asarray(getattr(j, name))
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+        assert np.mean(rel <= 1e-3) >= 0.99, name
+        np.testing.assert_allclose(a, b, rtol=1e-2, err_msg=name)
+    iso = compute_splat_params(*(torch.from_numpy(a) for a in (pts, normals, mask)),
+                               tcam, RasterizationSettings(image_size=S))
+    assert not torch.allclose(iso.ellipse, t.ellipse)     # another Vrk
+    t2 = compute_splat_params(*(torch.from_numpy(a) for a in (pts, normals, mask)),
+                              tcam, ts, spacing=torch.ones(1, P))
+    assert torch.equal(t2.ellipse, t.ellipse)
+
+
+def test_visible_point_mask_matches_jax():
+    from isopoints_tpu.rendering.rasterizer import visible_point_mask as j_vis
+    from isopoints_torch.rendering.rasterizer import visible_point_mask
+    rng = np.random.RandomState(4)
+    idx = rng.randint(-1, 60, (2, 16, 16, 5))
+    idx[1] = -1
+    np.testing.assert_array_equal(visible_point_mask(torch.from_numpy(idx), 60).numpy(),
+                                  np.asarray(j_vis(jnp.asarray(idx), 60)))
+
+
+def test_weighted_sum_composite_and_render_match_jax():
+    """The unnormalised compositor, and `render_pointcloud` with
+    `normalize_weights=False` against JAX's on identical clouds (rgba
+    within rtol 1e-5: the weights' exponentials and sums in another order;
+    unnormalised sums reach tens)."""
+    from isopoints_tpu.core.cloud import PointCloud as JCloud
+    from isopoints_tpu.rendering.compositor import weighted_sum_composite as j_ws
+    from isopoints_tpu.rendering.renderer import render_pointcloud as j_render
+    from isopoints_torch.core.cloud import PointCloud
+    from isopoints_torch.rendering.compositor import weighted_sum_composite
+    from isopoints_torch.rendering.renderer import render_pointcloud
+    rng = np.random.RandomState(5)
+    idx = rng.randint(-1, 40, (2, 8, 8, 5))
+    w = rng.uniform(size=idx.shape).astype(np.float32)
+    feat = rng.uniform(size=(2, 40, 3)).astype(np.float32)
+    T_ = torch.from_numpy
+    np.testing.assert_allclose(
+        weighted_sum_composite(T_(idx), T_(w), T_(feat)).numpy(),
+        np.asarray(j_ws(jnp.asarray(idx), jnp.asarray(w), jnp.asarray(feat))),
+        atol=1e-6, rtol=0)
+    S, P = 48, 512
+    pts, normals, mask, Rm, Tm = _sphere_scene(P, S, seed=5)
+    colors = rng.uniform(size=pts.shape).astype(np.float32)
+    jcam, tcam = _cameras(Rm, Tm)
+    for norm in (False, True):
+        j = j_render(JCloud.create(*(jnp.asarray(a) for a in (pts, normals, colors)),
+                                   mask=jnp.asarray(mask)), jcam,
+                     JSettings(image_size=S), normalize_weights=norm)
+        t = render_pointcloud(PointCloud.create(*(T_(a) for a in (pts, normals, colors)),
+                                                mask=T_(mask)), tcam,
+                              RasterizationSettings(image_size=S),
+                              normalize_weights=norm)
+        np.testing.assert_allclose(t.rgba.numpy(), np.asarray(j.rgba), atol=1e-6,
+                                   rtol=1e-5)
+        assert float(t.rgba[..., 3].sum()) > 0

@@ -258,13 +258,20 @@ def test_project_points_with_insertion_matches_jax():
 
 
 def test_project_points_unported_branches_raise():
+    """Without a reference cloud the upsampling branches run (midpoint, or
+    edge-aware with `edge_aware`), where they raised before they were
+    ported; a reference cloud still takes the insertion."""
     _, t_sdf = _siren_pair()
-    pts = torch.zeros(1, 8, 3)
-    mask = torch.ones(1, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        project_points(t_sdf, pts, mask, skip_resampling=True,
-                       skip_upsampling=False)
-    assert "item 8" not in levelset._NOT_PORTED
+    rng = np.random.RandomState(22)
+    pts = T(rng.uniform(-0.75, 0.75, (1, 200, 3)).astype(np.float32))
+    mask = torch.ones(1, 200, dtype=torch.bool)
+    plain = project_points(t_sdf, pts, mask, skip_resampling=True)
+    for edge_aware in (False, True):
+        res = project_points(t_sdf, pts, mask, skip_resampling=True,
+                             skip_upsampling=False, edge_aware=edge_aware)
+        assert res.points.shape == pts.shape
+        assert int(res.mask.sum()) >= int(plain.mask.sum())
+    assert not hasattr(levelset, "_NOT_PORTED")
 
 
 # ---------------------------------------------------------------------------
