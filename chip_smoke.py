@@ -8,7 +8,9 @@ Phases, each fatal on failure:
      isopoints_torch/csrc/ (one nvcc per source, in parallel); count the
      tensor-core instructions (HMMA, HGMMA) in the SASS of the libraries of
      the kernels on mlp_mma.cuh's tile, fused_mlp, fused_igr, fused_sampler
-     and fused_trace (`cuobjdump --dump-sass`; none in any is a failure);
+     and fused_trace and their `_wide` twins (the instances above 256)
+     (`cuobjdump --dump-sass`; none in any is a failure), and print each
+     one's registers and spills from nvcc's -Xptxas -v log;
   2. each kernel against its plain PyTorch version at full width (seeded):
      the fused SIREN MLP (3x256) value and value+grad on 262,144 points and
      the sampler on 16,384 rays (also equal to sweep_plain over the fused
@@ -308,10 +310,37 @@ Phases, each fatal on failure:
      phase 16's compound mesh at 4096 points near it, the card against the
      CPU on 512 of them (rtol 1e-5), its sign against `compound_sdf`'s
      past one 128³ cell (>= 99.9%);
+  20. the network published with IGR on the wide instances of the MLP
+     tile (`igr_wide_phase`): (b) isopoints_torch/configs/igr_mvr_dir.yml
+     (configs/dtu_mvr.yml without positional encoding: IGR 8x512 on raw
+     xyz) through `train_mvr` on phase 13's DTU-layout torus, 40 warm-up
+     steps, the resample at 40 and 3 projected steps, every step with its
+     counters set to 0 just before and read just after: fused_igr in both
+     modes, fused_sampler, the kNN, selection and fine launched and no
+     plain MLP version called (`plain_calls`), fused_igr's launches by
+     mode and shape, each step's time, a profiled projected step's busy
+     share, a projected step's terms with the kernels and with every plain
+     version on identical draws (phase 4's bars: rtol 1e-2, counts within
+     0.5% of the capacity); (a) on the trained field (`wide_kernels`):
+     fused_igr value and value+grad in both modes on 262,144 and 524,288
+     points and f32 on 220,202 (phase 7's bars; the f32 tile's RMS against
+     exact sums beside cuBLAS's there and on the sampler's fine points),
+     the coarse IGR sampler at row 3b's shape (equal to sweep_plain over
+     the fused callables bit for bit; against the plain version by phase
+     7's bars, its picks held to the exactly summed sweep's: on 99% of
+     rays or as many as the plain version's), the march at row 9's shape
+     (bit for bit over the fused callable; masks and depths as phase 7), a
+     seeded SIREN 3x512 through fused_mlp (f32 value+grad on 3000 and
+     262,144 points, bf16 value on 131,072), its coarse sampler (row 3c's
+     shape) and march (row 9s's), IGR 4x300 and 4x288 padded to the
+     384-wide instance on the card, and a width above 512 refused; each
+     timed beside its plain version, the f32 cuBLAS chain (TF32 off) and
+     its bound;
 then the JSON line {"kernels": [...]} (row 4 also at the statistics', the
 chamfer's, the IMLS, the DTU and the RIMLS (`rimls_*`) shapes; the
 SIREN-path rows with their launches in 13 (b) and (e), 14 (b) and (d) and
-15; the raymesh row from 16 (a)) and the device line {"ok": true, "device": {...}}. Phase 6 also prints
+15; the raymesh row from 16 (a); the wide rows of phase 20 with their
+launches in 20 (b)) and the device line {"ok": true, "device": {...}}. Phase 6 also prints
 isopoints_torch.bench's roofline line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -2139,6 +2168,620 @@ def pointset_phase(dev, kernels, p4, scene, pmodel, pcam) -> dict:
             "rimls_bound_by": r_b[1], "k_max": 32}
 
 
+# phase 20: the published IGR network (8x512, no encoding) on the wide
+# instances of the MLP tile. (a)'s shapes are the trace path's rows'
+# (phase 7): fused_igr on 262,144 and 524,288 points and, in f32, on 220,202
+# (the f32 RMS check's); the coarse sampler at row 3b's 24,576 rays; the march
+# at row 9's 170,394 rays x 3; SIREN 3x512 at rows 1, 1b, 3c and 9s's shapes
+WIDE_POINTS = (262_144, 524_288)
+WIDE_F32_POINTS = 220_202
+WIDE_SAMPLER_RAYS = 24_576
+WIDE_MARCH_RAYS, WIDE_MARCH_ITERS = 170_394, 3
+WIDE_SIREN_POINTS = (3000, 262_144)
+WIDE_SIREN_BF16_POINTS = 131_072
+WIDE_SIREN_RAYS = 1024
+WIDE_SIREN_MARCH_RAYS, WIDE_SIREN_MARCH_ITERS = 1640, 4
+# widths that are not an instance's: padded to 384 (hidden, n_layers)
+WIDE_ODD = ((300, 4), (288, 4))
+WIDE_ABOVE = 544           # above the widest instance: refused
+WIDE_ITERS = 44            # 40 warm-up steps, the resample at 40, 3 projected
+
+
+def ptxas_summary(lib_path: str) -> str:
+    """The most registers a kernel of a library takes and its largest
+    spill, from nvcc's -Xptxas -v log kept beside it."""
+    import re
+    with open(lib_path + ".log") as f:
+        log = f.read()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    return (f"{len(regs)} kernels, at most {max(regs, default=0)} registers a "
+            f"thread, largest spill {max(spills, default=0)} bytes "
+            f"({sum(1 for s in spills if s)} kernels spill)")
+
+
+def wide_rays(n: int, dev, seed: int):
+    """(cam, dirs, t_lo, t_hi), n rays of bench.make_rays' fan over about
+    [0.5, 3.5] (the unit sphere seen from (0, 0, -2) with a margin), flat
+    and contiguous."""
+    from isopoints_torch import bench
+    cam, dirs, _ = bench.make_rays(n, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t_lo = 0.5 + 0.1 * torch.rand(n, generator=g, device=dev)
+    t_hi = 3.5 - 0.1 * torch.rand(n, generator=g, device=dev)
+    return (cam.reshape(-1, 3).contiguous(), dirs.reshape(-1, 3).contiguous(),
+            t_lo, t_hi)
+
+
+def wide_kernels(dev, ifield, kernels, sfield=None) -> list:
+    """Phase 20 (a): every wide kernel against its plain version at full
+    width, on the IGR field `ifield` (8x512) and a seeded SIREN 3x512
+    (`sfield`, made here when None); fused_igr also at widths that are
+    not an instance's, and refused above the widest. Returns the rows of
+    the kernels line (launches filled in by the caller)."""
+    from isopoints_torch.models.fields import SDFField, SirenField
+    from isopoints_torch.models.raytracing import RayTracingConfig, march_plain
+    from isopoints_torch.ops import fused_mlp, fused_sampler
+    from isopoints_torch.utils import fma, linspace01
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counts = lambda: {k.name: k.launches for k in kernels}
+    gen = torch.Generator(device=dev).manual_seed(20)
+    if sfield is None:
+        sfield = SirenField(hidden_size=512, n_layers=3, generator=gen, device=dev)
+    rows = []
+
+    def pack_stats(pack):
+        flops = 2.0 * sum(w.shape[0] * w.shape[1] for w in pack.ws)
+        w_bytes = 4 * sum(w.numel() + b.numel() for w, b in zip(pack.ws, pack.bs))
+        return flops, w_bytes
+
+    def check_mlp(fine, coarse, n, bf16, with_grad, label, timed=True):
+        """The fused callable (`coarse` in bf16) against the plain version
+        on n points in [-1.2, 1.2]^3, by phase 7's bars; timed beside the
+        plain version, the f32 cuBLAS chain (TF32 off) of the same work and
+        the bound. Returns (err, ms, plain ms, cuBLAS ms, bound)."""
+        pack = fine.pack
+        plain, plain_g = fused_mlp._PLAIN[pack.kind], fused_mlp._PLAIN_GRAD[pack.kind]
+        fn = coarse if bf16 else fine
+        x = torch.rand((n, 3), generator=gen, device=dev) * 2.4 - 1.2
+        run_k = (lambda: fn.sdf_and_grad(x)) if with_grad else (lambda: (fn(x),))
+        run_p = ((lambda: plain_g(pack, x, bf16)) if with_grad
+                 else (lambda: (plain(pack, x, bf16),)))
+        run_c = ((lambda: plain_g(pack, x)) if with_grad
+                 else (lambda: (plain(pack, x),)))
+        out, ref = run_k(), run_p()
+        errs = [float((a - b).abs().max()) for a, b in zip(out, ref)]
+        if not all(torch.isfinite(a).all() for a in out):
+            fail(f"phase 20 {label}: non-finite output")
+        what = f"{label} {'bf16' if bf16 else 'f32'} {'value+grad' if with_grad else 'value'} n={n}"
+        if bf16:
+            own = run_c()
+            own_err = [float((a - b).abs().max()) for a, b in zip(ref, own)]
+            exact = (plain_g(pack, x, True, True) if with_grad
+                     else (plain(pack, x, True, True),))
+            share = lambda us, vs: min(float(((u - v).abs() <= 1e-5).float().mean())
+                                       for u, v in zip(us, vs))
+            near_k, near_p = share(out, exact), share(ref, exact)
+            print(f"phase 20 {what}: max_abs_err {max(errs):.3g} (the mode's own "
+                  f"error against f32 {max(own_err):.3g}); within 1e-5 of the exact "
+                  f"sums on {near_k:.5f} (the plain version on {near_p:.5f}), of the "
+                  f"plain version on {share(out, ref):.5f}")
+            if any(e > o for e, o in zip(errs, own_err)) or near_k < min(0.99, near_p):
+                fail(f"phase 20 {what}: errs {errs} (tol {own_err}), {near_k:.5f} "
+                     f"within 1e-5 of the exact sums (tol 0.99 or {near_p:.5f})")
+        else:
+            g_tol = 1e-4 * max(1.0, float(ref[1].abs().max())) if with_grad else 0.0
+            print(f"phase 20 {what}: value err {errs[0]:.3g} (tol {IGR_F32_TOL:g})"
+                  + (f", grad err {errs[1]:.3g} (tol {g_tol:.3g})" if with_grad else ""))
+            if errs[0] > IGR_F32_TOL or (with_grad and errs[1] > g_tol):
+                fail(f"phase 20 {what}: errs {errs} (value tol {IGR_F32_TOL:g}, grad "
+                     f"1e-4·max(1, |g|))")
+        if not timed:
+            return max(errs), None, None, None, None
+        ms, plain_ms = time_ms(run_k), time_ms(run_p)
+        cublas_ms = plain_ms if not bf16 else time_ms(run_c)
+        flops, w_bytes = pack_stats(pack)
+        flops *= n * (4 if with_grad else 1)
+        b = bound_ms(flops if bf16 else 3 * flops,
+                     n * (12 + (16 if with_grad else 4)) + w_bytes,
+                     BF16_PEAK if bf16 else TF32_PEAK)
+        print(f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  cuBLAS f32 chain "
+              f"{cublas_ms:.4f} ms  bound {b[0]:.4f} ms ({b[1]}; kernel/bound "
+              f"{ms / b[0]:.1f})")
+        return max(errs), ms, plain_ms, cublas_ms, b
+
+    def pick_shares(pack, args, n_sec, margin, out, ref):
+        """The shares of rays whose picks (t_pick and t_min) equal those of
+        the coarse sweep with exactly formed sums (`exact_sums`), for the
+        kernel's outputs `out` and the plain version's `ref`. At 512 wide a
+        bf16 sum in another order flips a bf16 rounding of the next operand
+        on ~10% of the values (the plain version's own agreement with the
+        exact sums above), and a pick moves where a step's value lies that
+        close to -margin; phase 7's 99% of picks equal to the plain
+        version's was set at 256 wide, so here the kernel's picks are held
+        as its bf16 values are: equal to the exact sweep's on >= 99% of
+        rays, or on as many as the plain version's are."""
+        plain = fused_mlp._PLAIN[pack.kind]
+        ref_x = fused_sampler.sweep_plain(
+            lambda p: plain(pack, p, False, True), *args, n_sec, margin,
+            chunk_rays=2048, sdf_fn_coarse=lambda p: plain(pack, p, True, True))
+        return tuple(float(((o[0] == ref_x[0]) & (o[2] == ref_x[2])).float().mean())
+                     for o in (out, ref))
+
+    def rms_check(fine, p, label):
+        """The f32 tile's RMS error against exactly summed values at most
+        F32_EXACT_RATIO x cuBLAS's (phase 7)."""
+        pack = fine.pack
+        ex = fused_mlp._PLAIN[pack.kind](pack, p, False, True)
+        stats = []
+        for v in (fine(p), fused_mlp._PLAIN[pack.kind](pack, p)):
+            e = (v - ex).abs()
+            stats.append((float(e.square().mean().sqrt()), float(e.max())))
+        ratio = stats[0][0] / stats[1][0]
+        print(f"phase 20 f32 tile against exact sums on {label} ({p.shape[0]}): "
+              f"tile RMS {stats[0][0]:.4g} (max {stats[0][1]:.4g}), cuBLAS RMS "
+              f"{stats[1][0]:.4g} (max {stats[1][1]:.4g}), ratio {ratio:.4f} (bar "
+              f"{F32_EXACT_RATIO})")
+        if not ratio <= F32_EXACT_RATIO:
+            fail(f"phase 20: the f32 tile's RMS error against exact sums on {label} "
+                 f"is {ratio:.4f} x cuBLAS's (bar {F32_EXACT_RATIO})")
+        return ratio
+
+    def wide_row(name, source, replaces, err, ms, plain_ms, cublas_ms, b, shape):
+        return row(name, source, replaces, 0, err, ms, plain_ms, b,
+                   cublas_ms=cublas_ms, shape=shape)
+
+    # ---- IGR 8x512: fused_igr in both modes
+    fine = fused_mlp.make_fused_igr_sdf(ifield)
+    coarse = fused_mlp.make_fused_igr_sdf(ifield, "bf16")
+    ipack = fine.pack
+    ih = ipack.arch_args()[0]
+    print(f"phase 20 (a): IGR {ipack.n_layers - 1}x{ipack.hidden} (skip {ipack.skip_in}, "
+          f"tanh {ipack.final_tanh}) on the {ih}-wide instance; tolerances as phase 7: "
+          f"f32 value {IGR_F32_TOL:g}, grad 1e-4·max(1, |g|); bf16 within the mode's own "
+          f"error against f32 and within 1e-5 of the exact sums on >= 99% or as many "
+          f"as the plain version")
+    res = {}
+    for n in WIDE_POINTS:
+        for bf16 in (False, True):
+            for grad in (False, True):
+                res[(n, bf16, grad)] = check_mlp(fine, coarse, n, bf16, grad, "fused_igr")
+    res[(WIDE_F32_POINTS, False, False)] = check_mlp(fine, coarse, WIDE_F32_POINTS,
+                                                     False, False, "fused_igr")
+    rms_check(fine, torch.rand((WIDE_F32_POINTS, 3), generator=gen, device=dev) * 2.4 - 1.2,
+              f"{WIDE_F32_POINTS} points in [-1.2, 1.2]^3")
+    err, ms, pms, cms, b = res[(WIDE_POINTS[-1], True, False)]
+    rows.append(wide_row("fused_igr_wide", "isopoints_torch/csrc/fused_igr.cu",
+                         "isopoints_tpu/ops/pallas_mlp.py:417", err, ms, pms, cms, b,
+                         f"IGR 8x512 bf16 value, {WIDE_POINTS[-1]:,} points"))
+    err, ms, pms, cms, b = res[(WIDE_F32_POINTS, False, False)]
+    rows.append(wide_row("fused_igr_wide_f32", "isopoints_torch/csrc/fused_igr.cu",
+                         "isopoints_tpu/ops/pallas_mlp.py:417", err, ms, pms, cms, b,
+                         f"IGR 8x512 f32 value, {WIDE_F32_POINTS:,} points"))
+
+    # ---- the coarse IGR sampler at row 3b's shape
+    igr_flops, igr_w_bytes = pack_stats(ipack)
+    plain_fine = fused_mlp.PlainSDF(ipack)
+    plain_coarse = fused_mlp.PlainSDF(ipack, "bf16")
+    cam, d, t_lo, t_hi = wide_rays(WIDE_SAMPLER_RAYS, dev, 20)
+    s_args = (cam, d, t_lo, t_hi, linspace01(100, dev))
+    n_sec, margin = 8, 2e-3
+    s_kw = dict(n_secant=n_sec, margin=margin, coarse_sweep=True)
+    before = counts()["fused_sampler"]
+    out = fine.fused_ray_sampler(*s_args, **s_kw)
+    torch.cuda.synchronize()
+    if counts()["fused_sampler"] != before + 1:
+        fail("phase 20: the wide IGR sampler did not launch its kernel once")
+    ref_f = fused_sampler.sweep_plain(fine, *s_args, n_sec, margin, sdf_fn_coarse=coarse)
+    ref = fused_sampler.sweep_plain(plain_fine, *s_args, n_sec, margin,
+                                    sdf_fn_coarse=plain_coarse)
+    s_exact = all(torch.equal(a, b) for a, b in zip(out, ref_f))
+    same = (out[0] == ref[0]) & (out[2] == ref[2])
+    s_frac = float(same.float().mean())
+    s_ferr = float((out[1] - ref[1])[same].abs().max())
+    picks_k, picks_p = pick_shares(ipack, s_args, n_sec, margin, out, ref)
+    hit = same & (ref[1] < 0)
+    dz = (out[3] - ref[3]).abs()
+    _, gz = fused_mlp.igr_sdf_and_grad_plain(ipack, fma(ref[3][:, None], d, cam))
+    slope = (gz * d).sum(-1).abs()
+    ok_z = lambda z: ((z - ref[3]).abs() <= 1e-4) | ((z - ref[3]).abs() * slope <= IGR_F32_TOL)
+    z_cond = float(ok_z(out[3])[hit].float().mean())
+    z_near = float((dz <= 1e-4)[hit].float().mean())
+    ctl = coarse.fused_ray_sampler(*s_args, **s_kw)
+    ctl_hit = hit & (ctl[0] == ref[0])
+    ctl_cond = float(ok_z(ctl[3])[ctl_hit].float().mean())
+    print(f"phase 20 fused_sampler (IGR 8x512, coarse sweep) {WIDE_SAMPLER_RAYS} rays x "
+          f"100 steps + 2 + {n_sec} secant, margin {margin}: all four outputs equal to "
+          f"sweep_plain over the fused callables: {s_exact}; against the plain version: "
+          f"picks equal on {s_frac:.5f}, f_pick err {s_ferr:.3g}, z_secant within 1e-4 "
+          f"or {IGR_F32_TOL:g} / slope on {z_cond:.5f} of {int(hit.sum())} crossing rays "
+          f"(the bf16 fine field: {ctl_cond:.5f}), within 1e-4 on {z_near:.5f}; picks "
+          f"equal to the exactly summed sweep's on {picks_k:.5f} (the plain version's "
+          f"on {picks_p:.5f})")
+    if not s_exact:
+        fail("phase 20: the wide IGR sampler differs from sweep_plain over the fused callables")
+    if (int(hit.sum()) < 100 or picks_k < min(0.99, picks_p) or s_ferr > 1e-5
+            or z_cond < 0.999):
+        fail("phase 20: the wide IGR sampler disagrees with its plain version beyond "
+             "phase 7's bars (the picks held to the exactly summed sweep)")
+    if ctl_cond >= 0.999:
+        fail(f"phase 20: the conditioned z_secant bar passes the sampler with a bf16 "
+             f"fine field ({ctl_cond:.5f})")
+    fine_pts = []
+
+    def recording_fine(p):
+        fine_pts.append(p.reshape(-1, 3).clone())
+        return fine(p)
+    fused_sampler.sweep_plain(recording_fine, *s_args, n_sec, margin, sdf_fn_coarse=coarse)
+    rms_check(fine, torch.cat(fine_pts), "the sampler's fine points")
+    s_ms = time_ms(lambda: fine.fused_ray_sampler(*s_args, **s_kw))
+    s_pms = time_ms(lambda: fused_sampler.sweep_plain(plain_fine, *s_args, n_sec, margin,
+                                                      sdf_fn_coarse=plain_coarse))
+    s_b = (1e3 * max(igr_flops * WIDE_SAMPLER_RAYS * 100 / BF16_PEAK
+                     + 3 * igr_flops * WIDE_SAMPLER_RAYS * (2 + n_sec) / TF32_PEAK,
+                     (WIDE_SAMPLER_RAYS * 48 + 400 + 2 * igr_w_bytes) / HBM_RATE),
+           "operations")
+    print(f"  kernel {s_ms:.3f} ms  plain {s_pms:.3f} ms  bound {s_b[0]:.4f} ms "
+          f"(kernel/bound {s_ms / s_b[0]:.1f})")
+    rows.append(wide_row("fused_sampler_igr_wide", "isopoints_torch/csrc/fused_sampler.cu",
+                         "isopoints_tpu/ops/pallas_sampler.py:52", max(s_ferr, float(dz[hit].max())),
+                         s_ms, s_pms, s_pms, s_b,
+                         f"IGR 8x512 coarse sweep, {WIDE_SAMPLER_RAYS:,} rays x 100 + 2 + 8"))
+
+    # ---- the march at row 9's shape
+    rcfg = RayTracingConfig()
+    m_rays = wide_rays(WIDE_MARCH_RAYS, dev, 21)
+
+    def march_state(fn, cam, d, t_lo, t_hi):
+        n = t_lo.shape[0]
+        f_s, f_e = fn(fma(t_lo[:, None], d, cam)), fn(fma(t_hi[:, None], d, cam))
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        zi = torch.zeros(n, dtype=torch.int32, device=dev)
+        zf = torch.zeros(n, device=dev)
+        return [t_lo.clone(), t_hi.clone(), f_s, f_e, ones, ones.clone(), zi, zi.clone(),
+                zf, zf.clone()]
+
+    def check_march(fine, plain, rays, n_it, label):
+        cam, d = rays[0], rays[1]
+        st = march_state(fine, *rays)
+        m_args = (cam, d, st, n_it, rcfg.sdf_threshold, rcfg.line_search_step,
+                  rcfg.line_step_iters, True)
+        before = counts()["trace_march"]
+        m_out = fine.fused_trace_stepper(*m_args)
+        torch.cuda.synchronize()
+        if counts()["trace_march"] != before + 1:
+            fail(f"phase 20: the {label} march did not launch its kernel once")
+        m_loop = march_plain(fine, *m_args)
+        m_ref = march_plain(plain, *m_args)
+        m_exact = all(torch.equal(a, b) for a, b in zip(m_out, m_loop))
+        m_eq = min(float((a == b).float().mean()) for a, b in zip(m_out[4:8], m_ref[4:8]))
+        m_close = min(float(((a - b).abs() <= 1e-5).float().mean())
+                      for a, b in zip(m_out[:2], m_ref[:2]))
+        m_err = max(float((a - b).abs().max()) for a, b in zip(m_out[:2], m_ref[:2]))
+        moved = float((m_out[0] != st[0]).float().mean())
+        print(f"phase 20 trace_march ({label}) {rays[0].shape[0]} rays x {n_it} "
+              f"iterations ({moved:.3f} of the start fronts moved): all ten state arrays "
+              f"equal to march_plain over the fused f32 callable: {m_exact}; against "
+              f"the plain version: masks/bk equal on {m_eq:.6f}, depths within 1e-5 on "
+              f"{m_close:.6f} (max diff {m_err:.3g})")
+        if not m_exact:
+            fail(f"phase 20: the {label} march differs from march_plain over the fused callable")
+        if m_eq < 0.999 or m_close < 0.999:
+            fail(f"phase 20: the {label} march disagrees with its plain version")
+        ms = time_ms(lambda: fine.fused_trace_stepper(*m_args))
+        pms = time_ms(lambda: march_plain(plain, *m_args))
+        flops, w_bytes = pack_stats(fine.pack)
+        n = rays[0].shape[0]
+        b = bound_ms(3 * flops * 2 * n_it * n, n * (24 + 2 * 34) + w_bytes, TF32_PEAK)
+        print(f"  kernel {ms:.3f} ms  plain {pms:.3f} ms  bound {b[0]:.4f} ms "
+              f"(kernel/bound {ms / b[0]:.1f})")
+        return m_err, ms, pms, b
+
+    err, ms, pms, b = check_march(fine, plain_fine, m_rays, WIDE_MARCH_ITERS, "IGR 8x512")
+    rows.append(wide_row("trace_march_wide", "isopoints_torch/csrc/fused_trace.cu",
+                         "isopoints_tpu/ops/pallas_trace.py:43", err, ms, pms, pms, b,
+                         f"IGR 8x512 f32, {WIDE_MARCH_RAYS:,} rays x {WIDE_MARCH_ITERS}"))
+
+    # ---- SIREN 3x512: fused_mlp, the sampler, the march
+    sfine = fused_mlp.make_fused_siren_sdf(sfield)
+    scoarse = fused_mlp.make_fused_siren_sdf(sfield, "bf16")
+    spack = sfine.pack
+    print(f"phase 20 (a): SIREN {spack.n_hidden}x{spack.hidden} on the "
+          f"{spack.arch_args()[0]}-wide instance")
+    s_res = {n: check_mlp(sfine, scoarse, n, False, True, "fused_mlp SIREN")
+             for n in WIDE_SIREN_POINTS}
+    sb = check_mlp(sfine, scoarse, WIDE_SIREN_BF16_POINTS, True, False, "fused_mlp SIREN")
+    err, ms, pms, cms, b = s_res[WIDE_SIREN_POINTS[0]]
+    rows.append(wide_row("fused_mlp_wide", "isopoints_torch/csrc/fused_mlp.cu",
+                         "isopoints_tpu/ops/pallas_mlp.py:250", err, ms, pms, cms, b,
+                         f"SIREN 3x512 f32 value+grad, {WIDE_SIREN_POINTS[0]} points")
+                | {"bf16_value_131072": {k: v for k, v in zip(
+                    ("max_abs_err", "ms", "plain_ms", "cublas_ms"), sb[:4])}
+                   | {"bound_ms": sb[4][0]},
+                   "f32_value_grad_262144": {k: v for k, v in zip(
+                       ("max_abs_err", "ms", "plain_ms", "cublas_ms"),
+                       s_res[WIDE_SIREN_POINTS[1]][:4])}
+                   | {"bound_ms": s_res[WIDE_SIREN_POINTS[1]][4][0]}})
+    s_flops, s_w_bytes = pack_stats(spack)
+    splain, splain_c = fused_mlp.PlainSDF(spack), fused_mlp.PlainSDF(spack, "bf16")
+    cam, d, t_lo, t_hi = wide_rays(WIDE_SIREN_RAYS, dev, 22)
+    ss_args = (cam, d, t_lo, t_hi, linspace01(100, dev))
+    out = sfine.fused_ray_sampler(*ss_args, **s_kw)
+    ref_f = fused_sampler.sweep_plain(sfine, *ss_args, n_sec, margin, sdf_fn_coarse=scoarse)
+    ref = fused_sampler.sweep_plain(splain, *ss_args, n_sec, margin, sdf_fn_coarse=splain_c)
+    ss_exact = all(torch.equal(a, b) for a, b in zip(out, ref_f))
+    same = (out[0] == ref[0]) & (out[2] == ref[2])
+    ss_frac = float(same.float().mean())
+    ss_ferr = float((out[1] - ref[1])[same].abs().max())
+    spicks_k, spicks_p = pick_shares(spack, ss_args, n_sec, margin, out, ref)
+    # rays whose picked bracket holds a root of the plain fine field (phase 10)
+    ts = fma(ss_args[4], (t_hi - t_lo)[:, None], t_lo[:, None])
+    idx = torch.argmax((ts == ref[0][:, None]).int(), dim=-1)
+    z_low = torch.gather(ts, 1, (idx - 1).clamp(min=0)[:, None])[:, 0]
+    hit = same & (ref[1] < 0) & (splain(fma(z_low[:, None], d, cam)) > 0)
+    dz = (out[3] - ref[3]).abs()
+    _, gz = splain.sdf_and_grad(fma(ref[3][:, None], d, cam))
+    slope = (gz * d).sum(-1).abs()
+    ss_cond = float(((dz <= 1e-4) | (dz * slope <= IGR_F32_TOL))[hit].float().mean())
+    print(f"phase 20 fused_sampler (SIREN 3x512, coarse sweep) {WIDE_SIREN_RAYS} rays x 100 "
+          f"+ 2 + {n_sec}: equal to sweep_plain over the fused callables: {ss_exact}; "
+          f"against the plain version: picks equal on {ss_frac:.5f}, f_pick err "
+          f"{ss_ferr:.3g}, z_secant within 1e-4 or {IGR_F32_TOL:g} / slope on "
+          f"{ss_cond:.5f} of the {int(hit.sum())} crossing rays whose bracket holds "
+          f"the root; picks equal to the exactly summed sweep's on {spicks_k:.5f} (the "
+          f"plain version's on {spicks_p:.5f})")
+    if not ss_exact:
+        fail("phase 20: the wide SIREN sampler differs from sweep_plain over the fused callables")
+    if (int(hit.sum()) < 100 or spicks_k < min(0.99, spicks_p) or ss_ferr > 1e-5
+            or ss_cond < 0.999):
+        fail("phase 20: the wide SIREN sampler disagrees with its plain version beyond "
+             "phase 10's bars")
+    ss_ms = time_ms(lambda: sfine.fused_ray_sampler(*ss_args, **s_kw))
+    ss_pms = time_ms(lambda: fused_sampler.sweep_plain(splain, *ss_args, n_sec, margin,
+                                                       sdf_fn_coarse=splain_c))
+    ss_b = (1e3 * max(s_flops * WIDE_SIREN_RAYS * 100 / BF16_PEAK
+                      + 3 * s_flops * WIDE_SIREN_RAYS * (2 + n_sec) / TF32_PEAK,
+                      (WIDE_SIREN_RAYS * 48 + 400 + 2 * s_w_bytes) / HBM_RATE),
+            "operations")
+    print(f"  kernel {ss_ms:.3f} ms  plain {ss_pms:.3f} ms  bound {ss_b[0]:.4f} ms "
+          f"(kernel/bound {ss_ms / ss_b[0]:.1f})")
+    rows.append(wide_row("fused_sampler_siren_wide", "isopoints_torch/csrc/fused_sampler.cu",
+                         "isopoints_tpu/ops/pallas_sampler.py:52",
+                         max(ss_ferr, float(dz[hit].max())), ss_ms, ss_pms, ss_pms, ss_b,
+                         f"SIREN 3x512 coarse sweep, {WIDE_SIREN_RAYS} rays x 100 + 2 + 8"))
+    err, ms, pms, b = check_march(sfine, splain, wide_rays(WIDE_SIREN_MARCH_RAYS, dev, 23),
+                                  WIDE_SIREN_MARCH_ITERS, "SIREN 3x512")
+    rows.append(wide_row("trace_march_siren_wide", "isopoints_torch/csrc/fused_trace.cu",
+                         "isopoints_tpu/ops/pallas_trace.py:43", err, ms, pms, pms, b,
+                         f"SIREN 3x512 f32, {WIDE_SIREN_MARCH_RAYS} rays x "
+                         f"{WIDE_SIREN_MARCH_ITERS}"))
+
+    # ---- widths that are not an instance's, padded to the next; refused above
+    for hidden, n_layers in WIDE_ODD:
+        f = SDFField(hidden_size=hidden, n_layers=n_layers, num_frequencies=0,
+                     generator=gen, device=dev)
+        of, oc = fused_mlp.make_fused_igr_sdf(f), fused_mlp.make_fused_igr_sdf(f, "bf16")
+        print(f"phase 20 (a): IGR {n_layers}x{hidden} (skip {f.skip_in}) padded to "
+              f"the {of.pack.arch_args()[0]}-wide instance")
+        for bf16 in (False, True):
+            check_mlp(of, oc, 65_536, bf16, True, f"fused_igr {hidden}", timed=False)
+        o_args = wide_rays(4096, dev, hidden) + (linspace01(100, dev),)
+        o_out = of.fused_ray_sampler(*o_args, **s_kw)
+        o_ref = fused_sampler.sweep_plain(of, *o_args, n_sec, margin, sdf_fn_coarse=oc)
+        if not all(torch.equal(a, b) for a, b in zip(o_out, o_ref)):
+            fail(f"phase 20: the sampler at width {hidden} differs from sweep_plain over "
+                 f"the fused callables")
+        print(f"  the coarse sampler at width {hidden} (4096 rays) equals sweep_plain "
+              f"over the fused callables: True")
+    big = SDFField(hidden_size=WIDE_ABOVE, n_layers=2, num_frequencies=0, generator=gen,
+                   device=dev)
+    before = counts()
+    try:
+        fused_mlp.make_fused_igr_sdf(big)(torch.zeros((8, 3), device=dev))
+        fail(f"phase 20: a field of width {WIDE_ABOVE} ran on the CUDA kernels")
+    except ValueError as e:
+        print(f"phase 20: width {WIDE_ABOVE} refused on a CUDA tensor: {e}")
+    if counts() != before:
+        fail(f"phase 20: the refused width launched a kernel")
+    return rows
+
+
+def igr_wide_phase(dev, kernels) -> list:
+    """Phase 20: the published IGR network (8x512 without encoding) through
+    isopoints_torch/configs/igr_mvr_dir.yml, then each wide kernel against
+    its plain version (see the module docstring). Returns the wide rows of
+    the kernels line with their launches in (b)."""
+    from isopoints_torch import create_mvr_data, train_mvr
+    from isopoints_torch.factories import create_model
+    from isopoints_torch.misc.metrics import load_metrics
+    from isopoints_torch.ops import fused_mlp, knn
+    from isopoints_torch.training import trainer as trainer_mod
+    from isopoints_torch.training.trainer import compute_loss
+
+    t20 = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in kernels}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_path = os.path.join("isopoints_torch", "configs", "igr_mvr_dir.yml")
+    data_dir = os.path.join("out", "torch_data_dtu_torus")   # the config's
+    if not os.path.exists(os.path.join(data_dir, "cameras.npz")):
+        create_mvr_data.main(["torus", data_dir, "--dtu", "--image-size", "512",
+                              "--n-views", "8"])
+    # ---- (b) train_mvr on the config: every step with its counters set to 0
+    # just before and read just after, fused_igr's launches by mode and shape
+    rec = {"ms": {}, "launches": {}}
+    shapes = collections.Counter()
+    step_fn = trainer_mod.MVRTrainer.train_step
+    igr_cuda = fused_mlp.igr_forward_cuda
+
+    def rec_step(self, state, *args, **kw):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step_fn(self, state, *args, **kw)
+        torch.cuda.synchronize()
+        rec["ms"][state.it] = 1e3 * (time.perf_counter() - t)
+        rec["launches"][state.it] = counts()
+        return out
+
+    def rec_igr(pack, x, with_grad, bf16=False):
+        shapes[("bf16" if bf16 else "f32", "value+grad" if with_grad else "value",
+                x.shape[0])] += 1
+        return igr_cuda(pack, x, with_grad, bf16)
+
+    out_dir = os.path.join("out", "torch_igr_mvr_dir")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with plain_calls() as pc, patched((trainer_mod.MVRTrainer, "train_step", rec_step),
+                                      (fused_mlp, "igr_forward_cuda", rec_igr)):
+        t = time.perf_counter()
+        run = train_mvr.main([cfg_path, "--out-dir", out_dir, "--max-iters",
+                              str(WIDE_ITERS), "--print-every", "1000",
+                              "--validate-every", "1000", "--checkpoint-every", "1000"])
+        wall = time.perf_counter() - t
+    cfg, trainer, state = run.cfg, run.trainer, run.state
+    model = trainer.model
+    warm = trainer.cfg.warm_up_iters
+    width = (cfg.model.decoder_kwargs.hidden_size, cfg.model.decoder_kwargs.n_layers,
+             model.decoder.num_frequencies, tuple(model.decoder.skip_in),
+             cfg.training.n_rays, model.ccfg.max_iso_per_batch,
+             cfg.renderer.raster_params.image_size, warm)
+    if width != (512, 8, 0, (4,), 2048, 4000, 512, 40):
+        fail(f"igr_mvr_dir.yml: not the config's width (hidden, layers, frequencies, "
+             f"skip, rays, visible, raster, warm-up) {width}")
+    mlp_plain = {k: v for k, v in pc.items() if k.startswith("mlp")}
+    if mlp_plain:
+        fail(f"igr_mvr_dir.yml: plain MLP versions ran on the kernel route: {dict(pc)}")
+    total = collections.Counter()
+    for lc in rec["launches"].values():
+        total.update(lc)
+    modes = {m for m, _, _ in shapes}
+    for name in ("fused_igr", "fused_sampler", "knn", "splat_select", "splat_fine"):
+        if total[name] <= 0:
+            fail(f"igr_mvr_dir.yml: kernel {name} was not launched: {dict(total)}")
+    if modes != {"f32", "bf16"}:
+        fail(f"igr_mvr_dir.yml: fused_igr launched in modes {modes}, not both")
+    for it, lc in sorted(rec["launches"].items()):
+        if it > warm and any(lc[k] <= 0 for k in ("fused_igr", "knn", "splat_select",
+                                                    "splat_fine")):
+            fail(f"igr_mvr_dir.yml: projected step {it} launched {lc}")
+    if sum(shapes.values()) != total["fused_igr"]:
+        fail(f"igr_mvr_dir.yml: fused_igr's launches by shape {dict(shapes)} do not add "
+             f"up to its counter {total['fused_igr']}")
+    ms = rec["ms"]
+    w_ms = [ms[i] for i in range(1, warm)]
+    p_ms = [ms[i] for i in range(warm + 1, WIDE_ITERS)]
+    keys = ("loss", "loss_rgb", "loss_freespace", "loss_occupied", "loss_eikonal")
+    train_rows = [r for r in load_metrics(os.path.join(out_dir, "metrics.jsonl"))
+                  if "loss" in r]
+    if [r["it"] for r in train_rows] != list(range(WIDE_ITERS)) or not all(
+            math.isfinite(r[k]) for r in train_rows for k in keys):
+        fail(f"igr_mvr_dir.yml: training rows {train_rows}")
+    print(f"phase 20 (b): igr_mvr_dir.yml (configs/dtu_mvr.yml without encoding: IGR "
+          f"8x512, skip at 4, neural texture; 2048 rays, 4000 of 8000 iso-points, "
+          f"512-px rasters) on {data_dir}: {WIDE_ITERS} iterations in {wall:.2f} s; "
+          f"plain calls beside the kernels {dict(pc) or 'none'}")
+    print(f"  steps (ms): the first {ms[0]:.2f}; warm-up its 1-{warm - 1} median "
+          f"{statistics.median(w_ms):.2f} (min {min(w_ms):.2f}, max {max(w_ms):.2f}); "
+          f"resample step at its {warm} {ms[warm]:.2f}; projected "
+          + ", ".join(f"{v:.2f}" for v in p_ms) + f" (median {statistics.median(p_ms):.2f})")
+    print("  launches by step (its 0, 1 and from the resample on): " + "; ".join(
+        f"{it}: " + ", ".join(f"{k} {v}" for k, v in lc.items() if v)
+        for it, lc in sorted(rec["launches"].items()) if it < 2 or it >= warm))
+    print(f"  launches in the run by kernel: {dict(total)}")
+    print(f"  losses (its 0, {warm - 1} and from the resample on): " + "; ".join(
+        f"{r['it']}: " + " ".join(f"{k}={r[k]:.6g}" for k in keys + ("n_iso",))
+        for r in train_rows if r["it"] in (0, warm - 1) or r["it"] >= warm)
+          + f"; overflow (trace, sampler) summed "
+          f"{sum(r['overflow_trace'] for r in train_rows)}, "
+          f"{sum(r['overflow_sampler'] for r in train_rows)}")
+    print("  fused_igr by mode and shape: " + ", ".join(
+        f"{c} x {m} {w} n={n}" for (m, w, n), c in shapes.most_common()))
+
+    # one projected step under the profiler: the device's busy share
+    it = state.it
+    batch = run.views(train_mvr.draw_views(0, it, 8))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = trainer.train_step(state, *batch)
+        torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t)
+    dev_ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    by_name = collections.Counter()
+    for e in dev_ev:
+        by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    print(f"  a projected step (its {it}) profiled: {step_ms:.2f} ms wall, device "
+          f"{busy:.2f} ms ({100 * busy / step_ms:.1f}% busy); largest kernels: "
+          + "; ".join(f"{n} {v:.2f} ms" for n, v in by_name.most_common(6)))
+
+    # the same projected step's terms with the kernels and with every plain
+    # version on identical draws (phase 4's bars)
+    it = state.it
+    img, mask, cam = run.views(train_mvr.draw_views(0, it, 8))
+    step = trainer.step_fn(True, trainer.scheduler.at(it)["n_rays"])
+    draws = trainer.draw(step.n_rays, tuple(img.shape[1:3]), img.shape[0],
+                         n_points=state.points.shape[1], n_eikonal=step.n_eikonal)
+    hp = {k: float(v) for k, v in trainer.scheduler.at(it).items()
+          if k in ("lambda_rgb", "lambda_freespace", "lambda_occupied", "sdf_alpha")}
+    hp["lambda_eikonal"] = trainer.cfg.lambda_eikonal
+    plain_model = create_model(cfg, device=dev)
+    plain_model.load_state_dict(model.state_dict())
+    plain_model.cfg = dataclasses.replace(model.cfg, use_fused_mlp=False)
+    plain_model.raster_settings = dataclasses.replace(model.raster_settings,
+                                                      use_pallas=False)
+    plain_model.trace_sdf_fn = lambda: fused_mlp.PlainSDF(
+        fused_mlp.IgrPack(plain_model.decoder))
+    plain_model.trace_sdf_fn_coarse = lambda: fused_mlp.PlainSDF(
+        fused_mlp.IgrPack(plain_model.decoder), "bf16")
+    res, cmp_launches = {}, {}
+    for name, m in (("kernels", model), ("plain", plain_model)):
+        before = counts()
+        with patched(*(((knn, "knn_points_cuda", knn.knn_points_dense),)
+                       if name == "plain" else ())):
+            _, met, _, _, _ = compute_loss(
+                m, state.points, state.points_mask, draws.pixels, img, mask, cam,
+                draws.eikonal, draws.u_minsdf, hp, project=True,
+                proj_draws=draws.projected, spacing=state.spacing)
+        res[name] = {k: float(v.detach()) for k, v in met.items()}
+        cmp_launches[name] = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+    cap = model.ccfg.max_iso_per_batch
+    gap = max(abs(res["kernels"][k] - res["plain"][k]) / max(abs(res["plain"][k]), 1e-12)
+              for k in keys)
+    print(f"  a projected step (its {it}) with the kernels and with the plain versions "
+          f"on identical draws: {res}; launches {cmp_launches}; largest relative gap of "
+          f"the terms {gap:.3g} (rtol 1e-2), iso-points {res['kernels']['n_iso']:.0f} / "
+          f"{res['plain']['n_iso']:.0f} (within 0.5% of {cap})")
+    if abs(res["kernels"]["n_iso"] - res["plain"]["n_iso"]) > 0.005 * cap:
+        fail("igr_mvr_dir.yml: iso-point counts of the kernel and plain paths differ by > 0.5%")
+    for k in keys:
+        a, b = res["kernels"][k], res["plain"][k]
+        if not (math.isfinite(a) and abs(a - b) <= 1e-2 * abs(b) + 1e-6):
+            fail(f"igr_mvr_dir.yml {k}: kernel path {a} vs plain path {b} (rtol 1e-2)")
+    if cmp_launches["plain"] or not all(cmp_launches["kernels"].get(k, 0) > 0
+                                        for k in ("fused_igr", "knn", "splat_select",
+                                                  "splat_fine")):
+        fail(f"igr_mvr_dir.yml: launches of the comparison {cmp_launches}")
+    print(f"phase 20 (b): {time.perf_counter() - t20:.1f} s")
+
+    # ---- (a) the wide kernels on the trained field
+    rows = wide_kernels(dev, model.decoder, kernels)
+    # launches in (b) by row: fused_igr's by mode; the sampler that ran is
+    # the IGR field's, and no SIREN kernel runs on this path
+    by_row = {"fused_igr_wide": sum(c for (m, _, _), c in shapes.items() if m == "bf16"),
+              "fused_igr_wide_f32": sum(c for (m, _, _), c in shapes.items() if m == "f32"),
+              "fused_sampler_siren_wide": 0}
+    for r in rows:
+        r["launches"] = by_row.get(r["name"], total[kernel_of(r["source"])])
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s")
+    return rows
+
+
 def outside_every_silhouette(dtu_dir: str, n: int, dev) -> torch.Tensor:
     """n points that every view of the DTU directory sees outside the torus
     (R 0.4, r 0.15): candidates in [-0.9, 0.9]³ whose line of sight from
@@ -2229,7 +2872,10 @@ def main() -> None:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     # the fused MLP and every IGR kernel evaluate on mlp_mma.cuh's
     # tensor-core tile
-    for lib in ("fused_mlp", "fused_igr", "fused_sampler", "fused_trace"):
+    for lib in ("fused_mlp", "fused_igr", "fused_sampler", "fused_trace",
+                "fused_mlp_wide", "fused_igr_wide", "fused_sampler_wide",
+                "fused_trace_wide"):
+        print(f"{lib} ptxas: {ptxas_summary(libs[lib])}")
         sass = subprocess.run([cuobjdump, "--dump-sass", libs[lib]],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout.splitlines()
@@ -4966,6 +5612,9 @@ def main() -> None:
 
     # ---- 19. the point-set library at full width
     rows[2].update(pointset_phase(dev, kernels, p4, scene, pmodel, pcam))
+
+    # ---- 20. the published IGR network on the wide instances of the MLP tile
+    rows.extend(igr_wide_phase(dev, kernels))
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")

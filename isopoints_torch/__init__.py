@@ -16,6 +16,7 @@ Entry points run on `cuda` unless the caller passes `device="cpu"`.
 __version__ = "0.1.0"
 
 from isopoints_torch.logger import get_logger
-from isopoints_torch.rng import GeneratorChain
+from isopoints_torch.rng import GeneratorChain, set_deterministic_seed
 
-__all__ = ["get_logger", "GeneratorChain", "__version__"]
+__all__ = ["get_logger", "GeneratorChain", "set_deterministic_seed",
+           "__version__"]

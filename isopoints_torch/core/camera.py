@@ -1,5 +1,5 @@
 """Perspective cameras in the pytorch3d screen convention (port of
-isopoints_tpu/core/camera.py:30-185).
+isopoints_tpu/core/camera.py:30-215, `CameraSampler` included).
 
   - Row-vector world->view: X_view = X_world @ R + T.
   - Screen axes: +X left, +Y up, +Z into the screen.
@@ -162,3 +162,35 @@ def cameras_from_matrices(cam_mats: Sequence, focal_length, principal_point,
                                     focal_length=focal_length,
                                     principal_point=principal_point,
                                     device=device)
+
+
+class CameraSampler:
+    """Random look-at camera batches (camera.py:186-215): distances in
+    `distance_range` (sorted far to near with `sort_distance`), elevation
+    in [-90, 90) and azimuth in [-180, 180) degrees, a look-at jitter in
+    [-0.05, 0.05)³. The draws come from a `torch.Generator`, so they are
+    not JAX's numbers: the ranges and the order are what the two share."""
+
+    def __init__(self, continuous_views: int = 8, batch_size: int = 4,
+                 distance_range=(5.0, 10.0), sort_distance: bool = True,
+                 camera_params: Optional[dict] = None):
+        self.continuous_views = continuous_views
+        self.batch_size = batch_size
+        self.distance_range = distance_range
+        self.sort_distance = sort_distance
+        self.camera_params = camera_params or {}
+
+    def sample(self, generator: torch.Generator) -> PerspectiveCamera:
+        b, dev = self.batch_size, generator.device
+
+        def uniform(shape, lo, hi):
+            return lo + (hi - lo) * torch.rand(shape, generator=generator, device=dev)
+
+        dist = uniform((b,), *self.distance_range)
+        if self.sort_distance:
+            dist = torch.sort(dist, descending=True).values
+        elev = uniform((b,), -90.0, 90.0)
+        azim = uniform((b,), -180.0, 180.0)
+        at = uniform((b, 3), -0.05, 0.05)
+        R, T = look_at_view_transform(dist, elev, azim, at=at, device=dev)
+        return PerspectiveCamera.create(R=R, T=T, device=dev, **self.camera_params)

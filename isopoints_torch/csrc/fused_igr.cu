@@ -16,6 +16,10 @@
 // gradient mode the sigmoid's expf and division): 524,288 points x 4 layers
 // x 256 is ~0.5 G of them, a floor of roughly 0.5-1.5 ms that is larger
 // than the bf16 tensor-core bound (0.21 ms at that size).
+// At 8x512 (the published IGR network) one value eval is 2(3*512 + 7*512^2
+// + 512) = 3,674,112 FLOP: the bf16 bound at 524,288 points is 1.95 ms and
+// the f32 one at 220,202 points 4.90 ms, and the products, not the
+// softplus (3.7 G at 524,288 points), are the larger part.
 //
 // Design. 128 rows per block share each streamed weight chunk, so a
 // 524,288-point launch reads the weights 4096 times from L2 instead of
@@ -27,8 +31,11 @@
 // and the whole epilogue in f32 on the CUDA cores. `mma.sync`, not
 // `wgmma`: the epilogue, not the products, bounds the kernel (see above),
 // and `mma.sync` keeps the accumulators in the lanes that own a point's
-// four rows. The dynamic shared-memory limit is raised once per template
-// instance, not per launch.
+// four rows. Above 256 a block holds fewer row groups (one in f32, two in
+// bf16; mlp_mma.cuh "Widths"), so each block streams the 8x512 stack (14.7
+// MB in f32, hi and lo) for 32 rows: the simple wide design reads the
+// weights from L2 4x as often a row as the 128-row tile. The dynamic
+// shared-memory limit is raised once per template instance, not per launch.
 //
 // Plain C interface for ctypes; launches on the caller's stream and returns
 // cudaGetLastError() after the launch.
@@ -37,37 +44,41 @@
 
 namespace {
 
-using mlp_mma::kRows;
-using mlp_mma::kThreads;
 using mlp_mma::Net;
 
+// RG row groups a block (mlp_mma::max_row_groups: 4 up to 256, fewer above)
+template <class Mode, int NJ>
+constexpr int kRG = mlp_mma::max_row_groups<Mode>(NJ * 32);
+
 template <class Mode, int NJ, int C>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(128 * kRG<Mode, NJ>, 1)
     igr_points_kernel(Net net, const float* __restrict__ x, int n, float* __restrict__ val,
                       float* __restrict__ grad) {
   constexpr int H = NJ * 32;
-  constexpr int P = kRows / C;  // points per block
+  constexpr int RG = kRG<Mode, NJ>;
+  constexpr int P = 32 * RG / C;  // points per block
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* act = smem;
-  unsigned char* wbuf = act + kRows * mlp_mma::pitch_a<Mode>(H);
+  unsigned char* wbuf = act + 32 * RG * mlp_mma::pitch_a<Mode>(H);
   float* xs = reinterpret_cast<float*>(wbuf + 2 * mlp_mma::stage_bytes<Mode>(H));
   const int p0 = blockIdx.x * P;
-  for (int e = threadIdx.x; e < P * 3; e += kThreads)
+  for (int e = threadIdx.x; e < P * 3; e += 128 * RG)
     xs[e] = (p0 + e / 3 < n) ? x[(size_t)p0 * 3 + e] : 0.f;
-  mlp_mma::tile<Mode, H, C>(net, xs, act, wbuf, p0, n, val, grad);
+  mlp_mma::tile<Mode, H, C, mlp_mma::IgrAct, RG>(net, xs, act, wbuf, p0, n, val, grad);
 }
 
 template <class Mode, int NJ, int C>
 int launch(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t stream) {
   constexpr int H = NJ * 32;
-  constexpr int P = kRows / C;
-  constexpr int smem = mlp_mma::smem_bytes<Mode, C>(H);
+  constexpr int RG = kRG<Mode, NJ>;
+  constexpr int P = 32 * RG / C;
+  constexpr int smem = mlp_mma::smem_bytes<Mode, C, RG>(H);
   static_assert(smem <= 232448, "the tile exceeds a block's shared memory");
   static const cudaError_t attr = cudaFuncSetAttribute(
       igr_points_kernel<Mode, NJ, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = (n + P - 1) / P;
-  igr_points_kernel<Mode, NJ, C><<<blocks, kThreads, smem, stream>>>(net, x, n, val, grad);
+  igr_points_kernel<Mode, NJ, C><<<blocks, 128 * RG, smem, stream>>>(net, x, n, val, grad);
   return (int)cudaGetLastError();
 }
 
@@ -77,7 +88,7 @@ int dispatch(const Net& net, int hidden, const float* x, int n, float* val, floa
   switch (hidden / 32) {
 #define CASE(NJ) \
   case NJ: return launch<Mode, NJ, C>(net, x, n, val, grad, stream);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    MLP_MMA_WIDTHS(CASE)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -89,13 +100,14 @@ int dispatch(const Net& net, int hidden, const float* x, int n, float* val, floa
 // wout, bout: float32 (in the bf16 mode w0 and wout bf16-rounded); wh: the
 // hidden layers (L, H, H) in (out, in) layout, bf16 in the bf16 mode and
 // the tf32 hi part (float32) in the f32 mode, with wh_lo the tf32 lo part
-// (f32 mode only). hidden must be a multiple of 32 in [32, 256] (the wrapper
-// checks it).
+// (f32 mode only). hidden must be an instance's width (mlp_mma::in_library:
+// a multiple of 32 up to 256, or 384 or 512 in the `_wide` library; the
+// wrapper pads to it).
 extern "C" int igr_forward(const float* x, int n, const float* w0, const float* b0,
                            const void* wh, const void* wh_lo, const float* bh, const float* wout,
                            const float* bout, int hidden, int n_hidden, unsigned skip,
                            int final_tanh, int bf16, float* val, float* grad, void* stream) {
-  if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 || (skip & 1u) ||
+  if (!mlp_mma::in_library(hidden) || n_hidden < 0 || n < 0 || (skip & 1u) ||
       (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;

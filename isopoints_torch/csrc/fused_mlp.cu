@@ -22,7 +22,8 @@
 // dense bf16 tensor-core peak (989 TFLOP/s), in f32 three tf32 passes over
 // the tf32 peak (495 TFLOP/s), the least time f32 products take on the
 // card. With the gradient the three tangent rows make it ~4x the
-// operations.
+// operations. At 3x512 a value eval is 2(3*512 + 2*512^2 + 512) ~ 1.05
+// MFLOP.
 //
 // Design. What bounds the path's small launches is filling the card: the
 // warm-up trace evaluates 4096 points at a time, value only, which 128-row
@@ -30,7 +31,8 @@
 // stack (hi and lo, 1.5 MB at 3x256) from L2 whatever its rows, so large
 // launches want many rows a block and small ones many blocks: a launch takes
 // 128-row tiles when they give at least half the SMs a block, and 32-row
-// tiles below that. Measured on an H100 (kernel_variants.py, PERF.md): at
+// tiles below that (above 256 the large tile is 32 rows in f32 and 64 in
+// bf16, mlp_mma.cuh "Widths"). Measured on an H100 (kernel_variants.py, PERF.md): at
 // 4096 value rows (32 blocks of 128) 32-row tiles take 0.141 ms against
 // 0.246; at 3000 points with the gradient (12,000 rows, 94 blocks) 128-row
 // tiles take 0.183 ms against 0.238; 64-row tiles won at no shape.
@@ -88,10 +90,13 @@ int row_groups(int n, int c) {
   return 2LL * ((long long)n * c + 127) / 128 >= sms ? 4 : 1;
 }
 
+// the large tile is the most row groups the width takes (mlp_mma.cuh
+// "Widths": 4 up to 256; above, 1 in f32 and 2 in bf16)
 template <class Mode, int NJ, int C>
 int by_rows(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t s) {
+  constexpr int kMax = mlp_mma::max_row_groups<Mode>(NJ * 32);
   switch (row_groups(n, C)) {
-    case 4: return launch<Mode, NJ, C, 4>(net, x, n, val, grad, s);
+    case 4: return launch<Mode, NJ, C, kMax>(net, x, n, val, grad, s);
     default: return launch<Mode, NJ, C, 1>(net, x, n, val, grad, s);
   }
 }
@@ -102,7 +107,7 @@ int dispatch(const Net& net, int hidden, const float* x, int n, float* val, floa
   switch (hidden / 32) {
 #define CASE(NJ) \
   case NJ: return by_rows<Mode, NJ, C>(net, x, n, val, grad, stream);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    MLP_MMA_WIDTHS(CASE)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -114,14 +119,15 @@ int dispatch(const Net& net, int hidden, const float* x, int n, float* val, floa
 // bh (L, H), wout (H,), bout (1,): float32 (in the bf16 mode w0 and wout
 // bf16-rounded); wh: the hidden layers (L, H, H) in (out, in) layout, bf16
 // in the bf16 mode and the tf32 hi part (float32) in the f32 mode, with
-// wh_lo the tf32 lo part (f32 mode only). hidden must be a multiple of 32 in
-// [32, 256] (the wrapper checks it).
+// wh_lo the tf32 lo part (f32 mode only). hidden must be an instance's width
+// (mlp_mma::in_library: a multiple of 32 up to 256, or 384 or 512 in the
+// `_wide` library; the wrapper pads to it).
 extern "C" int siren_forward(const float* x, int n, const float* w0, const float* b0,
                              const void* wh, const void* wh_lo, const float* bh,
                              const float* wout, const float* bout, int hidden, int n_hidden,
                              float omega_first, float omega_hidden, int bf16, float* val,
                              float* grad, void* stream) {
-  if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 ||
+  if (!mlp_mma::in_library(hidden) || n_hidden < 0 || n < 0 ||
       (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;

@@ -46,7 +46,11 @@
 // step's ~1-2k sampler rays would fill 16-32 of the 132 SMs at 64. So the
 // wrapper takes the rays a block with the fewest tile rounds on the busiest
 // SM, waves of blocks times tiles a block (ops/fused_sampler.rays_per_block:
-// 64 at the bench trace's buffer, 8-16 at a training step's).
+// 64 at the bench trace's buffer, 8-16 at a training step's). Above width
+// 256 a block has one row group, the f32 tile's at that width (32-row tiles,
+// 128 threads; mlp_mma.cuh "Widths"), and takes 8 or 16 rays; at 512 the
+// activations and weight stages take 229,888 bytes, the points, values and
+// per-ray arrays 1,920 more, of the 232,448 a block may have.
 //
 // t = t_lo + step * span and the points cam + t * dir are single-rounding
 // fused multiply-adds (__fmaf_rn), as XLA forms them in the JAX package and
@@ -59,8 +63,6 @@ namespace {
 
 using mlp_mma::Bf16Mode;
 using mlp_mma::IgrAct;
-using mlp_mma::kRows;
-using mlp_mma::kThreads;
 using mlp_mma::Net;
 using mlp_mma::SirenAct;
 using mlp_mma::Tf32x3Mode;
@@ -76,9 +78,17 @@ __device__ __forceinline__ float z_pred(float fl, float fh, float zl, float zh) 
   return __fadd_rn(__fdiv_rn(num, eps_denom(__fsub_rn(fh, fl), 1e-12f)), zl);
 }
 
-constexpr int kMaxRays = 64;  // rays a block at most: the per-ray arrays' width
+// A block of width H holds RG row groups: its tiles have 32 RG rows and it
+// has 128 RG threads (RG = 4 up to 256; 1 above, the f32 tile's, since the
+// sweep and fine tiles share the block's shared memory; mlp_mma.cuh
+// "Widths"). It takes at most 16 RG rays (64 up to 256, 16 above): the
+// re-validation tile holds two rows a ray. kMaxRays is the per-ray arrays'
+// width.
+template <int H>
+constexpr int kRG = mlp_mma::max_row_groups<Tf32x3Mode>(H);
+template <int H>
+constexpr int kMaxRays = 16 * kRG<H>;
 constexpr int kMinRays = 8;
-static_assert(kMaxRays <= kRows && kRows % kMaxRays == 0, "a sweep tile holds whole steps");
 
 // A ray's streaming pick: the TPU kernel's carry, the argmin of
 // sign(f + margin) * (n_steps - s) and the argmin of f, one step at a time.
@@ -89,24 +99,19 @@ struct Pick {
 };
 constexpr int kPickFloats = 9;
 
-// ray r's pick from / to its column of the (kPickFloats, kMaxRays) array
+// ray r's pick from / to its column of the (kPickFloats, M) array
+template <int M>
 __device__ __forceinline__ Pick load_pick(const float* pk, int r) {
-  return Pick{pk[r],
-              pk[kMaxRays + r],
-              pk[2 * kMaxRays + r],
-              pk[3 * kMaxRays + r],
-              pk[4 * kMaxRays + r],
-              pk[5 * kMaxRays + r],
-              pk[6 * kMaxRays + r],
-              pk[7 * kMaxRays + r],
-              pk[8 * kMaxRays + r]};
+  return Pick{pk[r],         pk[M + r],     pk[2 * M + r], pk[3 * M + r], pk[4 * M + r],
+              pk[5 * M + r], pk[6 * M + r], pk[7 * M + r], pk[8 * M + r]};
 }
 
+template <int M>
 __device__ __forceinline__ void store_pick(float* pk, int r, const Pick& k) {
   const float f[kPickFloats] = {k.best,   k.t_pick, k.f_pick, k.z_low, k.f_low,
                                 k.prev_t, k.prev_f, k.f_min,  k.t_min};
 #pragma unroll
-  for (int i = 0; i < kPickFloats; ++i) pk[i * kMaxRays + r] = f[i];
+  for (int i = 0; i < kPickFloats; ++i) pk[i * M + r] = f[i];
 }
 
 __device__ __forceinline__ void fold(Pick& k, int s, int n_steps, float ts, float fs,
@@ -139,36 +144,39 @@ constexpr int kRayFloats = 8 + kPickFloats + 5;
 
 template <int H>
 __host__ __device__ constexpr int act_bytes() {
-  return kRows * mlp_mma::pitch_a<Tf32x3Mode>(H);
+  return 32 * kRG<H> * mlp_mma::pitch_a<Tf32x3Mode>(H);
 }
 
 template <int H>
 constexpr int smem_bytes() {
   return act_bytes<H>() + 2 * mlp_mma::stage_bytes<Tf32x3Mode>(H) +
-         4 * (kRows * 3 + kRows + kMaxRays * kRayFloats);
+         4 * (32 * kRG<H> * 4 + kMaxRays<H> * kRayFloats);
 }
 
 // Every tile of a block goes through one loop with one call of the tile per
 // mode: the sweep tiles (sweep net), the re-validation tile when
 // `revalidate`, then the secant tiles (fine net).
 template <class Act, int H>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(128 * kRG<H>, 1)
     sweep_kernel(Net sweep_net, Net fine_net, int sweep_bf16, int fine_bf16, int revalidate,
                  int rays, const float* __restrict__ cam, const float* __restrict__ dir,
                  const float* __restrict__ t_lo, const float* __restrict__ t_hi,
                  const float* __restrict__ steps, int n_rays, int n_steps, int n_secant,
                  float margin, float* __restrict__ t_pick_out, float* __restrict__ f_pick_out,
                  float* __restrict__ t_min_out, float* __restrict__ z_sec_out) {
+  constexpr int RG = kRG<H>;
+  constexpr int kRows = 32 * RG;   // rows of a tile
+  constexpr int M = kMaxRays<H>;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* act = smem;
   unsigned char* wbuf = act + act_bytes<H>();
   float* xs = reinterpret_cast<float*>(wbuf + 2 * mlp_mma::stage_bytes<Tf32x3Mode>(H));
   float* vs = xs + kRows * 3;             // (kRows,)
-  float* ray = vs + kRows;                // (8, kMaxRays): cam xyz, dir xyz, t_lo, span
-  float* pk = ray + 8 * kMaxRays;         // (kPickFloats, kMaxRays)
-  float* sec = pk + kPickFloats * kMaxRays;  // (5, kMaxRays): fl, fh, zl, zh, z
-  auto R = [&](int f, int r) -> float& { return ray[f * kMaxRays + r]; };
-  auto S = [&](int f, int r) -> float& { return sec[f * kMaxRays + r]; };
+  float* ray = vs + kRows;           // (8, M): cam xyz, dir xyz, t_lo, span
+  float* pk = ray + 8 * M;           // (kPickFloats, M)
+  float* sec = pk + kPickFloats * M;  // (5, M): fl, fh, zl, zh, z
+  auto R = [&](int f, int r) -> float& { return ray[f * M + r]; };
+  auto S = [&](int f, int r) -> float& { return sec[f * M + r]; };
 
   const int per_tile = kRows / rays;  // steps of each ray per sweep tile
   const int r0 = blockIdx.x * rays;
@@ -185,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float hi = ok ? t_hi[g] : 0.f;
     R(6, tid) = lo;
     R(7, tid) = __fsub_rn(hi, lo);
-    store_pick(pk, tid, Pick{INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, INFINITY, 0.f});
+    store_pick<M>(pk, tid, Pick{INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, INFINITY, 0.f});
   }
   __syncthreads();  // every row's thread reads its ray's geometry
   // the point at depth z on ray r
@@ -196,7 +204,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // secant state
   auto finish_pick = [&]() {
     if (tid < rays) {
-      const Pick k = load_pick(pk, tid);
+      const Pick k = load_pick<M>(pk, tid);
       S(0, tid) = k.f_low;
       S(1, tid) = k.f_pick;
       S(2, tid) = k.z_low;
@@ -210,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
   };
 
-  // rays <= 64: one re-validation tile (2 rays rows) and one tile a secant step
+  // rays <= M: one re-validation tile (2 rays rows) and one tile a secant step
   const int n_sweep = (n_steps + per_tile - 1) / per_tile;
   const int n_reval = revalidate ? 1 : 0;
   const int n_tiles = n_sweep + n_reval + n_secant;
@@ -238,20 +246,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     // time would make the tile read it through local memory
     const Net net = sweeping ? sweep_net : fine_net;
     if (sweeping ? sweep_bf16 : fine_bf16)
-      mlp_mma::tile<Bf16Mode, H, 1, Act>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+      mlp_mma::tile<Bf16Mode, H, 1, Act, RG>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
     else
-      mlp_mma::tile<Tf32x3Mode, H, 1, Act>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+      mlp_mma::tile<Tf32x3Mode, H, 1, Act, RG>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
     // ---- its values
     if (sweeping) {
       if (tid < rays) {
-        Pick k = load_pick(pk, tid);
+        Pick k = load_pick<M>(pk, tid);
         for (int j = 0; j < per_tile; ++j) {
           const int s = it * per_tile + j;
           if (s < n_steps)
             fold(k, s, n_steps, __fmaf_rn(__ldg(steps + s), R(7, tid), R(6, tid)),
                  vs[j * rays + tid], margin);
         }
-        store_pick(pk, tid, k);
+        store_pick<M>(pk, tid, k);
       }
     } else if (reval) {
       if (tid < 2 * rays) {
@@ -283,11 +291,13 @@ int launch(const Net& sweep, const Net& fine, int sweep_bf16, int fine_bf16, int
            float* t_pick, float* f_pick, float* t_min, float* z_sec, cudaStream_t stream) {
   constexpr int smem = smem_bytes<H>();
   static_assert(smem <= 232448, "the sampler exceeds a block's shared memory");
+  static_assert(2 * kMaxRays<H> <= 32 * kRG<H>, "the re-validation tile holds two rows a ray");
+  if (rays > kMaxRays<H>) return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       sweep_kernel<Act, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = (n_rays + rays - 1) / rays;
-  sweep_kernel<Act, H><<<blocks, kThreads, smem, stream>>>(
+  sweep_kernel<Act, H><<<blocks, 128 * kRG<H>, smem, stream>>>(
       sweep, fine, sweep_bf16, fine_bf16, revalidate, rays, cam, dir, t_lo, t_hi, steps, n_rays,
       n_steps, n_secant, margin, t_pick, f_pick, t_min, z_sec);
   return (int)cudaGetLastError();
@@ -305,7 +315,7 @@ int dispatch(int hidden, const Net& sweep, const Net& fine, int sweep_bf16, int 
     return launch<Act, NJ * 32>(sweep, fine, sweep_bf16, fine_bf16, revalidate, rays, cam,   \
                                 dir, t_lo, t_hi, steps, n_rays, n_steps, n_secant, margin,   \
                                 t_pick, f_pick, t_min, z_sec, s);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    MLP_MMA_WIDTHS(CASE)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -321,7 +331,8 @@ int dispatch(int hidden, const Net& sweep, const Net& fine, int sweep_bf16, int 
 // evaluates the bracket ends again on the fine net before the secant (the
 // coarse sweep). `siren` selects the sine activation with its omegas
 // (otherwise IGR's softplus with the skip mask and final tanh). `rays` is
-// the rays a block, a power of two in [8, 64].
+// the rays a block, a power of two in [8, 64] up to width 256 and in [8, 16]
+// above; hidden is an instance's width (mlp_mma::in_library).
 extern "C" int sampler_sweep(const float* cam, const float* dir, const float* t_lo,
                              const float* t_hi, const float* steps, int n_rays, int n_steps,
                              int n_secant, float margin, int revalidate, const void* const* sw,
@@ -329,8 +340,8 @@ extern "C" int sampler_sweep(const float* cam, const float* dir, const float* t_
                              int final_tanh, float omega_first, float omega_hidden, int siren,
                              int sweep_bf16, int fine_bf16, int rays, float* t_pick,
                              float* f_pick, float* t_min, float* z_sec, void* stream) {
-  if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_rays < 0 || n_steps < 1 ||
-      n_secant < 0 || n_hidden < 0 || (skip & 1u) || rays < kMinRays || rays > kMaxRays ||
+  if (!mlp_mma::in_library(hidden) || n_rays < 0 || n_steps < 1 || n_secant < 0 ||
+      n_hidden < 0 || (skip & 1u) || rays < kMinRays ||
       (rays & (rays - 1)) != 0 ||
       (n_hidden > 0 && (sw[2] == nullptr || fw[2] == nullptr ||
                         (!sweep_bf16 && sw[3] == nullptr) || (!fine_bf16 && fw[3] == nullptr))))

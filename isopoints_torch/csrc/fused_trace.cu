@@ -19,7 +19,8 @@
 // A finished ray (un = 0 implies bk = 0) takes zero moves, so a fixed count
 // equals the while loop, and no host synchronisation is needed.
 //
-// Design. A block takes 64 rays, 512 threads. Every iteration threads
+// Design. A block takes 64 rays, 512 threads (above width 256, 16 rays and
+// 128 threads in f32, 32 and 256 in bf16: mlp_mma.cuh "Widths"). Every iteration threads
 // 0..63 write their ray's two front points (cam + acc * dir, one __fmaf_rn
 // per coordinate, as the PyTorch loop forms them with utils.fma) as rows r
 // and 64 + r of one 128-row tile, the whole block evaluates the tile on the
@@ -47,13 +48,14 @@ namespace {
 
 using mlp_mma::Bf16Mode;
 using mlp_mma::IgrAct;
-using mlp_mma::kRows;
-using mlp_mma::kThreads;
 using mlp_mma::Net;
 using mlp_mma::SirenAct;
 using mlp_mma::Tf32x3Mode;
 
-constexpr int kRays = kRows / 2;  // rays per block: both fronts in one tile
+// RG row groups a block (mlp_mma::max_row_groups: 4 up to 256, fewer above),
+// so a tile of 32 RG rows and 16 RG rays a block: both fronts in one tile
+template <class Mode, int H>
+constexpr int kRG = mlp_mma::max_row_groups<Mode>(H);
 // per ray in shared memory, [field][kRays]
 constexpr int kRayFloats = 14;  // cam xyz, dir xyz, acc_s, acc_e, sdf_s, sdf_e, cur_s,
                                 // cur_e, fwd_s, fwd_e
@@ -74,15 +76,19 @@ struct State {
 
 template <class Mode, int H>
 constexpr int smem_bytes() {
+  constexpr int kRows = 32 * kRG<Mode, H>, kRays = kRows / 2;
   return kRows * mlp_mma::pitch_a<Mode>(H) + 2 * mlp_mma::stage_bytes<Mode>(H) +
          4 * (kRows * 3 + kRows + kRays * (kRayFloats + kRayInts));
 }
 
 template <class Mode, class Act, int H>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(128 * kRG<Mode, H>, 1)
     march_kernel(Net net, const float* __restrict__ cam, const float* __restrict__ dir,
                  State st, int n, int n_iters, float thr, float ls, int line_step_iters,
                  int gate_end) {
+  constexpr int RG = kRG<Mode, H>;
+  constexpr int kRows = 32 * RG;   // rows of a tile
+  constexpr int kRays = kRows / 2;  // rays per block
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* act = smem;
   unsigned char* wbuf = act + kRows * mlp_mma::pitch_a<Mode>(H);
@@ -144,7 +150,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     // starts with a barrier (the points visible) and ends with one (vs
     // visible, xs free for the next iteration's points)
-    mlp_mma::tile<Mode, H, 1, Act>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+    mlp_mma::tile<Mode, H, 1, Act, RG>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
     if (r < kRays) {
       const float new_s = vs[r], new_e = vs[kRays + r];
       const bool may_s = un_s && new_s < 0.f && bk_s < line_step_iters;
@@ -185,8 +191,9 @@ int launch(const Net& net, const float* cam, const float* dir, const State& st, 
   static const cudaError_t attr = cudaFuncSetAttribute(
       march_kernel<Mode, Act, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
+  constexpr int kRays = 16 * kRG<Mode, H>;
   const int blocks = (n + kRays - 1) / kRays;
-  march_kernel<Mode, Act, H><<<blocks, kThreads, smem, stream>>>(
+  march_kernel<Mode, Act, H><<<blocks, 128 * kRG<Mode, H>, smem, stream>>>(
       net, cam, dir, st, n, n_iters, thr, ls, line_step_iters, gate_end);
   return (int)cudaGetLastError();
 }
@@ -200,7 +207,7 @@ int dispatch(int hidden, const Net& net, const float* cam, const float* dir, con
   case NJ:                                                                                 \
     return launch<Mode, Act, NJ * 32>(net, cam, dir, st, n, n_iters, thr, ls,            \
                                       line_step_iters, gate_end, s);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+    MLP_MMA_WIDTHS(CASE)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
   }
@@ -214,7 +221,8 @@ int dispatch(int hidden, const Net& net, const float* cam, const float* dir, con
 // pointers (w0, b0, wh, wh_lo, bh, wout, bout) of the callable's mode
 // (`bf16`, or f32 as 3xTF32 with wh_lo the tf32 lo part); `siren` selects
 // the sine activation with its omegas (otherwise IGR's softplus with the
-// skip mask and final tanh).
+// skip mask and final tanh). hidden is an instance's width
+// (mlp_mma::in_library).
 extern "C" int trace_march(const float* cam, const float* dir, float* acc_s, float* acc_e,
                            float* sdf_s, float* sdf_e, uint8_t* un_s, uint8_t* un_e,
                            int32_t* bk_s, int32_t* bk_e, float* cur_s, float* cur_e, int n,
@@ -223,7 +231,7 @@ extern "C" int trace_march(const float* cam, const float* dir, float* acc_s, flo
                            const float* bh, const float* wout, const float* bout, int hidden,
                            int n_hidden, unsigned skip, int final_tanh, float omega_first,
                            float omega_hidden, int siren, int bf16, void* stream) {
-  if (hidden % 32 != 0 || hidden < 32 || hidden > 256 || n_hidden < 0 || n < 0 ||
+  if (!mlp_mma::in_library(hidden) || n_hidden < 0 || n < 0 ||
       n_iters < 0 || (skip & 1u) ||
       (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;

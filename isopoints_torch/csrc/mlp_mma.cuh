@@ -90,6 +90,21 @@
 // less each row pays (RG = 4 at large launches); a launch of a few thousand
 // points fills the card's 132 SMs only with smaller tiles (RG = 1 in
 // fused_mlp.cu).
+//
+// Widths. Every kernel has an instance for each multiple of 32 up to 256 and
+// for 384 and 512 (`MLP_MMA_WIDTHS`, the wide ones in a library of their
+// own); the wrapper zero-pads a field of any
+// other width up to the next instance (ops/fused_mlp.kernel_width), which is
+// exact because no padded column is ever read (see there). Above 256 the
+// 128-row tile does not fit the SM: at 512 a thread of 16 warps would hold
+// 128 accumulators (the whole register file at 512 threads), and in f32 the
+// activations alone take 128 x (512 x 4 + 16) = 264,192 bytes. So a wide
+// instance keeps the layout and takes fewer row groups (`max_row_groups`):
+// one in the f32 mode (32 rows, 128 threads; 229,984 bytes of shared memory
+// at 512 with the gradient, 230,272 without) and two in bf16 (256 threads),
+// so that a thread may hold its 128 accumulators in the 255 registers the
+// launch bounds then allow. A row's sum does not depend on the row groups,
+// so the invariant above holds at every width.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -100,10 +115,48 @@
 
 namespace mlp_mma {
 
-constexpr int kThreads = 512;    // 16 warps: 4 row groups x 4 column quarters
-constexpr int kRows = 128;       // MMA rows per block
+struct Bf16Mode {
+  static constexpr int kEsz = 2;
+  static constexpr bool kSplit = false;
+};
+
+struct Tf32x3Mode {
+  static constexpr int kEsz = 4;
+  static constexpr bool kSplit = true;
+};
+
 constexpr int kChunkBytes = 64;  // bytes of K per weight row and stage
 constexpr int kPitchW = kChunkBytes + 16;
+constexpr int kMaxHidden = 512;  // the widest instance
+
+// The instances' widths, as NJ = H / 32: X(NJ) for each. A kernel source
+// builds those up to 256; the same source included by its `_wide.cu` twin
+// (MLP_MMA_WIDE_LIB defined) builds those above, a library of its own that
+// nvcc compiles beside the first, so the wide instances do not lengthen
+// the slowest build. The wrappers load the library of the pack's width.
+#define MLP_MMA_NARROW(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+#define MLP_MMA_WIDE(X) X(12) X(16)
+#ifdef MLP_MMA_WIDE_LIB
+#define MLP_MMA_WIDTHS MLP_MMA_WIDE
+#else
+#define MLP_MMA_WIDTHS MLP_MMA_NARROW
+#endif
+
+// hidden is one of this library's instances
+__host__ __device__ constexpr bool in_library(int hidden) {
+#ifdef MLP_MMA_WIDE_LIB
+  return hidden == 384 || hidden == kMaxHidden;
+#else
+  return hidden > 0 && hidden % 32 == 0 && hidden <= 256;
+#endif
+}
+
+// The row groups a block of width `hidden` holds at most in `Mode`: 4 up to
+// 256; above, 1 in f32 and 2 in bf16 (see "Widths" above).
+template <class Mode>
+__host__ __device__ constexpr int max_row_groups(int hidden) {
+  return hidden <= 256 ? 4 : (Mode::kSplit ? 1 : 2);
+}
 
 struct Net {
   const float* w0;    // (H, 3) first layer, (out, in); rows past its width zero
@@ -143,16 +196,6 @@ struct SirenAct {  // sin(omega z), omega cos(omega z)
       d = 0.f;
     }
   }
-};
-
-struct Bf16Mode {
-  static constexpr int kEsz = 2;
-  static constexpr bool kSplit = false;
-};
-
-struct Tf32x3Mode {
-  static constexpr int kEsz = 4;
-  static constexpr bool kSplit = true;
 };
 
 // bytes of one activation row in shared memory (16 bytes of padding)

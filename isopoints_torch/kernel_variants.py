@@ -638,7 +638,7 @@ def main() -> None:
                else (fused_mlp.siren_sdf_plain(pack, x),))
         row = []
         for rg in (1, 4):
-            fused_mlp._lib = lambda lib=libs[("fused_mlp", rg)]: lib
+            fused_mlp._lib = lambda wide=False, lib=libs[("fused_mlp", rg)]: lib
             try:
                 run = lambda: fused_mlp.siren_forward_cuda(pack, x, grad)
                 got = run()
@@ -705,7 +705,7 @@ def main() -> None:
           "off): " + ", ".join(f"{k} {e:.4g}" for k, e in cublas.items()))
     bf16_ref = fused_mlp.igr_forward_cuda(ipack, x_cube, True, True)
     for v_name in f32_names:
-        fused_mlp._igr_lib = lambda lib=libs[("fused_igr", v_name)]: lib
+        fused_mlp._igr_lib = lambda wide=False, lib=libs[("fused_igr", v_name)]: lib
         try:
             bf16 = fused_mlp.igr_forward_cuda(ipack, x_cube, True, True)
             if not all(torch.equal(a, b) for a, b in zip(bf16, bf16_ref)):

@@ -37,3 +37,10 @@ def get_logger(name: str = "isopoints_torch",
         logger.setLevel(level)
         logger.propagate = False
     return logger
+
+
+def add_file_handler(logger: logging.Logger, path: str) -> None:
+    """Mirror the log into a file (logger.py:46-50), without colours."""
+    handler = logging.FileHandler(path)
+    handler.setFormatter(ColorFormatter(use_color=False))
+    logger.addHandler(handler)

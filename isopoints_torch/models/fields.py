@@ -387,6 +387,14 @@ class OccupancyField(nn.Module):
         return self.fc_out(torch.relu(h))
 
 
+def field_grad(apply_sdf: Callable[[torch.Tensor], torch.Tensor]
+               ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """x -> ∇ₓsdf (fields.py:383-389): the gradient of the sum, one
+    backward pass for the batch, as every point's value depends on that
+    point alone; differentiable in the parameters as `sdf_and_grad`'s."""
+    return lambda x: sdf_and_grad(apply_sdf, x)[1]
+
+
 def sdf_and_grad(apply_sdf: Callable[[torch.Tensor], torch.Tensor],
                  x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sdf, ∇ₓsdf) (parity: fields.py:392-405).

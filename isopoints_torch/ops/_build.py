@@ -4,7 +4,8 @@ Every `isopoints_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into a
 shared library with a plain C interface and loaded with `ctypes` (no
 PyTorch headers, so a build takes seconds). Builds happen at first use, into
 `build/torch_kernels/` at the repo root, under a name that carries a hash of
-the sources and flags, so an edited source is rebuilt and an unchanged one
+the sources (the `.cu` file, the `.cu` files it includes and every `.cuh`)
+and flags, so an edited source is rebuilt and an unchanged one
 is reused. `build_all()` starts one `nvcc` per source at once and waits for
 all of them. A failed build raises with `nvcc`'s output.
 """
@@ -12,6 +13,7 @@ all of them. A failed build raises with `nvcc`'s output.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +25,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# the MLP-tile kernels (csrc/mlp_mma.cuh) build their instances above this
+# width into libraries of their own, `<source>_wide`
+NARROW_MAX = 256
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -41,10 +47,24 @@ def _nvcc() -> str:
     return path
 
 
+def _deps(name: str) -> List[str]:
+    """csrc/`name`.cu and the `.cu` files it includes, recursively (a
+    `_wide.cu` source builds its twin again)."""
+    out, todo = [], [name + ".cu"]
+    while todo:
+        f = todo.pop()
+        if f not in out:
+            out.append(f)
+            with open(os.path.join(CSRC, f)) as fh:
+                todo += re.findall(r'#include "([^"]+\.cu)"', fh.read())
+    return out
+
+
 def _lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    deps = _deps(name)
     for f in sorted(os.listdir(CSRC)):
-        if f == name + ".cu" or f.endswith(".cuh"):
+        if f in deps or f.endswith(".cuh"):
             with open(os.path.join(CSRC, f), "rb") as fh:
                 h.update(f.encode() + fh.read())
     return os.path.join(BUILD_DIR, f"{name}.{h.hexdigest()[:16]}.so")

@@ -46,6 +46,12 @@ weights are detached when the callable is made and every call runs under
 `torch.no_grad()`: it serves the no-grad tracing paths only (the
 `stop_gradient` contract of isopoints_tpu/models/implicit.py:147-151).
 
+Widths. The kernels have instances at every multiple of 32 up to 256 and
+at 384 and 512 (csrc/mlp_mma.cuh "Widths"; the two wide ones in the
+`_wide` libraries); a pack zero-pads its field to the smallest instance at
+or above its width (`kernel_width`), as JAX's kernels take any width, and
+a field wider than 512 raises ValueError on a CUDA tensor.
+
 A CUDA input launches the kernel or raises; a CPU input runs the plain
 version (`siren_sdf_plain`, `siren_sdf_and_grad_plain`, `igr_sdf_plain`,
 `igr_sdf_and_grad_plain`, each in f32 or bf16): the same function in
@@ -78,8 +84,10 @@ _F = ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_mlp")
+def _lib(wide: bool = False) -> ctypes.CDLL:
+    """The SIREN kernel's library; `wide`: its instances above
+    `_build.NARROW_MAX`, csrc/fused_mlp_wide.cu."""
+    lib = _build.load("fused_mlp_wide" if wide else "fused_mlp")
     lib.siren_forward.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _F, _F, _I, _P, _P, _P]
     lib.siren_forward.restype = _I
@@ -87,18 +95,31 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _igr_lib() -> ctypes.CDLL:
-    lib = _build.load("fused_igr")
+def _igr_lib(wide: bool = False) -> ctypes.CDLL:
+    """The IGR kernel's library; `wide` as in `_lib`."""
+    lib = _build.load("fused_igr_wide" if wide else "fused_igr")
     lib.igr_forward.argtypes = [_P, _I] + [_P] * 7 + [_I, _I, _U, _I, _I,
                                                       _P, _P, _P]
     lib.igr_forward.restype = _I
     return lib
 
 
-def _check_hidden(h: int, what: str) -> None:
-    if h % 32 != 0 or not 32 <= h <= 256:
-        raise ValueError(f"the CUDA {what} kernel needs a hidden width that "
-                         f"is a multiple of 32 in [32, 256], got {h}")
+# the widths of the kernels' instances (csrc/mlp_mma.cuh `MLP_MMA_WIDTHS`)
+KERNEL_WIDTHS = tuple(range(32, 257, 32)) + (384, 512)
+MAX_WIDTH = KERNEL_WIDTHS[-1]
+
+
+def kernel_width(h: int) -> int:
+    """The width of the kernel instance that runs a field of width `h`: the
+    smallest instance at or above it, to which the pack zero-pads the
+    weights. JAX's kernels take any width (their weights are whole VMEM
+    blocks, pallas_mlp.py:348, :535); above the widest instance the CUDA
+    kernels raise."""
+    for w in KERNEL_WIDTHS:
+        if w >= h:
+            return w
+    raise ValueError(f"the CUDA MLP kernels take a hidden width up to "
+                     f"{MAX_WIDTH}, got {h}")
 
 
 def _round_bf16(a: torch.Tensor) -> torch.Tensor:
@@ -161,17 +182,21 @@ class SirenPack:
         return (self.ws_bf16 if bf16 else self.ws), self.bs
 
     def arch_args(self) -> Tuple[int, int, int, int]:
-        """hidden, n_hidden, skip mask (none), final_tanh (none)."""
-        return (self.hidden, self.n_hidden, 0, 0)
+        """The kernel's width (`kernel_width`), n_hidden, skip mask (none),
+        final_tanh (none)."""
+        return (kernel_width(self.hidden), self.n_hidden, 0, 0)
 
     def omegas(self) -> Tuple[float, float]:
         return (self.omega_first, self.omega_hidden)
 
     def mma_net(self, bf16: bool = False) -> Tuple[List[torch.Tensor], Tuple]:
-        """(tensors kept alive, args) of the tensor-core tile (mlp_mma.cuh):
-        w0 (H, 3), b0 (H,), wh and wh_lo, the hidden layers (L, H, H) as
-        (out, in), the K-major B operand, bh (L, H), wout (H,), bout (1,);
-        args are their seven pointers, then hidden, n_hidden, ω₀, ω. In f32
+        """(tensors kept alive, args) of the tensor-core tile (mlp_mma.cuh)
+        at the kernel's width Hk (`kernel_width`, the field's zero-padded):
+        w0 (Hk, 3), b0 (Hk,), wh and wh_lo, the hidden layers (L, Hk, Hk)
+        as (out, in), the K-major B operand, bh (L, Hk), wout (Hk,), bout
+        (1,); args are their seven pointers, then Hk, n_hidden, ω₀, ω. A
+        padded unit is sin(0) = 0 and its weights out are zero, so the
+        padding is exact. In f32
         wh and wh_lo are the tf32 split (`tf32_split`) of the weights; in
         bf16 wh is `torch.bfloat16`, wh_lo None, and w0 and wout are the
         bf16-rounded weights (every matmul operand of JAX's bf16 mode is
@@ -181,16 +206,19 @@ class SirenPack:
         rule, pallas_sampler.py:21-26)."""
         if bf16 not in self._mma_nets:
             h = self.hidden
-            _check_hidden(h, "SIREN")
+            hk = kernel_width(h)
             ws, bs = self.weights(bf16)
             for t in ws + bs:
                 if t.dtype != torch.float32:
                     raise TypeError("the CUDA SIREN kernel takes float32 weights")
+            ws = [F.pad(w, (0, (hk - h) * (i > 0), 0, (hk - h) * (i < len(ws) - 1)))
+                  for i, w in enumerate(ws)]
+            bs = [F.pad(b, (0, (hk - h) * (i < len(bs) - 1))) for i, b in enumerate(bs)]
             tensors = _mma_tensors(ws[0], bs[0], ws[1:-1], bs[1:-1], ws[-1],
-                                   bs[-1], h, bf16, self.device)
+                                   bs[-1], hk, bf16, self.device)
             self._mma_nets[bf16] = (tensors, tuple(
                 None if t is None else t.data_ptr() for t in tensors) + (
-                    h, self.n_hidden, self.omega_first, self.omega_hidden))
+                    hk, self.n_hidden, self.omega_first, self.omega_hidden))
         return self._mma_nets[bf16]
 
 
@@ -265,8 +293,8 @@ def siren_forward_cuda(pack: SirenPack, x: torch.Tensor, with_grad: bool,
     _check_points(x, pack)
     if not x.is_cuda or not x.is_contiguous():
         raise ValueError("siren_forward_cuda takes a contiguous CUDA tensor")
-    lib = _lib()
     _, wargs = pack.mma_net(bf16)
+    lib = _lib(wargs[7] > _build.NARROW_MAX)
     val, grad = _outputs(x, with_grad)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.launches += 1
@@ -314,22 +342,35 @@ class IgrPack:
         return sum(1 << l for l in self.skip_in if 0 <= l < self.n_layers)
 
     def arch_args(self) -> Tuple[int, int, int, int]:
-        """hidden, n_hidden, skip mask, final_tanh for the launchers."""
-        return (self.hidden, self.n_layers - 2, self.skip_mask(),
+        """The kernel's width (`kernel_width`), n_hidden, skip mask,
+        final_tanh for the launchers."""
+        return (kernel_width(self.hidden), self.n_layers - 2, self.skip_mask(),
                 int(self.final_tanh))
 
     def mma_net(self, bf16: bool
                 ) -> Tuple[List[torch.Tensor], List[Optional[int]]]:
         """(tensors kept alive, pointers) of the tensor-core tile's layout
         (mlp_mma.cuh), which the fused IGR kernel, the IGR sampler and the
-        march read: w0 (H, 3), b0 (H,), wh, wh_lo, bh (L, H), wout (H,),
-        bout (1,), each layer zero-padded to H outputs. The hidden layers
-        stay (L, H, H) as (out, in), the K-major B operand: in bf16 as
+        march read, at the kernel's width Hk (`kernel_width`): w0 (Hk, 3),
+        b0 (Hk,), wh, wh_lo, bh (L, Hk), wout (Hk,), bout (1,), each layer
+        zero-padded to Hk outputs and Hk inputs. The hidden layers stay
+        (L, Hk, Hk) as (out, in), the K-major B operand: in bf16 as
         `torch.bfloat16` (the values are bf16 already), in f32 as the tf32
-        split `tf32_split`, hi in wh and lo in wh_lo (None in bf16)."""
+        split `tf32_split`, hi in wh and lo in wh_lo (None in bf16).
+
+        The skip. JAX's concat([h, x]) / √2 puts the point in columns
+        H−3..H−1 of the row; the kernel writes it into the last three
+        columns of its padded row, Hk−3..Hk−1 (`store_col`), so a layer
+        in `skip_in` takes JAX's input columns H−3..H−1 at Hk−3..Hk−1.
+
+        Padding is exact only where nothing reads a padded unit: a padded
+        IGR unit has z = 0 and holds softplus(0)/β = log 2/100, not 0 (a
+        SIREN unit holds sin 0 = 0). So every padded input column of the
+        next layer, and of the head, is zero, and with it the unit's
+        product; its tangent rows are σ(0)·0 = 0."""
         if bf16 not in self._mma_nets:
             h, nl = self.hidden, self.n_layers
-            _check_hidden(h, "IGR")
+            hk = kernel_width(h)
             if nl < 2 or 0 in self.skip_in or self.ws[0].shape[1] != 3:
                 raise ValueError("the CUDA IGR kernel needs >= 2 layers on raw "
                                  "xyz and no skip at the first layer")
@@ -342,14 +383,24 @@ class IgrPack:
                     raise ValueError(f"layer {l} takes {ws[l].shape[1]} inputs, "
                                      f"the kernel needs {h}")
 
-            def pad(w, b):
+            def pad(l, rows):
+                """Layer l zero-padded to `rows` outputs and, past the first
+                layer, to Hk inputs, the point's columns of a skip last."""
+                w, b = ws[l], bs[l]
+                if l > 0:
+                    wide = w.new_zeros((w.shape[0], hk))
+                    split = h - 3 if l in self.skip_in else h
+                    wide[:, :split] = w[:, :split]
+                    wide[:, hk - (h - split):] = w[:, split:]
+                    w = wide
                 out = w.shape[0]
-                return F.pad(w, (0, 0, 0, h - out)), F.pad(b, (0, h - out))
+                return F.pad(w, (0, 0, 0, rows - out)), F.pad(b, (0, rows - out))
 
-            w0, b0 = pad(ws[0], bs[0])
-            mid = [pad(w, b) for w, b in zip(ws[1:-1], bs[1:-1])]
+            w0, b0 = pad(0, hk)
+            mid = [pad(l, hk) for l in range(1, nl - 1)]
+            wout, bout = pad(nl - 1, 1)
             tensors = _mma_tensors(w0, b0, [w for w, _ in mid], [b for _, b in mid],
-                                   ws[-1], bs[-1], h, bf16, self.device)
+                                   wout, bout, hk, bf16, self.device)
             self._mma_nets[bf16] = (tensors, [None if t is None else t.data_ptr()
                                               for t in tensors])
         return self._mma_nets[bf16]
@@ -422,8 +473,8 @@ def igr_forward_cuda(pack: IgrPack, x: torch.Tensor, with_grad: bool,
     _check_points(x, pack)
     if not x.is_cuda or not x.is_contiguous():
         raise ValueError("igr_forward_cuda takes a contiguous CUDA tensor")
-    lib = _igr_lib()
     _, ptrs = pack.mma_net(bf16)
+    lib = _igr_lib(pack.arch_args()[0] > _build.NARROW_MAX)
     val, grad = _outputs(x, with_grad)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     IGR_KERNEL.launches += 1

@@ -7,8 +7,8 @@ as MLP tiles, picks the first sign change (the first minimum of
 sign(f + margin)·countdown), the bracket and the f-argmin, and runs the
 fixed secant, all without writing a (rays × n_steps) array to device
 memory. For the SIREN and the IGR field alike it evaluates on the fused
-MLP kernels' 128-row tensor-core tile (csrc/mlp_mma.cuh), `rays_per_block`
-rays a block, the pick folded tile by tile (any n_steps), so a point's
+MLP kernels' tensor-core tile (csrc/mlp_mma.cuh; 128 rows up to width 256,
+32 above), `rays_per_block` rays a block, the pick folded tile by tile (any n_steps), so a point's
 value is the fused callable's bit for bit. Bound on an H100: the products
 of (n_steps + n_secant [+ 2]) MLP evals per ray, bf16 ones over the bf16
 peak and f32 ones as three tf32 passes over the tf32 peak.
@@ -53,8 +53,10 @@ _F = ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_sampler")
+def _lib(wide: bool = False) -> ctypes.CDLL:
+    """The sampler's library; `wide`: its instances above
+    `_build.NARROW_MAX`, csrc/fused_sampler_wide.cu."""
+    lib = _build.load("fused_sampler_wide" if wide else "fused_sampler")
     lib.sampler_sweep.argtypes = ([_P] * 5 + [_I, _I, _I, _F, _I, _P, _P]
                                   + [_I, _I, _U, _I, _F, _F, _I, _I, _I, _I]
                                   + [_P] * 5)
@@ -65,12 +67,20 @@ def _lib() -> ctypes.CDLL:
 RAYS = (64, 32, 16, 8)   # rays a block the kernel takes
 
 
+def tile_rows(kernel_hidden: int) -> int:
+    """The rows of the sampler kernel's tiles at an instance's width: 128
+    up to 256, 32 above (the f32 tile of one row group, csrc/mlp_mma.cuh
+    "Widths"). A block takes at most half as many rays."""
+    return 128 if kernel_hidden <= _build.NARROW_MAX else 32
+
+
 def rays_per_block(n_rays: int, n_steps: int, n_secant: int,
-                   revalidate: bool, n_sms: int) -> int:
+                   revalidate: bool, n_sms: int, rows: int = 128) -> int:
     """The kernel's rays a block, from the launch's shape: the one of
-    `RAYS` with the fewest tile rounds on the busiest SM, the larger on a
-    tie. A block (one to an SM: the f32 tile's shared memory) runs
-    ceil(n_steps·rays / 128) sweep tiles, then one re-validation tile and
+    `RAYS` up to rows / 2 (`tile_rows`) with the fewest tile rounds on the
+    busiest SM, the larger on a tie. A block (one to an SM: the f32 tile's
+    shared memory) runs ceil(n_steps·rays / rows) sweep tiles, then one
+    re-validation tile and
     one tile a secant step whatever its rays, and every tile streams the
     whole weight stack, so the rounds are ceil(blocks / n_sms) waves times
     the tiles a block. At the bench trace's 24,576 rays that keeps 64 (384
@@ -81,9 +91,9 @@ def rays_per_block(n_rays: int, n_steps: int, n_secant: int,
 
     def rounds(rays):
         waves = -(-max(-(-n_rays // rays), 1) // n_sms)
-        return waves * (-(-n_steps * rays // 128) + tail)
+        return waves * (-(-n_steps * rays // rows) + tail)
 
-    return min(RAYS, key=lambda r: (rounds(r), -r))
+    return min((r for r in RAYS if 2 * r <= rows), key=lambda r: (rounds(r), -r))
 
 
 @functools.lru_cache(maxsize=None)
@@ -184,7 +194,8 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
     n_steps = steps.shape[0]
     if n_steps < 1:
         raise ValueError("the sampler kernel takes at least one step")
-    lib = _lib()
+    arch = pack.arch_args()
+    lib = _lib(arch[0] > _build.NARROW_MAX)
     outs = [torch.empty(r, dtype=torch.float32, device=dirs.device)
             for _ in range(4)]
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
@@ -192,12 +203,12 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
     sw = (_P * 7)(*pack.mma_net(sweep_bf16)[1][:7])
     fw = (_P * 7)(*pack.mma_net(bool(fine_bf16))[1][:7])
     rays = rays_per_block(r, n_steps, int(n_secant), coarse_sweep,
-                          _n_sms(dirs.device.index or 0))
+                          _n_sms(dirs.device.index or 0), tile_rows(arch[0]))
     KERNEL.launches += 1
     err = lib.sampler_sweep(
         cam.data_ptr(), dirs.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
         steps.data_ptr(), r, n_steps, int(n_secant), float(margin),
-        int(bool(coarse_sweep)), sw, fw, *pack.arch_args(), *pack.omegas(),
+        int(bool(coarse_sweep)), sw, fw, *arch, *pack.omegas(),
         int(pack.kind == "siren"), int(sweep_bf16), int(bool(fine_bf16)), rays,
         *(o.data_ptr() for o in outs), stream)
     _build.check_launch(lib, err, "fused_sampler")

@@ -42,8 +42,10 @@ _DTYPES = (torch.float32,) * 4 + (torch.bool,) * 2 + (torch.int32,) * 2 \
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_trace")
+def _lib(wide: bool = False) -> ctypes.CDLL:
+    """The march's library; `wide`: its instances above
+    `_build.NARROW_MAX`, csrc/fused_trace_wide.cu."""
+    lib = _build.load("fused_trace_wide" if wide else "fused_trace")
     lib.trace_march.argtypes = ([_P] * 12 + [_I, _I, _F, _F, _I, _I]
                                 + [_P] * 7 + [_I, _I, _U, _I, _F, _F, _I, _I, _P])
     lib.trace_march.restype = _I
@@ -71,8 +73,8 @@ def march_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, state10,
         out.append(s.clone(memory_format=torch.contiguous_format))
     if n_iters < 0 or line_step_iters < 0:
         raise ValueError("n_iters and line_step_iters must be >= 0")
-    lib = _lib()
     ptrs = pack.mma_net(bool(bf16))[1][:7]
+    lib = _lib(pack.arch_args()[0] > _build.NARROW_MAX)
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
     KERNEL.launches += 1
     err = lib.trace_march(cam.data_ptr(), dirs.data_ptr(),

@@ -8,8 +8,21 @@ numbers; tests that compare the two packages make their draws with numpy
 or JAX and pass them in explicitly.
 """
 
+import random
+
 import numpy as np
 import torch
+
+
+def set_deterministic_seed(seed: int = 0) -> torch.Generator:
+    """Seed Python's, numpy's and torch's global generators and return a
+    `torch.Generator` seeded with `seed` (rng.py:14-19, which returns a
+    root JAX key)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
+
 
 
 class GeneratorChain:

@@ -1,7 +1,9 @@
 """Math helpers (port of isopoints_tpu/utils/mathutils.py: the local
 frames of 3×3 covariances by `eigh`, normals and the curvature proxy, and
-the angle conversions the point model stores its normals in, and the
-SVD `pinverse` of the DTU workload's heat-kernel weights)."""
+the angle conversions the point model stores its normals in, the SVD
+`pinverse` of the DTU workload's heat-kernel weights, `to_homogen` and the
+masked Welford `RunningStat`). JAX's `ndc_to_pix` / `pix_to_ndc` are
+ops/images.py's `ndc_to_pix_coords` / `pix_to_ndc_coords`."""
 
 from typing import Optional, Tuple
 
@@ -85,3 +87,32 @@ def angles_to_vectors(azim: torch.Tensor, elev: torch.Tensor) -> torch.Tensor:
     ce = torch.cos(elev)
     return torch.stack([ce * torch.cos(azim), ce * torch.sin(azim),
                         torch.sin(elev)], dim=-1)
+
+
+def to_homogen(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 4) with a trailing 1 (mathutils.py:95-97)."""
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+class RunningStat:
+    """Masked Welford running mean and variance over per-point scalars
+    (mathutils.py:134-160); `update` returns a new statistic."""
+
+    def __init__(self, shape, device=None):
+        self.n = torch.zeros(shape, dtype=torch.float32, device=device)
+        self.mean = torch.zeros_like(self.n)
+        self.m2 = torch.zeros_like(self.n)
+
+    def update(self, value: torch.Tensor, mask: torch.Tensor) -> "RunningStat":
+        m = mask.to(torch.float32)
+        out = RunningStat(self.n.shape, self.n.device)
+        out.n = self.n + m
+        delta = value - self.mean
+        out.mean = self.mean + torch.where(
+            out.n > 0, delta * m / torch.clamp(out.n, min=1.0), 0.0)
+        out.m2 = self.m2 + delta * (value - out.mean) * m
+        return out
+
+    @property
+    def variance(self) -> torch.Tensor:
+        return self.m2 / torch.clamp(self.n - 1.0, min=1.0)

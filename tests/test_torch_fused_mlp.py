@@ -162,3 +162,71 @@ def test_bf16_pack_layout(pair, bf16_pair):
     assert pair[2].fused_ray_sampler.packing_stride == 3
     assert sdf.fused_ray_sampler.packing_stride == 2
     assert fused_mlp.KERNEL.launches == 0
+
+
+def _siren_kernel_model(pack, x, bf16):
+    """The kernels' padded SIREN layout (csrc/mlp_mma.cuh) in float32
+    PyTorch: the first layer from (Hk, 3), the hidden layers from W (out,
+    in), in f32 the tf32 hi + lo parts summed back, in bf16 the bf16 pack
+    with every operand rounded where it is stored; sin(ω z) throughout."""
+    (w0, b0, wh, wh_lo, bh, wout, bout), args = pack.mma_net(bf16)
+    wh = wh.float() if bf16 else wh + wh_lo
+    om0, om = args[9:]
+    rnd = fused_mlp._round_bf16 if bf16 else (lambda a: a)
+    h = rnd(torch.sin(om0 * (rnd(x) @ w0.t() + b0)))
+    for l in range(wh.shape[0]):
+        h = rnd(torch.sin(om * (h @ wh[l].t() + bh[l])))
+    return h @ wout + bout
+
+
+# (hidden, n_layers): 48 runs padded to 64, 300 and 320 to 384, 512 unpadded
+SIREN_LAYOUT_CASES = [(48, 3), (300, 2), (320, 3), (512, 2)]
+
+
+@pytest.mark.parametrize("hidden,n_layers", SIREN_LAYOUT_CASES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_layout_matches_plain(hidden, n_layers, bf16):
+    """The padded SIREN layout at the instance's width equals the plain
+    version (a padded unit is sin 0 = 0, and its weights out are zero), and
+    the plain version matches JAX's Pallas kernel in interpret mode: f32
+    (`highest`) values within 2e-5 and gradients within 2e-5·max(1, |g|);
+    bf16 by this file's bars (values all within 1e-4, gradients within
+    5e-3·max|g|, >= 99% of gradients within 1e-3·max|g|), the share of
+    values within 1e-5 >= 99% up to width 256 and >= 90% above, for the
+    reason tests/test_torch_igr.py::test_kernel_layout_matches_plain gives:
+    wider float32 sums flip more bf16 roundings of the next operand
+    (measured here: 96.7-98.0% of values within 1e-5 at 300-512, 99.7% at
+    48)."""
+    jfield = JSiren(hidden_size=hidden, n_layers=n_layers)
+    params = jfield.init(jax.random.key(hidden))
+    tfield = SirenField(hidden_size=hidden, n_layers=n_layers, device="cpu")
+    sd = params_from_jax({"decoder": jax.tree.map(np.asarray, params)})
+    tfield.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
+    pack = fused_mlp.SirenPack(tfield)
+    hk = fused_mlp.kernel_width(hidden)
+    tensors, args = pack.mma_net(bf16)
+    w0, b0, wh, wh_lo, bh, wout, bout = tensors
+    assert (w0.shape, wh.shape, bh.shape, wout.shape) == (
+        (hk, 3), (n_layers, hk, hk), (n_layers, hk), (hk,))
+    assert args[7:9] == (hk, n_layers) and pack.arch_args()[0] == hk
+    for t in (w0[hidden:], b0[hidden:], wh[:, hidden:].float(),
+              wh[:, :, hidden:].float(), bh[:, hidden:], wout[hidden:]):
+        assert not t.any()
+    x = torch.from_numpy(_x((300, 3), seed=8))
+    ref = fused_mlp.siren_sdf_plain(pack, x, bf16)
+    np.testing.assert_allclose(_siren_kernel_model(pack, x, bf16).numpy(),
+                               ref.numpy(), atol=1e-5, rtol=0)
+    _, j_sdf_grad = jax_fused(jfield, params, interpret=True,
+                              precision="bf16" if bf16 else "highest")
+    v_j, g_j = (np.asarray(a) for a in j_sdf_grad(jnp.asarray(x.numpy())))
+    v, g = (t.numpy() for t in fused_mlp.siren_sdf_and_grad_plain(pack, x, bf16))
+    np.testing.assert_array_equal(v, ref.numpy())
+    scale = float(np.abs(g_j).max())
+    dv, dg = np.abs(v - v_j), np.abs(g - g_j)
+    if bf16:
+        bar = 0.99 if hidden <= 256 else 0.9
+        assert dv.max() <= 1e-4 and np.mean(dv <= 1e-5) >= bar, dv.max()
+        assert dg.max() <= 5e-3 * scale and np.mean(dg <= 1e-3 * scale) >= 0.99
+    else:
+        assert dv.max() <= 2e-5 and dg.max() <= 2e-5 * max(1.0, scale), (
+            dv.max(), dg.max())
