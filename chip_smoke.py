@@ -8,9 +8,11 @@ Phases, each fatal on failure:
      isopoints_torch/csrc/ (one nvcc per source, in parallel); count the
      tensor-core instructions (HMMA, HGMMA) in the SASS of the libraries of
      the kernels on mlp_mma.cuh's tile, fused_mlp, fused_igr, fused_sampler
-     and fused_trace and their `_wide` twins (the instances above 256)
-     (`cuobjdump --dump-sass`; none in any is a failure), and print each
-     one's registers and spills from nvcc's -Xptxas -v log;
+     and fused_trace, and of their `_wide` twins (the instances above 256,
+     on mlp_wide.cuh's wgmma tile) (`cuobjdump --dump-sass`; none in any
+     is a failure, and so is an HMMA, no HGMMA or a spill in a `_wide`
+     one), and print each one's registers and spills from nvcc's -Xptxas
+     -v log;
   2. each kernel against its plain PyTorch version at full width (seeded):
      the fused SIREN MLP (3x256) value and value+grad on 262,144 points and
      the sampler on 16,384 rays (also equal to sweep_plain over the fused
@@ -318,8 +320,9 @@ Phases, each fatal on failure:
      counters set to 0 just before and read just after: fused_igr in both
      modes, fused_sampler, the kNN, selection and fine launched and no
      plain MLP version called (`plain_calls`), fused_igr's launches by
-     mode and shape, each step's time, a profiled projected step's busy
-     share, a projected step's terms with the kernels and with every plain
+     mode and shape and the sampler's by shape, each step's time, a
+     profiled projected step's busy share, a projected step's terms with
+     the kernels and with every plain
      version on identical draws (phase 4's bars: rtol 1e-2, counts within
      0.5% of the capacity); (a) on the trained field (`wide_kernels`):
      fused_igr value and value+grad in both modes on 262,144 and 524,288
@@ -335,7 +338,8 @@ Phases, each fatal on failure:
      shape) and march (row 9s's), IGR 4x300 and 4x288 padded to the
      384-wide instance on the card, and a width above 512 refused; each
      timed beside its plain version, the f32 cuBLAS chain (TF32 off) and
-     its bound;
+     its bound; fused_igr at (b)'s four most frequent shapes and the
+     sampler at its two, timed beside their bounds;
 then the JSON line {"kernels": [...]} (row 4 also at the statistics', the
 chamfer's, the IMLS, the DTU and the RIMLS (`rimls_*`) shapes; the
 SIREN-path rows with their launches in 13 (b) and (e), 14 (b) and (d) and
@@ -2187,6 +2191,16 @@ WIDE_ABOVE = 544           # above the widest instance: refused
 WIDE_ITERS = 44            # 40 warm-up steps, the resample at 40, 3 projected
 
 
+def ptxas_spills(lib_path: str) -> list:
+    """Each kernel's spill (stores + loads, bytes) from nvcc's -Xptxas -v
+    log kept beside a library."""
+    import re
+    with open(lib_path + ".log") as f:
+        log = f.read()
+    return [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+
+
 def ptxas_summary(lib_path: str) -> str:
     """The most registers a kernel of a library takes and its largest
     spill, from nvcc's -Xptxas -v log kept beside it."""
@@ -2194,11 +2208,12 @@ def ptxas_summary(lib_path: str) -> str:
     with open(lib_path + ".log") as f:
         log = f.read()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    spills = ptxas_spills(lib_path)
+    serial = log.count("wgmma.mma_async instructions are serialized")
     return (f"{len(regs)} kernels, at most {max(regs, default=0)} registers a "
             f"thread, largest spill {max(spills, default=0)} bytes "
-            f"({sum(1 for s in spills if s)} kernels spill)")
+            f"({sum(1 for s in spills if s)} kernels spill); ptxas serialized the "
+            f"wgmmas of {serial}")
 
 
 def wide_rays(n: int, dev, seed: int):
@@ -2214,12 +2229,15 @@ def wide_rays(n: int, dev, seed: int):
             t_lo, t_hi)
 
 
-def wide_kernels(dev, ifield, kernels, sfield=None) -> list:
+def wide_kernels(dev, ifield, kernels, sfield=None, path_shapes=None) -> list:
     """Phase 20 (a): every wide kernel against its plain version at full
     width, on the IGR field `ifield` (8x512) and a seeded SIREN 3x512
     (`sfield`, made here when None); fused_igr also at widths that are
-    not an instance's, and refused above the widest. Returns the rows of
-    the kernels line (launches filled in by the caller)."""
+    not an instance's, and refused above the widest. `path_shapes`:
+    (fused_igr's launches by (mode, output, points), the sampler's by
+    (rays, steps, secant steps, coarse)) of phase 20 (b), whose most
+    frequent shapes are timed too. Returns the rows of the kernels line
+    (launches filled in by the caller)."""
     from isopoints_torch.models.fields import SDFField, SirenField
     from isopoints_torch.models.raytracing import RayTracingConfig, march_plain
     from isopoints_torch.ops import fused_mlp, fused_sampler
@@ -2358,9 +2376,33 @@ def wide_kernels(dev, ifield, kernels, sfield=None) -> list:
                          "isopoints_tpu/ops/pallas_mlp.py:417", err, ms, pms, cms, b,
                          f"IGR 8x512 bf16 value, {WIDE_POINTS[-1]:,} points"))
     err, ms, pms, cms, b = res[(WIDE_F32_POINTS, False, False)]
+    shape_keys = {"f32_value_524288": (WIDE_POINTS[-1], False, False),
+                  "f32_value_grad_524288": (WIDE_POINTS[-1], False, True)}
     rows.append(wide_row("fused_igr_wide_f32", "isopoints_torch/csrc/fused_igr.cu",
                          "isopoints_tpu/ops/pallas_mlp.py:417", err, ms, pms, cms, b,
-                         f"IGR 8x512 f32 value, {WIDE_F32_POINTS:,} points"))
+                         f"IGR 8x512 f32 value, {WIDE_F32_POINTS:,} points")
+                | {k: {"ms": res[key][1], "cublas_ms": res[key][3], "bound_ms": res[key][4][0]}
+                   for k, key in shape_keys.items()})
+    for n in (WIDE_F32_POINTS, WIDE_POINTS[-1]):
+        _, k_ms, _, c_ms, _ = res[(n, False, False)]
+        print(f"phase 20: fused_igr f32 value at {n:,} points {k_ms:.4f} ms against the f32 "
+              f"cuBLAS F.linear chain's {c_ms:.4f} ms (kernel/cuBLAS {k_ms / c_ms:.3f})")
+
+    # ---- fused_igr at phase 20 (b)'s most frequent shapes
+    igr_shapes, sampler_shapes = path_shapes or ({}, {})
+    for (m, what, n), c in sorted(igr_shapes.items(), key=lambda kv: -kv[1])[:4]:
+        x = torch.rand((n, 3), generator=gen, device=dev) * 2.4 - 1.2
+        fn = coarse if m == "bf16" else fine
+        grad = what == "value+grad"
+        run = (lambda: fn.sdf_and_grad(x)) if grad else (lambda: fn(x))
+        chain = ((lambda: fused_mlp.igr_sdf_and_grad_plain(ipack, x)) if grad
+                 else (lambda: fused_mlp.igr_sdf_plain(ipack, x)))
+        flops = 2.0 * sum(w.shape[0] * w.shape[1] for w in ipack.ws) * n * (4 if grad else 1)
+        b = bound_ms(flops if m == "bf16" else 3 * flops, n * (12 + (16 if grad else 4)),
+                     BF16_PEAK if m == "bf16" else TF32_PEAK)
+        print(f"phase 20 (a) at (b)'s shape: fused_igr {m} {what} n={n} ({c} launches in "
+              f"(b)): kernel {time_ms(run):.4f} ms, f32 cuBLAS chain {time_ms(chain):.4f} ms, "
+              f"bound {b[0]:.4f} ms")
 
     # ---- the coarse IGR sampler at row 3b's shape
     igr_flops, igr_w_bytes = pack_stats(ipack)
@@ -2426,6 +2468,15 @@ def wide_kernels(dev, ifield, kernels, sfield=None) -> list:
            "operations")
     print(f"  kernel {s_ms:.3f} ms  plain {s_pms:.3f} ms  bound {s_b[0]:.4f} ms "
           f"(kernel/bound {s_ms / s_b[0]:.1f})")
+    for (nr, n_st, n_sc, crs), c in sorted(sampler_shapes.items(), key=lambda kv: -kv[1])[:2]:
+        b_args = wide_rays(nr, dev, 24) + (linspace01(n_st, dev),)
+        b_kw = dict(n_secant=n_sc, margin=margin if crs else 0.0, coarse_sweep=crs)
+        b_ms = time_ms(lambda: fine.fused_ray_sampler(*b_args, **b_kw))
+        b_b = 1e3 * (igr_flops * nr * n_st / (BF16_PEAK if crs else TF32_PEAK / 3)
+                     + 3 * igr_flops * nr * (n_sc + 2 * crs) / TF32_PEAK)
+        print(f"phase 20 (a) at (b)'s shape: fused_sampler {nr} rays x {n_st} steps + "
+              f"{2 * crs} + {n_sc} ({'coarse' if crs else 'fine'} sweep; {c} launches in "
+              f"(b)): kernel {b_ms:.3f} ms, bound {b_b:.4f} ms")
     rows.append(wide_row("fused_sampler_igr_wide", "isopoints_torch/csrc/fused_sampler.cu",
                          "isopoints_tpu/ops/pallas_sampler.py:52", max(s_ferr, float(dz[hit].max())),
                          s_ms, s_pms, s_pms, s_b,
@@ -2597,7 +2648,7 @@ def igr_wide_phase(dev, kernels) -> list:
     from isopoints_torch import create_mvr_data, train_mvr
     from isopoints_torch.factories import create_model
     from isopoints_torch.misc.metrics import load_metrics
-    from isopoints_torch.ops import fused_mlp, knn
+    from isopoints_torch.ops import fused_mlp, fused_sampler, knn
     from isopoints_torch.training import trainer as trainer_mod
     from isopoints_torch.training.trainer import compute_loss
 
@@ -2613,9 +2664,10 @@ def igr_wide_phase(dev, kernels) -> list:
     # ---- (b) train_mvr on the config: every step with its counters set to 0
     # just before and read just after, fused_igr's launches by mode and shape
     rec = {"ms": {}, "launches": {}}
-    shapes = collections.Counter()
+    shapes, s_shapes = collections.Counter(), collections.Counter()
     step_fn = trainer_mod.MVRTrainer.train_step
     igr_cuda = fused_mlp.igr_forward_cuda
+    sweep_cuda = fused_sampler.sweep_cuda
 
     def rec_step(self, state, *args, **kw):
         for k in kernels:
@@ -2633,10 +2685,17 @@ def igr_wide_phase(dev, kernels) -> list:
                 x.shape[0])] += 1
         return igr_cuda(pack, x, with_grad, bf16)
 
+    def rec_sweep(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin, coarse_sweep=False,
+                  fine_bf16=False):
+        s_shapes[(dirs.shape[0], steps.shape[0], int(n_secant), bool(coarse_sweep))] += 1
+        return sweep_cuda(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin, coarse_sweep,
+                          fine_bf16)
+
     out_dir = os.path.join("out", "torch_igr_mvr_dir")
     shutil.rmtree(out_dir, ignore_errors=True)
     with plain_calls() as pc, patched((trainer_mod.MVRTrainer, "train_step", rec_step),
-                                      (fused_mlp, "igr_forward_cuda", rec_igr)):
+                                      (fused_mlp, "igr_forward_cuda", rec_igr),
+                                      (fused_sampler, "sweep_cuda", rec_sweep)):
         t = time.perf_counter()
         run = train_mvr.main([cfg_path, "--out-dir", out_dir, "--max-iters",
                               str(WIDE_ITERS), "--print-every", "1000",
@@ -2700,6 +2759,8 @@ def igr_wide_phase(dev, kernels) -> list:
           f"{sum(r['overflow_sampler'] for r in train_rows)}")
     print("  fused_igr by mode and shape: " + ", ".join(
         f"{c} x {m} {w} n={n}" for (m, w, n), c in shapes.most_common()))
+    print("  fused_sampler by shape (rays, steps, secant, coarse): " + ", ".join(
+        f"{c} x {k}" for k, c in s_shapes.most_common()))
 
     # one projected step under the profiler: the device's busy share
     it = state.it
@@ -2770,7 +2831,7 @@ def igr_wide_phase(dev, kernels) -> list:
     print(f"phase 20 (b): {time.perf_counter() - t20:.1f} s")
 
     # ---- (a) the wide kernels on the trained field
-    rows = wide_kernels(dev, model.decoder, kernels)
+    rows = wide_kernels(dev, model.decoder, kernels, path_shapes=(shapes, s_shapes))
     # launches in (b) by row: fused_igr's by mode; the sampler that ran is
     # the IGR field's, and no SIREN kernel runs on this path
     by_row = {"fused_igr_wide": sum(c for (m, _, _), c in shapes.items() if m == "bf16"),
@@ -2885,6 +2946,11 @@ def main() -> None:
               f"(tensor cores)")
         if n_hmma + n_hgmma == 0:
             fail(f"the {lib} library's SASS holds no tensor-core instruction")
+        # the wide instances run mlp_wide.cuh's wgmma tile, without a spill
+        if lib.endswith("_wide") and (n_hgmma == 0 or n_hmma > 0
+                                      or any(ptxas_spills(libs[lib]))):
+            fail(f"the {lib} library is not the wgmma tile without spills: {n_hmma} HMMA, "
+                 f"{n_hgmma} HGMMA, spills {ptxas_spills(libs[lib])}")
 
     # ---- 2. kernels against their plain versions at full width
     hidden, n_hidden = 256, 3

@@ -31,16 +31,25 @@
 // and the whole epilogue in f32 on the CUDA cores. `mma.sync`, not
 // `wgmma`: the epilogue, not the products, bounds the kernel (see above),
 // and `mma.sync` keeps the accumulators in the lanes that own a point's
-// four rows. Above 256 a block holds fewer row groups (one in f32, two in
-// bf16; mlp_mma.cuh "Widths"), so each block streams the 8x512 stack (14.7
-// MB in f32, hi and lo) for 32 rows: the simple wide design reads the
-// weights from L2 4x as often a row as the 128-row tile. The dynamic
-// shared-memory limit is raised once per template instance, not per launch.
+// four rows. The dynamic shared-memory limit is raised once per template
+// instance, not per launch.
+//
+// Above 256 (the `_wide` library) the products and the weight stream are
+// the larger part, and a 32-row `mma.sync` block would stream the 14.7 MB
+// f32 stack from L2 for every 32 rows. The wide instances run
+// mlp_wide.cuh's tile instead: `wgmma` with A from registers
+// and the weights from TMA-fed stages on mbarriers, a producer warp, two
+// consumer warpgroups a block, a pair of blocks (a cluster of 2) a 64-row
+// tile, each block half of every layer's columns, so 64 rows share each
+// read of the stack.
 //
 // Plain C interface for ctypes; launches on the caller's stream and returns
 // cudaGetLastError() after the launch.
 
 #include "mlp_mma.cuh"
+#ifdef MLP_MMA_WIDE_LIB
+#include "mlp_wide.cuh"
+#endif
 
 namespace {
 
@@ -70,6 +79,9 @@ __global__ void __launch_bounds__(128 * kRG<Mode, NJ>, 1)
 template <class Mode, int NJ, int C>
 int launch(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t stream) {
   constexpr int H = NJ * 32;
+#ifdef MLP_MMA_WIDE_LIB
+  return mlp_wide::launch_points<Mode, H, C, mlp_mma::IgrAct>(net, x, n, val, grad, stream);
+#else
   constexpr int RG = kRG<Mode, NJ>;
   constexpr int P = 32 * RG / C;
   constexpr int smem = mlp_mma::smem_bytes<Mode, C, RG>(H);
@@ -80,6 +92,7 @@ int launch(const Net& net, const float* x, int n, float* val, float* grad, cudaS
   const int blocks = (n + P - 1) / P;
   igr_points_kernel<Mode, NJ, C><<<blocks, 128 * RG, smem, stream>>>(net, x, n, val, grad);
   return (int)cudaGetLastError();
+#endif
 }
 
 template <class Mode, int C>
@@ -100,15 +113,16 @@ int dispatch(const Net& net, int hidden, const float* x, int n, float* val, floa
 // wout, bout: float32 (in the bf16 mode w0 and wout bf16-rounded); wh: the
 // hidden layers (L, H, H) in (out, in) layout, bf16 in the bf16 mode and
 // the tf32 hi part (float32) in the f32 mode, with wh_lo the tf32 lo part
-// (f32 mode only). hidden must be an instance's width (mlp_mma::in_library:
-// a multiple of 32 up to 256, or 384 or 512 in the `_wide` library; the
-// wrapper pads to it).
+// (f32 mode only); in the `_wide` library wh is the wide tile's stage pack
+// (ops/fused_mlp.wide_layout, hi and lo together) and wh_lo unused. hidden
+// must be an instance's width (mlp_mma::in_library: a multiple of 32 up to
+// 256, or 384 or 512 in the `_wide` library; the wrapper pads to it).
 extern "C" int igr_forward(const float* x, int n, const float* w0, const float* b0,
                            const void* wh, const void* wh_lo, const float* bh, const float* wout,
                            const float* bout, int hidden, int n_hidden, unsigned skip,
                            int final_tanh, int bf16, float* val, float* grad, void* stream) {
   if (!mlp_mma::in_library(hidden) || n_hidden < 0 || n < 0 || (skip & 1u) ||
-      (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
+      (n_hidden > 0 && (wh == nullptr || (!bf16 && mlp_mma::kLoApart && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const Net net{w0, b0, wh, wh_lo, bh, wout, bout, n_hidden, skip, final_tanh};

@@ -31,8 +31,8 @@
 // stack (hi and lo, 1.5 MB at 3x256) from L2 whatever its rows, so large
 // launches want many rows a block and small ones many blocks: a launch takes
 // 128-row tiles when they give at least half the SMs a block, and 32-row
-// tiles below that (above 256 the large tile is 32 rows in f32 and 64 in
-// bf16, mlp_mma.cuh "Widths"). Measured on an H100 (kernel_variants.py, PERF.md): at
+// tiles below that (above 256 every launch runs mlp_wide.cuh's tile: a
+// pair of blocks a 64-row tile, 128 rows a weight read). Measured on an H100 (kernel_variants.py, PERF.md): at
 // 4096 value rows (32 blocks of 128) 32-row tiles take 0.141 ms against
 // 0.246; at 3000 points with the gradient (12,000 rows, 94 blocks) 128-row
 // tiles take 0.183 ms against 0.238; 64-row tiles won at no shape.
@@ -41,6 +41,9 @@
 // cudaGetLastError() after the launch.
 
 #include "mlp_mma.cuh"
+#ifdef MLP_MMA_WIDE_LIB
+#include "mlp_wide.cuh"
+#endif
 
 namespace {
 
@@ -90,15 +93,19 @@ int row_groups(int n, int c) {
   return 2LL * ((long long)n * c + 127) / 128 >= sms ? 4 : 1;
 }
 
-// the large tile is the most row groups the width takes (mlp_mma.cuh
-// "Widths": 4 up to 256; above, 1 in f32 and 2 in bf16)
+// the large tile is the most row groups the width takes (4; above 256 the
+// wide tile, mlp_wide.cuh)
 template <class Mode, int NJ, int C>
 int by_rows(const Net& net, const float* x, int n, float* val, float* grad, cudaStream_t s) {
+#ifdef MLP_MMA_WIDE_LIB
+  return mlp_wide::launch_points<Mode, NJ * 32, C, SirenAct>(net, x, n, val, grad, s);
+#else
   constexpr int kMax = mlp_mma::max_row_groups<Mode>(NJ * 32);
   switch (row_groups(n, C)) {
     case 4: return launch<Mode, NJ, C, kMax>(net, x, n, val, grad, s);
     default: return launch<Mode, NJ, C, 1>(net, x, n, val, grad, s);
   }
+#endif
 }
 
 template <class Mode, int C>
@@ -119,7 +126,8 @@ int dispatch(const Net& net, int hidden, const float* x, int n, float* val, floa
 // bh (L, H), wout (H,), bout (1,): float32 (in the bf16 mode w0 and wout
 // bf16-rounded); wh: the hidden layers (L, H, H) in (out, in) layout, bf16
 // in the bf16 mode and the tf32 hi part (float32) in the f32 mode, with
-// wh_lo the tf32 lo part (f32 mode only). hidden must be an instance's width
+// wh_lo the tf32 lo part (f32 mode only); in the `_wide` library wh is the
+// wide tile's stage pack and wh_lo unused. hidden must be an instance's width
 // (mlp_mma::in_library: a multiple of 32 up to 256, or 384 or 512 in the
 // `_wide` library; the wrapper pads to it).
 extern "C" int siren_forward(const float* x, int n, const float* w0, const float* b0,
@@ -128,7 +136,7 @@ extern "C" int siren_forward(const float* x, int n, const float* w0, const float
                              float omega_first, float omega_hidden, int bf16, float* val,
                              float* grad, void* stream) {
   if (!mlp_mma::in_library(hidden) || n_hidden < 0 || n < 0 ||
-      (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
+      (n_hidden > 0 && (wh == nullptr || (!bf16 && mlp_mma::kLoApart && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const Net net{w0, b0, wh, wh_lo, bh, wout, bout, n_hidden, 0u, 0, omega_first, omega_hidden};

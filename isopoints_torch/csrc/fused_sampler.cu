@@ -47,10 +47,11 @@
 // wrapper takes the rays a block with the fewest tile rounds on the busiest
 // SM, waves of blocks times tiles a block (ops/fused_sampler.rays_per_block:
 // 64 at the bench trace's buffer, 8-16 at a training step's). Above width
-// 256 a block has one row group, the f32 tile's at that width (32-row tiles,
-// 128 threads; mlp_mma.cuh "Widths"), and takes 8 or 16 rays; at 512 the
-// activations and weight stages take 229,888 bytes, the points, values and
-// per-ray arrays 1,920 more, of the 232,448 a block may have.
+// 256 the sampler runs on mlp_wide.cuh's tile: a unit of two blocks (the
+// cluster pair that shares a 64-row tile) takes 8 to 32 rays, and its bf16
+// sweep tiles and f32 re-validation and secant tiles have 64 rows in the
+// same shared memory (A at the f32 pitch, the bf16 tile using a prefix),
+// so the f32 tail's weight streams serve up to 32 rays.
 //
 // t = t_lo + step * span and the points cam + t * dir are single-rounding
 // fused multiply-adds (__fmaf_rn), as XLA forms them in the JAX package and
@@ -58,6 +59,9 @@
 // agree bit for bit and only the MLP arithmetic may differ.
 
 #include "mlp_mma.cuh"
+#ifdef MLP_MMA_WIDE_LIB
+#include "mlp_wide.cuh"
+#endif
 
 namespace {
 
@@ -78,12 +82,10 @@ __device__ __forceinline__ float z_pred(float fl, float fh, float zl, float zh) 
   return __fadd_rn(__fdiv_rn(num, eps_denom(__fsub_rn(fh, fl), 1e-12f)), zl);
 }
 
-// A block of width H holds RG row groups: its tiles have 32 RG rows and it
-// has 128 RG threads (RG = 4 up to 256; 1 above, the f32 tile's, since the
-// sweep and fine tiles share the block's shared memory; mlp_mma.cuh
-// "Widths"). It takes at most 16 RG rays (64 up to 256, 16 above): the
+// A block of width H (up to 256) holds RG = 4 row groups: its tiles have
+// 128 rows and it has 512 threads. It takes at most 16 RG rays (64): the
 // re-validation tile holds two rows a ray. kMaxRays is the per-ray arrays'
-// width.
+// width. (Above 256: the wide kernel below.)
 template <int H>
 constexpr int kRG = mlp_mma::max_row_groups<Tf32x3Mode>(H);
 template <int H>
@@ -142,6 +144,7 @@ __device__ __forceinline__ void fold(Pick& k, int s, int n_steps, float ts, floa
 // secant state (fl, fh, zl, zh, z).
 constexpr int kRayFloats = 8 + kPickFloats + 5;
 
+#ifndef MLP_MMA_WIDE_LIB
 template <int H>
 __host__ __device__ constexpr int act_bytes() {
   return 32 * kRG<H> * mlp_mma::pitch_a<Tf32x3Mode>(H);
@@ -303,6 +306,197 @@ int launch(const Net& sweep, const Net& fine, int sweep_bf16, int fine_bf16, int
   return (int)cudaGetLastError();
 }
 
+#else
+// The wide instances (mlp_wide.cuh): a unit of two blocks, the cluster pair
+// that shares a 64-row tile, takes `rays` rays (8 to 32; the re-validation
+// tile holds two rows a ray).
+constexpr int kWideRays = 32;
+
+constexpr int wide_arrays_bytes() {
+  return 4 * (mlp_wide::kRows * 4 + kWideRays * kRayFloats);
+}
+
+// The kernel above on the wide tile's consumer threads: unit u's rays [r0,
+// r0 + rays) over 64-row tiles, both blocks of the unit holding the rays'
+// state and folding the same values alike, block 0 writing the outputs.
+// `smem` holds the points, values and per-ray arrays (wide_arrays_bytes).
+template <class Act, int H>
+__device__ __forceinline__ void wide_sweep_rays(
+    mlp_wide::Ctx& c, float* smem, const Net& sweep_net, const Net& fine_net, int sweep_bf16,
+    int fine_bf16, int revalidate, int rays, int r0, const float* __restrict__ cam,
+    const float* __restrict__ dir, const float* __restrict__ t_lo,
+    const float* __restrict__ t_hi, const float* __restrict__ steps, int n_rays, int n_steps,
+    int n_secant, float margin, float* __restrict__ t_pick_out, float* __restrict__ f_pick_out,
+    float* __restrict__ t_min_out, float* __restrict__ z_sec_out) {
+  constexpr int kR = mlp_wide::kRows;  // rows of a tile
+  constexpr int M = kWideRays;
+  float* xs = smem;                   // (kR, 3)
+  float* vs = xs + kR * 3;            // (kR,)
+  float* ray = vs + kR;               // (8, M): cam xyz, dir xyz, t_lo, span
+  float* pk = ray + 8 * M;            // (kPickFloats, M)
+  float* sec = pk + kPickFloats * M;  // (5, M): fl, fh, zl, zh, z
+  auto R = [&](int f, int r) -> float& { return ray[f * M + r]; };
+  auto S = [&](int f, int r) -> float& { return sec[f * M + r]; };
+
+  const int per_tile = kR / rays;  // steps of each ray per sweep tile
+  const int nr = max(0, min(rays, n_rays - r0));
+  const bool out = c.cb == 0;
+  const int tid = threadIdx.x;
+  if (tid < rays) {  // masked rays sit at the origin with t = 0
+    const bool ok = tid < nr;
+    const size_t g = (size_t)(r0 + tid);
+    for (int d = 0; d < 3; ++d) {
+      R(d, tid) = ok ? cam[g * 3 + d] : 0.f;
+      R(3 + d, tid) = ok ? dir[g * 3 + d] : 0.f;
+    }
+    const float lo = ok ? t_lo[g] : 0.f;
+    const float hi = ok ? t_hi[g] : 0.f;
+    R(6, tid) = lo;
+    R(7, tid) = __fsub_rn(hi, lo);
+    store_pick<M>(pk, tid, Pick{INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, INFINITY, 0.f});
+  }
+  mlp_wide::consumer_sync();  // every row's thread reads its ray's geometry
+  // the point at depth z on ray r
+  auto point = [&](int r, float z, float* p) {
+    for (int d = 0; d < 3; ++d) p[d] = __fmaf_rn(z, R(3 + d, r), R(d, r));
+  };
+  // thread r < rays: the pick is done; the outputs, and the bracket as the
+  // secant state
+  auto finish_pick = [&]() {
+    if (tid < rays) {
+      const Pick k = load_pick<M>(pk, tid);
+      S(0, tid) = k.f_low;
+      S(1, tid) = k.f_pick;
+      S(2, tid) = k.z_low;
+      S(3, tid) = k.t_pick;
+      if (out && tid < nr) {
+        t_pick_out[r0 + tid] = k.t_pick;
+        f_pick_out[r0 + tid] = k.f_pick;
+        t_min_out[r0 + tid] = k.t_min;
+      }
+    }
+    mlp_wide::consumer_sync();
+  };
+
+  // rays <= M: one re-validation tile (2 rays rows) and one tile a secant step
+  const int n_sweep = (n_steps + per_tile - 1) / per_tile;
+  const int n_reval = revalidate ? 1 : 0;
+  const int n_tiles = n_sweep + n_reval + n_secant;
+  for (int it = 0; it < n_tiles; ++it) {
+    const bool sweeping = it < n_sweep;
+    const bool reval = !sweeping && it < n_sweep + n_reval;
+    if (it == n_sweep) finish_pick();
+    // ---- the tile's points (thread q < kR: row q)
+    if (tid < kR) {
+      float p[3] = {0.f, 0.f, 0.f};
+      if (sweeping) {
+        const int j = tid / rays, r = tid - j * rays;
+        const int s = it * per_tile + j;
+        if (s < n_steps && r < nr) point(r, __fmaf_rn(__ldg(steps + s), R(7, r), R(6, r)), p);
+      } else if (reval) {  // rows r: z_low of ray r; rays + r: its t_pick
+        if (tid < 2 * rays) point(tid % rays, S(tid < rays ? 2 : 3, tid % rays), p);
+      } else if (tid < rays) {
+        const float z = z_pred(S(0, tid), S(1, tid), S(2, tid), S(3, tid));
+        S(4, tid) = z;
+        point(tid, z, p);
+      }
+      for (int d = 0; d < 3; ++d) xs[tid * 3 + d] = p[d];
+    }
+    // the net by value: a reference to a kernel parameter chosen at run
+    // time would make the tile read it through local memory
+    const Net net = sweeping ? sweep_net : fine_net;
+    if (sweeping ? sweep_bf16 : fine_bf16)
+      mlp_wide::tile<Bf16Mode, H, 1, Act, true>(c, net, xs, 0, kR, vs, nullptr);
+    else
+      mlp_wide::tile<Tf32x3Mode, H, 1, Act, true>(c, net, xs, 0, kR, vs, nullptr);
+    // ---- its values
+    if (sweeping) {
+      if (tid < rays) {
+        Pick k = load_pick<M>(pk, tid);
+        for (int j = 0; j < per_tile; ++j) {
+          const int s = it * per_tile + j;
+          if (s < n_steps)
+            fold(k, s, n_steps, __fmaf_rn(__ldg(steps + s), R(7, tid), R(6, tid)),
+                 vs[j * rays + tid], margin);
+        }
+        store_pick<M>(pk, tid, k);
+      }
+    } else if (reval) {
+      if (tid < 2 * rays) {
+        const int r = tid % rays;
+        S(tid < rays ? 0 : 1, r) = vs[tid];
+        if (out && tid >= rays && r < nr) f_pick_out[r0 + r] = vs[tid];  // fine f_pick
+      }
+    } else if (tid < rays) {
+      const float f_mid = vs[tid];
+      if (f_mid > 0.f) {
+        S(0, tid) = f_mid;
+        S(2, tid) = S(4, tid);
+      }
+      if (f_mid < 0.f) {
+        S(1, tid) = f_mid;
+        S(3, tid) = S(4, tid);
+      }
+    }
+    mlp_wide::consumer_sync();  // the secant state of every ray visible to the next tile's rows
+  }
+  if (n_tiles == n_sweep) finish_pick();  // no fine tiles
+  if (out && tid < nr) z_sec_out[r0 + tid] = z_pred(S(0, tid), S(1, tid), S(2, tid), S(3, tid));
+}
+
+template <class Act, int H>
+__global__ void __launch_bounds__(mlp_wide::kThreads, 1)
+    wide_sweep_kernel(Net sweep_net, Net fine_net, int sweep_bf16, int fine_bf16, int revalidate,
+                      int rays, const float* __restrict__ cam, const float* __restrict__ dir,
+                      const float* __restrict__ t_lo, const float* __restrict__ t_hi,
+                      const float* __restrict__ steps, int n_rays, int n_steps, int n_secant,
+                      float margin, float* __restrict__ t_pick_out,
+                      float* __restrict__ f_pick_out, float* __restrict__ t_min_out,
+                      float* __restrict__ z_sec_out) {
+  extern __shared__ __align__(128) unsigned char wide_smem[];
+  unsigned char* smem = wide_smem;
+  mlp_wide::Ctx c = mlp_wide::setup<H, 1>(smem);
+  if (threadIdx.x >= mlp_wide::kConsumers) {
+    mlp_wide::producer_regs();
+    if (threadIdx.x < mlp_wide::kConsumers + 32) {
+      const int per_tile = mlp_wide::kRows / rays;
+      const int n_sweep = (n_steps + per_tile - 1) / per_tile;
+      const int n_tiles = n_sweep + (revalidate ? 1 : 0) + n_secant;
+      for (int it = 0; it < n_tiles; ++it) {
+        const bool sweeping = it < n_sweep;
+        const Net net = sweeping ? sweep_net : fine_net;
+        if (sweeping ? sweep_bf16 : fine_bf16)
+          mlp_wide::produce<Bf16Mode, H>(c, net);
+        else
+          mlp_wide::produce<Tf32x3Mode, H>(c, net);
+      }
+    }
+  } else {
+    mlp_wide::consumer_regs();
+    float* arrays = reinterpret_cast<float*>(smem + mlp_wide::smem_bytes<H, 1>());
+    wide_sweep_rays<Act, H>(c, arrays, sweep_net, fine_net, sweep_bf16, fine_bf16, revalidate,
+                       rays, (int)(blockIdx.x >> 1) * rays, cam, dir, t_lo, t_hi, steps, n_rays,
+                       n_steps, n_secant, margin, t_pick_out, f_pick_out, t_min_out, z_sec_out);
+    mlp_wide::finish();
+  }
+}
+
+template <class Act, int H>
+int launch(const Net& sweep, const Net& fine, int sweep_bf16, int fine_bf16, int revalidate,
+           int rays, const float* cam, const float* dir, const float* t_lo, const float* t_hi,
+           const float* steps, int n_rays, int n_steps, int n_secant, float margin,
+           float* t_pick, float* f_pick, float* t_min, float* z_sec, cudaStream_t stream) {
+  constexpr int smem = mlp_wide::smem_bytes<H, 1>() + wide_arrays_bytes();
+  static_assert(smem <= 232448, "the sampler exceeds a block's shared memory");
+  if (rays > kWideRays) return (int)cudaErrorInvalidValue;
+  static int limit = -1;
+  return (int)mlp_wide::launch(wide_sweep_kernel<Act, H>, (n_rays + rays - 1) / rays, smem,
+                               limit, stream, sweep, fine, sweep_bf16, fine_bf16, revalidate,
+                               rays, cam, dir, t_lo, t_hi, steps, n_rays, n_steps, n_secant,
+                               margin, t_pick, f_pick, t_min, z_sec);
+}
+#endif
+
 template <class Act>
 int dispatch(int hidden, const Net& sweep, const Net& fine, int sweep_bf16, int fine_bf16,
              int revalidate, int rays, const float* cam, const float* dir, const float* t_lo,
@@ -331,8 +525,10 @@ int dispatch(int hidden, const Net& sweep, const Net& fine, int sweep_bf16, int 
 // evaluates the bracket ends again on the fine net before the secant (the
 // coarse sweep). `siren` selects the sine activation with its omegas
 // (otherwise IGR's softplus with the skip mask and final tanh). `rays` is
-// the rays a block, a power of two in [8, 64] up to width 256 and in [8, 16]
-// above; hidden is an instance's width (mlp_mma::in_library).
+// the rays a block (a unit of two blocks above 256), a power of two in [8,
+// 64] up to width 256 and in [8, 32] above; hidden is an instance's width
+// (mlp_mma::in_library). In the `_wide` library wh is the wide tile's stage
+// pack (hi and lo together) and wh_lo unused.
 extern "C" int sampler_sweep(const float* cam, const float* dir, const float* t_lo,
                              const float* t_hi, const float* steps, int n_rays, int n_steps,
                              int n_secant, float margin, int revalidate, const void* const* sw,
@@ -344,7 +540,8 @@ extern "C" int sampler_sweep(const float* cam, const float* dir, const float* t_
       n_hidden < 0 || (skip & 1u) || rays < kMinRays ||
       (rays & (rays - 1)) != 0 ||
       (n_hidden > 0 && (sw[2] == nullptr || fw[2] == nullptr ||
-                        (!sweep_bf16 && sw[3] == nullptr) || (!fine_bf16 && fw[3] == nullptr))))
+                        (mlp_mma::kLoApart && ((!sweep_bf16 && sw[3] == nullptr) ||
+                                               (!fine_bf16 && fw[3] == nullptr))))))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   auto net = [&](const void* const* w) {

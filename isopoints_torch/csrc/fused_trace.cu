@@ -19,8 +19,8 @@
 // A finished ray (un = 0 implies bk = 0) takes zero moves, so a fixed count
 // equals the while loop, and no host synchronisation is needed.
 //
-// Design. A block takes 64 rays, 512 threads (above width 256, 16 rays and
-// 128 threads in f32, 32 and 256 in bf16: mlp_mma.cuh "Widths"). Every iteration threads
+// Design. A block takes 64 rays, 512 threads (above width 256 a unit of two
+// blocks on mlp_wide.cuh's 64-row tile takes 32 rays). Every iteration threads
 // 0..63 write their ray's two front points (cam + acc * dir, one __fmaf_rn
 // per coordinate, as the PyTorch loop forms them with utils.fma) as rows r
 // and 64 + r of one 128-row tile, the whole block evaluates the tile on the
@@ -43,6 +43,9 @@
 #include <stdint.h>
 
 #include "mlp_mma.cuh"
+#ifdef MLP_MMA_WIDE_LIB
+#include "mlp_wide.cuh"
+#endif
 
 namespace {
 
@@ -52,8 +55,9 @@ using mlp_mma::Net;
 using mlp_mma::SirenAct;
 using mlp_mma::Tf32x3Mode;
 
-// RG row groups a block (mlp_mma::max_row_groups: 4 up to 256, fewer above),
-// so a tile of 32 RG rows and 16 RG rays a block: both fronts in one tile
+// RG row groups a block (mlp_mma::max_row_groups: 4 up to 256), so a tile
+// of 32 RG rows and 16 RG rays a block: both fronts in one tile (above 256:
+// the wide kernel below)
 template <class Mode, int H>
 constexpr int kRG = mlp_mma::max_row_groups<Mode>(H);
 // per ray in shared memory, [field][kRays]
@@ -74,6 +78,7 @@ struct State {
   float* cur_e;
 };
 
+#ifndef MLP_MMA_WIDE_LIB
 template <class Mode, int H>
 constexpr int smem_bytes() {
   constexpr int kRows = 32 * kRG<Mode, H>, kRays = kRows / 2;
@@ -198,6 +203,142 @@ int launch(const Net& net, const float* cam, const float* dir, const State& st, 
   return (int)cudaGetLastError();
 }
 
+#else
+// The wide instances (mlp_wide.cuh): a unit of two blocks marches 32 rays,
+// both fronts in its 64-row tile. The kernel above, on the wide tile's
+// consumer threads: both blocks of the unit hold the rays' state and update
+// it alike, the unit's block 0 writes it back; the producer's warpgroup
+// streams every iteration's weights.
+constexpr int kWideRays = 32;  // mlp_wide::kRows / 2
+
+template <int H>
+constexpr int wide_smem_bytes() {
+  return mlp_wide::smem_bytes<H, 1>() +
+         4 * (2 * kWideRays * 3 + 2 * kWideRays + kWideRays * (kRayFloats + kRayInts));
+}
+
+template <class Mode, class Act, int H>
+__global__ void __launch_bounds__(mlp_wide::kThreads, 1)
+    wide_march_kernel(Net net, const float* __restrict__ cam, const float* __restrict__ dir,
+                      State st, int n, int n_iters, float thr, float ls, int line_step_iters,
+                      int gate_end) {
+  constexpr int kRows = mlp_wide::kRows, kRays = kWideRays;
+  static_assert(kRows == 2 * kRays, "both fronts in one tile");
+  extern __shared__ __align__(128) unsigned char wide_smem[];
+  unsigned char* smem = wide_smem;
+  mlp_wide::Ctx c = mlp_wide::setup<H, 1>(smem);
+  if (threadIdx.x >= mlp_wide::kConsumers) {
+    mlp_wide::producer_regs();
+    if (threadIdx.x < mlp_wide::kConsumers + 32)
+      for (int it = 0; it < n_iters; ++it) mlp_wide::produce<Mode, H>(c, net);
+    return;
+  }
+  mlp_wide::consumer_regs();
+  float* xs = reinterpret_cast<float*>(smem + mlp_wide::smem_bytes<H, 1>());
+  float* vs = xs + kRows * 3;  // (kRows,)
+  float* F = vs + kRows;       // (kRayFloats, kRays)
+  int* I = reinterpret_cast<int*>(F + kRayFloats * kRays);  // (kRayInts, kRays)
+  const int r = threadIdx.x;
+  const int g = (int)(blockIdx.x >> 1) * kRays + r;
+  const bool mine = r < kRays && g < n;
+  const int q = min(r, kRays - 1);
+  // field k of this thread's ray: cam xyz 0-2, dir xyz 3-5, then acc_s,
+  // acc_e, sdf_s, sdf_e, cur_s, cur_e, fwd_s, fwd_e; un_s, un_e, bk_s, bk_e
+  enum { ACC_S = 6, ACC_E, SDF_S, SDF_E, CUR_S, CUR_E, FWD_S, FWD_E };
+  enum { UN_S, UN_E, BK_S, BK_E };
+  auto f = [F, q](int k) -> float& { return F[k * kRays + q]; };
+  auto u = [I, q](int k) -> int& { return I[k * kRays + q]; };
+  if (r < kRays) {  // a ray past n sits at the origin, finished
+    for (int k = 0; k < 3; ++k) {
+      f(k) = mine ? cam[(size_t)g * 3 + k] : 0.f;
+      f(3 + k) = mine ? dir[(size_t)g * 3 + k] : 0.f;
+    }
+    f(ACC_S) = mine ? st.acc_s[g] : 0.f;
+    f(ACC_E) = mine ? st.acc_e[g] : 0.f;
+    f(SDF_S) = mine ? st.sdf_s[g] : 0.f;
+    f(SDF_E) = mine ? st.sdf_e[g] : 0.f;
+    u(UN_S) = mine ? st.un_s[g] != 0 : 0;
+    u(UN_E) = mine ? st.un_e[g] != 0 : 0;
+    u(BK_S) = mine ? st.bk_s[g] : 0;
+    u(BK_E) = mine ? st.bk_e[g] : 0;
+    f(CUR_S) = mine ? st.cur_s[g] : 0.f;
+    f(CUR_E) = mine ? st.cur_e[g] : 0.f;
+  }
+
+  for (int it = 0; it < n_iters; ++it) {
+    if (r < kRays) {
+      const int un_s = u(UN_S), un_e = u(UN_E), bk_s = u(BK_S), bk_e = u(BK_E);
+      const float sdf_s = f(SDF_S), sdf_e = f(SDF_E);
+      const float fwd_s = (un_s && bk_s == 0 && sdf_s > thr) ? sdf_s : 0.f;
+      const float fwd_e = (un_e && bk_e == 0 && sdf_e > thr) ? sdf_e : 0.f;
+      f(FWD_S) = fwd_s;
+      f(FWD_E) = fwd_e;
+      const float scale_s = ldexpf(ls, 1 - bk_s);  // ls * 2^-(bk - 1), exact
+      const float scale_e = ldexpf(ls, 1 - bk_e);
+      const float move_s = bk_s > 0 ? __fmul_rn(-scale_s, f(CUR_S)) : fwd_s;
+      const float move_e = bk_e > 0 ? __fmul_rn(-scale_e, f(CUR_E)) : fwd_e;
+      const float acc_s = __fadd_rn(f(ACC_S), move_s);
+      const float acc_e = __fsub_rn(f(ACC_E), move_e);
+      f(ACC_S) = acc_s;
+      f(ACC_E) = acc_e;
+      for (int k = 0; k < 3; ++k) {
+        xs[r * 3 + k] = __fmaf_rn(acc_s, f(3 + k), f(k));
+        xs[(kRays + r) * 3 + k] = __fmaf_rn(acc_e, f(3 + k), f(k));
+      }
+    }
+    // starts with a barrier (the points visible) and ends with the pair's
+    // (vs complete in both blocks, xs free for the next iteration's points)
+    mlp_wide::tile<Mode, H, 1, Act, true>(c, net, xs, 0, kRows, vs, nullptr);
+    if (r < kRays) {
+      const float new_s = vs[r], new_e = vs[kRays + r];
+      int un_s = u(UN_S), un_e = u(UN_E), bk_s = u(BK_S), bk_e = u(BK_E);
+      const bool may_s = un_s && new_s < 0.f && bk_s < line_step_iters;
+      const bool may_e = un_e && new_e < 0.f && bk_e < line_step_iters;
+      if (may_s && bk_s == 0) f(CUR_S) = f(FWD_S);
+      if (may_e && bk_e == 0) f(CUR_E) = f(FWD_E);
+      bk_s = may_s ? bk_s + 1 : 0;
+      bk_e = may_e ? bk_e + 1 : 0;
+      const bool not_crossed = f(ACC_S) < f(ACC_E);
+      un_s = un_s && (bk_s > 0 || (new_s > thr && not_crossed));
+      un_e = un_e && (bk_e > 0 || (new_e > thr && not_crossed));
+      if (gate_end) un_e = un_e && (un_s || bk_e > 0);
+      u(UN_S) = un_s;
+      u(UN_E) = un_e;
+      u(BK_S) = bk_s;
+      u(BK_E) = bk_e;
+      f(SDF_S) = new_s;
+      f(SDF_E) = new_e;
+    }
+  }
+
+  if (mine && c.cb == 0) {
+    st.acc_s[g] = f(ACC_S);
+    st.acc_e[g] = f(ACC_E);
+    st.sdf_s[g] = f(SDF_S);
+    st.sdf_e[g] = f(SDF_E);
+    st.un_s[g] = u(UN_S) ? 1 : 0;
+    st.un_e[g] = u(UN_E) ? 1 : 0;
+    st.bk_s[g] = u(BK_S);
+    st.bk_e[g] = u(BK_E);
+    st.cur_s[g] = f(CUR_S);
+    st.cur_e[g] = f(CUR_E);
+  }
+  mlp_wide::finish();
+}
+
+template <class Mode, class Act, int H>
+int launch(const Net& net, const float* cam, const float* dir, const State& st, int n,
+           int n_iters, float thr, float ls, int line_step_iters, int gate_end,
+           cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes<H>();
+  static_assert(smem <= 232448, "the march exceeds a block's shared memory");
+  static int limit = -1;
+  return (int)mlp_wide::launch(wide_march_kernel<Mode, Act, H>, (n + kWideRays - 1) / kWideRays,
+                               smem, limit, stream, net, cam, dir, st, n, n_iters, thr, ls,
+                               line_step_iters, gate_end);
+}
+#endif
+
 template <class Mode, class Act>
 int dispatch(int hidden, const Net& net, const float* cam, const float* dir, const State& st,
              int n, int n_iters, float thr, float ls, int line_step_iters, int gate_end,
@@ -233,7 +374,7 @@ extern "C" int trace_march(const float* cam, const float* dir, float* acc_s, flo
                            float omega_hidden, int siren, int bf16, void* stream) {
   if (!mlp_mma::in_library(hidden) || n_hidden < 0 || n < 0 ||
       n_iters < 0 || (skip & 1u) ||
-      (n_hidden > 0 && (wh == nullptr || (!bf16 && wh_lo == nullptr))))
+      (n_hidden > 0 && (wh == nullptr || (!bf16 && mlp_mma::kLoApart && wh_lo == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (n == 0 || n_iters == 0) return 0;
   const Net net{w0,       b0,         wh,          wh_lo,       bh,   wout, bout, n_hidden,

@@ -98,13 +98,10 @@
 // exact because no padded column is ever read (see there). Above 256 the
 // 128-row tile does not fit the SM: at 512 a thread of 16 warps would hold
 // 128 accumulators (the whole register file at 512 threads), and in f32 the
-// activations alone take 128 x (512 x 4 + 16) = 264,192 bytes. So a wide
-// instance keeps the layout and takes fewer row groups (`max_row_groups`):
-// one in the f32 mode (32 rows, 128 threads; 229,984 bytes of shared memory
-// at 512 with the gradient, 230,272 without) and two in bf16 (256 threads),
-// so that a thread may hold its 128 accumulators in the 255 registers the
-// launch bounds then allow. A row's sum does not depend on the row groups,
-// so the invariant above holds at every width.
+// activations alone take 128 x (512 x 4 + 16) = 264,192 bytes. So the wide
+// instances run another tile, mlp_wide.cuh's (`wgmma` fed by TMA, a pair of
+// blocks a 64-row tile, the weights multicast to a cluster), with this
+// tile's arithmetic a row; `max_row_groups` is the narrow tile's.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -140,6 +137,14 @@ constexpr int kMaxHidden = 512;  // the widest instance
 #define MLP_MMA_WIDTHS MLP_MMA_WIDE
 #else
 #define MLP_MMA_WIDTHS MLP_MMA_NARROW
+#endif
+
+// whether the f32 mode reads the tf32 lo part through a pointer of its own
+// (wh_lo); the wide tile reads hi and lo from one pack (mlp_wide.cuh)
+#ifdef MLP_MMA_WIDE_LIB
+constexpr bool kLoApart = false;
+#else
+constexpr bool kLoApart = true;
 #endif
 
 // hidden is one of this library's instances

@@ -63,7 +63,17 @@ exiting at once, the walk without its halo loads and without its points.
 It times each as the wrapper calls it and its two kernels alone
 (`queued_ms`) at the splat frame's inputs (the all-ones cotangent) and at
 the DSS point model step's (2 views x 5000 points at 256 px, its signed
-cotangent); with `occ`, only these. Needs nvcc and a CUDA device.
+cotangent); with `occ`, only these. The wide MLP tile (csrc/mlp_wide.cuh,
+the instances at 384 and 512) runs clusters of 2 blocks (a 64-row unit, 64
+rows a read of the weights from L2) and sums one k8 step a zeroed tile in
+f32: this builds copies of fused_igr_wide and fused_sampler_wide with
+clusters of 4 and 8 (two and four units whose blocks share each weight
+stage by multicast: 128 and 256 rows a read), and with 2 k8 steps a zeroed
+tile, and times each on a
+seeded IGR 8x512 field (fused_igr f32 value at 220,202 and 524,288 points,
+bf16 value at 524,288, f32 value+grad at 65,536, the coarse sampler at
+24,576 rays), each f32 copy's RMS error against exact sums beside
+cuBLAS's; with `wide`, only these. Needs nvcc and a CUDA device.
 """
 
 import ctypes
@@ -566,20 +576,127 @@ def occ_variants(dev, jobs) -> None:
         print(f"occ_bwd, {label}: " + "; ".join(row))
 
 
+# the wide MLP tile (csrc/mlp_wide.cuh): its cluster and its f32 sums as
+# built, and the copies that replace one choice. A cluster of 1 (a block
+# holding all 512 columns of its 64 rows) does not fit: its accumulators and
+# zeroed tiles would take 2 x 64 x 512 registers, the whole register file.
+_WIDE_UNITS = "constexpr int kUnits = 1;"
+_WIDE_STEPS = "constexpr int kF32Steps = 1;"
+_WIDE_VARIANTS = {
+    "as built (cluster of 2: one 64-row unit, 64 rows a weight read)": [],
+    "cluster of 4 (two units, weights multicast: 128 rows a read)":
+        [(_WIDE_UNITS, "constexpr int kUnits = 2;")],
+    "cluster of 8 (four units, weights multicast: 256 rows a read)":
+        [(_WIDE_UNITS, "constexpr int kUnits = 4;")],
+    "f32: 2 k8 steps a zeroed tile": [(_WIDE_STEPS, "constexpr int kF32Steps = 2;")],
+}
+
+
+def _wide_jobs():
+    """A copy of fused_igr_wide and fused_sampler_wide per wide variant."""
+    return {(src, v): _variant(src, f"{src}_{i}", edits, "mlp_wide.cuh")
+            for i, (v, edits) in enumerate(_WIDE_VARIANTS.items())
+            for src in ("fused_igr_wide", "fused_sampler_wide")}
+
+
+def wide_variants(dev, jobs) -> None:
+    """Each wide variant on a seeded IGR 8x512 field (no encoding, skip at
+    4): fused_igr f32 value at 4508 points and bf16 value at 8192 (the
+    training path's most frequent launches, phase 20 (b) of chip_smoke.py),
+    f32 value at 220,202 and 524,288 points, bf16 value at 524,288, f32
+    value+grad at 65,536, and the coarse sampler at 24,576 rays x 100 steps
+    + 8 secant (margin 2e-3), each timed as the wrapper calls it (CUDA
+    events, median of 7). The cluster copies give the built outputs bit for
+    bit (a row's sums do not depend on the cluster); the f32 sums' copy
+    keeps the bf16 mode's and the sampler's picks, and holds the f32 values
+    within 2e-5 of the plain version; each copy's RMS error against exactly
+    summed values is printed beside cuBLAS's (TF32 off) at 220,202 points."""
+    from isopoints_torch.models.fields import SDFField
+    own = {"fused_igr_wide": fused_mlp._igr_lib, "fused_sampler_wide": fused_sampler._lib}
+    like = {"fused_igr_wide": own["fused_igr_wide"](True),
+            "fused_sampler_wide": own["fused_sampler_wide"](True)}
+    fn = {"fused_igr_wide": "igr_forward", "fused_sampler_wide": "sampler_sweep"}
+    libs = {key: _load(so, proc, like[key[0]], fn[key[0]]) for key, (so, proc) in jobs.items()}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    field = SDFField(hidden_size=512, n_layers=8, num_frequencies=0, generator=gen, device=dev)
+    fine = fused_mlp.make_fused_igr_sdf(field)
+    pack = fine.pack
+    xs = {n: torch.rand((n, 3), generator=gen, device=dev) * 2.4 - 1.2
+          for n in (4508, 8192, 65_536, 220_202, 524_288)}
+    rms = lambda a, b: float((a - b).square().mean().sqrt())
+    exact = fused_mlp.igr_sdf_plain(pack, xs[220_202], False, True)
+    plain = fused_mlp.igr_sdf_plain(pack, xs[220_202])
+    cublas = rms(plain, exact)
+    n_rays = 24_576
+    g = torch.Generator(device=dev).manual_seed(n_rays)
+    cam = torch.tensor([0.0, 0.0, -2.0], device=dev).expand(n_rays, 3).contiguous()
+    d = torch.randn((n_rays, 3), generator=g, device=dev) * 0.3
+    d[:, 2] = 1.0
+    d = d / d.norm(dim=-1, keepdim=True)
+    t_lo = 0.8 + 0.4 * torch.rand(n_rays, generator=g, device=dev)
+    t_hi = t_lo + 2.2 * torch.rand(n_rays, generator=g, device=dev)
+    s_args = (cam, d, t_lo, t_hi, linspace01(100, dev))
+    s_kw = dict(n_secant=8, margin=2e-3, coarse_sweep=True)
+    runs = {
+        "f32 value n=4508": lambda: fine(xs[4508]),
+        "bf16 value n=8192": lambda: fused_mlp.igr_forward_cuda(pack, xs[8192], False, True)[0],
+        "f32 value n=220202": lambda: fine(xs[220_202]),
+        "f32 value n=524288": lambda: fine(xs[524_288]),
+        "bf16 value n=524288": lambda: fused_mlp.igr_forward_cuda(pack, xs[524_288], False, True)[0],
+        "f32 value+grad n=65536": lambda: fine.sdf_and_grad(xs[65_536]),
+        f"coarse sampler {n_rays} rays x 100 + 8": lambda: fine.fused_ray_sampler(*s_args, **s_kw),
+    }
+    print(f"wide MLP tile, IGR 8x512: fused_igr f32 RMS error against exact sums at "
+          f"220,202 points, cuBLAS (float32, TF32 off) {cublas:.4g}")
+    ref = {}
+    for i, v in enumerate(_WIDE_VARIANTS):
+        fused_mlp._igr_lib = lambda wide=False, lib=libs[("fused_igr_wide", v)]: lib
+        fused_sampler._lib = lambda wide=False, lib=libs[("fused_sampler_wide", v)]: lib
+        try:
+            row = []
+            for label, run in runs.items():
+                out = run()
+                out = out if isinstance(out, tuple) else (out,)
+                if i == 0:
+                    ref[label] = out
+                same = all(torch.equal(a, b) for a, b in zip(out, ref[label]))
+                if "steps" in v and label.startswith("f32"):
+                    if "n=220202" in label and float((out[0] - plain).abs().max()) > 2e-5:
+                        raise RuntimeError(f"the {v} copy misses the f32 tolerance")
+                elif "steps" in v and label.startswith("coarse"):
+                    # the bf16 sweep's picks; the f32 tail's outputs move
+                    same = all(torch.equal(out[i], ref[label][i]) for i in (0, 2))
+                if not same and not ("steps" in v and label.startswith("f32")):
+                    raise RuntimeError(f"the {v} copy differs from the built outputs ({label})")
+                row.append(f"{label} {_time(run):.3f} ms")
+                if label == "f32 value n=220202":
+                    e = rms(out[0], exact)
+                    row[-1] += f" (RMS {e:.4g}, {e / cublas:.3f} x cuBLAS)"
+        finally:
+            fused_mlp._igr_lib = own["fused_igr_wide"]
+            fused_sampler._lib = own["fused_sampler_wide"]
+        print(f"wide tile, {v}: " + "; ".join(row))
+
+
 def main() -> None:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     mode = sys.argv[1:]
-    if mode not in ([], ["splat"], ["occ"]):
-        raise SystemExit("usage: python -m isopoints_torch.kernel_variants [splat|occ]")
-    splat_jobs = _splat_jobs() if mode != ["occ"] else {}
-    occ_jobs = _occ_jobs() if mode != ["splat"] else {}
-    if mode:                            # the splat stages or the occupancy backward alone
-        print(torch.cuda.get_device_name(0))
+    if mode not in ([], ["splat"], ["occ"], ["wide"]):
+        raise SystemExit("usage: python -m isopoints_torch.kernel_variants [splat|occ|wide]")
+    splat_jobs = _splat_jobs() if mode in ([], ["splat"]) else {}
+    occ_jobs = _occ_jobs() if mode in ([], ["occ"]) else {}
+    wide_jobs = _wide_jobs() if mode in ([], ["wide"]) else {}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    if mode:                            # the splat stages, the occupancy backward or the wide tile
+        print(card or torch.cuda.get_device_name(0))
         if mode == ["splat"]:
             splat_variants(dev, splat_jobs)
-        else:
+        elif mode == ["occ"]:
             occ_variants(dev, occ_jobs)
+        else:
+            wide_variants(dev, wide_jobs)
         return
     jobs = {("fused_mlp", rg): _variant(
         "fused_mlp", f"fused_mlp_rows{32 * rg}", ((_RULE, f"  switch ({rg}) {{"),))
@@ -595,10 +712,11 @@ def main() -> None:
     fn = {"fused_mlp": "siren_forward", "fused_igr": "igr_forward"}
     libs = {key: _load(so, proc, like[key[0]], fn[key[0]])
             for key, (so, proc) in jobs.items()}
-    print(f"{torch.cuda.get_device_name(0)}; launches of the kernels as built "
+    print(f"{card or torch.cuda.get_device_name(0)}; launches of the kernels as built "
           f"(the wrappers), with each constant replaced")
     splat_variants(dev, splat_jobs)
     occ_variants(dev, occ_jobs)
+    wide_variants(dev, wide_jobs)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     # the kNN with and without the Morton order and the pruning: knn.SORT_MIN

@@ -48,9 +48,11 @@ weights are detached when the callable is made and every call runs under
 
 Widths. The kernels have instances at every multiple of 32 up to 256 and
 at 384 and 512 (csrc/mlp_mma.cuh "Widths"; the two wide ones in the
-`_wide` libraries); a pack zero-pads its field to the smallest instance at
-or above its width (`kernel_width`), as JAX's kernels take any width, and
-a field wider than 512 raises ValueError on a CUDA tensor.
+`_wide` libraries, on csrc/mlp_wide.cuh's tile, which reads the hidden
+layers from `wide_layout`'s stage pack); a pack zero-pads its field to the
+smallest instance at or above its width (`kernel_width`), as JAX's kernels
+take any width, and a field wider than 512 raises ValueError on a CUDA
+tensor.
 
 A CUDA input launches the kernel or raises; a CPU input runs the plain
 version (`siren_sdf_plain`, `siren_sdf_and_grad_plain`, `igr_sdf_plain`,
@@ -142,6 +144,41 @@ def tf32_split(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(a - hi)
 
 
+def wide_layout(wh: torch.Tensor, wh_lo: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """The hidden layers (L, H, H) as (out, in), bf16 (`wh_lo` None) or the
+    tf32 split (hi, lo), in the order the wide tile's weight stages read
+    them (csrc/mlp_mma.cuh's wide instances, csrc/mlp_wide.cuh "Stages"):
+    bytes [layer][column half][stage][part][H/16 row groups][K 16-byte
+    halves][8 rows][16 bytes], a stage 64 bytes of K of the half's H/2 rows
+    (8 values of hi then of lo in f32, 32 bf16 values), so that a block's
+    weight stream is contiguous and each stage is wgmma's K-major operand
+    without swizzle. Flat uint8."""
+    n_l, h, _ = wh.shape
+    nb = h // 2
+    if wh_lo is None:
+        w = wh.view(torch.int16).reshape(n_l, 2, nb // 8, 8, h // 32, 4, 8)
+        w = w.permute(0, 1, 4, 2, 5, 3, 6)       # l, half, stage, group, K half, row, value
+    else:
+        w = torch.stack([wh, wh_lo]).view(torch.int32).reshape(
+            2, n_l, 2, nb // 8, 8, h // 8, 2, 4)
+        w = w.permute(1, 2, 5, 0, 3, 6, 4, 7)    # l, half, stage, part, group, K half, row, value
+    return w.contiguous().view(torch.uint8).reshape(-1)
+
+
+def _pointers(tensors: List[Optional[torch.Tensor]], h: int
+              ) -> Tuple[List[Optional[int]], Optional[torch.Tensor]]:
+    """The seven pointers the launchers take for the tile's tensors, and
+    above `_build.NARROW_MAX` the wide stage pack they point to in place of
+    wh and wh_lo (`wide_layout`; kept alive by the caller)."""
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    if h <= _build.NARROW_MAX:
+        return ptrs, None
+    wide = wide_layout(tensors[2], tensors[3])
+    ptrs[2:4] = [wide.data_ptr() if wide.numel() else None, None]
+    return ptrs, wide
+
+
 def _mma_tensors(w0, b0, mid_ws, mid_bs, wout, bout, h: int, bf16: bool,
                  device) -> List[Optional[torch.Tensor]]:
     """The tensor-core tile's seven tensors (mlp_mma::Net): w0, b0, wh and
@@ -177,6 +214,7 @@ class SirenPack:
         self.omega_hidden = float(field.hidden_omega_0)
         self.device = self.ws[0].device
         self._mma_nets = {}
+        self._wide = {}
 
     def weights(self, bf16: bool) -> Tuple[Tuple[torch.Tensor, ...], ...]:
         return (self.ws_bf16 if bf16 else self.ws), self.bs
@@ -194,9 +232,10 @@ class SirenPack:
         at the kernel's width Hk (`kernel_width`, the field's zero-padded):
         w0 (Hk, 3), b0 (Hk,), wh and wh_lo, the hidden layers (L, Hk, Hk)
         as (out, in), the K-major B operand, bh (L, Hk), wout (Hk,), bout
-        (1,); args are their seven pointers, then Hk, n_hidden, ω₀, ω. A
-        padded unit is sin(0) = 0 and its weights out are zero, so the
-        padding is exact. In f32
+        (1,); args are their seven pointers, then Hk, n_hidden, ω₀, ω
+        (above width 256 the wh pointer is the `wide_layout` pack's and
+        wh_lo's None). A padded unit is sin(0) = 0 and its weights out are
+        zero, so the padding is exact. In f32
         wh and wh_lo are the tf32 split (`tf32_split`) of the weights; in
         bf16 wh is `torch.bfloat16`, wh_lo None, and w0 and wout are the
         bf16-rounded weights (every matmul operand of JAX's bf16 mode is
@@ -216,9 +255,9 @@ class SirenPack:
             bs = [F.pad(b, (0, (hk - h) * (i < len(bs) - 1))) for i, b in enumerate(bs)]
             tensors = _mma_tensors(ws[0], bs[0], ws[1:-1], bs[1:-1], ws[-1],
                                    bs[-1], hk, bf16, self.device)
-            self._mma_nets[bf16] = (tensors, tuple(
-                None if t is None else t.data_ptr() for t in tensors) + (
-                    hk, self.n_hidden, self.omega_first, self.omega_hidden))
+            ptrs, self._wide[bf16] = _pointers(tensors, hk)
+            self._mma_nets[bf16] = (tensors, tuple(ptrs) + (
+                hk, self.n_hidden, self.omega_first, self.omega_hidden))
         return self._mma_nets[bf16]
 
 
@@ -331,6 +370,7 @@ class IgrPack:
         self.final_tanh = bool(field.final_tanh)
         self.device = self.ws[0].device
         self._mma_nets = {}
+        self._wide = {}
 
     def weights(self, bf16: bool) -> Tuple[Tuple[torch.Tensor, ...], ...]:
         return (self.ws_bf16 if bf16 else self.ws), self.bs
@@ -356,7 +396,9 @@ class IgrPack:
         zero-padded to Hk outputs and Hk inputs. The hidden layers stay
         (L, Hk, Hk) as (out, in), the K-major B operand: in bf16 as
         `torch.bfloat16` (the values are bf16 already), in f32 as the tf32
-        split `tf32_split`, hi in wh and lo in wh_lo (None in bf16).
+        split `tf32_split`, hi in wh and lo in wh_lo (None in bf16). Above
+        width 256 the pointers carry the `wide_layout` pack of wh and wh_lo
+        in wh's place (and None in wh_lo's), which the wide tile reads.
 
         The skip. JAX's concat([h, x]) / √2 puts the point in columns
         H−3..H−1 of the row; the kernel writes it into the last three
@@ -401,8 +443,8 @@ class IgrPack:
             wout, bout = pad(nl - 1, 1)
             tensors = _mma_tensors(w0, b0, [w for w, _ in mid], [b for _, b in mid],
                                    wout, bout, hk, bf16, self.device)
-            self._mma_nets[bf16] = (tensors, [None if t is None else t.data_ptr()
-                                              for t in tensors])
+            ptrs, self._wide[bf16] = _pointers(tensors, hk)
+            self._mma_nets[bf16] = (tensors, ptrs)
         return self._mma_nets[bf16]
 
 

@@ -7,8 +7,9 @@ as MLP tiles, picks the first sign change (the first minimum of
 sign(f + margin)·countdown), the bracket and the f-argmin, and runs the
 fixed secant, all without writing a (rays × n_steps) array to device
 memory. For the SIREN and the IGR field alike it evaluates on the fused
-MLP kernels' tensor-core tile (csrc/mlp_mma.cuh; 128 rows up to width 256,
-32 above), `rays_per_block` rays a block, the pick folded tile by tile (any n_steps), so a point's
+MLP kernels' tensor-core tile (csrc/mlp_mma.cuh, 128 rows, up to width 256;
+above, csrc/mlp_wide.cuh's 64 rows on a unit of two blocks),
+`rays_per_block` rays a block (or unit), the pick folded tile by tile (any n_steps), so a point's
 value is the fused callable's bit for bit. Bound on an H100: the products
 of (n_steps + n_secant [+ 2]) MLP evals per ray, bf16 ones over the bf16
 peak and f32 ones as three tf32 passes over the tf32 peak.
@@ -67,30 +68,33 @@ def _lib(wide: bool = False) -> ctypes.CDLL:
 RAYS = (64, 32, 16, 8)   # rays a block the kernel takes
 
 
-def tile_rows(kernel_hidden: int) -> int:
-    """The rows of the sampler kernel's tiles at an instance's width: 128
-    up to 256, 32 above (the f32 tile of one row group, csrc/mlp_mma.cuh
-    "Widths"). A block takes at most half as many rays."""
-    return 128 if kernel_hidden <= _build.NARROW_MAX else 32
+def tile_shape(kernel_hidden: int) -> Tuple[int, int]:
+    """(rows of the sampler kernel's tiles, SMs a block of rays takes) at
+    an instance's width: (128, 1) up to 256; above, (64, 2), a unit of two
+    blocks on csrc/mlp_wide.cuh's tile. A block takes at most rows / 2
+    rays."""
+    return (128, 1) if kernel_hidden <= _build.NARROW_MAX else (64, 2)
 
 
 def rays_per_block(n_rays: int, n_steps: int, n_secant: int,
-                   revalidate: bool, n_sms: int, rows: int = 128) -> int:
+                   revalidate: bool, n_sms: int, rows: int = 128,
+                   sms: int = 1) -> int:
     """The kernel's rays a block, from the launch's shape: the one of
-    `RAYS` up to rows / 2 (`tile_rows`) with the fewest tile rounds on the
+    `RAYS` up to rows / 2 (`tile_shape`) with the fewest tile rounds on the
     busiest SM, the larger on a tie. A block (one to an SM: the f32 tile's
-    shared memory) runs ceil(n_steps·rays / rows) sweep tiles, then one
-    re-validation tile and
-    one tile a secant step whatever its rays, and every tile streams the
-    whole weight stack, so the rounds are ceil(blocks / n_sms) waves times
-    the tiles a block. At the bench trace's 24,576 rays that keeps 64 (384
-    blocks; measured 18.4 ms on an H100 against 23.6 at 32); at a training
-    step's 1-2k sampler rays it takes 8-16, where 64 would fill 16-32 of the
-    132 SMs."""
+    shared memory; `sms` SMs for a wide unit) runs ceil(n_steps·rays /
+    rows) sweep tiles, then one re-validation tile and one tile a secant
+    step whatever its rays, and every tile streams the whole weight stack,
+    so the rounds are ceil(blocks / (n_sms / sms)) waves times the tiles a
+    block. At the bench trace's 24,576 rays that keeps 64 (384 blocks;
+    measured 18.4 ms on an H100 against 23.6 at 32); at a training step's
+    1-2k sampler rays it takes 8-16, where 64 would fill 16-32 of the 132
+    SMs. Above width 256 (64 rows, two SMs a unit) it takes 32 at both."""
     tail = int(bool(revalidate)) + n_secant
+    slots = max(n_sms // sms, 1)
 
     def rounds(rays):
-        waves = -(-max(-(-n_rays // rays), 1) // n_sms)
+        waves = -(-max(-(-n_rays // rays), 1) // slots)
         return waves * (-(-n_steps * rays // rows) + tail)
 
     return min((r for r in RAYS if 2 * r <= rows), key=lambda r: (rounds(r), -r))
@@ -203,7 +207,7 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
     sw = (_P * 7)(*pack.mma_net(sweep_bf16)[1][:7])
     fw = (_P * 7)(*pack.mma_net(bool(fine_bf16))[1][:7])
     rays = rays_per_block(r, n_steps, int(n_secant), coarse_sweep,
-                          _n_sms(dirs.device.index or 0), tile_rows(arch[0]))
+                          _n_sms(dirs.device.index or 0), *tile_shape(arch[0]))
     KERNEL.launches += 1
     err = lib.sampler_sweep(
         cam.data_ptr(), dirs.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),

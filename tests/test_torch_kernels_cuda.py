@@ -27,11 +27,11 @@ Tolerances: MLP values atol 2e-5 and input gradients atol 1e-4 + rtol 1e-4
 ω = 30 sine layers amplify the round-off of the gradient), at hidden
 widths 64, 128 and 256 and at launches of both tile sizes (32 and 128
 rows), and at widths the wrapper pads to the next instance (48 to 64;
-288, 300 and 320 to 384) and at 512 (the wide instances: 32-row f32 and
-64-row bf16 tiles); a width above the widest instance is refused with a
+288, 300 and 320 to 384) and at 512 (the wide instances, on mlp_wide.cuh's
+wgmma tile); a width above the widest instance is refused with a
 ValueError and launches nothing; the fused MLP's and the IGR kernels'
-libraries, the wide ones too, hold tensor-core instructions (HMMA) in
-their SASS. Sampler: the picked
+libraries hold tensor-core instructions in their SASS (HMMA up to 256,
+HGMMA and no HMMA in the `_wide` ones). Sampler: the picked
 depths must be equal on all but 0.1% of rays (a pick flips only where two
 proposal values tie within round-off), and on equal picks f_pick agrees to
 1e-5 and the secant depth to 1e-4 on rays with a sign change.
@@ -181,10 +181,17 @@ def test_fused_mlp_matches_twin(dev, hidden, n_layers, n):
                                  "fused_trace", "fused_mlp_wide", "fused_igr_wide",
                                  "fused_sampler_wide", "fused_trace_wide"])
 def test_tensor_core_instructions_in_sass(dev, lib):
+    """The narrow instances on mlp_mma.cuh's `mma.sync` tile (HMMA), the wide
+    ones on mlp_wide.cuh's `wgmma` tile (HGMMA, and no HMMA)."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "--dump-sass", _build.build_all()[lib]],
-                          capture_output=True, text=True, check=True).stdout
-    assert sum("HMMA" in line for line in sass.splitlines()) > 0
+                          capture_output=True, text=True, check=True).stdout.splitlines()
+    n_hgmma = sum("HGMMA" in line for line in sass)
+    n_hmma = sum("HMMA" in line and "HGMMA" not in line for line in sass)
+    if lib.endswith("_wide"):
+        assert n_hgmma > 0 and n_hmma == 0
+    else:
+        assert n_hmma > 0
 
 
 def test_fused_mlp_checks_inputs(dev):
@@ -1452,3 +1459,94 @@ def test_raymesh_kernel_refuses_bad_inputs(dev):
         raymesh.intersect_cuda(o.cpu(), d, packed)
     with pytest.raises(ValueError):
         raymesh.intersect_cuda(o, d, packed[:, :6])
+
+
+# ---------------------------------------------------------------------------
+# The wide tile (csrc/mlp_wide.cuh): 384 and 512, both modes
+# ---------------------------------------------------------------------------
+
+def test_wide_instances_do_not_spill(dev):
+    """ptxas spills in no kernel of the four wide libraries (their -Xptxas
+    -v logs, kept beside them)."""
+    libs = _build.build_all()
+    for name in ("fused_igr_wide", "fused_mlp_wide", "fused_sampler_wide",
+                 "fused_trace_wide"):
+        with open(libs[name] + ".log") as f:
+            log = f.read()
+        assert log.count("0 bytes spill stores, 0 bytes spill loads") == log.count(
+            "bytes spill stores") > 0, name
+
+
+@pytest.mark.parametrize("hidden,n_layers,skip", [(512, 8, (4,)), (384, 4, (2,)),
+                                                  (288, 3, (3,))])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_wide_tile_tails_and_rows(dev, hidden, n_layers, skip, bf16):
+    """Ragged tiles: n = 1, 63, 65 and tile counts that leave a cluster's
+    second unit empty (3 units of 64 value rows, 5 of 16 points with the
+    gradient) against the plain version, and every point's bits the same
+    whatever tile it falls in (evaluated alone, and shifted by one row),
+    the value column of value+grad equal to the value."""
+    field, _ = _igr(dev, hidden, n_layers, skip_in=skip)
+    sdf = fused_mlp.make_fused_igr_sdf(field, "bf16" if bf16 else "f32")
+    gen = torch.Generator(device=dev).manual_seed(hidden)
+    xs = torch.rand(200, 3, generator=gen, device=dev) * 2 - 1
+    v_all, g_all = sdf.sdf_and_grad(xs)
+    assert torch.equal(sdf(xs), v_all)
+    for n in (1, 63, 65, 3 * 64, 5 * 16):
+        x = xs[:n]
+        v, (v2, g) = sdf(x), sdf.sdf_and_grad(x)
+        assert torch.equal(v, v_all[:n]) and torch.equal(v2, v) and torch.equal(g, g_all[:n])
+        assert torch.equal(sdf(xs[1:n + 1]), v_all[1:n + 1])
+    v_ref, g_ref = fused_mlp.igr_sdf_and_grad_plain(sdf.pack, xs, bf16)
+    own = fused_mlp.igr_sdf_and_grad_plain(sdf.pack, xs)
+    if bf16:
+        for a, b, c in zip((v_all, g_all), (v_ref, g_ref), own):
+            assert float((a - b).abs().max()) <= float((b - c).abs().max())
+    else:
+        torch.testing.assert_close(v_all, v_ref, atol=2e-5, rtol=0)
+        torch.testing.assert_close(g_all, g_ref, atol=1e-4, rtol=1e-4)
+    one = torch.cat([sdf(xs[i:i + 1]) for i in range(0, 200, 37)])
+    assert torch.equal(one, v_all[::37])
+
+
+@pytest.mark.parametrize("hidden,n_layers", [(512, 3), (384, 2)])
+def test_wide_siren_value_and_gradient(dev, hidden, n_layers):
+    """The SIREN wide instances: value+grad's value column equal to the
+    value, both modes; f32 within the narrow tolerances of the plain
+    version."""
+    _, sdf = _sdf(dev, hidden, n_layers)
+    coarse = fused_mlp.make_fused_siren_sdf(_sdf(dev, hidden, n_layers)[0], "bf16")
+    x = torch.rand(1000, 3, device=dev) * 2 - 1
+    for fn in (sdf, coarse):
+        v, (v2, g) = fn(x), fn.sdf_and_grad(x)
+        assert torch.equal(v, v2)
+    v_ref, g_ref = fused_mlp.siren_sdf_and_grad_plain(sdf.pack, x)
+    torch.testing.assert_close(sdf(x), v_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(sdf.sdf_and_grad(x)[1], g_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("hidden,n_layers,skip,n", [(384, 4, (2,), 97), (288, 3, (3,), 33),
+                                                    (512, 8, (4,), 1)])
+@pytest.mark.parametrize("coarse", [False, True])
+def test_wide_sampler_and_march_equal_the_fused_callables(dev, hidden, n_layers, skip, n,
+                                                          coarse):
+    """On the wide tile the IGR sampler equals `sweep_plain` over the fused
+    callables and the march `march_plain` over the fused callable (f32, and
+    the bf16 callable's own), bit for bit, at ragged ray counts (a unit's
+    masked rays, an empty second unit)."""
+    field, sdf = _igr(dev, hidden, n_layers, skip_in=skip)
+    fn_c = fused_mlp.make_fused_igr_sdf(field, "bf16")
+    cam, d, t_lo, t_hi = _igr_rays(dev, n)
+    steps = linspace01(37, device=dev)
+    margin = 2e-3 if coarse else 0.0
+    out = sdf.fused_ray_sampler(cam, d, t_lo, t_hi, steps, n_secant=8, margin=margin,
+                                coarse_sweep=coarse)
+    ref = fused_sampler.sweep_plain(sdf, cam, d, t_lo, t_hi, steps, 8, margin,
+                                    sdf_fn_coarse=fn_c if coarse else None)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    fn = fn_c if coarse else sdf
+    cam, d, st = _march_state(dev, fn, max(n, 2))
+    out = fn.fused_trace_stepper(cam, d, st, 3, 5e-5, 0.5, 1, True)
+    for a, b in zip(out, march_plain(fn, cam, d, st, 3, 5e-5, 0.5, 1, True)):
+        assert torch.equal(a, b)

@@ -253,14 +253,15 @@ def _field(p: torch.Tensor, levels: float) -> torch.Tensor:
 
 
 def _igr_schedule(fine, coarse, cam, dirs, t_lo, t_hi, steps, n_secant,
-                  margin, rays):
+                  margin, rays, rows=128):
     """The IGR sampler kernel's block schedule (csrc/fused_sampler.cu
-    `igr_sweep`) in PyTorch: `rays` rays a block, each 128-row sweep tile
-    holding 128 / rays steps of every ray (row j * rays + r), masked rows at
-    the origin, each ray's pick folded in step order after every tile; then
-    the re-validation tiles (rows r: z_low, rays + r: t_pick) and one tile
-    set per secant step, 128 rows each."""
-    n, n_steps, rows = dirs.shape[0], steps.shape[0], 128
+    `igr_sweep`) in PyTorch: `rays` rays a block, each `rows`-row sweep
+    tile holding rows / rays steps of every ray (row j * rays + r), masked
+    rows at the origin, each ray's pick folded in step order after every
+    tile; then the re-validation tiles (rows r: z_low, rays + r: t_pick) and
+    one tile set per secant step, `rows` rows each (128; 64 on the wide
+    tile's unit of two blocks)."""
+    n, n_steps = dirs.shape[0], steps.shape[0]
     per_tile = rows // rays
     outs = [torch.empty(n) for _ in range(4)]
     isnan, where = torch.isnan, torch.where
@@ -366,6 +367,32 @@ def test_rays_per_block():
         for steps, sec in ((100, 8), (16, 0), (1000, 8)):
             r = rpb(n, steps, sec, False, 132)
             assert r in (8, 16, 32, 64) and 128 % r == 0
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("rays,n_rays,n_steps,n_secant", [
+    (32, 75, 37, 8),      # 2 steps a 64-row tile, the last tile half masked; 11 rays
+    (16, 40, 100, 8),     # 4 steps a tile; a ragged last unit of 8 rays
+    (8, 9, 5, 0),         # 8 steps a tile, one sweep tile, no secant
+])
+def test_wide_unit_schedule_matches_plain(rays, n_rays, n_steps, n_secant,
+                                          coarse):
+    """The sampler's schedule on the wide tile (csrc/fused_sampler.cu's
+    wide kernel: a unit of two blocks, 64-row tiles, at most 32 rays; the
+    f32 re-validation and secant tiles on the same 64 rows) equals
+    `sweep_plain` bit for bit, ties, NaN and empty intervals included."""
+    cam, dirs, t_lo, t_hi = (torch.from_numpy(a[0]) for a in _rays(n_rays, seed=4))
+    steps = linspace01(n_steps)
+    fine = lambda p: _field(p, 256.0)
+    crs = (lambda p: _field(p, 64.0)) if coarse else None
+    margin = 2e-3 if coarse else 0.0
+    ref = fused_sampler.sweep_plain(fine, cam, dirs, t_lo, t_hi, steps,
+                                    n_secant, margin, sdf_fn_coarse=crs)
+    out = _igr_schedule(fine, crs, cam, dirs, t_lo, t_hi, steps, n_secant,
+                        margin, rays, rows=64)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert 2 * rays <= 64
 
 
 def _one_by_one(fn):
