@@ -256,8 +256,10 @@ Phases, each fatal on failure:
      at 2 and inserting at 4 and 6; (c) `summarize_ablation` on the three
      with finals at ABL_FINAL_RES³, each final's mesh, largest component and
      evaluation timed; (d) `evaluate_pointclouds` on 50,000 mesh samples
-     against themselves shifted (2|offset|² within 1e-6; the CPU's within
-     rtol 1e-5; 2 kNN launches) and `filter_dtu_predictions` on an 8-view
+     against themselves shifted (2|offset|² within 1e-6; 2 kNN launches),
+     again cut by the script to EVAL_CPU_POINTS on the card and the CPU
+     (2|offset|² within 1e-6, the CPU's within rtol 1e-5; reduced from
+     50,000 in PR 20 to make room for phase 21) and `filter_dtu_predictions` on an 8-view
      512-px DTU torus with FILTER_POINTS points ABL_INSET inside its surface
      (kept >= 0.99) and FILTER_OUTLIERS outside every silhouette (none
      kept), the keep set equal on the CPU; (e) `pixels_to_world` on the uni
@@ -340,11 +342,34 @@ Phases, each fatal on failure:
      timed beside its plain version, the f32 cuBLAS chain (TF32 off) and
      its bound; fused_igr at (b)'s four most frequent shapes and the
      sampler at its two, timed beside their bounds;
+  21. what the JAX package computed and the port refused until PR 20
+     (`refusals_phase`): (a) phase 6's field and rays traced with the
+     certify-then-sweep sampler (`sampler_presweep` PRE_STEPS, dense
+     buffer PRE_FRACTION) on the kernels and on every plain version,
+     counters set to 0 before each trace and read after it (fused_igr and
+     fused_sampler must launch, nothing else; no launch on the plain
+     route), the flagged share and both overflow counters (0), the kernel
+     route against the plain one by phase 6's bars, against phase 6's
+     dense route (hit masks equal on PRE_MASK_BAR of the rays, the depths
+     of rays both hit bit for bit), the trace's time both ways and its
+     roofline; (b) `Generator.generate_iso_contour` at plot_cuts' defaults
+     on phase 4's trained SIREN (9 fused_mlp launches and nothing else),
+     its payload against the same model's on the CPU (the grids equal,
+     values within PLOT_TOL), a tapped projected step and its `debug_dump`
+     (the "iso" points with finite, non-zero gradient cones), and
+     `create_animation` over phase 15's *_iso.ply and phase 14's
+     000004_mesh.ply (each animation's first frame equal to its PLY's
+     points); (c) phase 17's state through CheckpointIO(backend="orbax")
+     (torch.distributed.checkpoint) under an NCCL group at world size 1,
+     restored into zeroed templates bit for bit, save and load timed
+     beside the npz backend; (d) `measure_scaling` at world size 1 on that
+     group (its JSON line, labelled nccl);
 then the JSON line {"kernels": [...]} (row 4 also at the statistics', the
 chamfer's, the IMLS, the DTU and the RIMLS (`rimls_*`) shapes; the
 SIREN-path rows with their launches in 13 (b) and (e), 14 (b) and (d) and
 15; the raymesh row from 16 (a); the wide rows of phase 20 with their
-launches in 20 (b)) and the device line {"ok": true, "device": {...}}. Phase 6 also prints
+launches in 20 (b); the IGR rows' `presweep_*` keys from 21 (a) and the
+SIREN row's `plot_*` keys from 21 (b)) and the device line {"ok": true, "device": {...}}. Phase 6 also prints
 isopoints_torch.bench's roofline line.
 
 Exits non-zero without a result when CUDA is unavailable.
@@ -353,6 +378,7 @@ Exits non-zero without a result when CUDA is unavailable.
 import collections
 import contextlib
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -413,6 +439,9 @@ RM_FLOPS_ALL = 24
 FILTER_POINTS = 1_000_000
 FILTER_OUTLIERS = 10_000
 ABL_INSET = 0.0075
+# phase 16 (d): evaluate_pointclouds' CPU reference on the script's cut of
+# the 50,000-point clouds to this many (the card runs both sizes)
+EVAL_CPU_POINTS = 10_000
 # phase 16 (e): Adam steps of the occupancy model on the BCE targets, and
 # the card's candidate logits against the CPU's, relative to max(1, |logit|):
 # the trained 5 x 512 field's logits reach tens, and float32 sums of 512
@@ -1251,17 +1280,24 @@ def ablation_phase(dev, kernels) -> dict:
     ch = evaluate_pointclouds.main([pred_ply, gt_ply, "--max-points", "50000"])
     ch_s = time.perf_counter() - t
     ev_launch = counts()["knn"]
+    # the card against the CPU on the script's own seeded cut to
+    # EVAL_CPU_POINTS of the same clouds (at 50,000 the CPU's plain kNN took
+    # 94.8 s of the script's time limit)
+    cut = str(EVAL_CPU_POINTS)
+    ch_cut = evaluate_pointclouds.main([pred_ply, gt_ply, "--max-points", cut])
     t = time.perf_counter()
-    ch_cpu = evaluate_pointclouds.main([pred_ply, gt_ply, "--max-points", "50000",
+    ch_cpu = evaluate_pointclouds.main([pred_ply, gt_ply, "--max-points", cut,
                                         "--device", "cpu"])
     ch_cpu_s = time.perf_counter() - t
     want = 2.0 * float(np.sum(offset.astype(np.float64) ** 2))
     print(f"evaluate_pointclouds, 50,000 samples against themselves shifted by "
           f"{offset.tolist()}: chamfer_p {ch['chamfer_p']:.9g} on the card in {ch_s:.2f} s "
-          f"(knn launches {ev_launch}), {ch_cpu['chamfer_p']:.9g} on the CPU in "
-          f"{ch_cpu_s:.1f} s; 2|offset|² = {want:.9g}")
+          f"(knn launches {ev_launch}); cut to {EVAL_CPU_POINTS:,}: {ch_cut['chamfer_p']:.9g} "
+          f"on the card, {ch_cpu['chamfer_p']:.9g} on the CPU in {ch_cpu_s:.1f} s; "
+          f"2|offset|² = {want:.9g}")
     if (abs(ch["chamfer_p"] - want) > 1e-6 or ev_launch != 2
-            or abs(ch["chamfer_p"] - ch_cpu["chamfer_p"]) > 1e-5 * abs(ch_cpu["chamfer_p"])):
+            or abs(ch_cut["chamfer_p"] - want) > 1e-6
+            or abs(ch_cut["chamfer_p"] - ch_cpu["chamfer_p"]) > 1e-5 * abs(ch_cpu["chamfer_p"])):
         fail("evaluate_pointclouds: the chamfer misses the offset (1e-6) or the CPU's "
              "(rtol 1e-5)")
 
@@ -2843,6 +2879,326 @@ def igr_wide_phase(dev, kernels) -> list:
     return rows
 
 
+# phase 21 (a): the certify-then-sweep sampler on phase 6's bench field and
+# rays. PRE_STEPS is JAX's test value. The dense buffer's share of the
+# sampler buffer's 24,576 slots was set from a first run on the card, which
+# flagged 15,762 of its 16,346 sampler rays (0.64 of the slots), with room
+# to spare, so that the overflow is 0 (the check is fatal)
+PRE_STEPS = 26
+PRE_FRACTION = 0.9
+# the presweep route against phase 6's dense route on the same kernels: a
+# flagged ray runs the same sampler kernel (its result does not depend on
+# the buffer it sits in), a certified one is non-surface, so hit masks may
+# differ only where the certificate (L = 2) missed a crossing
+PRE_MASK_BAR = 0.9999
+# (b): plot_cuts' values on the card against the CPU's plain SIREN: phase
+# 2's fused_mlp value bar
+PLOT_TOL = 2e-5
+# (d): measure_scaling's step at world size 1 (the JAX script's defaults)
+SCALING_RAYS = 2048
+
+
+def fallback_payloads(path: str) -> list:
+    """The figures of misc/visualize.py's data-only HTML: a list a figure of
+    its traces' JSON objects."""
+    import re
+
+    with open(path) as f:
+        html = f.read()
+    return [json.loads(m) for m in re.findall(
+        r"<pre data-format='fallback-plotly-json'>(.*?)</pre>", html, re.S)]
+
+
+def refusals_phase(dev, kernels, trace, siren, anim_sources, run) -> dict:
+    """Phase 21: what the port refused until PR 20, on the card.
+    `trace`: phase 6's bench field and rays (dict: fine, coarse, plain_fine,
+    plain_coarse, rays, res_dense, trace_ms); `siren`: a trained SIREN run
+    (dict: cfg, trainer, state, batch); `anim_sources`: PLY files named
+    *_iso.ply / *_mesh.ply; `run`: a TrainRun (its trainer and state) for
+    the checkpoint backend. Returns the `presweep_*` / `plot_*` keys of the
+    kernels line's rows by row index."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from isopoints_torch import bench, measure_scaling
+    from isopoints_torch import debug as tdebug
+    from isopoints_torch.factories import create_model
+    from isopoints_torch.misc.checkpoints import CheckpointIO
+    from isopoints_torch.models import raytracing
+    from isopoints_torch.models.generator import Generator
+    from isopoints_torch.ops import fused_mlp
+    from isopoints_torch.parallel.sharding import make_mesh
+    from isopoints_torch.rendering.lightrigs import create_animation
+
+    t21 = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in kernels}
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    out_root = os.path.join(ROOT, "out", "torch_refusals")
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.makedirs(out_root)
+    keys = collections.defaultdict(dict)
+
+    # ---- (a) the presweep on the bench field: kernels, plain, dense route
+    fine, coarse = trace["fine"], trace["coarse"]
+    rays = trace["rays"]
+    cfg_pre = bench.bench_config(sampler_presweep=PRE_STEPS,
+                                 sampler_dense_fraction=PRE_FRACTION)
+    dense_calls = []      # (rays the call sweeps, presweep of its config)
+    dense_fn = raytracing._dense_ray_sampler
+
+    def recording_dense(*args, **kw):
+        dense_calls.append((int(args[6].sum()), args[6].numel(),
+                            args[7].sampler_presweep))
+        return dense_fn(*args, **kw)
+
+    igr_split = collections.Counter()
+    igr_cuda = fused_mlp.igr_forward_cuda
+
+    def recording_igr(pack, x, with_grad, bf16=False):
+        igr_split[("bf16" if bf16 else "f32", x.shape[0])] += 1
+        return igr_cuda(pack, x, with_grad, bf16)
+
+    raytracing._dense_ray_sampler, fused_mlp.igr_forward_cuda = recording_dense, recording_igr
+    try:
+        reset()
+        res_k = bench.trace(fine, coarse, rays, cfg_pre)
+        torch.cuda.synchronize()
+        got = counts()
+        calls_k = list(dense_calls)
+        dense_calls.clear()
+        reset()
+        res_p = bench.trace(trace["plain_fine"], trace["plain_coarse"], rays, cfg_pre)
+        torch.cuda.synchronize()
+        got_p = counts()
+    finally:
+        raytracing._dense_ray_sampler, fused_mlp.igr_forward_cuda = dense_fn, igr_cuda
+    for name in ("fused_igr", "fused_sampler"):
+        if got[name] <= 0:
+            fail(f"phase 21 (a): {name} was not launched on the presweep route")
+    if any(v for k, v in got.items() if k not in ("fused_igr", "fused_sampler")):
+        fail(f"phase 21 (a): another kernel launched on the presweep route: {got}")
+    if any(got_p.values()):
+        fail(f"phase 21 (a): a kernel launched on the plain presweep route: {got_p}")
+    swept = [(n, slots) for n, slots, pre in calls_k if pre == PRE_STEPS]
+    flagged = [n for n, _, pre in calls_k if pre == 0]
+    if len(swept) != 1 or len(flagged) != 1:
+        fail(f"phase 21 (a): the presweep route's sampler calls {calls_k}")
+    pre_modes = collections.Counter()
+    for (mode, _), c in igr_split.items():
+        pre_modes[mode] += c
+    (n_swept, n_slots), = swept
+    print(f"phase 21 (a): presweep {PRE_STEPS} steps, dense buffer "
+          f"{PRE_FRACTION} of the sampler buffer's {n_slots} slots: {flagged[0]} of "
+          f"{n_swept} sampler rays flagged ({flagged[0] / max(n_swept, 1):.4f}); overflow "
+          f"trace {int(res_k.trace_overflow)} sampler {int(res_k.sampler_overflow)} "
+          f"(plain route {int(res_p.trace_overflow)}, {int(res_p.sampler_overflow)}); "
+          f"launches {got}; fused_igr by mode and rows: " + ", ".join(
+              f"{c} x {m} n={n}" for (m, n), c in sorted(igr_split.items())))
+    for res, label in ((res_k, "kernels"), (res_p, "plain")):
+        if int(res.trace_overflow) or int(res.sampler_overflow):
+            fail(f"phase 21 (a): overflow on the {label} presweep route")
+    same = ((res_k.network_object_mask == res_p.network_object_mask)
+            & (res_k.sampler_mask == res_p.sampler_mask))
+    hit_agree = float((res_k.network_object_mask == res_p.network_object_mask)
+                      .float().mean())
+    smp_agree = float((res_k.sampler_mask == res_p.sampler_mask).float().mean())
+    d_close = float(((res_k.dists - res_p.dists).abs() <= 1e-4)[same].float().mean())
+    print(f"  kernels vs plain (phase 6's bars: masks >= 0.995, depths within "
+          f"1e-4 on >= 0.99 of equal-mask rays): hit masks {hit_agree:.6f}, "
+          f"sampler masks {smp_agree:.6f}, depths {d_close:.6f}")
+    if hit_agree < 0.995 or smp_agree < 0.995 or d_close < 0.99:
+        fail("phase 21 (a): the presweep route's kernels and plain versions disagree")
+    dense = trace["res_dense"]
+    both = res_k.network_object_mask & dense.network_object_mask
+    pre_agree = float((res_k.network_object_mask == dense.network_object_mask)
+                      .float().mean())
+    n_dd = int((res_k.dists[both] != dense.dists[both]).sum())
+    print(f"  presweep vs phase 6's dense route (kernels; bars: hit masks equal on "
+          f">= {PRE_MASK_BAR}, depths of rays both hit equal bit for bit): hit "
+          f"masks equal on {pre_agree:.6f} ({int((res_k.network_object_mask != dense.network_object_mask).sum())} "
+          f"rays differ), {n_dd} of {int(both.sum())} common hits at another depth")
+    if pre_agree < PRE_MASK_BAR or n_dd:
+        fail("phase 21 (a): the presweep route differs from the dense route")
+    pre_ms, _ = bench.time_trace(fine, coarse, rays, cfg_pre, 5)
+    pre_pms, _ = bench.time_trace(trace["plain_fine"], trace["plain_coarse"], rays,
+                                  cfg_pre, 1)
+    print(f"  trace with the presweep: {pre_ms:.3f} ms on the kernels (median of 5), "
+          f"{pre_pms:.3f} ms plain; phase 6's dense route {trace['trace_ms']:.3f} ms; "
+          f"roofline: " + bench.trace_roofline(cfg_pre, bench.N_RAYS, pre_ms).report()
+          + bench.UPPER_BOUND)
+    keys[5].update(presweep_launches=pre_modes["bf16"])
+    keys[6].update(presweep_launches=pre_modes["f32"])
+    keys[7].update(presweep_launches=got["fused_sampler"],
+                   presweep_shape=f"{flagged[0]} of {n_swept} sampler rays "
+                   f"flagged, {n_slots} slots")
+
+    # ---- (b) the plots: iso-contours on the card against the CPU, a tapped
+    # step's debug dump, the animations
+    trainer, state, batch = siren["trainer"], siren["state"], siren["batch"]
+    model = trainer.model
+    cpu_model = create_model(siren["cfg"], device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    reset()
+    t = time.perf_counter()
+    Generator(model).generate_iso_contour(os.path.join(out_root, "iso_card.html"))
+    torch.cuda.synchronize()
+    plot_s = time.perf_counter() - t
+    got = counts()
+    if got["fused_mlp"] != 9 or sum(got.values()) != 9:
+        fail(f"phase 21 (b): generate_iso_contour launched {got}, expected 9 "
+             f"fused_mlp launches (3 axes x 3 cuts)")
+    t = time.perf_counter()
+    Generator(cpu_model).generate_iso_contour(os.path.join(out_root, "iso_cpu.html"))
+    plot_cpu_s = time.perf_counter() - t
+    card = fallback_payloads(os.path.join(out_root, "iso_card.html"))
+    ref = fallback_payloads(os.path.join(out_root, "iso_cpu.html"))
+    if len(card) != 9 or len(ref) != 9:
+        fail(f"phase 21 (b): {len(card)} / {len(ref)} contour figures, expected 9")
+    z_err = 0.0
+    for c, r in zip(card, ref):
+        if c[0]["x"] != r[0]["x"] or c[0]["y"] != r[0]["y"] or \
+                c[0]["contours"] != r[0]["contours"]:
+            fail("phase 21 (b): the contour grids differ between the card and the CPU")
+        z_err = max(z_err, float(np.abs(np.asarray(c[0]["z"]) - np.asarray(r[0]["z"])).max()))
+    zs = np.asarray(card[4][0]["z"])
+    print(f"phase 21 (b): generate_iso_contour (3 axes x 3 cuts x 100², SIREN of "
+          f"phase 4) {plot_s:.3f} s on the card ({got['fused_mlp']} fused_mlp launches "
+          f"of 10,000 points), {plot_cpu_s:.3f} s on the CPU; max |z| difference "
+          f"{z_err:.3g} (bar {PLOT_TOL}); centre cut's values in [{zs.min():.3f}, "
+          f"{zs.max():.3f}]")
+    if not z_err <= PLOT_TOL or not (zs.min() < 0 < zs.max()):
+        fail("phase 21 (b): the card's contours disagree with the CPU's or miss the surface")
+    keys[0].update(plot_launches=got["fused_mlp"], plot_shape="value, 10,000 points")
+    it = state.it
+    tdebug.set_debugging_mode_(True)
+    try:
+        st, _ = trainer.train_step(state, *batch(it))
+        t = time.perf_counter()
+        path = trainer.debug_dump(out_root, it)
+        dump_s = time.perf_counter() - t
+    finally:
+        tdebug.set_debugging_mode_(False)
+    figs = fallback_payloads(path) if path else []
+    if not figs or [tr["type"] for tr in figs[0]] != ["Scatter3d", "Cone"]:
+        fail(f"phase 21 (b): debug_dump wrote {path} with {figs and [tr['type'] for tr in figs[0]]}")
+    cone = np.asarray([figs[0][1][k] for k in "uvw"], dtype=np.float64)
+    pts = np.asarray([figs[0][0][k] for k in "xyz"], dtype=np.float64)
+    if not (np.isfinite(cone).all() and np.abs(cone).max() > 0 and np.isfinite(pts).all()):
+        fail("phase 21 (b): the debug dump's gradients are not finite and non-zero")
+    print(f"  a tapped projected step (its {it}) and debug_dump: {os.path.basename(path)}, "
+          f"{pts.shape[1]} of the 'iso' points with their gradient cones (max "
+          f"|dL/dx| {np.abs(cone).max():.3g}) in {dump_s:.3f} s")
+    anim = os.path.join(out_root, "snapshots")
+    os.makedirs(anim)
+    for src in anim_sources:
+        shutil.copy(src, anim)
+    t = time.perf_counter()
+    create_animation(anim)
+    anim_s = time.perf_counter() - t
+    from isopoints_torch.utils.io import read_ply
+    iso = sorted(f for f in os.listdir(anim) if f.endswith("_iso.ply"))
+    mesh = sorted(f for f in os.listdir(anim) if f.endswith("_mesh.ply"))
+    for name, files in (("pts_animation.html", iso), ("mesh_animation.html", mesh)):
+        figs = fallback_payloads(os.path.join(anim, name))
+        first = read_ply(os.path.join(anim, files[0]))["points"]
+        got_pts = np.asarray([figs[0][0][k] for k in "xyz"], np.float32).T
+        if not np.array_equal(got_pts, first):
+            fail(f"phase 21 (b): {name}'s first frame is not {files[0]}'s points")
+    print(f"  create_animation over {len(iso)} *_iso.ply and {len(mesh)} *_mesh.ply "
+          f"of earlier phases: {anim_s:.2f} s, each first frame equal to its PLY")
+
+    # ---- (c) the checkpoint backend and (d) measure_scaling at world size 1
+    # under NCCL
+    trainer, state = run.trainer, run.state
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        reg = dict(model=trainer.model.state_dict(), opt=state.opt_state,
+                   points=state.points, points_mask=state.points_mask,
+                   spacing=state.spacing, saliency=trainer.saliency_state())
+        ck_dir = os.path.join(out_root, "ckpt")
+        times = {}
+        for backend in ("orbax", "npz"):
+            ck = CheckpointIO(ck_dir, backend=backend, **reg)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = ck.save("model.npz", it=state.it)
+            times[backend + " save"] = 1e3 * (time.perf_counter() - t)
+            zeroed = CheckpointIO(ck_dir, backend=backend, **{
+                k: (None if v is None else _zeros_like_tree(v))
+                for k, v in reg.items()})
+            t = time.perf_counter()
+            scalars = zeroed.load("model.npz")
+            torch.cuda.synchronize()
+            times[backend + " load"] = 1e3 * (time.perf_counter() - t)
+            a = _leaves(reg)
+            b = _leaves(zeroed.registry)
+            if scalars["it"] != state.it or len(a) != len(b) or any(
+                    not _equal_leaf(x, y) for x, y in zip(a, b)):
+                fail(f"phase 21 (c): the {backend} backend did not restore the "
+                     f"state bit for bit")
+            if backend == "orbax":
+                o_path = path
+                n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                              for f in os.listdir(path))
+        print(f"phase 21 (c): phase 17's state ({len(a)} entries, "
+              f"{n_bytes / 2**20:.1f} MiB in {os.path.basename(o_path)}) through "
+              f"CheckpointIO(backend='orbax') under NCCL at world size 1, saved and "
+              f"restored into zeroed templates bit for bit: save {times['orbax save']:.1f} "
+              f"ms, load {times['orbax load']:.1f} ms (npz: {times['npz save']:.1f}, "
+              f"{times['npz load']:.1f} ms)")
+        mesh_ = make_mesh(1, dev)
+        secs = measure_scaling.measure(mesh_, SCALING_RAYS, 5, 64, dev)
+        line = measure_scaling.scaling_line(1, SCALING_RAYS, secs, dist.get_backend(),
+                                            torch.cuda.get_device_name(dev))
+        print("phase 21 (d): measure_scaling at world size 1: " + json.dumps(line))
+        if line["backend"] != "nccl" or not secs > 0:
+            fail("phase 21 (d): measure_scaling did not run on NCCL")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 21: {time.perf_counter() - t21:.1f} s")
+    return dict(keys)
+
+
+def _leaves(tree) -> list:
+    """A registry's leaves in order (None skipped)."""
+    from isopoints_torch.misc.checkpoints import _flatten
+    return list(_flatten(tree, leaf=lambda x: x).values())
+
+
+def _zeros_like_tree(tree):
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return type(tree)((k, _zeros_like_tree(v)) for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zeros_like_tree(v) for v in tree))
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros_like(tree)
+    if isinstance(tree, np.ndarray):
+        return np.zeros_like(tree)
+    return type(tree)(0)
+
+
+def _equal_leaf(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.device == b.device and torch.equal(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b)) and type(a) is type(b)
+
+
 def outside_every_silhouette(dtu_dir: str, n: int, dev) -> torch.Tensor:
     """n points that every view of the DTU directory sees outside the torus
     (R 0.4, r 0.15): candidates in [-0.9, 0.9]³ whose line of sight from
@@ -3466,7 +3822,8 @@ def main() -> None:
              "resample seed (before its projection)")
     # phase 19 works on this run's field, capacity and resample buffer
     p4 = {"model": model, "cap": cfg.model.combined_kwargs.n_points_per_cloud,
-          "res": (res_pts, res_mask)}
+          "res": (res_pts, res_mask), "cfg": cfg, "trainer": trainer,
+          "state": state, "batch": batch}
 
     # ---- 6. the trace path: the production schedule on the IGR bench field
     t_fit = time.time()
@@ -3619,6 +3976,10 @@ def main() -> None:
     print("trace path roofline: " + bench.trace_roofline(cfg_k, bench.N_RAYS,
                                                          trace_ms).report()
           + bench.UPPER_BOUND)
+    # phase 21 traces this field and these rays with the presweep
+    p6 = dict(fine=fine, coarse=coarse, plain_fine=plain_fine,
+              plain_coarse=plain_coarse, rays=rays, res_dense=res_k,
+              trace_ms=trace_ms)
     pts, pmask = bench.projection_points(bench.N_POINTS, dev)
     for label, fn, kw in (("f32", fine, {}), ("bf16", coarse, {}),
                           ("hybrid", fine, dict(max_iters=4, fn_coarse=coarse,
@@ -5681,6 +6042,13 @@ def main() -> None:
 
     # ---- 20. the published IGR network on the wide instances of the MLP tile
     rows.extend(igr_wide_phase(dev, kernels))
+
+    # ---- 21. the presweep, the plots, the checkpoint backend, measure_scaling
+    anim = sorted(glob.glob(os.path.join(ROOT, "out", "torch_dtu_points", "*_iso.ply")))
+    anim.append(os.path.join(ROOT, "out", "torch_mvr_lossS_dir_validate",
+                             "000004_mesh.ply"))
+    for i, kv in refusals_phase(dev, kernels, p6, p4, anim, g_run).items():
+        rows[i].update(kv)
 
     print(f"chip_smoke: {time.time() - t_start:.1f} s from the CUDA check to "
           f"the kernels line, the build included")

@@ -94,7 +94,7 @@ def trace_roofline(cfg: RayTracingConfig, n_rays: int, ms: float):
     """bench.py:186-216's roofline of one trace of `n_rays` rays in `ms`:
     an UPPER BOUND on the MLP evaluations of the schedule (rays that stop
     early are counted to the end; compaction stages shrink the marched
-    width), each one of the 4x256 field. Its `report()`, with UPPER_BOUND,
+    width, the presweep the dense-swept one), each one of the 4x256 field. Its `report()`, with UPPER_BOUND,
     is bench.py's line, against the H100's float32 product peak
     (utils/profiling.py)."""
     lsi = 1 + cfg.line_step_iters
@@ -110,7 +110,13 @@ def trace_roofline(cfg: RayTracingConfig, n_rays: int, ms: float):
     bounds = list(stages[1:]) + [cfg.sphere_tracing_iters]
     for a, nxt, f in zip(stages, bounds, fr):
         evals_per_ray += 2.0 * (nxt - a) * lsi_fine * f   # compacted stages
-    evals_per_ray += cfg.sampler_fraction * (cfg.n_steps + cfg.n_secant_steps)
+    sf = cfg.sampler_fraction
+    if cfg.sampler_presweep >= 2:   # the presweep shrinks the dense-swept width
+        evals_per_ray += sf * (cfg.sampler_presweep
+                               + cfg.sampler_dense_fraction * cfg.n_steps
+                               + cfg.n_secant_steps)
+    else:
+        evals_per_ray += sf * (cfg.n_steps + cfg.n_secant_steps)
     return mlp_eval_roofline("sphere_trace_mlp", int(n_rays * evals_per_ray),
                              [3, 256, 256, 256, 256, 1], ms / 1e3)
 

@@ -11,8 +11,9 @@ extraction at `--mesh-resolution` (in the scan's world frame for DTU data:
 its `scale_mat` applied, with the marker file mesh.ply.denormalized that
 `evaluate --scale-mat-from` reads), and view_%03d.png, `--n-views` RGBA
 renders at `--image-size` px from cameras around the object at elevation
-15°. `--iso-contours` needs plotly, which is not installed: it raises.
-`main(argv)` returns (verts, faces, rgba).
+15°. `--iso-contours` also writes iso_contour.html, the SDF's contours on
+axis-aligned cuts (`Generator.generate_iso_contour`). `main(argv)` returns
+(verts, faces, rgba).
 """
 
 import argparse
@@ -33,9 +34,6 @@ def main(argv=None):
     parser.add_argument("--iso-contours", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    if args.iso_contours:
-        from isopoints_torch.models.generator import NO_PLOTLY
-        raise NotImplementedError(f"--iso-contours: {NO_PLOTLY}")
 
     from isopoints_torch import get_logger
     from isopoints_torch.config import default_config_path, load_config
@@ -78,6 +76,9 @@ def main(argv=None):
             f.write("scale_mat applied by generate_mvr\n")
     save_ply(mesh_path, verts, faces=faces)
     log.info("mesh: %d verts %d faces -> %s", len(verts), len(faces), mesh_path)
+    if args.iso_contours:
+        gen.generate_iso_contour(os.path.join(out_dir, "iso_contour.html"))
+        log.info("iso contours -> %s/iso_contour.html", out_dir)
 
     n = args.n_views
     R, T = look_at_view_transform([cfg.data.get("camera_distance", 2.0)] * n,

@@ -9,8 +9,9 @@ a view under the model's trace schedule with a floor of 20 sphere-tracing
 iterations (the coarse bf16 callable and the in-kernel sampler ride along
 where the config enables them), shades the hits with normals of the trace
 callable, and writes the chunks into one device tensor copied to the host
-once. `generate_iso_contour` needs plotly, which is not installed: it
-raises.
+once. `generate_iso_contour` writes the SDF's contours on axis-aligned
+cuts as HTML (misc/visualize.plot_cuts), the values from the trace
+callable.
 """
 
 import dataclasses
@@ -27,10 +28,6 @@ from isopoints_torch.models.implicit import ImplicitModel
 from isopoints_torch.models.raytracing import RayTracingConfig, ray_trace
 from isopoints_torch.ops.images import arange_pixels
 from isopoints_torch.utils.meshing import extract_mesh, get_surface_high_res_mesh
-
-NO_PLOTLY = ("the plots need plotly (the JAX package's misc/visualize.py), "
-             "which is not installed")
-
 
 @dataclass(frozen=True)
 class GeneratorConfig:
@@ -167,5 +164,11 @@ class Generator:
 
     # -- contours ---------------------------------------------------------
     def generate_iso_contour(self, filename: str, **kwargs) -> None:
-        """(generator.py:156) Raises: the contour plots need plotly."""
-        raise NotImplementedError(f"iso-contour plots (plot_cuts): {NO_PLOTLY}")
+        """Contours of the model's SDF on axis-aligned cuts into `filename`
+        (generator.py:156-160 -> plot_cuts; `kwargs` are plot_cuts'), each
+        cut evaluated by the trace callable on the model's device: the fused
+        MLP kernel at the fine precision when `use_fused_mlp` is on."""
+        from isopoints_torch.misc.visualize import plot_cuts
+
+        plot_cuts(self.model.trace_sdf_fn(), filename, device=self.device,
+                  **kwargs)

@@ -15,9 +15,10 @@ with its overflow; the coarse sampler sweep with its hysteresis margin and
 fine bracket. With a fused SDF callable (ops/fused_mlp.py) every
 evaluation is the fused MLP kernel, `sampler_in_kernel` runs the sampler
 in its kernel (ops/fused_sampler.py) and `trace_in_kernel` the fine
-fused-backstep stages in the march kernel (ops/fused_trace.py). Only
-`sampler_presweep` (a measured dead end, ROADMAP Queue 1) raises. The
-plain sweep and the secant (`_secant_scan` in the JAX module) live in
+fused-backstep stages in the march kernel (ops/fused_trace.py). With
+`sampler_presweep` the sampler certifies rays crossing-free on a coarse
+grid first and sweeps only the flagged ones densely (`_presweep_sampler`).
+The plain sweep and the secant (`_secant_scan` in the JAX module) live in
 ops/fused_sampler.py beside the kernel they are the plain version of.
 
 Each `while_loop` of the JAX module is a Python loop whose exit test
@@ -32,6 +33,7 @@ occupancy conventions), which `ImplicitModel.pixels_to_world` and the
 occupancy model use.
 """
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -39,7 +41,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from isopoints_torch.models.fields import sdf_and_grad
-from isopoints_torch.ops.fused_sampler import secant_scan, sweep_plain
+from isopoints_torch.ops.fused_sampler import eval_chunked, secant_scan, sweep_plain
 from isopoints_torch.utils import eps_denom, fma, linspace01
 
 SDFFn = Callable[[torch.Tensor], torch.Tensor]  # (..., 3) -> (...)
@@ -151,8 +153,7 @@ def sphere_trace_along_rays(sdf_fn: SDFFn, ray0: torch.Tensor,
 @dataclass(frozen=True)
 class RayTracingConfig:
     """Every knob of the JAX RayTracingConfig (raytracing.py:182-333);
-    see there for their semantics. `sampler_presweep` (a measured dead
-    end) is the one value not ported: it raises."""
+    see there for their semantics."""
     object_bounding_sphere: float = 1.0
     sdf_threshold: float = 5e-5
     line_search_step: float = 0.5
@@ -176,12 +177,6 @@ class RayTracingConfig:
     trace_in_kernel: bool = False
     sampler_in_kernel: bool = False
     trace_gate_end_front: bool = False
-
-    def __post_init__(self):
-        if 2 <= self.sampler_presweep < self.n_steps:
-            raise NotImplementedError(
-                "RayTracingConfig sampler_presweep is not ported (a measured "
-                "dead end: ROADMAP Queue 1 item 4 and 'Slices of the port')")
 
 
 class RayTraceResult(NamedTuple):
@@ -526,7 +521,14 @@ def _dense_ray_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
     fine. In the fused kernel when `sampler_in_kernel` and `sdf_fn`
     carries `.fused_ray_sampler` (for a coarse sweep only where its
     `packing_stride` is 3, the JAX rule of :829-836), else the plain sweep.
-    Returns (points, t, object_mask, overflow=0)."""
+    With `2 <= sampler_presweep < n_steps` the certify-then-sweep sampler
+    runs instead (`_presweep_sampler`). Returns (points, t, object_mask,
+    overflow): the overflow counts presweep-flagged rays beyond the dense
+    buffer's capacity (0 without the presweep)."""
+    if 2 <= cfg.sampler_presweep < cfg.n_steps:
+        return _presweep_sampler(sdf_fn, cam_loc, ray_dirs, object_mask, t_lo,
+                                 t_hi, sampler_mask, cfg, training,
+                                 sdf_fn_coarse)
     steps = linspace01(cfg.n_steps, device=ray_dirs.device)
     use_coarse = cfg.sampler_coarse and sdf_fn_coarse is not None
     margin = cfg.sampler_coarse_margin if use_coarse else 0.0
@@ -553,6 +555,55 @@ def _dense_ray_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
     pts_out = fma(t_out[..., None], ray_dirs, cam_loc)
     overflow = torch.zeros((), dtype=torch.int32, device=t_lo.device)
     return pts_out, t_out, sampler_mask & net_surface, overflow
+
+
+def _presweep_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
+                      t_hi, sampler_mask, cfg: RayTracingConfig,
+                      training: bool, sdf_fn_coarse: Optional[SDFFn] = None):
+    """Certify-then-sweep sampler (raytracing.py:891-955).
+
+    `sampler_presweep` uniform steps a ray on the dense fn (the coarse fn
+    under `sampler_coarse`, else `sdf_fn`: on the card the fused MLP value
+    kernel), `sampler_chunk_rays` rays at a time. A ray is flagged when an
+    interval [a, b] of that grid may hold a crossing: a sign change, or
+    min(|f_a|, |f_b|) <= lipschitz·seg with seg = |t_hi − t_lo|/(s1 − 1).
+    Certified rays are non-surface and take the minimum of the presweep
+    grid. The flagged rays are compacted into ceil(N·dense_fraction) slots
+    (unused slots hold ray 0, which the scatter drops) and swept by the
+    dense sampler with the presweep off (on the card the sampler kernel
+    under `sampler_in_kernel`); flagged rays beyond the capacity keep the
+    certified default and are counted in the overflow."""
+    s1 = cfg.sampler_presweep
+    use_coarse = cfg.sampler_coarse and sdf_fn_coarse is not None
+    fn_dense = sdf_fn_coarse if use_coarse else sdf_fn
+    steps1 = linspace01(s1, device=ray_dirs.device)
+    ts1 = fma(steps1, (t_hi - t_lo)[..., None], t_lo[..., None])    # (B, N, S1)
+    f1 = eval_chunked(fn_dense, fma(ts1[..., None], ray_dirs[..., None, :],
+                                    cam_loc[..., None, :]),
+                      cfg.sampler_chunk_rays)
+    seg = torch.abs(t_hi - t_lo)[..., None] / max(s1 - 1, 1)
+    fa, fb = f1[..., :-1], f1[..., 1:]
+    possible = ((torch.sign(fa) != torch.sign(fb))
+                | (torch.minimum(fa.abs(), fb.abs())
+                   <= cfg.sampler_presweep_lipschitz * seg))
+    needs_dense = sampler_mask & possible.any(dim=-1)             # (B, N)
+    # certified-ray fallback: the minimum of the presweep grid
+    t_min1 = torch.gather(ts1, -1, torch.argmin(f1, dim=-1)[..., None])[..., 0]
+
+    n = sampler_mask.shape[1]
+    cap = min(max(int(math.ceil(n * cfg.sampler_dense_fraction)), 1), n)
+    sel, sel_ok = _compact_mask(needs_dense, cap)
+    cam_g, dirs_g, om_g, tlo_g, thi_g = _compact_gather(
+        sel, [cam_loc, ray_dirs, object_mask, t_lo, t_hi])
+    _, d_t, d_obj, _ = _dense_ray_sampler(
+        sdf_fn, cam_g, dirs_g, om_g, tlo_g, thi_g, sel_ok,
+        dataclasses.replace(cfg, sampler_presweep=0), training, sdf_fn_coarse)
+    t_out, obj_out = _masked_scatter_wide(
+        (t_min1, torch.zeros_like(needs_dense)), sel, (d_t, d_obj), sel_ok)
+    n_flagged = needs_dense.to(torch.int32).sum(dim=1)
+    overflow = torch.clamp(n_flagged - cap, min=0).sum().to(torch.int32)
+    return (fma(t_out[..., None], ray_dirs, cam_loc), t_out,
+            sampler_mask & obj_out, overflow)
 
 
 def _minimal_sdf_points(sdf_fn: SDFFn, u: torch.Tensor, cam_loc, ray_dirs,

@@ -123,6 +123,16 @@ def secant_scan(sdf_fn: Callable, f_low, f_high, z_low, z_high, origins,
     return z_pred(f_low, f_high, z_low, z_high)
 
 
+def eval_chunked(fn: Callable, pts: torch.Tensor, chunk_rays: int = 0
+                 ) -> torch.Tensor:
+    """fn over (..., S, 3) proposals, `chunk_rays` rays at a time when > 0
+    (the same values, bounded memory; raytracing.py:409-423)."""
+    if chunk_rays <= 0:
+        return fn(pts)
+    flat = pts.reshape(-1, pts.shape[-2], 3)
+    return torch.cat([fn(c) for c in flat.split(chunk_rays)]).reshape(pts.shape[:-1])
+
+
 def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
                 t_lo: torch.Tensor, t_hi: torch.Tensor, steps: torch.Tensor,
                 n_secant: int = 8, margin: float = 0.0, chunk_rays: int = 0,
@@ -140,12 +150,7 @@ def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
     fn_dense = sdf_fn if sdf_fn_coarse is None else sdf_fn_coarse
     ts = fma(steps, (t_hi - t_lo)[..., None], t_lo[..., None])    # (..., S)
     pts = fma(ts[..., None], dirs[..., None, :], cam[..., None, :])
-    if chunk_rays > 0:
-        flat = pts.reshape(-1, steps.shape[0], 3)
-        sdf_val = torch.cat([fn_dense(c) for c in flat.split(chunk_rays)]
-                            ).reshape(ts.shape)
-    else:
-        sdf_val = fn_dense(pts)
+    sdf_val = eval_chunked(fn_dense, pts, chunk_rays)
     n = steps.shape[0]
     countdown = torch.arange(n, 0, -1, dtype=sdf_val.dtype, device=sdf_val.device)
     v = sdf_val + margin

@@ -1,9 +1,9 @@
 """Light rigs oriented by the camera (port of
 isopoints_tpu/rendering/lightrigs.py): `get_tri_color_lights_for_view`
 (an RGB tri-light half-dome around the view axis) and `get_light_for_view`
-(a white key light along the view), each as directional or point lights.
-`create_animation` writes plotly HTML, and plotly is not installed: it
-raises."""
+(a white key light along the view), each as directional or point lights;
+`create_animation` (saved snapshots as slider-HTML animations,
+misc/visualize.py)."""
 
 import math
 
@@ -65,8 +65,27 @@ def get_light_for_view(camera: PerspectiveCamera, has_specular: bool = True,
 
 
 def create_animation(pts_dir: str, show_max: int = -1) -> None:
-    """Slider-HTML animations of saved snapshots (lightrigs.py:78): plotly
-    only, so it raises."""
-    from isopoints_torch.models.generator import NO_PLOTLY
+    """Collect saved point and mesh snapshots into slider-HTML animations
+    (lightrigs.py:78-107): globs `*_iso.ply` and `*_mesh.ply` under
+    `pts_dir` (the last `show_max` of each when > 0) and writes
+    pts_animation.html / mesh_animation.html there."""
+    import glob
+    import os
 
-    raise NotImplementedError(f"snapshot animations: {NO_PLOTLY}")
+    from isopoints_torch.misc.visualize import animate_mesh, animate_points
+    from isopoints_torch.utils.io import read_ply
+
+    iso_files = sorted(glob.glob(os.path.join(pts_dir, "*_iso.ply")))
+    if show_max > 0:
+        iso_files = iso_files[-show_max:]
+    if iso_files:
+        animate_points([read_ply(f)["points"] for f in iso_files],
+                       os.path.join(pts_dir, "pts_animation.html"),
+                       names=[os.path.basename(f) for f in iso_files])
+    mesh_files = sorted(glob.glob(os.path.join(pts_dir, "*_mesh.ply")))
+    if show_max > 0:
+        mesh_files = mesh_files[-show_max:]
+    meshes = [m for m in (read_ply(f) for f in mesh_files) if "faces" in m]
+    if meshes:
+        animate_mesh([m["points"] for m in meshes], [m["faces"] for m in meshes],
+                     os.path.join(pts_dir, "mesh_animation.html"))

@@ -4,7 +4,8 @@
         [--out-dir DIR] [--device cuda|cpu] [--checkpoint-every N] \
         [--print-every N] [--exit-after SECONDS] [--fresh-keys] \
         [--profile-at IT] [--validate-every N] [--visualize-every N] \
-        [--eval-mesh-resolution R] [--n-devices N] [--multihost]
+        [--eval-mesh-resolution R] [--n-devices N] [--multihost] \
+        [--restart-every-resample]
 
     torchrun --nproc-per-node N -m isopoints_torch.train_mvr CONFIG \
         --n-devices N [--multihost]
@@ -22,7 +23,15 @@ iso-point buffer and its cached splat spacing, the saliency reference
 cloud and its statistics (`saliency:` entries), the iteration and the
 trainer's generator state. It is written every `--checkpoint-every`
 iterations, at the end, and before `--exit-after SECONDS` of training
-ends the process with exit code 3. A run whose OUT_DIR holds model.npz
+ends the process with exit code 3. With `training.checkpoint_backend:
+orbax` it is the directory OUT_DIR/model.orbax instead, written through
+torch.distributed.checkpoint by every rank (misc/checkpoints.py). With
+`--restart-every-resample` the run checkpoints and exits with code 4 right
+before each iso-point resample boundary after the iteration it started
+from (the first projected iteration and every `resample_every`-th after
+it), so that a runner relaunching it runs the resample first in a fresh
+process (train_mvr.py:47-50, 284-294); relaunched until done, it ends
+where an uninterrupted run ends. A run whose OUT_DIR holds the checkpoint
 resumes from it: the buffer's capacity is taken from the file before the
 load, and the generator state is restored unless `--fresh-keys`, so the
 resumed run draws what the uninterrupted one would have. With
@@ -105,6 +114,10 @@ def _parse(argv):
     parser.add_argument("--multihost", action="store_true",
                         help="each rank loads only its share of a step's "
                              "views (one a rank); the step gathers them")
+    parser.add_argument("--restart-every-resample", action="store_true",
+                        help="checkpoint and exit(4) right before each "
+                             "iso-point resample boundary after the start, "
+                             "so that a relaunch runs the resample first")
     return parser.parse_args(argv)
 
 
@@ -134,22 +147,20 @@ def _views(data, device):
             points, normals)
 
 
-def _adopt_saved_shapes(ckpt, path: str, device) -> None:
+def _adopt_saved_shapes(ckpt, filename: str, device) -> None:
     """Take the checkpoint's shapes for the state whose size changes in
     training: the iso-point buffer (its capacity follows the resample
     targets), its cached spacing and the saliency arrays. The non-strict
     load would otherwise keep the templates of a fresh start (the random
     initial points) and only warn."""
-    with np.load(path) as saved:
-        for name in ("points", "points_mask", "spacing"):
-            key = name + ":"
-            tmpl = ckpt.registry.get(name)
-            if key in saved.files and (tmpl is None
-                                       or tuple(tmpl.shape) != saved[key].shape):
-                ckpt.registry[name] = torch.from_numpy(
-                    np.zeros_like(saved[key])).to(device)
-        sal = {k[len("saliency:"):]: np.zeros_like(saved[k])
-               for k in saved.files if k.startswith("saliency:")}
+    saved = ckpt.saved_arrays(filename)
+    for name in ("points", "points_mask", "spacing"):
+        key = name + ":"
+        tmpl = ckpt.registry.get(name)
+        if key in saved and (tmpl is None or tuple(tmpl.shape) != saved[key][0]):
+            ckpt.registry[name] = torch.from_numpy(np.zeros(*saved[key])).to(device)
+    sal = {k[len("saliency:"):]: np.zeros(*v) for k, v in saved.items()
+           if k.startswith("saliency:")}
     ckpt.registry["saliency"] = sal or None
 
 
@@ -228,16 +239,16 @@ def main(argv=None) -> TrainRun:
                               saliency=trainer.saliency_state())
 
     def save(name, **extra):
-        if not is_main:
+        # the orbax backend's save is collective: every rank writes
+        if not is_main and ckpt.backend == "npz":
             return
         register(state)
         ckpt.save(name, it=state.it, rng_state=trainer.generators.state(),
                   **extra)
 
     register(state)
-    model_npz = os.path.join(out_dir, "model.npz")
-    if os.path.exists(model_npz):
-        _adopt_saved_shapes(ckpt, model_npz, device)
+    if ckpt.exists("model.npz"):
+        _adopt_saved_shapes(ckpt, "model.npz", device)
         scalars = ckpt.load("model.npz")
         model.load_state_dict(ckpt.registry["model"])
         state = TrainState(opt_state=ckpt.registry["opt"],
@@ -267,9 +278,18 @@ def main(argv=None) -> TrainRun:
     watchdog_s = int(os.environ.get("ISOPOINTS_WATCHDOG_S", "600"))
     prof = None
     it0 = state.it
+    warm_up, resample_every = trainer.cfg.warm_up_iters, trainer.cfg.resample_every
     t_start = t_last = time.time()
     try:
         for it in range(it0, args.max_iters):
+            if (args.restart_every_resample and it > it0 and it >= warm_up
+                    and (it == warm_up or it % resample_every == 0)):
+                # hand the resample to a fresh process; it0 itself is
+                # excluded, so that the relaunch runs it instead of exiting
+                save("model.npz")
+                log.info("restart-every-resample: exiting before resample "
+                         "at it=%d", it)
+                sys.exit(4)
             if watchdog_s > 0:
                 faulthandler.dump_traceback_later(watchdog_s, repeat=True,
                                                   exit=True)

@@ -45,6 +45,7 @@ after an evaluation come in JAX's order.
 
 import dataclasses
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -553,16 +554,30 @@ class MVRTrainer:
         return check_weights(self.model)
 
     def debug_dump(self, out_dir: str, it: int, mesh=None) -> Optional[str]:
-        """The captured per-point gradients as quiver plots (trainer.py:536).
-        None when debugging is off or nothing was captured; otherwise it
-        raises, since the plots are plotly HTML and plotly is not
-        installed. The capture itself (`debug.get_debugging_tensor()`) is
-        left for the caller."""
+        """The captured per-point gradients as quiver plots (trainer.py:
+        536-575): OUT_DIR/{it:010d}_grad_quiver.html, each tapped point set
+        with its gradient cones (and `mesh`, a (verts, faces) pair, when
+        given), and {it:010d}_mask_grad.html, the mask-image gradient pane,
+        when that was tapped. None when debugging is off or nothing was
+        captured; else the quiver's path (the pane's without point sets).
+        The capture is cleared."""
         from isopoints_torch.debug import get_debugging_mode, get_debugging_tensor
-        from isopoints_torch.models.generator import NO_PLOTLY
+        from isopoints_torch.misc.visualize import plot_2D_quiver, plot_3D_quiver
 
         dbg = get_debugging_tensor()
         if not get_debugging_mode() or (not dbg.pts_world
                                         and dbg.img_mask_grad is None):
             return None
-        raise NotImplementedError(f"debug_dump writes quiver plots: {NO_PLOTLY}")
+        path = None
+        if dbg.pts_world:
+            path = os.path.join(out_dir, f"{it:010d}_grad_quiver.html")
+            plot_3D_quiver(dbg.pts_world, dbg.pts_world_grad, path, mesh=mesh)
+        if dbg.img_mask_grad is not None:
+            g = dbg.img_mask_grad.detach().cpu().numpy()
+            mpath = os.path.join(out_dir, f"{it:010d}_mask_grad.html")
+            plot_2D_quiver(np.zeros((0, 2)), np.zeros((0, 2)),
+                           np.zeros(g.shape[-3:-1] if g.ndim >= 3 else g.shape),
+                           mpath, mask_grad_img=g)
+            path = path or mpath
+        dbg.clear()
+        return path

@@ -1,5 +1,6 @@
 """PLY, OBJ and PNG I/O (own copy of isopoints_tpu/utils/io.py: `read_ply`,
-`read_obj`, `load_mesh`, `save_ply`, `save_image`, `load_image`).
+`read_obj`, `load_mesh`, `save_ply`, `save_ply_property`, `save_image`,
+`load_image`).
 
 numpy and the standard library only. Images go through this module's own
 PNG codec (`zlib` + `struct`), since imageio and Pillow are not part of
@@ -210,6 +211,17 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels, for the 8-bit types this codec handles
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _PNG_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}
+
+
+def save_ply_property(path: str, points: np.ndarray, prop: np.ndarray,
+                      cmap_name: str = "jet", normals=None, binary=True) -> None:
+    """Points coloured by a scalar through the colour map, the scalar kept
+    as the float property `quality` (io.py:206-212)."""
+    from isopoints_torch.utils import scaler_to_color
+
+    colors = scaler_to_color(np.asarray(prop), cmap=cmap_name)
+    save_ply(path, points, normals=normals, colors=colors, binary=binary,
+             extra_props={"quality": np.asarray(prop, np.float32)})
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:

@@ -12,9 +12,15 @@ package's debug.py, on the CPU.
   views): within 1e-6 (the loss's own derivative of the same alpha).
 - With debugging off nothing is stored, and the step's loss and
   gradients are bit-equal with debugging on and off: the taps change no
-  value. `MVRTrainer.debug_dump` returns None without a capture and
-  raises, naming plotly, with one.
+  value. `MVRTrainer.debug_dump` returns None without a capture; with the
+  warm-up step's "iso" capture and the point model's mask-image capture
+  it writes the 3D quiver and the mask-gradient pane, held against JAX's
+  `debug_dump` on the JAX captures (misc/visualize.py's fallback payloads:
+  positions within 1e-5, the cones within 1e-3·max|g|, the pane within
+  1e-6, the captures' own bars) and clears the capture.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -115,13 +121,36 @@ def test_mask_image_tap_of_the_point_model():
 
 
 def test_debug_dump(world, tmp_path):
+    from isopoints_tpu.training.trainer import MVRTrainer as JTrainer
     from isopoints_torch.training.trainer import MVRTrainer, TrainerConfig
+    from test_torch_visualize import assert_payloads_close
+
     trainer = MVRTrainer(world["tmodel"], TrainerConfig(), device="cpu")
     assert trainer.debug_dump(str(tmp_path), 0) is None
     tdebug.set_debugging_mode_(True)
     assert trainer.debug_dump(str(tmp_path), 0) is None   # nothing captured
-    x = torch.ones(3, requires_grad=True)
-    tdebug.tap_grad("iso", x * 2.0).sum().backward()
-    with pytest.raises(NotImplementedError, match="plotly"):
-        trainer.debug_dump(str(tmp_path), 0)
-    assert "iso" in tdebug.get_debugging_tensor().pts_world
+    jdebug.set_debugging_mode_(True)
+    # the warm-up step's "iso" capture and the point model's mask capture,
+    # in both packages
+    pixels, k_loss, draws = jax_step_draws(jax.random.key(11), 2, (16, 16))
+    _jax_loss_and_grads(world, pixels, k_loss)
+    _port_step(world, draws)
+    jm, params, tm, mask_img, target = _models(False)
+    jcam, tcam = _cameras(2)
+    jax.grad(lambda p: jnp.sum((jm.forward(p, jcam, mask_img=jnp.asarray(
+        mask_img)).rgba[..., 3] - target[..., 3]) ** 2))(params)
+    out = tm(tcam, mask_img=torch.from_numpy(mask_img))
+    torch.sum((out.rgba[..., 3] - torch.from_numpy(target[..., 3])) ** 2).backward()
+    g_max = float(np.abs(jdebug.get_debugging_tensor().pts_world_grad["iso"]).max())
+    # JAX's debug_dump reads only the global capture, not the trainer
+    j_path = JTrainer.debug_dump(None, str(tmp_path / "jax"), 7)
+    t_path = trainer.debug_dump(str(tmp_path / "port"), 7)
+    assert os.path.basename(t_path) == os.path.basename(j_path) == \
+        "0000000007_grad_quiver.html"
+    got = assert_payloads_close(t_path, j_path, x=1e-5, y=1e-5, z=1e-5,
+                                u=1e-3 * g_max, v=1e-3 * g_max, w=1e-3 * g_max)
+    assert [t["type"] for t in got[0]] == ["Scatter3d", "Cone"]
+    assert_payloads_close(str(tmp_path / "port" / "0000000007_mask_grad.html"),
+                          str(tmp_path / "jax" / "0000000007_mask_grad.html"))
+    state = tdebug.get_debugging_tensor()
+    assert not state.pts_world and state.img_mask_grad is None

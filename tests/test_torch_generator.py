@@ -13,8 +13,12 @@ JAX side runs its plain field, which its own tests hold to its kernel.
 - `estimate_normals`: within 1e-5 of JAX's unit gradients.
 - `raytrace_images`, 2 views x 24 px in chunks of 128 rays (the last one
   padded): alpha equal on >= 99% of the pixels, RGB within 1e-4 where both
-  hit; also the neural texture. `--iso-contours` / `generate_iso_contour`
-  raise, naming plotly.
+  hit; also the neural texture.
+- `generate_iso_contour` at plot_cuts' defaults (3 axes x 3 cuts x 100²)
+  against JAX's: both payloads (the fallback HTML of misc/visualize.py)
+  trace by trace, SDF values within 1e-5, the grids within 1e-6;
+  `generate_mvr --iso-contours` writes iso_contour.html, held the same way
+  against JAX's generator on the checkpoint's parameters.
 - `imls_sdf` on 300 oriented points, k = 8: within 1e-6; `PointModel.
   generate_mesh` at 24³ against JAX's on the same cloud: faces equal,
   vertices within 1e-5.
@@ -136,13 +140,41 @@ def test_raytrace_images(texture):
     assert np.all(got[..., :3][alpha == 0] == 1.0)
 
 
-def test_iso_contours_raise(models):
-    from isopoints_torch import generate_mvr
+def test_iso_contours_raise(models, tmp_path):
+    """No longer raises: the contours against JAX's, from the generator and
+    from `generate_mvr --iso-contours` (the name is kept from when both
+    raised)."""
+    import os
 
-    with pytest.raises(NotImplementedError, match="plotly"):
-        Generator(models[2]).generate_iso_contour("x.html")
-    with pytest.raises(NotImplementedError, match="plotly"):
-        generate_mvr.main(["unused.yml", "--iso-contours", "--device", "cpu"])
+    from isopoints_tpu.config import load_config as j_load
+    from isopoints_tpu.factories import create_model as j_create_model
+    from isopoints_torch import generate_mvr
+    from isopoints_torch.config import load_config
+    from isopoints_torch.factories import create_model
+    from isopoints_torch.misc.checkpoints import CheckpointIO
+    from test_torch_visualize import assert_payloads_close
+
+    jm, params, tm = models
+    Generator(tm).generate_iso_contour(str(tmp_path / "port.html"))
+    JGen(jm).generate_iso_contour(params, str(tmp_path / "jax.html"))
+    got = assert_payloads_close(str(tmp_path / "port.html"),
+                                str(tmp_path / "jax.html"), z=1e-5)
+    assert len(got) == 9 and np.asarray(got[0][0]["z"]).shape == (100, 100)
+
+    cfg_path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "synthetic_sphere_iso.yml")
+    jm2 = j_create_model(j_load(cfg_path))
+    params2 = jm2.init(jax.random.key(3))
+    tm2 = create_model(load_config(cfg_path), device="cpu")
+    tm2.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params2)))
+    run = tmp_path / "run"
+    CheckpointIO(str(run), model=tm2.state_dict()).save("model.npz")
+    generate_mvr.main([cfg_path, "--checkpoint", str(run / "model.npz"),
+                       "--mesh-resolution", "24", "--image-size", "16",
+                       "--n-views", "1", "--iso-contours", "--device", "cpu"])
+    JGen(jm2).generate_iso_contour(params2, str(tmp_path / "jax2.html"))
+    assert_payloads_close(str(run / "generation" / "iso_contour.html"),
+                          str(tmp_path / "jax2.html"), z=1e-5)
 
 
 def _cloud(n=300, seed=5):

@@ -251,3 +251,25 @@ def test_obj_and_load_mesh_against_jax(tmp_path):
     tio.save_ply(cloud, _cloud()[0])
     with pytest.raises(ValueError, match="not a mesh"):
         tio.load_mesh(cloud)
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_save_ply_property_against_jax(tmp_path, binary):
+    """Points coloured by a scalar through "jet", the scalar as `quality`:
+    the port's file equals JAX's byte for byte."""
+    rng = np.random.RandomState(4)
+    pts = rng.normal(size=(40, 3)).astype(np.float32)
+    nrm = rng.normal(size=(40, 3)).astype(np.float32)
+    prop = rng.uniform(-2, 3, 40).astype(np.float32)
+    prop[3] = np.nan
+    tio.save_ply_property(str(tmp_path / "t.ply"), pts, prop, normals=nrm,
+                          binary=binary)
+    jio.save_ply_property(str(tmp_path / "j.ply"), pts, prop, normals=nrm,
+                          binary=binary)
+    with open(tmp_path / "t.ply", "rb") as a, open(tmp_path / "j.ply", "rb") as b:
+        assert a.read() == b.read()
+    got = tio.read_ply(str(tmp_path / "t.ply"))
+    # ascii keeps the printed digits of a float32
+    np.testing.assert_allclose(got["quality"], prop, rtol=0 if binary else 1e-7,
+                               atol=0)
+    assert got["colors"].shape == (40, 3)

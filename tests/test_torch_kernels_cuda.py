@@ -926,6 +926,44 @@ def test_ray_trace_igr_schedule_kernels(dev):
     assert _close_frac(a.dists, p.dists, 1e-4) >= 0.98
 
 
+@pytest.mark.parametrize("coarse", [False, True])
+def test_presweep_route_kernels_match_plain(dev, coarse):
+    """The certify-then-sweep sampler on the kernels: the presweep grid on
+    fused_igr (chunked), the compacted dense pass in the sampler kernel.
+    Bit for bit the route with the sampler's plain sweep over the fused
+    callable (the sampler kernel equals sweep_plain over it), and within
+    the trace bars of every plain version."""
+    field, sdf = _igr(dev)
+    fn_c = fused_mlp.make_fused_igr_sdf(field, "bf16") if coarse else None
+    cam, d, _, _ = _rays(dev, 4096)
+    cam, d = cam.reshape(1, -1, 3), d.reshape(1, -1, 3)
+    gt = torch.ones(d.shape[:2], dtype=torch.bool, device=dev)
+    cfg = RayTracingConfig(sphere_tracing_iters=6, sampler_presweep=26,
+                           sampler_dense_fraction=0.9, sampler_chunk_rays=1024,
+                           sampler_coarse=coarse,
+                           sampler_coarse_margin=2e-3 if coarse else 0.0,
+                           sampler_in_kernel=True)
+    with torch.no_grad():
+        igr0, smp0 = fused_mlp.IGR_KERNEL.launches, fused_sampler.KERNEL.launches
+        a = ray_trace(sdf, cam, d, gt, None, cfg, training=False,
+                      sdf_fn_coarse=fn_c)
+        assert fused_mlp.IGR_KERNEL.launches > igr0
+        assert fused_sampler.KERNEL.launches == smp0 + 1
+        b = ray_trace(sdf, cam, d, gt, None,
+                      dataclasses.replace(cfg, sampler_in_kernel=False),
+                      training=False, sdf_fn_coarse=fn_c)
+        p = ray_trace(lambda x: fused_mlp.igr_sdf_plain(sdf.pack, x), cam, d,
+                      gt, None, cfg, training=False,
+                      sdf_fn_coarse=(lambda x: fused_mlp.igr_sdf_plain(
+                          sdf.pack, x, True)) if coarse else None)
+    assert int(a.sampler_overflow) == 0 and int(a.sampler_mask.sum()) > 0
+    assert torch.equal(a.network_object_mask, b.network_object_mask)
+    assert torch.equal(a.dists, b.dists)
+    agree = a.network_object_mask == p.network_object_mask
+    assert float(agree.float().mean()) >= 0.99
+    assert _close_frac(a.dists, p.dists, 1e-4) >= 0.98
+
+
 def _igr_reference(dev):
     """The outputs saved from the IGR kernels before the tile took the
     activation and the row groups as parameters and the f32 mode's sums

@@ -10,7 +10,11 @@ factories.py) against the JAX package's, on the CPU.
 - Both rigs, directional and point, with and without specular, on cameras
   from `look_at_view_transform`: every light array within 1e-6.
 - `create_lights` on no block, a directional block and a point block.
-- `create_animation` raises, naming plotly.
+- `create_animation` over saved `*_iso.ply` / `*_mesh.ply` snapshots (and a
+  point cloud named `_mesh.ply` without faces, which both skip), with and
+  without `show_max`: pts_animation.html and mesh_animation.html against
+  JAX's, trace by trace, arrays within 1e-6; an empty directory writes
+  nothing in either.
 """
 
 import jax.numpy as jnp
@@ -100,6 +104,37 @@ def test_create_lights(block):
     assert_lights_close(j_create_lights(cfg), t_create_lights(cfg))
 
 
-def test_create_animation_raises():
-    with pytest.raises(NotImplementedError, match="plotly"):
-        tr.create_animation("/nonexistent")
+def test_create_animation_raises(tmp_path):
+    """No longer raises: the animations against JAX's (the name is kept
+    from when it raised)."""
+    _animations_match_jax(tmp_path, -1)
+
+
+def test_create_animation_show_max(tmp_path):
+    _animations_match_jax(tmp_path, 2)
+
+
+def _animations_match_jax(tmp_path, show_max):
+    import shutil
+
+    from isopoints_torch.utils.io import save_ply
+    from test_torch_visualize import assert_payloads_close
+
+    rng = np.random.RandomState(show_max + 2)
+    src = tmp_path / "snap"
+    for it in range(3):
+        save_ply(str(src / f"{it:010d}_iso.ply"),
+                 rng.normal(size=(20 + it, 3)).astype(np.float32))
+        save_ply(str(src / f"{it:010d}_mesh.ply"),
+                 rng.normal(size=(9, 3)).astype(np.float32),
+                 faces=rng.randint(0, 9, (4 + it, 3)))
+    save_ply(str(src / "9999999999_mesh.ply"), rng.normal(size=(5, 3)))
+    shutil.copytree(src, tmp_path / "jax")
+    tr.create_animation(str(src), show_max=show_max)
+    jr.create_animation(str(tmp_path / "jax"), show_max=show_max)
+    for name in ("pts_animation.html", "mesh_animation.html"):
+        got = assert_payloads_close(str(src / name), str(tmp_path / "jax" / name))
+        assert len(got[0]) == 1
+    (tmp_path / "empty").mkdir()
+    tr.create_animation(str(tmp_path / "empty"))
+    assert not list((tmp_path / "empty").iterdir())

@@ -113,12 +113,8 @@ def test_sphere_intersection_matches_jax(setup):
     ("sampler_presweep", 8), ("trace_in_kernel", True),
     ("sampler_fraction", 0.5), ("trace_gate_end_front", True)])
 def test_unported_config_values_raise(field, value):
-    """Only the presweep is still unported; the production schedule's
-    values construct and keep their value."""
-    if field == "sampler_presweep":
-        with pytest.raises(NotImplementedError):
-            trt.RayTracingConfig(**{field: value})
-    else:
-        assert getattr(trt.RayTracingConfig(**{field: value}), field) == value
+    """Every value is ported: the production schedule's values and the
+    presweep construct and keep their value."""
+    assert getattr(trt.RayTracingConfig(**{field: value}), field) == value
     # the JAX config keeps the same field names
     assert field in {f.name for f in dataclasses.fields(jrt.RayTracingConfig)}

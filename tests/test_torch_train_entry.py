@@ -9,7 +9,9 @@ from a 6-view 32-px torus directory written by the port. Held here:
 - `CheckpointIO`: nested state (a state_dict, the Adam NamedTuple, bare
   tensors, numpy arrays, ints) round-trips bit for bit; the non-strict
   load warns and keeps the template on a missing entry or another shape;
-  the orbax backend raises; `backup_model_best`.
+  the orbax backend (a torch.distributed.checkpoint directory,
+  `<stem>.orbax`) restores the same state bit for bit; an unknown backend
+  raises ValueError; `backup_model_best`.
 - Resume: 3 + 3 iterations equal 6 uninterrupted ones bit for bit (every
   metrics row but its time stamp, the parameters, the Adam state, the
   iso-point buffer and its spacing, the four saliency arrays, the
@@ -19,7 +21,13 @@ from a 6-view 32-px torus directory written by the port. Held here:
   with code 3 after a checkpoint holding the steps taken; `--fresh-keys`
   draws differently; a fresh start beside a stale model_best.npz adopts
   nothing; the hang watchdog is armed each iteration and cancelled on
-  return and on exit.
+  return and on exit. With `training.checkpoint_backend: orbax` a 3 + 3
+  run resumes from model.orbax and ends bit for bit where the npz run of 6
+  ends. `--restart-every-resample` exits with code 4 before the resample
+  boundaries at 2 and 4 (not at the iteration it resumed from); relaunched
+  until done, it ends bit for bit where the uninterrupted run ends, its
+  metrics rows, parameters, Adam state, buffer, spacing, saliency state
+  (the lossS arm's) and generator state included.
 - `saliency_ref_gt` seeds the reference cloud from the data's GT points.
 - `MetricsWriter` / `load_metrics` against JAX's; `--n-devices 2` without a
   torchrun launch raises, `--n-devices 0` and `--multihost` run on the one
@@ -174,8 +182,34 @@ def test_checkpoint_round_trip_and_non_strict_load(tmp_path, warnings_seen):
     shutil.copy(path, tmp_path / "model_best.npz")
     backup = ck3.backup_model_best()
     assert backup is not None and os.path.exists(backup)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        CheckpointIO(str(tmp_path), backend="orbax")
+    # the orbax backend: a directory at the JAX rule's path, the same state
+    ck4 = CheckpointIO(str(tmp_path / "o"), backend="orbax", model=net.state_dict(),
+                       opt=opt, points=pts, points_mask=mask,
+                       extra={"a": arr, "n": 3}, none=None)
+    opath = ck4.save("model.npz", it=5, rng_state=np.arange(4, dtype=np.uint8))
+    assert opath == str(tmp_path / "o" / "model.orbax") and os.path.isdir(opath)
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    _assert_same_npz(ck4.read("model"), flat)
+    assert {k: v[0] for k, v in ck4.saved_arrays("model").items()} == {
+        k: v.shape for k, v in flat.items()}
+    ck5 = CheckpointIO(str(tmp_path / "o"), backend="orbax",
+                       model=fresh.state_dict(),
+                       opt=AdamState(0, zeros(opt.mu), zeros(opt.nu)),
+                       points=torch.zeros(1, 10, 3),
+                       points_mask=torch.zeros(1, 10, dtype=torch.bool),
+                       extra={"a": np.zeros((2, 3), np.float32), "n": 0}, none=None)
+    o_scalars = ck5.load("model.npz")
+    assert o_scalars["it"] == 5 and o_scalars["rng_state"].tolist() == [0, 1, 2, 3]
+    got = ck5.registry["opt"]
+    assert got.count == 7 and isinstance(got.count, int)
+    for k in opt.mu:
+        assert torch.equal(got.mu[k], opt.mu[k]) and torch.equal(got.nu[k], opt.nu[k])
+    assert torch.equal(ck5.registry["points"], pts)
+    assert torch.equal(ck5.registry["points_mask"], mask)
+    assert ck5.registry["extra"]["n"] == 3
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        CheckpointIO(str(tmp_path), backend="pickle")
 
 
 def test_generator_chain_state_round_trip():
@@ -283,6 +317,41 @@ def test_watchdog_armed_and_cancelled(setup, tmp_path, monkeypatch):
     monkeypatch.setenv("ISOPOINTS_WATCHDOG_S", "0")
     _train(cfgs[False], tmp_path / "c", 1)
     assert calls == []
+
+
+def test_orbax_backend_resumes_bit_for_bit(setup, tmp_path):
+    """A lossS run with `checkpoint_backend: orbax`, 3 + 3 iterations,
+    against the npz run of 6: the rows and every checkpoint entry equal."""
+    _, cfgs, _ = setup
+    cfg = tmp_path / "orbax.yml"
+    with open(cfgs[False]) as f:
+        cfg.write_text(f.read().replace("training:\n", "training:\n  checkpoint_backend: orbax\n"))
+    _train(str(cfg), tmp_path / "o", 3)
+    assert os.path.isdir(tmp_path / "o" / "model.orbax")
+    assert not os.path.exists(tmp_path / "o" / "model.npz")
+    _train(str(cfg), tmp_path / "o", 6)
+    _train(cfgs[False], tmp_path / "n", 6)
+    assert _rows(tmp_path / "o") == _rows(tmp_path / "n")
+    saved = CheckpointIO(str(tmp_path / "o"), backend="orbax").read("model")
+    _assert_same_npz(saved, _npz(tmp_path / "n"))
+
+
+def test_restart_every_resample(setup, tmp_path):
+    _, cfgs, _ = setup
+    exits = []
+    while True:
+        try:
+            run = _train(cfgs[False], tmp_path / "r", 6, "--restart-every-resample")
+            break
+        except SystemExit as e:
+            assert e.code == 4
+            exits.append(int(_npz(tmp_path / "r")["scalar:it"]))
+    assert exits == [2, 4] and run.state.it == 6
+    full = _train(cfgs[False], tmp_path / "full", 6)
+    assert _rows(tmp_path / "r") == _rows(tmp_path / "full")
+    _assert_same_npz(_npz(tmp_path / "r"), _npz(tmp_path / "full"))
+    assert "saliency:ref_stat_mean" in _npz(tmp_path / "r")
+    assert torch.equal(run.trainer.ref_stat_mean, full.trainer.ref_stat_mean)
 
 
 def test_saliency_reference_from_gt_points(setup, tmp_path):

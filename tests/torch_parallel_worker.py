@@ -9,6 +9,9 @@ through a `FileStore` at `store`, runs `task` on the inputs of the npz file
   draws, with the views replicated or, for "step_views", sharded (each rank
   passes its half of the views);
 - "newton": the sharded Newton projection on the sphere SDF;
+- "checkpoint": `CheckpointIO(backend="orbax")` saved and loaded by both
+  ranks: replicated parameters and an Adam state with non-zero moments,
+  and a DTensor sharded by rows over the two ranks;
 - "entry": `train_mvr.main` with `--n-devices 2`, as torchrun launches it
   (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT set; the entry makes the
   group).
@@ -100,6 +103,41 @@ def newton(mesh, inp):
     return out
 
 
+def checkpoint(mesh, inp):
+    """Save the registry of `inp` with the orbax backend under the group,
+    load it into zeroed templates, and return what came back (the DTensor
+    as this rank's shard)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from isopoints_torch.misc.checkpoints import CheckpointIO
+    from isopoints_torch.training.trainer import AdamState
+
+    t = lambda k: torch.from_numpy(np.array(inp[k]))
+    dmesh = init_device_mesh("cpu", (mesh.size,))
+    names = [k[3:] for k in inp if k.startswith("mu:")]
+    opt = AdamState(int(inp["count"]), {k: t("mu:" + k) for k in names},
+                    {k: t("nu:" + k) for k in names})
+    rows = distribute_tensor(t("rows"), dmesh, [Shard(0)])
+    d = str(inp["dir"])
+    path = CheckpointIO(d, backend="orbax", model={"w": t("w")}, opt=opt,
+                        rows=rows).save("model.npz", it=int(inp["it"]))
+    zero = lambda x: torch.zeros_like(x)
+    ck = CheckpointIO(d, backend="orbax", model={"w": zero(t("w"))},
+                      opt=AdamState(0, {k: zero(v) for k, v in opt.mu.items()},
+                                    {k: zero(v) for k, v in opt.nu.items()}),
+                      rows=distribute_tensor(zero(t("rows")), dmesh, [Shard(0)]))
+    scalars = ck.load("model")
+    r = ck.registry
+    assert isinstance(r["rows"], DTensor) and r["rows"].placements == (Shard(0),)
+    out = {"path": np.array(path), "it": np.int64(scalars["it"]),
+           "count": np.int64(r["opt"].count), "w": r["model"]["w"].numpy(),
+           "rows_local": r["rows"].to_local().numpy()}
+    out.update({f"mu:{k}": v.numpy() for k, v in r["opt"].mu.items()})
+    out.update({f"nu:{k}": v.numpy() for k, v in r["opt"].nu.items()})
+    return out
+
+
 def run(rank, world, store, task, inp, out):
     torch.set_num_threads(1)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -126,6 +164,8 @@ def run(rank, world, store, task, inp, out):
     assert (mesh.size, mesh.rank) == (world, rank)
     if task == "newton":
         res = newton(mesh, arrays)
+    elif task == "checkpoint":
+        res = checkpoint(mesh, arrays)
     else:
         res = port_step(mesh, arrays, views_sharded=task == "step_views")
     np.savez(out % rank, **res)
