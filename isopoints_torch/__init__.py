@@ -15,8 +15,15 @@ Entry points run on `cuda` unless the caller passes `device="cpu"`.
 
 __version__ = "0.1.0"
 
+from isopoints_torch.debug import (
+    DebugState,
+    get_debugging_mode,
+    get_debugging_tensor,
+    set_debugging_mode_,
+)
 from isopoints_torch.logger import get_logger
 from isopoints_torch.rng import GeneratorChain, set_deterministic_seed
 
-__all__ = ["get_logger", "GeneratorChain", "set_deterministic_seed",
-           "__version__"]
+__all__ = ["get_logger", "DebugState", "set_debugging_mode_",
+           "get_debugging_mode", "get_debugging_tensor", "GeneratorChain",
+           "set_deterministic_seed", "__version__"]

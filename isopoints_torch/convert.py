@@ -12,9 +12,9 @@ optimiser sees the same parametrisation as the JAX one. Extra heads
 (`out_dims`) and latent-code columns (`c_dim`) come across with their
 layers: the head's rows and the first layer's columns in the JAX order,
 which the port's `_split_output` and code concatenation read. An occupancy
-decoder's tree (`{"fc_in", "blocks": [{"fc0", "fc1"}], "fc_out"}`,
-isopoints_tpu/models/fields.py:346-365) maps to the same names in the
-port's `OccupancyField`. `load_jax_npz`
+decoder's tree (`{"fc_in", "blocks": [{"fc0", "fc1"}], "fc_out"}` and,
+with a code, `"fc_c": [...]`; isopoints_tpu/models/fields.py:346-365) maps
+to the same names in the port's `OccupancyField`. `load_jax_npz`
 reads the same tree from a JAX `model.npz` checkpoint
 (isopoints_tpu/misc/checkpoints.py: keys `model:['decoder']['layers'][0]['w']`).
 `point_params_from_jax` maps the point model's pytree
@@ -63,6 +63,8 @@ def _occupancy(module: str, sub: Dict) -> Dict[str, torch.Tensor]:
     for i, blk in enumerate(sub["blocks"]):
         for name in ("fc0", "fc1"):
             out.update(_linear(f"{module}.blocks.{i}.{name}", blk[name], False))
+    for i, lp in enumerate(sub.get("fc_c", [])):
+        out.update(_linear(f"{module}.fc_c.{i}", lp, False))
     return out
 
 

@@ -26,16 +26,22 @@ def _f32(v, device) -> torch.Tensor:
 @dataclass(frozen=True)
 class PerspectiveCamera:
     """B cameras: R (B, 3, 3), T (B, 3), focal_length / principal_point
-    (B, 2) in NDC units."""
+    (B, 2) in NDC units. `znear` / `zfar` bound the view depths that the
+    rasterizer renders; they are plain floats shared by the batch, as the
+    JAX camera keeps them static (camera.py:41-42), so `dataclasses.replace`
+    carries them and `parallel.data.form_global_batch` leaves them alone."""
 
     R: torch.Tensor
     T: torch.Tensor
     focal_length: torch.Tensor
     principal_point: torch.Tensor
+    znear: float = 0.1
+    zfar: float = 100.0
 
     @classmethod
     def create(cls, R=None, T=None, focal_length=1.0,
                principal_point=(0.0, 0.0), batch_size: Optional[int] = None,
+               znear: float = 0.1, zfar: float = 100.0,
                device=None) -> "PerspectiveCamera":
         R = torch.eye(3, device=device)[None] if R is None else _f32(R, device)
         if R.dim() == 2:
@@ -62,7 +68,8 @@ class PerspectiveCamera:
             pp = pp[None]
         if pp.shape[0] == 1 and b > 1:
             pp = pp.repeat(b, 1)
-        return cls(R=R, T=T, focal_length=fl, principal_point=pp)
+        return cls(R=R, T=T, focal_length=fl, principal_point=pp,
+                   znear=float(znear), zfar=float(zfar))
 
     @property
     def batch_size(self) -> int:
@@ -77,18 +84,37 @@ class PerspectiveCamera:
         return (torch.einsum("b...i,bij->b...j", pts, self.R)
                 + self._expand(self.T, pts.dim()))
 
+    def view_to_world(self, pts_view: torch.Tensor) -> torch.Tensor:
+        """View coords (B, ..., 3) -> world (camera.py:89-93): (X − T) Rᵀ,
+        R orthonormal."""
+        return torch.einsum("b...i,bij->b...j",
+                            pts_view - self._expand(self.T, pts_view.dim()),
+                            self.R.transpose(-1, -2))
+
     def camera_center(self) -> torch.Tensor:
         """World-space camera centers (B, 3): C = −T Rᵀ."""
         return -torch.einsum("bi,bji->bj", self.T, self.R)
 
-    def project_ndc(self, pts: torch.Tensor) -> torch.Tensor:
-        """World -> (..., 3) [x_ndc, y_ndc, view-space depth z]."""
+    def project_ndc(self, pts: torch.Tensor,
+                    with_view_depth: bool = True) -> torch.Tensor:
+        """World -> (..., 3) [x_ndc, y_ndc, depth] (camera.py:99-111): the
+        depth is the view-space z (the rasterizer convention), or with
+        `with_view_depth` False 1/z of the guarded z."""
         view = self.world_to_view(pts)
         z = eps_denom(view[..., 2:3], 1e-8)
         fl = self._expand(self.focal_length, pts.dim())
         pp = self._expand(self.principal_point, pts.dim())
         xy = view[..., :2] / z * fl + pp
-        return torch.cat([xy, view[..., 2:3]], dim=-1)
+        d = view[..., 2:3] if with_view_depth else 1.0 / z
+        return torch.cat([xy, d], dim=-1)
+
+    def pixels_to_rays(self, pix_xy: torch.Tensor, image_size):
+        """Pixel coordinates (B, N, 2) (x = col, y = row, pixel centres) ->
+        (centers (B, 3), unit dirs (B, N, 3)) (camera.py:113-125);
+        image_size (H, W)."""
+        h, w = image_size
+        sizes = torch.tensor([w, h], dtype=pix_xy.dtype, device=pix_xy.device)
+        return self.ndc_to_rays(-(2.0 * pix_xy + 1.0 - sizes) / sizes)
 
     def ndc_to_rays(self, ndc_xy: torch.Tensor):
         """NDC points (B, N, 2) -> (centers (B, 3), unit dirs (B, N, 3))."""

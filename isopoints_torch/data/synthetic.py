@@ -191,13 +191,16 @@ def render_mesh_view(verts: torch.Tensor, faces: torch.Tensor,
 def make_mesh_mvr(verts: np.ndarray, faces: np.ndarray, n_views: int = 24,
                   image_size: int = 64, dist: float = 2.0, focal: float = 2.0,
                   seed: int = 0, batch: int = 4, norm_radius: float = 0.7,
-                  n_gt_points: int = 20000, device="cuda") -> Dict[str, np.ndarray]:
+                  n_gt_points: int = 20000, normalize: bool = True,
+                  device="cuda") -> Dict[str, np.ndarray]:
     """In-memory MVR dataset of a triangle mesh (synthetic.py:173-229):
-    the mesh normalised into the sphere of `norm_radius`, `n_views` views
+    the mesh normalised into the sphere of `norm_radius` (taken as it is,
+    in float32, with `normalize` False), `n_views` views
     at elevations drawn from `np.random.RandomState(seed)` and evenly
     spaced azimuths, `batch` views a ray cast on `device`, GT samples with
     their face normals, and the normalised mesh."""
-    verts = normalize_mesh(verts, norm_radius)
+    verts = (normalize_mesh(verts, norm_radius) if normalize
+             else np.asarray(verts, np.float32))
     faces = np.asarray(faces)
     verts_d = torch.as_tensor(verts, device=device)
     faces_d = torch.as_tensor(faces.astype(np.int64), device=device)

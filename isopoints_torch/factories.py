@@ -110,10 +110,11 @@ def create_trainer(model, cfg: AttrDict, seed: int = 0, device="cuda",
                       views_sharded=views_sharded)
 
 
-def create_dataset(cfg: AttrDict, device="cuda"):
+def create_dataset(cfg: AttrDict, mode: str = "train", device="cuda"):
     """The dataset of `data.type` (factories.py:102-126): an `MVRDataset`
     or a `DTUDataset` directory, or the in-memory arrays of a synthetic
-    `sphere | torus | box` rendered on `device`."""
+    `sphere | torus | box` rendered on `device`. `mode` is accepted and
+    not read, as in the JAX function."""
     dtype = cfg.data.get("type", "MVR")
     if dtype in ("MVR", "DTU"):
         from isopoints_torch.data.dataset import DTUDataset, MVRDataset

@@ -214,13 +214,17 @@ class CombinedModel(ImplicitModel):
     # ------------------------------------------------------------------
     def forward(self, ndc_pixels, img, mask_img, camera: PerspectiveCamera,
                 u: Optional[torch.Tensor], points=None, points_mask=None,
-                lights=None, project: bool = True, training: bool = True,
+                lights=None, project: bool = True,
+                sample_iso_offsurface: bool = True, training: bool = True,
                 draws: Optional[ProjectedDraws] = None, spacing=None):
         """Returns (ModelOutput, new_points, new_points_mask).
 
         `u`: the warm-up path's min-SDF step fractions; `draws`: the
         projected path's random numbers; `spacing`: a cached
-        `splat_spacing` of `points` (computed here when None)."""
+        `splat_spacing` of `points` (computed here when None). Without
+        `sample_iso_offsurface` the off-surface samples are skipped: the
+        free-space and occupancy points are the on-surface ones, both masks
+        False (combined.py:304-314)."""
         if not project or points is None:
             # warm-up / no iso-points: the pure IDR path (combined.py:272-276)
             out = super().forward(ndc_pixels, img, mask_img, camera, u,
@@ -244,11 +248,15 @@ class CombinedModel(ImplicitModel):
             iso_pts, iso_mask, mask_img, camera, training=training)
         # the pixel-gradient tap (isopoints_tpu/models/combined.py:300-302)
         ons_pts = tap_grad("iso", ons_pts)
-        p_free, free_mask, p_ins, ins_mask = \
-            self.sample_offsurface_using_isopoints(
-                f_trace, ndc_pixels, mask_img, iso_pts, iso_mask, points,
-                points_mask, camera, draws.ray_uniform, pts_normals, frontal,
-                spacing=spacing)
+        if sample_iso_offsurface:
+            p_free, free_mask, p_ins, ins_mask = \
+                self.sample_offsurface_using_isopoints(
+                    f_trace, ndc_pixels, mask_img, iso_pts, iso_mask, points,
+                    points_mask, camera, draws.ray_uniform, pts_normals,
+                    frontal, spacing=spacing)
+        else:
+            p_free = p_ins = ons_pts.detach()
+            free_mask = ins_mask = torch.zeros_like(ons_mask)
 
         normals = self.normals_from_grad(ons_pts)
         rgb = self.decode_color(ons_pts, normals, camera, lights)

@@ -78,26 +78,28 @@ def _uniform_linear(in_d: int, out_d: int, bound: float,
 
 class SirenField(nn.Module):
     """SIREN MLP (reference common.py:56-167; fields.py:129-180): first
-    SineLayer(3 + c_dim -> h), `n_layers` hidden SineLayers, a linear head
+    SineLayer(dim + c_dim -> h), `n_layers` hidden SineLayers, a linear head
     to the `out_dims` channels (default the SDF alone), optionally a sine
     head (`outermost_linear=False`) and a final tanh (rgb (x + 1)/2) or
     sigmoid; without one, rgb takes a sigmoid. A latent code `c` is
     concatenated before the points. Init as the JAX field: first layer
-    U(±1/(3 + c_dim)), the rest U(±√(6/h)/ω), zero biases."""
+    U(±1/(dim + c_dim)), the rest U(±√(6/h)/ω), zero biases. `dim` is the
+    points' dimension (3)."""
 
     def __init__(self, hidden_size: int = 256, n_layers: int = 3,
                  first_omega_0: float = 30.0, hidden_omega_0: float = 30.0,
                  out_dims: Optional[Dict[str, int]] = None, c_dim: int = 0,
                  outermost_linear: bool = True,
-                 activation: Optional[str] = None,
+                 activation: Optional[str] = None, dim: int = 3,
                  generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
         self.out_dims = dict(out_dims or {"sdf": 1})
         _validate_out_dims(self.out_dims)
         self.out_dim = sum(self.out_dims.values())
+        self.dim = dim
         self.c_dim = c_dim
-        self.in_dim = 3 + c_dim
+        self.in_dim = dim + c_dim
         self.hidden_size = hidden_size
         self.n_layers = n_layers
         self.first_omega_0 = first_omega_0
@@ -115,9 +117,10 @@ class SirenField(nn.Module):
 
     @property
     def sdf_only(self) -> bool:
-        """A linear SDF head alone, no code: what the fused kernels take."""
+        """A linear SDF head alone on 3-d points, no code: what the fused
+        kernels take."""
         return (self.out_dim == 1 and self.activation is None
-                and self.outermost_linear and self.c_dim == 0)
+                and self.outermost_linear and self.c_dim == 0 and self.dim == 3)
 
     def heads(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
               ) -> FieldOutput:
@@ -358,15 +361,21 @@ class RenderingNetwork(nn.Module):
 
 class OccupancyField(nn.Module):
     """ONet-style occupancy decoder (fields.py:330-385): fc_in (dim -> h),
-    `n_blocks` ResNet blocks h + fc1(relu(fc0(relu(h)))), and fc_out on
-    relu(h) to one raw logit. Init as the JAX field: U(±1/√fan_in) weights,
-    zero biases, and every block's fc1 zero (ONet's zero-initialised second
-    layer). The JAX field's conditional code (`c_dim`) and rgb head are not
-    ported: the occupancy model uses neither."""
+    `n_blocks` ResNet blocks h + fc1(relu(fc0(relu(h)))), each first adding
+    fc_c[i](c) of a conditional code when `c_dim` > 0 and a code is given,
+    and fc_out on relu(h) to the `out_dims` channels (default one raw
+    occupancy logit; rgb takes a sigmoid). Init as the JAX field:
+    U(±1/√fan_in) weights, zero biases, and every block's fc1 zero (ONet's
+    zero-initialised second layer)."""
 
     def __init__(self, dim: int = 3, hidden_size: int = 512, n_blocks: int = 5,
+                 c_dim: int = 0, out_dims: Optional[Dict[str, int]] = None,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        self.out_dims = dict(out_dims or {"occupancy": 1})
+        _validate_out_dims(self.out_dims)
+        self.out_dim = sum(self.out_dims.values())
+        self.c_dim = c_dim
         h = hidden_size
 
         def lin(i, o, zero=False):
@@ -374,17 +383,29 @@ class OccupancyField(nn.Module):
                                    generator, device)
 
         self.fc_in = lin(dim, h)
-        self.fc_out = lin(h, 1)
+        self.fc_out = lin(h, self.out_dim)
         self.blocks = nn.ModuleList(
             [nn.ModuleDict({"fc0": lin(h, h), "fc1": lin(h, h, zero=True)})
              for _ in range(n_blocks)])
+        if c_dim > 0:
+            self.fc_c = nn.ModuleList([lin(c_dim, h) for _ in range(n_blocks)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., 3) -> raw occupancy logits (..., 1)."""
+    def heads(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+              ) -> FieldOutput:
+        """x (..., dim), c (..., c_dim) -> the heads (JAX `apply`,
+        fields.py:367-376); occupancy stays a raw logit."""
         h = self.fc_in(x)
-        for blk in self.blocks:
+        for i, blk in enumerate(self.blocks):
+            if self.c_dim > 0 and c is not None:
+                h = h + self.fc_c[i](c)
             h = h + blk["fc1"](torch.relu(blk["fc0"](torch.relu(h))))
-        return self.fc_out(torch.relu(h))
+        return _split_output(self.fc_out(torch.relu(h)), self.out_dims,
+                             sigmoid_rgb=True)
+
+    def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """x (..., dim) -> raw occupancy logits (..., 1)."""
+        return self.heads(x, c).occupancy
 
 
 def field_grad(apply_sdf: Callable[[torch.Tensor], torch.Tensor]

@@ -1,6 +1,7 @@
 """Implicit scene model: SDF decoder + texture + ray engine (port of
-isopoints_tpu/models/implicit.py:66-325: the IDR training forward and the
-DVR-style `pixels_to_world`).
+isopoints_tpu/models/implicit.py:66-341: the IDR training forward, the
+DVR-style `pixels_to_world`, the min-SDF `sample_world_points` and
+`get_point_clouds`).
 
 The decoder is an `nn.Module`; the model's methods take tensors and an
 explicit camera. Tracing is no-grad by design: `trace_sdf_fn` returns the
@@ -24,9 +25,11 @@ from torch import nn
 
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.debug import tap_grad
-from isopoints_torch.models.fields import RenderingNetwork, sdf_and_grad
+from isopoints_torch.models.fields import (FieldOutput, RenderingNetwork,
+                                           sdf_and_grad)
 from isopoints_torch.models.levelset import (ProjectionConfig,
-                                             directional_sample_network)
+                                             directional_sample_network,
+                                             project_points, sample_network)
 from isopoints_torch.models.raytracing import (
     RayTracingConfig, find_zero_crossing_between_point_pairs,
     intersection_with_unit_cube, ray_trace, sphere_trace_along_rays)
@@ -34,6 +37,7 @@ from isopoints_torch.ops.fused_mlp import make_fused_sdf_fn
 from isopoints_torch.ops.images import sample_image_at_ndc
 from isopoints_torch.rendering.lighting import DirectionalLights
 from isopoints_torch.rendering.texture import lighting_texture, neural_texture
+from isopoints_torch.utils import linspace01
 
 
 class ModelOutput(NamedTuple):
@@ -59,6 +63,7 @@ class ModelOutput(NamedTuple):
 class ImplicitConfig:
     """Knobs of implicit_modeling.Model (implicit.py:66-91)."""
     object_bounding_sphere: float = 1.0
+    n_points_per_ray: int = 100
     proj_max_iters: int = 10
     proj_tolerance: float = 5e-5
     texture_type: str = "lighting"
@@ -120,6 +125,10 @@ class ImplicitModel(nn.Module):
                 and self.raytrace_cfg.coarse_trace_iters > 0):
             return None
         return make_fused_sdf_fn(self.decoder, precision="bf16")
+
+    def decode(self, x: torch.Tensor) -> FieldOutput:
+        """The decoder's full output, every head (implicit.py:169-170)."""
+        return self.decoder.heads(x)
 
     def normals_from_grad(self, x: torch.Tensor) -> torch.Tensor:
         """Raw SDF gradients, differentiable in θ and x."""
@@ -197,6 +206,36 @@ class ImplicitModel(nn.Module):
         occ_mask = (~res.network_object_mask) & mask_gt
         return iso_points, res.network_object_mask, free_mask, occ_mask, res
 
+    def sample_world_points(self, ndc_pixels: torch.Tensor,
+                            camera: PerspectiveCamera, mask_gt: torch.Tensor,
+                            mask_pred: Optional[torch.Tensor] = None):
+        """The min-SDF candidate a ray (implicit.py:255-280): the
+        `n_points_per_ray` evenly spaced points from the entry to the exit of
+        the padded cube, evaluated by `trace_sdf_fn()` (the fused MLP with
+        `use_fused_mlp`), the first of the lowest values picked. The pick
+        carries no gradient, so the SDF runs under no_grad; the picked point
+        stays differentiable in the camera. Returns (points (B, N, 3),
+        free_mask, occ_mask): outside the mask and inside it, both only for
+        rays in the image that hit the cube, and occupancy only where
+        `mask_pred` (when given) is False."""
+        f = self.trace_sdf_fn()
+        cam_pos = camera.camera_center()[:, None, :]
+        _, dirs = camera.ndc_to_rays(ndc_pixels)
+        entry, exit_, hit = intersection_with_unit_cube(
+            cam_pos, dirs, side_length=self.cfg.object_bounding_sphere * 2)
+        in_camera = torch.all(torch.abs(ndc_pixels) <= 1.0, dim=-1)
+        steps = linspace01(self.cfg.n_points_per_ray, ndc_pixels.device)
+        pts = entry[..., None, :] + steps[:, None] * (exit_ - entry)[..., None, :]
+        with torch.no_grad():
+            imin = torch.argmin(f(pts), dim=-1)
+        world = torch.gather(pts, 2, imin[..., None, None].expand(
+            -1, -1, 1, 3))[..., 0, :]
+        free_mask = ~mask_gt & in_camera & hit
+        occ_mask = mask_gt & in_camera & hit
+        if mask_pred is not None:
+            occ_mask = occ_mask & ~mask_pred
+        return world, free_mask, occ_mask
+
     def forward(self, ndc_pixels: torch.Tensor, img: torch.Tensor,
                 mask_img: torch.Tensor, camera: PerspectiveCamera,
                 u: Optional[torch.Tensor], lights=None,
@@ -226,3 +265,19 @@ class ImplicitModel(nn.Module):
             occupancy_mask=occ_mask, sdf_occupancy=sdf_free,
             overflow_trace=res.trace_overflow,
             overflow_sampler=res.sampler_overflow)
+
+    def get_point_clouds(self, points: torch.Tensor, mask: torch.Tensor,
+                         do_project: bool = False, attach_gradient: bool = True):
+        """Points, their SDF gradients and mask (implicit.py:328-341): with
+        `do_project` first projected onto the zero set of the plain field
+        (Newton only, no resampling or upsampling) and, with
+        `attach_gradient`, re-attached by `sample_network` so θ-gradients
+        reach the decoder. Returns (points, normals, mask)."""
+        f = self.sdf_fn()
+        if do_project:
+            res = project_points(f, points, mask, self.proj_cfg,
+                                 skip_resampling=True, skip_upsampling=True)
+            points, mask = res.points, res.mask
+            if attach_gradient:
+                points = sample_network(f, points)
+        return points, self.normals_from_grad(points), mask

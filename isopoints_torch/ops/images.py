@@ -62,11 +62,19 @@ def arange_pixels(image_size: Tuple[int, int], batch_size: int = 1,
 
 def sample_random_pixels(generator: Optional[torch.Generator], n_points: int,
                          image_size: Tuple[int, int], batch_size: int = 1,
-                         device=None) -> torch.Tensor:
-    """Random continuous pixel positions in NDC, (B, n_points, 2)
-    (sample_patch_points parity, the `continuous` case)."""
+                         device=None, continuous: bool = True) -> torch.Tensor:
+    """Random pixel positions in NDC, (B, n_points, 2) (images.py:87-101;
+    sample_patch_points parity): continuous positions in [0, W−1] × [0, H−1],
+    or with `continuous` False integer pixel centres, columns in [0, W) drawn
+    before rows in [0, H)."""
     h, w = image_size
-    u = torch.rand((batch_size, n_points, 2), generator=generator,
-                   device=device)
-    pix = u * torch.tensor([w - 1.0, h - 1.0], device=device)
+    if continuous:
+        u = torch.rand((batch_size, n_points, 2), generator=generator,
+                       device=device)
+        pix = u * torch.tensor([w - 1.0, h - 1.0], device=device)
+    else:
+        shape = (batch_size, n_points)
+        col = torch.randint(0, w, shape, generator=generator, device=device)
+        row = torch.randint(0, h, shape, generator=generator, device=device)
+        pix = torch.stack([col, row], dim=-1).float()
     return pix_to_ndc_coords(pix, (h, w))

@@ -14,12 +14,15 @@ from isopoints_torch.ops.knn import dot3
 
 
 def farthest_point_sampling(points: torch.Tensor, n_samples: int,
-                            mask: Optional[torch.Tensor] = None
+                            mask: Optional[torch.Tensor] = None,
+                            start_idx: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact FPS (sampling.py:17-60). points (B, P, 3), mask (B, P).
 
     The first pick is each cloud's first valid index (0 when none is
-    valid); each later pick is the first index of the largest distance to
+    valid), whatever `start_idx`: the JAX function takes `start_idx` and
+    never reads it (sampling.py:40-42), so neither does this one. Each later
+    pick is the first index of the largest distance to
     the picks so far, invalid points held at −1 so that they never win.
     The squared distance is an fma chain over x, y, z (`dot3`), as XLA
     forms it on the CPU.

@@ -47,16 +47,23 @@ def _gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return torch.cat(parts, 0).to(dtype)
 
 
+_WALKED = (torch.Tensor, np.ndarray, tuple, list, dict)
+
+
 def form_global_batch(local_tree: Any, mesh: Mesh, device=None) -> Any:
     """The global view batch from every rank's share (data.py:53-71): each
     tensor of `local_tree` (a tensor, numpy array, tuple, list, dict or
     dataclass such as `PerspectiveCamera`) all-gathered along its batch
-    axis in rank order. Numpy arrays go to `device` first. Without a
-    process group the tree comes back as it is, numpy as tensors."""
+    axis in rank order. Numpy arrays go to `device` first. A dataclass's
+    fields that are neither tensors nor arrays (the camera's `znear` /
+    `zfar`, static fields in JAX) stay as they are. Without a process group
+    the tree comes back as it is, numpy as tensors."""
     def place(x):
         if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            return dataclasses.replace(x, **{f.name: place(getattr(x, f.name))
-                                             for f in dataclasses.fields(x)})
+            return dataclasses.replace(x, **{
+                f.name: place(v) for f in dataclasses.fields(x)
+                if isinstance(v := getattr(x, f.name), _WALKED)
+                or dataclasses.is_dataclass(v)})
         if isinstance(x, (tuple, list)):
             return type(x)(place(v) for v in x)
         if isinstance(x, dict):

@@ -61,6 +61,11 @@ class DirectionalLights:
                    specular_color=_as_bl3(specular_color, device),
                    direction=_as_bl3(direction, device))
 
+    def light_direction(self, points: torch.Tensor) -> torch.Tensor:
+        """(B, L, 3), independent of `points` for directional lights
+        (lighting.py:77-79)."""
+        return self.direction
+
     def ambient(self) -> torch.Tensor:
         """(B, 3) summed over sources."""
         return torch.sum(self.ambient_color, dim=1)
@@ -90,9 +95,11 @@ class PointLights:
 
 
 def apply_lighting(points: torch.Tensor, normals: torch.Tensor, lights,
-                   camera_position: torch.Tensor, shininess: float = 64.0):
+                   camera_position: torch.Tensor, shininess: float = 64.0,
+                   with_specular: bool = True):
     """(ambient (B, 3), diffuse (B, P, 3), specular (B, P, 3)) for
-    `DirectionalLights` or `PointLights` (lighting.py:109-137)."""
+    `DirectionalLights` or `PointLights` (lighting.py:108-137); without
+    `with_specular` the specular term is zeros."""
     if isinstance(lights, PointLights):
         # a direction per (light, point): toward each source from the point
         n = _unit(normals)[:, None]
@@ -100,6 +107,8 @@ def apply_lighting(points: torch.Tensor, normals: torch.Tensor, lights,
         cos_angle = torch.sum(n * d, dim=-1)
         diff = torch.sum(lights.diffuse_color[:, :, None, :]
                          * torch.relu(cos_angle)[..., None], dim=1)
+        if not with_specular:
+            return lights.ambient(), diff, torch.zeros_like(points)
         reflect = 2.0 * cos_angle[..., None] * n - d
         view = _unit(camera_position[:, None, None, :] - points[:, None])
         alpha = torch.relu(torch.sum(view * reflect, dim=-1)) ** shininess
@@ -108,6 +117,8 @@ def apply_lighting(points: torch.Tensor, normals: torch.Tensor, lights,
                          dim=1)
         return lights.ambient(), diff, spec
     diff = diffuse(normals, lights.diffuse_color, lights.direction)
+    if not with_specular:
+        return lights.ambient(), diff, torch.zeros_like(points)
     spec = specular(points, normals, lights.specular_color, lights.direction,
                     camera_position, shininess)
     return lights.ambient(), diff, spec

@@ -86,11 +86,6 @@ class SplatParams(NamedTuple):
     mask: torch.Tensor      # (B, P) renderable after depth/backface filters
 
 
-# the view-depth range of the JAX camera (camera.py:41-42), which no caller
-# of the JAX package changes
-ZNEAR, ZFAR = 0.1, 100.0
-
-
 def _tangent_basis(normals: torch.Tensor) -> torch.Tensor:
     """Deterministic orthonormal (u0, u1) ⊥ n, stacked (..., 2, 3)
     (rasterizer.py:125-139)."""
@@ -134,7 +129,8 @@ def compute_splat_params(points: torch.Tensor, normals: torch.Tensor,
                          cutoff_scale: Optional[torch.Tensor] = None,
                          spacing: Optional[torch.Tensor] = None) -> SplatParams:
     """Per-point EWA parameters and the depth/backface filters
-    (rasterizer.py:164-280). Vrk: isotropic (h_k from the spacing on the
+    (rasterizer.py:164-280); the depth filter keeps view depths in
+    [camera.znear, camera.zfar]. Vrk: isotropic (h_k from the spacing on the
     tangent plane), global (`Vrk_invariant`: the renderable points' mean
     h_k), or anisotropic (`Vrk_isotropic=False`: the two tangent axes of
     `local_coord_frames` on the knn_k − 1 nearest others, scaled by their
@@ -148,7 +144,7 @@ def compute_splat_params(points: torch.Tensor, normals: torch.Tensor,
     b, p, _ = points.shape
     view = camera.world_to_view(points)
     z = view[..., 2]
-    rmask = mask & (z >= ZNEAR) & (z <= ZFAR)
+    rmask = mask & (z >= camera.znear) & (z <= camera.zfar)
     if s.backface_culling:
         normals_view = torch.einsum("bpi,bij->bpj", normals, camera.R)
         rmask = rmask & (normals_view[..., 2] < 0)

@@ -23,7 +23,9 @@ def lighting_texture(points: torch.Tensor, normals: torch.Tensor,
 
 
 def neural_texture(net: RenderingNetwork, points: torch.Tensor,
-                   normals: torch.Tensor, view_dirs: torch.Tensor) -> torch.Tensor:
+                   normals: torch.Tensor, view_dirs: torch.Tensor,
+                   latent: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Colour decoder on [normals, points, embed(view)] (texture.py:31-37;
-    reference NeuralTexture, texture.py:130-162), without a latent code."""
-    return net.apply_with_view(normals, points, view_dirs)
+    reference NeuralTexture, texture.py:130-162); `latent` (..., c_dim) is
+    the network's conditional code, put in front of the features."""
+    return net.apply_with_view(normals, points, view_dirs, c=latent)

@@ -201,17 +201,20 @@ _HEADS = {"sdf": 1, "latent": 4, "rgb": 3}
     dict(out_dims=_HEADS),
     dict(out_dims={"rgb": 3, "sdf": 1}, activation="tanh"),
     dict(out_dims=_HEADS, activation="sigmoid", outermost_linear=False),
-    dict(c_dim=5)], ids=["heads", "tanh", "sigmoid-sine-head", "latent-code"])
+    dict(c_dim=5), dict(dim=2)],
+    ids=["heads", "tanh", "sigmoid-sine-head", "latent-code", "2d-points"])
 def test_siren_heads_match_jax(kw):
     jf = JF.SirenField(hidden_size=64, n_layers=2, **kw)
     tf = TF.SirenField(hidden_size=64, n_layers=2, device="cpu", **kw)
     params = _convert(jf, tf, 1)
-    x = np.random.RandomState(4).uniform(-0.7, 0.7, (50, 3)).astype(np.float32)
+    x = np.random.RandomState(4).uniform(-0.7, 0.7, (50, kw.get("dim", 3))).astype(
+        np.float32)
     c = np.random.RandomState(5).randn(50, 5).astype(np.float32) * 0.1
     jc, tc = (J(c), T(c)) if kw.get("c_dim") else (None, None)
     _same_heads(tf.heads(T(x), tc), jf.apply(params, J(x), jc))
     _same(tf.sdf(T(x), tc).detach(), jf.sdf(params, J(x), jc), 1e-5)
     assert tf.sdf_only is False
+    assert tf.layers[0].weight.shape[1] == kw.get("dim", 3) + kw.get("c_dim", 0)
     from isopoints_torch.ops import fused_mlp
     assert fused_mlp.make_fused_sdf_fn(tf) is None       # no kernel: plain field
     with pytest.raises(ValueError, match="SDF head alone"):

@@ -172,3 +172,59 @@ def test_projected_forward_needs_its_draws(world):
     assert new_pts.shape == (1, 128, 3) and new_mask.shape == (1, 128)
     assert out.sdf_freespace.shape == (2, 4 + 128)
     assert int(out.overflow_trace) == 0
+
+
+def test_projected_forward_without_offsurface_samples(world):
+    """`sample_iso_offsurface=False` (combined.py:304-314) against JAX's, on
+    the draws JAX's key gives: the free-space and occupancy points are the
+    on-surface ones, detached, both masks False, as in JAX; the visible
+    iso-point sets agree at this file's tolerance; and the on-surface
+    outputs equal the port's own run with the off-surface samples."""
+    jm, p, tm = world["jmodel"], world["params"], world["tmodel"]
+    rng = np.random.RandomState(8)
+    ndc = rng.uniform(-0.9, 0.9, (2, N_RAYS, 2)).astype(np.float32)
+    key = jax.random.key(5)
+    jout, j_pts, j_mask = jax.jit(lambda a, b, c, d, e: jm.forward(
+        p, a, b, c, world["jcam"], key, points=d, points_mask=e, project=True,
+        sample_iso_offsurface=False))(
+            *(jnp.asarray(world[k]) if k in world else jnp.asarray(ndc)
+              for k in ("ndc", "img", "mask", "pts", "pmask")))
+    k_vis, _ = jax.random.split(key)
+    k_sel, k_off = jax.random.split(k_vis)
+    m = CCFG["max_iso_per_batch"]
+    draws = ProjectedDraws(
+        torch.from_numpy(np.array(jax.random.uniform(k_sel, world["pmask"].shape))),
+        torch.from_numpy(np.array(jax.random.uniform(k_off, (1, m, 3)))),
+        torch.rand(2, N_RAYS, generator=torch.Generator().manual_seed(0)))
+    args = (torch.from_numpy(ndc), torch.from_numpy(world["img"]),
+            torch.from_numpy(world["mask"]), world["tcam"], None)
+    kw = dict(points=torch.from_numpy(world["pts"]),
+              points_mask=torch.from_numpy(world["pmask"]), project=True,
+              draws=draws)
+    out, t_pts, t_mask = tm(*args, sample_iso_offsurface=False, **kw)
+    ref, r_pts, r_mask = tm(*args, **kw)
+    def arr(x):
+        return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    for o, name in ((out, "port"), (jout, "jax")):
+        pts_ = arr(o.iso_points)
+        for pf, fm in ((o.p_freespace, o.freespace_mask),
+                       (o.p_occupancy, o.occupancy_mask)):
+            np.testing.assert_array_equal(arr(pf), pts_, err_msg=name)
+            assert arr(fm).shape == pts_.shape[:2] and not arr(fm).any()
+    assert not out.p_freespace.requires_grad and out.iso_points.requires_grad
+    with torch.no_grad():
+        np.testing.assert_array_equal(out.sdf_freespace.numpy(),
+                                      tm.decoder.sdf(out.p_freespace).numpy())
+    # the on-surface half is the run with the off-surface samples
+    for name in ("iso_points", "iso_mask", "iso_normals", "iso_rgb", "iso_rgb_gt"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert torch.equal(t_pts, r_pts) and torch.equal(t_mask, r_mask)
+    assert ref.p_freespace.shape[1] == N_RAYS + m
+    # against JAX: the visible iso-point set, at this file's tolerance
+    jm_, tm_ = np.asarray(j_mask)[0], t_mask.numpy()[0]
+    assert jm_.sum() > 0.5 * m
+    assert abs(int(tm_.sum()) - int(jm_.sum())) <= max(2, 0.01 * m)
+    d, _ = cKDTree(t_pts.numpy()[0][tm_]).query(np.asarray(j_pts)[0][jm_])
+    assert np.mean(d <= 1e-5) >= 0.95
+    assert out.iso_points.shape == jout.iso_points.shape

@@ -19,6 +19,17 @@ a SIREN 2x64 converted from JAX parameters.
   trace ends within round-off of the tolerance, or whose normal is within
   round-off of the grazing bound, may flip), points within 1e-4 where both
   hit; in training the points carry θ-gradients to the decoder.
+- `sample_world_points` (JAX's tests/test_models.py:107-116 on the port,
+  and the port against JAX) at `n_points_per_ray` 100 and 37, on the plain
+  field and on the fused callable, with and without `mask_pred`: the free
+  and occupancy masks equal exactly; the picks equal (points within 1e-6,
+  the rays' camera centres and directions round differently by ~1e-7),
+  except where the two picks' SDF values lie within 1e-6 of each other (a
+  tie); the pick stays differentiable in the camera and carries no
+  gradient to the decoder.
+- `decode` (every head within 1e-6) and `get_point_clouds` with and
+  without projection: masks equal, points within 1e-5, normals within
+  1e-4 (ω = 30, as above); the projected points carry θ-gradients.
 """
 
 import jax
@@ -140,3 +151,90 @@ def test_pixels_to_world(field, fused, training):
         tfield.zero_grad()
     else:
         assert not tp.requires_grad
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("n,with_pred", [(100, False), (37, True)])
+def test_sample_world_points(field, fused, n, with_pred):
+    jfield, params, tfield, _ = field
+    jcam, tcam = cameras()
+    rng = np.random.RandomState(6)
+    ndc = rng.uniform(-1.15, 1.15, (2, 300, 2)).astype(np.float32)
+    mask_gt = rng.uniform(size=(2, 300)) < 0.5
+    pred = rng.uniform(size=(2, 300)) < 0.3 if with_pred else None
+    jp, jfree, jocc = JModel(jfield, cfg=JCfg(n_points_per_ray=n)).sample_world_points(
+        {"decoder": params}, jnp.asarray(ndc), jcam, jnp.asarray(mask_gt),
+        None if pred is None else jnp.asarray(pred))
+    tm = ImplicitModel(tfield, ImplicitConfig(n_points_per_ray=n,
+                                              use_fused_mlp=fused))
+    tp, tfree, tocc = tm.sample_world_points(
+        torch.tensor(ndc), tcam, torch.tensor(mask_gt),
+        None if pred is None else torch.tensor(pred))
+    np.testing.assert_array_equal(tfree.numpy(), np.asarray(jfree))
+    np.testing.assert_array_equal(tocc.numpy(), np.asarray(jocc))
+    assert tfree.sum() > 50 and tocc.sum() > 30
+    assert (~tfree & ~tocc).sum() > 20        # rays out of the image or the cube
+    jp = np.asarray(jp)
+    differ = np.abs(tp.numpy() - jp).max(-1) > 1e-6
+    assert differ.mean() <= 0.02
+    with torch.no_grad():
+        f_t, f_j = tfield.sdf(tp[differ]), tfield.sdf(torch.tensor(jp[differ]))
+    np.testing.assert_allclose(f_t.numpy(), f_j.numpy(), atol=1e-6, rtol=0)
+    assert not tp.requires_grad
+
+
+def test_sample_world_points_min_sdf_and_camera_gradient(field):
+    """JAX's test_sample_world_points_min_sdf on the port (an 8x8 pixel
+    grid, no mask): the min-SDF candidates of the free rays reach below
+    0.1; and the picks stay differentiable in the camera only."""
+    from isopoints_torch.ops.images import arange_pixels
+    _, _, tfield, _ = field
+    _, tcam = cameras()
+    _, ndc = arange_pixels((8, 8), 2)
+    tm = ImplicitModel(tfield, ImplicitConfig())
+    pts, free_m, occ_m = tm.sample_world_points(
+        ndc, tcam, torch.zeros(ndc.shape[:2], dtype=torch.bool))
+    assert not occ_m.any() and free_m.sum() > 0
+    with torch.no_grad():
+        assert float(tfield.sdf(pts)[free_m].min()) < 0.1
+    T = tcam.T.clone().requires_grad_(True)
+    import dataclasses
+    pts, _, _ = tm.sample_world_points(
+        ndc, dataclasses.replace(tcam, T=T),
+        torch.zeros(ndc.shape[:2], dtype=torch.bool))
+    pts.sum().backward()
+    assert T.grad is not None and torch.isfinite(T.grad).all() and T.grad.abs().sum() > 0
+    assert all(p.grad is None for p in tfield.parameters())
+
+
+def test_decode_and_get_point_clouds(field):
+    jfield, params, tfield, _ = field
+    rng = np.random.RandomState(7)
+    pts = rng.uniform(-0.8, 0.8, (2, 200, 3)).astype(np.float32)
+    mask = rng.uniform(size=(2, 200)) < 0.9
+    jm, tm = JModel(jfield, cfg=JCfg()), ImplicitModel(tfield, ImplicitConfig())
+    jd, td = jm.decode({"decoder": params}, jnp.asarray(pts)), tm.decode(torch.tensor(pts))
+    assert td._fields == jd._fields
+    for name in jd._fields:
+        if getattr(jd, name) is None:
+            assert getattr(td, name) is None
+        else:
+            np.testing.assert_allclose(getattr(td, name).detach().numpy(),
+                                       np.asarray(getattr(jd, name)), atol=1e-6)
+    for project in (False, True):
+        jp, jn, jmk = jm.get_point_clouds({"decoder": params}, jnp.asarray(pts),
+                                          jnp.asarray(mask), do_project=project)
+        tp, tn, tmk = tm.get_point_clouds(torch.tensor(pts), torch.tensor(mask),
+                                          do_project=project)
+        np.testing.assert_array_equal(tmk.numpy(), np.asarray(jmk))
+        np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp), atol=1e-5)
+        np.testing.assert_allclose(tn.detach().numpy(), np.asarray(jn), atol=1e-4)
+        assert tp.requires_grad == project
+    assert 0.5 < tmk.float().mean() < 1.0
+    tp[tmk].sum().backward()
+    g = tfield.layers[0].weight.grad
+    assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
+    tfield.zero_grad()
+    tp, _, _ = tm.get_point_clouds(torch.tensor(pts), torch.tensor(mask),
+                                   do_project=True, attach_gradient=False)
+    assert not tp.requires_grad

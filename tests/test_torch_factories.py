@@ -1,4 +1,5 @@
-"""The port's factories against the JAX package's on the names they refuse.
+"""The port's factories against the JAX package's on the names they refuse,
+and on the keys and arguments that both take.
 
 An unknown `model.decoder_type` and an unknown `model.type` raise
 ValueError in both packages, with the same message
@@ -61,3 +62,32 @@ def test_dotted_decoder_type_raises_not_implemented():
         with pytest.raises(ValueError) as t_err:
             create_decoder(tcfg, device="cpu")
         assert str(t_err.value) == f"unknown decoder_type {bad}"
+
+
+@pytest.mark.parametrize("n", [100, 24])
+def test_n_points_per_ray_builds_in_both(n):
+    """`implicit_kwargs.n_points_per_ray` (implicit.py:70) builds in both
+    packages and reaches the model's config."""
+    jcfg, tcfg = _configs()
+    for c in (jcfg, tcfg):
+        c.model.implicit_kwargs.update(n_points_per_ray=n)
+    assert j_create_model(jcfg).cfg.n_points_per_ray == n
+    model = create_model(tcfg, device="cpu")
+    assert model.cfg.n_points_per_ray == n
+    from isopoints_tpu.models.implicit import ImplicitConfig as JCfg
+    from isopoints_torch.models.implicit import ImplicitConfig
+    assert ImplicitConfig().n_points_per_ray == JCfg().n_points_per_ray == 100
+
+
+def test_create_dataset_takes_mode():
+    """JAX's `create_dataset(cfg, mode)` never reads `mode`; neither does
+    the port's: both modes give the same arrays."""
+    import numpy as np
+    from isopoints_torch.factories import create_dataset
+    _, tcfg = _configs()
+    tcfg.data.update(type="synthetic", sdf="sphere", n_views=2, image_size=16)
+    a = create_dataset(tcfg, "train", device="cpu")
+    b = create_dataset(tcfg, mode="val", device="cpu")
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))

@@ -7,6 +7,9 @@ factories.py) against the JAX package's, on the CPU.
   the specular power 64 of a cosine amplifies its rounding, so 1e-6 is
   absolute on values at most the light's colour), also through
   `lighting_texture`.
+- `apply_lighting(with_specular=False)` for both light types: ambient and
+  diffuse as with the specular term, the specular term exact zeros in both
+  packages; `DirectionalLights.light_direction` exact.
 - Both rigs, directional and point, with and without specular, on cameras
   from `look_at_view_transform`: every light array within 1e-6.
 - `create_lights` on no block, a directional block and a point block.
@@ -78,6 +81,31 @@ def test_point_lights_apply_lighting():
               torch.tensor(rgb)).numpy(),
         np.asarray(j_tex(jnp.asarray(pts), jnp.asarray(nrm), jlights, jnp.asarray(cam),
                          jnp.asarray(rgb))), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("point_lights", [False, True], ids=["directional", "point"])
+def test_apply_lighting_without_specular(point_lights):
+    pts, nrm, cam, kw = scene()
+    if not point_lights:
+        kw["direction"] = kw.pop("location")
+    jcls, tcls = ((jl.PointLights, tl.PointLights) if point_lights
+                  else (jl.DirectionalLights, tl.DirectionalLights))
+    jlights, tlights = jcls.create(**kw), tcls.create(**kw)
+    targs = (torch.tensor(pts), torch.tensor(nrm), tlights, torch.tensor(cam))
+    jargs = (jnp.asarray(pts), jnp.asarray(nrm), jlights, jnp.asarray(cam))
+    ja = jl.apply_lighting(*jargs, with_specular=False)
+    ta = tl.apply_lighting(*targs, with_specular=False)
+    full = tl.apply_lighting(*targs)
+    np.testing.assert_array_equal(ta[0].numpy(), np.asarray(ja[0]))
+    np.testing.assert_allclose(ta[1].numpy(), np.asarray(ja[1]), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(ta[2].numpy(), np.zeros(pts.shape, np.float32))
+    np.testing.assert_array_equal(np.asarray(ja[2]), ta[2].numpy())
+    assert torch.equal(ta[0], full[0]) and torch.equal(ta[1], full[1])
+    assert float(full[2].abs().max()) > 1e-3
+    if not point_lights:
+        np.testing.assert_array_equal(
+            tlights.light_direction(torch.tensor(pts)).numpy(),
+            np.asarray(jlights.light_direction(jnp.asarray(pts))))
 
 
 @pytest.mark.parametrize("rig", ["tri_color", "key"])

@@ -87,6 +87,22 @@ def test_make_mesh_mvr_matches_jax(compound):
     assert np.all(t["img.depth"][t["img.mask"] == 0] == 100.0)
 
 
+def test_make_mesh_mvr_without_normalizing_matches_jax(compound):
+    """`normalize=False` (synthetic.py:177, 191): the mesh is taken as it is,
+    in float32; JAX's dataset on the same mesh at the file's tolerances."""
+    verts, faces, _ = compound
+    verts = (0.6 * verts + np.float32(0.05)).astype(np.float64)
+    kw = dict(n_views=3, image_size=24, n_gt_points=300, seed=1, normalize=False)
+    j = {k: np.asarray(v) for k, v in js.make_mesh_mvr(verts, faces, **kw).items()}
+    t = ts.make_mesh_mvr(verts, faces, device="cpu", **kw)
+    assert_data_close(j, t)
+    np.testing.assert_array_equal(t["mesh_verts"], verts.astype(np.float32))
+    assert t["mesh_verts"].dtype == np.float32
+    assert not np.array_equal(t["mesh_verts"], ts.make_mesh_mvr(
+        verts, faces, device="cpu", **dict(kw, normalize=True))["mesh_verts"])
+    assert 0.02 < t["img.mask"].mean() < 0.9
+
+
 def read_back(out_dir, n_views):
     ds = MVRDataset(out_dir)
     assert len(ds) == n_views

@@ -102,6 +102,34 @@ def test_rendering_network_matches_jax(weight_norm):
                                    err_msg=name)
 
 
+def test_neural_texture_with_latent():
+    """`neural_texture(latent)` on a network with `c_dim` 5: the latent is
+    the conditional code in front of the features (texture.py:31-37);
+    colours atol 1e-6 and the latent's gradient against JAX's."""
+    jnet = JRenderingNetwork(dim=9, c_dim=5, hidden_size=32, n_layers=2)
+    params = jnet.init(jax.random.key(7))
+    tnet = RenderingNetwork(dim=9, c_dim=5, hidden_size=32, n_layers=2,
+                            device="cpu")
+    tnet.load_state_dict({k.split(".", 1)[1]: v for k, v in params_from_jax(
+        {"texture": jax.tree.map(np.asarray, params)}).items()})
+    pts, nrm, view = _inputs(seed=3)
+    lat = np.random.RandomState(4).normal(size=pts.shape[:2] + (5,)).astype(np.float32)
+    j_rgb = np.asarray(j_neural_texture(jnet, params, pts, nrm, view,
+                                        latent=jnp.asarray(lat)))
+    j_g = np.asarray(jax.grad(lambda c: jnp.sum(
+        j_neural_texture(jnet, params, pts, nrm, view, latent=c) ** 2))(jnp.asarray(lat)))
+    t_lat = torch.from_numpy(lat).requires_grad_(True)
+    rgb = neural_texture(tnet, *(torch.from_numpy(a) for a in (pts, nrm, view)),
+                         latent=t_lat)
+    np.testing.assert_allclose(rgb.detach().numpy(), j_rgb, atol=1e-6)
+    torch.sum(rgb ** 2).backward()
+    np.testing.assert_allclose(t_lat.grad.numpy(), j_g, atol=1e-6 * np.abs(j_g).max())
+    # the code changes the colours
+    rgb0 = neural_texture(tnet, *(torch.from_numpy(a) for a in (pts, nrm, view)),
+                          latent=torch.zeros_like(t_lat))
+    assert float((rgb0 - rgb).detach().abs().max()) > 1e-3
+
+
 def test_view_direction_and_refusals():
     """The camera's view direction, and the net's latent code and heads:
     its widths as JAX's, an unknown head refused."""

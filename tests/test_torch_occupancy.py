@@ -74,6 +74,32 @@ def test_occupancy_field(kw):
     np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), rtol=0, atol=1e-5)
 
 
+def test_occupancy_field_code_and_heads():
+    """`c_dim` and `out_dims` (fields.py:333-376): the code's fc_c layer
+    added in every block, an rgb head with its sigmoid beside the raw
+    occupancy logit; each head against JAX's, with and without a code."""
+    kw = dict(hidden_size=32, n_blocks=2, c_dim=4,
+              out_dims={"rgb": 3, "occupancy": 1})
+    jf = jfields.OccupancyField(**kw)
+    p = perturbed(jf.init(jax.random.key(3)), 4)
+    tf = torch_field(p, **kw)
+    assert len(tf.fc_c) == 2 and tf.fc_out.weight.shape == (4, 32)
+    rng = np.random.RandomState(5)
+    x = rng.uniform(-1, 1, (2, 60, 3)).astype(np.float32)
+    c = rng.normal(size=(2, 60, 4)).astype(np.float32)
+    for code in (c, None):
+        j = jf.apply(p, jnp.asarray(x), None if code is None else jnp.asarray(code))
+        t = tf.heads(torch.tensor(x), None if code is None else torch.tensor(code))
+        for name in ("rgb", "occupancy"):
+            np.testing.assert_allclose(getattr(t, name).detach().numpy(),
+                                       np.asarray(getattr(j, name)), rtol=0,
+                                       atol=1e-5, err_msg=name)
+        assert t.sdf is None and j.sdf is None
+    with_code = tf(torch.tensor(x), torch.tensor(c))
+    assert with_code.shape == (2, 60, 1)
+    assert float((with_code - tf(torch.tensor(x))).detach().abs().max()) > 1e-3
+
+
 def test_occupancy_field_init():
     f = tfields.OccupancyField(hidden_size=64, n_blocks=2, device="cpu",
                                generator=torch.Generator().manual_seed(0))

@@ -283,6 +283,28 @@ def test_host_sharded_views_iterator():
 # the sharded Newton projection (tests/test_parallel.py:199)
 # ---------------------------------------------------------------------------
 
+def test_form_global_batch_keeps_the_clip_planes(tmp_path):
+    """A camera with znear 0.5 and zfar 3.0, half of its views on each of 2
+    gloo ranks: R, T, the focal lengths and an image batch are gathered in
+    rank order as before, and the planes come back as the same floats (JAX
+    keeps them static, camera.py:41-42; the all-gather of 0-d tensors
+    failed)."""
+    rng = np.random.RandomState(9)
+    R = np.linalg.qr(rng.normal(size=(4, 3, 3)))[0].astype(np.float32)
+    inp = dict(R=R, T=rng.normal(size=(4, 3)).astype(np.float32),
+               focal=rng.uniform(1, 2, (4, 2)).astype(np.float32),
+               img=rng.uniform(size=(4, 5, 5, 3)).astype(np.float32))
+    for r in spawn("camera", inp, tmp_path, timeout=120):
+        for k in ("R", "T", "focal", "img"):
+            assert np.array_equal(r[k], inp[k]), k
+        np.testing.assert_array_equal(r["principal_point"], np.zeros((4, 2)))
+        assert r["planes"].tolist() == [0.5, 3.0]
+    from isopoints_torch.core.camera import PerspectiveCamera
+    one = tdata.form_global_batch(
+        PerspectiveCamera.create(R=R, znear=0.5, zfar=3.0), Mesh())
+    assert (one.znear, one.zfar) == (0.5, 3.0) and torch.equal(one.R, torch.tensor(R))
+
+
 def test_newton_sharded_matches_unsharded(tmp_path):
     rng = np.random.RandomState(2)
     inp = {}

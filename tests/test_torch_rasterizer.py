@@ -301,3 +301,56 @@ def test_weighted_sum_composite_and_render_match_jax():
         np.testing.assert_allclose(t.rgba.numpy(), np.asarray(j.rgba), atol=1e-6,
                                    rtol=1e-5)
         assert float(t.rgba[..., 3].sum()) > 0
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_clip_planes_match_jax(use_pallas):
+    """A camera with znear 0.5 and zfar 3.0 on a cloud with splats on both
+    sides of each plane: the renderable masks of both packages equal, the
+    planes cull exactly the splats outside [0.5, 3.0] that the default
+    planes keep, and the fragments rasterized from identical splat
+    parameters equal JAX's exactly (`qvalue` exactly against the Pallas
+    path, within 1e-6 against the XLA path)."""
+    S, P, M, R = 48, 700, 128, 2048
+    rng = np.random.RandomState(11)
+    Rm, Tm = (np.array(a) for a in j_look_at(2.0, [15.0, -35.0], [40.0, 210.0]))
+    center = -np.einsum("bi,bji->bj", Tm, Rm)
+    # view depths 0.2..3.8 along each camera's axis, laterally within the
+    # frustum at that depth
+    depth = rng.uniform(0.2, 3.8, (2, P)).astype(np.float32)
+    lateral = rng.uniform(-0.45, 0.45, (2, P, 2)).astype(np.float32) * depth[..., None]
+    view = np.concatenate([lateral, depth[..., None]], -1)
+    pts = (np.einsum("bpi,bji->bpj", view - Tm[:, None], Rm)).astype(np.float32)
+    normals = (center[:, None] - pts).astype(np.float32)    # facing the camera
+    mask = rng.uniform(size=(2, P)) > 0.05
+    clipped = [(JCam.create(R=Rm, T=Tm, focal_length=2.0, znear=0.5, zfar=3.0),
+                PerspectiveCamera.create(R=Rm, T=Tm, focal_length=2.0, znear=0.5,
+                                         zfar=3.0)), _cameras(Rm, Tm)]
+    js = JSettings(image_size=S, max_points_per_tile=M, max_points_per_strip=R,
+                   use_pallas=use_pallas)
+    ts = RasterizationSettings(image_size=S, max_points_per_tile=M,
+                               max_points_per_strip=R, use_pallas=use_pallas)
+    counts = []
+    for jcam, tcam in clipped:
+        sp = jax.jit(j_splat_params, static_argnums=4)(
+            *(jnp.asarray(a) for a in (pts, normals, mask)), jcam, js)
+        t = compute_splat_params(*(torch.from_numpy(a) for a in (pts, normals, mask)),
+                                 tcam, ts)
+        np.testing.assert_array_equal(t.mask.numpy(), np.asarray(sp.mask))
+        args = (sp.pts_ndc, sp.ellipse, sp.radii, sp.cutoff, sp.mask)
+        jf = jax.jit(j_rasterize, static_argnums=5)(*args, js)
+        tf = rasterize_splats(*(torch.from_numpy(np.array(a)) for a in args), ts)
+        for name in ("idx", "zbuf", "occupancy", "visibility", "tile_overflow"):
+            np.testing.assert_array_equal(getattr(tf, name).numpy(),
+                                          np.asarray(getattr(jf, name)),
+                                          err_msg=name)
+        # q exactly as JAX's Pallas path forms it; its XLA path fuses q
+        # otherwise (within the file's 1e-6)
+        np.testing.assert_allclose(tf.qvalue.numpy(), np.asarray(jf.qvalue),
+                                   atol=0 if use_pallas else 1e-6, rtol=0)
+        counts.append(int(t.mask.sum()))
+    view_z = np.einsum("bpi,bij->bpj", pts, Rm)[..., 2] + Tm[:, None, 2]
+    inside = (view_z >= 0.5) & (view_z <= 3.0)
+    assert (mask & (view_z < 0.5)).sum() > 50 and (mask & (view_z > 3.0)).sum() > 50
+    assert counts[0] < counts[1]
+    assert counts[1] - counts[0] == int((mask & ~inside & (view_z >= 0.1)).sum())

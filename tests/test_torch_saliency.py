@@ -113,6 +113,21 @@ def test_fps_matches_jax(case):
     np.testing.assert_array_equal(ok.numpy(), np.asarray(j_ok))
 
 
+@pytest.mark.parametrize("case", [0, 3])
+def test_fps_start_idx_is_not_read(case):
+    """JAX's FPS takes `start_idx` and never reads it (sampling.py:21,
+    40-42): the first pick is the first valid index whatever it is, in
+    both packages."""
+    pts, mask, n = _fps_case(case)
+    for start in (0, 7):
+        j_idx, j_ok = j_fps(jnp.asarray(pts), n, jnp.asarray(mask), start_idx=start)
+        idx, ok = farthest_point_sampling(T(pts), n, T(mask), start_idx=start)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(j_ok))
+        base, _ = farthest_point_sampling(T(pts), n, T(mask))
+        assert torch.equal(idx, base)
+
+
 @pytest.mark.parametrize("ratio", [0.25, 0.5])
 @pytest.mark.parametrize("case", [0, 3, 4])
 def test_fps_subsample_matches_jax(case, ratio):

@@ -12,6 +12,8 @@ through a `FileStore` at `store`, runs `task` on the inputs of the npz file
 - "checkpoint": `CheckpointIO(backend="orbax")` saved and loaded by both
   ranks: replicated parameters and an Adam state with non-zero moments,
   and a DTensor sharded by rows over the two ranks;
+- "camera": `form_global_batch` on this rank's share of a camera batch
+  with non-default clip planes; the planes come back as they were;
 - "entry": `train_mvr.main` with `--n-devices 2`, as torchrun launches it
   (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT set; the entry makes the
   group).
@@ -138,6 +140,26 @@ def checkpoint(mesh, inp):
     return out
 
 
+def camera(mesh, inp):
+    """This rank's half of the cameras of `inp` (znear 0.5, zfar 3.0)
+    through `form_global_batch`; returns the gathered arrays and planes."""
+    from isopoints_torch.core.camera import PerspectiveCamera
+    from isopoints_torch.parallel.data import form_global_batch
+
+    per = inp["R"].shape[0] // mesh.size
+    sl = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    cam = PerspectiveCamera.create(R=inp["R"][sl], T=inp["T"][sl],
+                                   focal_length=inp["focal"][sl],
+                                   znear=0.5, zfar=3.0)
+    g = form_global_batch((cam, inp["img"][sl]), mesh)
+    assert isinstance(g[0], PerspectiveCamera)
+    assert type(g[0].znear) is float and type(g[0].zfar) is float
+    return {"R": g[0].R.numpy(), "T": g[0].T.numpy(),
+            "focal": g[0].focal_length.numpy(),
+            "principal_point": g[0].principal_point.numpy(),
+            "planes": np.array([g[0].znear, g[0].zfar]), "img": g[1].numpy()}
+
+
 def run(rank, world, store, task, inp, out):
     torch.set_num_threads(1)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -166,6 +188,8 @@ def run(rank, world, store, task, inp, out):
         res = newton(mesh, arrays)
     elif task == "checkpoint":
         res = checkpoint(mesh, arrays)
+    elif task == "camera":
+        res = camera(mesh, arrays)
     else:
         res = port_step(mesh, arrays, views_sharded=task == "step_views")
     np.savez(out % rank, **res)
