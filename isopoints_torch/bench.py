@@ -46,6 +46,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from isopoints_torch import tracing
 from isopoints_torch.core.camera import (PerspectiveCamera,
                                          look_at_view_transform)
 from isopoints_torch.models.fields import SDFField
@@ -225,8 +226,9 @@ def time_projection(fn, pts, mask, tolerance: float = 5e-5,
 
 def profile_call(fn, device, label: str, log=print, top: int = 12) -> Dict:
     """One call of `fn` under torch.profiler, after a warm-up call: the
-    device's busy share of its wall time and the kernels by device time
-    (the `top` ones logged, all returned)."""
+    device's busy share of its wall time (the union of its device events,
+    overlaps counted once) and the kernels by device time (the `top` ones
+    logged, all returned)."""
     from torch.profiler import ProfilerActivity, profile
 
     if device.type != "cuda":
@@ -242,7 +244,10 @@ def profile_call(fn, device, label: str, log=print, top: int = 12) -> Dict:
                                getattr(e, "self_cuda_time_total", 0.0))
     rows = sorted((e for e in prof.key_averages() if dev_us(e) > 0),
                   key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    busy = tracing.union([(e.time_range.start, e.time_range.end)
+                          for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA])
+    busy_ms = sum(b - a for a, b in busy) / 1e3
     log(f"profile: {label} wall {wall_ms:.3f} ms (under the profiler), device "
         f"busy {busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}%")
     for e in rows[:top]:

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from isopoints_torch import tracing
+
 
 class FieldOutput(NamedTuple):
     """The heads of a field's output (fields.py:24-29)."""
@@ -165,6 +167,8 @@ def positional_embedder(multires: int, input_dims: int = 3,
     out_dim = (input_dims if include_input else 0) + input_dims * 2 * multires
 
     def embed(x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            tracing.count("host_syncs.copy")  # a host-to-device copy waits
         xf = x[..., None, :] * freqs.to(x.device)[:, None]          # (..., F, D)
         enc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)   # (..., F, 2, D)
         enc = enc.reshape(*x.shape[:-1], -1)

@@ -21,6 +21,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from isopoints_torch import tracing
 from isopoints_torch.core.camera import PerspectiveCamera
 from isopoints_torch.logger import get_logger
 from isopoints_torch.models.fields import sdf_and_grad
@@ -116,42 +117,59 @@ class Generator:
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """RGBA of the rays through `ndc` (B, N, 2): background 1, RGB
         clipped to [0, 1] on hits, alpha the hit mask; and the chunk's
-        overflow count (generator.py:120-131)."""
-        cam_pos, dirs = camera.ndc_to_rays(ndc)
-        res = ray_trace(sdf_fn, cam_pos[:, None, :], dirs,
-                        torch.ones(dirs.shape[:-1], dtype=torch.bool,
-                                   device=dirs.device),
-                        None, rt_cfg, training=False, sdf_fn_coarse=sdf_fn_coarse)
-        rgb = self.estimate_colors(res.points, camera, lights, sdf_fn)
-        hit = res.network_object_mask
-        rgb = torch.where(hit[..., None], torch.clamp(rgb, 0.0, 1.0), 1.0)
-        rgba = torch.cat([rgb, hit[..., None].float()], dim=-1)
-        return rgba, res.trace_overflow + res.sampler_overflow
+        overflow count (generator.py:120-131). Traced: the spans
+        `render.chunk`, `render.trace` and `render.shade`; the shading's
+        value+grad counts a point a ray and a live one a hit."""
+        with tracing.span("render.chunk"):
+            tracing.count("render.chunks")
+            cam_pos, dirs = camera.ndc_to_rays(ndc)
+            with tracing.span("render.trace"):
+                res = ray_trace(sdf_fn, cam_pos[:, None, :], dirs,
+                                torch.ones(dirs.shape[:-1], dtype=torch.bool,
+                                           device=dirs.device),
+                                None, rt_cfg, training=False,
+                                sdf_fn_coarse=sdf_fn_coarse)
+            hit = res.network_object_mask
+            with tracing.span("render.shade"):
+                tracing.count("mlp.points.shade", hit.numel())
+                tracing.count_device("mlp.live.shade", hit)
+                rgb = self.estimate_colors(res.points, camera, lights, sdf_fn)
+                rgb = torch.where(hit[..., None], torch.clamp(rgb, 0.0, 1.0),
+                                  1.0)
+                rgba = torch.cat([rgb, hit[..., None].float()], dim=-1)
+            return rgba, res.trace_overflow + res.sampler_overflow
 
     @torch.no_grad()
     def raytrace_images(self, camera: PerspectiveCamera, lights=None,
                         image_size: Optional[int] = None) -> np.ndarray:
         """Full RGBA renders (B, S, S, 4) by chunked ray tracing
         (generator.py:93). The last chunk is padded with rays through the
-        image centre, traced and dropped."""
-        s = image_size or self.cfg.image_size
-        b = camera.batch_size
-        f = self.model.trace_sdf_fn()
-        f_coarse = self.model.trace_sdf_fn_coarse()
-        rt_cfg = self.render_cfg()
-        _, ndc_full = arange_pixels((s, s), b, device=self.device)
-        chunk = self.cfg.rays_per_chunk
-        n_total = s * s
-        pad = (-n_total) % chunk
-        ndc_pad = torch.nn.functional.pad(ndc_full, (0, 0, 0, pad))
-        out = torch.empty((b, n_total + pad, 4), dtype=torch.float32,
-                          device=self.device)
-        overflow = torch.zeros((), dtype=torch.int64, device=self.device)
-        for i in range(0, n_total + pad, chunk):
-            out[:, i:i + chunk], ovf = self.render_chunk(
-                ndc_pad[:, i:i + chunk], camera, f, f_coarse, rt_cfg, lights)
-            overflow += ovf
-        self.overflow = int(overflow)
+        image centre, traced and dropped. Traced: a `render.request` span
+        (one request id) over the chunks and `render.readback`, the
+        overflow's and the image's copies to the host (2 `host_syncs`)."""
+        with tracing.span("render.request", request=True):
+            s = image_size or self.cfg.image_size
+            b = camera.batch_size
+            f = self.model.trace_sdf_fn()
+            f_coarse = self.model.trace_sdf_fn_coarse()
+            rt_cfg = self.render_cfg()
+            _, ndc_full = arange_pixels((s, s), b, device=self.device)
+            chunk = self.cfg.rays_per_chunk
+            n_total = s * s
+            pad = (-n_total) % chunk
+            ndc_pad = torch.nn.functional.pad(ndc_full, (0, 0, 0, pad))
+            out = torch.empty((b, n_total + pad, 4), dtype=torch.float32,
+                              device=self.device)
+            overflow = torch.zeros((), dtype=torch.int64, device=self.device)
+            for i in range(0, n_total + pad, chunk):
+                out[:, i:i + chunk], ovf = self.render_chunk(
+                    ndc_pad[:, i:i + chunk], camera, f, f_coarse, rt_cfg,
+                    lights)
+                overflow += ovf
+            with tracing.span("render.readback"):
+                tracing.count("host_syncs.readback", 2)
+                self.overflow = int(overflow)
+                img = out[:, :n_total].cpu().numpy().reshape(b, s, s, 4)
         if self.overflow:
             # the inherited training capacities were tuned on a random-pixel
             # ray mix; a silhouette-heavy full-image chunk can exceed them
@@ -160,7 +178,7 @@ class Generator:
                 "capacities and rendered as background — raise raytrace "
                 "sampler_fraction / compaction fractions for rendering-quality "
                 "output", self.overflow)
-        return out[:, :n_total].cpu().numpy().reshape(b, s, s, 4)
+        return img
 
     # -- contours ---------------------------------------------------------
     def generate_iso_contour(self, filename: str, **kwargs) -> None:

@@ -40,6 +40,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from isopoints_torch import tracing
 from isopoints_torch.models.fields import sdf_and_grad
 from isopoints_torch.ops.fused_sampler import eval_chunked, secant_scan, sweep_plain
 from isopoints_torch.utils import eps_denom, fma, linspace01
@@ -347,18 +348,38 @@ def _body_stall(st: State, eval_pair, thr: float, cfg: RayTracingConfig
 def _run_loop(st: State, eval_pair, start_it: int, max_iters: int,
               thr: float, cfg: RayTracingConfig, is_coarse: bool) -> State:
     """The while loop of raytracing.py:619-627: iterate the stage's body
-    from `start_it` while it < max_iters and any front is unfinished."""
+    from `start_it` while it < max_iters and any front is unfinished.
+    The exit test counts the unfinished rays in its one sync; traced, it is
+    a `host_syncs.loop`, and each iteration's pair evaluations count 2
+    points a ray of the buffer and 2 a ray still unfinished
+    (`mlp.points.march`, `mlp.live.march`)."""
+    stall = is_coarse and cfg.coarse_stall_on_cross
+    fused = cfg.fused_backstep and not is_coarse
+    per_ray = 2 * (1 if stall or fused else 1 + cfg.line_step_iters)
     it = start_it
-    while it < max_iters and bool(torch.any(st[4] | st[5])):
-        if is_coarse and cfg.coarse_stall_on_cross:
+    while it < max_iters:
+        n_live = int(torch.count_nonzero(st[4] | st[5]))
+        tracing.count("host_syncs.loop")
+        if not n_live:
+            break
+        tracing.count("mlp.points.march", per_ray * st[4].numel())
+        tracing.count("mlp.live.march", per_ray * n_live)
+        if stall:
             st = _body_stall(st, eval_pair, thr, cfg)
-        elif cfg.fused_backstep and not is_coarse:
+        elif fused:
             st = body_fused(st, eval_pair, thr, cfg.line_search_step,
                             cfg.line_step_iters, cfg.trace_gate_end_front)
         else:
             st = _body(st, eval_pair, thr, cfg)
         it += 1
     return st
+
+
+def _count_pair_eval(rays: torch.Tensor) -> None:
+    """A pair evaluation over a whole buffer: 2 points a slot, 2 live a ray
+    inside the bounding sphere or in a filled slot (`rays`, a mask)."""
+    tracing.count("mlp.points.buffer", 2 * rays.numel())
+    tracing.count_device("mlp.live.buffer", rays, 2)
 
 
 def march_plain(sdf_fn: SDFFn, cam: torch.Tensor, dirs: torch.Tensor,
@@ -419,37 +440,43 @@ def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
 
     if coarse_end > 0:
         # ---- coarse phase, then a fine re-validation of every front
-        eval_pair_c = _eval_pair_fn(sdf_fn_coarse, cam_loc, ray_dirs)
-        c_s0, c_e0 = eval_pair_c(t_near, t_far)
-        c_s0 = torch.where(mask_intersect, c_s0, 0.0)
-        c_e0 = torch.where(mask_intersect, c_e0, 0.0)
-        st = (t_near, t_far, c_s0, c_e0, mask_intersect & (c_s0 > thr),
-              mask_intersect & (c_e0 > thr), zi, zi, zf, zf)
-        st = _run_loop(st, eval_pair_c, 0, coarse_end, thr, cfg,
-                       is_coarse=sdf_fn_coarse is not sdf_fn)
-        acc_s, acc_e = st[0], st[1]
-        bk_s, bk_e = st[6], st[7]
-        sdf_s, sdf_e = eval_pair(acc_s, acc_e)
-        sdf_s = torch.where(mask_intersect, sdf_s, 0.0)
-        sdf_e = torch.where(mask_intersect, sdf_e, 0.0)
-        not_crossed = acc_s < acc_e
-        un_s = mask_intersect & (((sdf_s > thr) & not_crossed) | (bk_s > 0))
-        un_e = mask_intersect & (((sdf_e > thr) & not_crossed) | (bk_e > 0))
-        if cfg.trace_gate_end_front:
-            un_e = un_e & (un_s | (bk_e > 0))
-        st = (acc_s, acc_e, sdf_s, sdf_e, un_s, un_e) + tuple(st[6:])
-    else:
-        sdf_s, sdf_e = eval_pair(t_near, t_far)
-        sdf_s = torch.where(mask_intersect, sdf_s, 0.0)
-        sdf_e = torch.where(mask_intersect, sdf_e, 0.0)
-        un_s = mask_intersect & (sdf_s > thr)
-        un_e = mask_intersect & (sdf_e > thr)
-        if cfg.trace_gate_end_front:
-            un_e = un_e & un_s
-        st = (t_near, t_far, sdf_s, sdf_e, un_s, un_e, zi, zi, zf, zf)
+        with tracing.span("trace.coarse"):
+            eval_pair_c = _eval_pair_fn(sdf_fn_coarse, cam_loc, ray_dirs)
+            _count_pair_eval(mask_intersect)
+            c_s0, c_e0 = eval_pair_c(t_near, t_far)
+            c_s0 = torch.where(mask_intersect, c_s0, 0.0)
+            c_e0 = torch.where(mask_intersect, c_e0, 0.0)
+            st = (t_near, t_far, c_s0, c_e0, mask_intersect & (c_s0 > thr),
+                  mask_intersect & (c_e0 > thr), zi, zi, zf, zf)
+            st = _run_loop(st, eval_pair_c, 0, coarse_end, thr, cfg,
+                           is_coarse=sdf_fn_coarse is not sdf_fn)
+        with tracing.span("trace.revalidate"):
+            acc_s, acc_e = st[0], st[1]
+            bk_s, bk_e = st[6], st[7]
+            _count_pair_eval(mask_intersect)
+            sdf_s, sdf_e = eval_pair(acc_s, acc_e)
+            sdf_s = torch.where(mask_intersect, sdf_s, 0.0)
+            sdf_e = torch.where(mask_intersect, sdf_e, 0.0)
+            not_crossed = acc_s < acc_e
+            un_s = mask_intersect & (((sdf_s > thr) & not_crossed) | (bk_s > 0))
+            un_e = mask_intersect & (((sdf_e > thr) & not_crossed) | (bk_e > 0))
+            if cfg.trace_gate_end_front:
+                un_e = un_e & (un_s | (bk_e > 0))
+            st = (acc_s, acc_e, sdf_s, sdf_e, un_s, un_e) + tuple(st[6:])
 
-    st = _run_loop(st, eval_pair, coarse_end, full_end, thr, cfg,
-                   is_coarse=False)
+    with tracing.span("trace.full"):
+        if coarse_end <= 0:
+            _count_pair_eval(mask_intersect)
+            sdf_s, sdf_e = eval_pair(t_near, t_far)
+            sdf_s = torch.where(mask_intersect, sdf_s, 0.0)
+            sdf_e = torch.where(mask_intersect, sdf_e, 0.0)
+            un_s = mask_intersect & (sdf_s > thr)
+            un_e = mask_intersect & (sdf_e > thr)
+            if cfg.trace_gate_end_front:
+                un_e = un_e & un_s
+            st = (t_near, t_far, sdf_s, sdf_e, un_s, un_e, zi, zi, zf, zf)
+        st = _run_loop(st, eval_pair, coarse_end, full_end, thr, cfg,
+                       is_coarse=False)
     overflow = torch.zeros((), dtype=torch.int32, device=t_near.device)
     if not stages:
         return st[0], st[1], st[4], overflow
@@ -462,49 +489,61 @@ def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
     cam_g, dirs_g = cam_loc, ray_dirs
     frames = []          # (sel, sel_ok, pre-stage acc_s, acc_e, un_s)
     stepper = getattr(sdf_fn, "fused_trace_stepper", None)
-    for a, nxt, frac in zip(stages, boundaries, fracs):
-        n_cur = st[4].shape[1]
-        cap = min(max(int(math.ceil(n0 * frac)), 1), n_cur)
-        active = st[4] | st[5]
-        sel, sel_ok = _compact_mask(active, cap)
-        n_active = torch.sum(active.to(torch.int32), dim=1)
-        overflow = overflow + torch.sum(torch.clamp(n_active - cap, min=0)
-                                        ).to(torch.int32)
-        frames.append((sel, sel_ok, st[0], st[1], st[4]))
-        gathered = _compact_gather(sel, list(st) + [cam_g, dirs_g])
-        cam_g, dirs_g = gathered[10], gathered[11]
-        un_s_in = gathered[4] & sel_ok
-        un_e_in = gathered[5] & sel_ok
-        state_in = tuple(gathered[:4]) + (un_s_in, un_e_in) + tuple(gathered[6:10])
-        # per-stage precision: a stage ending at or before the coarse phase's
-        # end runs coarse, and is re-validated fine below
-        stage_coarse = p2_coarse or (
-            sdf_fn_coarse is not None and nxt <= cfg.coarse_trace_iters)
-        if (cfg.trace_in_kernel and cfg.fused_backstep and not stage_coarse
-                and stepper is not None):
-            st = stepper(cam_g, dirs_g, state_in, nxt - a, thr,
-                         cfg.line_search_step, cfg.line_step_iters,
-                         cfg.trace_gate_end_front)
-        else:
-            fn = sdf_fn_coarse if stage_coarse else sdf_fn
-            st = _run_loop(state_in, _eval_pair_fn(fn, cam_g, dirs_g), a, nxt,
-                           thr, cfg, is_coarse=fn is not sdf_fn)
-        if stage_coarse:
-            # fine re-validation before the next compaction selects on them
-            f_s, f_e = _eval_pair_fn(sdf_fn, cam_g, dirs_g)(st[0], st[1])
-            ncx = st[0] < st[1]
-            r_un_s = un_s_in & (((f_s > thr) & ncx) | (st[6] > 0))
-            r_un_e = un_e_in & (((f_e > thr) & ncx) | (st[7] > 0))
-            if cfg.trace_gate_end_front:
-                r_un_e = r_un_e & (r_un_s | (st[7] > 0))
-            st = (st[0], st[1], f_s, f_e, r_un_s, r_un_e) + tuple(st[6:])
+    for i, (a, nxt, frac) in enumerate(zip(stages, boundaries, fracs)):
+        with tracing.span(f"trace.stage{i + 1}"):
+            n_cur = st[4].shape[1]
+            cap = min(max(int(math.ceil(n0 * frac)), 1), n_cur)
+            active = st[4] | st[5]
+            sel, sel_ok = _compact_mask(active, cap)
+            n_active = torch.sum(active.to(torch.int32), dim=1)
+            overflow = overflow + torch.sum(torch.clamp(n_active - cap, min=0)
+                                            ).to(torch.int32)
+            frames.append((sel, sel_ok, st[0], st[1], st[4]))
+            gathered = _compact_gather(sel, list(st) + [cam_g, dirs_g])
+            cam_g, dirs_g = gathered[10], gathered[11]
+            un_s_in = gathered[4] & sel_ok
+            un_e_in = gathered[5] & sel_ok
+            state_in = (tuple(gathered[:4]) + (un_s_in, un_e_in)
+                        + tuple(gathered[6:10]))
+            # per-stage precision: a stage ending at or before the coarse phase's
+            # end runs coarse, and is re-validated fine below
+            stage_coarse = p2_coarse or (
+                sdf_fn_coarse is not None and nxt <= cfg.coarse_trace_iters)
+            if (cfg.trace_in_kernel and cfg.fused_backstep and not stage_coarse
+                    and stepper is not None):
+                # a fixed count of fused iterations over the whole buffer,
+                # no exit test; live: the rays unfinished on entry, an upper
+                # bound (the kernel keeps no count)
+                tracing.count("mlp.points.march",
+                              2 * (nxt - a) * sel_ok.numel())
+                tracing.count_device("mlp.live.march", un_s_in | un_e_in,
+                                     2 * (nxt - a))
+                st = stepper(cam_g, dirs_g, state_in, nxt - a, thr,
+                             cfg.line_search_step, cfg.line_step_iters,
+                             cfg.trace_gate_end_front)
+            else:
+                fn = sdf_fn_coarse if stage_coarse else sdf_fn
+                st = _run_loop(state_in, _eval_pair_fn(fn, cam_g, dirs_g), a, nxt,
+                               thr, cfg, is_coarse=fn is not sdf_fn)
+            if stage_coarse:
+                # fine re-validation before the next compaction selects on them
+                _count_pair_eval(sel_ok)
+                f_s, f_e = _eval_pair_fn(sdf_fn, cam_g, dirs_g)(st[0], st[1])
+                ncx = st[0] < st[1]
+                r_un_s = un_s_in & (((f_s > thr) & ncx) | (st[6] > 0))
+                r_un_e = un_e_in & (((f_e > thr) & ncx) | (st[7] > 0))
+                if cfg.trace_gate_end_front:
+                    r_un_e = r_un_e & (r_un_s | (st[7] > 0))
+                st = (st[0], st[1], f_s, f_e, r_un_s, r_un_e) + tuple(st[6:])
 
     # unwind: each stage's result back into its parent buffer; overflow
     # beyond capacity keeps its pre-stage state (unfinished -> sampler)
-    c_acc_s, c_acc_e, c_un_s = st[0], st[1], st[4]
-    for sel, sel_ok, p_acc_s, p_acc_e, p_un_s in reversed(frames):
-        c_acc_s, c_acc_e, c_un_s = _masked_scatter_wide(
-            (p_acc_s, p_acc_e, p_un_s), sel, (c_acc_s, c_acc_e, c_un_s), sel_ok)
+    with tracing.span("trace.unwind"):
+        c_acc_s, c_acc_e, c_un_s = st[0], st[1], st[4]
+        for sel, sel_ok, p_acc_s, p_acc_e, p_un_s in reversed(frames):
+            c_acc_s, c_acc_e, c_un_s = _masked_scatter_wide(
+                (p_acc_s, p_acc_e, p_un_s), sel, (c_acc_s, c_acc_e, c_un_s),
+                sel_ok)
     return c_acc_s, c_acc_e, c_un_s, overflow
 
 
@@ -536,6 +575,10 @@ def _dense_ray_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
     if (fused is not None and use_coarse
             and getattr(fused, "packing_stride", None) != 3):
         fused = None
+    # the sweep's slots and the filled ones: on a compacted buffer the
+    # mask is its `sel_ok`
+    tracing.count("sampler.slots", sampler_mask.numel())
+    tracing.count_device("sampler.live", sampler_mask)
     if cfg.sampler_in_kernel and fused is not None:
         t_pick, f_pick, t_min, z_secant = fused(
             cam_loc, ray_dirs, t_lo, t_hi, steps,
@@ -653,32 +696,34 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
     dists = torch.where(mask_intersect, acc_s, zero)
     network_object_mask = (acc_s < acc_e) & mask_intersect
     sampler_mask = unfinished
-    if cfg.sampler_fraction >= 1.0:
-        _, s_t, s_obj, sampler_overflow = _dense_ray_sampler(
-            sdf_fn, cam_loc, ray_dirs, object_mask, acc_s, acc_e,
-            sampler_mask, cfg, training, sdf_fn_coarse)
-        dists = torch.where(sampler_mask, s_t, dists)
-        network_object_mask = torch.where(sampler_mask, s_obj,
-                                          network_object_mask)
-    else:
-        # compact the unconverged rays into a static buffer, sample only
-        # those, scatter back; rays beyond capacity count as non-surface
-        b, n = sampler_mask.shape
-        cap = max(int(math.ceil(n * cfg.sampler_fraction)), 1)
-        sel, sel_ok = _compact_mask(sampler_mask, cap)
-        cam_g, dirs_g, om_g, accs_g, acce_g = _compact_gather(
-            sel, [cam_loc, ray_dirs, object_mask, acc_s, acc_e])
-        _, s_t, s_obj, ps_ovf = _dense_ray_sampler(
-            sdf_fn, cam_g, dirs_g, om_g, accs_g, acce_g, sel_ok, cfg,
-            training, sdf_fn_coarse)
-        dists, network_object_mask = _masked_scatter_wide(
-            (dists, network_object_mask), sel, (s_t, s_obj), sel_ok)
-        covered = torch.zeros((b, n + 1), dtype=torch.bool,
-                              device=sel.device).scatter(
-            1, torch.where(sel_ok, sel, n), True)[:, :n]
-        overflow = sampler_mask & ~covered
-        network_object_mask = torch.where(overflow, False, network_object_mask)
-        sampler_overflow = torch.sum(overflow.to(torch.int32)) + ps_ovf
+    with tracing.span("trace.sampler"):
+        if cfg.sampler_fraction >= 1.0:
+            _, s_t, s_obj, sampler_overflow = _dense_ray_sampler(
+                sdf_fn, cam_loc, ray_dirs, object_mask, acc_s, acc_e,
+                sampler_mask, cfg, training, sdf_fn_coarse)
+            dists = torch.where(sampler_mask, s_t, dists)
+            network_object_mask = torch.where(sampler_mask, s_obj,
+                                              network_object_mask)
+        else:
+            # compact the unconverged rays into a static buffer, sample only
+            # those, scatter back; rays beyond capacity count as non-surface
+            b, n = sampler_mask.shape
+            cap = max(int(math.ceil(n * cfg.sampler_fraction)), 1)
+            sel, sel_ok = _compact_mask(sampler_mask, cap)
+            cam_g, dirs_g, om_g, accs_g, acce_g = _compact_gather(
+                sel, [cam_loc, ray_dirs, object_mask, acc_s, acc_e])
+            _, s_t, s_obj, ps_ovf = _dense_ray_sampler(
+                sdf_fn, cam_g, dirs_g, om_g, accs_g, acce_g, sel_ok, cfg,
+                training, sdf_fn_coarse)
+            dists, network_object_mask = _masked_scatter_wide(
+                (dists, network_object_mask), sel, (s_t, s_obj), sel_ok)
+            covered = torch.zeros((b, n + 1), dtype=torch.bool,
+                                  device=sel.device).scatter(
+                1, torch.where(sel_ok, sel, n), True)[:, :n]
+            overflow = sampler_mask & ~covered
+            network_object_mask = torch.where(overflow, False,
+                                              network_object_mask)
+            sampler_overflow = torch.sum(overflow.to(torch.int32)) + ps_ovf
     points = fma(dists[..., None], ray_dirs, cam_loc)
 
     if training:

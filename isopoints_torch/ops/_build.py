@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from isopoints_torch import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -144,9 +146,15 @@ def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
 
 
 class LaunchCount:
-    """Kernel launches since the last reset: a wrapper adds one where it
-    launches its kernel, and nowhere else."""
+    """Kernel launches since the last reset: a wrapper calls `launch` where
+    it launches its kernel, and nowhere else."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+
+    def launch(self, n: int, **mode) -> None:
+        """Count one launch of size `n`; while tracing is on, also record it
+        with its `mode` (isopoints_torch/tracing.py)."""
+        self.launches += 1
+        tracing.launch(self.name, n, **mode)

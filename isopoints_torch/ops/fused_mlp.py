@@ -336,7 +336,7 @@ def siren_forward_cuda(pack: SirenPack, x: torch.Tensor, with_grad: bool,
     lib = _lib(wargs[7] > _build.NARROW_MAX)
     val, grad = _outputs(x, with_grad)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    KERNEL.launches += 1
+    KERNEL.launch(x.shape[0], with_grad=bool(with_grad), bf16=bool(bf16))
     err = lib.siren_forward(x.data_ptr(), x.shape[0], *wargs, int(bf16),
                             val.data_ptr(),
                             grad.data_ptr() if with_grad else None, stream)
@@ -519,7 +519,7 @@ def igr_forward_cuda(pack: IgrPack, x: torch.Tensor, with_grad: bool,
     lib = _igr_lib(pack.arch_args()[0] > _build.NARROW_MAX)
     val, grad = _outputs(x, with_grad)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    IGR_KERNEL.launches += 1
+    IGR_KERNEL.launch(x.shape[0], with_grad=bool(with_grad), bf16=bool(bf16))
     err = lib.igr_forward(x.data_ptr(), x.shape[0], *ptrs, *pack.arch_args(),
                           int(bf16), val.data_ptr(),
                           grad.data_ptr() if with_grad else None, stream)

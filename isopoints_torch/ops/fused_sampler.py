@@ -213,7 +213,8 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
     fw = (_P * 7)(*pack.mma_net(bool(fine_bf16))[1][:7])
     rays = rays_per_block(r, n_steps, int(n_secant), coarse_sweep,
                           _n_sms(dirs.device.index or 0), *tile_shape(arch[0]))
-    KERNEL.launches += 1
+    KERNEL.launch(r, n_steps=n_steps, n_secant=int(n_secant),
+                  coarse_sweep=bool(coarse_sweep), fine_bf16=bool(fine_bf16))
     err = lib.sampler_sweep(
         cam.data_ptr(), dirs.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(),
         steps.data_ptr(), r, n_steps, int(n_secant), float(margin),

@@ -76,7 +76,7 @@ def march_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, state10,
     ptrs = pack.mma_net(bool(bf16))[1][:7]
     lib = _lib(pack.arch_args()[0] > _build.NARROW_MAX)
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
-    KERNEL.launches += 1
+    KERNEL.launch(r)
     err = lib.trace_march(cam.data_ptr(), dirs.data_ptr(),
                           *(s.data_ptr() for s in out), r, int(n_iters),
                           float(thr), float(1.0 - line_search_step),

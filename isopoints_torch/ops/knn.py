@@ -160,7 +160,7 @@ def knn_points_cuda(query: torch.Tensor, points: torch.Tensor,
                 and query_mask.data_ptr() == points_mask.data_ptr()):
             q_order = order   # queries are the points: take them in the same order
     ptr = lambda t: None if t is None else t.data_ptr()
-    KERNEL.launches += 1
+    KERNEL.launch(b * n)
     err = lib.knn_forward(q.data_ptr(), qm.data_ptr(), pts.data_ptr(),
                           pm.data_ptr(), ptr(q_order), ptr(order), ptr(box), b,
                           n, p, k, int(exclude_self), dists.data_ptr(),

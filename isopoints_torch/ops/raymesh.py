@@ -150,7 +150,7 @@ def intersect_cuda(orig: torch.Tensor, dirs: torch.Tensor, packed: torch.Tensor,
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     face = torch.empty(n, dtype=torch.int32, device=o.device)
     lib = _lib()
-    KERNEL.launches += 1
+    KERNEL.launch(n)
     err = lib.raymesh_forward(o.data_ptr(), d.data_ptr(), p.data_ptr(), n,
                               p.shape[0], float(np.float32(t_min)), _EPS_DET,
                               _NEG_EPS, _ONE_EPS, _U_CUT, t.data_ptr(),

@@ -185,7 +185,7 @@ def launch(pts: torch.Tensor, radii: torch.Tensor, visible: torch.Tensor,
     scratch = torch.empty((b, lib.occ_scratch_ints(p)), dtype=torch.int32,
                           device=pts.device)
     stream = torch.cuda.current_stream(pts.device).cuda_stream
-    KERNEL.launches += 1
+    KERNEL.launch(b * p)
     err = lib.occ_backward(pc.data_ptr(), rc.data_ptr(), vc.data_ptr(),
                            grad_occ.data_ptr(), *grad_occ.stride(), b, p, S, W,
                            1.0 / S, settings.radii_backward_scaler,

@@ -136,7 +136,7 @@ def select_candidates_cuda(px, py, z, rx, ry, valid, S: int, T: int, R: int,
     ovf = torch.empty((b, nt * nt), dtype=torch.int64, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    KERNEL.launches += 1
+    KERNEL.launch(b * p)
     err = lib.select_candidates(*(t.data_ptr() for t in ins), strides, b, p, S,
                                 T, nt, r, M, 1.0 / S, float(T - 1) / S,
                                 cidx.data_ptr(), cok.data_ptr(), ovf.data_ptr(),

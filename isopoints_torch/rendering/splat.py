@@ -192,7 +192,7 @@ def rasterize_fine_cuda(table: torch.Tensor, cand_idx: torch.Tensor,
     used = torch.empty((b, n_tiles, m), dtype=torch.bool, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    KERNEL.launches += 1
+    KERNEL.launch(b * n_tiles)
     err = lib.rasterize_fine(tab.data_ptr(), ci.data_ptr(), ok.data_ptr(), b, p,
                              n_tiles, m, S, T, S // T, K, 1.0 / S,
                              float(depth_merging_threshold),
@@ -288,7 +288,7 @@ def zbuf_backward_points_cuda(slots: torch.Tensor, g_zbuf: torch.Tensor,
     sl, g, ci = slots.contiguous(), g_zbuf.contiguous(), cand_idx.contiguous()
     lib = _zbuf_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ZBUF_KERNEL.launches += 1
+    ZBUF_KERNEL.launch(b * n_tiles)
     err = lib.zbuf_backward_points(sl.data_ptr(), g.data_ptr(), ci.data_ptr(),
                                    b, S, T, k, M, P, gz.data_ptr(),
                                    sums.data_ptr() if tile_sums else None,

@@ -37,7 +37,8 @@ load, and the generator state is restored unless `--fresh-keys`, so the
 resumed run draws what the uninterrupted one would have. With
 `training.saliency_ref_gt` the saliency reference cloud is seeded from the
 data's ground-truth points (an oracle, opt-in). `--profile-at IT` traces
-iterations IT..IT+4 with torch.profiler into OUT_DIR/profile/. A hang
+iterations IT..IT+4 with torch.profiler into OUT_DIR/profile/ (trace.json,
+ops.txt, and the program's spans and counters in spans.json). A hang
 watchdog (`ISOPOINTS_WATCHDOG_S`, default 600 s; 0 turns it off) dumps
 every thread's stack and exits when one iteration stalls that long; it is
 cancelled when `main` returns or raises.
@@ -64,6 +65,7 @@ process.
 
 import argparse
 import faulthandler
+import json
 import os
 import sys
 import time
@@ -377,20 +379,27 @@ def _start_profiler(device: torch.device):
 
 
 def _stop_profiler(prof, device: torch.device, out: str) -> None:
-    """Write the trace and an op table; log the device busy share (summed
-    device self time over the window's wall time, ignoring overlap)."""
+    """Write the trace, an op table and the program's spans and counters
+    (`spans.json`, isopoints_torch/tracing.py); log the device busy share
+    (the union of the device events, overlaps counted once, over the
+    window's wall time)."""
+    from isopoints_torch import tracing
+
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - prof.wall_start)
     prof.stop()
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    with open(os.path.join(out, "spans.json"), "w") as f:
+        json.dump(tracing.snapshot(), f)
     with open(os.path.join(out, "ops.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=100))
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    busy = tracing.union([(e.time_range.start, e.time_range.end)
+                          for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA])
+    busy_ms = sum(b - a for a, b in busy) / 1e3
     from isopoints_torch import get_logger
     get_logger().info("profile: 5 steps, %.1f ms wall, %.1f ms device time "
                       "(%.1f%% busy), table in %s", wall_ms, busy_ms,

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from isopoints_torch import tracing
 from isopoints_torch.logger import get_logger
 
 
@@ -68,6 +69,8 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     if n == 1:
         return torch.zeros(1, device=device)
     inv = torch.tensor(1.0 / (n - 1), dtype=torch.float32, device=device)
+    if inv.is_cuda:
+        tracing.count("host_syncs.copy")    # a host-to-device copy waits
     head = torch.arange(n - 1, dtype=torch.float32, device=device) * inv
     return torch.cat([head, torch.ones(1, device=device)])
 

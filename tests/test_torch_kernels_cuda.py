@@ -105,6 +105,14 @@ The mesh ray-caster (csrc/raymesh.cu): t, faces, points and normals bit for
 bit against `ray_mesh_intersect_plain` (the same roundings in the same
 order) on 1, 2047 and 20,000 rays with duplicate faces, one launch a call;
 float64, CPU and malformed face arrays refused.
+
+Tracing (isopoints_torch/tracing.py): one render of the SIREN ablation's
+and the IGR config's model under a profiler: the launch records of
+`siren_forward_cuda`, `igr_forward_cuda` and `sweep_cuda` equal their
+arguments as the callers passed them (`n`, `with_grad`, `bf16`; `n`,
+`n_steps`, `n_secant`, `coarse_sweep`, `fine_bf16`), in order, and the
+render's counters are read (every site, live within its points);
+`bench.profile_call`'s busy time is the union of its device events.
 """
 
 import dataclasses
@@ -1588,3 +1596,82 @@ def test_wide_sampler_and_march_equal_the_fused_callables(dev, hidden, n_layers,
     out = fn.fused_trace_stepper(cam, d, st, 3, 5e-5, 0.5, 1, True)
     for a, b in zip(out, march_plain(fn, cam, d, st, 3, 5e-5, 0.5, 1, True)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("config", ["ablation_compound_uni_dir.yml",
+                                    "igr_mvr_dir.yml"])
+def test_render_launch_records_equal_the_calls(dev, config, monkeypatch):
+    """One render of the config's model (its drawn weights, 2 views at
+    128 px in chunks of 4096 rays) under a profiler: the program's launch
+    records of the MLP and sampler wrappers equal the arguments they were
+    called with, field for field and in order; the counters are read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from isopoints_torch import tracing
+    from isopoints_torch.config import default_config_path, load_config
+    from isopoints_torch.core.camera import PerspectiveCamera, look_at_view_transform
+    from isopoints_torch.factories import create_model
+    from isopoints_torch.models.generator import Generator, GeneratorConfig
+
+    calls = []
+
+    def mlp(kernel, orig):
+        def f(pack, x, with_grad, bf16=False):
+            calls.append({"kernel": kernel, "n": int(x.shape[0]),
+                          "with_grad": bool(with_grad), "bf16": bool(bf16)})
+            return orig(pack, x, with_grad, bf16)
+        return f
+
+    def sweep(orig):
+        def f(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin,
+              coarse_sweep=False, fine_bf16=False):
+            calls.append({"kernel": "fused_sampler", "n": int(dirs.shape[0]),
+                          "n_steps": int(steps.shape[0]),
+                          "n_secant": int(n_secant),
+                          "coarse_sweep": bool(coarse_sweep),
+                          "fine_bf16": bool(fine_bf16)})
+            return orig(pack, cam, dirs, t_lo, t_hi, steps, n_secant, margin,
+                        coarse_sweep, fine_bf16)
+        return f
+
+    monkeypatch.setattr(fused_mlp, "siren_forward_cuda",
+                        mlp("fused_mlp", fused_mlp.siren_forward_cuda))
+    monkeypatch.setattr(fused_mlp, "igr_forward_cuda",
+                        mlp("fused_igr", fused_mlp.igr_forward_cuda))
+    monkeypatch.setattr(fused_sampler, "sweep_cuda",
+                        sweep(fused_sampler.sweep_cuda))
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                                   "isopoints_torch", "configs", config),
+                      default_config_path())
+    model = create_model(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    gen = Generator(model, GeneratorConfig(image_size=128, rays_per_chunk=4096))
+    R, T = look_at_view_transform(2.0, 15.0, torch.tensor([30.0, 210.0]))
+    cam = PerspectiveCamera.create(R=R, T=T, focal_length=2.0, device=dev)
+    gen.raytrace_images(cam)                      # builds the kernels
+    calls.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        gen.raytrace_images(cam)
+        torch.cuda.synchronize()
+    snap = tracing.snapshot()
+    mine = [r for r in snap["launches"]
+            if r["kernel"] in ("fused_mlp", "fused_igr", "fused_sampler")]
+    assert len(calls) > 0 and mine == calls
+    c = snap["counters"]
+    assert c["render.chunks"] == 128 * 128 // 4096
+    assert c["host_syncs.readback"] == 2 and c["host_syncs.loop"] > 0
+    for site in ("march", "buffer", "shade"):
+        assert 0 <= c.get(f"mlp.live.{site}", 0) <= c[f"mlp.points.{site}"], site
+    assert 0 <= c.get("sampler.live", 0) <= c["sampler.slots"]
+
+
+def test_profile_call_busy_is_the_union(dev):
+    """bench.profile_call counts overlapping device events once: the busy
+    time lies within the wall time and under the kernels' summed time."""
+    from isopoints_torch import bench
+
+    x = torch.randn(2048, 2048, device=dev)
+    res = bench.profile_call(lambda: [x @ x for _ in range(8)], dev, "matmul",
+                             log=lambda m: None)
+    assert 0 < res["busy_ms"] <= res["wall_ms"]
+    assert res["busy_ms"] <= sum(ms for _, ms, _ in res["kernels"]) * (1 + 1e-9)
