@@ -53,10 +53,27 @@
 // same shared memory (A at the f32 pitch, the bf16 tile using a prefix),
 // so the f32 tail's weight streams serve up to 32 rays.
 //
+// The work a launch sweeps. A compacted buffer (models/raytracing's sampler
+// buffer, the presweep's dense buffer) holds n_rows rows of `cap` slots
+// whose filled slots lead each row, ~10% of them in the renders; `counts`
+// gives each row's filled count on the device (no host sync). The grid is
+// persistent, every unit it holds at once (one block a unit up to 256, one
+// cluster pair above), and unit u walks tiles u, u + units, ... of the
+// filled slots, a row's tiles in order and row after row (`Rows`,
+// `next_tile`), so the live work spreads over every SM however the rows
+// fill; the rays a tile are then chosen on the device from the filled
+// counts by the wrapper's rule (`rays_for`, ops/fused_sampler.rays_per_block).
+// A slot past its row's count is not swept: its outputs keep the zeros the
+// wrapper writes. Without `counts` the buffer is one full row, walked the
+// same way at the wrapper's rays a tile. `swept`, when given, adds the
+// slots of every tile swept (the counter `sampler.swept`).
+//
 // t = t_lo + step * span and the points cam + t * dir are single-rounding
 // fused multiply-adds (__fmaf_rn), as XLA forms them in the JAX package and
 // as the plain PyTorch version forms them (utils.fma), so the proposals
 // agree bit for bit and only the MLP arithmetic may differ.
+
+#include <climits>
 
 #include "mlp_mma.cuh"
 #ifdef MLP_MMA_WIDE_LIB
@@ -91,6 +108,72 @@ constexpr int kRG = mlp_mma::max_row_groups<Tf32x3Mode>(H);
 template <int H>
 constexpr int kMaxRays = 16 * kRG<H>;
 constexpr int kMinRays = 8;
+
+// The buffer a launch sweeps: n_rows rows of `cap` slots, the first count(b)
+// of row b filled, or (counts null) one row of cap slots, all filled.
+struct Rows {
+  const int* counts;
+  int n_rows, cap;
+  __device__ int count(int b) const {
+    return counts ? min(max(__ldg(counts + b), 0), cap) : cap;
+  }
+  // tiles of `rays` filled slots, none across two rows
+  __device__ int tiles(int rays) const {
+    int t = 0;
+    for (int b = 0; b < n_rows; ++b) t += (count(b) + rays - 1) / rays;
+    return t;
+  }
+};
+
+// ops/fused_sampler.rays_per_block on the filled slots: of the powers of two
+// from max_rays down to kMinRays, the rays a tile with the fewest tile rounds
+// on the busiest unit, waves of `units` times the tiles a tile of rays runs
+// (ceil(n_steps rays / rows) sweep tiles and `tail` more), the larger on a
+// tie. Every thread of a launch computes the same.
+__device__ int rays_for(const Rows& w, int max_rays, int rows, int n_steps, int tail,
+                        int units) {
+  int best = max_rays;
+  long long best_rounds = LLONG_MAX;
+  for (int r = max_rays; r >= kMinRays; r >>= 1) {
+    const long long waves = (max(w.tiles(r), 1) + units - 1) / units;
+    const long long rounds = waves * ((n_steps * r + rows - 1) / rows + tail);
+    if (rounds < best_rounds) {
+      best_rounds = rounds;
+      best = r;
+    }
+  }
+  return best;
+}
+
+// A tile of the walk: its first slot, its filled slots and its slots in the row.
+struct Tile {
+  int r0, nr, slots;
+};
+
+// Tile t of the walk (row by row, a row's tiles in order). `b` and `base`
+// (the tiles of the rows before b) carry over from the call for the last
+// tile, which was at most t. False past the last tile.
+__device__ __forceinline__ bool next_tile(const Rows& w, int rays, int t, int& b, int& base,
+                                          Tile& tl) {
+  for (; b < w.n_rows; ++b) {
+    const int n = w.count(b), k = t - base, tiles = (n + rays - 1) / rays;
+    if (k < tiles) {
+      tl.r0 = b * w.cap + k * rays;
+      tl.nr = min(rays, n - k * rays);
+      tl.slots = min(rays, w.cap - k * rays);
+      return true;
+    }
+    base += tiles;
+  }
+  return false;
+}
+
+// the tiles a launch may have at most: every slot filled, at the wrapper's
+// rays a tile, or (counts) at the fewest rays and one ragged tile a row
+inline int most_tiles(const Rows& w, int rays) {
+  return w.counts ? w.n_rows + (w.n_rows * w.cap + kMinRays - 1) / kMinRays
+                  : (w.cap + rays - 1) / rays;
+}
 
 // A ray's streaming pick: the TPU kernel's carry, the argmin of
 // sign(f + margin) * (n_steps - s) and the argmin of f, one step at a time.
@@ -164,9 +247,10 @@ __global__ void __launch_bounds__(128 * kRG<H>, 1)
     sweep_kernel(Net sweep_net, Net fine_net, int sweep_bf16, int fine_bf16, int revalidate,
                  int rays, const float* __restrict__ cam, const float* __restrict__ dir,
                  const float* __restrict__ t_lo, const float* __restrict__ t_hi,
-                 const float* __restrict__ steps, int n_rays, int n_steps, int n_secant,
+                 const float* __restrict__ steps, Rows w, int n_steps, int n_secant,
                  float margin, float* __restrict__ t_pick_out, float* __restrict__ f_pick_out,
-                 float* __restrict__ t_min_out, float* __restrict__ z_sec_out) {
+                 float* __restrict__ t_min_out, float* __restrict__ z_sec_out,
+                 int* __restrict__ swept) {
   constexpr int RG = kRG<H>;
   constexpr int kRows = 32 * RG;   // rows of a tile
   constexpr int M = kMaxRays<H>;
@@ -181,128 +265,146 @@ __global__ void __launch_bounds__(128 * kRG<H>, 1)
   auto R = [&](int f, int r) -> float& { return ray[f * M + r]; };
   auto S = [&](int f, int r) -> float& { return sec[f * M + r]; };
 
+  if (w.counts) rays = rays_for(w, M, kRows, n_steps, (revalidate ? 1 : 0) + n_secant, gridDim.x);
   const int per_tile = kRows / rays;  // steps of each ray per sweep tile
-  const int r0 = blockIdx.x * rays;
-  const int nr = min(rays, n_rays - r0);
   const int tid = threadIdx.x;
-  if (tid < rays) {  // masked rays sit at the origin with t = 0
-    const bool ok = tid < nr;
-    const size_t g = (size_t)(r0 + tid);
-    for (int d = 0; d < 3; ++d) {
-      R(d, tid) = ok ? cam[g * 3 + d] : 0.f;
-      R(3 + d, tid) = ok ? dir[g * 3 + d] : 0.f;
-    }
-    const float lo = ok ? t_lo[g] : 0.f;
-    const float hi = ok ? t_hi[g] : 0.f;
-    R(6, tid) = lo;
-    R(7, tid) = __fsub_rn(hi, lo);
-    store_pick<M>(pk, tid, Pick{INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, INFINITY, 0.f});
-  }
-  __syncthreads();  // every row's thread reads its ray's geometry
-  // the point at depth z on ray r
-  auto point = [&](int r, float z, float* p) {
-    for (int d = 0; d < 3; ++d) p[d] = __fmaf_rn(z, R(3 + d, r), R(d, r));
-  };
-  // thread r < rays: the pick is done; the outputs, and the bracket as the
-  // secant state
-  auto finish_pick = [&]() {
-    if (tid < rays) {
-      const Pick k = load_pick<M>(pk, tid);
-      S(0, tid) = k.f_low;
-      S(1, tid) = k.f_pick;
-      S(2, tid) = k.z_low;
-      S(3, tid) = k.t_pick;
-      if (tid < nr) {
-        t_pick_out[r0 + tid] = k.t_pick;
-        f_pick_out[r0 + tid] = k.f_pick;
-        t_min_out[r0 + tid] = k.t_min;
+  int row = 0, base = 0;
+  Tile tl;
+  for (int t = blockIdx.x; next_tile(w, rays, t, row, base, tl); t += gridDim.x) {
+    const int r0 = tl.r0, nr = tl.nr;
+    if (swept && tid == 0) atomicAdd(swept, tl.slots);
+    if (tid < rays) {  // masked rays sit at the origin with t = 0
+      const bool ok = tid < nr;
+      const size_t g = (size_t)(r0 + tid);
+      for (int d = 0; d < 3; ++d) {
+        R(d, tid) = ok ? cam[g * 3 + d] : 0.f;
+        R(3 + d, tid) = ok ? dir[g * 3 + d] : 0.f;
       }
+      const float lo = ok ? t_lo[g] : 0.f;
+      const float hi = ok ? t_hi[g] : 0.f;
+      R(6, tid) = lo;
+      R(7, tid) = __fsub_rn(hi, lo);
+      store_pick<M>(pk, tid, Pick{INFINITY, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, INFINITY, 0.f});
     }
-    __syncthreads();
-  };
-
-  // rays <= M: one re-validation tile (2 rays rows) and one tile a secant step
-  const int n_sweep = (n_steps + per_tile - 1) / per_tile;
-  const int n_reval = revalidate ? 1 : 0;
-  const int n_tiles = n_sweep + n_reval + n_secant;
-  for (int it = 0; it < n_tiles; ++it) {
-    const bool sweeping = it < n_sweep;
-    const bool reval = !sweeping && it < n_sweep + n_reval;
-    if (it == n_sweep) finish_pick();
-    // ---- the tile's points (thread q < kRows: row q)
-    if (tid < kRows) {
-      float p[3] = {0.f, 0.f, 0.f};
-      if (sweeping) {
-        const int j = tid / rays, r = tid - j * rays;
-        const int s = it * per_tile + j;
-        if (s < n_steps && r < nr) point(r, __fmaf_rn(__ldg(steps + s), R(7, r), R(6, r)), p);
-      } else if (reval) {  // rows r: z_low of ray r; rays + r: its t_pick
-        if (tid < 2 * rays) point(tid % rays, S(tid < rays ? 2 : 3, tid % rays), p);
-      } else if (tid < rays) {
-        const float z = z_pred(S(0, tid), S(1, tid), S(2, tid), S(3, tid));
-        S(4, tid) = z;
-        point(tid, z, p);
-      }
-      for (int d = 0; d < 3; ++d) xs[tid * 3 + d] = p[d];
-    }
-    // the net by value: a reference to a kernel parameter chosen at run
-    // time would make the tile read it through local memory
-    const Net net = sweeping ? sweep_net : fine_net;
-    if (sweeping ? sweep_bf16 : fine_bf16)
-      mlp_mma::tile<Bf16Mode, H, 1, Act, RG>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
-    else
-      mlp_mma::tile<Tf32x3Mode, H, 1, Act, RG>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
-    // ---- its values
-    if (sweeping) {
+    __syncthreads();  // every row's thread reads its ray's geometry
+    // the point at depth z on ray r
+    auto point = [&](int r, float z, float* p) {
+      for (int d = 0; d < 3; ++d) p[d] = __fmaf_rn(z, R(3 + d, r), R(d, r));
+    };
+    // thread r < rays: the pick is done; the outputs, and the bracket as the
+    // secant state
+    auto finish_pick = [&]() {
       if (tid < rays) {
-        Pick k = load_pick<M>(pk, tid);
-        for (int j = 0; j < per_tile; ++j) {
-          const int s = it * per_tile + j;
-          if (s < n_steps)
-            fold(k, s, n_steps, __fmaf_rn(__ldg(steps + s), R(7, tid), R(6, tid)),
-                 vs[j * rays + tid], margin);
+        const Pick k = load_pick<M>(pk, tid);
+        S(0, tid) = k.f_low;
+        S(1, tid) = k.f_pick;
+        S(2, tid) = k.z_low;
+        S(3, tid) = k.t_pick;
+        if (tid < nr) {
+          t_pick_out[r0 + tid] = k.t_pick;
+          f_pick_out[r0 + tid] = k.f_pick;
+          t_min_out[r0 + tid] = k.t_min;
         }
-        store_pick<M>(pk, tid, k);
       }
-    } else if (reval) {
-      if (tid < 2 * rays) {
-        const int r = tid % rays;
-        S(tid < rays ? 0 : 1, r) = vs[tid];
-        if (tid >= rays && r < nr) f_pick_out[r0 + r] = vs[tid];  // fine f_pick
+      __syncthreads();
+    };
+
+    // rays <= M: one re-validation tile (2 rays rows) and one tile a secant step
+    const int n_sweep = (n_steps + per_tile - 1) / per_tile;
+    const int n_reval = revalidate ? 1 : 0;
+    const int n_tiles = n_sweep + n_reval + n_secant;
+    for (int it = 0; it < n_tiles; ++it) {
+      const bool sweeping = it < n_sweep;
+      const bool reval = !sweeping && it < n_sweep + n_reval;
+      if (it == n_sweep) finish_pick();
+      // ---- the tile's points (thread q < kRows: row q)
+      if (tid < kRows) {
+        float p[3] = {0.f, 0.f, 0.f};
+        if (sweeping) {
+          const int j = tid / rays, r = tid - j * rays;
+          const int s = it * per_tile + j;
+          if (s < n_steps && r < nr) point(r, __fmaf_rn(__ldg(steps + s), R(7, r), R(6, r)), p);
+        } else if (reval) {  // rows r: z_low of ray r; rays + r: its t_pick
+          if (tid < 2 * rays) point(tid % rays, S(tid < rays ? 2 : 3, tid % rays), p);
+        } else if (tid < rays) {
+          const float z = z_pred(S(0, tid), S(1, tid), S(2, tid), S(3, tid));
+          S(4, tid) = z;
+          point(tid, z, p);
+        }
+        for (int d = 0; d < 3; ++d) xs[tid * 3 + d] = p[d];
       }
-    } else if (tid < rays) {
-      const float f_mid = vs[tid];
-      if (f_mid > 0.f) {
-        S(0, tid) = f_mid;
-        S(2, tid) = S(4, tid);
+      // the net by value: a reference to a kernel parameter chosen at run
+      // time would make the tile read it through local memory
+      const Net net = sweeping ? sweep_net : fine_net;
+      if (sweeping ? sweep_bf16 : fine_bf16)
+        mlp_mma::tile<Bf16Mode, H, 1, Act, RG>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+      else
+        mlp_mma::tile<Tf32x3Mode, H, 1, Act, RG>(net, xs, act, wbuf, 0, kRows, vs, nullptr);
+      // ---- its values
+      if (sweeping) {
+        if (tid < rays) {
+          Pick k = load_pick<M>(pk, tid);
+          for (int j = 0; j < per_tile; ++j) {
+            const int s = it * per_tile + j;
+            if (s < n_steps)
+              fold(k, s, n_steps, __fmaf_rn(__ldg(steps + s), R(7, tid), R(6, tid)),
+                   vs[j * rays + tid], margin);
+          }
+          store_pick<M>(pk, tid, k);
+        }
+      } else if (reval) {
+        if (tid < 2 * rays) {
+          const int r = tid % rays;
+          S(tid < rays ? 0 : 1, r) = vs[tid];
+          if (tid >= rays && r < nr) f_pick_out[r0 + r] = vs[tid];  // fine f_pick
+        }
+      } else if (tid < rays) {
+        const float f_mid = vs[tid];
+        if (f_mid > 0.f) {
+          S(0, tid) = f_mid;
+          S(2, tid) = S(4, tid);
+        }
+        if (f_mid < 0.f) {
+          S(1, tid) = f_mid;
+          S(3, tid) = S(4, tid);
+        }
       }
-      if (f_mid < 0.f) {
-        S(1, tid) = f_mid;
-        S(3, tid) = S(4, tid);
-      }
+      __syncthreads();  // the secant state of every ray visible to the next tile's rows
     }
-    __syncthreads();  // the secant state of every ray visible to the next tile's rows
+    if (n_tiles == n_sweep) finish_pick();  // no fine tiles
+    if (tid < nr) z_sec_out[r0 + tid] = z_pred(S(0, tid), S(1, tid), S(2, tid), S(3, tid));
   }
-  if (n_tiles == n_sweep) finish_pick();  // no fine tiles
-  if (tid < nr) z_sec_out[r0 + tid] = z_pred(S(0, tid), S(1, tid), S(2, tid), S(3, tid));
 }
 
 template <class Act, int H>
 int launch(const Net& sweep, const Net& fine, int sweep_bf16, int fine_bf16, int revalidate,
            int rays, const float* cam, const float* dir, const float* t_lo, const float* t_hi,
-           const float* steps, int n_rays, int n_steps, int n_secant, float margin,
-           float* t_pick, float* f_pick, float* t_min, float* z_sec, cudaStream_t stream) {
+           const float* steps, const Rows& w, int n_steps, int n_secant, float margin,
+           float* t_pick, float* f_pick, float* t_min, float* z_sec, int* swept,
+           cudaStream_t stream) {
   constexpr int smem = smem_bytes<H>();
+  constexpr int threads = 128 * kRG<H>;
   static_assert(smem <= 232448, "the sampler exceeds a block's shared memory");
   static_assert(2 * kMaxRays<H> <= 32 * kRG<H>, "the re-validation tile holds two rows a ray");
   if (rays > kMaxRays<H>) return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       sweep_kernel<Act, H>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  const int blocks = (n_rays + rays - 1) / rays;
-  sweep_kernel<Act, H><<<blocks, 128 * kRG<H>, smem, stream>>>(
-      sweep, fine, sweep_bf16, fine_bf16, revalidate, rays, cam, dir, t_lo, t_hi, steps, n_rays,
-      n_steps, n_secant, margin, t_pick, f_pick, t_min, z_sec);
+  static int resident = 0;  // the blocks the card holds at once
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel<Act, H>, threads,
+                                                          smem);
+    if (err != cudaSuccess) return (int)err;
+    resident = max(sms * per_sm, 1);
+  }
+  const int blocks = max(min(resident, most_tiles(w, rays)), 1);
+  sweep_kernel<Act, H><<<blocks, threads, smem, stream>>>(
+      sweep, fine, sweep_bf16, fine_bf16, revalidate, rays, cam, dir, t_lo, t_hi, steps, w,
+      n_steps, n_secant, margin, t_pick, f_pick, t_min, z_sec, swept);
   return (int)cudaGetLastError();
 }
 
@@ -316,16 +418,17 @@ constexpr int wide_arrays_bytes() {
   return 4 * (mlp_wide::kRows * 4 + kWideRays * kRayFloats);
 }
 
-// The kernel above on the wide tile's consumer threads: unit u's rays [r0,
-// r0 + rays) over 64-row tiles, both blocks of the unit holding the rays'
-// state and folding the same values alike, block 0 writing the outputs.
-// `smem` holds the points, values and per-ray arrays (wide_arrays_bytes).
+// The kernel above on the wide tile's consumer threads: the tile of rays [r0,
+// r0 + nr) (nr of `rays`) over 64-row tiles, both blocks of the unit
+// holding the rays' state and folding the same values alike, block 0
+// writing the outputs. `smem` holds the points, values and per-ray arrays
+// (wide_arrays_bytes).
 template <class Act, int H>
 __device__ __forceinline__ void wide_sweep_rays(
     mlp_wide::Ctx& c, float* smem, const Net& sweep_net, const Net& fine_net, int sweep_bf16,
-    int fine_bf16, int revalidate, int rays, int r0, const float* __restrict__ cam,
+    int fine_bf16, int revalidate, int rays, int r0, int nr, const float* __restrict__ cam,
     const float* __restrict__ dir, const float* __restrict__ t_lo,
-    const float* __restrict__ t_hi, const float* __restrict__ steps, int n_rays, int n_steps,
+    const float* __restrict__ t_hi, const float* __restrict__ steps, int n_steps,
     int n_secant, float margin, float* __restrict__ t_pick_out, float* __restrict__ f_pick_out,
     float* __restrict__ t_min_out, float* __restrict__ z_sec_out) {
   constexpr int kR = mlp_wide::kRows;  // rows of a tile
@@ -339,7 +442,6 @@ __device__ __forceinline__ void wide_sweep_rays(
   auto S = [&](int f, int r) -> float& { return sec[f * M + r]; };
 
   const int per_tile = kR / rays;  // steps of each ray per sweep tile
-  const int nr = max(0, min(rays, n_rays - r0));
   const bool out = c.cb == 0;
   const int tid = threadIdx.x;
   if (tid < rays) {  // masked rays sit at the origin with t = 0
@@ -444,71 +546,117 @@ __device__ __forceinline__ void wide_sweep_rays(
   if (out && tid < nr) z_sec_out[r0 + tid] = z_pred(S(0, tid), S(1, tid), S(2, tid), S(3, tid));
 }
 
+// Unit u of the grid's units walks tiles u, u + units, ...; the units of a
+// cluster run as many tiles as its first (a unit past the last tile runs
+// them on no ray), so that a cluster multicasting its weight stages
+// (mlp_wide::kUnits > 1) streams them to every unit alike. The producer
+// walks the same tiles.
 template <class Act, int H>
 __global__ void __launch_bounds__(mlp_wide::kThreads, 1)
     wide_sweep_kernel(Net sweep_net, Net fine_net, int sweep_bf16, int fine_bf16, int revalidate,
                       int rays, const float* __restrict__ cam, const float* __restrict__ dir,
                       const float* __restrict__ t_lo, const float* __restrict__ t_hi,
-                      const float* __restrict__ steps, int n_rays, int n_steps, int n_secant,
+                      const float* __restrict__ steps, Rows w, int n_steps, int n_secant,
                       float margin, float* __restrict__ t_pick_out,
                       float* __restrict__ f_pick_out, float* __restrict__ t_min_out,
-                      float* __restrict__ z_sec_out) {
+                      float* __restrict__ z_sec_out, int* __restrict__ swept) {
   extern __shared__ __align__(128) unsigned char wide_smem[];
   unsigned char* smem = wide_smem;
   mlp_wide::Ctx c = mlp_wide::setup<H, 1>(smem);
+  const int tail = (revalidate ? 1 : 0) + n_secant;
+  const int units = (int)(gridDim.x >> 1), unit = (int)(blockIdx.x >> 1);
+  const int lead = unit - unit % mlp_wide::kUnits;  // the cluster's first unit
+  if (w.counts) rays = rays_for(w, kWideRays, mlp_wide::kRows, n_steps, tail, units);
+  const int n_walk = w.tiles(rays);
   if (threadIdx.x >= mlp_wide::kConsumers) {
     mlp_wide::producer_regs();
     if (threadIdx.x < mlp_wide::kConsumers + 32) {
       const int per_tile = mlp_wide::kRows / rays;
       const int n_sweep = (n_steps + per_tile - 1) / per_tile;
-      const int n_tiles = n_sweep + (revalidate ? 1 : 0) + n_secant;
-      for (int it = 0; it < n_tiles; ++it) {
-        const bool sweeping = it < n_sweep;
-        const Net net = sweeping ? sweep_net : fine_net;
-        if (sweeping ? sweep_bf16 : fine_bf16)
-          mlp_wide::produce<Bf16Mode, H>(c, net);
-        else
-          mlp_wide::produce<Tf32x3Mode, H>(c, net);
+      for (int t0 = lead; t0 < n_walk; t0 += units) {
+        for (int it = 0; it < n_sweep + tail; ++it) {
+          const bool sweeping = it < n_sweep;
+          const Net net = sweeping ? sweep_net : fine_net;
+          if (sweeping ? sweep_bf16 : fine_bf16)
+            mlp_wide::produce<Bf16Mode, H>(c, net);
+          else
+            mlp_wide::produce<Tf32x3Mode, H>(c, net);
+        }
       }
     }
   } else {
     mlp_wide::consumer_regs();
     float* arrays = reinterpret_cast<float*>(smem + mlp_wide::smem_bytes<H, 1>());
-    wide_sweep_rays<Act, H>(c, arrays, sweep_net, fine_net, sweep_bf16, fine_bf16, revalidate,
-                       rays, (int)(blockIdx.x >> 1) * rays, cam, dir, t_lo, t_hi, steps, n_rays,
-                       n_steps, n_secant, margin, t_pick_out, f_pick_out, t_min_out, z_sec_out);
+    int row = 0, base = 0;
+    for (int t0 = lead; t0 < n_walk; t0 += units) {
+      Tile tl{0, 0, 0};
+      const int t = t0 + unit - lead;
+      if (t < n_walk) next_tile(w, rays, t, row, base, tl);
+      if (swept && c.cb == 0 && threadIdx.x == 0 && tl.slots) atomicAdd(swept, tl.slots);
+      wide_sweep_rays<Act, H>(c, arrays, sweep_net, fine_net, sweep_bf16, fine_bf16, revalidate,
+                              rays, tl.r0, tl.nr, cam, dir, t_lo, t_hi, steps, n_steps,
+                              n_secant, margin, t_pick_out, f_pick_out, t_min_out, z_sec_out);
+    }
     mlp_wide::finish();
   }
+}
+
+// the cluster pairs of `kernel` the card holds at once, as units
+template <class Kernel>
+cudaError_t resident_units(Kernel kernel, int smem, int& limit, int& units) {
+  cudaError_t err = common::allow_dynamic_smem(kernel, smem, limit);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(mlp_wide::kCluster);
+  cfg.blockDim = dim3(mlp_wide::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = mlp_wide::kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  units = max(clusters * mlp_wide::kUnits, 1);
+  return err;
 }
 
 template <class Act, int H>
 int launch(const Net& sweep, const Net& fine, int sweep_bf16, int fine_bf16, int revalidate,
            int rays, const float* cam, const float* dir, const float* t_lo, const float* t_hi,
-           const float* steps, int n_rays, int n_steps, int n_secant, float margin,
-           float* t_pick, float* f_pick, float* t_min, float* z_sec, cudaStream_t stream) {
+           const float* steps, const Rows& w, int n_steps, int n_secant, float margin,
+           float* t_pick, float* f_pick, float* t_min, float* z_sec, int* swept,
+           cudaStream_t stream) {
   constexpr int smem = mlp_wide::smem_bytes<H, 1>() + wide_arrays_bytes();
   static_assert(smem <= 232448, "the sampler exceeds a block's shared memory");
   if (rays > kWideRays) return (int)cudaErrorInvalidValue;
-  static int limit = -1;
-  return (int)mlp_wide::launch(wide_sweep_kernel<Act, H>, (n_rays + rays - 1) / rays, smem,
-                               limit, stream, sweep, fine, sweep_bf16, fine_bf16, revalidate,
-                               rays, cam, dir, t_lo, t_hi, steps, n_rays, n_steps, n_secant,
-                               margin, t_pick, f_pick, t_min, z_sec);
+  static int limit = -1, resident = 0;
+  if (resident == 0) {
+    const cudaError_t err = resident_units(wide_sweep_kernel<Act, H>, smem, limit, resident);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)mlp_wide::launch(wide_sweep_kernel<Act, H>,
+                               max(min(resident, most_tiles(w, rays)), 1), smem, limit, stream,
+                               sweep, fine, sweep_bf16, fine_bf16, revalidate, rays, cam, dir,
+                               t_lo, t_hi, steps, w, n_steps, n_secant, margin, t_pick, f_pick,
+                               t_min, z_sec, swept);
 }
 #endif
 
 template <class Act>
 int dispatch(int hidden, const Net& sweep, const Net& fine, int sweep_bf16, int fine_bf16,
              int revalidate, int rays, const float* cam, const float* dir, const float* t_lo,
-             const float* t_hi, const float* steps, int n_rays, int n_steps, int n_secant,
+             const float* t_hi, const float* steps, const Rows& w, int n_steps, int n_secant,
              float margin, float* t_pick, float* f_pick, float* t_min, float* z_sec,
-             cudaStream_t s) {
+             int* swept, cudaStream_t s) {
   switch (hidden / 32) {
 #define CASE(NJ)                                                                             \
   case NJ:                                                                                   \
     return launch<Act, NJ * 32>(sweep, fine, sweep_bf16, fine_bf16, revalidate, rays, cam,   \
-                                dir, t_lo, t_hi, steps, n_rays, n_steps, n_secant, margin,   \
-                                t_pick, f_pick, t_min, z_sec, s);
+                                dir, t_lo, t_hi, steps, w, n_steps, n_secant, margin,        \
+                                t_pick, f_pick, t_min, z_sec, swept, s);
     MLP_MMA_WIDTHS(CASE)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;
@@ -528,17 +676,24 @@ int dispatch(int hidden, const Net& sweep, const Net& fine, int sweep_bf16, int 
 // the rays a block (a unit of two blocks above 256), a power of two in [8,
 // 64] up to width 256 and in [8, 32] above; hidden is an instance's width
 // (mlp_mma::in_library). In the `_wide` library wh is the wide tile's stage
-// pack (hi and lo together) and wh_lo unused.
+// pack (hi and lo together) and wh_lo unused. With `counts` (n_rows,) on the
+// device the rays are n_rows rows of n_rays / n_rows slots, the first
+// counts[b] of row b filled, and the kernel sweeps only those, at the rays
+// a block it chooses from the counts; the other slots' outputs are left as
+// they are (the wrapper zeroes them). `swept`, when not null, adds the
+// slots of the tiles swept.
 extern "C" int sampler_sweep(const float* cam, const float* dir, const float* t_lo,
                              const float* t_hi, const float* steps, int n_rays, int n_steps,
                              int n_secant, float margin, int revalidate, const void* const* sw,
                              const void* const* fw, int hidden, int n_hidden, unsigned skip,
                              int final_tanh, float omega_first, float omega_hidden, int siren,
-                             int sweep_bf16, int fine_bf16, int rays, float* t_pick,
-                             float* f_pick, float* t_min, float* z_sec, void* stream) {
+                             int sweep_bf16, int fine_bf16, int rays, const int* counts,
+                             int n_rows, int* swept, float* t_pick, float* f_pick, float* t_min,
+                             float* z_sec, void* stream) {
   if (!mlp_mma::in_library(hidden) || n_rays < 0 || n_steps < 1 || n_secant < 0 ||
       n_hidden < 0 || (skip & 1u) || rays < kMinRays ||
       (rays & (rays - 1)) != 0 ||
+      (counts && (n_rows < 1 || n_rays % n_rows != 0)) ||
       (n_hidden > 0 && (sw[2] == nullptr || fw[2] == nullptr ||
                         (mlp_mma::kLoApart && ((!sweep_bf16 && sw[3] == nullptr) ||
                                                (!fine_bf16 && fw[3] == nullptr))))))
@@ -559,11 +714,12 @@ extern "C" int sampler_sweep(const float* cam, const float* dir, const float* t_
                omega_hidden};
   };
   const Net sweep = net(sw), fine = net(fw);
+  const Rows w = counts ? Rows{counts, n_rows, n_rays / n_rows} : Rows{nullptr, 1, n_rays};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return siren ? dispatch<SirenAct>(hidden, sweep, fine, sweep_bf16, fine_bf16, revalidate, rays,
-                                    cam, dir, t_lo, t_hi, steps, n_rays, n_steps, n_secant,
-                                    margin, t_pick, f_pick, t_min, z_sec, s)
+                                    cam, dir, t_lo, t_hi, steps, w, n_steps, n_secant, margin,
+                                    t_pick, f_pick, t_min, z_sec, swept, s)
                : dispatch<IgrAct>(hidden, sweep, fine, sweep_bf16, fine_bf16, revalidate, rays,
-                                  cam, dir, t_lo, t_hi, steps, n_rays, n_steps, n_secant, margin,
-                                  t_pick, f_pick, t_min, z_sec, s);
+                                  cam, dir, t_lo, t_hi, steps, w, n_steps, n_secant, margin,
+                                  t_pick, f_pick, t_min, z_sec, swept, s);
 }

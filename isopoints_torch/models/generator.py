@@ -46,8 +46,9 @@ class Generator:
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device
-        # rays that overflowed the trace and sampler capacities in the last
-        # `raytrace_images` (they render as background)
+        # rays that a trace or sampler capacity left out in the last
+        # `raytrace_images` (they render as background); the trace's
+        # compactions grow, so only the presweep's dense buffer can
         self.overflow = 0
 
     # -- meshes -----------------------------------------------------------
@@ -117,7 +118,10 @@ class Generator:
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """RGBA of the rays through `ndc` (B, N, 2): background 1, RGB
         clipped to [0, 1] on hits, alpha the hit mask; and the chunk's
-        overflow count (generator.py:120-131). Traced: the spans
+        overflow count (generator.py:120-131). The trace's compactions grow
+        past the schedule's capacities where a row needs it (`ray_trace`'s
+        `grow`): a whole view holds more unfinished rays than the training
+        batches the capacities were tuned on. Traced: the spans
         `render.chunk`, `render.trace` and `render.shade`; the shading's
         value+grad counts a point a ray and a live one a hit."""
         with tracing.span("render.chunk"):
@@ -128,7 +132,7 @@ class Generator:
                                 torch.ones(dirs.shape[:-1], dtype=torch.bool,
                                            device=dirs.device),
                                 None, rt_cfg, training=False,
-                                sdf_fn_coarse=sdf_fn_coarse)
+                                sdf_fn_coarse=sdf_fn_coarse, grow=True)
             hit = res.network_object_mask
             with tracing.span("render.shade"):
                 tracing.count("mlp.points.shade", hit.numel())
@@ -171,13 +175,11 @@ class Generator:
                 self.overflow = int(overflow)
                 img = out[:, :n_total].cpu().numpy().reshape(b, s, s, 4)
         if self.overflow:
-            # the inherited training capacities were tuned on a random-pixel
-            # ray mix; a silhouette-heavy full-image chunk can exceed them
             get_logger().warning(
-                "raytrace_images: %d rays overflowed the trace/sampler "
-                "capacities and rendered as background — raise raytrace "
-                "sampler_fraction / compaction fractions for rendering-quality "
-                "output", self.overflow)
+                "raytrace_images: %d rays overflowed the presweep's dense "
+                "buffer and rendered as background — raise raytrace "
+                "sampler_dense_fraction for rendering-quality output",
+                self.overflow)
         return img
 
     # -- contours ---------------------------------------------------------

@@ -8,14 +8,15 @@ the line-search backstep -> dense sampler + secant for unconverged rays
 The production trace schedule (raytracing.py:337-797, 800-888, 1011-1037)
 is ported: a coarse (bf16) phase with optional stall-on-cross and a fine
 boundary re-validation; a chain of compaction stages into static
-ceil(fraction·N) buffers, each at its own precision, coarse stages
-re-validated fine, unwound in reverse; the fused backstep; end-front
-gating; the dense sampler on a compacted buffer (`sampler_fraction < 1`)
-with its overflow; the coarse sampler sweep with its hysteresis margin and
-fine bracket. With a fused SDF callable (ops/fused_mlp.py) every
-evaluation is the fused MLP kernel, `sampler_in_kernel` runs the sampler
-in its kernel (ops/fused_sampler.py) and `trace_in_kernel` the fine
-fused-backstep stages in the march kernel (ops/fused_trace.py). With
+ceil(fraction·N) buffers (grown to the busiest row under `grow`), each at
+its own precision, coarse stages re-validated fine, unwound in reverse;
+the fused backstep; end-front gating; the dense sampler on a compacted
+buffer (`sampler_fraction < 1`) with its overflow; the coarse sampler
+sweep with its hysteresis margin and fine bracket. With a fused SDF
+callable (ops/fused_mlp.py) every evaluation is the fused MLP kernel,
+`sampler_in_kernel` runs the sampler in its kernel (ops/fused_sampler.py)
+and `trace_in_kernel` the fine fused-backstep stages in the march kernel
+(ops/fused_trace.py). With
 `sampler_presweep` the sampler certifies rays crossing-free on a coarse
 grid first and sweeps only the flagged ones densely (`_presweep_sampler`).
 The plain sweep and the secant (`_secant_scan` in the JAX module) live in
@@ -346,20 +347,28 @@ def _body_stall(st: State, eval_pair, thr: float, cfg: RayTracingConfig
 
 
 def _run_loop(st: State, eval_pair, start_it: int, max_iters: int,
-              thr: float, cfg: RayTracingConfig, is_coarse: bool) -> State:
+              thr: float, cfg: RayTracingConfig, is_coarse: bool,
+              seen: Optional[List[List[int]]] = None) -> State:
     """The while loop of raytracing.py:619-627: iterate the stage's body
     from `start_it` while it < max_iters and any front is unfinished.
-    The exit test counts the unfinished rays in its one sync; traced, it is
-    a `host_syncs.loop`, and each iteration's pair evaluations count 2
-    points a ray of the buffer and 2 a ray still unfinished
-    (`mlp.points.march`, `mlp.live.march`)."""
+    The exit test counts each row's unfinished rays, and its start fronts,
+    in its one sync; `seen` receives those two lists, of the last test (the
+    body only retires rays, so they bound the rows on return), and is left
+    empty where no test ran. Traced, a test is a `host_syncs.loop`, and
+    each iteration's pair evaluations count 2 points a ray of the buffer
+    and 2 a ray still unfinished (`mlp.points.march`, `mlp.live.march`)."""
     stall = is_coarse and cfg.coarse_stall_on_cross
     fused = cfg.fused_backstep and not is_coarse
     per_ray = 2 * (1 if stall or fused else 1 + cfg.line_step_iters)
     it = start_it
+    if seen is not None:
+        seen.clear()
     while it < max_iters:
-        n_live = int(torch.count_nonzero(st[4] | st[5]))
+        rows = torch.stack((st[4] | st[5], st[4])).sum(-1).tolist()
         tracing.count("host_syncs.loop")
+        if seen is not None:
+            seen[:] = rows
+        n_live = sum(rows[0])
         if not n_live:
             break
         tracing.count("mlp.points.march", per_ray * st[4].numel())
@@ -373,6 +382,22 @@ def _run_loop(st: State, eval_pair, start_it: int, max_iters: int,
             st = _body(st, eval_pair, thr, cfg)
         it += 1
     return st
+
+
+def _grown_capacity(static: int, mask: torch.Tensor,
+                    bound: Optional[int]) -> int:
+    """The capacity of a growing compaction of `mask` (B, N): the busiest
+    row's count where it exceeds `static`, so that no ray is left out.
+    `bound` is an upper bound of that count read by the last exit test, or
+    None, and the count is then read here (a `host_syncs.grow`). Traced,
+    `trace.grown` counts the rays beyond `static`."""
+    if bound is None:
+        bound = int(torch.count_nonzero(mask, dim=1).max())
+        tracing.count("host_syncs.grow")
+    if tracing.on():
+        tracing.count_device("trace.grown", torch.clamp(
+            torch.count_nonzero(mask, dim=1) - static, min=0))
+    return max(static, bound)
 
 
 def _count_pair_eval(rays: torch.Tensor) -> None:
@@ -417,12 +442,16 @@ def _stages(cfg: RayTracingConfig) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
 def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
                                 mask_intersect, t_near, t_far,
                                 cfg: RayTracingConfig,
-                                sdf_fn_coarse: Optional[SDFFn] = None):
+                                sdf_fn_coarse: Optional[SDFFn] = None,
+                                grow: bool = False):
     """March the start (+) and end (−) fronts until both stall or cross
     (raytracing.py:469-797): the optional coarse phase and its fine
     boundary re-validation, the full-width phase, then the compaction
-    stages and their unwind. Returns (acc_s, acc_e, unfinished_start,
-    overflow)."""
+    stages and their unwind. With `grow` a stage's buffer grows to its
+    busiest row (`_grown_capacity`). Returns (acc_s, acc_e,
+    unfinished_start, overflow, bound): `bound` is an upper bound of any
+    row's unfinished start fronts read by the last exit test, None where
+    none bounds them."""
     thr = cfg.sdf_threshold
     stages, fracs = _stages(cfg)
     full_end = stages[0] if stages else cfg.sphere_tracing_iters
@@ -475,11 +504,12 @@ def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
             if cfg.trace_gate_end_front:
                 un_e = un_e & un_s
             st = (t_near, t_far, sdf_s, sdf_e, un_s, un_e, zi, zi, zf, zf)
+        seen: List[List[int]] = []
         st = _run_loop(st, eval_pair, coarse_end, full_end, thr, cfg,
-                       is_coarse=False)
+                       is_coarse=False, seen=seen)
     overflow = torch.zeros((), dtype=torch.int32, device=t_near.device)
     if not stages:
-        return st[0], st[1], st[4], overflow
+        return st[0], st[1], st[4], overflow, max(seen[1]) if seen else None
 
     # ---- compacted straggler stages; buffers nest, scatters unwind in
     # reverse at the end
@@ -494,6 +524,8 @@ def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
             n_cur = st[4].shape[1]
             cap = min(max(int(math.ceil(n0 * frac)), 1), n_cur)
             active = st[4] | st[5]
+            if grow:
+                cap = _grown_capacity(cap, active, max(seen[0]) if seen else None)
             sel, sel_ok = _compact_mask(active, cap)
             n_active = torch.sum(active.to(torch.int32), dim=1)
             overflow = overflow + torch.sum(torch.clamp(n_active - cap, min=0)
@@ -524,8 +556,9 @@ def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
             else:
                 fn = sdf_fn_coarse if stage_coarse else sdf_fn
                 st = _run_loop(state_in, _eval_pair_fn(fn, cam_g, dirs_g), a, nxt,
-                               thr, cfg, is_coarse=fn is not sdf_fn)
+                               thr, cfg, is_coarse=fn is not sdf_fn, seen=seen)
             if stage_coarse:
+                seen.clear()  # the re-validation may revive a front
                 # fine re-validation before the next compaction selects on them
                 _count_pair_eval(sel_ok)
                 f_s, f_e = _eval_pair_fn(sdf_fn, cam_g, dirs_g)(st[0], st[1])
@@ -544,7 +577,10 @@ def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
             c_acc_s, c_acc_e, c_un_s = _masked_scatter_wide(
                 (p_acc_s, p_acc_e, p_un_s), sel, (c_acc_s, c_acc_e, c_un_s),
                 sel_ok)
-    return c_acc_s, c_acc_e, c_un_s, overflow
+    # grown, no stage left a ray out: a start front unfinished on return
+    # sat in the last buffer, in its row
+    return (c_acc_s, c_acc_e, c_un_s, overflow,
+            max(seen[1]) if grow and seen else None)
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +589,8 @@ def _bidirectional_sphere_trace(sdf_fn: SDFFn, cam_loc, ray_dirs,
 
 def _dense_ray_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
                        t_hi, sampler_mask, cfg: RayTracingConfig,
-                       training: bool, sdf_fn_coarse: Optional[SDFFn] = None):
+                       training: bool, sdf_fn_coarse: Optional[SDFFn] = None,
+                       filled: Optional[torch.Tensor] = None):
     """Uniform n_steps sweep + first-sign-change pick + secant
     (raytracing.py:800-888). With `sampler_coarse` the sweep runs on the
     coarse fn with the hysteresis margin and the bracket is re-validated
@@ -561,9 +598,12 @@ def _dense_ray_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
     carries `.fused_ray_sampler` (for a coarse sweep only where its
     `packing_stride` is 3, the JAX rule of :829-836), else the plain sweep.
     With `2 <= sampler_presweep < n_steps` the certify-then-sweep sampler
-    runs instead (`_presweep_sampler`). Returns (points, t, object_mask,
-    overflow): the overflow counts presweep-flagged rays beyond the dense
-    buffer's capacity (0 without the presweep)."""
+    runs instead (`_presweep_sampler`). On a compacted buffer, `filled`
+    (B,) counts the filled slots leading each row (its `sel_ok`), and only
+    those are swept; the others' outputs are zeros, which the caller's
+    scatter drops. Returns (points, t, object_mask, overflow): the overflow
+    counts presweep-flagged rays beyond the dense buffer's capacity (0
+    without the presweep)."""
     if 2 <= cfg.sampler_presweep < cfg.n_steps:
         return _presweep_sampler(sdf_fn, cam_loc, ray_dirs, object_mask, t_lo,
                                  t_hi, sampler_mask, cfg, training,
@@ -575,20 +615,27 @@ def _dense_ray_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
     if (fused is not None and use_coarse
             and getattr(fused, "packing_stride", None) != 3):
         fused = None
-    # the sweep's slots and the filled ones: on a compacted buffer the
-    # mask is its `sel_ok`
+    # the sweep's slots, the filled ones (on a compacted buffer the mask is
+    # its `sel_ok`) and the ones it computed: the kernel's tiles, every
+    # slot in the plain sweep
     tracing.count("sampler.slots", sampler_mask.numel())
     tracing.count_device("sampler.live", sampler_mask)
     if cfg.sampler_in_kernel and fused is not None:
+        swept = (torch.zeros((), dtype=torch.int32, device=t_lo.device)
+                 if tracing.on() else None)
         t_pick, f_pick, t_min, z_secant = fused(
             cam_loc, ray_dirs, t_lo, t_hi, steps,
             n_secant=cfg.n_secant_steps, margin=margin,
-            coarse_sweep=use_coarse)
+            coarse_sweep=use_coarse, filled=filled, swept=swept)
+        if swept is not None:
+            tracing.count_device("sampler.swept", swept)
     else:
         t_pick, f_pick, t_min, z_secant = sweep_plain(
             sdf_fn, cam_loc, ray_dirs, t_lo, t_hi, steps,
             cfg.n_secant_steps, margin, cfg.sampler_chunk_rays,
-            sdf_fn_coarse=sdf_fn_coarse if use_coarse else None)
+            sdf_fn_coarse=sdf_fn_coarse if use_coarse else None,
+            filled=filled)
+        tracing.count("sampler.swept", sampler_mask.numel())
     net_surface = f_pick < 0
     secant_ok = net_surface & (object_mask if training
                                else torch.ones_like(net_surface))
@@ -640,7 +687,8 @@ def _presweep_sampler(sdf_fn: SDFFn, cam_loc, ray_dirs, object_mask, t_lo,
         sel, [cam_loc, ray_dirs, object_mask, t_lo, t_hi])
     _, d_t, d_obj, _ = _dense_ray_sampler(
         sdf_fn, cam_g, dirs_g, om_g, tlo_g, thi_g, sel_ok,
-        dataclasses.replace(cfg, sampler_presweep=0), training, sdf_fn_coarse)
+        dataclasses.replace(cfg, sampler_presweep=0), training, sdf_fn_coarse,
+        filled=torch.sum(sel_ok, 1, dtype=torch.int32))
     t_out, obj_out = _masked_scatter_wide(
         (t_min1, torch.zeros_like(needs_dense)), sel, (d_t, d_obj), sel_ok)
     n_flagged = needs_dense.to(torch.int32).sum(dim=1)
@@ -668,7 +716,8 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
               object_mask: torch.Tensor, u: Optional[torch.Tensor] = None,
               cfg: RayTracingConfig = RayTracingConfig(),
               training: bool = True,
-              sdf_fn_coarse: Optional[SDFFn] = None) -> RayTraceResult:
+              sdf_fn_coarse: Optional[SDFFn] = None,
+              grow: bool = False) -> RayTraceResult:
     """Full IDR ray tracing (raytracing.py:974-1067).
 
     Args:
@@ -679,6 +728,11 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
         `training` (the JAX version draws them from its key).
       sdf_fn_coarse: the coarse (bf16) fn of the precision schedule, or
         None to trace fine only.
+      grow: each compaction's buffer (the trace stages', the sampler's)
+        grows to its busiest row's live count where that exceeds the
+        static capacity, so no ray overflows (`Generator`'s renders). By
+        default the capacities are static and rays beyond them overflow,
+        as in the JAX package.
     Call under `torch.no_grad()`: nothing here is differentiated.
     """
     cam_loc = torch.broadcast_to(cam_loc, ray_dirs.shape)
@@ -688,9 +742,9 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
     t_near = torch.sum((near - cam_loc) * ray_dirs, dim=-1)
     t_far = torch.sum((far - cam_loc) * ray_dirs, dim=-1)
 
-    acc_s, acc_e, unfinished, trace_overflow = _bidirectional_sphere_trace(
+    acc_s, acc_e, unfinished, trace_overflow, bound = _bidirectional_sphere_trace(
         sdf_fn, cam_loc, ray_dirs, mask_intersect, t_near, t_far, cfg,
-        sdf_fn_coarse=sdf_fn_coarse)
+        sdf_fn_coarse=sdf_fn_coarse, grow=grow)
 
     zero = torch.zeros_like(acc_s)
     dists = torch.where(mask_intersect, acc_s, zero)
@@ -709,12 +763,15 @@ def ray_trace(sdf_fn: SDFFn, cam_loc: torch.Tensor, ray_dirs: torch.Tensor,
             # those, scatter back; rays beyond capacity count as non-surface
             b, n = sampler_mask.shape
             cap = max(int(math.ceil(n * cfg.sampler_fraction)), 1)
+            if grow:
+                cap = _grown_capacity(cap, sampler_mask, bound)
             sel, sel_ok = _compact_mask(sampler_mask, cap)
             cam_g, dirs_g, om_g, accs_g, acce_g = _compact_gather(
                 sel, [cam_loc, ray_dirs, object_mask, acc_s, acc_e])
             _, s_t, s_obj, ps_ovf = _dense_ray_sampler(
                 sdf_fn, cam_g, dirs_g, om_g, accs_g, acce_g, sel_ok, cfg,
-                training, sdf_fn_coarse)
+                training, sdf_fn_coarse,
+                filled=torch.sum(sel_ok, 1, dtype=torch.int32))
             dists, network_object_mask = _masked_scatter_wide(
                 (dists, network_object_mask), sel, (s_t, s_obj), sel_ok)
             covered = torch.zeros((b, n + 1), dtype=torch.bool,

@@ -17,8 +17,17 @@ peak and f32 ones as three tf32 passes over the tf32 peak.
 `FusedSampler` is what a fused callable's `.fused_ray_sampler` holds:
 
     sampler(cam_loc (..., 3), ray_dirs (..., 3), t_lo (...), t_hi (...),
-            steps (S,), n_secant=8, margin=0.0, coarse_sweep=False)
+            steps (S,), n_secant=8, margin=0.0, coarse_sweep=False,
+            filled=None, swept=None)
       -> (t_pick, f_pick, t_min, z_secant), each shaped like t_lo
+
+`filled` (B,) marks a compacted buffer, t_lo (B, cap) whose first
+filled[b] slots of row b hold rays (models/raytracing's sampler buffer,
+the presweep's dense buffer): only those are swept, the kernel's persistent
+grid walking their tiles (csrc/fused_sampler.cu), and every other slot
+reads zeros, in the kernel and in `sweep_plain` alike. `swept`, an int
+device tensor, receives the slots the sweep computed (the kernel's tiles;
+every slot in the plain version).
 
 With `coarse_sweep` (pallas_sampler.py:97-104) the sweep runs on the bf16
 net of the same pack, with the hysteresis `margin`; the bracket ends are
@@ -35,10 +44,11 @@ A CUDA input launches the kernel or raises; a CPU input runs
 also uses for fields without a fused sampler.
 """
 
+import contextvars
 import ctypes
 import functools
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -60,7 +70,7 @@ def _lib(wide: bool = False) -> ctypes.CDLL:
     lib = _build.load("fused_sampler_wide" if wide else "fused_sampler")
     lib.sampler_sweep.argtypes = ([_P] * 5 + [_I, _I, _I, _F, _I, _P, _P]
                                   + [_I, _I, _U, _I, _F, _F, _I, _I, _I, _I]
-                                  + [_P] * 5)
+                                  + [_P, _I, _P] + [_P] * 5)
     lib.sampler_sweep.restype = _I
     return lib
 
@@ -76,25 +86,31 @@ def tile_shape(kernel_hidden: int) -> Tuple[int, int]:
     return (128, 1) if kernel_hidden <= _build.NARROW_MAX else (64, 2)
 
 
-def rays_per_block(n_rays: int, n_steps: int, n_secant: int,
-                   revalidate: bool, n_sms: int, rows: int = 128,
-                   sms: int = 1) -> int:
+def rays_per_block(n_rays: Union[int, Sequence[int]], n_steps: int,
+                   n_secant: int, revalidate: bool, n_sms: int,
+                   rows: int = 128, sms: int = 1) -> int:
     """The kernel's rays a block, from the launch's shape: the one of
     `RAYS` up to rows / 2 (`tile_shape`) with the fewest tile rounds on the
     busiest SM, the larger on a tie. A block (one to an SM: the f32 tile's
     shared memory; `sms` SMs for a wide unit) runs ceil(n_steps·rays /
     rows) sweep tiles, then one re-validation tile and one tile a secant
     step whatever its rays, and every tile streams the whole weight stack,
-    so the rounds are ceil(blocks / (n_sms / sms)) waves times the tiles a
+    so the rounds are ceil(tiles / (n_sms / sms)) waves times the tiles a
     block. At the bench trace's 24,576 rays that keeps 64 (384 blocks;
     measured 18.4 ms on an H100 against 23.6 at 32); at a training step's
     1-2k sampler rays it takes 8-16, where 64 would fill 16-32 of the 132
-    SMs. Above width 256 (64 rows, two SMs a unit) it takes 32 at both."""
+    SMs. Above width 256 (64 rows, two SMs a unit) it takes 32 at both.
+    `n_rays` is a launch's ray count, or the filled counts of a compacted
+    buffer's rows, whose tiles hold one row's rays each: the rule the
+    kernel applies on the device to the counts it is given (`rays_for` in
+    csrc/fused_sampler.cu)."""
     tail = int(bool(revalidate)) + n_secant
     slots = max(n_sms // sms, 1)
+    counts = [n_rays] if isinstance(n_rays, int) else list(n_rays)
 
     def rounds(rays):
-        waves = -(-max(-(-n_rays // rays), 1) // slots)
+        tiles = sum(-(-c // rays) for c in counts)
+        waves = -(-max(tiles, 1) // slots)
         return waves * (-(-n_steps * rays // rows) + tail)
 
     return min((r for r in RAYS if 2 * r <= rows), key=lambda r: (rounds(r), -r))
@@ -136,7 +152,8 @@ def eval_chunked(fn: Callable, pts: torch.Tensor, chunk_rays: int = 0
 def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
                 t_lo: torch.Tensor, t_hi: torch.Tensor, steps: torch.Tensor,
                 n_secant: int = 8, margin: float = 0.0, chunk_rays: int = 0,
-                sdf_fn_coarse: Optional[Callable] = None
+                sdf_fn_coarse: Optional[Callable] = None,
+                filled: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, ...]:
     """Plain dense sampler: (t_pick, f_pick, t_min, z_secant).
 
@@ -146,7 +163,15 @@ def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
     sweep runs on it and the bracket ends [z_low, t_pick] are evaluated
     again with `sdf_fn` (raytracing.py:872-878); f_pick is then fine. A
     NaN value is skipped by both argmins, as the Pallas kernel skips it
-    (the XLA branch's argmin would stop at it)."""
+    (the XLA branch's argmin would stop at it). With `filled` (B,), t_lo
+    (B, cap): the slots of row b from filled[b] on read zeros, as the
+    kernel leaves them; the others are what the call without it gives."""
+    if filled is not None:
+        outs = sweep_plain(sdf_fn, cam, dirs, t_lo, t_hi, steps, n_secant,
+                           margin, chunk_rays, sdf_fn_coarse)
+        keep = (torch.arange(t_lo.shape[-1], device=t_lo.device)
+                < filled.to(t_lo.device)[:, None])
+        return tuple(torch.where(keep, o, 0.0) for o in outs)
     fn_dense = sdf_fn if sdf_fn_coarse is None else sdf_fn_coarse
     ts = fma(steps, (t_hi - t_lo)[..., None], t_lo[..., None])    # (..., S)
     pts = fma(ts[..., None], dirs[..., None, :], cam[..., None, :])
@@ -180,6 +205,13 @@ def sweep_plain(sdf_fn: Callable, cam: torch.Tensor, dirs: torch.Tensor,
     return t_pick, f_pick, t_min, z_secant
 
 
+# The rows of the compacted buffer that `sweep_cuda` sweeps, (filled (B,)
+# int32, swept or None), set by `FusedSampler.__call__` around the call:
+# `sweep_cuda` keeps the arguments by which the benchmark's launch hook
+# (benchmark/trace.launch_hook) wraps and records it.
+_ROWS = contextvars.ContextVar("fused_sampler_rows", default=(None, None))
+
+
 def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
                t_hi: torch.Tensor, steps: torch.Tensor, n_secant: int,
                margin: float, coarse_sweep: bool = False,
@@ -187,7 +219,9 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
     """Launch the CUDA kernel: cam, dirs (R, 3), t_lo, t_hi (R,), steps
     (S,), all contiguous float32 on the weights' CUDA device. The sweep
     runs at bf16 with `coarse_sweep` (then the bracket is re-validated) and
-    else at the fine precision (`fine_bf16`)."""
+    else at the fine precision (`fine_bf16`). Under `FusedSampler`'s
+    `filled` the R slots are its B rows and only their filled slots are
+    swept; the outputs of the others are zeros."""
     r = dirs.shape[0]
     for name, t, shape in (("cam", cam, (r, 3)), ("dirs", dirs, (r, 3)),
                            ("t_lo", t_lo, (r,)), ("t_hi", t_hi, (r,)),
@@ -203,10 +237,21 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
     n_steps = steps.shape[0]
     if n_steps < 1:
         raise ValueError("the sampler kernel takes at least one step")
+    filled, swept = _ROWS.get()
+    n_rows = 0
+    if filled is not None:
+        n_rows = filled.shape[0]
+        if (filled.dtype != torch.int32 or not filled.is_contiguous()
+                or filled.device != pack.device or filled.dim() != 1
+                or n_rows < 1 or r % n_rows):
+            raise ValueError(f"filled: expected a contiguous int32 (B,) tensor "
+                             f"on {pack.device} with B dividing {r}")
+    if swept is not None and (swept.dtype != torch.int32 or swept.numel() != 1
+                              or swept.device != pack.device):
+        raise ValueError(f"swept: expected one int32 on {pack.device}")
     arch = pack.arch_args()
     lib = _lib(arch[0] > _build.NARROW_MAX)
-    outs = [torch.empty(r, dtype=torch.float32, device=dirs.device)
-            for _ in range(4)]
+    outs = torch.zeros((4, r), dtype=torch.float32, device=dirs.device).unbind(0)
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
     sweep_bf16 = bool(coarse_sweep or fine_bf16)
     sw = (_P * 7)(*pack.mma_net(sweep_bf16)[1][:7])
@@ -220,9 +265,11 @@ def sweep_cuda(pack, cam: torch.Tensor, dirs: torch.Tensor, t_lo: torch.Tensor,
         steps.data_ptr(), r, n_steps, int(n_secant), float(margin),
         int(bool(coarse_sweep)), sw, fw, *arch, *pack.omegas(),
         int(pack.kind == "siren"), int(sweep_bf16), int(bool(fine_bf16)), rays,
+        None if filled is None else filled.data_ptr(), n_rows,
+        None if swept is None else swept.data_ptr(),
         *(o.data_ptr() for o in outs), stream)
     _build.check_launch(lib, err, "fused_sampler")
-    return tuple(outs)
+    return outs
 
 
 class FusedSampler:
@@ -241,21 +288,37 @@ class FusedSampler:
     @torch.no_grad()
     def __call__(self, cam_loc, ray_dirs, t_lo, t_hi, steps,
                  n_secant: int = 8, margin: float = 0.0,
-                 coarse_sweep: bool = False):
+                 coarse_sweep: bool = False,
+                 filled: Optional[torch.Tensor] = None,
+                 swept: Optional[torch.Tensor] = None):
         shp = t_lo.shape
+        if filled is not None and (t_lo.dim() != 2 or filled.shape != shp[:1]):
+            raise ValueError(f"filled: expected ({shp[0]},) for a (B, cap) "
+                             f"buffer, got {tuple(filled.shape)} for {tuple(shp)}")
         cam = torch.broadcast_to(cam_loc, ray_dirs.shape).reshape(-1, 3)
         drs = ray_dirs.reshape(-1, 3)
         tlo, thi = t_lo.reshape(-1), t_hi.reshape(-1)
         if drs.is_cuda:
-            outs = sweep_cuda(self.pack, cam.contiguous(), drs.contiguous(),
-                              tlo.contiguous(), thi.contiguous(),
-                              steps.contiguous(), n_secant, margin,
-                              coarse_sweep, self.fine_bf16)
+            rows = None if filled is None else filled.to(torch.int32).contiguous()
+            token = _ROWS.set((rows, swept))
+            try:
+                outs = sweep_cuda(self.pack, cam.contiguous(), drs.contiguous(),
+                                  tlo.contiguous(), thi.contiguous(),
+                                  steps.contiguous(), n_secant, margin,
+                                  coarse_sweep, self.fine_bf16)
+            finally:
+                _ROWS.reset(token)
         elif drs.device.type == "cpu":
+            if filled is not None:  # the rows, for the zeros past their counts
+                cam, drs = cam.reshape(shp + (3,)), drs.reshape(shp + (3,))
+                tlo, thi = t_lo, t_hi
             outs = sweep_plain(self.sdf_plain, cam, drs, tlo, thi, steps,
                                n_secant, margin,
                                sdf_fn_coarse=(self.sdf_plain_coarse
-                                              if coarse_sweep else None))
+                                              if coarse_sweep else None),
+                               filled=filled)
+            if swept is not None:
+                swept += t_lo.numel()
         else:
             raise ValueError(f"the sampler runs on CUDA or CPU, not {drs.device}")
         return tuple(o.reshape(shp) for o in outs)

@@ -89,6 +89,15 @@ rays: 8, 16, 32 and 64) and the SIREN march bit for bit against `sweep_plain` /
 versions at the IGR sampler's and march's tolerances; the uni ablation
 arm's schedule with the march equal to the loop route.
 
+The sampler on a compacted buffer (`filled`, the persistent walk of
+csrc/fused_sampler.cu): narrow and wide, SIREN and IGR, fine and coarse,
+on rows filled 0, 1, a partial tile, a few tiles, whole, and on a render
+chunk's buffer: the filled slots equal the sweep of the whole buffer bit
+for bit (a row's value does not depend on the rays that share its tile,
+so the rays a block the kernel chooses from the counts change no bit),
+the others read zeros, and the swept count is the filled rows' tiles at
+one of the rays a block the kernel takes.
+
 The lossS arm: the kNN at its three saliency shapes (the statistics, the
 hot-point lookup, the mothers), over an all-masked database and over one
 of 5 valid points, bit for bit against the plain version; the reference
@@ -1069,6 +1078,47 @@ def test_fused_sampler_siren_equals_sweep_plain_over_fused(dev, hidden, n_layers
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     assert int((ref[1] < 0).sum()) > 0
+
+
+@pytest.mark.parametrize("kind,hidden,n_layers", [("siren", 256, 3), ("siren", 512, 3),
+                                                  ("igr", 256, 4), ("igr", 512, 8)])
+@pytest.mark.parametrize("counts,cap", [((0, 1, 21, 600, 130), 600),
+                                        ((953, 0, 1210, 877), 8192)])
+@pytest.mark.parametrize("coarse", [False, True])
+def test_fused_sampler_rows_equal_the_whole_sweep(dev, kind, hidden, n_layers, counts,
+                                                  cap, coarse):
+    """A compacted buffer of len(counts) rows of `cap` slots, the first
+    counts[b] filled: the kernel sweeps only those (one launch), bit for bit
+    as the sweep of every slot gives them, and the others read zeros. The
+    second case is a render chunk's sampler buffer (~11% filled)."""
+    if kind == "siren":
+        field, sdf = _sdf(dev, hidden, n_layers)
+        cam, d, t_lo, t_hi = _rays(dev, len(counts) * cap)
+    else:
+        field, sdf = _igr(dev, hidden, n_layers)
+        cam, d, t_lo, t_hi = _igr_rays(dev, len(counts) * cap)
+    shp = (len(counts), cap)
+    cam, d = cam.reshape(shp + (3,)), d.reshape(shp + (3,))
+    t_lo, t_hi = t_lo.reshape(shp), t_hi.reshape(shp)
+    steps = linspace01(100, device=dev)
+    kw = dict(n_secant=8, margin=2e-3 if coarse else 0.0, coarse_sweep=coarse)
+    filled = torch.tensor(counts, dtype=torch.int32, device=dev)
+    swept = torch.zeros((), dtype=torch.int32, device=dev)
+    before = fused_sampler.KERNEL.launches
+    out = sdf.fused_ray_sampler(cam, d, t_lo, t_hi, steps, filled=filled, swept=swept, **kw)
+    torch.cuda.synchronize()
+    assert fused_sampler.KERNEL.launches == before + 1
+    whole = sdf.fused_ray_sampler(cam, d, t_lo, t_hi, steps, **kw)
+    keep = torch.arange(cap, device=dev)[None, :] < filled[:, None]
+    for a, b in zip(out, whole):
+        assert a.shape == shp
+        assert torch.equal(a[keep], b[keep])
+        assert not bool(a[~keep].any())
+    assert int((whole[1][keep] < 0).sum()) > 0
+    rows, _ = fused_sampler.tile_shape(hidden)
+    tiled = {sum(min(-(-c // r) * r, cap) for c in counts)
+             for r in fused_sampler.RAYS if 2 * r <= rows}
+    assert int(swept) in tiled
 
 
 def _bracketed(fine, cam, d, t_lo, t_hi, steps, out):

@@ -30,6 +30,12 @@ depend on the rows beside it, as on the tensor-core tile), with tied
 values, NaN and empty intervals, it equals `sweep_plain` bit for bit; and
 on a SIREN field (f32 fine, bf16 coarse, each point evaluated alone) at the
 rays a block `rays_per_block` chooses.
+
+A compacted buffer (`filled`: the first filled[b] slots of row b hold
+rays): `sweep_plain` and the fused callable's CPU route give the slots
+past a row's count zeros and every other slot what the call without
+`filled` gives, bit for bit; `rays_per_block` on a buffer's row counts
+tiles each row apart.
 """
 
 import math
@@ -367,6 +373,62 @@ def test_rays_per_block():
         for steps, sec in ((100, 8), (16, 0), (1000, 8)):
             r = rpb(n, steps, sec, False, 132)
             assert r in (8, 16, 32, 64) and 128 % r == 0
+
+
+@pytest.mark.parametrize("filled", [(0, 1, 13, 40), (40, 0, 0, 2)])
+@pytest.mark.parametrize("coarse", [False, True])
+def test_sweep_plain_on_filled_rows(samplers, filled, coarse):
+    """Rows of 40 slots filled 0, 1, 13 and 40 (and a whole row beside
+    empty ones), on the elementwise field and through the SIREN callable's
+    CPU route: the filled slots equal the sweep of every slot, the others
+    read zeros, and `swept` counts every slot (the plain sweep computes
+    them all)."""
+    cam, dirs, t_lo, t_hi = (torch.from_numpy(a[0]).reshape(4, 40, -1).squeeze(-1)
+                             for a in _rays(160, seed=6))
+    steps = linspace01(24)
+    counts = torch.tensor(filled, dtype=torch.int32)
+    keep = torch.arange(40)[None, :] < counts[:, None]
+    margin = 2e-3 if coarse else 0.0
+    crs = (lambda p: _field(p, 64.0)) if coarse else None
+    fine = lambda p: _field(p, 256.0)
+    whole = fused_sampler.sweep_plain(fine, cam, dirs, t_lo, t_hi, steps, 8,
+                                      margin, sdf_fn_coarse=crs)
+    rows = fused_sampler.sweep_plain(fine, cam, dirs, t_lo, t_hi, steps, 8,
+                                     margin, sdf_fn_coarse=crs, filled=counts)
+    for a, b in zip(rows, whole):
+        assert a.shape == (4, 40)
+        torch.testing.assert_close(a[keep], b[keep], rtol=0, atol=0, equal_nan=True)
+        assert not bool(a[~keep].any())
+    _, sdf = samplers
+    kw = dict(n_secant=8, margin=margin, coarse_sweep=coarse)
+    swept = torch.zeros((), dtype=torch.int32)
+    got = sdf.fused_ray_sampler(cam, dirs, t_lo, t_hi, steps, filled=counts,
+                                swept=swept, **kw)
+    want = sdf.fused_ray_sampler(cam, dirs, t_lo, t_hi, steps, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a[keep], b[keep], rtol=0, atol=0, equal_nan=True)
+        assert not bool(a[~keep].any())
+    assert int(swept) == 160 and int((want[1][keep] < 0).sum()) > 0
+    with pytest.raises(ValueError, match="filled"):
+        sdf.fused_ray_sampler(cam, dirs, t_lo, t_hi, steps, filled=counts[:3], **kw)
+
+
+@pytest.mark.parametrize("counts,units,rows,rays", [
+    # a render chunk's IGR sampler buffer: 4 rows of ~950 filled slots of
+    # 8192, 66 units of two SMs (64-row tiles): 30 tiles a row, 2 rounds
+    ((953, 940, 1210, 877), 66, 64, 32),
+    # a SIREN chunk's: 2 rows of ~820 of 8192 on 132 SMs: 16 rays a tile
+    # fill 104 of them in one round; 64 would run 26 blocks of 59 tiles
+    ((820, 845), 132, 128, 16),
+    # rows apart: 2112 rays in one row fill the 132 SMs once at 16 rays a
+    # tile (22 tiles each), in 264 rows of 8 a tile of 16 holds 8 of them
+    ((2112,), 132, 128, 16),
+    ((8,) * 264, 132, 128, 8),
+])
+def test_rays_per_block_on_filled_rows(counts, units, rows, rays):
+    sms = 128 // rows
+    assert fused_sampler.rays_per_block(counts, 100, 8, True, units * sms,
+                                        rows, sms) == rays
 
 
 @pytest.mark.parametrize("coarse", [False, True])

@@ -236,6 +236,38 @@ def test_bench_schedule_matches_jax(fns, in_kernel):
             == fused_trace.KERNEL.launches == 0)
 
 
+@pytest.mark.parametrize("name", ["compaction_chain", "bench"])
+def test_static_capacities_spill_as_jax_and_grown_ones_do_not(fns, name):
+    """Capacities small enough to spill: by default the port's trace and
+    sampler overflow exactly as many rays as JAX's; with `grow` (the
+    Generator's renders) none, and the hits and depths are those of the
+    trace with every fraction 1."""
+    if name == "bench":
+        cfg = dict(BENCH, n_steps=48, trace_compact_fraction=(0.3, 0.2, 0.1, 0.05),
+                   sampler_fraction=0.03)
+        whole = dict(cfg, trace_compact_fraction=(1.0,) * 4, sampler_fraction=1.0)
+    else:
+        cfg = dict(BASE, trace_compact_after=(6, 10), trace_compact_fraction=(0.2, 0.1),
+                   sampler_fraction=0.06)
+        whole = dict(cfg, trace_compact_fraction=(1.0, 1.0), sampler_fraction=1.0)
+    coarse = name == "bench"
+    r_j, r_t = _trace_both(fns, cfg, 384, coarse)
+    assert int(r_t.trace_overflow) == int(r_j.trace_overflow) > 0
+    assert int(r_t.sampler_overflow) == int(r_j.sampler_overflow) > 0
+    _compare(r_j, r_t, fns)
+    _, _, t_fine, t_coarse, _ = fns
+    cam, d, gt = (torch.from_numpy(a) for a in _fan(384))
+    with torch.no_grad():
+        grown, ref = (trt.ray_trace(t_fine, cam, d, gt, None,
+                                    trt.RayTracingConfig(**c), training=False,
+                                    sdf_fn_coarse=t_coarse if coarse else None,
+                                    grow=g) for c, g in ((cfg, True), (whole, False)))
+    assert int(grown.trace_overflow) == int(grown.sampler_overflow) == 0
+    hit = ref.network_object_mask
+    assert torch.equal(grown.network_object_mask, hit) and bool(hit.any())
+    assert float((grown.dists - ref.dists)[hit].abs().max()) <= 1e-4
+
+
 def test_march_plain_equals_the_loop(fns):
     """A fixed count of `body_fused` equals the while loop: finished rays
     take zero moves, so the march and the loop give the same state."""

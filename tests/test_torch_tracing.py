@@ -17,6 +17,12 @@
   count over the stage's buffer, the rays unfinished on entry) and with
   the sampler on every ray (`sampler_fraction` 1). A traced render gives
   the untraced one's pixels.
+- Under capacities small enough to spill (trace stages at 0.3 and 0.12 of
+  a chunk, the sampler at 0.05), the render's compactions grow: overflow
+  0, `trace.grown` counts the rays past the static capacities, and the
+  image and each chunk's hits and depths equal the render with every
+  fraction 1 (within PR 13's hit-depth 1e-4 and RGB 1e-3; on this field
+  they are equal); the same trace without `grow` spills.
 - Device counters keep their sums across the folds of partial sums;
   `tracing.union` counts overlaps once; `train_mvr --profile-at`'s
   exporter writes the spans beside the trace.
@@ -282,6 +288,42 @@ def test_render_counters_match_recounts(setup, monkeypatch, route):
     assert c["mlp.points.buffer"] == 2 * 2 * 2 * b * n
     assert c["mlp.points.shade"] == 2 * b * n
     assert c["mlp.live.march"] < c["mlp.points.march"]
+
+
+def test_grown_render_leaves_no_ray_out(setup, monkeypatch):
+    rt = setup.gen.render_cfg()
+    small = dataclasses.replace(rt, trace_compact_fraction=(0.3, 0.12),
+                                sampler_fraction=0.05)
+    whole = dataclasses.replace(rt, trace_compact_fraction=(1.0, 1.0),
+                                sampler_fraction=1.0)
+    results, grow = [], [True]
+    orig_trace = generator.ray_trace
+
+    def ray_trace(*a, **k):
+        res = orig_trace(*a, **dict(k, grow=grow[0]))
+        results.append(res)
+        return res
+
+    monkeypatch.setattr(generator, "ray_trace", ray_trace)
+    monkeypatch.setattr(setup.gen, "render_cfg", lambda: small)
+    with _cpu_profile():
+        got = setup.request(0)
+    c = tracing.snapshot()["counters"]
+    assert setup.gen.overflow == 0 and c["trace.grown"] > 0
+    assert c["sampler.slots"] > 2 * math.ceil(576 * 0.05)   # a grown buffer
+    monkeypatch.setattr(setup.gen, "render_cfg", lambda: whole)
+    want = setup.request(0)
+    assert setup.gen.overflow == 0
+    grown, ref = results
+    hit = ref.network_object_mask
+    assert torch.equal(grown.network_object_mask, hit) and bool(hit.any())
+    assert float((grown.dists - ref.dists)[hit].abs().max()) <= 1e-4
+    assert np.array_equal(got[..., 3], want[..., 3])
+    assert np.abs(got[..., :3] - want[..., :3]).max() <= 1e-3
+    grow[0] = False
+    monkeypatch.setattr(setup.gen, "render_cfg", lambda: small)
+    setup.request(0)
+    assert setup.gen.overflow > 0
 
 
 def test_traced_render_equals_untraced(setup):
